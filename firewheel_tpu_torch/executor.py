@@ -1,0 +1,287 @@
+"""Schedule executor: runs a :class:`CompiledSchedule` on torch tensors.
+
+PyTorch port of ``firewheel_tpu/executor.py``.  The JAX package walks the
+schedule once, at trace time, into one fused XLA program; here the walk
+runs eagerly every block: each scheduled node's kernel is called in
+topological order over a dict of live buffers (one tensor per arena buffer
+index), with a boolean silence flag beside each buffer.  Graph outputs
+honor the flags exactly like ``read_graph_outputs`` (schedule.rs:255-287)
+by forcing flagged channels to zero.
+
+Every tensor may carry leading batch dimensions (``...``): a single
+instance renders with none, :class:`~firewheel_tpu_torch.parallel.mesh.
+BatchRenderer` with one.  Node pooling stacks a run of identical nodes on
+a member axis right after the batch dimensions and calls the kernel once.
+
+* ``render_block`` — one block: the ``process_block`` analog.
+* ``chunk_fn`` / ``render_chunk`` — K blocks in a Python loop (the JAX
+  package's ``lax.scan``), with the per-block clocks computed once before
+  the loop.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+
+from .convert import params_from_jax, tree_map
+from .core.node import (
+    stream_time_from_sample, wrap_stream_sample, BlockInfo, NodeProcessor,
+)
+from .graph.compiler import CompiledSchedule, NodeID
+
+__all__ = ["node_key", "ScheduleProgram"]
+
+
+def node_key(node_id: NodeID) -> str:
+    """Stable string key for state/param dicts: ``repr(NodeID)``, the same
+    key as in the JAX package."""
+    return repr(node_id)
+
+
+def _stack_trees(trees, dim: int):
+    """Stack equally shaped dicts of tensors leaf by leaf along ``dim``."""
+    return tree_map(lambda *xs: torch.stack(xs, dim=dim), *trees)
+
+
+class ScheduleProgram:
+    """A compiled schedule bound to node processors.
+
+    Contract::
+
+        out, out_mask, state' = render_block(params, state, graph_in,
+                                             in_mask, info)
+
+    with ``graph_in: f32[..., num_graph_inputs, F]`` and
+    ``out: f32[..., num_graph_outputs, F]``.  ``params`` may be the numpy
+    snapshot from :meth:`collect_params` or tensors; ``state`` is a dict of
+    tensors on ``device`` (:meth:`init_state`).
+    """
+
+    def __init__(
+        self,
+        schedule: CompiledSchedule,
+        processors: dict[NodeID, NodeProcessor],
+        sample_rate: int,
+        device: str | torch.device = "cpu",
+    ):
+        self.schedule = schedule
+        self.sample_rate = int(sample_rate)
+        self.device = torch.device(device)
+        self.max_block_frames = schedule.max_block_frames
+        scheduled = {node_key(sn.id) for sn in schedule.schedule}
+        self._procs: dict[str, NodeProcessor] = {
+            node_key(nid): proc
+            for nid, proc in processors.items()
+            if node_key(nid) in scheduled
+        }
+        self.num_graph_inputs = len(schedule.schedule[0].output_buffers)
+        self.num_graph_outputs = len(schedule.schedule[-1].input_buffers)
+        self._plan = self._build_plan()
+
+    # -- state / params ------------------------------------------------------
+    def init_state(self) -> dict[str, Any]:
+        """Initial state of every scheduled node, on ``self.device``."""
+        return {
+            key: tree_map(lambda t: t.to(self.device), proc.init_state())
+            for key, proc in self._procs.items()
+        }
+
+    def collect_params(self) -> dict[str, Any]:
+        """Host-side param snapshot (numpy scalars) for the next dispatch
+        (the lock-free param channel; volume.rs:92)."""
+        return {key: proc.collect_params() for key, proc in self._procs.items()}
+
+    # -- node pooling ----------------------------------------------------------
+    def _build_plan(self):
+        """Partition the interior schedule into singles and pooled groups.
+
+        A group is a run of consecutive entries whose processors share a
+        grouping signature (:meth:`NodeProcessor.group_key`), with no data
+        dependency inside the run (a member never consumes a buffer another
+        member produced).
+        """
+
+        def signature(proc):
+            gk = proc.group_key()
+            if gk is None:
+                return None
+            return (
+                type(proc).__name__,
+                proc.num_inputs,
+                proc.num_outputs,
+                proc.sample_rate,
+                proc.max_block_frames,
+                gk,
+            )
+
+        interior = self.schedule.schedule[1:-1]
+        plan: list[tuple[str, list]] = []
+        i = 0
+        while i < len(interior):
+            sn = interior[i]
+            sig = signature(self._procs[node_key(sn.id)])
+            members = [sn]
+            produced = {ob.buffer_index for ob in sn.output_buffers}
+            j = i + 1
+            while sig is not None and j < len(interior):
+                cand = interior[j]
+                if signature(self._procs[node_key(cand.id)]) != sig:
+                    break
+                if any(
+                    (not ib.should_clear) and ib.buffer_index in produced
+                    for ib in cand.input_buffers
+                ):
+                    break  # intra-group dependency
+                members.append(cand)
+                produced.update(ob.buffer_index for ob in cand.output_buffers)
+                j += 1
+            plan.append(("group" if len(members) > 1 else "single", members))
+            i = j
+        return plan
+
+    # -- one block -------------------------------------------------------------
+    def _render(self, params, state, graph_in, in_mask, info: BlockInfo):
+        """One block through the schedule (schedule.rs:289-343)."""
+        sched = self.schedule.schedule
+        lead = graph_in.shape[:-2]
+        frames = graph_in.shape[-1]
+        nb = len(lead)  # the member axis of a pooled group sits at dim nb
+        device = graph_in.device
+        zeros_row = torch.zeros(lead + (frames,), dtype=torch.float32,
+                                device=device)
+        silent = torch.ones(lead, dtype=torch.bool, device=device)
+        bufs: dict[int, torch.Tensor] = {}
+        flags: dict[int, torch.Tensor] = {}
+        new_state: dict[str, Any] = {}
+
+        # Graph inputs (prepare_graph_inputs, schedule.rs:213-253).
+        for i, ob in enumerate(sched[0].output_buffers):
+            bufs[ob.buffer_index] = graph_in[..., i, :]
+            flags[ob.buffer_index] = in_mask[..., i]
+
+        def gather_inputs(sn):
+            rows, masks = [], []
+            for ib in sn.input_buffers:
+                if ib.should_clear:
+                    # Unconnected input: cleared + silent (schedule.rs:310-313).
+                    rows.append(zeros_row)
+                    masks.append(silent)
+                else:
+                    rows.append(bufs[ib.buffer_index])
+                    masks.append(flags[ib.buffer_index])
+            if not rows:
+                return (
+                    zeros_row.new_zeros(lead + (0, frames)),
+                    silent.new_zeros(lead + (0,)),
+                )
+            return torch.stack(rows, dim=-2), torch.stack(masks, dim=-1)
+
+        def scatter_outputs(sn, outputs, out_mask):
+            for j, ob in enumerate(sn.output_buffers):
+                bufs[ob.buffer_index] = outputs[..., j, :]
+                flags[ob.buffer_index] = out_mask[..., j]
+
+        for kind, members in self._plan:
+            if kind == "single":
+                sn = members[0]
+                key = node_key(sn.id)
+                inputs, mask = gather_inputs(sn)
+                outputs, st, out_mask = self._procs[key].kernel(
+                    params[key], state[key], inputs, mask, info
+                )
+                new_state[key] = st
+                scatter_outputs(sn, outputs, out_mask)
+                continue
+
+            keys = [node_key(sn.id) for sn in members]
+            gathered = [gather_inputs(sn) for sn in members]
+            outs_g, st_g, om_g = self._procs[keys[0]].kernel(
+                _stack_trees([params[k] for k in keys], nb),
+                _stack_trees([state[k] for k in keys], nb),
+                torch.stack([g[0] for g in gathered], dim=nb),
+                torch.stack([g[1] for g in gathered], dim=nb),
+                info,
+            )
+            for j, (sn, key) in enumerate(zip(members, keys)):
+                new_state[key] = tree_map(lambda x: x.select(nb, j), st_g)
+                scatter_outputs(sn, outs_g.select(nb, j), om_g.select(nb, j))
+
+        # Graph outputs (read_graph_outputs, schedule.rs:255-287): flagged
+        # channels read as zero.
+        out_rows, out_flags = [], []
+        for ib in sched[-1].input_buffers:
+            if ib.should_clear:
+                out_rows.append(zeros_row)
+                out_flags.append(silent)
+            else:
+                row, f = bufs[ib.buffer_index], flags[ib.buffer_index]
+                out_rows.append(row.masked_fill(f[..., None], 0.0))
+                out_flags.append(f)
+        for sentinel in (sched[0], sched[-1]):
+            key = node_key(sentinel.id)
+            if key in self._procs:
+                new_state[key] = state[key]
+        if not out_rows:
+            return (
+                zeros_row.new_zeros(lead + (0, frames)),
+                silent.new_zeros(lead + (0,)),
+                new_state,
+            )
+        return torch.stack(out_rows, dim=-2), torch.stack(out_flags, dim=-1), new_state
+
+    def render_block(self, params, state, graph_in, in_mask, info: BlockInfo):
+        """One block: ``graph_in f32[..., Ni, F]``, ``in_mask bool[..., Ni]``
+        → ``(out f32[..., No, F], out_mask bool[..., No], state')``."""
+        return self._render(
+            params_from_jax(params, self.device), state, graph_in, in_mask, info
+        )
+
+    # -- K blocks --------------------------------------------------------------
+    def chunk_fn(self, num_blocks: int):
+        """Build ``(params, state, graph_in[..., K, Ni, F], in_mask[..., K,
+        Ni], start_sample, status) -> (out[..., K, No, F], out_mask[..., K,
+        No], state')``: K blocks chained in a loop.  Stream time and sample
+        advance per block exactly as the streaming clock would."""
+        frames = self.max_block_frames
+        sr = float(self.sample_rate)
+
+        def chunk(params, state, graph_in, in_mask, start_sample, status):
+            k = graph_in.shape[-3]
+            if k != num_blocks:
+                raise ValueError(f"graph_in has {k} blocks, expected {num_blocks}")
+            device = graph_in.device
+            # per-block clocks, computed once before the loop
+            samples = (
+                wrap_stream_sample(start_sample)
+                + frames * torch.arange(k, dtype=torch.int64, device=device)
+            ) & 0xFFFFFFFF
+            times = stream_time_from_sample(samples, sr)
+            status_t = torch.as_tensor(int(status), dtype=torch.int64,
+                                       device=device)
+            outs, masks = [], []
+            for b in range(k):
+                info = BlockInfo(
+                    stream_time_secs=times[b],
+                    stream_sample=samples[b],
+                    stream_status=status_t,
+                )
+                out, om, state = self._render(
+                    params, state, graph_in[..., b, :, :], in_mask[..., b, :],
+                    info,
+                )
+                outs.append(out)
+                masks.append(om)
+            return torch.stack(outs, dim=-3), torch.stack(masks, dim=-2), state
+
+        return chunk
+
+    def render_chunk(self, params, state, graph_in, in_mask, start_sample=0,
+                     status=0):
+        """K-block render (K from ``graph_in.shape[-3]``)."""
+        k = graph_in.shape[-3]
+        return self.chunk_fn(k)(
+            params_from_jax(params, self.device), state, graph_in, in_mask, start_sample,
+            status,
+        )

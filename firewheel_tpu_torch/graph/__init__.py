@@ -1,0 +1,65 @@
+"""The DAG model and its compiler (the ``firewheel-graph`` analog), copied
+from ``firewheel_tpu/graph``; ``serialize`` and ``latency`` are not ported
+yet."""
+
+from .arena import Arena, Index
+from .compiler import (
+    CompiledSchedule,
+    Edge,
+    EdgeID,
+    InBufferAssignment,
+    NodeEntry,
+    NodeID,
+    OutBufferAssignment,
+    ScheduledNode,
+    compile_graph,
+    cycle_detected,
+)
+from .errors import (
+    AddEdgeError,
+    CompileCycleDetected,
+    CompileGraphError,
+    CycleDetected,
+    DstNodeNotFound,
+    EdgeAlreadyExists,
+    InPortOutOfRange,
+    InputPortAlreadyConnected,
+    ManyToOneError,
+    MessageChannelFull,
+    NodeActivationFailed,
+    OutPortOutOfRange,
+    SrcNodeNotFound,
+)
+from .graph import AudioGraph, AudioGraphConfig, NodeWeight, SchedulePackage
+
+__all__ = [
+    "Arena",
+    "Index",
+    "CompiledSchedule",
+    "Edge",
+    "EdgeID",
+    "InBufferAssignment",
+    "NodeEntry",
+    "NodeID",
+    "OutBufferAssignment",
+    "ScheduledNode",
+    "compile_graph",
+    "cycle_detected",
+    "AddEdgeError",
+    "CompileCycleDetected",
+    "CompileGraphError",
+    "CycleDetected",
+    "DstNodeNotFound",
+    "EdgeAlreadyExists",
+    "InPortOutOfRange",
+    "InputPortAlreadyConnected",
+    "ManyToOneError",
+    "MessageChannelFull",
+    "NodeActivationFailed",
+    "OutPortOutOfRange",
+    "SrcNodeNotFound",
+    "AudioGraph",
+    "AudioGraphConfig",
+    "NodeWeight",
+    "SchedulePackage",
+]

@@ -1,0 +1,185 @@
+"""Batched sequential biquad: a CUDA kernel and its plain PyTorch version.
+
+Port of ``firewheel_tpu/ops/pallas_iir.py`` (kernel K1).  Both versions
+evaluate the sequential float32 transposed-direct-form-II recurrence per
+lane, frame by frame, with three fused multiply-adds::
+
+    y = fma(b0, x, z1);  z1' = fma(b1, x, −(a1·y)) + z2;  z2' = fma(b2, x, −(a2·y))
+
+That is the rounding XLA gives the Pallas kernel's body on the CPU (the
+JAX package's interpret mode), so the port matches it sample for sample;
+at a resonant section (Q = 4) separately rounded products would drift from
+it by ~1e-5.
+
+* :func:`biquad_seq_reference` — the plain version: a torch loop over
+  frames.  It runs wherever its tensors are; the CPU tests hold it against
+  the JAX package's Pallas kernel in interpret mode.
+* :func:`biquad_seq` — the wrapper.  For CPU tensors it runs the plain
+  version; for CUDA tensors it launches ``csrc/biquad.cu`` (built with
+  ``nvcc`` for ``sm_90a`` at first use, loaded with ``ctypes``) or raises.
+  It never falls back from the card to the plain version.
+
+Unlike the JAX wrapper, which takes one filter per call, the coefficients
+here are per lane: each broadcasts to ``x.shape[:-1]``, so a batch of
+instances runs a batch of different filters in one launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+from .iir import BiquadCoeffs
+
+__all__ = ["biquad_seq", "biquad_seq_reference", "build_biquad_kernel"]
+
+_PKG = Path(__file__).resolve().parent.parent
+_SOURCE = _PKG / "csrc" / "biquad.cu"
+_BUILD_DIR = _PKG / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "--fmad=false",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError(
+        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the "
+        "sequential-biquad kernel is built from csrc/biquad.cu at first use"
+    )
+
+
+def build_biquad_kernel(verbose: bool = False) -> ctypes.CDLL:
+    """Compile ``csrc/biquad.cu`` into ``_build/`` (once per source
+    content) and load it.  Returns the loaded library."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        src = _SOURCE.read_bytes()
+        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+        so = _BUILD_DIR / f"libfw_biquad-{tag}.so"
+        if not so.exists():
+            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = so.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS]
+            if verbose:
+                cmd.append("-Xptxas=-v")
+            cmd += ["-o", str(tmp), str(_SOURCE)]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
+                )
+            if verbose and proc.stderr:
+                print(proc.stderr, end="", flush=True)
+            os.replace(tmp, so)
+        lib = ctypes.CDLL(str(so))
+        fn = lib.fw_biquad_seq
+        fn.argtypes = [ctypes.c_void_p] * 5 + [
+            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+        _lib = lib
+        return lib
+
+
+def _fma(a, b, c):
+    """float32 ``a·b + c``, rounded as one fused multiply-add: the float64
+    product of two float32 values is exact, so only the sum rounds, to
+    float64 and then to float32.  That double rounding differs from a true
+    FMA only when the float64 sum lands exactly halfway between two float32
+    values (about one operation in 2^28), by one float32 ulp."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def biquad_seq_reference(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
+    """Plain PyTorch version: the sequential f32 recurrence as a loop over
+    frames, with the kernel's rounding.  Same contract as
+    :func:`biquad_seq`."""
+    lead = x.shape[:-1]
+    b0, b1, b2, a1, a2 = (c.broadcast_to(lead) for c in coeffs)
+    z1, z2 = (z.broadcast_to(lead) for z in z_prev)
+    y = torch.empty_like(x)
+    for f in range(x.shape[-1]):
+        xf = x[..., f]
+        yf = _fma(b0, xf, z1)
+        y[..., f] = yf
+        z1, z2 = _fma(b1, xf, -(a1 * yf)) + z2, _fma(b2, xf, -(a2 * yf))
+    return y, (z1.clone(), z2.clone())
+
+
+def _check(name, t, device):
+    if not isinstance(t, torch.Tensor):
+        raise TypeError(f"biquad_seq: {name} must be a torch.Tensor")
+    if t.dtype != torch.float32:
+        raise TypeError(f"biquad_seq: {name} must be float32, got {t.dtype}")
+    if t.device != device:
+        raise ValueError(
+            f"biquad_seq: {name} is on {t.device}, x is on {device}"
+        )
+
+
+def biquad_seq(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
+    """Run one biquad section per lane along the last axis.
+
+    ``x``: contiguous ``f32[..., F]``; ``z_prev = (z1, z2)`` and each of the
+    five coefficients (``BiquadCoeffs``): float32 tensors on ``x``'s device
+    that broadcast to ``x.shape[:-1]``.  Returns ``(y f32[..., F],
+    (z1', z2'))`` with the states shaped ``x.shape[:-1]``.
+
+    CPU tensors run :func:`biquad_seq_reference`; CUDA tensors launch the
+    kernel and add one to ``biquad_seq.launches``.
+    """
+    _check("x", x, x.device)
+    if not x.is_contiguous():
+        raise ValueError("biquad_seq: x must be contiguous")
+    for name, t in zip(("z1", "z2"), z_prev):
+        _check(name, t, x.device)
+    for name, t in zip(BiquadCoeffs._fields, coeffs):
+        _check(name, t, x.device)
+    if x.device.type == "cpu":
+        return biquad_seq_reference(x, z_prev, coeffs)
+    if x.device.type != "cuda":
+        raise ValueError(f"biquad_seq: unsupported device {x.device}")
+
+    lead = x.shape[:-1]
+    frames = x.shape[-1]
+    lanes = lead.numel()
+    y = torch.empty_like(x)
+    z_in = torch.stack([z.broadcast_to(lead) for z in z_prev]).reshape(2, lanes)
+    coef = torch.stack([c.broadcast_to(lead) for c in coeffs]).reshape(5, lanes)
+    z_out = torch.empty_like(z_in)
+    lib = build_biquad_kernel()
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        err = lib.fw_biquad_seq(
+            x.data_ptr(), y.data_ptr(), z_in.data_ptr(), z_out.data_ptr(),
+            coef.data_ptr(), lanes, frames, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"biquad_seq: kernel launch failed (cudaError {err})")
+    biquad_seq.launches += 1
+    return y, (z_out[0].reshape(lead), z_out[1].reshape(lead))
+
+
+#: kernel launches since the counter was last set to 0
+biquad_seq.launches = 0

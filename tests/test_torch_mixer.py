@@ -1,0 +1,235 @@
+"""The port's main path as a whole — the batched 64-node mixer — held
+against the JAX package on the CPU.
+
+JAX renders the mixer with ``FilterNode(backend="pallas")`` (the Pallas
+kernel in interpret mode, through the JAX ``BatchRenderer``); the port
+renders ``mixer_graph()`` through its own ``BatchRenderer``.  Both start
+from the same params (made per instance, so the two instances differ) and
+render B=2 instances, K=4 blocks a chunk.
+
+Tolerance 1e-6 absolute on audio and state: both packages evaluate the same
+float32 ops in the same order (the biquad with the same fused
+multiply-adds), but torch's and XLA's f32 sin/cos/exp round independently,
+by up to an ulp; the sum of 19 voices, the filter and the echo feedback
+carry that to a few ulp of the ~0.7 peak (≈2e-7 measured).
+"""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import firewheel_tpu_torch as ft
+from firewheel_tpu import AudioGraph, AudioGraphConfig, ScheduleProgram
+from firewheel_tpu import nodes as jn
+from firewheel_tpu.core.node import BlockInfo as JBlockInfo
+from firewheel_tpu.parallel import BatchRenderer as JBatchRenderer
+from firewheel_tpu_torch.convert import (
+    params_from_jax, state_from_jax, state_to_numpy, tree_map,
+)
+from firewheel_tpu_torch.core.node import BlockInfo as TBlockInfo
+
+SR = 48000
+B = 2
+K = 4
+F = 128
+TOL = 1e-6
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def jax_mixer(num_voices=19):
+    """``__graft_entry__._mixer_graph`` with the Pallas filter backend."""
+    g = AudioGraph(AudioGraphConfig(0, 2))
+    s = g.add_node(2 * num_voices, 2, jn.SumNode())
+    for i in range(num_voices):
+        beep = g.add_node(0, 2, jn.BeepTestNode(110.0 * (1 + i % 12), -18.0, True))
+        vol = g.add_node(2, 2, jn.VolumeNode(80.0))
+        pan = g.add_node(2, 2, jn.StereoPanNode((i / max(num_voices - 1, 1)) * 2 - 1))
+        g.connect(beep, 0, vol, 0)
+        g.connect(beep, 1, vol, 1)
+        g.connect(vol, 0, pan, 0)
+        g.connect(vol, 1, pan, 1)
+        g.connect(pan, 0, s, 2 * i)
+        g.connect(pan, 1, s, 2 * i + 1)
+    filt = g.add_node(2, 2, jn.FilterNode(jn.FilterType.LOWPASS, 8000.0,
+                                          backend="pallas"))
+    echo = g.add_node(2, 2, jn.EchoNode(delay_secs=0.25, feedback=0.3))
+    clip = g.add_node(2, 2, jn.HardClipNode(0.0))
+    meter = g.add_node(2, 2, jn.DbMeterNode())
+    chain = [s, filt, echo, clip, meter, g.graph_out_node()]
+    for a, b in zip(chain, chain[1:]):
+        g.connect(a, 0, b, 0)
+        g.connect(a, 1, b, 1)
+    pkg = g.compile(SR, F)
+    return ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), SR)
+
+
+def instance_params(prog):
+    """Two per-instance snapshots: the defaults, and one with another
+    cutoff, a quieter voice, a muted voice and a disabled beep."""
+    p0 = prog.collect_params()
+    p1 = jax.tree.map(np.copy, p0)
+    key = {k.split("-")[0]: [] for k in p1}
+    for k in p1:
+        key[k.split("-")[0]].append(k)
+    p1[key["filter"][0]]["freq"] = np.float32(3000.0)
+    p1[key["volume"][3]]["raw_gain"] = np.float32(0.09)
+    p1[key["volume"][5]]["raw_gain"] = np.float32(0.0)
+    p1[key["beep_test"][7]]["enabled"] = np.asarray(False)
+    return [p0, p1]
+
+
+@pytest.fixture(scope="module")
+def both():
+    jprog = jax_mixer()
+    tprog = ft.mixer_graph()
+    plist = instance_params(jprog)
+    jbr = JBatchRenderer(jprog, B)
+    tbr = ft.BatchRenderer(tprog, B)
+    return jprog, tprog, jbr, tbr, jbr.stack_params(plist), tbr.stack_params(plist)
+
+
+def _np(tree):
+    return state_to_numpy(state_from_jax(jax.tree.map(np.asarray, tree), "cpu"))
+
+
+def _assert_close(a, b, tol=TOL):
+    assert a.keys() == b.keys()
+    for k in a:
+        if isinstance(a[k], dict):
+            _assert_close(a[k], b[k], tol)
+        else:
+            assert a[k].dtype == b[k].dtype, k
+            np.testing.assert_allclose(a[k], b[k], atol=tol, rtol=0, err_msg=k)
+
+
+def test_compiler_gives_the_same_schedule_and_keys(both):
+    jprog, tprog, *_ = both
+    assert len(tprog.schedule.schedule) == 64
+    assert repr(tprog.schedule) == repr(jprog.schedule)
+    assert list(tprog._procs) == list(jprog._procs)
+    assert [(k, [repr(sn.id) for sn in m]) for k, m in tprog._plan] == [
+        (k, [repr(sn.id) for sn in m]) for k, m in jprog._plan
+    ]
+    # 3 pooled groups of 19 (beep, volume, pan) and 5 singles
+    assert [len(m) for _, m in tprog._plan] == [19, 19, 19, 1, 1, 1, 1, 1]
+
+
+@pytest.mark.parametrize("kind", ["state", "params"])
+def test_stacked_trees_match_jax(both, kind):
+    jprog, tprog, jbr, tbr, jparams, tparams = both
+    if kind == "state":
+        _assert_close(state_to_numpy(tbr.init_state()), _np(jbr.init_state()), 0)
+    else:
+        _assert_close(state_to_numpy(tparams), _np(jparams), 0)
+
+
+def test_three_chunks_match_jax(both):
+    """Outputs, silence masks and the final state over 3 chunks, with the
+    stream clock advancing."""
+    jprog, tprog, jbr, tbr, jparams, tparams = both
+    jstate, tstate = jbr.init_state(), tbr.init_state()
+    start = 0
+    for _ in range(3):
+        jo, jm, jstate = jbr.render_chunk(jparams, jstate, start_sample=start,
+                                          num_blocks=K)
+        to, tm, tstate = tbr.render_chunk(tparams, tstate, start_sample=start,
+                                          num_blocks=K)
+        assert to.shape == (B, K, 2, F) and tm.shape == (B, K, 2)
+        np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=0)
+        np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+        start += K * F
+    assert float(to.abs().max()) > 0.1  # audible, and the instances differ
+    assert not torch.equal(to[0], to[1])
+    _assert_close(state_to_numpy(tstate), _np(jstate))
+
+
+def test_mid_stream_handoff_from_jax(both):
+    """JAX renders 2 chunks; its state crosses over; the port's next chunk
+    matches JAX's next chunk."""
+    jprog, tprog, jbr, tbr, jparams, tparams = both
+    jstate = jbr.init_state()
+    for c in range(2):
+        _, _, jstate = jbr.render_chunk(jparams, jstate, start_sample=c * K * F,
+                                        num_blocks=K)
+    tstate = state_from_jax(jax.tree.map(np.asarray, jstate), "cpu")
+    jo, jm, jstate = jbr.render_chunk(jparams, jstate, start_sample=2 * K * F,
+                                      num_blocks=K)
+    to, tm, tstate = tbr.render_chunk(tparams, tstate, start_sample=2 * K * F,
+                                      num_blocks=K)
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=0)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    _assert_close(state_to_numpy(tstate), _np(jstate))
+
+
+def test_update_instance_matches_jax(both):
+    jprog, tprog, jbr, tbr, jparams, tparams = both
+    one = instance_params(jprog)[1]
+    jnew = jbr.update_instance(jparams, 0, one)
+    tnew = tbr.update_instance(tree_map(torch.clone, tparams), 0, one)
+    _assert_close(state_to_numpy(tnew), _np(jnew), 0)
+
+
+def test_render_block_one_instance_matches_jax(both):
+    """The executor with no batch axis: one block of one instance."""
+    jprog, tprog, *_ = both
+    params = jprog.collect_params()
+    jo, jm, jst = jprog.render_block(
+        params, jprog.init_state(), jnp.zeros((0, F)), jnp.zeros((0,), bool),
+        JBlockInfo.make(0.0, 0),
+    )
+    to, tm, tst = tprog.render_block(
+        params, tprog.init_state(), torch.zeros((0, F)),
+        torch.zeros((0,), dtype=torch.bool), TBlockInfo.make(0.0, 0),
+    )
+    np.testing.assert_allclose(to.numpy(), np.asarray(jo), atol=TOL, rtol=0)
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    _assert_close(state_to_numpy(tst), _np(jst))
+
+
+def test_port_imports_no_jax():
+    """Importing the port and rendering one CPU chunk leaves JAX and the
+    JAX package out of ``sys.modules``."""
+    code = (
+        "import sys\n"
+        "import firewheel_tpu_torch as ft\n"
+        "br = ft.BatchRenderer(ft.mixer_graph(), 2)\n"
+        "out, om, st = br.render_chunk(br.stack_params(), br.init_state(),"
+        " num_blocks=2)\n"
+        "assert out.shape == (2, 2, 2, 128), out.shape\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.split('.')[0] == 'firewheel_tpu']\n"
+        "print('loaded:', bad)\n"
+        "sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+        timeout=120,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    assert "loaded: []" in proc.stdout
+
+
+def test_port_sources_never_import_jax():
+    pkg = os.path.join(REPO, "firewheel_tpu_torch")
+    for root, dirs, files in os.walk(pkg):
+        dirs[:] = [d for d in dirs if d != "_build"]  # build outputs
+        for name in files:
+            if name.endswith(".py"):
+                with open(os.path.join(root, name)) as fh:
+                    for line in fh:
+                        words = line.split()
+                        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+                            top = words[1].split(".")[0]
+                            assert top not in ("jax", "jaxlib", "firewheel_tpu"), (
+                                name, line)
+
+
+def test_batch_renderer_rejects_unported_formats():
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ft.BatchRenderer(ft.mixer_graph(num_voices=1), 1, output_format="pcm16")
