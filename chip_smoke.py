@@ -13,6 +13,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernel's launch count (K per chunk) and the first instances against a
    CPU render of the same instances by the plain path; prints the
    realtime factor and the peak device memory.
+5. Renders the same mixer at B=8192, K=32 with the megakernel
+   (``csrc/megakernel.cu``) and, from the same params and state, with the
+   eager BatchRenderer on the card (its plain version at full size):
+   outputs, masks and every state leaf must agree; the first instances
+   must match the CPU plain version; the kernel must launch once a chunk
+   and K1 never (the filter runs inside it); state handed from an eager
+   chunk to a megakernel chunk must render what two eager chunks do.
+   Prints both lowerings' wall per chunk and realtime factor.
+6. Holds the megakernel against its plain version on the card on three
+   seeded random graphs at B=64, K=4.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before it lists each kernel with its launches, error and times.
@@ -36,6 +46,11 @@ TIMED_CHUNKS = 3
 CHECK_INSTANCES = 2   # instances re-rendered on the CPU by the plain path
 KERNEL_TOL = 1e-6     # kernel vs plain version on the card
 SLICE_TOL = 1e-5      # card render vs CPU render of the same instances
+# megakernel vs eager on the card: masks and integer leaves exactly, floats
+# to 1e-5 (the meter's mean sums in another order; sin/exp round alike)
+MEGA_TOL = 1e-5
+RANDOM_SEEDS = (0, 1, 2)
+RANDOM_B, RANDOM_K = 64, 4
 
 
 def log(msg: str) -> None:
@@ -62,6 +77,25 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def tree_err(a: dict, b: dict) -> float:
+    """Largest difference between two trees of tensors: float leaves by
+    max abs difference, others (masks, int32/int64) inf unless equal."""
+    errs = []
+
+    def err(x, y):
+        x, y = x.cpu(), y.cpu()
+        if x.shape != y.shape:
+            errs.append(float("inf"))
+        elif x.dtype.is_floating_point:
+            errs.append(float((x - y).abs().max()) if x.numel() else 0.0)
+        else:
+            errs.append(0.0 if torch.equal(x, y) else float("inf"))
+
+    from firewheel_tpu_torch.convert import tree_map
+    tree_map(err, a, b)
+    return max(errs, default=0.0)
 
 
 def check_kernel(seq_iir, iir):
@@ -125,12 +159,8 @@ def render_mixer(ft, seq_iir, card: str):
     if n_nodes != 64:
         raise AssertionError(f"mixer has {n_nodes} nodes, expected 64")
     br = ft.BatchRenderer(prog, B, device="cuda")
-    params = br.stack_params()
     # a different cutoff per instance, so the kernel runs per-lane filters
-    fkey = next(k for k in params if k.startswith("filter"))
-    params[fkey]["freq"] = 8000.0 - 100.0 * (
-        torch.arange(B, device="cuda") % 64
-    ).to(torch.float32)
+    params = mixer_params(br)
     state = br.init_state()
 
     cpu_prog = ft.mixer_graph(device="cpu")
@@ -188,15 +218,9 @@ def render_mixer(ft, seq_iir, card: str):
             raise AssertionError("silence masks differ between card and CPU")
     final = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state)
 
-    def state_err(a, b):
-        if a.dtype.is_floating_point:
-            return float((a - b).abs().max())
-        return 0.0 if torch.equal(a, b) else float("inf")
-
-    errs = []
-    tree_map(lambda a, b: errs.append(state_err(a, b)), final, cpu_state)
-    if not max(errs) <= SLICE_TOL:
-        raise AssertionError(f"final state differs: {max(errs)}")
+    e = tree_err(final, cpu_state)
+    if not e <= SLICE_TOL:
+        raise AssertionError(f"final state differs: {e}")
     peak = float(out.abs().max())
     if not 0.01 < peak <= 1.0:
         raise AssertionError(f"output peak {peak} outside (0.01, 1]")
@@ -212,6 +236,165 @@ def render_mixer(ft, seq_iir, card: str):
     return launches
 
 
+def mixer_params(renderer):
+    """The mixer's params with a different cutoff per instance (phase 4's)."""
+    params = renderer.stack_params()
+    fkey = next(k for k in params if k.startswith("filter"))
+    params[fkey]["freq"] = 8000.0 - 100.0 * (
+        torch.arange(B, device="cuda") % 64
+    ).to(torch.float32)
+    return params
+
+
+def render_mega(ft, seq_iir, em, card: str):
+    """Phase 5: the megakernel on the mixer at B x K, against the eager
+    BatchRenderer on the card and the CPU plain version."""
+    from firewheel_tpu_torch.convert import tree_map
+
+    prog = ft.mixer_graph(device="cuda")
+    mega = em.MegaRenderer(prog, B, K, device="cuda")
+    eager = ft.BatchRenderer(prog, B, device="cuda")
+    params = mixer_params(mega)
+    state0 = mega.init_state()
+    frames = prog.max_block_frames
+    log(f"megakernel: {len(mega.lowered.keys)} rows, {len(mega.lowered.leaves)} "
+        f"leaves, {mega.lowered.num_buffers} buffers, "
+        f"{em.shared_bytes(mega.lowered, mega.tile)} B shared memory per CTA")
+
+    worst = 0.0
+
+    def agree(tag, mo, mm, ms, eo, emk, es):
+        nonlocal worst
+        out_e, state_e = float((mo - eo).abs().max()), tree_err(ms, es)
+        e = max(out_e, state_e)
+        if not torch.equal(mm, emk):
+            raise AssertionError(f"{tag}: masks differ between megakernel and eager")
+        if not e <= MEGA_TOL:
+            raise AssertionError(f"{tag}: megakernel vs eager max_abs_err {e}")
+        log(f"megakernel vs eager, {tag}: outputs {out_e:.3e}, state {state_e:.3e}")
+        worst = max(worst, e)
+
+    # warm-up chunk (kernel load, allocator), checked like the others
+    m_out, m_mask, m_state = mega.render_chunk(params, state0, 0)
+    e_out, e_mask, e_state = eager.render_chunk(params, state0, start_sample=0,
+                                                num_blocks=K)
+    torch.cuda.synchronize()
+    agree("warm-up chunk", m_out, m_mask, m_state, e_out, e_mask, e_state)
+    warm = (m_out, m_mask, m_state)
+    starts = [(c + 1) * K * frames for c in range(TIMED_CHUNKS)]
+
+    # the main path: the megakernel only, counts set to 0 just before
+    em.MegaRenderer.launches = 0
+    seq_iir.biquad_seq.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_runs = []
+    for start in starts:
+        m_out, m_mask, m_state = mega.render_chunk(params, m_state, start)
+        m_runs.append((m_out, m_mask, m_state))
+    torch.cuda.synchronize()
+    mega_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
+    launches = em.MegaRenderer.launches
+    k1_launches = seq_iir.biquad_seq.launches
+    if launches != TIMED_CHUNKS:
+        raise AssertionError(f"megakernel launched {launches} times in "
+                             f"{TIMED_CHUNKS} chunks")
+    if k1_launches != 0:
+        raise AssertionError(f"K1 launched {k1_launches} times inside "
+                             "megakernel chunks")
+
+    # the plain version at full size: the eager BatchRenderer on the card
+    t0 = time.perf_counter()
+    e_runs = []
+    for start in starts:
+        e_out, e_mask, e_state = eager.render_chunk(
+            params, e_state, start_sample=start, num_blocks=K)
+        e_runs.append((e_out, e_mask, e_state))
+    torch.cuda.synchronize()
+    eager_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
+    for start, m, e in zip(starts, m_runs, e_runs):
+        agree(f"chunk at sample {start}", *m, *e)
+        if not bool(torch.isfinite(m[0]).all()):
+            raise AssertionError("non-finite megakernel output")
+    peak = float(m_runs[-1][0].abs().max())
+    if not 0.01 < peak <= 1.0:
+        raise AssertionError(f"megakernel output peak {peak} outside (0.01, 1]")
+
+    # mid-stream handoff: eager chunk 1 → megakernel chunk 2 == eager, eager
+    h_out, h_mask, h_state = mega.render_chunk(params, e_runs[0][2], starts[1])
+    torch.cuda.synchronize()
+    agree("handoff eager → megakernel", h_out, h_mask, h_state, *e_runs[1])
+    log(f"megakernel: handoff eager chunk → megakernel chunk matches two "
+        f"eager chunks")
+
+    # the first instances against the CPU plain version
+    cpu_prog = ft.mixer_graph(device="cpu")
+    cpu_mega = em.MegaRenderer(cpu_prog, CHECK_INSTANCES, K, device="cpu")
+    cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
+    cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state0)
+    cpu_worst = 0.0
+    for start, (m_out, m_mask, m_state) in zip([0] + starts, [warm] + m_runs):
+        c_out, c_mask, cpu_state = cpu_mega.render_chunk(cpu_params, cpu_state,
+                                                         start)
+        e = float((m_out[:CHECK_INSTANCES].cpu() - c_out).abs().max())
+        if not e <= SLICE_TOL or not torch.equal(m_mask[:CHECK_INSTANCES].cpu(),
+                                                 c_mask):
+            raise AssertionError(f"megakernel vs CPU plain version at sample "
+                                 f"{start}: max_abs_err {e} or masks differ")
+        cpu_worst = max(cpu_worst, e)
+    e = tree_err(tree_map(lambda t: t[:CHECK_INSTANCES], m_runs[-1][2]), cpu_state)
+    if not e <= SLICE_TOL:
+        raise AssertionError(f"megakernel final state vs CPU: {e}")
+    cpu_worst = max(cpu_worst, e)
+
+    audio_secs = B * K * frames / prog.sample_rate
+    log(f"megakernel vs eager on the card ({TIMED_CHUNKS + 2} chunks, outputs, "
+        f"masks and every state leaf): max_abs_err={worst:.3e}")
+    log(f"megakernel vs CPU plain version (first {CHECK_INSTANCES} instances, "
+        f"{TIMED_CHUNKS + 1} chunks and final state): max_abs_err={cpu_worst:.3e}")
+    log(f"megakernel: launches {launches} in {TIMED_CHUNKS} chunks, K1 launches "
+        f"{k1_launches}")
+    log(f"mixer B={B} K={K} on {card}: megakernel wall per chunk "
+        f"{mega_wall * 1e3:.3f} ms (realtime factor {audio_secs / mega_wall:.1f}); "
+        f"eager {eager_wall * 1e3:.3f} ms (realtime factor "
+        f"{audio_secs / eager_wall:.1f})")
+    return launches, worst, mega_wall * 1e3, eager_wall * 1e3
+
+
+def check_random_graphs(ft, em):
+    """Phase 6: the megakernel against its plain version on the card, on
+    seeded random graphs."""
+    from firewheel_tpu_torch.mixer import random_graph, vary_params
+
+    worst = 0.0
+    for seed in RANDOM_SEEDS:
+        prog = random_graph(seed, device="cuda")
+        mega = em.MegaRenderer(prog, RANDOM_B, RANDOM_K, device="cuda")
+        params = vary_params(mega.stack_params(), seed)
+        ms = rs = mega.init_state()
+        for c in range(2):
+            start = c * RANDOM_K * prog.max_block_frames
+            mo, mm, ms = mega.render_chunk(params, ms, start)
+            ro, rm, rs = em.mega_chunk_reference(
+                prog, mega.lowered, params, rs, start, RANDOM_K, RANDOM_B)
+            torch.cuda.synchronize()
+            out_e = float((mo - ro).abs().max())
+            state_e = tree_err(ms, rs)
+            e = max(out_e, state_e)
+            if not torch.equal(mm, rm) or not e <= MEGA_TOL:
+                raise AssertionError(
+                    f"random graph {seed}, chunk {c}: megakernel vs plain "
+                    f"max_abs_err {e}, masks equal {torch.equal(mm, rm)}")
+            worst = max(worst, e)
+        log(f"random graph {seed}: {len(prog.schedule.schedule)} nodes, "
+            f"{prog.schedule.num_buffers} buffers, megakernel vs plain version "
+            f"on the card: outputs {out_e:.3e}, state {state_e:.3e} "
+            f"(last chunk), masks equal")
+    log(f"random graphs {RANDOM_SEEDS} at B={RANDOM_B} K={RANDOM_K}: "
+        f"max_abs_err={worst:.3e}")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -219,7 +402,8 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import firewheel_tpu_torch as ft
-    from firewheel_tpu_torch.ops import iir, seq_iir
+    from firewheel_tpu_torch import executor_mega as em
+    from firewheel_tpu_torch.ops import cuda_build, iir, seq_iir
 
     if not os.path.abspath(ft.__file__).startswith(here + os.sep):
         raise RuntimeError(f"firewheel_tpu_torch imported from {ft.__file__}")
@@ -232,11 +416,13 @@ def main() -> int:
         f"python {sys.version.split()[0]}")
 
     t0 = time.perf_counter()
-    seq_iir.build_biquad_kernel(verbose=True)
-    log(f"K1 built in {time.perf_counter() - t0:.1f} s")
+    cuda_build.build_all([seq_iir.LIBRARY, em.LIBRARY], verbose=True)
+    log(f"K1 and the megakernel built in {time.perf_counter() - t0:.1f} s")
 
     err, ms, plain_ms = check_kernel(seq_iir, iir)
     launches = render_mixer(ft, seq_iir, card)
+    m_launches, m_err, m_ms, m_plain_ms = render_mega(ft, seq_iir, em, card)
+    r_err = check_random_graphs(ft, em)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -249,6 +435,15 @@ def main() -> int:
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
+    }, {
+        "name": "megakernel",
+        "route": "cuda",
+        "source": "firewheel_tpu_torch/csrc/megakernel.cu",
+        "replaces": "firewheel_tpu/executor_pallas.py:218",
+        "launches": m_launches,
+        "max_abs_err": max(m_err, r_err),
+        "ms": m_ms,
+        "plain_ms": m_plain_ms,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

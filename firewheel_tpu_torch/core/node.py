@@ -150,6 +150,13 @@ class NodeProcessor:
     counts are static.
     """
 
+    #: Whether the CUDA megakernel (``executor_mega``) may render this
+    #: processor.  It also needs a device function for the processor's
+    #: class in the kernel's op registry, so a processor without one is
+    #: ineligible whatever this says; set it ``False`` to opt out of one
+    #: that has.
+    supports_megakernel: bool = True
+
     def __init__(
         self,
         sample_rate: int,

@@ -24,15 +24,17 @@
 // is kTileF + 1 floats, so the 32 threads of a warp reading column c of 32
 // different rows hit 32 different banks.
 //
-// Rounding: the three fused multiply-adds above are written out with fmaf,
-// and the file is built with --fmad=false so that nvcc contracts nothing
-// else.  That is the rounding XLA gives the Pallas kernel's body on the CPU
+// Rounding: the three fused multiply-adds above are written out with fmaf
+// in biquad_step.cuh (shared with the megakernel), and the file is built
+// with --fmad=false so that nvcc contracts nothing else.  That is the rounding XLA gives the Pallas kernel's body on the CPU
 // (its interpret mode, the port's reference in the tests), and the one the
 // plain PyTorch version reproduces, so the kernel matches both to the bit
 // save for the plain version's rare double rounding (see seq_iir.py).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "biquad_step.cuh"
 
 namespace {
 
@@ -53,14 +55,14 @@ biquad_seq_kernel(const float* __restrict__ x, float* __restrict__ y,
   const bool live = t < rows;
 
   // coef is [5, lanes]: b0, b1, b2, a1, a2; z_in/z_out are [2, lanes].
-  float b0 = 0.f, b1 = 0.f, b2 = 0.f, a1 = 0.f, a2 = 0.f;
+  BiquadCoef bq = {0.f, 0.f, 0.f, 0.f, 0.f};
   float z1 = 0.f, z2 = 0.f;
   if (live) {
-    b0 = coef[lane];
-    b1 = coef[lanes + lane];
-    b2 = coef[2 * lanes + lane];
-    a1 = coef[3 * lanes + lane];
-    a2 = coef[4 * lanes + lane];
+    bq.b0 = coef[lane];
+    bq.b1 = coef[lanes + lane];
+    bq.b2 = coef[2 * lanes + lane];
+    bq.a1 = coef[3 * lanes + lane];
+    bq.a2 = coef[4 * lanes + lane];
     z1 = z_in[lane];
     z2 = z_in[lanes + lane];
   }
@@ -76,13 +78,8 @@ biquad_seq_kernel(const float* __restrict__ x, float* __restrict__ y,
     __syncthreads();
 
     if (live) {
-      for (int c = 0; c < nf; ++c) {
-        const float xf = tile[t][c];
-        const float yf = fmaf(b0, xf, z1);
-        tile[t][c] = yf;
-        const float z1n = fmaf(b1, xf, -(a1 * yf)) + z2;
-        z2 = fmaf(b2, xf, -(a2 * yf));
-        z1 = z1n;
+      for (int f = 0; f < nf; ++f) {
+        tile[t][f] = biquad_step(bq, tile[t][f], z1, z2);
       }
     }
     __syncthreads();

@@ -1,0 +1,507 @@
+"""The megakernel lowering: a whole compiled schedule in one CUDA kernel.
+
+PyTorch port of ``firewheel_tpu/executor_pallas.py:MegaRenderer`` (the TPU
+kernel K2, ``MegaRenderer._build.kernel``).  Where the eager executor
+(:mod:`~firewheel_tpu_torch.executor`) launches a few hundred torch kernels
+per block, the megakernel renders K blocks of B instances in one launch
+(``csrc/megakernel.cu``): one CTA per ``tile`` of instances, each
+instance's arena buffers and silence flags in shared memory for all K
+blocks, the K-block loop inside the kernel.
+
+* :func:`lower_schedule` turns the compiled schedule into what the kernel
+  walks: an int32 op table (one row per interior node, in schedule order),
+  the buffer indices of each row with their ``should_clear`` flags, the
+  row's leaf slots into one flat list of param/state leaves, per-op float
+  constants, and the graph-output row.
+* :func:`mega_chunk_reference` is the plain version.  It walks the same
+  table and leaf list in torch and calls the port's own node kernels for
+  each row, so the CPU tests check the lowering itself.
+* :class:`MegaRenderer` is the JAX package's API.  On a CPU device it runs
+  the plain version; on a CUDA device it launches the kernel or raises.
+
+A processor is eligible when the kernel has a device function for its
+class (:data:`OPS`) and its ``supports_megakernel`` attribute is true; a
+graph with stream inputs is not.  Two of the JAX megakernel's semantics
+are Mosaic workarounds and are not kept: its filter falls back to the
+associative scan and its clip counter freezes.  Here the filter runs the
+sequential recurrence of K1 (``csrc/biquad_step.cuh``) and the clip counter
+counts, as on the eager path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+from typing import Any, Callable, Optional
+
+import numpy as np
+import torch
+
+from .convert import params_from_jax
+from .core.node import BlockInfo, stream_time_from_sample, wrap_stream_sample
+from .executor import ScheduleProgram, node_key
+from .nodes.beep_test import BeepTestProcessor
+from .nodes.delay import EchoProcessor
+from .nodes.dummy import DummyProcessor
+from .nodes.filter import FilterProcessor
+from .nodes.hard_clip import HardClipProcessor
+from .nodes.meter import DbMeterProcessor
+from .nodes.pan import StereoPanProcessor
+from .nodes.sum import SumProcessor
+from .nodes.volume import _MUTE_F32, VolumeProcessor
+from .ops.cuda_build import CudaLibrary
+from .parallel.mesh import BatchRenderer
+
+__all__ = [
+    "LeafSpec",
+    "LoweredSchedule",
+    "MegaRenderer",
+    "OPS",
+    "LIBRARY",
+    "lower_schedule",
+    "mega_chunk_reference",
+    "supports_megakernel",
+]
+
+# Fields of an op-table row; csrc/megakernel.cu reads the same layout.
+OP, N_IN, N_OUT, IO, SLOT, N_SLOT, CONST, AUX0, AUX1 = range(9)
+ROW_WIDTH = 9
+
+
+@dataclasses.dataclass(frozen=True)
+class _Op:
+    """One device function of the kernel.
+
+    ``layout`` lists the (tree, path) of every leaf of the node in the
+    order of its slots; the device function reads them by position.
+    ``consts`` gives the processor's float constants, ``derive`` (for a
+    ``"derived"`` leaf) computes a leaf from the node's params once per
+    chunk."""
+
+    code: int
+    layout: tuple = ()
+    consts: Callable[[Any], tuple] = lambda proc: ()
+    derive: Optional[Callable[[Any, dict], torch.Tensor]] = None
+
+
+def _smoother_consts(proc, eps):
+    b, a, log_b = proc._coeffs
+    return (float(a), float(log_b), float(np.float32(eps)))
+
+
+def _filter_coef(proc, p):
+    """The RBJ coefficients of every instance, ``f32[B, 5]``: constant over
+    a chunk, computed by the node's own design on the params' device."""
+    coeffs = proc._design(p["freq"], p["q"], p["gain_db"], proc.sample_rate)
+    return torch.stack(tuple(coeffs), dim=-1).contiguous()
+
+
+_SMOOTHER = ("target", "last", "status")
+
+#: processor class → the kernel's device function for it
+OPS: dict[type, _Op] = {
+    DummyProcessor: _Op(0),
+    BeepTestProcessor: _Op(1, (
+        ("params", ("enabled",)), ("params", ("inc",)), ("params", ("gain",)),
+        ("state", ("phase",)),
+    )),
+    VolumeProcessor: _Op(
+        2,
+        (("params", ("raw_gain",)),) + tuple(("state", ("gain", f)) for f in _SMOOTHER),
+        lambda proc: _smoother_consts(proc, proc._eps) + (_MUTE_F32,),
+    ),
+    StereoPanProcessor: _Op(
+        3,
+        (("params", ("pan",)),) + tuple(("state", ("pan", f)) for f in _SMOOTHER),
+        lambda proc: _smoother_consts(proc, 1e-5),
+    ),
+    SumProcessor: _Op(4),
+    FilterProcessor: _Op(
+        5,
+        (("params", ("freq",)), ("params", ("q",)), ("params", ("gain_db",)),
+         ("state", ("z1",)), ("state", ("z2",)), ("derived", ("coef",))),
+        derive=_filter_coef,
+    ),
+    EchoProcessor: _Op(6, (
+        ("params", ("feedback",)), ("params", ("wet",)), ("params", ("dry",)),
+        ("state", ("line",)),
+    )),
+    HardClipProcessor: _Op(7, (("params", ("threshold",)), ("state", ("clip_count",)))),
+    DbMeterProcessor: _Op(
+        8,
+        (("state", ("peak",)), ("state", ("rms_sq",))),
+        lambda proc: (proc._peak_decay, proc._rms_alpha),
+    ),
+}
+_ECHO = OPS[EchoProcessor].code
+
+
+def supports_megakernel(program: ScheduleProgram) -> bool:
+    """True when the kernel can render ``program``: no stream inputs, and a
+    device function for every processor that does not opt out."""
+    if program.num_graph_inputs != 0:
+        return False
+    return all(
+        type(p) in OPS and getattr(p, "supports_megakernel", True)
+        for p in program._procs.values()
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class LeafSpec:
+    """One leaf of the flat list: ``tree`` is ``"params"``, ``"state"`` or
+    ``"derived"``; ``shape`` is one instance's shape."""
+
+    tree: str
+    key: str
+    path: tuple
+    dtype: torch.dtype
+    shape: tuple
+
+
+@dataclasses.dataclass(frozen=True)
+class LoweredSchedule:
+    """What the kernel walks (see :func:`lower_schedule`)."""
+
+    ops: np.ndarray        # int32 [n_ops, ROW_WIDTH]
+    io: np.ndarray         # int32: per row, inputs, their clear flags, outputs
+    slots: np.ndarray      # int32: per row, indices into ``leaves``
+    consts: np.ndarray     # float32: per row, the processor's constants
+    out_row: np.ndarray    # int32 [No, 2]: graph-output buffer, should_clear
+    keys: tuple            # node key of each row
+    leaves: tuple          # LeafSpec
+    num_buffers: int
+    frames: int
+    echo_channels: int     # channels of all echo rows (the kernel's carries)
+
+
+def _flat(tree, prefix=()):
+    """(path, leaf) pairs of a nested dict, in insertion order."""
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _flat(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _nest(pairs) -> dict:
+    """Inverse of :func:`_flat`."""
+    out: dict = {}
+    for path, v in pairs:
+        d = out
+        for k in path[:-1]:
+            d = d.setdefault(k, {})
+        d[path[-1]] = v
+    return out
+
+
+def lower_schedule(program: ScheduleProgram) -> LoweredSchedule:
+    """Lower ``program``'s schedule to the kernel's tables."""
+    if not supports_megakernel(program):
+        raise ValueError(
+            "graph not eligible for the megakernel (stream inputs, or a node "
+            "with no device function) — use BatchRenderer"
+        )
+    sched = program.schedule.schedule
+    rows, io, slots, consts, keys, leaves = [], [], [], [], [], []
+    echo_channels = 0
+    for sn in sched[1:-1]:
+        key = node_key(sn.id)
+        proc = program._procs[key]
+        op = OPS[type(proc)]
+        mine = [
+            LeafSpec("params", key, path, t.dtype, tuple(t.shape))
+            for path, t in _flat(params_from_jax(proc.collect_params(), "cpu"))
+        ] + [
+            LeafSpec("state", key, path, t.dtype, tuple(t.shape))
+            for path, t in _flat(proc.init_state())
+        ]
+        if op.derive is not None:
+            mine.append(LeafSpec("derived", key, ("coef",), torch.float32, (5,)))
+        got = tuple((leaf.tree, leaf.path) for leaf in mine)
+        if got != op.layout:
+            raise AssertionError(f"{key}: leaves {got}, the kernel reads {op.layout}")
+        aux0 = aux1 = 0
+        if op.code == _ECHO:
+            aux0, aux1 = proc.delay_frames, echo_channels
+            echo_channels += proc.num_inputs
+        c = op.consts(proc)
+        rows.append([op.code, len(sn.input_buffers), len(sn.output_buffers),
+                     len(io), len(slots), len(mine), len(consts), aux0, aux1])
+        io += [ib.buffer_index for ib in sn.input_buffers]
+        io += [int(ib.should_clear) for ib in sn.input_buffers]
+        io += [ob.buffer_index for ob in sn.output_buffers]
+        slots += range(len(leaves), len(leaves) + len(mine))
+        leaves += mine
+        consts += c
+        keys.append(key)
+    out_row = [[ib.buffer_index, int(ib.should_clear)]
+               for ib in sched[-1].input_buffers]
+    return LoweredSchedule(
+        ops=np.asarray(rows, np.int32).reshape(-1, ROW_WIDTH),
+        io=np.asarray(io, np.int32),
+        slots=np.asarray(slots, np.int32),
+        consts=np.asarray(consts, np.float32),
+        out_row=np.asarray(out_row, np.int32).reshape(-1, 2),
+        keys=tuple(keys),
+        leaves=tuple(leaves),
+        num_buffers=program.schedule.num_buffers,
+        frames=program.max_block_frames,
+        echo_channels=echo_channels,
+    )
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _row_io(lowered: LoweredSchedule, row):
+    n_in, n_out, at = int(row[N_IN]), int(row[N_OUT]), int(row[IO])
+    ins = lowered.io[at: at + n_in].tolist()
+    clear = lowered.io[at + n_in: at + 2 * n_in].tolist()
+    outs = lowered.io[at + 2 * n_in: at + 2 * n_in + n_out].tolist()
+    return ins, clear, outs
+
+
+def _new_state_tree(state, lowered: LoweredSchedule, values):
+    """``state`` with every state leaf of the list replaced by ``values``."""
+    out = {k: dict(v) if isinstance(v, dict) else v for k, v in state.items()}
+    for i, leaf in enumerate(lowered.leaves):
+        if leaf.tree == "state":
+            out[leaf.key] = _nest(
+                list(_flat(out[leaf.key])) + [(leaf.path, values[i])]
+            )
+    return out
+
+
+def mega_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
+                         params, state, start_sample, num_blocks: int,
+                         batch: int):
+    """Plain version of the kernel: K blocks for every instance, walking the
+    op table and the leaf list, one node kernel call per row.
+
+    ``params``/``state`` are batch-stacked trees of tensors (``[B, ...]``
+    leaves).  Returns ``(out f32[B, K, No, F], masks bool[B, K, No],
+    state')``."""
+    values = [
+        None if leaf.tree == "derived"
+        else _get(params if leaf.tree == "params" else state, (leaf.key,) + leaf.path)
+        for leaf in lowered.leaves
+    ]
+    device = next((v.device for v in values if v is not None), program.device)
+    f = lowered.frames
+    # per-block clocks, as ScheduleProgram.chunk_fn computes them
+    samples = (
+        wrap_stream_sample(start_sample)
+        + f * torch.arange(num_blocks, dtype=torch.int64, device=device)
+    ) & 0xFFFFFFFF
+    times = stream_time_from_sample(samples, float(program.sample_rate))
+    status = torch.zeros((), dtype=torch.int64, device=device)
+    zeros = torch.zeros((batch, f), dtype=torch.float32, device=device)
+    silent = torch.ones((batch,), dtype=torch.bool, device=device)
+
+    outs, masks = [], []
+    for k in range(num_blocks):
+        info = BlockInfo(times[k], samples[k], status)
+        bufs: dict[int, torch.Tensor] = {}
+        flags: dict[int, torch.Tensor] = {}
+        for row, key in zip(lowered.ops, lowered.keys):
+            ins, clear, out_idx = _row_io(lowered, row)
+            rows = [zeros if c else bufs[b] for b, c in zip(ins, clear)]
+            rmask = [silent if c else flags[b] for b, c in zip(ins, clear)]
+            if rows:
+                inputs, in_mask = torch.stack(rows, -2), torch.stack(rmask, -1)
+            else:
+                inputs = zeros.new_zeros((batch, 0, f))
+                in_mask = silent.new_zeros((batch, 0))
+            mine = lowered.slots[row[SLOT]: row[SLOT] + row[N_SLOT]].tolist()
+            p = _nest([(lowered.leaves[i].path, values[i]) for i in mine
+                       if lowered.leaves[i].tree == "params"])
+            s_slots = [i for i in mine if lowered.leaves[i].tree == "state"]
+            s = _nest([(lowered.leaves[i].path, values[i]) for i in s_slots])
+            y, s2, om = program._procs[key].kernel(p, s, inputs, in_mask, info)
+            for i, (path, t) in zip(s_slots, _flat(s2), strict=True):
+                assert path == lowered.leaves[i].path, (key, path)
+                values[i] = t
+            for j, b in enumerate(out_idx):
+                bufs[b] = y[:, j]
+                flags[b] = om[:, j]
+        o_rows, o_flags = [], []
+        for b, c in lowered.out_row.tolist():
+            if c:
+                o_rows.append(zeros)
+                o_flags.append(silent)
+            else:
+                o_rows.append(bufs[b].masked_fill(flags[b][:, None], 0.0))
+                o_flags.append(flags[b])
+        if o_rows:
+            outs.append(torch.stack(o_rows, -2))
+            masks.append(torch.stack(o_flags, -1))
+        else:
+            outs.append(zeros.new_zeros((batch, 0, f)))
+            masks.append(silent.new_zeros((batch, 0)))
+    return (torch.stack(outs, 1), torch.stack(masks, 1),
+            _new_state_tree(state, lowered, values))
+
+
+# -- the CUDA kernel ----------------------------------------------------------
+
+THREADS_PER_INSTANCE = 128
+MAX_THREADS = 1024
+MAX_SHARED_BYTES = 232448  # the most shared memory one CTA may take (H100)
+
+
+def _bind(lib):
+    fn = lib.fw_mega_render
+    fn.argtypes = (
+        [ctypes.c_void_p] * 4          # ops, io, slots, consts
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]   # out_row, n_out, n_ops
+        + [ctypes.c_void_p] * 4        # ptrs, out, masks, scratch
+        + [ctypes.c_int64]             # scratch per echo channel
+        + [ctypes.c_int] * 6           # batch, tile, K, F, buffers, echo channels
+        + [ctypes.c_void_p]            # stream
+    )
+    fn.restype = ctypes.c_int
+
+
+#: ``csrc/megakernel.cu``, built with nvcc at first use
+LIBRARY = CudaLibrary("fw_mega", "megakernel.cu", ("biquad_step.cuh",), _bind)
+
+
+def shared_bytes(lowered: LoweredSchedule, tile: int) -> int:
+    """Dynamic shared memory of one CTA: per instance, the buffers, their
+    flags, the reduction scratch and the echo carries (csrc/megakernel.cu)."""
+    words = (lowered.num_buffers * lowered.frames + lowered.num_buffers + 8
+             + lowered.echo_channels)
+    return 4 * words * tile
+
+
+class MegaRenderer:
+    """Batched K-block renderer backed by one kernel launch per chunk.
+
+    The API of the JAX package's ``MegaRenderer``: ``render_chunk(params,
+    state, start_sample)`` with batch-stacked params and state →
+    ``(out f32[B, K, No, F], masks bool[B, K, No], state')``.  The state has
+    the tree and layout of :class:`~firewheel_tpu_torch.parallel.
+    BatchRenderer`'s, so the two can hand state to each other mid-stream.
+    ``tile`` instances share one CTA.
+    """
+
+    #: kernel launches since the counter was last set to 0
+    launches = 0
+
+    def __init__(self, program: ScheduleProgram, batch: int, num_blocks: int,
+                 tile: int = 1, device: str | torch.device = "cpu"):
+        if not supports_megakernel(program):
+            raise ValueError(
+                "graph not eligible for the megakernel (stream inputs, or a "
+                "node with no device function) — use BatchRenderer"
+            )
+        if batch % tile != 0:
+            raise ValueError(f"batch {batch} % tile {tile} != 0")
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        self.program = program
+        self.batch = int(batch)
+        self.num_blocks = int(num_blocks)
+        self.tile = int(tile)
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.lowered = lower_schedule(program)
+        self._batched = BatchRenderer(program, batch, self.device)
+        self._tables = None
+
+    def stack_params(self, params_list=None):
+        return self._batched.stack_params(params_list)
+
+    def init_state(self):
+        return self._batched.init_state()
+
+    def render_chunk(self, params, state, start_sample=0):
+        params = params_from_jax(params, self.device)
+        if self.device.type == "cpu":
+            return mega_chunk_reference(self.program, self.lowered, params,
+                                        state, start_sample, self.num_blocks,
+                                        self.batch)
+        if self.device.type != "cuda":
+            raise ValueError(f"MegaRenderer: unsupported device {self.device}")
+        return self._launch(params, state)
+
+    def _leaf_values(self, params, state):
+        lw = self.lowered
+        derived = {}
+        values = []
+        for leaf in lw.leaves:
+            if leaf.tree == "derived":
+                proc = self.program._procs[leaf.key]
+                if leaf.key not in derived:
+                    derived[leaf.key] = OPS[type(proc)].derive(proc, params[leaf.key])
+                v = derived[leaf.key]
+            else:
+                tree = params if leaf.tree == "params" else state
+                v = _get(tree, (leaf.key,) + leaf.path)
+            want = (self.batch,) + leaf.shape
+            if (not isinstance(v, torch.Tensor) or v.device != self.device
+                    or v.dtype != leaf.dtype or tuple(v.shape) != want):
+                got = (getattr(v, "device", None), getattr(v, "dtype", None),
+                       tuple(getattr(v, "shape", ())))
+                raise ValueError(
+                    f"MegaRenderer: {leaf.tree} {leaf.key}/{'/'.join(leaf.path)} "
+                    f"must be a {leaf.dtype} {want} tensor on {self.device}; "
+                    f"got {got}"
+                )
+            # the eager path hands over pooled state as strided views
+            values.append(v.contiguous())
+        return values
+
+    def _launch(self, params, state):
+        lw, dev = self.lowered, self.device
+        tile, k, f = self.tile, self.num_blocks, lw.frames
+        threads = THREADS_PER_INSTANCE * tile
+        smem = shared_bytes(lw, tile)
+        if threads > MAX_THREADS or smem > MAX_SHARED_BYTES:
+            raise ValueError(
+                f"MegaRenderer: tile {tile} needs {threads} threads and {smem} "
+                f"bytes of shared memory per CTA (at most {MAX_THREADS} and "
+                f"{MAX_SHARED_BYTES})"
+            )
+        if self._tables is None:
+            self._tables = tuple(
+                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                for a in (lw.ops, lw.io, lw.slots, lw.consts, lw.out_row)
+            )
+        ops, io, slots, consts, out_row = self._tables
+
+        values = self._leaf_values(params, state)
+        new = [torch.empty_like(v) if leaf.tree == "state" else v
+               for leaf, v in zip(lw.leaves, values)]
+        ptrs = [p for v, w in zip(values, new) for p in (v.data_ptr(), w.data_ptr())]
+        ptrs_d = torch.tensor(ptrs or [0], dtype=torch.int64).pin_memory().to(
+            dev, non_blocking=True)
+
+        # the echoes of a chunk that the final line does not keep
+        stride = max([0] + [max(0, k * f - int(r[AUX0]))
+                            for r in lw.ops if r[OP] == _ECHO])
+        scratch = torch.empty((self.batch * lw.echo_channels * stride,),
+                              dtype=torch.float32, device=dev)
+        n_out = lw.out_row.shape[0]
+        out = torch.empty((self.batch, k, n_out, f), dtype=torch.float32, device=dev)
+        masks = torch.empty((self.batch, k, n_out), dtype=torch.bool, device=dev)
+
+        lib = LIBRARY.load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            err = lib.fw_mega_render(
+                ops.data_ptr(), io.data_ptr(), slots.data_ptr(), consts.data_ptr(),
+                out_row.data_ptr(), n_out, lw.ops.shape[0],
+                ptrs_d.data_ptr(), out.data_ptr(), masks.data_ptr(),
+                scratch.data_ptr(), stride,
+                self.batch, tile, k, f, lw.num_buffers, lw.echo_channels, stream,
+            )
+        if err != 0:
+            raise RuntimeError(f"MegaRenderer: kernel launch failed (cudaError {err})")
+        MegaRenderer.launches += 1
+        return out, masks, _new_state_tree(state, lw, new)

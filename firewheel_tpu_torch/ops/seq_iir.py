@@ -27,79 +27,25 @@ instances runs a batch of different filters in one launch.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
+from .cuda_build import CudaLibrary
 from .iir import BiquadCoeffs
 
-__all__ = ["biquad_seq", "biquad_seq_reference", "build_biquad_kernel"]
-
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "biquad.cu"
-_BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
-)
-
-_lib = None
-_lib_lock = threading.Lock()
+__all__ = ["biquad_seq", "biquad_seq_reference", "LIBRARY"]
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    candidate = os.path.join(cuda_home, "bin", "nvcc")
-    if os.path.exists(candidate):
-        return candidate
-    raise RuntimeError(
-        "nvcc not found (looked on PATH and in $CUDA_HOME/bin): the "
-        "sequential-biquad kernel is built from csrc/biquad.cu at first use"
-    )
+def _bind(lib):
+    fn = lib.fw_biquad_seq
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
+    ]
+    fn.restype = ctypes.c_int
 
 
-def build_biquad_kernel(verbose: bool = False) -> ctypes.CDLL:
-    """Compile ``csrc/biquad.cu`` into ``_build/`` (once per source
-    content) and load it.  Returns the loaded library."""
-    global _lib
-    with _lib_lock:
-        if _lib is not None:
-            return _lib
-        src = _SOURCE.read_bytes()
-        tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-        so = _BUILD_DIR / f"libfw_biquad-{tag}.so"
-        if not so.exists():
-            _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS]
-            if verbose:
-                cmd.append("-Xptxas=-v")
-            cmd += ["-o", str(tmp), str(_SOURCE)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr}"
-                )
-            if verbose and proc.stderr:
-                print(proc.stderr, end="", flush=True)
-            os.replace(tmp, so)
-        lib = ctypes.CDLL(str(so))
-        fn = lib.fw_biquad_seq
-        fn.argtypes = [ctypes.c_void_p] * 5 + [
-            ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-        _lib = lib
-        return lib
+#: ``csrc/biquad.cu``, built with nvcc at first use
+LIBRARY = CudaLibrary("fw_biquad", "biquad.cu", ("biquad_step.cuh",), _bind)
 
 
 def _fma(a, b, c):
@@ -168,7 +114,7 @@ def biquad_seq(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
     z_in = torch.stack([z.broadcast_to(lead) for z in z_prev]).reshape(2, lanes)
     coef = torch.stack([c.broadcast_to(lead) for c in coeffs]).reshape(5, lanes)
     z_out = torch.empty_like(z_in)
-    lib = build_biquad_kernel()
+    lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fw_biquad_seq(

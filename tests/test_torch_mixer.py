@@ -193,14 +193,19 @@ def test_render_block_one_instance_matches_jax(both):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and rendering one CPU chunk leaves JAX and the
-    JAX package out of ``sys.modules``."""
+    """Importing the port and rendering one CPU chunk with each lowering
+    (eager and megakernel) leaves JAX and the JAX package out of
+    ``sys.modules``."""
     code = (
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
+        "from firewheel_tpu_torch.executor_mega import MegaRenderer\n"
         "br = ft.BatchRenderer(ft.mixer_graph(), 2)\n"
         "out, om, st = br.render_chunk(br.stack_params(), br.init_state(),"
         " num_blocks=2)\n"
+        "assert out.shape == (2, 2, 2, 128), out.shape\n"
+        "mr = MegaRenderer(ft.mixer_graph(), 2, 2)\n"
+        "out, om, st = mr.render_chunk(mr.stack_params(), st, 256)\n"
         "assert out.shape == (2, 2, 2, 128), out.shape\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
