@@ -23,6 +23,23 @@ Run from the root of a checkout:  python3 chip_smoke.py
    Prints both lowerings' wall per chunk and realtime factor.
 6. Holds the megakernel against its plain version on the card on three
    seeded random graphs at B=64, K=4.
+7. Renders the effects chain (sampler → filter → echo → clip → reverb,
+   ``mixer.effects_chain_graph``) with ``BatchRenderer(lowering="hybrid")``
+   at B=1024, K=8 and at B=8192, K=32: torch stages for the sampler and the
+   reverb, one launch of the island kernel (K3, ``csrc/megakernel.cu:
+   island_kernel``) a chunk for filter·echo·clip.  From the same params and
+   state the eager BatchRenderer renders it on the card: masks and integer
+   leaves must be equal, floats within 1e-5; the first instances must match
+   the CPU plain hybrid; K3 must launch once a chunk and K1 never; state
+   handed from an eager chunk to a hybrid chunk must render what two eager
+   chunks do.  Times K3 (its device time by ``torch.profiler``, and a call
+   by CUDA events) against its plain version (``executor_mega.
+   island_chunk_reference``, a call by CUDA events) on the card at the same
+   operands, and prints both lowerings' wall per chunk, realtime factor and
+   peak memory.
+8. Correctness only, at B=64, K=8: the hybrid against the eager path on the
+   card for BASELINE config 4 (the FFT reverb), a graph with stream inputs,
+   and the mixer as a graph that is one island.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before it lists each kernel with its launches, error and times.
@@ -51,6 +68,10 @@ SLICE_TOL = 1e-5      # card render vs CPU render of the same instances
 MEGA_TOL = 1e-5
 RANDOM_SEEDS = (0, 1, 2)
 RANDOM_B, RANDOM_K = 64, 4
+# the effects chain: bench.py --hybrid's configuration and the README's
+HYBRID_CONFIGS = ((1024, 8), (8192, 32))
+HYBRID_TOL = 1e-5     # hybrid vs eager and K3 vs its plain version on the card
+PHASE8_B, PHASE8_K = 64, 8
 
 
 def log(msg: str) -> None:
@@ -77,6 +98,26 @@ def cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, kernel: str, reps: int) -> float:
+    """Mean device time per launch of the CUDA kernel whose name contains
+    ``kernel``, over ``reps`` calls of ``fn``, by ``torch.profiler``: the
+    kernel alone, without the host work its wrapper does between launches
+    (which CUDA events around the calls would count when it is longer)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if kernel in e.key]
+    if len(hits) != 1 or hits[0].count != reps or not hits[0].device_time_total > 0:
+        raise AssertionError(f"profiler saw {[(e.key, e.count) for e in hits]} "
+                             f"for {reps} launches of {kernel}")
+    return hits[0].device_time_total / reps / 1e3
 
 
 def tree_err(a: dict, b: dict) -> float:
@@ -395,6 +436,235 @@ def check_random_graphs(ft, em):
     return worst
 
 
+def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
+    """Phase 7: the effects chain through the hybrid lowering at B x K,
+    against the eager BatchRenderer on the card and the CPU plain hybrid;
+    K3 against its plain version at the same operands."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import vary_effects_params
+
+    prog = ft.effects_chain_graph(device="cuda")
+    hybrid = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
+    eager = ft.BatchRenderer(prog, b, device="cuda")
+    params = vary_effects_params(hybrid.stack_params())
+    state0 = hybrid.init_state()
+    frames = prog.max_block_frames
+    tag = f"hybrid B={b} K={k}"
+
+    worst = 0.0
+
+    def agree(what, ho, hm, hs, eo, emk, es):
+        nonlocal worst
+        out_e, state_e = float((ho - eo).abs().max()), tree_err(hs, es)
+        if not torch.equal(hm, emk):
+            raise AssertionError(f"{tag}, {what}: masks differ between hybrid and eager")
+        if not max(out_e, state_e) <= HYBRID_TOL:
+            raise AssertionError(f"{tag}, {what}: hybrid vs eager outputs {out_e}, "
+                                 f"state {state_e}")
+        worst = max(worst, out_e, state_e)
+        return out_e, state_e
+
+    # warm-up chunk (kernel load, allocator), checked like the others
+    h_out, h_mask, h_state = hybrid.render_chunk(params, state0, start_sample=0,
+                                                 num_blocks=k)
+    e_out, e_mask, e_state = eager.render_chunk(params, state0, start_sample=0,
+                                                num_blocks=k)
+    torch.cuda.synchronize()
+    agree("warm-up chunk", h_out, h_mask, h_state, e_out, e_mask, e_state)
+    hy = hybrid._chunk_cache[("hybrid", k)]
+    islands = len(hy.islands)
+    log(f"{tag}: segments {[kind for kind, _ in hy.segments]}, island rows "
+        f"{[list(lw.keys) for lw in hy.islands.values()]}, live-ins "
+        f"{[lw.in_bufs.tolist() for lw in hy.islands.values()]}")
+    warm = (h_out, h_mask, h_state)
+    starts = [(c + 1) * k * frames for c in range(TIMED_CHUNKS)]
+
+    # the main path: hybrid chunks only, counts set to 0 just before
+    eh.HybridMegaRenderer.launches = 0
+    em.MegaRenderer.launches = 0
+    seq_iir.biquad_seq.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    h_runs = []
+    for start in starts:
+        h_out, h_mask, h_state = hybrid.render_chunk(params, h_state,
+                                                     start_sample=start, num_blocks=k)
+        h_runs.append((h_out, h_mask, h_state))
+    torch.cuda.synchronize()
+    h_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
+    launches = eh.HybridMegaRenderer.launches
+    k1 = seq_iir.biquad_seq.launches
+    k2 = em.MegaRenderer.launches
+    h_peak = torch.cuda.max_memory_allocated() / 1e9
+    if launches != islands * TIMED_CHUNKS:
+        raise AssertionError(f"{tag}: K3 launched {launches} times in "
+                             f"{TIMED_CHUNKS} chunks of {islands} island(s)")
+    if k1 != 0 or k2 != 0:
+        raise AssertionError(f"{tag}: K1 launched {k1}, K2 {k2} times in hybrid chunks")
+
+    # the same chunks with the eager BatchRenderer on the card
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e_runs = []
+    for start in starts:
+        e_out, e_mask, e_state = eager.render_chunk(params, e_state,
+                                                    start_sample=start, num_blocks=k)
+        e_runs.append((e_out, e_mask, e_state))
+    torch.cuda.synchronize()
+    e_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
+    e_peak = torch.cuda.max_memory_allocated() / 1e9
+    for start, h, e in zip(starts, h_runs, e_runs):
+        out_e, state_e = agree(f"chunk at sample {start}", *h, *e)
+        if not bool(torch.isfinite(h[0]).all()):
+            raise AssertionError(f"{tag}: non-finite hybrid output")
+    peak = float(h_runs[-1][0].abs().max())
+    if not 0.01 < peak <= 4.0:
+        raise AssertionError(f"{tag}: output peak {peak} outside (0.01, 4]")
+    silent = [float(r[1].float().mean()) for r in h_runs]
+    log(f"{tag}: silent share of output channels per chunk {silent}")
+
+    # mid-stream handoff: eager chunk 1 → hybrid chunk 2 == eager, eager
+    ho, hm, hs = hybrid.render_chunk(params, e_runs[0][2], start_sample=starts[1],
+                                     num_blocks=k)
+    torch.cuda.synchronize()
+    agree("handoff eager → hybrid", ho, hm, hs, *e_runs[1])
+
+    # the first instances against the CPU plain hybrid
+    cpu = ft.BatchRenderer(ft.effects_chain_graph(device="cpu"), CHECK_INSTANCES,
+                           lowering="hybrid")
+    cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
+    cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state0)
+    cpu_worst = 0.0
+    for start, (o, m, _) in zip([0] + starts, [warm] + h_runs):
+        c_out, c_mask, cpu_state = cpu.render_chunk(cpu_params, cpu_state,
+                                                    start_sample=start, num_blocks=k)
+        e = float((o[:CHECK_INSTANCES].cpu() - c_out).abs().max())
+        if not e <= SLICE_TOL or not torch.equal(m[:CHECK_INSTANCES].cpu(), c_mask):
+            raise AssertionError(f"{tag} vs CPU plain hybrid at sample {start}: "
+                                 f"max_abs_err {e} or masks differ")
+        cpu_worst = max(cpu_worst, e)
+    e = tree_err(tree_map(lambda t: t[:CHECK_INSTANCES], h_runs[-1][2]), cpu_state)
+    if not e <= SLICE_TOL:
+        raise AssertionError(f"{tag}: final state vs CPU plain hybrid: {e}")
+    cpu_worst = max(cpu_worst, e)
+
+    # K3 against its plain version at the same operands (the island's
+    # live-ins as the sampler's torch stage makes them at the last start)
+    i = next(iter(hy.islands))
+    lw = hy.islands[i]
+    pseg = {key: params[key] for key in hy._keys[i]}
+    sseg = {key: h_runs[-2][2][key] for key in hy._keys[i]}
+    rows, flags = {}, {}
+    infos = em._chunk_clocks(prog, starts[-1], k, hy.device)
+    for j in range(i):
+        pj = {key: params[key] for key in hy._keys[j]}
+        sj = {key: h_runs[-2][2][key] for key in hy._keys[j]}
+        out_j, flags_j, _ = hy._torch_stage(j, pj, sj, rows, flags, infos)
+        rows.update(out_j)
+        flags.update(flags_j)
+    env = torch.stack([rows[j] for j in lw.in_bufs.tolist()], 2).contiguous()
+    env_flags = torch.stack([flags[j] for j in lw.in_bufs.tolist()], 2).contiguous()
+    ko, kf, ks = hy._launch(i, pseg, sseg, env, env_flags)
+    ro, rf, rs = em.island_chunk_reference(prog, lw, pseg, sseg, env, env_flags,
+                                           starts[-1], k, b)
+    torch.cuda.synchronize()
+    k3_err = max(float((ko - ro).abs().max()), tree_err(ks, rs))
+    if not torch.equal(kf, rf) or not k3_err <= HYBRID_TOL:
+        raise AssertionError(f"{tag}: K3 vs its plain version max_abs_err {k3_err}, "
+                             f"flags equal {torch.equal(kf, rf)}")
+    silent_in = float(env_flags.float().mean())
+    def launch():
+        return hy._launch(i, pseg, sseg, env, env_flags)
+
+    k3_ms = device_ms(launch, "island_kernel", 10)
+    k3_call_ms = cuda_ms(launch, 10)
+    plain_ms = cuda_ms(lambda: em.island_chunk_reference(
+        prog, lw, pseg, sseg, env, env_flags, starts[-1], k, b), 2)
+
+    audio_secs = b * k * frames / prog.sample_rate
+    log(f"{tag} vs eager on the card ({TIMED_CHUNKS + 2} chunks, outputs, masks "
+        f"and every state leaf): max_abs_err={worst:.3e}")
+    log(f"{tag} vs CPU plain hybrid (first {CHECK_INSTANCES} instances, "
+        f"{TIMED_CHUNKS + 1} chunks and final state): max_abs_err={cpu_worst:.3e}")
+    log(f"{tag}: K3 launches {launches} in {TIMED_CHUNKS} chunks ({islands} "
+        f"island), K1 {k1}, K2 {k2}")
+    log(f"{tag}: K3 vs plain on the card at the same operands (live-ins "
+        f"{silent_in:.3f} silent): max_abs_err={k3_err:.3e}, flags equal; "
+        f"K3 {k3_ms:.4f} ms on the device ({k3_call_ms:.4f} ms a call with the "
+        f"wrapper's host work, CUDA events), plain {plain_ms:.4f} ms a call")
+    log(f"effects chain B={b} K={k} on {card}: hybrid wall per chunk "
+        f"{h_wall * 1e3:.3f} ms (realtime factor {audio_secs / h_wall:.1f}, peak "
+        f"{h_peak:.3f} GB); eager {e_wall * 1e3:.3f} ms (realtime factor "
+        f"{audio_secs / e_wall:.1f}, peak {e_peak:.3f} GB)")
+    return launches, max(worst, k3_err), k3_ms, plain_ms
+
+
+def stream_in_graph(ft):
+    """graph_in → volume → pan → clip → out, stereo: stream inputs as the
+    island's live-ins."""
+    from firewheel_tpu_torch import nodes
+
+    g = ft.AudioGraph(ft.AudioGraphConfig(2, 2))
+    vol = g.add_node(2, 2, nodes.VolumeNode(80.0))
+    pan = g.add_node(2, 2, nodes.StereoPanNode(0.25))
+    clip = g.add_node(2, 2, nodes.HardClipNode(0.0))
+    chain = [g.graph_in_node(), vol, pan, clip, g.graph_out_node()]
+    for a, b in zip(chain[:-1], chain[1:]):
+        for ch in range(2):
+            g.connect(a, ch, b, ch)
+    pkg = g.compile(48000, 128)
+    return ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                              device="cuda")
+
+
+def check_hybrid_graphs(ft, em, eh):
+    """Phase 8: the hybrid against the eager path on the card, for
+    correctness only, on three more graphs."""
+    from firewheel_tpu_torch.mixer import (
+        effects_chain_config4_graph, vary_effects_params, vary_params,
+    )
+
+    b, k = PHASE8_B, PHASE8_K
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    worst = 0.0
+    for name, prog in (("config 4 (FFT reverb)", effects_chain_config4_graph(device="cuda")),
+                       ("stream inputs", stream_in_graph(ft)),
+                       ("mixer, one island", ft.mixer_graph(device="cuda"))):
+        hybrid = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
+        eager = ft.BatchRenderer(prog, b, device="cuda")
+        params = vary_params(vary_effects_params(hybrid.stack_params()), 8)
+        hs = es = hybrid.init_state()
+        ni = prog.num_graph_inputs
+        for c in range(2):
+            gi = (0.3 * torch.randn((b, k, ni, 128), generator=gen)).to("cuda")
+            im = (torch.rand((b, k, ni), generator=gen) < 0.25).to("cuda")
+            gi = gi.masked_fill(im[..., None], 0.0)
+            eh.HybridMegaRenderer.launches = 0
+            ho, hm, hs = hybrid.render_chunk(params, hs, gi, im,
+                                             start_sample=c * k * 128, num_blocks=k)
+            launches = eh.HybridMegaRenderer.launches
+            eo, emk, es = eager.render_chunk(params, es, gi, im,
+                                             start_sample=c * k * 128, num_blocks=k)
+            torch.cuda.synchronize()
+            islands = len(hybrid._chunk_cache[("hybrid", k)].islands)
+            out_e, state_e = float((ho - eo).abs().max()), tree_err(hs, es)
+            if (not torch.equal(hm, emk) or not max(out_e, state_e) <= HYBRID_TOL
+                    or launches != islands or islands != 1):
+                raise AssertionError(
+                    f"{name}, chunk {c}: hybrid vs eager outputs {out_e}, state "
+                    f"{state_e}, masks equal {torch.equal(hm, emk)}, "
+                    f"{launches} K3 launches for {islands} island(s)")
+            worst = max(worst, out_e, state_e)
+        if not float(ho.abs().max()) > 0.01:
+            raise AssertionError(f"{name}: silent output")
+        segs = [kind for kind, _ in hybrid._chunk_cache[("hybrid", k)].segments]
+        log(f"{name}: segments {segs}, B={b} K={k}, hybrid vs eager on the card: "
+            f"outputs {out_e:.3e}, state {state_e:.3e} (last chunk), masks equal")
+    log(f"phase 8 graphs at B={b} K={k}: max_abs_err={worst:.3e}")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -402,6 +672,7 @@ def main() -> int:
     here = os.path.dirname(os.path.abspath(__file__))
     sys.path.insert(0, here)
     import firewheel_tpu_torch as ft
+    from firewheel_tpu_torch import executor_hybrid as eh
     from firewheel_tpu_torch import executor_mega as em
     from firewheel_tpu_torch.ops import cuda_build, iir, seq_iir
 
@@ -415,14 +686,35 @@ def main() -> int:
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
         f"python {sys.version.split()[0]}")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
+
+    def phase(name):
+        nonlocal t0
+        now = time.perf_counter()
+        log(f"phase {name}: {now - t0:.1f} s (total {now - t_start:.1f} s)")
+        t0 = now
+
     cuda_build.build_all([seq_iir.LIBRARY, em.LIBRARY], verbose=True)
-    log(f"K1 and the megakernel built in {time.perf_counter() - t0:.1f} s")
+    phase("2, K1 and the megakernel (K2, K3) built")
 
     err, ms, plain_ms = check_kernel(seq_iir, iir)
+    phase("3, K1 vs plain")
     launches = render_mixer(ft, seq_iir, card)
+    phase("4, mixer eager")
     m_launches, m_err, m_ms, m_plain_ms = render_mega(ft, seq_iir, em, card)
+    phase("5, mixer megakernel")
     r_err = check_random_graphs(ft, em)
+    phase("6, random graphs")
+    h_launches, h_err, h_ms, h_plain_ms = 0, 0.0, None, None
+    for b, k in HYBRID_CONFIGS:
+        n, e, k3_ms, k3_plain_ms = render_hybrid(ft, seq_iir, em, eh, card, b, k)
+        h_launches += n
+        h_err = max(h_err, e)
+        if h_ms is None:  # the slice's configuration, B=1024, K=8
+            h_ms, h_plain_ms = k3_ms, k3_plain_ms
+        phase(f"7, effects chain hybrid B={b} K={k}")
+    h_err = max(h_err, check_hybrid_graphs(ft, em, eh))
+    phase("8, hybrid on three more graphs")
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -444,6 +736,15 @@ def main() -> int:
         "max_abs_err": max(m_err, r_err),
         "ms": m_ms,
         "plain_ms": m_plain_ms,
+    }, {
+        "name": "hybrid_island",
+        "route": "cuda",
+        "source": "firewheel_tpu_torch/csrc/megakernel.cu",
+        "replaces": "firewheel_tpu/executor_pallas.py:617",
+        "launches": h_launches,
+        "max_abs_err": h_err,
+        "ms": h_ms,
+        "plain_ms": h_plain_ms,
     }]
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -5,8 +5,11 @@ The JAX package keeps params and state as pytrees: dicts keyed by
 (``SmootherState``) or ``()`` for a stateless node.  The port keeps nested
 dicts of tensors: a NamedTuple becomes a dict of its fields and ``()`` an
 empty dict.  torch has no uint32 arithmetic on the CPU, so every uint32
-leaf (the beep phase and increment) rides as int64 holding the same value;
-int64 is used for nothing else, which makes the mapping reversible.
+leaf (the beep phase and increment; the sampler's playhead, sequence
+numbers, loop bounds and event counters) rides as int64 holding the same
+value; int64 is used for nothing else, which makes the mapping reversible.
+bool, int32 and float32 leaves (masks and flags, counters and partition
+fills, audio, spectra as real/imag pairs) convert as they are.
 
 These functions take trees whose leaves are numpy arrays (``jax.tree.map
 (np.asarray, tree)`` on the JAX side) and never import JAX.

@@ -1,8 +1,10 @@
-// The megakernel: a whole compiled audio schedule, K blocks, one launch.
+// The megakernel: a whole compiled audio schedule, K blocks, one launch;
+// and the island kernel: one run of a schedule's rows between torch stages.
 //
-// Replaces the TPU kernel firewheel_tpu/executor_pallas.py:
-// MegaRenderer._build.kernel.  The schedule comes in as tables that
-// executor_mega.py:lower_schedule builds once per graph:
+// mega_kernel (K2) replaces the TPU kernel firewheel_tpu/executor_pallas.py:
+// MegaRenderer._build.kernel; island_kernel (K3) replaces
+// HybridMegaRenderer._mega_segment.kernel.  The rows come in as tables that
+// executor_mega.py:lower_schedule builds once per graph or island:
 //
 //   ops     int32 [n_ops, kRowWidth]  one row per interior node, in schedule
 //                                     order (fields: enum Field)
@@ -11,7 +13,16 @@
 //   slots   int32  per row: indices into the leaf list; leaf s has its input
 //                  pointer at ptrs[2s] and its output pointer at ptrs[2s+1]
 //   consts  f32    per row: the processor's float constants
-//   out_row int32 [No, 2]  graph-output buffer and should_clear
+//   out_row int32 [No, 2]  output buffer and should_clear (0 in an island)
+//   in_bufs int32 [n_in]   an island's live-in buffers
+//
+// K3 takes the live-in rows env f32[B, K, n_in, F] and their silence flags
+// bool[B, K, n_in] as operands: each block starts by copying block k's rows
+// into their arena buffers (one thread per frame, so the loads coalesce),
+// walks the island's rows, and writes the live-out buffers as they are,
+// not zeroed by their flags (the torch stage after the island reads them),
+// with their flags as bool[B, K, n_out].  K2 writes the graph outputs with
+// flagged channels zeroed.
 //
 // Every leaf is a contiguous [B, ...] tensor.  Params are read; each state
 // leaf is read from its input at block 0, from its output after that, and
@@ -71,6 +82,10 @@ struct Args {
   const float* consts;
   const int* out_row;
   int n_out, n_ops;
+  const int* in_bufs;     // K3: live-in buffers
+  int n_in;
+  const float* env;       // K3: [B, K, n_in, F] live-in rows
+  const bool* env_flags;  // K3: [B, K, n_in] their flags
   const int64_t* ptrs;
   float* out;     // [B, K, No, F]
   bool* masks;    // [B, K, No]
@@ -78,6 +93,12 @@ struct Args {
   int64_t stride;
   int tile, K, F, num_buffers, echo_channels;
 };
+
+// 32-bit words of shared memory per instance: the arena, the flags, the
+// reduction scratch and the echo carries (executor_mega.shared_bytes).
+__host__ __device__ inline int words_per_instance(const Args& a) {
+  return a.num_buffers * a.F + a.num_buffers + 2 * kWarps + a.echo_channels;
+}
 
 // One instance's view of the CTA's shared memory.
 struct Inst {
@@ -512,12 +533,35 @@ __device__ void write_outputs(const Args& a, const Inst& I, int k) {
   __syncthreads();  // the next block's rows overwrite these buffers
 }
 
-__global__ void __launch_bounds__(1024) mega_kernel(const Args a) {
-  extern __shared__ float smem[];
-  const int per = a.num_buffers * a.F + a.num_buffers + 2 * kWarps +
-                  a.echo_channels;
+// K3: block k's live-in rows and flags, from the operands.
+__device__ void read_live_ins(const Args& a, const Inst& I, int k) {
+  const int64_t at = (I.i * a.K + k) * a.n_in;
+  for (int j = 0; j < a.n_in; ++j) {
+    const int b = a.in_bufs[j];
+    for (int f = I.t; f < a.F; f += kThreads)
+      I.buf[b * a.F + f] = a.env[(at + j) * a.F + f];
+    if (I.t == 0) I.flag[b] = a.env_flags[at + j] ? 1 : 0;
+  }
+  __syncthreads();
+}
+
+// K3: block k's live-out buffers as they are, and their flags.
+__device__ void write_live_outs(const Args& a, const Inst& I, int k) {
+  const int64_t at = (I.i * a.K + k) * a.n_out;
+  for (int o = 0; o < a.n_out; ++o) {
+    const int b = a.out_row[2 * o];
+    for (int f = I.t; f < a.F; f += kThreads)
+      a.out[(at + o) * a.F + f] = I.buf[b * a.F + f];
+    if (I.t == 0) a.masks[at + o] = I.flag[b] != 0;
+  }
+  __syncthreads();  // the next block's rows overwrite these buffers
+}
+
+// The K-block loop of one instance; kIsland selects K3's operands.
+template <bool kIsland>
+__device__ void render(const Args& a, float* smem) {
   const int li = threadIdx.x / kThreads;
-  float* base = smem + li * per;
+  float* base = smem + li * words_per_instance(a);
   Inst I;
   I.buf = base;
   I.flag = reinterpret_cast<int*>(base + a.num_buffers * a.F);
@@ -533,38 +577,53 @@ __global__ void __launch_bounds__(1024) mega_kernel(const Args a) {
   }
   __syncthreads();
   for (int k = 0; k < a.K; ++k) {
+    if (kIsland) read_live_ins(a, I, k);
     for (int n = 0; n < a.n_ops; ++n) run_row(a, I, n, k);
-    write_outputs(a, I, k);
+    if (kIsland) {
+      write_live_outs(a, I, k);
+    } else {
+      write_outputs(a, I, k);
+    }
   }
 }
 
-}  // namespace
+__global__ void __launch_bounds__(1024) mega_kernel(const Args a) {
+  extern __shared__ float smem[];
+  render<false>(a, smem);
+}
 
-// Renders K blocks of `batch` instances (see the top of this file for the
-// tables).  All pointers are device pointers on the current device.
-// Launches on `stream` and returns cudaGetLastError() (0 on success); it
-// does not synchronise and allocates nothing.
-extern "C" int fw_mega_render(const int* ops, const int* io, const int* slots,
-                              const float* consts, const int* out_row,
-                              int n_out, int n_ops, const int64_t* ptrs,
-                              float* out, bool* masks, float* scratch,
-                              int64_t stride, int batch, int tile,
-                              int num_blocks, int frames, int num_buffers,
-                              int echo_channels, void* stream) {
+__global__ void __launch_bounds__(1024) island_kernel(const Args a) {
+  extern __shared__ float smem[];
+  render<true>(a, smem);
+}
+
+// Checks the sizes, raises the kernel's shared-memory limit when needed and
+// launches; returns cudaGetLastError() (0 on success).
+template <class Kernel>
+int launch(Kernel kernel, const Args& a, int batch, void* stream) {
   if (batch <= 0) return 0;
-  if (tile <= 0 || batch % tile != 0 || tile * kThreads > 1024 ||
-      num_blocks <= 0 || frames <= 0)
+  if (a.tile <= 0 || batch % a.tile != 0 || a.tile * kThreads > 1024 ||
+      a.K <= 0 || a.F <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * tile *
-      static_cast<size_t>(num_buffers * frames + num_buffers + 2 * kWarps +
-                          echo_channels);
+  const size_t smem = sizeof(float) * a.tile *
+                      static_cast<size_t>(words_per_instance(a));
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        mega_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  Args a;
+  kernel<<<batch / a.tile, a.tile * kThreads, smem,
+           static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
+}
+
+Args make_args(const int* ops, const int* io, const int* slots,
+               const float* consts, const int* out_row, int n_out, int n_ops,
+               const int64_t* ptrs, float* out, bool* masks, float* scratch,
+               int64_t stride, int tile, int num_blocks, int frames,
+               int num_buffers, int echo_channels) {
+  Args a = {};
   a.ops = ops;
   a.io = io;
   a.slots = slots;
@@ -582,7 +641,48 @@ extern "C" int fw_mega_render(const int* ops, const int* io, const int* slots,
   a.F = frames;
   a.num_buffers = num_buffers;
   a.echo_channels = echo_channels;
-  mega_kernel<<<batch / tile, tile * kThreads, smem,
-                static_cast<cudaStream_t>(stream)>>>(a);
-  return static_cast<int>(cudaGetLastError());
+  return a;
+}
+
+}  // namespace
+
+// Renders K blocks of `batch` instances (see the top of this file for the
+// tables).  All pointers are device pointers on the current device.
+// Launches on `stream` and returns cudaGetLastError() (0 on success); it
+// does not synchronise and allocates nothing.
+extern "C" int fw_mega_render(const int* ops, const int* io, const int* slots,
+                              const float* consts, const int* out_row,
+                              int n_out, int n_ops, const int64_t* ptrs,
+                              float* out, bool* masks, float* scratch,
+                              int64_t stride, int batch, int tile,
+                              int num_blocks, int frames, int num_buffers,
+                              int echo_channels, void* stream) {
+  const Args a = make_args(ops, io, slots, consts, out_row, n_out, n_ops, ptrs,
+                           out, masks, scratch, stride, tile, num_blocks,
+                           frames, num_buffers, echo_channels);
+  return launch(mega_kernel, a, batch, stream);
+}
+
+// Renders K blocks of one island for `batch` instances: live-in rows `env`
+// [B, K, n_in, F] and flags `env_flags` [B, K, n_in] in, live-out rows `out`
+// [B, K, n_out, F] (unmasked) and flags `flags` [B, K, n_out] out.  The same
+// contract as fw_mega_render otherwise.
+extern "C" int fw_island_render(const int* ops, const int* io,
+                                const int* slots, const float* consts,
+                                const int* out_row, int n_out, int n_ops,
+                                const int* in_bufs, int n_in,
+                                const int64_t* ptrs, const float* env,
+                                const bool* env_flags, float* out,
+                                bool* flags, float* scratch, int64_t stride,
+                                int batch, int tile, int num_blocks,
+                                int frames, int num_buffers,
+                                int echo_channels, void* stream) {
+  Args a = make_args(ops, io, slots, consts, out_row, n_out, n_ops, ptrs, out,
+                     flags, scratch, stride, tile, num_blocks, frames,
+                     num_buffers, echo_channels);
+  a.in_bufs = in_bufs;
+  a.n_in = n_in;
+  a.env = env;
+  a.env_flags = env_flags;
+  return launch(island_kernel, a, batch, stream);
 }

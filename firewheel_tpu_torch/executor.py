@@ -142,24 +142,18 @@ class ScheduleProgram:
         return plan
 
     # -- one block -------------------------------------------------------------
-    def _render(self, params, state, graph_in, in_mask, info: BlockInfo):
-        """One block through the schedule (schedule.rs:289-343)."""
-        sched = self.schedule.schedule
-        lead = graph_in.shape[:-2]
-        frames = graph_in.shape[-1]
+    def _walk_segment(self, params, state, bufs, flags, info: BlockInfo,
+                      plan, new_state, zeros_row, silent):
+        """Run ``plan``'s entries in schedule order against explicit buffer
+        and flag environments (mutated in place), writing each node's new
+        state into ``new_state``.  ``zeros_row f32[..., F]`` and ``silent
+        bool[...]`` give the batch shape, the frame count and the device.
+        Factored out of :meth:`_render` so that the hybrid lowering
+        (``executor_hybrid``) runs a sub-range of the schedule with its live
+        buffers as inputs."""
+        lead = silent.shape
+        frames = zeros_row.shape[-1]
         nb = len(lead)  # the member axis of a pooled group sits at dim nb
-        device = graph_in.device
-        zeros_row = torch.zeros(lead + (frames,), dtype=torch.float32,
-                                device=device)
-        silent = torch.ones(lead, dtype=torch.bool, device=device)
-        bufs: dict[int, torch.Tensor] = {}
-        flags: dict[int, torch.Tensor] = {}
-        new_state: dict[str, Any] = {}
-
-        # Graph inputs (prepare_graph_inputs, schedule.rs:213-253).
-        for i, ob in enumerate(sched[0].output_buffers):
-            bufs[ob.buffer_index] = graph_in[..., i, :]
-            flags[ob.buffer_index] = in_mask[..., i]
 
         def gather_inputs(sn):
             rows, masks = [], []
@@ -183,7 +177,7 @@ class ScheduleProgram:
                 bufs[ob.buffer_index] = outputs[..., j, :]
                 flags[ob.buffer_index] = out_mask[..., j]
 
-        for kind, members in self._plan:
+        for kind, members in plan:
             if kind == "single":
                 sn = members[0]
                 key = node_key(sn.id)
@@ -207,6 +201,27 @@ class ScheduleProgram:
             for j, (sn, key) in enumerate(zip(members, keys)):
                 new_state[key] = tree_map(lambda x: x.select(nb, j), st_g)
                 scatter_outputs(sn, outs_g.select(nb, j), om_g.select(nb, j))
+
+    def _render(self, params, state, graph_in, in_mask, info: BlockInfo):
+        """One block through the schedule (schedule.rs:289-343)."""
+        sched = self.schedule.schedule
+        lead = graph_in.shape[:-2]
+        frames = graph_in.shape[-1]
+        device = graph_in.device
+        zeros_row = torch.zeros(lead + (frames,), dtype=torch.float32,
+                                device=device)
+        silent = torch.ones(lead, dtype=torch.bool, device=device)
+        bufs: dict[int, torch.Tensor] = {}
+        flags: dict[int, torch.Tensor] = {}
+        new_state: dict[str, Any] = {}
+
+        # Graph inputs (prepare_graph_inputs, schedule.rs:213-253).
+        for i, ob in enumerate(sched[0].output_buffers):
+            bufs[ob.buffer_index] = graph_in[..., i, :]
+            flags[ob.buffer_index] = in_mask[..., i]
+
+        self._walk_segment(params, state, bufs, flags, info, self._plan,
+                           new_state, zeros_row, silent)
 
         # Graph outputs (read_graph_outputs, schedule.rs:255-287): flagged
         # channels read as zero.

@@ -6,16 +6,20 @@ kernel K2, ``MegaRenderer._build.kernel``).  Where the eager executor
 per block, the megakernel renders K blocks of B instances in one launch
 (``csrc/megakernel.cu``): one CTA per ``tile`` of instances, each
 instance's arena buffers and silence flags in shared memory for all K
-blocks, the K-block loop inside the kernel.
+blocks, the K-block loop inside the kernel.  The same tables drive the
+island kernel K3 of the hybrid lowering (:mod:`~firewheel_tpu_torch.
+executor_hybrid`), which renders one run of the schedule's rows.
 
-* :func:`lower_schedule` turns the compiled schedule into what the kernel
-  walks: an int32 op table (one row per interior node, in schedule order),
-  the buffer indices of each row with their ``should_clear`` flags, the
-  row's leaf slots into one flat list of param/state leaves, per-op float
-  constants, and the graph-output row.
-* :func:`mega_chunk_reference` is the plain version.  It walks the same
-  table and leaf list in torch and calls the port's own node kernels for
-  each row, so the CPU tests check the lowering itself.
+* :func:`lower_schedule` turns the compiled schedule, or an island of it,
+  into what the kernel walks: an int32 op table (one row per interior
+  node, in schedule order), the buffer indices of each row with their
+  ``should_clear`` flags, the row's leaf slots into one flat list of
+  param/state leaves, per-op float constants, the output buffers, and an
+  island's live-in buffers.
+* :func:`mega_chunk_reference` and :func:`island_chunk_reference` are the
+  plain versions of K2 and K3.  They walk the same tables and leaf list in
+  torch and call the port's own node kernels for each row, so the CPU
+  tests check the lowering itself.
 * :class:`MegaRenderer` is the JAX package's API.  On a CPU device it runs
   the plain version; on a CUDA device it launches the kernel or raises.
 
@@ -53,13 +57,17 @@ from .ops.cuda_build import CudaLibrary
 from .parallel.mesh import BatchRenderer
 
 __all__ = [
+    "KernelOperands",
     "LeafSpec",
     "LoweredSchedule",
     "MegaRenderer",
     "OPS",
     "LIBRARY",
+    "eligible",
+    "island_chunk_reference",
     "lower_schedule",
     "mega_chunk_reference",
+    "pin_cuda_index",
     "supports_megakernel",
 ]
 
@@ -136,15 +144,18 @@ OPS: dict[type, _Op] = {
 _ECHO = OPS[EchoProcessor].code
 
 
+def eligible(proc) -> bool:
+    """True when the kernel has a device function for ``proc`` and the
+    processor does not opt out."""
+    return type(proc) in OPS and getattr(proc, "supports_megakernel", True)
+
+
 def supports_megakernel(program: ScheduleProgram) -> bool:
     """True when the kernel can render ``program``: no stream inputs, and a
     device function for every processor that does not opt out."""
     if program.num_graph_inputs != 0:
         return False
-    return all(
-        type(p) in OPS and getattr(p, "supports_megakernel", True)
-        for p in program._procs.values()
-    )
+    return all(eligible(p) for p in program._procs.values())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -167,7 +178,8 @@ class LoweredSchedule:
     io: np.ndarray         # int32: per row, inputs, their clear flags, outputs
     slots: np.ndarray      # int32: per row, indices into ``leaves``
     consts: np.ndarray     # float32: per row, the processor's constants
-    out_row: np.ndarray    # int32 [No, 2]: graph-output buffer, should_clear
+    out_row: np.ndarray    # int32 [No, 2]: output buffer, should_clear
+    in_bufs: np.ndarray    # int32 [n_in]: an island's live-in buffers
     keys: tuple            # node key of each row
     leaves: tuple          # LeafSpec
     num_buffers: int
@@ -195,17 +207,33 @@ def _nest(pairs) -> dict:
     return out
 
 
-def lower_schedule(program: ScheduleProgram) -> LoweredSchedule:
-    """Lower ``program``'s schedule to the kernel's tables."""
-    if not supports_megakernel(program):
-        raise ValueError(
-            "graph not eligible for the megakernel (stream inputs, or a node "
-            "with no device function) — use BatchRenderer"
-        )
-    sched = program.schedule.schedule
+def lower_schedule(program: ScheduleProgram, nodes=None, live_in=(),
+                   live_out=None) -> LoweredSchedule:
+    """Lower ``program``'s schedule to the kernel's tables.
+
+    With ``nodes`` (a run of the schedule's interior entries, all
+    eligible), lower that run alone as an island: its rows read the
+    ``live_in`` buffers, seeded every block, and its outputs are the
+    ``live_out`` buffers, returned as they are.  Without, lower the whole
+    schedule, whose outputs are the graph outputs."""
+    if nodes is None:
+        if not supports_megakernel(program):
+            raise ValueError(
+                "graph not eligible for the megakernel (stream inputs, or a "
+                "node with no device function) — use BatchRenderer"
+            )
+        nodes = program.schedule.schedule[1:-1]
+        out_row = [[ib.buffer_index, int(ib.should_clear)]
+                   for ib in program.schedule.schedule[-1].input_buffers]
+    else:
+        bad = [node_key(sn.id) for sn in nodes
+               if not eligible(program._procs[node_key(sn.id)])]
+        if bad:
+            raise ValueError(f"nodes with no device function in an island: {bad}")
+        out_row = [[b, 0] for b in (live_out or ())]
     rows, io, slots, consts, keys, leaves = [], [], [], [], [], []
     echo_channels = 0
-    for sn in sched[1:-1]:
+    for sn in nodes:
         key = node_key(sn.id)
         proc = program._procs[key]
         op = OPS[type(proc)]
@@ -235,14 +263,13 @@ def lower_schedule(program: ScheduleProgram) -> LoweredSchedule:
         leaves += mine
         consts += c
         keys.append(key)
-    out_row = [[ib.buffer_index, int(ib.should_clear)]
-               for ib in sched[-1].input_buffers]
     return LoweredSchedule(
         ops=np.asarray(rows, np.int32).reshape(-1, ROW_WIDTH),
         io=np.asarray(io, np.int32),
         slots=np.asarray(slots, np.int32),
         consts=np.asarray(consts, np.float32),
         out_row=np.asarray(out_row, np.int32).reshape(-1, 2),
+        in_bufs=np.asarray(live_in, np.int32).reshape(-1),
         keys=tuple(keys),
         leaves=tuple(leaves),
         num_buffers=program.schedule.num_buffers,
@@ -276,6 +303,59 @@ def _new_state_tree(state, lowered: LoweredSchedule, values):
     return out
 
 
+def _chunk_clocks(program: ScheduleProgram, start_sample, num_blocks: int,
+                  device):
+    """Each block's ``BlockInfo``, as ``ScheduleProgram.chunk_fn`` computes
+    them."""
+    samples = (
+        wrap_stream_sample(start_sample)
+        + program.max_block_frames
+        * torch.arange(num_blocks, dtype=torch.int64, device=device)
+    ) & 0xFFFFFFFF
+    times = stream_time_from_sample(samples, float(program.sample_rate))
+    status = torch.zeros((), dtype=torch.int64, device=device)
+    return [BlockInfo(times[k], samples[k], status) for k in range(num_blocks)]
+
+
+def _walk_rows(program: ScheduleProgram, lowered: LoweredSchedule, values,
+               bufs, flags, info, zeros, silent):
+    """One block of the op table in torch: each row gathers its inputs from
+    ``bufs``/``flags``, calls its node's kernel on its leaves and scatters
+    its outputs; ``values`` (the leaf list) takes each row's new state."""
+    batch, f = zeros.shape
+    for row, key in zip(lowered.ops, lowered.keys):
+        ins, clear, out_idx = _row_io(lowered, row)
+        rows = [zeros if c else bufs[b] for b, c in zip(ins, clear)]
+        rmask = [silent if c else flags[b] for b, c in zip(ins, clear)]
+        if rows:
+            inputs, in_mask = torch.stack(rows, -2), torch.stack(rmask, -1)
+        else:
+            inputs = zeros.new_zeros((batch, 0, f))
+            in_mask = silent.new_zeros((batch, 0))
+        mine = lowered.slots[row[SLOT]: row[SLOT] + row[N_SLOT]].tolist()
+        p = _nest([(lowered.leaves[i].path, values[i]) for i in mine
+                   if lowered.leaves[i].tree == "params"])
+        s_slots = [i for i in mine if lowered.leaves[i].tree == "state"]
+        s = _nest([(lowered.leaves[i].path, values[i]) for i in s_slots])
+        y, s2, om = program._procs[key].kernel(p, s, inputs, in_mask, info)
+        for i, (path, t) in zip(s_slots, _flat(s2), strict=True):
+            assert path == lowered.leaves[i].path, (key, path)
+            values[i] = t
+        for j, b in enumerate(out_idx):
+            bufs[b] = y[:, j]
+            flags[b] = om[:, j]
+
+
+def _reference_values(lowered: LoweredSchedule, params, state):
+    """The leaf list from batch-stacked trees (derived leaves left out: the
+    node kernels compute them)."""
+    return [
+        None if leaf.tree == "derived"
+        else _get(params if leaf.tree == "params" else state, (leaf.key,) + leaf.path)
+        for leaf in lowered.leaves
+    ]
+
+
 def mega_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
                          params, state, start_sample, num_blocks: int,
                          batch: int):
@@ -285,49 +365,17 @@ def mega_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
     ``params``/``state`` are batch-stacked trees of tensors (``[B, ...]``
     leaves).  Returns ``(out f32[B, K, No, F], masks bool[B, K, No],
     state')``."""
-    values = [
-        None if leaf.tree == "derived"
-        else _get(params if leaf.tree == "params" else state, (leaf.key,) + leaf.path)
-        for leaf in lowered.leaves
-    ]
+    values = _reference_values(lowered, params, state)
     device = next((v.device for v in values if v is not None), program.device)
     f = lowered.frames
-    # per-block clocks, as ScheduleProgram.chunk_fn computes them
-    samples = (
-        wrap_stream_sample(start_sample)
-        + f * torch.arange(num_blocks, dtype=torch.int64, device=device)
-    ) & 0xFFFFFFFF
-    times = stream_time_from_sample(samples, float(program.sample_rate))
-    status = torch.zeros((), dtype=torch.int64, device=device)
     zeros = torch.zeros((batch, f), dtype=torch.float32, device=device)
     silent = torch.ones((batch,), dtype=torch.bool, device=device)
 
     outs, masks = [], []
-    for k in range(num_blocks):
-        info = BlockInfo(times[k], samples[k], status)
+    for info in _chunk_clocks(program, start_sample, num_blocks, device):
         bufs: dict[int, torch.Tensor] = {}
         flags: dict[int, torch.Tensor] = {}
-        for row, key in zip(lowered.ops, lowered.keys):
-            ins, clear, out_idx = _row_io(lowered, row)
-            rows = [zeros if c else bufs[b] for b, c in zip(ins, clear)]
-            rmask = [silent if c else flags[b] for b, c in zip(ins, clear)]
-            if rows:
-                inputs, in_mask = torch.stack(rows, -2), torch.stack(rmask, -1)
-            else:
-                inputs = zeros.new_zeros((batch, 0, f))
-                in_mask = silent.new_zeros((batch, 0))
-            mine = lowered.slots[row[SLOT]: row[SLOT] + row[N_SLOT]].tolist()
-            p = _nest([(lowered.leaves[i].path, values[i]) for i in mine
-                       if lowered.leaves[i].tree == "params"])
-            s_slots = [i for i in mine if lowered.leaves[i].tree == "state"]
-            s = _nest([(lowered.leaves[i].path, values[i]) for i in s_slots])
-            y, s2, om = program._procs[key].kernel(p, s, inputs, in_mask, info)
-            for i, (path, t) in zip(s_slots, _flat(s2), strict=True):
-                assert path == lowered.leaves[i].path, (key, path)
-                values[i] = t
-            for j, b in enumerate(out_idx):
-                bufs[b] = y[:, j]
-                flags[b] = om[:, j]
+        _walk_rows(program, lowered, values, bufs, flags, info, zeros, silent)
         o_rows, o_flags = [], []
         for b, c in lowered.out_row.tolist():
             if c:
@@ -346,6 +394,41 @@ def mega_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
             _new_state_tree(state, lowered, values))
 
 
+def island_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
+                           params, state, env, env_flags, start_sample,
+                           num_blocks: int, batch: int):
+    """Plain version of the island kernel (K3): :func:`mega_chunk_reference`
+    for an island lowered with live-in and live-out buffers.
+
+    Each block seeds the live-in buffers and their flags from ``env
+    f32[B, K, n_in, F]`` and ``env_flags bool[B, K, n_in]``, walks the
+    island's rows, and returns the live-out buffers as they are, not zeroed
+    by their flags: ``(rows f32[B, K, n_out, F], flags bool[B, K, n_out],
+    state')``."""
+    values = _reference_values(lowered, params, state)
+    device = env.device
+    f = lowered.frames
+    zeros = torch.zeros((batch, f), dtype=torch.float32, device=device)
+    silent = torch.ones((batch,), dtype=torch.bool, device=device)
+    in_bufs = lowered.in_bufs.tolist()
+    out_bufs = [b for b, _ in lowered.out_row.tolist()]
+
+    outs, masks = [], []
+    infos = _chunk_clocks(program, start_sample, num_blocks, device)
+    for k, info in enumerate(infos):
+        bufs = {b: env[:, k, j] for j, b in enumerate(in_bufs)}
+        flags = {b: env_flags[:, k, j] for j, b in enumerate(in_bufs)}
+        _walk_rows(program, lowered, values, bufs, flags, info, zeros, silent)
+        if out_bufs:
+            outs.append(torch.stack([bufs[b] for b in out_bufs], -2))
+            masks.append(torch.stack([flags[b] for b in out_bufs], -1))
+        else:
+            outs.append(zeros.new_zeros((batch, 0, f)))
+            masks.append(silent.new_zeros((batch, 0)))
+    return (torch.stack(outs, 1), torch.stack(masks, 1),
+            _new_state_tree(state, lowered, values))
+
+
 # -- the CUDA kernel ----------------------------------------------------------
 
 THREADS_PER_INSTANCE = 128
@@ -354,19 +437,28 @@ MAX_SHARED_BYTES = 232448  # the most shared memory one CTA may take (H100)
 
 
 def _bind(lib):
-    fn = lib.fw_mega_render
-    fn.argtypes = (
+    tables = (
         [ctypes.c_void_p] * 4          # ops, io, slots, consts
         + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]   # out_row, n_out, n_ops
-        + [ctypes.c_void_p] * 4        # ptrs, out, masks, scratch
-        + [ctypes.c_int64]             # scratch per echo channel
+    )
+    sizes = (
+        [ctypes.c_int64]               # scratch per echo channel
         + [ctypes.c_int] * 6           # batch, tile, K, F, buffers, echo channels
         + [ctypes.c_void_p]            # stream
     )
-    fn.restype = ctypes.c_int
+    lib.fw_mega_render.argtypes = (
+        tables + [ctypes.c_void_p] * 4  # ptrs, out, masks, scratch
+        + sizes
+    )
+    lib.fw_island_render.argtypes = (
+        tables + [ctypes.c_void_p, ctypes.c_int]   # in_bufs, n_in
+        + [ctypes.c_void_p] * 6        # ptrs, env, env_flags, out, flags, scratch
+        + sizes
+    )
+    lib.fw_mega_render.restype = lib.fw_island_render.restype = ctypes.c_int
 
 
-#: ``csrc/megakernel.cu``, built with nvcc at first use
+#: ``csrc/megakernel.cu`` (K2 and K3), built with nvcc at first use
 LIBRARY = CudaLibrary("fw_mega", "megakernel.cu", ("biquad_step.cuh",), _bind)
 
 
@@ -376,6 +468,85 @@ def shared_bytes(lowered: LoweredSchedule, tile: int) -> int:
     words = (lowered.num_buffers * lowered.frames + lowered.num_buffers + 8
              + lowered.echo_channels)
     return 4 * words * tile
+
+
+class KernelOperands:
+    """What every launch of one lowered schedule on one CUDA device needs:
+    the tables on the device, and per chunk the leaf pointer table, the new
+    state leaves and the echo scratch.  ``who`` names the caller in
+    errors."""
+
+    def __init__(self, program: ScheduleProgram, lowered: LoweredSchedule,
+                 batch: int, num_blocks: int, tile: int, device: torch.device,
+                 who: str):
+        self.program, self.lowered, self.who = program, lowered, who
+        self.batch, self.num_blocks, self.tile = batch, num_blocks, tile
+        self.device = device
+        threads = THREADS_PER_INSTANCE * tile
+        smem = shared_bytes(lowered, tile)
+        if threads > MAX_THREADS or smem > MAX_SHARED_BYTES:
+            raise ValueError(
+                f"{who}: tile {tile} needs {threads} threads and {smem} bytes "
+                f"of shared memory per CTA (at most {MAX_THREADS} and "
+                f"{MAX_SHARED_BYTES})"
+            )
+        self.tables = tuple(
+            torch.from_numpy(np.ascontiguousarray(a)).to(device)
+            for a in (lowered.ops, lowered.io, lowered.slots, lowered.consts,
+                      lowered.out_row, lowered.in_bufs)
+        )
+
+    def _leaf_values(self, params, state):
+        derived = {}
+        values = []
+        for leaf in self.lowered.leaves:
+            if leaf.tree == "derived":
+                proc = self.program._procs[leaf.key]
+                if leaf.key not in derived:
+                    derived[leaf.key] = OPS[type(proc)].derive(proc, params[leaf.key])
+                v = derived[leaf.key]
+            else:
+                tree = params if leaf.tree == "params" else state
+                v = _get(tree, (leaf.key,) + leaf.path)
+            want = (self.batch,) + leaf.shape
+            if (not isinstance(v, torch.Tensor) or v.device != self.device
+                    or v.dtype != leaf.dtype or tuple(v.shape) != want):
+                got = (getattr(v, "device", None), getattr(v, "dtype", None),
+                       tuple(getattr(v, "shape", ())))
+                raise ValueError(
+                    f"{self.who}: {leaf.tree} {leaf.key}/{'/'.join(leaf.path)} "
+                    f"must be a {leaf.dtype} {want} tensor on {self.device}; "
+                    f"got {got}"
+                )
+            # the eager path hands over pooled state as strided views
+            values.append(v.contiguous())
+        return values
+
+    def chunk(self, params, state):
+        """``(values, ptrs, new, scratch, stride)`` for one chunk: the input
+        leaves (contiguous copies where a leaf was not; the caller holds
+        them until the launch is enqueued, or the allocator hands their
+        memory to the next tensor), the device table of (input, output)
+        pointers per leaf, the new state leaves (a list aligned with the
+        leaves, params in their slots), and the scratch for the echoes a
+        chunk's final line does not keep."""
+        lw, dev = self.lowered, self.device
+        values = self._leaf_values(params, state)
+        new = [torch.empty_like(v) if leaf.tree == "state" else v
+               for leaf, v in zip(lw.leaves, values)]
+        ptrs = [p for v, w in zip(values, new) for p in (v.data_ptr(), w.data_ptr())]
+        ptrs_d = torch.tensor(ptrs or [0], dtype=torch.int64).pin_memory().to(
+            dev, non_blocking=True)
+        stride = max([0] + [max(0, self.num_blocks * lw.frames - int(r[AUX0]))
+                            for r in lw.ops if r[OP] == _ECHO])
+        scratch = torch.empty((self.batch * lw.echo_channels * stride,),
+                              dtype=torch.float32, device=dev)
+        return values, ptrs_d, new, scratch, stride
+
+    def sizes(self, stride, stream):
+        lw = self.lowered
+        return (stride, self.batch, self.tile, self.num_blocks, lw.frames,
+                lw.num_buffers, lw.echo_channels, stream)
 
 
 class MegaRenderer:
@@ -394,11 +565,6 @@ class MegaRenderer:
 
     def __init__(self, program: ScheduleProgram, batch: int, num_blocks: int,
                  tile: int = 1, device: str | torch.device = "cpu"):
-        if not supports_megakernel(program):
-            raise ValueError(
-                "graph not eligible for the megakernel (stream inputs, or a "
-                "node with no device function) — use BatchRenderer"
-            )
         if batch % tile != 0:
             raise ValueError(f"batch {batch} % tile {tile} != 0")
         if num_blocks < 1:
@@ -407,12 +573,10 @@ class MegaRenderer:
         self.batch = int(batch)
         self.num_blocks = int(num_blocks)
         self.tile = int(tile)
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and self.device.index is None:
-            self.device = torch.device("cuda", torch.cuda.current_device())
+        self.device = pin_cuda_index(device)
         self.lowered = lower_schedule(program)
         self._batched = BatchRenderer(program, batch, self.device)
-        self._tables = None
+        self._operands = None
 
     def stack_params(self, params_list=None):
         return self._batched.stack_params(params_list)
@@ -430,66 +594,19 @@ class MegaRenderer:
             raise ValueError(f"MegaRenderer: unsupported device {self.device}")
         return self._launch(params, state)
 
-    def _leaf_values(self, params, state):
-        lw = self.lowered
-        derived = {}
-        values = []
-        for leaf in lw.leaves:
-            if leaf.tree == "derived":
-                proc = self.program._procs[leaf.key]
-                if leaf.key not in derived:
-                    derived[leaf.key] = OPS[type(proc)].derive(proc, params[leaf.key])
-                v = derived[leaf.key]
-            else:
-                tree = params if leaf.tree == "params" else state
-                v = _get(tree, (leaf.key,) + leaf.path)
-            want = (self.batch,) + leaf.shape
-            if (not isinstance(v, torch.Tensor) or v.device != self.device
-                    or v.dtype != leaf.dtype or tuple(v.shape) != want):
-                got = (getattr(v, "device", None), getattr(v, "dtype", None),
-                       tuple(getattr(v, "shape", ())))
-                raise ValueError(
-                    f"MegaRenderer: {leaf.tree} {leaf.key}/{'/'.join(leaf.path)} "
-                    f"must be a {leaf.dtype} {want} tensor on {self.device}; "
-                    f"got {got}"
-                )
-            # the eager path hands over pooled state as strided views
-            values.append(v.contiguous())
-        return values
-
     def _launch(self, params, state):
-        lw, dev = self.lowered, self.device
-        tile, k, f = self.tile, self.num_blocks, lw.frames
-        threads = THREADS_PER_INSTANCE * tile
-        smem = shared_bytes(lw, tile)
-        if threads > MAX_THREADS or smem > MAX_SHARED_BYTES:
-            raise ValueError(
-                f"MegaRenderer: tile {tile} needs {threads} threads and {smem} "
-                f"bytes of shared memory per CTA (at most {MAX_THREADS} and "
-                f"{MAX_SHARED_BYTES})"
-            )
-        if self._tables is None:
-            self._tables = tuple(
-                torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                for a in (lw.ops, lw.io, lw.slots, lw.consts, lw.out_row)
-            )
-        ops, io, slots, consts, out_row = self._tables
-
-        values = self._leaf_values(params, state)
-        new = [torch.empty_like(v) if leaf.tree == "state" else v
-               for leaf, v in zip(lw.leaves, values)]
-        ptrs = [p for v, w in zip(values, new) for p in (v.data_ptr(), w.data_ptr())]
-        ptrs_d = torch.tensor(ptrs or [0], dtype=torch.int64).pin_memory().to(
-            dev, non_blocking=True)
-
-        # the echoes of a chunk that the final line does not keep
-        stride = max([0] + [max(0, k * f - int(r[AUX0]))
-                            for r in lw.ops if r[OP] == _ECHO])
-        scratch = torch.empty((self.batch * lw.echo_channels * stride,),
-                              dtype=torch.float32, device=dev)
+        if self._operands is None:
+            self._operands = KernelOperands(
+                self.program, self.lowered, self.batch, self.num_blocks,
+                self.tile, self.device, "MegaRenderer")
+        ko, lw, dev = self._operands, self.lowered, self.device
+        ops, io, slots, consts, out_row, _ = ko.tables
+        values, ptrs, new, scratch, stride = ko.chunk(params, state)
         n_out = lw.out_row.shape[0]
-        out = torch.empty((self.batch, k, n_out, f), dtype=torch.float32, device=dev)
-        masks = torch.empty((self.batch, k, n_out), dtype=torch.bool, device=dev)
+        out = torch.empty((self.batch, self.num_blocks, n_out, lw.frames),
+                          dtype=torch.float32, device=dev)
+        masks = torch.empty((self.batch, self.num_blocks, n_out),
+                            dtype=torch.bool, device=dev)
 
         lib = LIBRARY.load()
         with torch.cuda.device(dev):
@@ -497,11 +614,21 @@ class MegaRenderer:
             err = lib.fw_mega_render(
                 ops.data_ptr(), io.data_ptr(), slots.data_ptr(), consts.data_ptr(),
                 out_row.data_ptr(), n_out, lw.ops.shape[0],
-                ptrs_d.data_ptr(), out.data_ptr(), masks.data_ptr(),
-                scratch.data_ptr(), stride,
-                self.batch, tile, k, f, lw.num_buffers, lw.echo_channels, stream,
+                ptrs.data_ptr(), out.data_ptr(), masks.data_ptr(),
+                scratch.data_ptr(), *ko.sizes(stride, stream),
             )
+        del values  # enqueued: the stream orders any reuse after the kernel
         if err != 0:
             raise RuntimeError(f"MegaRenderer: kernel launch failed (cudaError {err})")
         MegaRenderer.launches += 1
         return out, masks, _new_state_tree(state, lw, new)
+
+
+def pin_cuda_index(device) -> torch.device:
+    """``device`` as a ``torch.device``, with the current index filled in
+    for a bare ``"cuda"``: a tensor's device always has one, and devices
+    compare exactly."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    return device

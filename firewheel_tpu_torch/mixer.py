@@ -1,12 +1,17 @@
-"""The benchmark graph, the batched 64-node mixer, and random graphs.
+"""The benchmark graphs: the batched 64-node mixer, the effects chain,
+and random graphs.
 
 :func:`mixer_graph` mirrors ``__graft_entry__._mixer_graph``: 19 voices of
 BeepTest → Volume → StereoPan, then Sum → lowpass Filter 8 kHz → Echo
 0.25 s/fb 0.3 → HardClip → DbMeter → out, at 48 kHz stereo, 64 nodes with
-the two sentinels.  Node keys (``repr(NodeID)``) come out identical to the
-JAX package's.  :func:`random_graph` builds seeded random DAGs of the same
-nodes, and :func:`vary_params` gives every instance of a batch its own
-params, for holding two lowerings against each other.
+the two sentinels.  :func:`effects_chain_graph` mirrors the graph that
+``bench.py --hybrid`` times, and :func:`effects_chain_config4_graph` the
+BASELINE config-4 graph of ``examples/effects_chain.py``: sampler → filter
+→ echo → clip → convolution reverb.  Node keys (``repr(NodeID)``) come out
+identical to the JAX package's.  :func:`random_graph` builds seeded random
+DAGs of the mixer's nodes, and :func:`vary_params` and
+:func:`vary_effects_params` give every instance of a batch its own params,
+for holding two lowerings against each other.
 """
 
 from __future__ import annotations
@@ -14,22 +19,28 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .core.sample_resource import SampleResource
 from .executor import ScheduleProgram
 from .graph import AudioGraph, AudioGraphConfig
 from .nodes import (
     BeepTestNode,
+    ConvolutionReverbNode,
     DbMeterNode,
     DummyAudioNode,
     EchoNode,
     FilterNode,
     FilterType,
     HardClipNode,
+    SamplerNode,
     StereoPanNode,
     SumNode,
     VolumeNode,
 )
 
-__all__ = ["BLOCK", "SR", "mixer_graph", "random_graph", "vary_params"]
+__all__ = [
+    "BLOCK", "SR", "effects_chain_config4_graph", "effects_chain_graph",
+    "mixer_graph", "random_graph", "vary_effects_params", "vary_params",
+]
 
 SR = 48000
 BLOCK = 128
@@ -66,6 +77,77 @@ def mixer_graph(num_voices: int = 19, filter_backend: str = "pallas",
     return ScheduleProgram(
         pkg.schedule, dict(pkg.new_node_processors), SR, device=device
     )
+
+
+def _chain(g, clip_audio, ir, echo_secs, filter_backend, device):
+    """sampler → filter → echo → clip → reverb → out, compiled."""
+    sn = SamplerNode(percent_volume=100.0, quality="cubic")
+    sn.set_sample(SampleResource(clip_audio))
+    sn.play()
+    sampler = g.add_node(0, 2, sn)
+    filt = g.add_node(2, 2, FilterNode("lowpass", frequency_hz=6000.0, q=0.9,
+                                       backend=filter_backend))
+    echo = g.add_node(2, 2, EchoNode(delay_secs=echo_secs, feedback=0.35, wet=0.4))
+    clip = g.add_node(2, 2, HardClipNode(threshold_db=-3.0))
+    rev = g.add_node(2, 2, ConvolutionReverbNode(ir, wet=0.35))
+    chain = [sampler, filt, echo, clip, rev, g.graph_out_node()]
+    for a, b in zip(chain[:-1], chain[1:]):
+        for ch in range(2):
+            g.connect(a, ch, b, ch)
+    pkg = g.compile(SR, BLOCK)
+    return ScheduleProgram(
+        pkg.schedule, dict(pkg.new_node_processors), SR, device=device
+    )
+
+
+def effects_chain_graph(clip_frames: int = 8192, filter_backend: str = "auto",
+                        device: str | torch.device = "cpu") -> ScheduleProgram:
+    """The effects chain of ``bench.py --hybrid``: a cubic sampler playing a
+    seeded stereo clip (``rng(3)``, ×0.25), lowpass 6 kHz q 0.9, echo
+    0.01 s (480 samples) fb 0.35 wet 0.4, clip at -3 dB, and a reverb with
+    a 256-tap stereo IR (``exp(-n/48)`` envelope), which is the direct
+    engine.  Partitions into torch(sampler) | island(filter, echo, clip) |
+    torch(reverb)."""
+    rng = np.random.default_rng(3)
+    clip_audio = (rng.standard_normal((2, clip_frames)) * 0.25).astype(np.float32)
+    ir = (rng.standard_normal((2, 256)) * np.exp(
+        -np.arange(256, dtype=np.float32) / 48.0)).astype(np.float32)
+    return _chain(AudioGraph(AudioGraphConfig(0, 2)), clip_audio, ir, 0.01,
+                  filter_backend, device)
+
+
+def karplus_strong_pluck(freq_hz: float, secs: float, sr: int = SR):
+    """Plucked-string synthesis: a noise burst through a feedback comb
+    (``examples/effects_chain.py``), stereo."""
+    rng = np.random.default_rng(5)
+    period = int(round(sr / freq_hz))
+    n = int(secs * sr)
+    buf = np.zeros(n, np.float32)
+    buf[:period] = rng.uniform(-1.0, 1.0, period).astype(np.float32)
+    for i in range(period, n):
+        buf[i] = 0.996 * 0.5 * (buf[i - period] + buf[i - period + 1])
+    return np.stack([buf, buf])
+
+
+def exp_decay_ir(secs: float, t60_secs: float, sr: int = SR):
+    """A synthetic stereo room: decorrelated, exponentially decaying noise
+    (``examples/effects_chain.py``)."""
+    rng = np.random.default_rng(9)
+    n = int(secs * sr)
+    t = np.arange(n, dtype=np.float32) / sr
+    env = np.exp(-6.91 * t / t60_secs)  # -60 dB at t60
+    ir = rng.standard_normal((2, n)).astype(np.float32) * env
+    return ir / np.abs(ir).sum(axis=-1, keepdims=True)
+
+
+def effects_chain_config4_graph(filter_backend: str = "auto",
+                                device: str | torch.device = "cpu") -> ScheduleProgram:
+    """BASELINE config 4 (``examples/effects_chain.py``): a 1.2 s
+    Karplus-Strong pluck through the chain, echo 0.28 s, and a 0.6 s IR
+    (28 800 taps, 225 partitions), which is the FFT engine."""
+    return _chain(AudioGraph(AudioGraphConfig(0, 2)),
+                  karplus_strong_pluck(220.0, 1.2), exp_decay_ir(0.6, 0.5),
+                  0.28, filter_backend, device)
 
 
 _FILTER_TYPES = (
@@ -164,4 +246,28 @@ def vary_params(params: dict, seed: int) -> dict:
             draw(p["freq"], 200.0, 12000.0)
         if "enabled" in p:
             p["enabled"].copy_(torch.from_numpy(rng.random(p["enabled"].shape) >= 0.25))
+    return params
+
+
+def vary_effects_params(params: dict) -> dict:
+    """Give every instance b of the effects chain's batch-stacked ``params``
+    its own values, in place: playback rate 0.75 + 0.25·(b mod 6); a loop
+    over the whole clip on even b, a one-shot from frame 1024·(b mod 8) on
+    odd b (so some finish early); cutoff 6000 − 50·(b mod 64) Hz; reverb
+    wet 0.2 + 0.01·(b mod 32).  Returns ``params``."""
+    for p in params.values():
+        if "sample" in p:
+            b = torch.arange(p["rate"].shape[0], device=p["rate"].device)
+            odd = b % 2 == 1
+            p["rate"].copy_(0.75 + 0.25 * (b % 6).to(torch.float32))
+            p["loop_on"].copy_(~odd)
+            p["loop_start"].zero_()
+            p["loop_end"].fill_(p["sample"].shape[-1])
+            p["seek_pos"].copy_(torch.where(odd, 1024 * (b % 8), 0))
+        elif "freq" in p:
+            b = torch.arange(p["freq"].shape[0], device=p["freq"].device)
+            p["freq"].copy_(6000.0 - 50.0 * (b % 64).to(torch.float32))
+        elif "taps" in p or "h_head" in p:
+            b = torch.arange(p["wet"].shape[0], device=p["wet"].device)
+            p["wet"].copy_(0.2 + 0.01 * (b % 32).to(torch.float32))
     return params

@@ -3,8 +3,10 @@
 PyTorch port of ``firewheel_tpu/parallel/mesh.py:BatchRenderer`` without
 the mesh: a game server renders many independent instances of one graph,
 whose params and state carry a leading batch axis B (the JAX package's
-``vmap``).  The device mesh, the pcm16/adpcm4 output formats and the
-hybrid lowering are not ported yet (ROADMAP.md).
+``vmap``).  Two lowerings: ``"xla"`` (the eager executor, every node a
+torch kernel, one block at a time) and ``"hybrid"`` (megakernel islands
+between torch stages, ``executor_hybrid.HybridMegaRenderer``).  The device
+mesh and the pcm16/adpcm4 output formats are not ported yet (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -34,7 +36,15 @@ class BatchRenderer:
         batch: int,
         device: str | torch.device = "cpu",
         output_format: str = "f32",
+        lowering: str = "xla",
+        tile: int = 1,
     ):
+        """``lowering``: ``"xla"`` (the eager executor; the name is the JAX
+        package's) or ``"hybrid"`` (megakernel islands between torch
+        stages); ``tile``: instances per CTA of the hybrid's island kernel.
+        Both lowerings take and return the same param and state trees."""
+        if lowering not in ("xla", "hybrid"):
+            raise ValueError(f"lowering must be 'xla' or 'hybrid', got {lowering!r}")
         if output_format != "f32":
             raise NotImplementedError(
                 f"output_format={output_format!r} is not ported yet "
@@ -44,7 +54,9 @@ class BatchRenderer:
         self.batch = int(batch)
         self.device = torch.device(device)
         self.output_format = output_format
-        self._chunk_cache: dict[int, Any] = {}
+        self.lowering = lowering
+        self._tile = int(tile)
+        self._chunk_cache: dict[Any, Any] = {}
         self._silent_in_cache: dict[int, Any] = {}
 
     # -- state/params with a leading batch axis -------------------------------
@@ -112,6 +124,20 @@ class BatchRenderer:
         elif in_mask is None:
             # provided inputs: not silent
             in_mask = torch.zeros((b, k, ni), dtype=torch.bool, device=self.device)
+        if self.lowering == "hybrid":
+            if int(status) != 0:
+                raise ValueError(
+                    "the hybrid lowering does not thread stream status; use "
+                    "lowering='xla' for status-bearing streams"
+                )
+            hy = self._chunk_cache.get(("hybrid", k))
+            if hy is None:
+                from ..executor_hybrid import HybridMegaRenderer
+
+                hy = HybridMegaRenderer(self.program, b, k, tile=self._tile,
+                                        device=self.device)
+                self._chunk_cache[("hybrid", k)] = hy
+            return hy.render_chunk(params, state, graph_in, in_mask, start_sample)
         fn = self._chunk_cache.get(k)
         if fn is None:
             fn = self.program.chunk_fn(k)

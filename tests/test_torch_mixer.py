@@ -194,8 +194,8 @@ def test_render_block_one_instance_matches_jax(both):
 
 def test_port_imports_no_jax():
     """Importing the port and rendering one CPU chunk with each lowering
-    (eager and megakernel) leaves JAX and the JAX package out of
-    ``sys.modules``."""
+    (eager, megakernel, and hybrid on the effects chain) leaves JAX and the
+    JAX package out of ``sys.modules``."""
     code = (
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
@@ -207,6 +207,13 @@ def test_port_imports_no_jax():
         "mr = MegaRenderer(ft.mixer_graph(), 2, 2)\n"
         "out, om, st = mr.render_chunk(mr.stack_params(), st, 256)\n"
         "assert out.shape == (2, 2, 2, 128), out.shape\n"
+        "hb = ft.BatchRenderer(ft.effects_chain_graph(), 2, lowering='hybrid')\n"
+        "out, om, st = hb.render_chunk(hb.stack_params(), hb.init_state(),"
+        " num_blocks=2)\n"
+        "assert out.shape == (2, 2, 2, 128) and float(out.abs().max()) > 0.01\n"
+        "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
+        " 'ops.direct_conv', 'executor_hybrid'):\n"
+        "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
         "print('loaded:', bad)\n"
