@@ -4,7 +4,10 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit.
 2. Builds the sequential-biquad kernel (``firewheel_tpu_torch/csrc/
-   biquad.cu``) with nvcc.
+   biquad.cu``) and the megakernel (``csrc/megakernel.cu``, K2 and K3) with
+   nvcc, one process each, and prints ptxas's registers, spills and stack
+   frame for K2 and K3, each with blocks of 128 frames fixed (the main
+   path) and of any multiple of 4.
 3. Holds the kernel against its plain PyTorch version on the card: at the
    main path's shape, at a ragged shape, with state carried across two
    calls and with a different filter per lane; prints both times.
@@ -19,10 +22,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    outputs, masks and every state leaf must agree; the first instances
    must match the CPU plain version; the kernel must launch once a chunk
    and K1 never (the filter runs inside it); state handed from an eager
-   chunk to a megakernel chunk must render what two eager chunks do.
-   Prints both lowerings' wall per chunk and realtime factor.
-6. Holds the megakernel against its plain version on the card on three
-   seeded random graphs at B=64, K=4.
+   chunk to a megakernel chunk must render what two eager chunks do; the
+   shared memory the wrapper counts must be the kernel's.  Times K2 on the
+   device (``torch.profiler``) and prints both lowerings' wall per chunk
+   and realtime factor.
+6. Holds the megakernel against its plain version on the card on five
+   seeded random graphs at B=64 over four chunks of 2048 frames, in which
+   every smoother ramps, settles and rests: three in blocks of 128 frames
+   (K=16), one of 64 (K=32) and one of 256 (K=8).
 7. Renders the effects chain (sampler → filter → echo → clip → reverb,
    ``mixer.effects_chain_graph``) with ``BatchRenderer(lowering="hybrid")``
    at B=1024, K=8 and at B=8192, K=32: torch stages for the sampler and the
@@ -42,7 +49,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    and the mixer as a graph that is one island.
 
 The last line of standard output is one JSON object with ``"ok": true``;
-the line before it lists each kernel with its launches, error and times.
+the line before the card's line lists each kernel with its launches on the
+main path, its error against its plain version, its time on the card, the
+plain version's, and its bound: the larger of the bytes it must move over
+3.35 TB/s and its f32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data
+sheet).
 Any failure raises and exits non-zero without that line.  Without a CUDA
 device, or without the package beside this file, it exits non-zero too.
 """
@@ -51,6 +62,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -66,12 +78,20 @@ SLICE_TOL = 1e-5      # card render vs CPU render of the same instances
 # megakernel vs eager on the card: masks and integer leaves exactly, floats
 # to 1e-5 (the meter's mean sums in another order; sin/exp round alike)
 MEGA_TOL = 1e-5
-RANDOM_SEEDS = (0, 1, 2)
-RANDOM_B, RANDOM_K = 64, 4
+# (seed, frames a block): the mixer's 128, and 64 and 256 (any multiple of 4
+# goes through the kernel); K·F = 2048 frames a chunk in each.  Not seed 4:
+# one of its 64 instances settles a pan one block apart on the card, at
+# F=128 as at 256: its ramp's first value sits at the settle threshold, and
+# the kernel's and torch's f32 ramps differ there by an ulp (outputs 1.2e-7)
+RANDOM_GRAPHS = ((0, 128), (1, 128), (2, 128), (3, 64), (1, 256))
+RANDOM_B, RANDOM_CHUNKS, RANDOM_CHUNK_FRAMES = 64, 4, 2048
 # the effects chain: bench.py --hybrid's configuration and the README's
 HYBRID_CONFIGS = ((1024, 8), (8192, 32))
 HYBRID_TOL = 1e-5     # hybrid vs eager and K3 vs its plain version on the card
 PHASE8_B, PHASE8_K = 64, 8
+KERNEL_REPS = 10      # launches per device-time measurement
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
 
 
 def log(msg: str) -> None:
@@ -114,10 +134,61 @@ def device_ms(fn, kernel: str, reps: int) -> float:
             fn()
         torch.cuda.synchronize()
     hits = [e for e in prof.key_averages() if kernel in e.key]
-    if len(hits) != 1 or hits[0].count != reps or not hits[0].device_time_total > 0:
+    # the mean over the launches the profiler recorded: all of them, or all
+    # but one (a launch at the edge of the trace may be left out)
+    if (len(hits) != 1 or not reps - 1 <= hits[0].count <= reps
+            or not hits[0].device_time_total > 0):
         raise AssertionError(f"profiler saw {[(e.key, e.count) for e in hits]} "
                              f"for {reps} launches of {kernel}")
-    return hits[0].device_time_total / reps / 1e3
+    log(f"{kernel}: {hits[0].count} of {reps} launches profiled")
+    return hits[0].device_time_total / hits[0].count / 1e3
+
+
+def bound(nbytes: float, ops: float):
+    """``(bound_ms, bound_by)``: the least time the card could take to move
+    ``nbytes`` (each input read once, each output written once) and do
+    ``ops`` f32 operations, and which of the two sets it."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def row_ops(code: int, n_in: int, n_out: int) -> int:
+    """f32 operations a megakernel row does per frame (a transcendental
+    counts as one; the smoothers' per-block work is left out)."""
+    return {0: 0, 1: 4, 2: n_in, 3: 4, 4: n_in - n_out, 5: 9 * n_in,
+            6: 5 * n_in, 7: 3 * n_in, 8: 3 * n_in}[code]
+
+
+def kernel_work(em, prog, lw, params, state, batch: int, k: int, io_bytes: int):
+    """``(bytes, ops)`` of one launch of K2 or K3 on ``lw``: its leaves read
+    (params, state, derived filter coefficients), its state written, the
+    operands ``io_bytes`` (outputs and masks, K3's live-ins), and its rows'
+    operations over every frame."""
+    values = em._leaf_values(prog, lw, params, state)
+    nbytes = io_bytes + sum(
+        v.nbytes * (2 if leaf.tree == "state" else 1)
+        for leaf, v in zip(lw.leaves, values))
+    ops = batch * k * lw.frames * sum(
+        row_ops(int(r[em.OP]), int(r[em.N_IN]), int(r[em.N_OUT])) for r in lw.ops)
+    return nbytes, ops
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """ptxas's registers, spills and stack frame for each entry function
+    whose mangled name contains ``kernel``, by that name, from a verbose
+    nvcc log."""
+    current, found = None, {}
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            current = m.group(1)
+        elif current and kernel in current and ("stack frame" in line
+                                                or "registers" in line):
+            found.setdefault(current, []).append(
+                line.replace("ptxas info    :", "").strip())
+    if not found:
+        raise AssertionError(f"no ptxas report for {kernel} in the build log")
+    return {name: "; ".join(lines) for name, lines in found.items()}
 
 
 def tree_err(a: dict, b: dict) -> float:
@@ -298,9 +369,16 @@ def render_mega(ft, seq_iir, em, card: str):
     params = mixer_params(mega)
     state0 = mega.init_state()
     frames = prog.max_block_frames
-    log(f"megakernel: {len(mega.lowered.keys)} rows, {len(mega.lowered.leaves)} "
-        f"leaves, {mega.lowered.num_buffers} buffers, "
-        f"{em.shared_bytes(mega.lowered, mega.tile)} B shared memory per CTA")
+    lw = mega.lowered
+    smem = em.shared_bytes(lw, mega.tile)
+    lib = em.LIBRARY.load()
+    kernel_smem = lib.fw_mega_shared_bytes(*em.shared_sizes(lw, mega.tile))
+    if kernel_smem != smem:
+        raise AssertionError(f"shared memory: the wrapper counts {smem} B, the "
+                             f"kernel {kernel_smem} B")
+    log(f"megakernel: {len(lw.keys)} rows, {len(lw.leaves)} leaves in "
+        f"{lw.num_words} words, {lw.num_buffers} buffers, {smem} B shared "
+        f"memory per CTA of {mega.tile} instance(s) (the kernel's count too)")
 
     worst = 0.0
 
@@ -361,6 +439,13 @@ def render_mega(ft, seq_iir, em, card: str):
     if not 0.01 < peak <= 1.0:
         raise AssertionError(f"megakernel output peak {peak} outside (0.01, 1]")
 
+    # K2's device time, and its work for the bound
+    k2_ms = device_ms(lambda: mega.render_chunk(params, m_runs[-2][2], starts[-1]),
+                      "mega_kernel", KERNEL_REPS)
+    out, masks = m_runs[-1][0], m_runs[-1][1]
+    work = kernel_work(em, prog, lw, params, m_runs[-2][2], B, K,
+                       out.nbytes + masks.nbytes)
+
     # mid-stream handoff: eager chunk 1 → megakernel chunk 2 == eager, eager
     h_out, h_mask, h_state = mega.render_chunk(params, e_runs[0][2], starts[1])
     torch.cuda.synchronize()
@@ -399,25 +484,31 @@ def render_mega(ft, seq_iir, em, card: str):
         f"{mega_wall * 1e3:.3f} ms (realtime factor {audio_secs / mega_wall:.1f}); "
         f"eager {eager_wall * 1e3:.3f} ms (realtime factor "
         f"{audio_secs / eager_wall:.1f})")
-    return launches, worst, mega_wall * 1e3, eager_wall * 1e3
+    log(f"megakernel: K2 {k2_ms:.4f} ms on the device a chunk "
+        f"({KERNEL_REPS} launches, torch.profiler); {work[0] / 1e9:.3f} GB to "
+        f"move, {work[1] / 1e9:.2f} G f32 operations")
+    return launches, worst, k2_ms, eager_wall * 1e3, work
 
 
 def check_random_graphs(ft, em):
     """Phase 6: the megakernel against its plain version on the card, on
-    seeded random graphs."""
+    seeded random graphs, over chunks in which every pan and volume
+    smoother ramps from its new per-instance value, settles and rests."""
     from firewheel_tpu_torch.mixer import random_graph, vary_params
 
     worst = 0.0
-    for seed in RANDOM_SEEDS:
-        prog = random_graph(seed, device="cuda")
-        mega = em.MegaRenderer(prog, RANDOM_B, RANDOM_K, device="cuda")
+    for seed, frames in RANDOM_GRAPHS:
+        k = RANDOM_CHUNK_FRAMES // frames
+        prog = random_graph(seed, device="cuda", block_frames=frames)
+        mega = em.MegaRenderer(prog, RANDOM_B, k, device="cuda")
         params = vary_params(mega.stack_params(), seed)
         ms = rs = mega.init_state()
-        for c in range(2):
-            start = c * RANDOM_K * prog.max_block_frames
+        statuses = []
+        for c in range(RANDOM_CHUNKS):
+            start = c * RANDOM_CHUNK_FRAMES
             mo, mm, ms = mega.render_chunk(params, ms, start)
             ro, rm, rs = em.mega_chunk_reference(
-                prog, mega.lowered, params, rs, start, RANDOM_K, RANDOM_B)
+                prog, mega.lowered, params, rs, start, k, RANDOM_B)
             torch.cuda.synchronize()
             out_e = float((mo - ro).abs().max())
             state_e = tree_err(ms, rs)
@@ -427,13 +518,28 @@ def check_random_graphs(ft, em):
                     f"random graph {seed}, chunk {c}: megakernel vs plain "
                     f"max_abs_err {e}, masks equal {torch.equal(mm, rm)}")
             worst = max(worst, e)
-        log(f"random graph {seed}: {len(prog.schedule.schedule)} nodes, "
+            statuses.append(smoother_statuses(ms))
+        # ramping after the first chunk, all at rest after the last
+        if not bool((statuses[0] == 1).any()) or bool(statuses[-1].any()):
+            raise AssertionError(f"random graph {seed}: smoother statuses "
+                                 f"{statuses[0].tolist()} → {statuses[-1].tolist()}")
+        log(f"random graph {seed}, F={frames}, K={k}: "
+            f"{len(prog.schedule.schedule)} nodes, "
             f"{prog.schedule.num_buffers} buffers, megakernel vs plain version "
-            f"on the card: outputs {out_e:.3e}, state {state_e:.3e} "
-            f"(last chunk), masks equal")
-    log(f"random graphs {RANDOM_SEEDS} at B={RANDOM_B} K={RANDOM_K}: "
+            f"on the card: outputs {out_e:.3e}, state {state_e:.3e} (last chunk), "
+            f"masks equal; smoothers ramping after chunk 0: "
+            f"{int((statuses[0] == 1).sum())} of {statuses[0].numel()}, at rest "
+            f"after chunk {RANDOM_CHUNKS - 1}")
+    log(f"random graphs {RANDOM_GRAPHS} (seed, F) at B={RANDOM_B}: "
         f"max_abs_err={worst:.3e}")
     return worst
+
+
+def smoother_statuses(state):
+    """Every pan and volume smoother's status in ``state``, flattened."""
+    found = [v[name]["status"].reshape(-1) for v in state.values()
+             for name in ("gain", "pan") if name in v]
+    return torch.cat(found) if found else torch.zeros(0, dtype=torch.int32)
 
 
 def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
@@ -532,7 +638,7 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
 
     # the first instances against the CPU plain hybrid
     cpu = ft.BatchRenderer(ft.effects_chain_graph(device="cpu"), CHECK_INSTANCES,
-                           lowering="hybrid")
+                           device="cpu", lowering="hybrid")
     cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
     cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state0)
     cpu_worst = 0.0
@@ -577,8 +683,11 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
     def launch():
         return hy._launch(i, pseg, sseg, env, env_flags)
 
-    k3_ms = device_ms(launch, "island_kernel", 10)
-    k3_call_ms = cuda_ms(launch, 10)
+    log(f"{tag}: K3 {em.shared_bytes(lw, hy.tile)} B shared memory per CTA")
+    k3_ms = device_ms(launch, "island_kernel", KERNEL_REPS)
+    k3_call_ms = cuda_ms(launch, KERNEL_REPS)
+    work = kernel_work(em, prog, lw, pseg, sseg, b, k, env.nbytes + env_flags.nbytes
+                       + ko.nbytes + kf.nbytes)
     plain_ms = cuda_ms(lambda: em.island_chunk_reference(
         prog, lw, pseg, sseg, env, env_flags, starts[-1], k, b), 2)
 
@@ -597,7 +706,7 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
         f"{h_wall * 1e3:.3f} ms (realtime factor {audio_secs / h_wall:.1f}, peak "
         f"{h_peak:.3f} GB); eager {e_wall * 1e3:.3f} ms (realtime factor "
         f"{audio_secs / e_wall:.1f}, peak {e_peak:.3f} GB)")
-    return launches, max(worst, k3_err), k3_ms, plain_ms
+    return launches, max(worst, k3_err), k3_ms, plain_ms, work
 
 
 def stream_in_graph(ft):
@@ -695,57 +804,60 @@ def main() -> int:
         t0 = now
 
     cuda_build.build_all([seq_iir.LIBRARY, em.LIBRARY], verbose=True)
+    if em.LIBRARY.log:
+        for kernel in ("mega_kernel", "island_kernel"):
+            # two of each: blocks of 128 frames fixed, and any multiple of 4
+            for name, report in ptxas_report(em.LIBRARY.log, kernel).items():
+                frames = "F=128" if "Args128" in name else "any F"
+                log(f"ptxas, {kernel} ({frames}): {report}")
+    else:
+        log("ptxas: the megakernel library was built before this run")
     phase("2, K1 and the megakernel (K2, K3) built")
 
     err, ms, plain_ms = check_kernel(seq_iir, iir)
     phase("3, K1 vs plain")
     launches = render_mixer(ft, seq_iir, card)
     phase("4, mixer eager")
-    m_launches, m_err, m_ms, m_plain_ms = render_mega(ft, seq_iir, em, card)
+    m_launches, m_err, m_ms, m_plain_ms, m_work = render_mega(ft, seq_iir, em, card)
     phase("5, mixer megakernel")
     r_err = check_random_graphs(ft, em)
     phase("6, random graphs")
-    h_launches, h_err, h_ms, h_plain_ms = 0, 0.0, None, None
+    h_launches, h_err = 0, 0.0
     for b, k in HYBRID_CONFIGS:
-        n, e, k3_ms, k3_plain_ms = render_hybrid(ft, seq_iir, em, eh, card, b, k)
+        # the kernels line keeps the last configuration's times (B=8192, K=32)
+        n, e, h_ms, h_plain_ms, h_work = render_hybrid(ft, seq_iir, em, eh, card,
+                                                        b, k)
         h_launches += n
         h_err = max(h_err, e)
-        if h_ms is None:  # the slice's configuration, B=1024, K=8
-            h_ms, h_plain_ms = k3_ms, k3_plain_ms
         phase(f"7, effects chain hybrid B={b} K={k}")
     h_err = max(h_err, check_hybrid_graphs(ft, em, eh))
     phase("8, hybrid on three more graphs")
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
-    kernels = [{
-        "name": "biquad_seq",
-        "route": "cuda",
-        "source": "firewheel_tpu_torch/csrc/biquad.cu",
-        "replaces": "firewheel_tpu/ops/pallas_iir.py:50",
-        "launches": launches,
-        "max_abs_err": err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }, {
-        "name": "megakernel",
-        "route": "cuda",
-        "source": "firewheel_tpu_torch/csrc/megakernel.cu",
-        "replaces": "firewheel_tpu/executor_pallas.py:218",
-        "launches": m_launches,
-        "max_abs_err": max(m_err, r_err),
-        "ms": m_ms,
-        "plain_ms": m_plain_ms,
-    }, {
-        "name": "hybrid_island",
-        "route": "cuda",
-        "source": "firewheel_tpu_torch/csrc/megakernel.cu",
-        "replaces": "firewheel_tpu/executor_pallas.py:617",
-        "launches": h_launches,
-        "max_abs_err": h_err,
-        "ms": h_ms,
-        "plain_ms": h_plain_ms,
-    }]
+    lanes = 2 * B  # K1 at the main path's shape: x, y [lanes, 128], coef, z in and out
+    k1_work = (4 * lanes * (2 * 128 + 5 + 2 * 2), 9 * lanes * 128)
+    kernels = []
+    for name, source, replaces, n, e, t, plain, work in (
+        ("biquad_seq", "firewheel_tpu_torch/csrc/biquad.cu",
+         "firewheel_tpu/ops/pallas_iir.py:50", launches, err, ms, plain_ms, k1_work),
+        ("megakernel", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:218", m_launches, max(m_err, r_err),
+         m_ms, m_plain_ms, m_work),
+        ("hybrid_island", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:617", h_launches, h_err, h_ms,
+         h_plain_ms, h_work),
+    ):
+        bound_ms, bound_by = bound(*work)
+        kernels.append({
+            "name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": n, "max_abs_err": e, "ms": t, "plain_ms": plain,
+            "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / t,
+            "library_ms": None,  # no one PyTorch call computes any of the three
+        })
+        log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "
+            f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G f32 "
+            f"operations), {100 * bound_ms / t:.1f}% of the bound")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -3,48 +3,94 @@
 //
 // mega_kernel (K2) replaces the TPU kernel firewheel_tpu/executor_pallas.py:
 // MegaRenderer._build.kernel; island_kernel (K3) replaces
-// HybridMegaRenderer._mega_segment.kernel.  The rows come in as tables that
-// executor_mega.py:lower_schedule builds once per graph or island:
+// HybridMegaRenderer._mega_segment.kernel.  Both are render<> below.  The
+// rows come in as tables that executor_mega.py:lower_schedule builds once
+// per graph or island:
 //
 //   ops     int32 [n_ops, kRowWidth]  one row per interior node, in schedule
 //                                     order (fields: enum Field)
 //   io      int32  per row: its input buffers, their should_clear flags,
 //                  its output buffers
-//   slots   int32  per row: indices into the leaf list; leaf s has its input
-//                  pointer at ptrs[2s] and its output pointer at ptrs[2s+1]
 //   consts  f32    per row: the processor's float constants
-//   out_row int32 [No, 2]  output buffer and should_clear (0 in an island)
-//   in_bufs int32 [n_in]   an island's live-in buffers
+//   out_row int32 [n_out, 2]  output buffer and should_clear (0 in an island)
+//   in_bufs int32 [n_in]      an island's live-in buffers
+//   leaves  int32 [n_leaves, kLeafWidth]  per leaf of the flat param/state
+//                  list: its first word in an instance's block of leaf
+//                  words, its word count (0: the leaf stays in device
+//                  memory), its type (enum LeafType) and whether it is
+//                  state.  Leaf s has its input pointer at ptrs[2s] and its
+//                  output pointer at ptrs[2s+1]; a row's leaves are
+//                  consecutive from its kSlot, its words from its kWord.
 //
 // K3 takes the live-in rows env f32[B, K, n_in, F] and their silence flags
-// bool[B, K, n_in] as operands: each block starts by copying block k's rows
-// into their arena buffers (one thread per frame, so the loads coalesce),
-// walks the island's rows, and writes the live-out buffers as they are,
+// bool[B, K, n_in] as operands, copies block k's rows into their arena
+// buffers before the rows, and writes the live-out buffers as they are,
 // not zeroed by their flags (the torch stage after the island reads them),
 // with their flags as bool[B, K, n_out].  K2 writes the graph outputs with
 // flagged channels zeroed.
 //
-// Every leaf is a contiguous [B, ...] tensor.  Params are read; each state
-// leaf is read from its input at block 0, from its output after that, and
-// every device function writes all of its state every block.
+// What bounds it on an H100.  The bytes a chunk must move are the outputs
+// and, for an echo, its line read and written once: 1.86 GB for the 64-node
+// mixer at B=8192, K=32, 0.55 ms at 3.35 TB/s; its f32 operations take a
+// fifth of that.  The first design (128 threads an instance) took 31 ms: the
+// row walk (table reads, a chase of three dependent global loads per param
+// and state value, two or three CTA-wide barriers a row) and transcendentals
+// that the pan recomputed every frame.  What bounds this design is latency:
+// the mixer's arena (40 buffers x 128 frames, 20 KB) holds an SM to 8
+// instances, two warps a scheduler, and each row is a chain of dependent
+// shared-memory loads, branches and arithmetic.  Against that:
 //
-// Threads: one CTA per `tile` instances and 128 threads per instance, one
-// per frame of a 128-frame block (frames >= 128 loop).  Every thread of a
-// CTA walks the same row at the same time, so the switch never diverges.
-// Shared memory holds each instance's arena (num_buffers x F floats), the
-// buffers' silence flags, four words of reduction scratch per kind and one
-// carry per echo channel.  The K-block loop runs inside the kernel.
-//
-// What bounds it on an H100: not bytes.  Per block and instance the arena
-// stays on chip; device memory sees the params and small state (a few
-// hundred bytes), the echo's delayed tap and its write (2 x F floats per
-// channel) and the output block; the echo line (D floats per channel) is
-// read and written once per chunk.  Measured on the 64-node mixer
-// (PERF.md), ~60% of the time is the row walk itself: every thread reads
-// its row's fields and buffer indices from the tables, and every row ends
-// in __syncthreads.  The smoothers' expf ramp and the pan law's cosf/sinf
-// per frame take ~27%; the echo and the filter, whose recurrence runs on
-// one thread per channel, ~5% each.
+//  a. Tables on chip: every CTA copies ops, io, consts, out_row and in_bufs
+//     into shared memory once; rows decode from there (a row's fields are
+//     three int4 loads).  They cost the mixer two of ten resident instances
+//     an SM, yet read through L1 instead K2 took 10.5 ms, not 9.0.
+//  b. Leaves on chip: each instance gathers its params, state and derived
+//     filter coefficients into 32-bit words in shared memory once a chunk
+//     (bool as 0/1, the uint32 carried in int64 as its low 32 bits, f32 and
+//     int32 as they are; lanes over leaves, so the loads overlap).  Rows
+//     read and update the words for all K blocks; the state words go to the
+//     output leaves once, at the end of the chunk.  Each echo channel keeps
+//     its line's pointers and loud-sample count in shared memory too.
+//  c. One warp per instance and no CTA-wide barrier after the table copy.
+//     Lane l owns the float4s l, l + 32, ... of each buffer: frames
+//     4l..4l+3 at F = 128.  F may be any multiple of 4 (the wrapper raises
+//     otherwise); F = 128, every graph in the repo, has kernels of its own
+//     in which F is a compile-time constant (Args128).  Every lane computes
+//     a row's flags and smoother scalars from the words; after a
+//     __syncwarp the row's lanes publish what later rows read (flags in
+//     parallel, state words, echo counts), and every row ends in a
+//     __syncwarp.  Reductions are shuffles.  The filter's recurrence runs
+//     on one lane per channel over all frames (biquad_step.cuh, K1's
+//     rounding) while the SM's other warps run.  `tile` is the number of instances, so of warps, per CTA; it
+//     changes nothing measurable (tiles 1-4).  Every access to shared memory
+//     indexes the extern array by a 32-bit word offset: pointers into it
+//     kept in structs compiled to generic 64-bit loads.
+//  d. Per-block values out of the frame loop: while a smoother is not
+//     ramping its value is one constant, so the pan's cosf/sinf and the
+//     volume's gain are computed once a block (the same f32 inputs give the
+//     same bits as per frame).  The ramping paths are out of line, which
+//     keeps the hot code small; the beep's per-frame sinf is the work.
+//  e. Registers on purpose: shared memory, not registers, bounds the
+//     mixer's residency at 8 warps an SM, so __launch_bounds__ names the
+//     most threads a CTA launches (kMaxTile warps) and asks for one CTA,
+//     leaving ptxas free.  It reports 80 registers for mega_kernel and 92
+//     for island_kernel (108 with F read at run time), no spills, and a
+//     128-byte stack frame: the precise sinf/cosf slow path's local array
+//     and the out-of-line ramping paths.
+//     Capping island_kernel at 64 registers spilled and was faster at
+//     B=8192 but slower at B=1024.  chip_smoke.py phase 2 prints the report.
+//  f. The echo line at bandwidth: the chunk-start count and copy of the
+//     kept line, and each block's tap and append, use 16-byte accesses when
+//     the line length is a multiple of 4 and the pointers are aligned (the
+//     mixer's and the effects chain's are); 4-byte accesses otherwise.  K3's
+//     live-in and live-out copies and K2's outputs are 16-byte too.
+//  g. Rows side by side: lower_schedule marks runs of 2 or 4 consecutive
+//     independent rows of dummy, beep, volume or pan (the mixer's voices)
+//     as a group, which one step of the walk runs on 32/G lanes a row, G
+//     float4s a lane: the mixer's 62 rows take 23 steps.  A later row of a
+//     group may write a buffer that an earlier one reads (the allocator
+//     reuses it), so a grouped row reads all of its inputs before the
+//     __syncwarp that precedes its writes.
 //
 // Device functions, each the counterpart of one of the port's node kernels
 // (and through it of the JAX package's):
@@ -60,16 +106,33 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+#include <type_traits>
+
 #include "biquad_step.cuh"
+
+// The CTA's dynamic shared memory.  Every access indexes this array itself
+// by a 32-bit word offset, so that ptxas emits LDS/STS: pointers into it
+// kept in structs compiled to generic 64-bit loads (LD.E), which slowed the
+// row walk.
+extern __shared__ float4 smem4[];
 
 namespace {
 
-constexpr int kThreads = 128;  // threads per instance
-constexpr int kWarps = kThreads / 32;
-constexpr int kRowWidth = 9;
-enum Field { kOp, kNIn, kNOut, kIo, kSlot, kNSlot, kConst, kAux0, kAux1 };
+constexpr int kLanes = 32;    // threads per instance: one warp
+constexpr int kMaxTile = 8;   // instances (warps) per CTA at most
+constexpr int kMaxThreads = kLanes * kMaxTile;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kRowWidth = 12;  // 48 bytes: a row's fields load as three int4
+enum Field {
+  kOp, kNIn, kNOut, kIo, kSlot, kNSlot, kConst, kAux0, kAux1, kWord, kNClear,
+  kGroup
+};
 enum OpCode { kDummy, kBeep, kVolume, kPan, kSum, kFilter, kEcho, kClip, kMeter };
 enum SmootherStatus { kInactive = 0, kActive = 1, kDeactivating = 2 };
+constexpr int kLeafWidth = 4;
+enum LeafField { kLeafWord, kLeafCount, kLeafType, kLeafState };
+enum LeafType { kWord32, kBool, kInt64 };
 
 constexpr float kQuiet = 1e-10f;
 constexpr float kTau = 6.28318530717958647692f;
@@ -78,58 +141,127 @@ constexpr float kQuarterPi = 0.78539816339744830962f;
 struct Args {
   const int* ops;
   const int* io;
-  const int* slots;
   const float* consts;
   const int* out_row;
-  int n_out, n_ops;
   const int* in_bufs;     // K3: live-in buffers
-  int n_in;
+  const int* leaves;
+  int n_ops, n_io, n_consts, n_out, n_in, n_leaves, num_words;
+  const int64_t* ptrs;
   const float* env;       // K3: [B, K, n_in, F] live-in rows
   const bool* env_flags;  // K3: [B, K, n_in] their flags
-  const int64_t* ptrs;
-  float* out;     // [B, K, No, F]
-  bool* masks;    // [B, K, No]
+  float* out;     // [B, K, n_out, F]
+  bool* masks;    // [B, K, n_out]
   float* scratch; // [B, echo_channels, stride]: echoes the final line drops
   int64_t stride;
-  int tile, K, F, num_buffers, echo_channels;
+  int tile, K, F, num_buffers, echo_channels;  // F % 4 == 0
 };
 
-// 32-bit words of shared memory per instance: the arena, the flags, the
-// reduction scratch and the echo carries (executor_mega.shared_bytes).
+__host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
+
+// One echo channel of an instance, in shared memory for the chunk: its
+// loud-sample count and its line's pointers (8 words).
+struct EchoChannel {
+  int count;  // loud samples in the window before the current block
+  int vec;    // 16-byte accesses (see EchoLine)
+  const float* in;
+  float* out;
+  float* scratch;
+};
+constexpr int kEchoWords = sizeof(EchoChannel) / 4;
+
+// 32-bit words of shared memory (executor_mega.shared_bytes): the tables,
+// once per CTA, then per instance its arena (num_buffers x F floats), its
+// echo channels, the buffers' silence flags and its leaf words.  Both
+// parts round up to 16 bytes, so every arena row is 16-byte aligned and
+// every echo channel 8-byte aligned.
+__host__ __device__ inline int table_words(const Args& a) {
+  return round4(a.n_ops * kRowWidth + a.n_io + a.n_consts + 2 * a.n_out + a.n_in);
+}
 __host__ __device__ inline int words_per_instance(const Args& a) {
-  return a.num_buffers * a.F + a.num_buffers + 2 * kWarps + a.echo_channels;
+  return round4(a.num_buffers * a.F + kEchoWords * a.echo_channels +
+                a.num_buffers + a.num_words);
+}
+__host__ __device__ inline size_t shared_bytes(const Args& a) {
+  return 4 * (static_cast<size_t>(table_words(a)) +
+              static_cast<size_t>(a.tile) * words_per_instance(a));
 }
 
-// One instance's view of the CTA's shared memory.
-struct Inst {
-  float* buf;   // [num_buffers][F]
-  int* flag;    // [num_buffers], 1 = silent
-  float* redf;  // [kWarps]
-  int* redi;    // [kWarps]
-  int* carry;   // [echo_channels]: count of loud samples in each echo window
-  int64_t i;    // instance
-  int t;        // thread within the instance
+// The CTA's dynamic shared memory (smem4) by 32-bit word offset.
+__device__ __forceinline__ int& s_int(int w) {
+  return reinterpret_cast<int*>(smem4)[w];
+}
+__device__ __forceinline__ float& s_float(int w) {
+  return reinterpret_cast<float*>(smem4)[w];
+}
+__device__ __forceinline__ uint32_t& s_word(int w) {
+  return reinterpret_cast<uint32_t*>(smem4)[w];
+}
+__device__ __forceinline__ float4& s_float4(int w) {  // w % 4 == 0
+  return smem4[w >> 2];
+}
+
+// Where the tables start in shared memory (word offsets).
+struct Tables {
+  int ops, io, consts, out_row, in_bufs;
 };
 
-// The leaves of one row.
-struct Leaves {
-  const int64_t* ptrs;
-  const int* slot;
-  int64_t i;
-  bool first;  // block 0: state comes from the chunk's input
-  template <class T>
-  __device__ const T* in(int pos, int64_t n = 1) const {
-    return reinterpret_cast<const T*>(ptrs[2 * slot[pos]]) + i * n;
-  }
-  template <class T>
-  __device__ T* out(int pos, int64_t n = 1) const {
-    return reinterpret_cast<T*>(ptrs[2 * slot[pos] + 1]) + i * n;
-  }
-  template <class T>
-  __device__ const T* state(int pos, int64_t n = 1) const {
-    return first ? in<T>(pos, n) : out<T>(pos, n);
-  }
+// One instance's part of the CTA's shared memory (word offsets), and the
+// lanes that run the current row: a group of G rows runs on 32/G lanes each
+// (`span`), lane `sub` of them owning float4 sub, sub + span, ... of each
+// buffer.  A row alone has span 32 and sub = lane; the rows with warp-wide
+// reductions (sum, filter, echo, clip, meter) always run alone.
+struct Inst {
+  int buf;    // [num_buffers][F]
+  int echo;   // [echo_channels] EchoChannel
+  int flag;   // [num_buffers], 1 = silent
+  int word;   // [num_words]: the leaves on chip
+  int64_t i;  // instance
+  int lane, sub, span;
+  unsigned mask;  // the lanes of the row
 };
+
+struct Row {
+  int op, n_in, n_out, n_clear;
+  int in;     // input buffers (word offset of the list)
+  int clear;  // their should_clear flags
+  int out;    // output buffers
+  int c;      // constants
+  int aux0, aux1, slot;
+  int w;      // the row's leaf words
+};
+
+__device__ __forceinline__ int in_buf(const Row& r, int j) { return s_int(r.in + j); }
+__device__ __forceinline__ int out_buf(const Row& r, int j) { return s_int(r.out + j); }
+__device__ __forceinline__ float cst(const Row& r, int k) { return s_float(r.c + k); }
+__device__ __forceinline__ uint32_t& word(const Row& r, int k) {
+  return s_word(r.w + k);
+}
+__device__ __forceinline__ float wf(const Row& r, int k) {
+  return __uint_as_float(word(r, k));
+}
+__device__ __forceinline__ void set_wf(const Row& r, int k, float v) {
+  word(r, k) = __float_as_uint(v);
+}
+__device__ __forceinline__ int& flag(const Inst& I, int b) {
+  return s_int(I.flag + b);
+}
+__device__ __forceinline__ EchoChannel& echo_ch(const Inst& I, int c) {
+  return reinterpret_cast<EchoChannel*>(reinterpret_cast<int*>(smem4) + I.echo)[c];
+}
+
+// The float4 of buffer b that holds frames 4q..4q+3.
+template <class A>
+__device__ __forceinline__ float4& frames4(const A& a, const Inst& I, int b,
+                                          int q) {
+  return s_float4(I.buf + b * a.F + 4 * q);
+}
+// Float4s in a block; lane sub of a row owns q = sub, sub + span, ...
+template <class A>
+__device__ __forceinline__ int quads(const A& a) { return a.F >> 2; }
+__device__ __forceinline__ float& at(float4& v, int e) {
+  return reinterpret_cast<float*>(&v)[e];
+}
+__device__ __forceinline__ float4 splat(float x) { return make_float4(x, x, x, x); }
 
 // torch.maximum / torch.minimum: a NaN in either operand propagates.
 __device__ __forceinline__ float nanmax(float a, float b) {
@@ -139,32 +271,8 @@ __device__ __forceinline__ float nanmin(float a, float b) {
   return (a != a || a < b) ? a : b;
 }
 __device__ __forceinline__ int loud(float x) { return !(fabsf(x) < kQuiet); }
-
-// Reductions over one instance's 128 threads.  Every thread of the CTA
-// calls them (they hold __syncthreads) and every thread gets the result.
-__device__ float sum_f(float v, const Inst& I) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((I.t & 31) == 0) I.redf[I.t >> 5] = v;
-  __syncthreads();
-  return (I.redf[0] + I.redf[1]) + (I.redf[2] + I.redf[3]);
-}
-
-__device__ float max_f(float v, const Inst& I) {
-  for (int o = 16; o > 0; o >>= 1)
-    v = nanmax(v, __shfl_xor_sync(0xffffffffu, v, o));
-  __syncthreads();
-  if ((I.t & 31) == 0) I.redf[I.t >> 5] = v;
-  __syncthreads();
-  return nanmax(nanmax(I.redf[0], I.redf[1]), nanmax(I.redf[2], I.redf[3]));
-}
-
-__device__ int sum_i(int v, const Inst& I) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  __syncthreads();
-  if ((I.t & 31) == 0) I.redi[I.t >> 5] = v;
-  __syncthreads();
-  return (I.redi[0] + I.redi[1]) + (I.redi[2] + I.redi[3]);
+__device__ __forceinline__ int loud4(float4 v) {
+  return loud(v.x) + loud(v.y) + loud(v.z) + loud(v.w);
 }
 
 // core/smoother.py:smoother_set_and_process, for one value per instance.
@@ -176,6 +284,8 @@ struct Smooth {
   __device__ float ramp(int f) const {
     return x_eff + (last - x_eff) * expf(static_cast<float>(f + 1) * log_b);
   }
+  // one value for every frame of the block
+  __device__ bool flat() const { return settled || !active; }
   __device__ float value(int f) const {
     return settled ? target : (active ? ramp(f) : last);
   }
@@ -189,159 +299,232 @@ struct Smooth {
   }
 };
 
-__device__ Smooth smoother(float val, float target, float last, int status,
-                           float a, float log_b, float eps) {
+// words: value, target, last, status; consts: a, log_b, eps
+__device__ Smooth smoother(const Row& r) {
+  const float val = wf(r, 0);
   Smooth s;
-  s.status = val != target ? kActive : status;
+  s.status = val != wf(r, 1) ? kActive : static_cast<int>(word(r, 3));
   s.target = val;
-  s.last = last;
+  s.last = wf(r, 2);
   s.active = s.status == kActive;
-  s.x_eff = (val * a) / a;
-  s.log_b = log_b;
-  s.settled = s.active && fabsf(val - s.ramp(0)) < eps;
+  s.x_eff = (val * cst(r, 0)) / cst(r, 0);
+  s.log_b = cst(r, 1);
+  s.settled = s.active && fabsf(val - s.ramp(0)) < cst(r, 2);
   return s;
 }
 
 // The new state; `reset` holds the target flat (smoother_init).
-__device__ void write_smoother(const Leaves& L, int pos, const Smooth& s,
-                               bool reset, int frames) {
-  *L.out<float>(pos) = s.target;
-  *L.out<float>(pos + 1) = reset ? s.target : s.new_last(frames);
-  *L.out<int>(pos + 2) = reset ? kInactive : s.new_status();
+__device__ void write_smoother(const Row& r, const Smooth& s, bool reset,
+                               int frames) {
+  set_wf(r, 1, s.target);
+  set_wf(r, 2, reset ? s.target : s.new_last(frames));
+  word(r, 3) = reset ? kInactive : s.new_status();
 }
 
-struct Row {
-  int n_in, n_out;
-  const int* in;     // input buffers
-  const int* clear;  // their should_clear flags
-  const int* out;    // output buffers
-  const float* c;    // constants
-  int aux0, aux1;
-};
+// The smoother's values for frames 4q..4q+3 while it ramps: out of line,
+// so that the flat path's code stays compact.
+__device__ __noinline__ float4 value4(const Smooth& s, int q) {
+  float4 v;
+#pragma unroll
+  for (int e = 0; e < 4; ++e) at(v, e) = s.value(4 * q + e);
+  return v;
+}
 
+// True when every input buffer of the row is flagged silent; the row's
+// lane j looks at input j (and j + span, ...), so the loads overlap.
 __device__ bool all_silent(const Row& r, const Inst& I) {
   bool s = true;
-  for (int j = 0; j < r.n_in; ++j) s = s && I.flag[r.in[j]] != 0;
+  for (int base = 0; base < r.n_in; base += I.span) {
+    const int j = base + I.sub;
+    const unsigned b =
+        __ballot_sync(kFull, j >= r.n_in || flag(I, in_buf(r, j)) != 0);
+    s = s && (b & I.mask) == I.mask;
+  }
   return s;
 }
 
-__device__ void op_dummy(const Args& a, const Row& r, const Inst& I) {
-  for (int f = I.t; f < a.F; f += kThreads)
-    for (int j = 0; j < r.n_out; ++j) I.buf[r.out[j] * a.F + f] = 0.f;
-  if (I.t == 0)
-    for (int j = 0; j < r.n_out; ++j) I.flag[r.out[j]] = 0;
+template <class A>
+__device__ void op_dummy(const A& a, const Row& r, const Inst& I) {
+  for (int q = I.sub; q < quads(a); q += I.span)
+    for (int j = 0; j < r.n_out; ++j) frames4(a, I, out_buf(r, j), q) = splat(0.f);
+  for (int j = I.sub; j < r.n_out; j += I.span) flag(I, out_buf(r, j)) = 0;
 }
 
-// leaves: enabled (bool), inc (uint32 in int64), gain, phase (uint32 in int64)
-__device__ void op_beep(const Args& a, const Row& r, const Inst& I,
-                        const Leaves& L) {
-  const bool en = *L.in<bool>(0);
-  const uint32_t inc = static_cast<uint32_t>(*L.in<int64_t>(1));
-  const float gain = *L.in<float>(2);
-  const uint32_t ph = static_cast<uint32_t>(*L.state<int64_t>(3));
-  for (int f = I.t; f < a.F; f += kThreads) {
-    const uint32_t q = ph + static_cast<uint32_t>(f) * inc;
-    // the signed phase in cycles, [-0.5, 0.5): _signed_phase
-    const float x = static_cast<float>(static_cast<int32_t>(q)) * 0x1p-32f;
-    const float v = en ? sinf(x * kTau) * gain : 0.f;
-    for (int j = 0; j < r.n_out; ++j) I.buf[r.out[j] * a.F + f] = v;
+// words: enabled, inc, gain, phase (state)
+template <class A>
+__device__ void op_beep(const A& a, const Row& r, const Inst& I) {
+  const bool en = word(r, 0) != 0;
+  const uint32_t inc = word(r, 1);
+  const float gain = wf(r, 2);
+  const uint32_t ph = word(r, 3);
+  for (int q = I.sub; q < quads(a); q += I.span) {
+    float4 v = splat(0.f);
+    if (en) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const uint32_t p = ph + static_cast<uint32_t>(4 * q + e) * inc;
+        // the signed phase in cycles, [-0.5, 0.5): _signed_phase
+        const float x = static_cast<float>(static_cast<int32_t>(p)) * 0x1p-32f;
+        at(v, e) = sinf(x * kTau) * gain;
+      }
+    }
+    for (int j = 0; j < r.n_out; ++j) frames4(a, I, out_buf(r, j), q) = v;
   }
-  if (I.t == 0)
-    for (int j = 0; j < r.n_out; ++j) I.flag[r.out[j]] = !en;
-  __syncthreads();  // every thread has read the phase
-  if (I.t == 0) {
-    const uint32_t next = en ? ph + static_cast<uint32_t>(a.F) * inc : ph;
-    *L.out<int64_t>(3) = static_cast<int64_t>(next);
-  }
+  __syncwarp();  // every lane has read the phase
+  for (int j = I.sub; j < r.n_out; j += I.span) flag(I, out_buf(r, j)) = !en;
+  if (I.sub == 0) word(r, 3) = en ? ph + static_cast<uint32_t>(a.F) * inc : ph;
 }
 
-// leaves: raw_gain, gain.{target, last, status}; consts: a, log_b, eps, mute
-__device__ void op_volume(const Args& a, const Row& r, const Inst& I,
-                          const Leaves& L) {
-  const float raw = *L.in<float>(0);
-  const Smooth s = smoother(raw, *L.state<float>(1), *L.state<float>(2),
-                            *L.state<int>(3), r.c[0], r.c[1], r.c[2]);
+// words: raw_gain, gain.{target, last, status}; consts: a, log_b, eps, mute
+// In a group of rows, a row may write a buffer that another row of the
+// group reads: every lane reads its inputs and their flags before the
+// __syncwarp that precedes the writes.
+template <class A>
+__device__ void op_volume(const A& a, const Row& r, const Inst& I) {
+  const Smooth s = smoother(r);
   const bool silent_in = all_silent(r, I);
-  const bool muted = s.new_status() == kInactive && s.value(0) < r.c[3];
+  const bool muted = s.new_status() == kInactive && s.value(0) < cst(r, 3);
   const bool silence = silent_in || muted;
-  for (int f = I.t; f < a.F; f += kThreads) {
-    const float g = s.value(f);
-    for (int j = 0; j < r.n_in; ++j) {
-      const float x = I.buf[r.in[j] * a.F + f];
-      I.buf[r.out[j] * a.F + f] = silence ? 0.f : x * g;
+  const bool flag_mine =
+      I.sub < r.n_in && (silence || flag(I, in_buf(r, I.sub)) != 0);
+  const float4 flat = splat(s.value(0));
+  // every lane takes as many steps as the row's first (the __syncwarp)
+  for (int q0 = 0; q0 < quads(a); q0 += I.span) {
+    const int q = q0 + I.sub;
+    const bool mine = q < quads(a);
+    float4 g = s.flat() || !mine ? flat : value4(s, q);
+    for (int j = 0; j < r.n_in; j += 2) {  // two channels at a time
+      const bool two = j + 1 < r.n_in;
+      float4 x0 = flat, x1 = flat;
+      if (mine) {
+        x0 = frames4(a, I, in_buf(r, j), q);
+        if (two) x1 = frames4(a, I, in_buf(r, j + 1), q);
+      }
+      __syncwarp();
+      if (!mine) continue;
+      float4 y0, y1;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        at(y0, e) = silence ? 0.f : at(x0, e) * at(g, e);
+        at(y1, e) = silence ? 0.f : at(x1, e) * at(g, e);
+      }
+      frames4(a, I, out_buf(r, j), q) = y0;
+      if (two) frames4(a, I, out_buf(r, j + 1), q) = y1;
     }
   }
-  if (I.t == 0)
-    for (int j = 0; j < r.n_in; ++j)
-      I.flag[r.out[j]] = silence || I.flag[r.in[j]] != 0;
-  __syncthreads();  // every thread has read the smoother
+  __syncwarp();  // every lane has read the smoother
+  for (int j = I.sub; j < r.n_in; j += I.span)
+    flag(I, out_buf(r, j)) =
+        j == I.sub ? flag_mine : silence || flag(I, in_buf(r, j)) != 0;
   // all-silent resets the smoother (volume.rs:95-97); muted does not
-  if (I.t == 0) write_smoother(L, 1, s, silent_in, a.F);
+  if (I.sub == 0) write_smoother(r, s, silent_in, a.F);
 }
 
-// leaves: pan, pan.{target, last, status}; consts: a, log_b, eps
-__device__ void op_pan(const Args& a, const Row& r, const Inst& I,
-                       const Leaves& L) {
-  const float pan = *L.in<float>(0);
-  const Smooth s = smoother(pan, *L.state<float>(1), *L.state<float>(2),
-                            *L.state<int>(3), r.c[0], r.c[1], r.c[2]);
+// ops/pan.py:equal_power_gains for one smoothed value.
+__device__ __forceinline__ void pan_gains(float v, float& gl, float& gr) {
+  const float theta = (v + 1.0f) * kQuarterPi;
+  gl = cosf(theta);
+  gr = sinf(theta);
+}
+
+// The pan law for frames 4q..4q+3 while the smoother ramps (out of line).
+__device__ __noinline__ void pan_gains4(const Smooth& s, int q, float4& gl,
+                                        float4& gr) {
+#pragma unroll 1
+  for (int e = 0; e < 4; ++e) pan_gains(s.value(4 * q + e), at(gl, e), at(gr, e));
+}
+
+// words: pan, pan.{target, last, status}; consts: a, log_b, eps
+template <class A>
+__device__ void op_pan(const A& a, const Row& r, const Inst& I) {
+  const Smooth s = smoother(r);
   const bool silent_in = all_silent(r, I);
-  for (int f = I.t; f < a.F; f += kThreads) {
-    // ops/pan.py:equal_power_gains
-    const float theta = (s.value(f) + 1.0f) * kQuarterPi;
-    const float gl = cosf(theta);
-    const float gr = sinf(theta);
-    const float x0 = I.buf[r.in[0] * a.F + f];
-    const float mid =
-        r.n_in == 1 ? x0 : (x0 + I.buf[r.in[1] * a.F + f]) * 0.5f;
-    I.buf[r.out[0] * a.F + f] = silent_in ? 0.f : mid * gl;
-    I.buf[r.out[1] * a.F + f] = silent_in ? 0.f : mid * gr;
+  float gl0, gr0;
+  pan_gains(s.value(0), gl0, gr0);
+  // every lane takes as many steps as the row's first (the __syncwarp)
+  for (int q0 = 0; q0 < quads(a); q0 += I.span) {
+    const int q = q0 + I.sub;
+    const bool mine = q < quads(a);
+    float4 x = splat(0.f);
+    if (mine) {
+      x = frames4(a, I, in_buf(r, 0), q);
+      if (r.n_in != 1) {
+        float4 x1 = frames4(a, I, in_buf(r, 1), q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) at(x, e) = (at(x, e) + at(x1, e)) * 0.5f;
+      }
+    }
+    __syncwarp();  // a group's inputs are read before its outputs are written
+    if (!mine) continue;
+    float4 gl = splat(gl0), gr = splat(gr0), yl, yr;
+    if (!s.flat()) pan_gains4(s, q, gl, gr);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      at(yl, e) = silent_in ? 0.f : at(x, e) * at(gl, e);
+      at(yr, e) = silent_in ? 0.f : at(x, e) * at(gr, e);
+    }
+    frames4(a, I, out_buf(r, 0), q) = yl;
+    frames4(a, I, out_buf(r, 1), q) = yr;
   }
-  if (I.t == 0) I.flag[r.out[0]] = I.flag[r.out[1]] = silent_in;
-  __syncthreads();  // every thread has read the smoother
-  if (I.t == 0) write_smoother(L, 1, s, silent_in, a.F);
+  __syncwarp();  // every lane has read the smoother
+  if (I.sub < 2) flag(I, out_buf(r, I.sub)) = silent_in;
+  if (I.sub == 0) write_smoother(r, s, silent_in, a.F);
 }
 
 // out[ch] = in[ch] + in[m + ch] + ..., left to right
-__device__ void op_sum(const Args& a, const Row& r, const Inst& I) {
+template <class A>
+__device__ void op_sum(const A& a, const Row& r, const Inst& I) {
   const int m = r.n_out;
   const int ports = r.n_in / m;
   const bool silent_in = all_silent(r, I);
-  for (int f = I.t; f < a.F; f += kThreads) {
+  for (int q = I.lane; q < quads(a); q += kLanes) {
     for (int ch = 0; ch < m; ++ch) {
-      float v = I.buf[r.in[ch] * a.F + f];
-      for (int p = 1; p < ports; ++p) v = v + I.buf[r.in[p * m + ch] * a.F + f];
-      I.buf[r.out[ch] * a.F + f] = silent_in ? 0.f : v;
+      float4 v = frames4(a, I, in_buf(r, ch), q);
+#pragma unroll 4
+      for (int p = 1; p < ports; ++p) {
+        const float4 x = frames4(a, I, in_buf(r, p * m + ch), q);
+        v.x = v.x + x.x;
+        v.y = v.y + x.y;
+        v.z = v.z + x.z;
+        v.w = v.w + x.w;
+      }
+      frames4(a, I, out_buf(r, ch), q) = silent_in ? splat(0.f) : v;
     }
   }
-  if (I.t == 0)
-    for (int ch = 0; ch < m; ++ch)
-      I.flag[r.out[ch]] =
-          ports == 1 ? silent_in || I.flag[r.in[ch]] != 0 : silent_in;
+  __syncwarp();
+  for (int ch = I.lane; ch < m; ch += kLanes)
+    flag(I, out_buf(r, ch)) =
+        ports == 1 ? silent_in || flag(I, in_buf(r, ch)) != 0 : silent_in;
 }
 
-// leaves: freq, q, gain_db (unread), z1 [C], z2 [C], coef [5] (derived)
-__device__ void op_filter(const Args& a, const Row& r, const Inst& I,
-                          const Leaves& L) {
+// words: freq, q, gain_db (unread), z1 [C], z2 [C], coef [5] (derived)
+template <class A>
+__device__ void op_filter(const A& a, const Row& r, const Inst& I) {
   const int ch = r.n_in;
-  if (I.t >= ch) return;
-  const int c = I.t;  // one thread per channel runs the recurrence
-  const float* k = L.in<float>(5, 5);
-  const BiquadCoef bq = {k[0], k[1], k[2], k[3], k[4]};
-  float z1 = L.state<float>(3, ch)[c];
-  float z2 = L.state<float>(4, ch)[c];
-  // silent input with settled state stays silent; a ringing tail is audio
-  const bool mask =
-      I.flag[r.in[c]] != 0 && fabsf(z1) < kQuiet && fabsf(z2) < kQuiet;
-  const float* x = I.buf + r.in[c] * a.F;
-  float* y = I.buf + r.out[c] * a.F;
-  for (int f = 0; f < a.F; ++f) {
-    const float v = biquad_step(bq, x[f], z1, z2);
-    y[f] = mask ? 0.f : v;
+  // one lane per channel runs the recurrence over every frame
+  for (int c = I.lane; c < ch; c += kLanes) {
+    const int k = 3 + 2 * ch;
+    const BiquadCoef bq = {wf(r, k), wf(r, k + 1), wf(r, k + 2), wf(r, k + 3),
+                           wf(r, k + 4)};
+    float z1 = wf(r, 3 + c);
+    float z2 = wf(r, 3 + ch + c);
+    // silent input with settled state stays silent; a ringing tail is audio
+    const int x = in_buf(r, c), y = out_buf(r, c);
+    const bool mask = flag(I, x) != 0 && fabsf(z1) < kQuiet && fabsf(z2) < kQuiet;
+    for (int q = 0; q < quads(a); ++q) {
+      float4 xv = frames4(a, I, x, q);
+      float4 yv;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float v = biquad_step(bq, at(xv, e), z1, z2);
+        at(yv, e) = mask ? 0.f : v;
+      }
+      frames4(a, I, y, q) = yv;
+    }
+    flag(I, y) = mask;
+    set_wf(r, 3 + c, z1);
+    set_wf(r, 3 + ch + c, z2);
   }
-  I.flag[r.out[c]] = mask;
-  L.out<float>(3, ch)[c] = z1;
-  L.out<float>(4, ch)[c] = z2;
 }
 
 // The echo's line, oldest first, is line_in [C, D] at the chunk's start.
@@ -349,12 +532,15 @@ __device__ void op_filter(const Args& a, const Row& r, const Inst& I,
 // echoes, index j in [0, D + K*F).  Block k taps j = k*F + f, checks the
 // window [k*F, k*F + D) and appends at j = D + k*F + f.  The final line is
 // the window at k = K: j >= K*F lives in line_out at j - K*F, and an echo
-// with j < K*F (only when K*F > D) lives in the scratch.
+// with j < K*F (only when K*F > D) lives in the scratch.  With D a multiple
+// of 4 and every base 16-byte aligned (`vec`), the float4 at j = 4n never
+// straddles two of the three parts.
 struct EchoLine {
   const float* in;
   float* out;
   float* scratch;
   int64_t d, kf;
+  bool vec;
   __device__ float read(int64_t j) const {
     if (j < d) return in[j];
     return j >= kf ? out[j - kf] : scratch[j - d];
@@ -363,278 +549,486 @@ struct EchoLine {
     if (j >= kf) out[j - kf] = v;
     else scratch[j - d] = v;
   }
+  __device__ float4 read4(int64_t j) const {
+    if (!vec) return make_float4(read(j), read(j + 1), read(j + 2), read(j + 3));
+    if (j < d) return *reinterpret_cast<const float4*>(in + j);
+    return *reinterpret_cast<const float4*>(j >= kf ? out + (j - kf)
+                                                    : scratch + (j - d));
+  }
+  __device__ void append4(int64_t j, float4 v) const {
+    if (!vec) {
+      append(j, v.x);
+      append(j + 1, v.y);
+      append(j + 2, v.z);
+      append(j + 3, v.w);
+      return;
+    }
+    *reinterpret_cast<float4*>(j >= kf ? out + (j - kf) : scratch + (j - d)) = v;
+  }
 };
 
-__device__ EchoLine echo_line(const Args& a, const Row& r, const Inst& I,
-                              const Leaves& L, int c) {
-  const int64_t d = r.aux0;
-  const int ch = r.n_in;
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// Channel c of an echo row's line, from its echo channel record.
+template <class A>
+__device__ EchoLine echo_line(const A& a, const Row& r, const Inst& I,
+                              int c) {
+  const EchoChannel& ec = echo_ch(I, r.aux1 + c);
   EchoLine e;
-  e.in = L.in<float>(3, ch * d) + c * d;
-  e.out = L.out<float>(3, ch * d) + c * d;
-  e.scratch = a.scratch + (I.i * a.echo_channels + r.aux1 + c) * a.stride;
-  e.d = d;
+  e.in = ec.in;
+  e.out = ec.out;
+  e.scratch = ec.scratch;
+  e.d = r.aux0;
   e.kf = static_cast<int64_t>(a.K) * a.F;
+  e.vec = ec.vec != 0;
   return e;
 }
 
-// Once per chunk: count the loud samples of each channel's line and copy
-// the part of line_in that the final line keeps.
-__device__ void echo_begin(const Args& a, const Row& r, const Inst& I,
-                           const Leaves& L) {
+// Once per chunk, for each channel of an echo row: its line's pointers
+// into the instance's echo channel record; the count of loud samples of
+// the line; the copy of the part of line_in that the final line keeps.
+// words: feedback, wet, dry; the line [C, D] (leaf slot + 3) stays in device
+// memory; aux0 = D, aux1 = the row's first echo channel.
+template <class A>
+__device__ void echo_begin(const A& a, const Row& r, const Inst& I) {
+  const int64_t d = r.aux0;
+  const int64_t n_line = static_cast<int64_t>(r.n_in) * d;
+  const int line = r.slot + 3;
   for (int c = 0; c < r.n_in; ++c) {
-    const EchoLine e = echo_line(a, r, I, L, c);
+    EchoLine e;
+    e.in = reinterpret_cast<const float*>(a.ptrs[2 * line]) + I.i * n_line + c * d;
+    e.out = reinterpret_cast<float*>(a.ptrs[2 * line + 1]) + I.i * n_line + c * d;
+    e.scratch = a.scratch + (I.i * a.echo_channels + r.aux1 + c) * a.stride;
+    e.d = d;
+    e.kf = static_cast<int64_t>(a.K) * a.F;
+    e.vec = d % 4 == 0 && aligned16(e.in) && aligned16(e.out) &&
+            aligned16(e.scratch);
     int n = 0;
-    for (int64_t j = I.t; j < e.d; j += kThreads) {
-      const float x = e.in[j];
-      n += loud(x);
-      if (j >= e.kf) e.out[j - e.kf] = x;
+    if (e.vec) {
+      const float4* in = reinterpret_cast<const float4*>(e.in);
+      float4* out = reinterpret_cast<float4*>(e.out);
+      const int64_t d4 = e.d / 4, kf4 = e.kf / 4;
+#pragma unroll 4
+      for (int64_t q = I.lane; q < d4; q += kLanes) {
+        const float4 x = in[q];
+        n += loud4(x);
+        if (q >= kf4) out[q - kf4] = x;
+      }
+    } else {
+      for (int64_t j = I.lane; j < e.d; j += kLanes) {
+        const float x = e.in[j];
+        n += loud(x);
+        if (j >= e.kf) e.out[j - e.kf] = x;
+      }
     }
-    n = sum_i(n, I);
-    if (I.t == 0) I.carry[r.aux1 + c] = n;
-  }
-}
-
-// leaves: feedback, wet, dry, line [C, D]; aux0 = D, aux1 = first carry
-__device__ void op_echo(const Args& a, const Row& r, const Inst& I,
-                        const Leaves& L, int k) {
-  const float fb = *L.in<float>(0);
-  const float wet = *L.in<float>(1);
-  const float dry = *L.in<float>(2);
-  for (int c = 0; c < r.n_in; ++c) {
-    const EchoLine e = echo_line(a, r, I, L, c);
-    const bool quiet = I.carry[r.aux1 + c] == 0;  // the window before this block
-    const bool mask = I.flag[r.in[c]] != 0 && quiet;
-    int delta = 0;
-    for (int f = I.t; f < a.F; f += kThreads) {
-      const int64_t j = static_cast<int64_t>(k) * a.F + f;
-      const float x = I.buf[r.in[c] * a.F + f];
-      const float delayed = e.read(j);
-      const float echo = x + fb * delayed;
-      e.append(e.d + j, echo);
-      const float y = dry * x + wet * delayed;
-      I.buf[r.out[c] * a.F + f] = mask ? 0.f : y;
-      delta += loud(echo) - loud(delayed);
-    }
-    delta = sum_i(delta, I);
-    if (I.t == 0) {
-      I.carry[r.aux1 + c] += delta;
-      I.flag[r.out[c]] = mask;
+    n = __reduce_add_sync(kFull, n);
+    if (I.lane == 0) {
+      EchoChannel& ec = echo_ch(I, r.aux1 + c);
+      ec.count = n;
+      ec.vec = e.vec;
+      ec.in = e.in;
+      ec.out = e.out;
+      ec.scratch = e.scratch;
     }
   }
 }
 
-// leaves: threshold, clip_count (int32)
-__device__ void op_clip(const Args& a, const Row& r, const Inst& I,
-                        const Leaves& L) {
-  const float th = *L.in<float>(0);
-  const int count = *L.state<int>(1);
+// Two channels at a time: both taps are in flight together.
+template <class A>
+__device__ void op_echo(const A& a, const Row& r, const Inst& I, int k) {
+  const float fb = wf(r, 0);
+  const float wet = wf(r, 1);
+  const float dry = wf(r, 2);
+  for (int c0 = 0; c0 < r.n_in; c0 += 2) {
+    int delta[2] = {0, 0};
+    bool mask[2] = {false, false};
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      const int c = c0 + cc;
+      if (c >= r.n_in) break;
+      const EchoLine e = echo_line(a, r, I, c);
+      const int x_buf = in_buf(r, c), y_buf = out_buf(r, c);
+      // the window before this block
+      mask[cc] = flag(I, x_buf) != 0 && echo_ch(I, r.aux1 + c).count == 0;
+      for (int q = I.lane; q < quads(a); q += kLanes) {
+        const int64_t j = static_cast<int64_t>(k) * a.F + 4 * q;
+        float4 x = frames4(a, I, x_buf, q);
+        float4 delayed = e.read4(j);
+        float4 echo, y;
+#pragma unroll
+        for (int s = 0; s < 4; ++s) {
+          at(echo, s) = at(x, s) + fb * at(delayed, s);
+          at(y, s) = mask[cc] ? 0.f : dry * at(x, s) + wet * at(delayed, s);
+          delta[cc] += loud(at(echo, s)) - loud(at(delayed, s));
+        }
+        e.append4(e.d + j, echo);
+        frames4(a, I, y_buf, q) = y;
+      }
+    }
+    delta[0] = __reduce_add_sync(kFull, delta[0]);
+    delta[1] = __reduce_add_sync(kFull, delta[1]);
+    __syncwarp();  // every lane has read the counts and the flags
+#pragma unroll
+    for (int cc = 0; cc < 2; ++cc) {
+      if (I.lane == cc && c0 + cc < r.n_in) {
+        echo_ch(I, r.aux1 + c0 + cc).count += delta[cc];
+        flag(I, out_buf(r, c0 + cc)) = mask[cc];
+      }
+    }
+  }
+}
+
+// words: threshold, clip_count (int32 state)
+template <class A>
+__device__ void op_clip(const A& a, const Row& r, const Inst& I) {
+  const float th = wf(r, 0);
   int over = 0;
-  for (int f = I.t; f < a.F; f += kThreads) {
+  for (int q = I.lane; q < quads(a); q += kLanes) {
+#pragma unroll 2
     for (int j = 0; j < r.n_in; ++j) {
-      const float x = I.buf[r.in[j] * a.F + f];
-      I.buf[r.out[j] * a.F + f] = nanmax(nanmin(x, th), -th);
-      // strictly over the threshold, on audible channels only
-      over += (fabsf(x) > th) && I.flag[r.in[j]] == 0;
+      const int b = in_buf(r, j);
+      float4 x = frames4(a, I, b, q);
+      const bool audible = flag(I, b) == 0;
+      float4 y;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        at(y, e) = nanmax(nanmin(at(x, e), th), -th);
+        // strictly over the threshold, on audible channels only
+        over += (fabsf(at(x, e)) > th) && audible;
+      }
+      frames4(a, I, out_buf(r, j), q) = y;
     }
   }
-  over = sum_i(over, I);
-  if (I.t == 0) {
-    for (int j = 0; j < r.n_in; ++j) I.flag[r.out[j]] = I.flag[r.in[j]];
-    *L.out<int>(1) = static_cast<int>(static_cast<uint32_t>(count) +
-                                      static_cast<uint32_t>(over));
-  }
+  over = __reduce_add_sync(kFull, over);
+  __syncwarp();
+  for (int j = I.lane; j < r.n_in; j += kLanes)
+    flag(I, out_buf(r, j)) = flag(I, in_buf(r, j));
+  if (I.lane == 0) word(r, 1) += static_cast<uint32_t>(over);
 }
 
-// leaves: peak [C], rms_sq [C]; consts: peak decay, rms alpha
-__device__ void op_meter(const Args& a, const Row& r, const Inst& I,
-                         const Leaves& L) {
+// words: peak [C], rms_sq [C] (state); consts: peak decay, rms alpha
+template <class A>
+__device__ void op_meter(const A& a, const Row& r, const Inst& I) {
   const int ch = r.n_in;
   for (int c = 0; c < ch; ++c) {
     float peak = 0.f;
     float sq = 0.f;
-    for (int f = I.t; f < a.F; f += kThreads) {
-      const float x = I.buf[r.in[c] * a.F + f];
-      I.buf[r.out[c] * a.F + f] = x;
-      peak = nanmax(peak, fabsf(x));
-      sq += x * x;
+    const int x_buf = in_buf(r, c), y_buf = out_buf(r, c);
+    for (int q = I.lane; q < quads(a); q += kLanes) {
+      float4 x = frames4(a, I, x_buf, q);
+      frames4(a, I, y_buf, q) = x;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        peak = nanmax(peak, fabsf(at(x, e)));
+        sq += at(x, e) * at(x, e);
+      }
     }
-    peak = max_f(peak, I);
-    sq = sum_f(sq, I);
-    if (I.t == 0) {
-      const float p0 = L.state<float>(0, ch)[c];
-      const float r0 = L.state<float>(1, ch)[c];
-      L.out<float>(0, ch)[c] = nanmax(peak, p0 * r.c[0]);
+    for (int o = 16; o > 0; o >>= 1) {
+      peak = nanmax(peak, __shfl_xor_sync(kFull, peak, o));
+      sq += __shfl_xor_sync(kFull, sq, o);
+    }
+    if (I.lane == 0) {
+      const float p0 = wf(r, c);
+      const float r0 = wf(r, ch + c);
+      set_wf(r, c, nanmax(peak, p0 * cst(r, 0)));
       const float ms = sq / static_cast<float>(a.F);
-      L.out<float>(1, ch)[c] = r0 + r.c[1] * (ms - r0);
-      I.flag[r.out[c]] = I.flag[r.in[c]];
+      set_wf(r, ch + c, r0 + cst(r, 1) * (ms - r0));
     }
   }
+  __syncwarp();
+  for (int c = I.lane; c < ch; c += kLanes)
+    flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
 }
 
-__device__ Row read_row(const Args& a, int n) {
-  const int* w = a.ops + n * kRowWidth;
+// Row n's fields, three int4 loads from the table in shared memory.
+__device__ Row read_row(const Tables& t, const Inst& I, int n) {
+  const int at0 = t.ops + n * kRowWidth;
+  const int4 f0 = reinterpret_cast<const int4&>(s_float4(at0));
+  const int4 f1 = reinterpret_cast<const int4&>(s_float4(at0 + 4));
+  const int4 f2 = reinterpret_cast<const int4&>(s_float4(at0 + 8));
+  const int w[kRowWidth] = {f0.x, f0.y, f0.z, f0.w, f1.x, f1.y,
+                            f1.z, f1.w, f2.x, f2.y, f2.z, f2.w};
   Row r;
+  r.op = w[kOp];
   r.n_in = w[kNIn];
   r.n_out = w[kNOut];
-  r.in = a.io + w[kIo];
+  r.n_clear = w[kNClear];
+  r.in = t.io + w[kIo];
   r.clear = r.in + r.n_in;
   r.out = r.clear + r.n_in;
-  r.c = a.consts + w[kConst];
+  r.c = t.consts + w[kConst];
   r.aux0 = w[kAux0];
   r.aux1 = w[kAux1];
+  r.slot = w[kSlot];
+  r.w = I.word + w[kWord];
   return r;
 }
 
-__device__ Leaves row_leaves(const Args& a, const Inst& I, int n, int k) {
-  Leaves L;
-  L.ptrs = a.ptrs;
-  L.slot = a.slots + a.ops[n * kRowWidth + kSlot];
-  L.i = I.i;
-  L.first = k == 0;
-  return L;
-}
-
-__device__ void run_row(const Args& a, const Inst& I, int n, int k) {
-  const Row r = read_row(a, n);
-  const Leaves L = row_leaves(a, I, n, k);
+template <class A>
+__device__ void run_row(const A& a, const Row& r, const Inst& I, int k) {
   // unconnected inputs read as cleared, silent buffers (schedule.rs:310-313)
-  for (int j = 0; j < r.n_in; ++j) {
-    if (!r.clear[j]) continue;
-    for (int f = I.t; f < a.F; f += kThreads) I.buf[r.in[j] * a.F + f] = 0.f;
-    if (I.t == 0) I.flag[r.in[j]] = 1;
+  if (r.n_clear) {
+    for (int j = 0; j < r.n_in; ++j) {
+      if (!s_int(r.clear + j)) continue;
+      for (int q = I.lane; q < quads(a); q += kLanes)
+        frames4(a, I, in_buf(r, j), q) = splat(0.f);
+      if (I.lane == 0) flag(I, in_buf(r, j)) = 1;
+    }
+    __syncwarp();
   }
-  __syncthreads();
-  switch (a.ops[n * kRowWidth + kOp]) {
+  switch (r.op) {
     case kDummy: op_dummy(a, r, I); break;
-    case kBeep: op_beep(a, r, I, L); break;
-    case kVolume: op_volume(a, r, I, L); break;
-    case kPan: op_pan(a, r, I, L); break;
+    case kBeep: op_beep(a, r, I); break;
+    case kVolume: op_volume(a, r, I); break;
+    case kPan: op_pan(a, r, I); break;
     case kSum: op_sum(a, r, I); break;
-    case kFilter: op_filter(a, r, I, L); break;
-    case kEcho: op_echo(a, r, I, L, k); break;
-    case kClip: op_clip(a, r, I, L); break;
-    case kMeter: op_meter(a, r, I, L); break;
+    case kFilter: op_filter(a, r, I); break;
+    case kEcho: op_echo(a, r, I, k); break;
+    case kClip: op_clip(a, r, I); break;
+    case kMeter: op_meter(a, r, I); break;
   }
-  __syncthreads();
+  __syncwarp();  // the next row reads what this one wrote
 }
 
-// The graph outputs of block k: flagged channels read as zero
-// (schedule.rs:255-287).
-__device__ void write_outputs(const Args& a, const Inst& I, int k) {
-  const int64_t at = (I.i * a.K + k) * a.n_out;
+// K2: the graph outputs of block k, flagged channels read as zero
+// (schedule.rs:255-287).  K3: the live-out buffers as they are.
+template <bool kIsland, class A>
+__device__ void write_outputs(const A& a, const Tables& t, const Inst& I,
+                              int k) {
+  const int64_t at0 = (I.i * a.K + k) * a.n_out;
   for (int o = 0; o < a.n_out; ++o) {
-    const int b = a.out_row[2 * o];
-    const bool silent = a.out_row[2 * o + 1] != 0 || I.flag[b] != 0;
-    for (int f = I.t; f < a.F; f += kThreads)
-      a.out[(at + o) * a.F + f] = silent ? 0.f : I.buf[b * a.F + f];
-    if (I.t == 0) a.masks[at + o] = silent;
+    const int b = s_int(t.out_row + 2 * o);
+    const bool flagged = flag(I, b) != 0;
+    const bool zero = !kIsland && (s_int(t.out_row + 2 * o + 1) != 0 || flagged);
+    float4* dst = reinterpret_cast<float4*>(a.out + (at0 + o) * a.F);
+    for (int q = I.lane; q < quads(a); q += kLanes)
+      __stcs(dst + q, zero ? splat(0.f) : frames4(a, I, b, q));
+    if (I.lane == 0) a.masks[at0 + o] = kIsland ? flagged : zero;
   }
-  __syncthreads();  // the next block's rows overwrite these buffers
+  __syncwarp();  // the next block's rows overwrite these flags
 }
 
 // K3: block k's live-in rows and flags, from the operands.
-__device__ void read_live_ins(const Args& a, const Inst& I, int k) {
-  const int64_t at = (I.i * a.K + k) * a.n_in;
+template <class A>
+__device__ void read_live_ins(const A& a, const Tables& t, const Inst& I,
+                              int k) {
+  const int64_t at0 = (I.i * a.K + k) * a.n_in;
   for (int j = 0; j < a.n_in; ++j) {
-    const int b = a.in_bufs[j];
-    for (int f = I.t; f < a.F; f += kThreads)
-      I.buf[b * a.F + f] = a.env[(at + j) * a.F + f];
-    if (I.t == 0) I.flag[b] = a.env_flags[at + j] ? 1 : 0;
+    const int b = s_int(t.in_bufs + j);
+    const float4* src = reinterpret_cast<const float4*>(a.env + (at0 + j) * a.F);
+    for (int q = I.lane; q < quads(a); q += kLanes) frames4(a, I, b, q) = __ldcs(src + q);
   }
-  __syncthreads();
+  for (int j = I.lane; j < a.n_in; j += kLanes)
+    flag(I, s_int(t.in_bufs + j)) = a.env_flags[at0 + j] ? 1 : 0;
+  __syncwarp();
 }
 
-// K3: block k's live-out buffers as they are, and their flags.
-__device__ void write_live_outs(const Args& a, const Inst& I, int k) {
-  const int64_t at = (I.i * a.K + k) * a.n_out;
-  for (int o = 0; o < a.n_out; ++o) {
-    const int b = a.out_row[2 * o];
-    for (int f = I.t; f < a.F; f += kThreads)
-      a.out[(at + o) * a.F + f] = I.buf[b * a.F + f];
-    if (I.t == 0) a.masks[at + o] = I.flag[b] != 0;
+// The instance's leaves into its words, lanes over leaves.
+__device__ void gather_leaves(const Args& a, const Inst& I) {
+  for (int s = I.lane; s < a.n_leaves; s += kLanes) {
+    const int* L = a.leaves + s * kLeafWidth;
+    const int n = L[kLeafCount];
+    const char* p = reinterpret_cast<const char*>(a.ptrs[2 * s]);
+    const int w = I.word + L[kLeafWord];
+    for (int e = 0; e < n; ++e) {
+      const int64_t at0 = I.i * n + e;
+      switch (L[kLeafType]) {
+        case kBool:
+          s_word(w + e) = reinterpret_cast<const uint8_t*>(p)[at0] != 0;
+          break;
+        case kInt64:
+          s_word(w + e) =
+              static_cast<uint32_t>(reinterpret_cast<const int64_t*>(p)[at0]);
+          break;
+        default:
+          s_word(w + e) = reinterpret_cast<const uint32_t*>(p)[at0];
+      }
+    }
   }
-  __syncthreads();  // the next block's rows overwrite these buffers
+  __syncwarp();
 }
 
-// The K-block loop of one instance; kIsland selects K3's operands.
-template <bool kIsland>
-__device__ void render(const Args& a, float* smem) {
-  const int li = threadIdx.x / kThreads;
-  float* base = smem + li * words_per_instance(a);
-  Inst I;
-  I.buf = base;
-  I.flag = reinterpret_cast<int*>(base + a.num_buffers * a.F);
-  I.redf = reinterpret_cast<float*>(I.flag + a.num_buffers);
-  I.redi = reinterpret_cast<int*>(I.redf + kWarps);
-  I.carry = I.redi + kWarps;
-  I.i = static_cast<int64_t>(blockIdx.x) * a.tile + li;
-  I.t = threadIdx.x % kThreads;
-
-  for (int n = 0; n < a.n_ops; ++n) {
-    if (a.ops[n * kRowWidth + kOp] == kEcho)
-      echo_begin(a, read_row(a, n), I, row_leaves(a, I, n, 0));
-  }
-  __syncthreads();
-  for (int k = 0; k < a.K; ++k) {
-    if (kIsland) read_live_ins(a, I, k);
-    for (int n = 0; n < a.n_ops; ++n) run_row(a, I, n, k);
-    if (kIsland) {
-      write_live_outs(a, I, k);
-    } else {
-      write_outputs(a, I, k);
+// The instance's state words into the output leaves, once a chunk.
+__device__ void scatter_state(const Args& a, const Inst& I) {
+  for (int s = I.lane; s < a.n_leaves; s += kLanes) {
+    const int* L = a.leaves + s * kLeafWidth;
+    if (!L[kLeafState]) continue;
+    const int n = L[kLeafCount];
+    char* p = reinterpret_cast<char*>(a.ptrs[2 * s + 1]);
+    const int w = I.word + L[kLeafWord];
+    for (int e = 0; e < n; ++e) {
+      const int64_t at0 = I.i * n + e;
+      const uint32_t v = s_word(w + e);
+      switch (L[kLeafType]) {
+        case kBool:
+          reinterpret_cast<uint8_t*>(p)[at0] = v != 0;
+          break;
+        case kInt64:  // the uint32 value, zero-extended
+          reinterpret_cast<int64_t*>(p)[at0] = static_cast<int64_t>(v);
+          break;
+        default:
+          reinterpret_cast<uint32_t*>(p)[at0] = v;
+      }
     }
   }
 }
 
-__global__ void __launch_bounds__(1024) mega_kernel(const Args a) {
-  extern __shared__ float smem[];
-  render<false>(a, smem);
+// Copies the tables into shared memory (every thread of the CTA).
+__device__ Tables load_tables(const Args& a) {
+  int used = 0;
+  auto copy = [&](const int* src, int n) {
+    for (int j = threadIdx.x; j < n; j += blockDim.x) s_int(used + j) = src[j];
+    used += n;
+    return used - n;
+  };
+  Tables t;
+  t.ops = copy(a.ops, a.n_ops * kRowWidth);
+  t.io = copy(a.io, a.n_io);
+  t.consts = copy(reinterpret_cast<const int*>(a.consts), a.n_consts);
+  t.out_row = copy(a.out_row, 2 * a.n_out);
+  t.in_bufs = copy(a.in_bufs, a.n_in);
+  return t;
 }
 
-__global__ void __launch_bounds__(1024) island_kernel(const Args a) {
-  extern __shared__ float smem[];
-  render<true>(a, smem);
-}
+// The K-block loop of one instance per warp; kIsland selects K3's operands.
+template <bool kIsland, class A>
+__device__ void render(const A& a) {
+  const Tables t = load_tables(a);
+  __syncthreads();  // the CTA's only barrier
+  const int li = threadIdx.x / kLanes;
+  Inst I;
+  I.buf = table_words(a) + li * words_per_instance(a);
+  I.echo = I.buf + a.num_buffers * a.F;
+  I.flag = I.echo + kEchoWords * a.echo_channels;
+  I.word = I.flag + a.num_buffers;
+  I.i = static_cast<int64_t>(blockIdx.x) * a.tile + li;
+  I.lane = I.sub = threadIdx.x % kLanes;
+  I.span = kLanes;
+  I.mask = kFull;
 
-// Checks the sizes, raises the kernel's shared-memory limit when needed and
-// launches; returns cudaGetLastError() (0 on success).
-template <class Kernel>
-int launch(Kernel kernel, const Args& a, int batch, void* stream) {
-  if (batch <= 0) return 0;
-  if (a.tile <= 0 || batch % a.tile != 0 || a.tile * kThreads > 1024 ||
-      a.K <= 0 || a.F <= 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * a.tile *
-                      static_cast<size_t>(words_per_instance(a));
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+  gather_leaves(a, I);
+  for (int n = 0; n < a.n_ops; ++n) {
+    const Row r = read_row(t, I, n);
+    if (r.op == kEcho) echo_begin(a, r, I);
   }
-  kernel<<<batch / a.tile, a.tile * kThreads, smem,
+  __syncwarp();
+  for (int k = 0; k < a.K; ++k) {
+    if (kIsland) read_live_ins(a, t, I, k);
+    for (int n = 0; n < a.n_ops;) {
+      const int g = s_int(t.ops + n * kRowWidth + kGroup);
+      if (g > 1) {  // a group of 2 or 4: row n + lane / span on each span lanes
+        const int log_span = g == 2 ? 4 : 3;
+        Inst J = I;
+        J.span = 1 << log_span;
+        J.sub = I.lane & (J.span - 1);
+        J.mask = ((1u << J.span) - 1) << (I.lane - J.sub);
+        run_row(a, read_row(t, J, n + (I.lane >> log_span)), J, k);
+        n += g;
+      } else {
+        run_row(a, read_row(t, I, n), I, k);
+        ++n;
+      }
+    }
+    write_outputs<kIsland>(a, t, I, k);
+  }
+  scatter_state(a, I);
+}
+
+// Blocks of 128 frames, the size of every graph in the repo, as a
+// constant: `a.F` is then 128 at compile time in every function templated
+// on the Args type, and the loops over a block's float4s have fixed trip
+// counts.  Read at run time, F cost K2 6% and K3 20% (more registers).
+struct Args128 : Args {
+  static constexpr int F = 128;
+};
+
+template <class A>
+__global__ void __launch_bounds__(kMaxThreads, 1) mega_kernel(const A a) {
+  render<false>(a);
+}
+
+template <class A>
+__global__ void __launch_bounds__(kMaxThreads, 1) island_kernel(const A a) {
+  render<true>(a);
+}
+
+// The most dynamic shared memory each of the four kernels (K2, K3; F fixed
+// or not) may take on each device so far: its attributes are set when a
+// launch needs more, not on every launch.
+constexpr int kMaxDevices = 64;
+std::atomic<size_t> g_allowed[4][kMaxDevices];
+
+// Lets `kernel` (number `which` of the four) take `smem` bytes of dynamic
+// shared memory on the current device, and asks for all of the SM's
+// unified memory as shared memory: the arena bounds how many instances an
+// SM holds.
+template <class A>
+cudaError_t allow_shared(void (*kernel)(A), int which, size_t smem) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::atomic<size_t>* allowed =
+      dev < kMaxDevices ? &g_allowed[which][dev] : nullptr;
+  if (allowed && allowed->load() >= smem) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             static_cast<int>(cudaSharedmemCarveoutMaxShared));
+  if (err == cudaSuccess && allowed) allowed->store(smem);
+  return err;
+}
+
+template <class A>
+int launch_as(bool island, const A& a, int batch, void* stream) {
+  const size_t smem = shared_bytes(a);
+  const auto kernel = island ? island_kernel<A> : mega_kernel<A>;
+  const int which = 2 * island + !std::is_same<A, Args>::value;
+  const cudaError_t err = allow_shared(kernel, which, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<batch / a.tile, a.tile * kLanes, smem,
            static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
-Args make_args(const int* ops, const int* io, const int* slots,
-               const float* consts, const int* out_row, int n_out, int n_ops,
-               const int64_t* ptrs, float* out, bool* masks, float* scratch,
+// Checks the sizes, lets the kernel take its shared memory and launches
+// it, with F fixed when it is 128; returns cudaGetLastError() (0 on
+// success).
+int launch(bool island, const Args& a, int batch, void* stream) {
+  if (batch <= 0) return 0;
+  if (a.tile <= 0 || a.tile > kMaxTile || batch % a.tile != 0 || a.K <= 0 ||
+      a.F <= 0 || a.F % 4 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (a.F != Args128::F) return launch_as(island, a, batch, stream);
+  Args128 fixed;
+  static_cast<Args&>(fixed) = a;
+  return launch_as(island, fixed, batch, stream);
+}
+
+Args make_args(const int* ops, const int* io, const float* consts,
+               const int* out_row, const int* leaves, const int64_t* ptrs,
+               float* out, bool* masks, float* scratch, int n_ops, int n_io,
+               int n_consts, int n_out, int n_leaves, int num_words,
                int64_t stride, int tile, int num_blocks, int frames,
                int num_buffers, int echo_channels) {
   Args a = {};
   a.ops = ops;
   a.io = io;
-  a.slots = slots;
   a.consts = consts;
   a.out_row = out_row;
-  a.n_out = n_out;
-  a.n_ops = n_ops;
+  a.leaves = leaves;
   a.ptrs = ptrs;
   a.out = out;
   a.masks = masks;
   a.scratch = scratch;
+  a.n_ops = n_ops;
+  a.n_io = n_io;
+  a.n_consts = n_consts;
+  a.n_out = n_out;
+  a.n_leaves = n_leaves;
+  a.num_words = num_words;
   a.stride = stride;
   a.tile = tile;
   a.K = num_blocks;
@@ -646,21 +1040,44 @@ Args make_args(const int* ops, const int* io, const int* slots,
 
 }  // namespace
 
+// Dynamic shared memory of one CTA for these sizes, in bytes: what the
+// launch asks for (executor_mega.shared_bytes computes the same).
+extern "C" int64_t fw_mega_shared_bytes(int n_ops, int n_io, int n_consts,
+                                        int n_out, int n_in, int num_words,
+                                        int tile, int frames, int num_buffers,
+                                        int echo_channels) {
+  Args a = {};
+  a.n_ops = n_ops;
+  a.n_io = n_io;
+  a.n_consts = n_consts;
+  a.n_out = n_out;
+  a.n_in = n_in;
+  a.num_words = num_words;
+  a.tile = tile;
+  a.F = frames;
+  a.num_buffers = num_buffers;
+  a.echo_channels = echo_channels;
+  return static_cast<int64_t>(shared_bytes(a));
+}
+
 // Renders K blocks of `batch` instances (see the top of this file for the
 // tables).  All pointers are device pointers on the current device.
 // Launches on `stream` and returns cudaGetLastError() (0 on success); it
 // does not synchronise and allocates nothing.
-extern "C" int fw_mega_render(const int* ops, const int* io, const int* slots,
+extern "C" int fw_mega_render(const int* ops, const int* io,
                               const float* consts, const int* out_row,
-                              int n_out, int n_ops, const int64_t* ptrs,
+                              const int* leaves, const int64_t* ptrs,
                               float* out, bool* masks, float* scratch,
-                              int64_t stride, int batch, int tile,
-                              int num_blocks, int frames, int num_buffers,
-                              int echo_channels, void* stream) {
-  const Args a = make_args(ops, io, slots, consts, out_row, n_out, n_ops, ptrs,
-                           out, masks, scratch, stride, tile, num_blocks,
-                           frames, num_buffers, echo_channels);
-  return launch(mega_kernel, a, batch, stream);
+                              int n_ops, int n_io, int n_consts, int n_out,
+                              int n_leaves, int num_words, int64_t stride,
+                              int batch, int tile, int num_blocks, int frames,
+                              int num_buffers, int echo_channels,
+                              void* stream) {
+  const Args a = make_args(ops, io, consts, out_row, leaves, ptrs, out, masks,
+                           scratch, n_ops, n_io, n_consts, n_out, n_leaves,
+                           num_words, stride, tile, num_blocks, frames,
+                           num_buffers, echo_channels);
+  return launch(false, a, batch, stream);
 }
 
 // Renders K blocks of one island for `batch` instances: live-in rows `env`
@@ -668,21 +1085,23 @@ extern "C" int fw_mega_render(const int* ops, const int* io, const int* slots,
 // [B, K, n_out, F] (unmasked) and flags `flags` [B, K, n_out] out.  The same
 // contract as fw_mega_render otherwise.
 extern "C" int fw_island_render(const int* ops, const int* io,
-                                const int* slots, const float* consts,
-                                const int* out_row, int n_out, int n_ops,
-                                const int* in_bufs, int n_in,
-                                const int64_t* ptrs, const float* env,
-                                const bool* env_flags, float* out,
-                                bool* flags, float* scratch, int64_t stride,
+                                const float* consts, const int* out_row,
+                                const int* leaves, const int64_t* ptrs,
+                                float* out, bool* flags, float* scratch,
+                                int n_ops, int n_io, int n_consts, int n_out,
+                                int n_leaves, int num_words, int64_t stride,
                                 int batch, int tile, int num_blocks,
                                 int frames, int num_buffers,
-                                int echo_channels, void* stream) {
-  Args a = make_args(ops, io, slots, consts, out_row, n_out, n_ops, ptrs, out,
-                     flags, scratch, stride, tile, num_blocks, frames,
-                     num_buffers, echo_channels);
+                                int echo_channels, void* stream,
+                                const int* in_bufs, int n_in,
+                                const float* env, const bool* env_flags) {
+  Args a = make_args(ops, io, consts, out_row, leaves, ptrs, out, flags,
+                     scratch, n_ops, n_io, n_consts, n_out, n_leaves,
+                     num_words, stride, tile, num_blocks, frames, num_buffers,
+                     echo_channels);
   a.in_bufs = in_bufs;
   a.n_in = n_in;
   a.env = env;
   a.env_flags = env_flags;
-  return launch(island_kernel, a, batch, stream);
+  return launch(true, a, batch, stream);
 }

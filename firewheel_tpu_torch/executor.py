@@ -29,6 +29,7 @@ from .convert import params_from_jax, tree_map
 from .core.node import (
     stream_time_from_sample, wrap_stream_sample, BlockInfo, NodeProcessor,
 )
+from .device import DEFAULT_DEVICE, resolve_device
 from .graph.compiler import CompiledSchedule, NodeID
 
 __all__ = ["node_key", "ScheduleProgram"]
@@ -56,7 +57,9 @@ class ScheduleProgram:
     with ``graph_in: f32[..., num_graph_inputs, F]`` and
     ``out: f32[..., num_graph_outputs, F]``.  ``params`` may be the numpy
     snapshot from :meth:`collect_params` or tensors; ``state`` is a dict of
-    tensors on ``device`` (:meth:`init_state`).
+    tensors on ``device`` (:meth:`init_state`; the card unless the caller
+    passes ``device="cpu"``, :func:`~firewheel_tpu_torch.device.
+    resolve_device`).
     """
 
     def __init__(
@@ -64,11 +67,11 @@ class ScheduleProgram:
         schedule: CompiledSchedule,
         processors: dict[NodeID, NodeProcessor],
         sample_rate: int,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = DEFAULT_DEVICE,
     ):
         self.schedule = schedule
         self.sample_rate = int(sample_rate)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.max_block_frames = schedule.max_block_frames
         scheduled = {node_key(sn.id) for sn in schedule.schedule}
         self._procs: dict[str, NodeProcessor] = {

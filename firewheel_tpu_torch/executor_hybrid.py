@@ -43,8 +43,8 @@ from .executor_mega import (
     eligible,
     island_chunk_reference,
     lower_schedule,
-    pin_cuda_index,
 )
+from .device import DEFAULT_DEVICE, resolve_device
 from .parallel.mesh import BatchRenderer
 
 __all__ = ["HybridMegaRenderer", "partition_schedule"]
@@ -118,7 +118,8 @@ class HybridMegaRenderer:
     start_sample=0)`` with batch-stacked params and state → ``(out f32[B,
     K, No, F], masks bool[B, K, No], state')``; ``graph_in f32[B, K, Ni,
     F]`` and ``in_mask bool[B, K, Ni]`` feed a graph with stream inputs.
-    ``tile`` instances share one CTA of the island kernel.
+    ``tile`` instances share one CTA of the island kernel.  ``device`` is
+    the card unless the caller passes ``"cpu"``.
     """
 
     #: island kernel launches since the counter was last set to 0
@@ -126,7 +127,7 @@ class HybridMegaRenderer:
 
     def __init__(self, program: ScheduleProgram, batch: int, num_blocks: int,
                  tile: int = 1, min_island: int = 2,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = DEFAULT_DEVICE):
         if batch % tile != 0:
             raise ValueError(f"batch {batch} % tile {tile} != 0")
         if num_blocks < 1:
@@ -135,7 +136,7 @@ class HybridMegaRenderer:
         self.batch = int(batch)
         self.num_blocks = int(num_blocks)
         self.tile = int(tile)
-        self.device = pin_cuda_index(device)
+        self.device = resolve_device(device)
         self.segments = partition_schedule(program, min_island)
         self._live_in, self._live_out, self._out_bufs = _live_sets(
             program, self.segments)
@@ -214,7 +215,7 @@ class HybridMegaRenderer:
                 self.program, lw, self.batch, self.num_blocks, self.tile, dev,
                 "HybridMegaRenderer")
         ko = self._operands[i]
-        ops, io, slots, consts, out_row, in_bufs = ko.tables
+        in_bufs = ko.tables[-1]
         env, env_flags = env.contiguous(), env_flags.contiguous()
         values, ptrs, new, scratch, stride = ko.chunk(params, state)
         n_out = lw.out_row.shape[0]
@@ -226,12 +227,9 @@ class HybridMegaRenderer:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fw_island_render(
-                ops.data_ptr(), io.data_ptr(), slots.data_ptr(), consts.data_ptr(),
-                out_row.data_ptr(), n_out, lw.ops.shape[0],
-                in_bufs.data_ptr(), lw.in_bufs.shape[0],
-                ptrs.data_ptr(), env.data_ptr(), env_flags.data_ptr(),
-                out.data_ptr(), out_flags.data_ptr(), scratch.data_ptr(),
-                *ko.sizes(stride, stream),
+                *ko.args(ptrs, out, out_flags, scratch, stride, stream),
+                in_bufs.data_ptr(), lw.in_bufs.size, env.data_ptr(),
+                env_flags.data_ptr(),
             )
         del values  # enqueued: the stream orders any reuse after the kernel
         if err != 0:

@@ -4,22 +4,26 @@ PyTorch port of ``firewheel_tpu/executor_pallas.py:MegaRenderer`` (the TPU
 kernel K2, ``MegaRenderer._build.kernel``).  Where the eager executor
 (:mod:`~firewheel_tpu_torch.executor`) launches a few hundred torch kernels
 per block, the megakernel renders K blocks of B instances in one launch
-(``csrc/megakernel.cu``): one CTA per ``tile`` of instances, each
-instance's arena buffers and silence flags in shared memory for all K
-blocks, the K-block loop inside the kernel.  The same tables drive the
-island kernel K3 of the hybrid lowering (:mod:`~firewheel_tpu_torch.
-executor_hybrid`), which renders one run of the schedule's rows.
+(``csrc/megakernel.cu``): one warp per instance, ``tile`` instances per
+CTA, each instance's arena buffers, silence flags and leaves in shared
+memory for all K blocks, the K-block loop inside the kernel.  The same
+tables drive the island kernel K3 of the hybrid lowering (:mod:`~
+firewheel_tpu_torch.executor_hybrid`), which renders one run of the
+schedule's rows.
 
 * :func:`lower_schedule` turns the compiled schedule, or an island of it,
   into what the kernel walks: an int32 op table (one row per interior
   node, in schedule order), the buffer indices of each row with their
-  ``should_clear`` flags, the row's leaf slots into one flat list of
-  param/state leaves, per-op float constants, the output buffers, and an
-  island's live-in buffers.
+  ``should_clear`` flags, per-op float constants, the output buffers, an
+  island's live-in buffers, and the leaf table: where each param, state
+  and derived leaf of the flat leaf list lives in an instance's block of
+  32-bit leaf words.
+* :func:`pack_leaves` and :func:`unpack_leaf` convert between leaves and
+  those words as the kernel does.
 * :func:`mega_chunk_reference` and :func:`island_chunk_reference` are the
-  plain versions of K2 and K3.  They walk the same tables and leaf list in
-  torch and call the port's own node kernels for each row, so the CPU
-  tests check the lowering itself.
+  plain versions of K2 and K3.  They walk the same tables, keep the leaves
+  as words, and call the port's own node kernels for each row, so the CPU
+  tests check the lowering and the word layout.
 * :class:`MegaRenderer` is the JAX package's API.  On a CPU device it runs
   the plain version; on a CUDA device it launches the kernel or raises.
 
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import math
 from typing import Any, Callable, Optional
 
 import numpy as np
@@ -43,6 +48,7 @@ import torch
 
 from .convert import params_from_jax
 from .core.node import BlockInfo, stream_time_from_sample, wrap_stream_sample
+from .device import DEFAULT_DEVICE, resolve_device
 from .executor import ScheduleProgram, node_key
 from .nodes.beep_test import BeepTestProcessor
 from .nodes.delay import EchoProcessor
@@ -67,13 +73,21 @@ __all__ = [
     "island_chunk_reference",
     "lower_schedule",
     "mega_chunk_reference",
-    "pin_cuda_index",
+    "pack_leaves",
+    "shared_bytes",
     "supports_megakernel",
+    "unpack_leaf",
 ]
 
-# Fields of an op-table row; csrc/megakernel.cu reads the same layout.
-OP, N_IN, N_OUT, IO, SLOT, N_SLOT, CONST, AUX0, AUX1 = range(9)
-ROW_WIDTH = 9
+# Fields of an op-table row; csrc/megakernel.cu reads the same layout (48
+# bytes, three int4 loads).
+OP, N_IN, N_OUT, IO, SLOT, N_SLOT, CONST, AUX0, AUX1, WORD, N_CLEAR, GROUP = range(12)
+ROW_WIDTH = 12
+# Fields of a leaf-table row, and the leaf types of its LEAF_TYPE field.
+LEAF_WORD, LEAF_COUNT, LEAF_TYPE, LEAF_STATE = range(4)
+WORD32, BOOL, INT64 = range(3)
+_LEAF_TYPES = {torch.float32: WORD32, torch.int32: WORD32, torch.bool: BOOL,
+               torch.int64: INT64}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -82,12 +96,14 @@ class _Op:
 
     ``layout`` lists the (tree, path) of every leaf of the node in the
     order of its slots; the device function reads them by position.
-    ``consts`` gives the processor's float constants, ``derive`` (for a
-    ``"derived"`` leaf) computes a leaf from the node's params once per
-    chunk."""
+    ``in_memory`` names the leaves that stay in device memory instead of
+    the instance's leaf words (the echo's line).  ``consts`` gives the
+    processor's float constants, ``derive`` (for a ``"derived"`` leaf)
+    computes a leaf from the node's params once per chunk."""
 
     code: int
     layout: tuple = ()
+    in_memory: tuple = ()
     consts: Callable[[Any], tuple] = lambda proc: ()
     derive: Optional[Callable[[Any, dict], torch.Tensor]] = None
 
@@ -116,12 +132,12 @@ OPS: dict[type, _Op] = {
     VolumeProcessor: _Op(
         2,
         (("params", ("raw_gain",)),) + tuple(("state", ("gain", f)) for f in _SMOOTHER),
-        lambda proc: _smoother_consts(proc, proc._eps) + (_MUTE_F32,),
+        consts=lambda proc: _smoother_consts(proc, proc._eps) + (_MUTE_F32,),
     ),
     StereoPanProcessor: _Op(
         3,
         (("params", ("pan",)),) + tuple(("state", ("pan", f)) for f in _SMOOTHER),
-        lambda proc: _smoother_consts(proc, 1e-5),
+        consts=lambda proc: _smoother_consts(proc, 1e-5),
     ),
     SumProcessor: _Op(4),
     FilterProcessor: _Op(
@@ -133,15 +149,19 @@ OPS: dict[type, _Op] = {
     EchoProcessor: _Op(6, (
         ("params", ("feedback",)), ("params", ("wet",)), ("params", ("dry",)),
         ("state", ("line",)),
-    )),
+    ), in_memory=(("state", ("line",)),)),
     HardClipProcessor: _Op(7, (("params", ("threshold",)), ("state", ("clip_count",)))),
     DbMeterProcessor: _Op(
         8,
         (("state", ("peak",)), ("state", ("rms_sq",))),
-        lambda proc: (proc._peak_decay, proc._rms_alpha),
+        consts=lambda proc: (proc._peak_decay, proc._rms_alpha),
     ),
 }
 _ECHO = OPS[EchoProcessor].code
+#: device functions whose rows may run side by side on parts of a warp
+_GROUPABLE = {OPS[c].code for c in (DummyProcessor, BeepTestProcessor,
+                                    VolumeProcessor, StereoPanProcessor)}
+MAX_GROUP = 4
 
 
 def eligible(proc) -> bool:
@@ -172,19 +192,22 @@ class LeafSpec:
 
 @dataclasses.dataclass(frozen=True)
 class LoweredSchedule:
-    """What the kernel walks (see :func:`lower_schedule`)."""
+    """What the kernel walks (see :func:`lower_schedule`).  Row ``n``'s
+    leaves are ``leaves[ops[n, SLOT]: ops[n, SLOT] + ops[n, N_SLOT]]``, and
+    their words start at ``ops[n, WORD]``."""
 
     ops: np.ndarray        # int32 [n_ops, ROW_WIDTH]
     io: np.ndarray         # int32: per row, inputs, their clear flags, outputs
-    slots: np.ndarray      # int32: per row, indices into ``leaves``
     consts: np.ndarray     # float32: per row, the processor's constants
     out_row: np.ndarray    # int32 [No, 2]: output buffer, should_clear
     in_bufs: np.ndarray    # int32 [n_in]: an island's live-in buffers
+    leaf_words: np.ndarray  # int32 [n_leaves, 4]: word, count, type, is state
     keys: tuple            # node key of each row
     leaves: tuple          # LeafSpec
+    num_words: int         # leaf words per instance
     num_buffers: int
     frames: int
-    echo_channels: int     # channels of all echo rows (the kernel's carries)
+    echo_channels: int     # channels of all echo rows (the kernel's counts)
 
 
 def _flat(tree, prefix=()):
@@ -231,8 +254,8 @@ def lower_schedule(program: ScheduleProgram, nodes=None, live_in=(),
         if bad:
             raise ValueError(f"nodes with no device function in an island: {bad}")
         out_row = [[b, 0] for b in (live_out or ())]
-    rows, io, slots, consts, keys, leaves = [], [], [], [], [], []
-    echo_channels = 0
+    rows, io, consts, keys, leaves, words = [], [], [], [], [], []
+    echo_channels = num_words = 0
     for sn in nodes:
         key = node_key(sn.id)
         proc = program._procs[key]
@@ -253,29 +276,140 @@ def lower_schedule(program: ScheduleProgram, nodes=None, live_in=(),
         if op.code == _ECHO:
             aux0, aux1 = proc.delay_frames, echo_channels
             echo_channels += proc.num_inputs
-        c = op.consts(proc)
         rows.append([op.code, len(sn.input_buffers), len(sn.output_buffers),
-                     len(io), len(slots), len(mine), len(consts), aux0, aux1])
+                     len(io), len(leaves), len(mine), len(consts), aux0, aux1,
+                     num_words, sum(ib.should_clear for ib in sn.input_buffers), 1])
         io += [ib.buffer_index for ib in sn.input_buffers]
         io += [int(ib.should_clear) for ib in sn.input_buffers]
         io += [ob.buffer_index for ob in sn.output_buffers]
-        slots += range(len(leaves), len(leaves) + len(mine))
+        for leaf in mine:
+            count = (0 if (leaf.tree, leaf.path) in op.in_memory
+                     else math.prod(leaf.shape))
+            words.append([num_words, count, _LEAF_TYPES[leaf.dtype],
+                          int(leaf.tree == "state")])
+            num_words += count
         leaves += mine
-        consts += c
+        consts += op.consts(proc)
         keys.append(key)
+    rows = np.asarray(rows, np.int32).reshape(-1, ROW_WIDTH)
+    _group_rows(rows, io)
     return LoweredSchedule(
-        ops=np.asarray(rows, np.int32).reshape(-1, ROW_WIDTH),
+        ops=rows,
         io=np.asarray(io, np.int32),
-        slots=np.asarray(slots, np.int32),
         consts=np.asarray(consts, np.float32),
         out_row=np.asarray(out_row, np.int32).reshape(-1, 2),
         in_bufs=np.asarray(live_in, np.int32).reshape(-1),
+        leaf_words=np.asarray(words, np.int32).reshape(-1, 4),
         keys=tuple(keys),
         leaves=tuple(leaves),
+        num_words=num_words,
         num_buffers=program.schedule.num_buffers,
         frames=program.max_block_frames,
         echo_channels=echo_channels,
     )
+
+
+# -- the leaf words -----------------------------------------------------------
+
+def _to_words(lowered: LoweredSchedule, i: int, v: torch.Tensor) -> torch.Tensor:
+    """Leaf ``i``'s value ``[B, *shape]`` → its words ``int32 [B, count]``:
+    bool as 0/1, the uint32 carried in int64 as its low 32 bits, f32 by its
+    bits, int32 as it is."""
+    v = v.reshape(v.shape[0], -1)
+    typ = int(lowered.leaf_words[i, LEAF_TYPE])
+    if typ == BOOL:
+        return v.to(torch.int32)
+    if typ == INT64:
+        low = v & 0xFFFFFFFF
+        return torch.where(low >= 2**31, low - 2**32, low).to(torch.int32)
+    return v.contiguous().view(torch.int32)
+
+
+def pack_leaves(lowered: LoweredSchedule, values) -> torch.Tensor:
+    """Every instance's leaf words, ``int32 [B, num_words]``, from the leaf
+    list ``values`` (``[B, *shape]`` tensors; those that stay in device
+    memory are not read).  ``lowered`` must have leaf words."""
+    cols = [_to_words(lowered, i, v) for i, v in enumerate(values)
+            if lowered.leaf_words[i, LEAF_COUNT]]
+    return torch.cat(cols, 1)
+
+
+def unpack_leaf(lowered: LoweredSchedule, words: torch.Tensor, i: int) -> torch.Tensor:
+    """Leaf ``i`` from ``words`` (``int32 [B, num_words]``) as a ``[B,
+    *shape]`` tensor of its dtype, a copy."""
+    leaf = lowered.leaves[i]
+    at, count, typ, _ = (int(x) for x in lowered.leaf_words[i])
+    w = words[:, at: at + count]
+    if typ == BOOL:
+        v = w != 0
+    elif typ == INT64:
+        v = w.to(torch.int64) & 0xFFFFFFFF
+    else:
+        v = w.clone(memory_format=torch.contiguous_format)
+        if leaf.dtype == torch.float32:
+            v = v.view(torch.float32)
+    return v.reshape((words.shape[0],) + leaf.shape)
+
+
+class _LeafStore:
+    """The plain versions' leaves during a chunk: the words, and the leaves
+    that stay in device memory as tensors."""
+
+    def __init__(self, lowered: LoweredSchedule, values, batch: int, device):
+        self.lowered = lowered
+        self.words = (pack_leaves(lowered, values) if lowered.num_words else
+                      torch.zeros((batch, 0), dtype=torch.int32, device=device))
+        self.memory = {i: v for i, v in enumerate(values)
+                       if not lowered.leaf_words[i, LEAF_COUNT]}
+
+    def get(self, i: int) -> torch.Tensor:
+        if i in self.memory:
+            return self.memory[i]
+        return unpack_leaf(self.lowered, self.words, i)
+
+    def set(self, i: int, v: torch.Tensor) -> None:
+        if i in self.memory:
+            self.memory[i] = v
+            return
+        at, count = (int(x) for x in self.lowered.leaf_words[i, :2])
+        self.words[:, at: at + count] = _to_words(self.lowered, i, v)
+
+
+def _group_rows(rows, io) -> None:
+    """Set each row's GROUP field, in place: runs of up to MAX_GROUP (a power
+    of two) consecutive rows of one groupable device function, with equal
+    port counts of at most two, no cleared input, and no buffer that one row
+    writes and a later row of the run reads or writes, run side by side in
+    the kernel (the group's size on its first row, 0 on the others).  A
+    later row may write what an earlier one reads (the allocator reuses a
+    consumed input for the next row's output): the kernel reads a group's
+    inputs before it writes any output.  The plain versions walk the rows
+    one by one, as the schedule orders them."""
+    def bufs(r):
+        at, n_in, n_out = int(r[IO]), int(r[N_IN]), int(r[N_OUT])
+        return set(io[at: at + n_in]), set(io[at + 2 * n_in: at + 2 * n_in + n_out])
+
+    def joins(a, b):
+        return (a[OP] == b[OP] and a[N_IN] == b[N_IN] and a[N_OUT] == b[N_OUT]
+                and not b[N_CLEAR])
+
+    n = 0
+    while n < len(rows):
+        size = 1
+        if (rows[n, OP] in _GROUPABLE and not rows[n, N_CLEAR]
+                and rows[n, N_IN] <= 2 and rows[n, N_OUT] <= 2):
+            writes = bufs(rows[n])[1]
+            while (size < MAX_GROUP and n + size < len(rows)
+                   and joins(rows[n], rows[n + size])):
+                ins, outs = bufs(rows[n + size])
+                if ins & writes or outs & writes:
+                    break
+                writes |= outs
+                size += 1
+            size = 1 << (size.bit_length() - 1)  # 32 lanes split evenly
+        rows[n: n + size, GROUP] = 0
+        rows[n, GROUP] = size
+        n += size
 
 
 def _get(tree, path):
@@ -317,11 +451,12 @@ def _chunk_clocks(program: ScheduleProgram, start_sample, num_blocks: int,
     return [BlockInfo(times[k], samples[k], status) for k in range(num_blocks)]
 
 
-def _walk_rows(program: ScheduleProgram, lowered: LoweredSchedule, values,
-               bufs, flags, info, zeros, silent):
+def _walk_rows(program: ScheduleProgram, lowered: LoweredSchedule,
+               store: _LeafStore, bufs, flags, info, zeros, silent):
     """One block of the op table in torch: each row gathers its inputs from
-    ``bufs``/``flags``, calls its node's kernel on its leaves and scatters
-    its outputs; ``values`` (the leaf list) takes each row's new state."""
+    ``bufs``/``flags``, calls its node's kernel on its leaves (read from
+    ``store``) and scatters its outputs; ``store`` takes each row's new
+    state."""
     batch, f = zeros.shape
     for row, key in zip(lowered.ops, lowered.keys):
         ins, clear, out_idx = _row_io(lowered, row)
@@ -332,50 +467,64 @@ def _walk_rows(program: ScheduleProgram, lowered: LoweredSchedule, values,
         else:
             inputs = zeros.new_zeros((batch, 0, f))
             in_mask = silent.new_zeros((batch, 0))
-        mine = lowered.slots[row[SLOT]: row[SLOT] + row[N_SLOT]].tolist()
-        p = _nest([(lowered.leaves[i].path, values[i]) for i in mine
+        mine = range(int(row[SLOT]), int(row[SLOT]) + int(row[N_SLOT]))
+        p = _nest([(lowered.leaves[i].path, store.get(i)) for i in mine
                    if lowered.leaves[i].tree == "params"])
         s_slots = [i for i in mine if lowered.leaves[i].tree == "state"]
-        s = _nest([(lowered.leaves[i].path, values[i]) for i in s_slots])
+        s = _nest([(lowered.leaves[i].path, store.get(i)) for i in s_slots])
         y, s2, om = program._procs[key].kernel(p, s, inputs, in_mask, info)
         for i, (path, t) in zip(s_slots, _flat(s2), strict=True):
             assert path == lowered.leaves[i].path, (key, path)
-            values[i] = t
+            store.set(i, t)
         for j, b in enumerate(out_idx):
             bufs[b] = y[:, j]
             flags[b] = om[:, j]
 
 
-def _reference_values(lowered: LoweredSchedule, params, state):
-    """The leaf list from batch-stacked trees (derived leaves left out: the
-    node kernels compute them)."""
-    return [
-        None if leaf.tree == "derived"
-        else _get(params if leaf.tree == "params" else state, (leaf.key,) + leaf.path)
-        for leaf in lowered.leaves
-    ]
+def _leaf_values(program: ScheduleProgram, lowered: LoweredSchedule, params,
+                 state):
+    """The leaf list from batch-stacked trees, derived leaves computed from
+    the params as the kernel's wrapper computes them."""
+    values = []
+    for leaf in lowered.leaves:
+        if leaf.tree == "derived":
+            proc = program._procs[leaf.key]
+            values.append(OPS[type(proc)].derive(proc, params[leaf.key]))
+        else:
+            tree = params if leaf.tree == "params" else state
+            values.append(_get(tree, (leaf.key,) + leaf.path))
+    return values
+
+
+def _final_state(state, lowered: LoweredSchedule, store: _LeafStore):
+    return _new_state_tree(state, lowered, [
+        store.get(i) if leaf.tree == "state" else None
+        for i, leaf in enumerate(lowered.leaves)
+    ])
 
 
 def mega_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
                          params, state, start_sample, num_blocks: int,
                          batch: int):
     """Plain version of the kernel: K blocks for every instance, walking the
-    op table and the leaf list, one node kernel call per row.
+    op table with the leaves packed into their words, one node kernel call
+    per row.
 
     ``params``/``state`` are batch-stacked trees of tensors (``[B, ...]``
     leaves).  Returns ``(out f32[B, K, No, F], masks bool[B, K, No],
     state')``."""
-    values = _reference_values(lowered, params, state)
-    device = next((v.device for v in values if v is not None), program.device)
+    values = _leaf_values(program, lowered, params, state)
+    device = values[0].device if values else program.device
     f = lowered.frames
     zeros = torch.zeros((batch, f), dtype=torch.float32, device=device)
     silent = torch.ones((batch,), dtype=torch.bool, device=device)
+    store = _LeafStore(lowered, values, batch, device)
 
     outs, masks = [], []
     for info in _chunk_clocks(program, start_sample, num_blocks, device):
         bufs: dict[int, torch.Tensor] = {}
         flags: dict[int, torch.Tensor] = {}
-        _walk_rows(program, lowered, values, bufs, flags, info, zeros, silent)
+        _walk_rows(program, lowered, store, bufs, flags, info, zeros, silent)
         o_rows, o_flags = [], []
         for b, c in lowered.out_row.tolist():
             if c:
@@ -391,7 +540,7 @@ def mega_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
             outs.append(zeros.new_zeros((batch, 0, f)))
             masks.append(silent.new_zeros((batch, 0)))
     return (torch.stack(outs, 1), torch.stack(masks, 1),
-            _new_state_tree(state, lowered, values))
+            _final_state(state, lowered, store))
 
 
 def island_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
@@ -405,20 +554,21 @@ def island_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
     island's rows, and returns the live-out buffers as they are, not zeroed
     by their flags: ``(rows f32[B, K, n_out, F], flags bool[B, K, n_out],
     state')``."""
-    values = _reference_values(lowered, params, state)
+    values = _leaf_values(program, lowered, params, state)
     device = env.device
     f = lowered.frames
     zeros = torch.zeros((batch, f), dtype=torch.float32, device=device)
     silent = torch.ones((batch,), dtype=torch.bool, device=device)
     in_bufs = lowered.in_bufs.tolist()
     out_bufs = [b for b, _ in lowered.out_row.tolist()]
+    store = _LeafStore(lowered, values, batch, device)
 
     outs, masks = [], []
     infos = _chunk_clocks(program, start_sample, num_blocks, device)
     for k, info in enumerate(infos):
         bufs = {b: env[:, k, j] for j, b in enumerate(in_bufs)}
         flags = {b: env_flags[:, k, j] for j, b in enumerate(in_bufs)}
-        _walk_rows(program, lowered, values, bufs, flags, info, zeros, silent)
+        _walk_rows(program, lowered, store, bufs, flags, info, zeros, silent)
         if out_bufs:
             outs.append(torch.stack([bufs[b] for b in out_bufs], -2))
             masks.append(torch.stack([flags[b] for b in out_bufs], -1))
@@ -426,48 +576,80 @@ def island_chunk_reference(program: ScheduleProgram, lowered: LoweredSchedule,
             outs.append(zeros.new_zeros((batch, 0, f)))
             masks.append(silent.new_zeros((batch, 0)))
     return (torch.stack(outs, 1), torch.stack(masks, 1),
-            _new_state_tree(state, lowered, values))
+            _final_state(state, lowered, store))
 
 
 # -- the CUDA kernel ----------------------------------------------------------
 
-THREADS_PER_INSTANCE = 128
-MAX_THREADS = 1024
+MAX_TILE = 8      # instances (warps) per CTA at most (csrc/megakernel.cu:kMaxTile)
 MAX_SHARED_BYTES = 232448  # the most shared memory one CTA may take (H100)
 
 
 def _bind(lib):
-    tables = (
-        [ctypes.c_void_p] * 4          # ops, io, slots, consts
-        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_int]   # out_row, n_out, n_ops
-    )
-    sizes = (
-        [ctypes.c_int64]               # scratch per echo channel
+    head = (
+        [ctypes.c_void_p] * 9          # ops, io, consts, out_row, leaves, ptrs,
+                                       # out, masks (flags), scratch
+        + [ctypes.c_int] * 6           # n_ops, n_io, n_consts, n_out, n_leaves,
+                                       # num_words
+        + [ctypes.c_int64]             # scratch per echo channel
         + [ctypes.c_int] * 6           # batch, tile, K, F, buffers, echo channels
         + [ctypes.c_void_p]            # stream
     )
-    lib.fw_mega_render.argtypes = (
-        tables + [ctypes.c_void_p] * 4  # ptrs, out, masks, scratch
-        + sizes
-    )
-    lib.fw_island_render.argtypes = (
-        tables + [ctypes.c_void_p, ctypes.c_int]   # in_bufs, n_in
-        + [ctypes.c_void_p] * 6        # ptrs, env, env_flags, out, flags, scratch
-        + sizes
-    )
+    lib.fw_mega_render.argtypes = head
+    lib.fw_island_render.argtypes = head + [
+        ctypes.c_void_p, ctypes.c_int,      # in_bufs, n_in
+        ctypes.c_void_p, ctypes.c_void_p,   # env, env_flags
+    ]
     lib.fw_mega_render.restype = lib.fw_island_render.restype = ctypes.c_int
+    lib.fw_mega_shared_bytes.argtypes = [ctypes.c_int] * 10
+    lib.fw_mega_shared_bytes.restype = ctypes.c_int64
 
 
 #: ``csrc/megakernel.cu`` (K2 and K3), built with nvcc at first use
 LIBRARY = CudaLibrary("fw_mega", "megakernel.cu", ("biquad_step.cuh",), _bind)
 
 
+def _round4(n: int) -> int:
+    return (n + 3) // 4 * 4
+
+
+#: 32-bit words of one echo channel's record (csrc/megakernel.cu:EchoChannel)
+ECHO_WORDS = 8
+
+
 def shared_bytes(lowered: LoweredSchedule, tile: int) -> int:
-    """Dynamic shared memory of one CTA: per instance, the buffers, their
-    flags, the reduction scratch and the echo carries (csrc/megakernel.cu)."""
-    words = (lowered.num_buffers * lowered.frames + lowered.num_buffers + 8
-             + lowered.echo_channels)
-    return 4 * words * tile
+    """Dynamic shared memory of one CTA (csrc/megakernel.cu:shared_bytes):
+    the tables once, then per instance the buffers, the echo channels'
+    records, the buffers' flags and the leaf words, each part rounded up to
+    16 bytes."""
+    tables = (lowered.ops.size + lowered.io.size + lowered.consts.size
+              + lowered.out_row.size + lowered.in_bufs.size)
+    per_instance = (lowered.num_buffers * lowered.frames
+                    + ECHO_WORDS * lowered.echo_channels + lowered.num_buffers
+                    + lowered.num_words)
+    return 4 * (_round4(tables) + tile * _round4(per_instance))
+
+
+def shared_sizes(lowered: LoweredSchedule, tile: int) -> tuple:
+    """The arguments of ``fw_mega_shared_bytes`` for ``lowered``."""
+    return (lowered.ops.shape[0], lowered.io.size, lowered.consts.size,
+            lowered.out_row.shape[0], lowered.in_bufs.size, lowered.num_words,
+            tile, lowered.frames, lowered.num_buffers, lowered.echo_channels)
+
+
+def check_launchable(lowered: LoweredSchedule, tile: int, who: str) -> None:
+    """Raises ``ValueError`` unless the kernel can render ``lowered`` with
+    ``tile`` instances a CTA: at most ``MAX_TILE`` of them in at most
+    ``MAX_SHARED_BYTES`` of shared memory, and blocks of a multiple of 4
+    frames (each lane moves whole float4s)."""
+    smem = shared_bytes(lowered, tile)
+    if tile > MAX_TILE or smem > MAX_SHARED_BYTES:
+        raise ValueError(
+            f"{who}: tile {tile} needs {smem} bytes of shared memory per CTA "
+            f"(at most {MAX_TILE} instances and {MAX_SHARED_BYTES} bytes)")
+    if lowered.frames % 4 != 0:
+        raise ValueError(f"{who}: blocks of {lowered.frames} frames; the kernel "
+                         "takes a multiple of 4")
 
 
 class KernelOperands:
@@ -482,32 +664,16 @@ class KernelOperands:
         self.program, self.lowered, self.who = program, lowered, who
         self.batch, self.num_blocks, self.tile = batch, num_blocks, tile
         self.device = device
-        threads = THREADS_PER_INSTANCE * tile
-        smem = shared_bytes(lowered, tile)
-        if threads > MAX_THREADS or smem > MAX_SHARED_BYTES:
-            raise ValueError(
-                f"{who}: tile {tile} needs {threads} threads and {smem} bytes "
-                f"of shared memory per CTA (at most {MAX_THREADS} and "
-                f"{MAX_SHARED_BYTES})"
-            )
+        check_launchable(lowered, tile, who)
         self.tables = tuple(
             torch.from_numpy(np.ascontiguousarray(a)).to(device)
-            for a in (lowered.ops, lowered.io, lowered.slots, lowered.consts,
-                      lowered.out_row, lowered.in_bufs)
+            for a in (lowered.ops, lowered.io, lowered.consts, lowered.out_row,
+                      lowered.leaf_words, lowered.in_bufs)
         )
 
-    def _leaf_values(self, params, state):
-        derived = {}
-        values = []
-        for leaf in self.lowered.leaves:
-            if leaf.tree == "derived":
-                proc = self.program._procs[leaf.key]
-                if leaf.key not in derived:
-                    derived[leaf.key] = OPS[type(proc)].derive(proc, params[leaf.key])
-                v = derived[leaf.key]
-            else:
-                tree = params if leaf.tree == "params" else state
-                v = _get(tree, (leaf.key,) + leaf.path)
+    def _checked_values(self, params, state):
+        values = _leaf_values(self.program, self.lowered, params, state)
+        for leaf, v in zip(self.lowered.leaves, values):
             want = (self.batch,) + leaf.shape
             if (not isinstance(v, torch.Tensor) or v.device != self.device
                     or v.dtype != leaf.dtype or tuple(v.shape) != want):
@@ -518,9 +684,8 @@ class KernelOperands:
                     f"must be a {leaf.dtype} {want} tensor on {self.device}; "
                     f"got {got}"
                 )
-            # the eager path hands over pooled state as strided views
-            values.append(v.contiguous())
-        return values
+        # the eager path hands over pooled state as strided views
+        return [v.contiguous() for v in values]
 
     def chunk(self, params, state):
         """``(values, ptrs, new, scratch, stride)`` for one chunk: the input
@@ -531,7 +696,7 @@ class KernelOperands:
         leaves, params in their slots), and the scratch for the echoes a
         chunk's final line does not keep."""
         lw, dev = self.lowered, self.device
-        values = self._leaf_values(params, state)
+        values = self._checked_values(params, state)
         new = [torch.empty_like(v) if leaf.tree == "state" else v
                for leaf, v in zip(lw.leaves, values)]
         ptrs = [p for v, w in zip(values, new) for p in (v.data_ptr(), w.data_ptr())]
@@ -543,10 +708,17 @@ class KernelOperands:
                               dtype=torch.float32, device=dev)
         return values, ptrs_d, new, scratch, stride
 
-    def sizes(self, stride, stream):
+    def args(self, ptrs, out, masks, scratch, stride, stream):
+        """The arguments both C entry points share, in their order."""
         lw = self.lowered
-        return (stride, self.batch, self.tile, self.num_blocks, lw.frames,
-                lw.num_buffers, lw.echo_channels, stream)
+        ops, io, consts, out_row, leaf_words, _ = self.tables
+        return (ops.data_ptr(), io.data_ptr(), consts.data_ptr(),
+                out_row.data_ptr(), leaf_words.data_ptr(), ptrs.data_ptr(),
+                out.data_ptr(), masks.data_ptr(), scratch.data_ptr(),
+                lw.ops.shape[0], lw.io.size, lw.consts.size, lw.out_row.shape[0],
+                len(lw.leaves), lw.num_words, stride, self.batch, self.tile,
+                self.num_blocks, lw.frames, lw.num_buffers, lw.echo_channels,
+                stream)
 
 
 class MegaRenderer:
@@ -557,14 +729,15 @@ class MegaRenderer:
     ``(out f32[B, K, No, F], masks bool[B, K, No], state')``.  The state has
     the tree and layout of :class:`~firewheel_tpu_torch.parallel.
     BatchRenderer`'s, so the two can hand state to each other mid-stream.
-    ``tile`` instances share one CTA.
+    ``tile`` instances share one CTA.  ``device`` is the card unless the
+    caller passes ``"cpu"``.
     """
 
     #: kernel launches since the counter was last set to 0
     launches = 0
 
     def __init__(self, program: ScheduleProgram, batch: int, num_blocks: int,
-                 tile: int = 1, device: str | torch.device = "cpu"):
+                 tile: int = 1, device: str | torch.device = DEFAULT_DEVICE):
         if batch % tile != 0:
             raise ValueError(f"batch {batch} % tile {tile} != 0")
         if num_blocks < 1:
@@ -573,7 +746,7 @@ class MegaRenderer:
         self.batch = int(batch)
         self.num_blocks = int(num_blocks)
         self.tile = int(tile)
-        self.device = pin_cuda_index(device)
+        self.device = resolve_device(device)
         self.lowered = lower_schedule(program)
         self._batched = BatchRenderer(program, batch, self.device)
         self._operands = None
@@ -600,7 +773,6 @@ class MegaRenderer:
                 self.program, self.lowered, self.batch, self.num_blocks,
                 self.tile, self.device, "MegaRenderer")
         ko, lw, dev = self._operands, self.lowered, self.device
-        ops, io, slots, consts, out_row, _ = ko.tables
         values, ptrs, new, scratch, stride = ko.chunk(params, state)
         n_out = lw.out_row.shape[0]
         out = torch.empty((self.batch, self.num_blocks, n_out, lw.frames),
@@ -612,23 +784,9 @@ class MegaRenderer:
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             err = lib.fw_mega_render(
-                ops.data_ptr(), io.data_ptr(), slots.data_ptr(), consts.data_ptr(),
-                out_row.data_ptr(), n_out, lw.ops.shape[0],
-                ptrs.data_ptr(), out.data_ptr(), masks.data_ptr(),
-                scratch.data_ptr(), *ko.sizes(stride, stream),
-            )
+                *ko.args(ptrs, out, masks, scratch, stride, stream))
         del values  # enqueued: the stream orders any reuse after the kernel
         if err != 0:
             raise RuntimeError(f"MegaRenderer: kernel launch failed (cudaError {err})")
         MegaRenderer.launches += 1
         return out, masks, _new_state_tree(state, lw, new)
-
-
-def pin_cuda_index(device) -> torch.device:
-    """``device`` as a ``torch.device``, with the current index filled in
-    for a bare ``"cuda"``: a tensor's device always has one, and devices
-    compare exactly."""
-    device = torch.device(device)
-    if device.type == "cuda" and device.index is None:
-        device = torch.device("cuda", torch.cuda.current_device())
-    return device

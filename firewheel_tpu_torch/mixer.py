@@ -20,6 +20,7 @@ import numpy as np
 import torch
 
 from .core.sample_resource import SampleResource
+from .device import DEFAULT_DEVICE
 from .executor import ScheduleProgram
 from .graph import AudioGraph, AudioGraphConfig
 from .nodes import (
@@ -47,7 +48,7 @@ BLOCK = 128
 
 
 def mixer_graph(num_voices: int = 19, filter_backend: str = "pallas",
-                device: str | torch.device = "cpu") -> ScheduleProgram:
+                device: str | torch.device = DEFAULT_DEVICE) -> ScheduleProgram:
     """Build and compile the mixer → a :class:`ScheduleProgram` on
     ``device``.  ``num_voices=19`` gives the 64-node benchmark graph."""
     g = AudioGraph(AudioGraphConfig(0, 2))
@@ -101,7 +102,7 @@ def _chain(g, clip_audio, ir, echo_secs, filter_backend, device):
 
 
 def effects_chain_graph(clip_frames: int = 8192, filter_backend: str = "auto",
-                        device: str | torch.device = "cpu") -> ScheduleProgram:
+                        device: str | torch.device = DEFAULT_DEVICE) -> ScheduleProgram:
     """The effects chain of ``bench.py --hybrid``: a cubic sampler playing a
     seeded stereo clip (``rng(3)``, ×0.25), lowpass 6 kHz q 0.9, echo
     0.01 s (480 samples) fb 0.35 wet 0.4, clip at -3 dB, and a reverb with
@@ -141,7 +142,7 @@ def exp_decay_ir(secs: float, t60_secs: float, sr: int = SR):
 
 
 def effects_chain_config4_graph(filter_backend: str = "auto",
-                                device: str | torch.device = "cpu") -> ScheduleProgram:
+                                device: str | torch.device = DEFAULT_DEVICE) -> ScheduleProgram:
     """BASELINE config 4 (``examples/effects_chain.py``): a 1.2 s
     Karplus-Strong pluck through the chain, echo 0.28 s, and a 0.6 s IR
     (28 800 taps, 225 partitions), which is the FFT engine."""
@@ -157,16 +158,19 @@ _FILTER_TYPES = (
 )
 
 
-def random_graph(seed: int, device: str | torch.device = "cpu") -> ScheduleProgram:
+def random_graph(seed: int, device: str | torch.device = DEFAULT_DEVICE,
+                 block_frames: int = BLOCK) -> ScheduleProgram:
     """A seeded random DAG of the port's nodes, compiled to a
-    :class:`ScheduleProgram` at 48 kHz, 128-frame blocks, stereo out.
+    :class:`ScheduleProgram` at 48 kHz, stereo out, in blocks of
+    ``block_frames`` (128 by default).
 
     Two or three beeps feed a shuffled chain of volumes, pans (1 and 2
     inputs), a 4→2 sum with one input left unconnected, a filter of random
-    type, an echo whose delay (129..450 frames) is shorter than four blocks
-    and not a multiple of one, a clip, a meter and a dummy.  Each input reads
-    a random earlier output, so outputs fan out and some are left unread;
-    graph output 1 reads an output that already has a reader."""
+    type, an echo whose delay (F+1..3F+66 frames for blocks of F: 129..450
+    at 128) is longer than a block and shorter than four, a clip, a meter
+    and a dummy.  Each input reads a random earlier output, so outputs fan
+    out and some are left unread; graph output 1 reads an output that
+    already has a reader."""
     rng = np.random.default_rng(seed)
     g = AudioGraph(AudioGraphConfig(0, 2))
     ports: list = []     # every output so far: (node, port)
@@ -207,7 +211,8 @@ def random_graph(seed: int, device: str | torch.device = "cpu") -> ScheduleProgr
                 float(rng.uniform(-12.0, 12.0))))
         elif kind == "echo":
             add(ch, ch, EchoNode(
-                delay_secs=int(rng.integers(129, 451)) / SR,
+                delay_secs=int(rng.integers(block_frames + 1,
+                                            3 * block_frames + 67)) / SR,
                 feedback=float(rng.uniform(0.0, 0.8)),
                 wet=float(rng.uniform(0.2, 1.0)), dry=float(rng.uniform(0.5, 1.0))))
         elif kind == "clip":
@@ -219,7 +224,7 @@ def random_graph(seed: int, device: str | torch.device = "cpu") -> ScheduleProgr
     out = g.graph_out_node()
     g.connect(*pick(), out, 0)
     g.connect(*read[int(rng.integers(len(read)))], out, 1)
-    pkg = g.compile(SR, BLOCK)
+    pkg = g.compile(SR, block_frames)
     return ScheduleProgram(
         pkg.schedule, dict(pkg.new_node_processors), SR, device=device
     )

@@ -46,7 +46,10 @@ def _nvcc() -> str:
 class CudaLibrary:
     """One ``csrc/<source>`` built into ``_build/lib<name>-<hash>.so``.
 
-    ``bind(lib)`` sets the ctypes signatures of the loaded library."""
+    ``bind(lib)`` sets the ctypes signatures of the loaded library.
+    ``log`` holds nvcc's messages from this process's build (ptxas's
+    per-kernel report when built verbose), empty when the library was
+    built already."""
 
     def __init__(self, name: str, source: str, headers=(), bind=None):
         self.name = name
@@ -55,6 +58,7 @@ class CudaLibrary:
         self._bind = bind
         self._lib = None
         self._lock = threading.Lock()
+        self.log = ""
 
     def path(self) -> Path:
         h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
@@ -85,6 +89,7 @@ class CudaLibrary:
             raise RuntimeError(
                 f"nvcc failed on {self.source.name} ({proc.returncode}):\n{err}"
             )
+        self.log = err
         if verbose and err:
             print(err, end="", flush=True)
         os.replace(tmp, so)

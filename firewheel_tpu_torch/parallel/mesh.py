@@ -17,13 +17,15 @@ import numpy as np
 import torch
 
 from ..convert import as_dicts, params_from_jax, tree_map
+from ..device import DEFAULT_DEVICE, resolve_device
 from ..executor import ScheduleProgram
 
 __all__ = ["BatchRenderer"]
 
 
 class BatchRenderer:
-    """Render B independent graph instances per dispatch on ``device``.
+    """Render B independent graph instances per dispatch on ``device`` (the
+    card unless the caller passes ``device="cpu"``).
 
     Per-instance params and state carry a leading batch axis.
     ``render_chunk`` renders K blocks per call and returns
@@ -34,7 +36,7 @@ class BatchRenderer:
         self,
         program: ScheduleProgram,
         batch: int,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = DEFAULT_DEVICE,
         output_format: str = "f32",
         lowering: str = "xla",
         tile: int = 1,
@@ -52,7 +54,7 @@ class BatchRenderer:
             )
         self.program = program
         self.batch = int(batch)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.output_format = output_format
         self.lowering = lowering
         self._tile = int(tile)

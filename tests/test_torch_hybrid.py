@@ -28,6 +28,7 @@ import torch
 
 import firewheel_tpu_torch as ft
 import test_hybrid_megakernel as jh
+import test_torch_megakernel as tm
 from firewheel_tpu import AudioGraph as JAudioGraph
 from firewheel_tpu import AudioGraphConfig as JAudioGraphConfig
 from firewheel_tpu import ScheduleProgram as JScheduleProgram
@@ -40,6 +41,7 @@ from firewheel_tpu.parallel import BatchRenderer as JBatchRenderer
 from firewheel_tpu_torch import mixer
 from firewheel_tpu_torch import nodes as tn
 from firewheel_tpu_torch.convert import state_from_jax, state_to_numpy
+from firewheel_tpu_torch.core.smoother import SMOOTHER_ACTIVE, SMOOTHER_INACTIVE
 from firewheel_tpu_torch.executor_hybrid import (
     HybridMegaRenderer, _live_sets, partition_schedule,
 )
@@ -53,7 +55,8 @@ TOL = 1e-5
 
 def _port_program(g):
     pkg = g.compile(jh.SR, jh.F)
-    return ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), jh.SR)
+    return ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), jh.SR,
+                              device="cpu")
 
 
 def _port(fn):
@@ -114,7 +117,7 @@ def test_partition_and_live_sets_match_jax(name, min_island, kinds):
     live = _live_sets(tprog, tsegs)
     assert live == j_live_sets(jprog, jsegs)
     # each island lowers its own rows with the live sets as its operands
-    hy = HybridMegaRenderer(tprog, B, K, min_island=min_island)
+    hy = HybridMegaRenderer(tprog, B, K, min_island=min_island, device="cpu")
     assert sorted(hy.islands) == [i for i, k in enumerate(kinds) if k == "mega"]
     for i, lw in hy.islands.items():
         assert list(lw.keys) == _segments(tsegs)[i][1]
@@ -149,7 +152,7 @@ def _against_jax(tprog, jrender, jstate, chunks=3, batch=B, k=K):
     """Render ``chunks`` chunks with the port's hybrid and with ``jrender``
     from the same per-instance params; return the worst difference of
     outputs and state (masks and integer leaves must be equal)."""
-    br = ft.BatchRenderer(tprog, batch, lowering="hybrid")
+    br = ft.BatchRenderer(tprog, batch, device="cpu", lowering="hybrid")
     tparams = mixer.vary_effects_params(br.stack_params())
     # instance 0 never plays: its masks are set from the first block
     tparams[next(k for k in tparams if k.startswith("sampler"))]["playing"][0] = False
@@ -170,7 +173,7 @@ def _against_jax(tprog, jrender, jstate, chunks=3, batch=B, k=K):
 def test_hybrid_matches_jax_batch_renderer():
     jprog = _jax_builder(mixer.effects_chain_graph)(
         clip_frames=4096, filter_backend="pallas")
-    tprog = mixer.effects_chain_graph(clip_frames=4096)
+    tprog = mixer.effects_chain_graph(clip_frames=4096, device="cpu")
     assert repr(tprog.schedule) == repr(jprog.schedule)
     assert list(tprog._procs) == list(jprog._procs)
     jbr = JBatchRenderer(jprog, B)
@@ -185,7 +188,7 @@ def test_hybrid_matches_jax_batch_renderer():
 
 def test_hybrid_matches_jax_hybrid_interpret():
     jprog = jh.effects_chain_program()
-    tprog = mixer.effects_chain_graph(clip_frames=4096)
+    tprog = mixer.effects_chain_graph(clip_frames=4096, device="cpu")
     assert repr(tprog.schedule) == repr(jprog.schedule)
     jhy = JHybrid(jprog, batch=B, num_blocks=K, tile=B, interpret=True)
 
@@ -203,8 +206,9 @@ def test_state_hands_over_from_jax_mid_stream():
     hybrid renders the third chunk as JAX does."""
     jprog = _jax_builder(mixer.effects_chain_graph)(
         clip_frames=2048, filter_backend="pallas")
-    tprog = mixer.effects_chain_graph(clip_frames=2048)
-    jbr, tbr = JBatchRenderer(jprog, B), ft.BatchRenderer(tprog, B, lowering="hybrid")
+    tprog = mixer.effects_chain_graph(clip_frames=2048, device="cpu")
+    jbr, tbr = JBatchRenderer(jprog, B), ft.BatchRenderer(tprog, B, device="cpu",
+                                                          lowering="hybrid")
     tparams = mixer.vary_effects_params(tbr.stack_params())
     jparams = state_to_numpy(tparams)
     jstate = jbr.init_state()
@@ -229,7 +233,7 @@ def test_state_hands_over_from_jax_mid_stream():
 def test_config4_fft_reverb_matches_jax():
     """BASELINE config 4: the 0.6 s IR takes the FFT engine."""
     jprog = _jax_builder(mixer.effects_chain_config4_graph)(filter_backend="pallas")
-    tprog = mixer.effects_chain_config4_graph()
+    tprog = mixer.effects_chain_config4_graph(device="cpu")
     assert repr(tprog.schedule) == repr(jprog.schedule)
     rev = next(p for p in tprog._procs.values() if isinstance(
         p, tn.reverb.ConvolutionReverbProcessor))
@@ -265,7 +269,7 @@ def _graph_input(prog, batch, seed):
 
 def _programs():
     return {
-        "effects_chain": (mixer.effects_chain_graph(clip_frames=2048), 2),
+        "effects_chain": (mixer.effects_chain_graph(clip_frames=2048, device="cpu"), 2),
         "stream_in": (_port(jh.stream_in_program), 1),
         "mixer": (_port(jh.mixer_program), 2),
     }
@@ -274,8 +278,8 @@ def _programs():
 @pytest.mark.parametrize("name", ["effects_chain", "stream_in", "mixer"])
 def test_hybrid_equals_eager_bit_for_bit(name):
     prog, min_island = _programs()[name]
-    hy = HybridMegaRenderer(prog, B, K, min_island=min_island)
-    eager = ft.BatchRenderer(prog, B)
+    hy = HybridMegaRenderer(prog, B, K, min_island=min_island, device="cpu")
+    eager = ft.BatchRenderer(prog, B, device="cpu")
     params = hy.stack_params()
     mixer.vary_effects_params(params)
     mixer.vary_params(params, 5)
@@ -291,11 +295,50 @@ def test_hybrid_equals_eager_bit_for_bit(name):
     _assert_equal_trees(hs, es)
 
 
+@pytest.mark.parametrize("name", ["stream_in", "mixer_voices"])
+def test_island_matches_eager_while_smoothers_move(name):
+    """Pan and volume move mid-stream by a small step inside an island: its
+    smoothers ramp, settle and rest inside the tested chunks (the path on
+    which K3 computes its gains once a block), and the island's plain
+    version equals eager bit for bit."""
+    if name == "stream_in":
+        prog, min_island = _port(jh.stream_in_program), 1
+    else:  # three voices of beep, volume and pan, then the mixer's chain
+        prog, min_island = mixer.mixer_graph(num_voices=3, device="cpu"), 2
+    k = 8
+    hy = HybridMegaRenderer(prog, B, k, min_island=min_island, device="cpu")
+    assert [kind for kind, _ in hy.segments] == ["mega"]
+    eager = ft.BatchRenderer(prog, B, device="cpu")
+    params = hy.stack_params()
+    hs = es = hy.init_state()
+    rng = np.random.default_rng(4)
+    ni = prog.num_graph_inputs
+    seen = []
+    for c in range(5):
+        if c == 1:
+            tm.move_smoothed_params(params, 2e-3)
+        # loud stream input: an all-silent block would reset the smoothers
+        gi = torch.from_numpy((0.3 * rng.standard_normal((B, k, ni, F))).astype(
+            np.float32))
+        im = torch.zeros((B, k, ni), dtype=torch.bool)
+        ho, hm, hs = hy.render_chunk(params, hs, gi, im, start_sample=c * k * F)
+        eo, em, es = eager.render_chunk(params, es, gi, im, start_sample=c * k * F,
+                                        num_blocks=k)
+        assert torch.equal(ho, eo), float((ho - eo).abs().max())
+        assert torch.equal(hm, em)
+        _assert_equal_trees(hs, es)
+        seen.append(tm.smoother_statuses(hs))
+    assert float(ho.abs().max()) > 0.01
+    assert bool((seen[0] == SMOOTHER_INACTIVE).all())
+    assert bool((seen[1] == SMOOTHER_ACTIVE).all())
+    assert bool((seen[-1] == SMOOTHER_INACTIVE).all())
+
+
 def test_state_hands_over_between_lowerings():
     """eager → hybrid → eager equals three eager chunks, bit for bit."""
-    prog = mixer.effects_chain_graph(clip_frames=2048)
-    eager = ft.BatchRenderer(prog, B)
-    hybrid = ft.BatchRenderer(prog, B, lowering="hybrid")
+    prog = mixer.effects_chain_graph(clip_frames=2048, device="cpu")
+    eager = ft.BatchRenderer(prog, B, device="cpu")
+    hybrid = ft.BatchRenderer(prog, B, device="cpu", lowering="hybrid")
     params = mixer.vary_effects_params(eager.stack_params())
     ref_state = eager.init_state()
     ref = []
@@ -314,13 +357,13 @@ def test_state_hands_over_between_lowerings():
 
 
 def test_nonzero_status_raises():
-    br = ft.BatchRenderer(mixer.effects_chain_graph(clip_frames=512), B,
-                          lowering="hybrid")
+    br = ft.BatchRenderer(mixer.effects_chain_graph(clip_frames=512, device="cpu"), B,
+                          device="cpu", lowering="hybrid")
     with pytest.raises(ValueError, match="status"):
         br.render_chunk(br.stack_params(), br.init_state(), num_blocks=K, status=1)
     with pytest.raises(ValueError, match="lowering"):
-        ft.BatchRenderer(mixer.effects_chain_graph(clip_frames=512), B,
-                         lowering="mosaic")
+        ft.BatchRenderer(mixer.effects_chain_graph(clip_frames=512, device="cpu"), B,
+                         device="cpu", lowering="mosaic")
 
 
 def test_island_returns_live_outs_as_they_are():
@@ -333,8 +376,9 @@ def test_island_returns_live_outs_as_they_are():
         g.connect(g.graph_in_node(), c, clip, c)
         g.connect(clip, c, g.graph_out_node(), c)
     pkg = g.compile(48000, F)
-    prog = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000)
-    hy = HybridMegaRenderer(prog, B, K, min_island=1)
+    prog = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                              device="cpu")
+    hy = HybridMegaRenderer(prog, B, K, min_island=1, device="cpu")
     assert [k for k, _ in hy.segments] == ["mega"]
     gi = torch.full((B, K, 2, F), 0.25)
     im = torch.zeros((B, K, 2), dtype=torch.bool)
@@ -345,7 +389,7 @@ def test_island_returns_live_outs_as_they_are():
     assert torch.equal(flags, im)
     assert float(rows.abs().min()) > 0.2  # both channels, flagged or not
     out, masks, _ = hy.render_chunk(params, state, gi, im)
-    eo, em, _ = ft.BatchRenderer(prog, B).render_chunk(params, state, gi, im,
+    eo, em, _ = ft.BatchRenderer(prog, B, device="cpu").render_chunk(params, state, gi, im,
                                                        num_blocks=K)
     assert torch.equal(out, eo) and torch.equal(masks, em)
     assert not bool(out[:, :, 1].any()) and float(out[:, :, 0].abs().min()) > 0.2
@@ -355,8 +399,8 @@ def test_the_slice_at_a_small_size():
     """The slice's graph (an 8192-frame clip) through
     ``BatchRenderer(lowering="hybrid")`` with per-instance params: loops on
     even instances, one-shots on odd ones, some finishing mid-run."""
-    prog = ft.effects_chain_graph()
-    br = ft.BatchRenderer(prog, 8, lowering="hybrid")
+    prog = ft.effects_chain_graph(device="cpu")
+    br = ft.BatchRenderer(prog, 8, device="cpu", lowering="hybrid")
     params = mixer.vary_effects_params(br.stack_params())
     state = br.init_state()
     masks = []
@@ -380,7 +424,7 @@ def test_port_graph_builder_keeps_jax_keys():
     """``mixer.effects_chain_graph`` is ``bench.py --hybrid``'s graph: same
     schedule and node keys as the JAX package built from the same code."""
     jprog = _jax_builder(mixer.effects_chain_graph)()
-    tprog = mixer.effects_chain_graph()
+    tprog = mixer.effects_chain_graph(device="cpu")
     assert repr(tprog.schedule) == repr(jprog.schedule)
     assert list(tprog._procs) == list(jprog._procs)
     jp, tp = jprog.collect_params(), tprog.collect_params()

@@ -87,10 +87,10 @@ def instance_params(prog):
 @pytest.fixture(scope="module")
 def both():
     jprog = jax_mixer()
-    tprog = ft.mixer_graph()
+    tprog = ft.mixer_graph(device="cpu")
     plist = instance_params(jprog)
     jbr = JBatchRenderer(jprog, B)
-    tbr = ft.BatchRenderer(tprog, B)
+    tbr = ft.BatchRenderer(tprog, B, device="cpu")
     return jprog, tprog, jbr, tbr, jbr.stack_params(plist), tbr.stack_params(plist)
 
 
@@ -200,14 +200,15 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
         "from firewheel_tpu_torch.executor_mega import MegaRenderer\n"
-        "br = ft.BatchRenderer(ft.mixer_graph(), 2)\n"
+        "br = ft.BatchRenderer(ft.mixer_graph(device='cpu'), 2, device='cpu')\n"
         "out, om, st = br.render_chunk(br.stack_params(), br.init_state(),"
         " num_blocks=2)\n"
         "assert out.shape == (2, 2, 2, 128), out.shape\n"
-        "mr = MegaRenderer(ft.mixer_graph(), 2, 2)\n"
+        "mr = MegaRenderer(ft.mixer_graph(device='cpu'), 2, 2, device='cpu')\n"
         "out, om, st = mr.render_chunk(mr.stack_params(), st, 256)\n"
         "assert out.shape == (2, 2, 2, 128), out.shape\n"
-        "hb = ft.BatchRenderer(ft.effects_chain_graph(), 2, lowering='hybrid')\n"
+        "hb = ft.BatchRenderer(ft.effects_chain_graph(device='cpu'), 2, device='cpu',"
+        " lowering='hybrid')\n"
         "out, om, st = hb.render_chunk(hb.stack_params(), hb.init_state(),"
         " num_blocks=2)\n"
         "assert out.shape == (2, 2, 2, 128) and float(out.abs().max()) > 0.01\n"
@@ -244,4 +245,5 @@ def test_port_sources_never_import_jax():
 
 def test_batch_renderer_rejects_unported_formats():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ft.BatchRenderer(ft.mixer_graph(num_voices=1), 1, output_format="pcm16")
+        ft.BatchRenderer(ft.mixer_graph(num_voices=1, device="cpu"), 1, device="cpu",
+                         output_format="pcm16")

@@ -1,0 +1,124 @@
+"""Device time of the megakernel (K2) and the island kernel (K3) on one
+NVIDIA GPU, for the port in a given checkout.
+
+Run from the root of a checkout:
+
+    python3 time_megakernel.py [--root DIR]
+
+``--root`` names the checkout whose ``firewheel_tpu_torch`` is timed (this
+one by default), so that two designs can be timed in one run on one card.
+Each time is the kernel's device time per launch by ``torch.profiler`` over
+10 launches after a warm-up, every launch from the same params and state:
+
+* K2 on the 64-node mixer at B=8192, K=32 with a cutoff per instance
+  (``chip_smoke.py`` phase 5), with every pan and volume smoother at rest;
+* the same chunk with every smoother ramping: each pan and volume moved by
+  2e-3, so that it ramps for ~20 of the 32 blocks, settles and rests;
+* K2 at rest with the rows of one kind replaced by the dummy device
+  function, which writes zeros (not a valid render): what is saved is what
+  that kind of row costs, and with every row a dummy what is left is the
+  walk itself (tables, leaves, flags, outputs);
+* K3 on the effects chain's island (filter, echo, clip) inside the hybrid
+  lowering at B=8192, K=32 and B=1024, K=8 (phase 7).
+
+Prints the card's name and power limit, then one JSON object a
+measurement.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import sys
+
+import torch
+
+from chip_smoke import card_line, device_ms
+
+MIXER = (8192, 32)
+EFFECTS = ((8192, 32), (1024, 8))
+REPS = 10
+RAMP_STEP = 2e-3
+# op codes (csrc/megakernel.cu:OpCode) replaced by the dummy (0)
+DUMMIES = {
+    "beep": (1,), "volume": (2,), "pan": (3,), "sum": (4,), "filter": (5,),
+    "echo": (6,), "clip+meter": (7, 8), "all": (1, 2, 3, 4, 5, 6, 7, 8),
+}
+
+
+def move_smoothed(params: dict) -> dict:
+    """A copy of ``params`` with every pan and volume moved by ``RAMP_STEP``
+    (a pan near +1 moves down)."""
+    moved = {key: dict(p) for key, p in params.items()}
+    for p in moved.values():
+        if "pan" in p:
+            p["pan"] = torch.where(p["pan"] > 0.5, p["pan"] - RAMP_STEP,
+                                   p["pan"] + RAMP_STEP)
+        if "raw_gain" in p:
+            p["raw_gain"] = p["raw_gain"] * (1.0 + RAMP_STEP)
+    return moved
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("time_megakernel: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import firewheel_tpu_torch as ft
+    from firewheel_tpu_torch import executor_mega as em
+    from firewheel_tpu_torch.mixer import vary_effects_params
+
+    print(f"card: {card_line()}; torch {torch.__version__}; port from {ft.__file__}",
+          flush=True)
+
+    def emit(**kw):
+        print(json.dumps({"root": root, **kw}), flush=True)
+
+    b, k = MIXER
+    prog = ft.mixer_graph(device="cuda")
+
+    def mixer_renderer():
+        mega = em.MegaRenderer(prog, b, k, device="cuda")
+        params = mega.stack_params()
+        fkey = next(key for key in params if key.startswith("filter"))
+        params[fkey]["freq"] = 8000.0 - 100.0 * (
+            torch.arange(b, device="cuda") % 64).to(torch.float32)
+        return mega, params
+
+    mega, params = mixer_renderer()
+    # a chunk from the defaults leaves every smoother at rest
+    _, _, rest = mega.render_chunk(params, mega.init_state(), 0)
+    for smoothers, p in (("at rest", params), ("ramping", move_smoothed(params))):
+        ms = device_ms(lambda: mega.render_chunk(p, rest, k * 128), "mega_kernel",
+                       REPS)
+        emit(kernel="K2", graph="mixer", batch=b, blocks=k, smoothers=smoothers,
+             rows="all", device_ms=ms)
+    for kind, codes in DUMMIES.items():
+        mega, _ = mixer_renderer()
+        ops = mega.lowered.ops.copy()
+        ops[[int(r[em.OP]) in codes for r in ops], em.OP] = 0
+        mega.lowered = dataclasses.replace(mega.lowered, ops=ops)
+        ms = device_ms(lambda: mega.render_chunk(params, rest, k * 128),
+                       "mega_kernel", REPS)
+        emit(kernel="K2", graph="mixer", batch=b, blocks=k, smoothers="at rest",
+             rows=f"{kind} as dummies", device_ms=ms)
+
+    for b, k in EFFECTS:
+        br = ft.BatchRenderer(ft.effects_chain_graph(device="cuda"), b,
+                              device="cuda", lowering="hybrid")
+        params = vary_effects_params(br.stack_params())
+        state = br.init_state()
+        ms = device_ms(lambda: br.render_chunk(params, state, num_blocks=k),
+                       "island_kernel", REPS)
+        emit(kernel="K3", graph="effects chain", batch=b, blocks=k, device_ms=ms)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
