@@ -4,13 +4,19 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit.
 2. Builds the sequential-biquad kernel (``firewheel_tpu_torch/csrc/
-   biquad.cu``) and the megakernel (``csrc/megakernel.cu``, K2 and K3) with
-   nvcc, one process each, and prints ptxas's registers, spills and stack
-   frame for K2 and K3, each with blocks of 128 frames fixed (the main
-   path) and of any multiple of 4.
-3. Holds the kernel against its plain PyTorch version on the card: at the
-   main path's shape, at a ragged shape, with state carried across two
-   calls and with a different filter per lane; prints both times.
+   biquad.cu``, K1) and the megakernel (``csrc/megakernel.cu``, K2 and K3)
+   with nvcc, one process each, and prints ptxas's registers, spills and
+   stack frame for K1 (16-byte and 4-byte copies) and for K2 and K3, each
+   with blocks of 128 frames fixed (the main path) and of any length.
+3. Holds K1 against its plain PyTorch version on the card, with a
+   different filter per lane: at the main path's shape, at F = 1, 100, 127
+   and 4096 (longer than its ring of stages), at 33 lanes (a ragged warp),
+   with state carried across two calls, with x starting one float into its
+   storage (its 4-byte copies), and with coefficients per instance, one for
+   all lanes and one per channel (lane divisors 2 and 2B, and a broadcast
+   the wrapper materialises).  Times K1 at the main path's shape and at
+   2048 lanes: its device time (``torch.profiler``) and a call with the
+   wrapper's host work (CUDA events); and its plain version.
 4. Renders the 64-node mixer (filter on the kernel) with a BatchRenderer
    at B=8192 instances, K=32 blocks a chunk; checks finite outputs, the
    kernel's launch count (K per chunk) and the first instances against a
@@ -26,10 +32,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
    shared memory the wrapper counts must be the kernel's.  Times K2 on the
    device (``torch.profiler``) and prints both lowerings' wall per chunk
    and realtime factor.
-6. Holds the megakernel against its plain version on the card on five
-   seeded random graphs at B=64 over four chunks of 2048 frames, in which
-   every smoother ramps, settles and rests: three in blocks of 128 frames
-   (K=16), one of 64 (K=32) and one of 256 (K=8).
+6. Holds the megakernel against its plain version on the card on seven
+   seeded random graphs at B=64 over four chunks of about 2048 frames, in
+   which every smoother ramps, settles and rests: four in blocks of 128
+   frames (K=16), one of 64 (K=32), one of 256 (K=8) and one of 127 (K=16,
+   the arena rows padded).
 7. Renders the effects chain (sampler → filter → echo → clip → reverb,
    ``mixer.effects_chain_graph``) with ``BatchRenderer(lowering="hybrid")``
    at B=1024, K=8 and at B=8192, K=32: torch stages for the sampler and the
@@ -50,10 +57,11 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
-main path, its error against its plain version, its time on the card, the
-plain version's, and its bound: the larger of the bytes it must move over
-3.35 TB/s and its f32 operations over 67 TFLOP/s (NVIDIA's H100 SXM data
-sheet).
+main path, its error against its plain version, its device time on the
+card (``ms``, by ``torch.profiler``) and a call's time with its wrapper's
+host work (``call_ms``, by CUDA events), the plain version's, and its
+bound: the larger of the bytes it must move over 3.35 TB/s and its f32
+operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet).
 Any failure raises and exits non-zero without that line.  Without a CUDA
 device, or without the package beside this file, it exits non-zero too.
 """
@@ -78,12 +86,11 @@ SLICE_TOL = 1e-5      # card render vs CPU render of the same instances
 # megakernel vs eager on the card: masks and integer leaves exactly, floats
 # to 1e-5 (the meter's mean sums in another order; sin/exp round alike)
 MEGA_TOL = 1e-5
-# (seed, frames a block): the mixer's 128, and 64 and 256 (any multiple of 4
-# goes through the kernel); K·F = 2048 frames a chunk in each.  Not seed 4:
-# one of its 64 instances settles a pan one block apart on the card, at
-# F=128 as at 256: its ramp's first value sits at the settle threshold, and
-# the kernel's and torch's f32 ramps differ there by an ulp (outputs 1.2e-7)
-RANDOM_GRAPHS = ((0, 128), (1, 128), (2, 128), (3, 64), (1, 256))
+# (seed, frames a block): the mixer's 128, and 64, 256 and 127 (any length
+# goes through the kernel); K = 2048 // F blocks a chunk.  Seed 4 has an
+# instance whose pan's first ramp value sits at the settle threshold
+RANDOM_GRAPHS = ((0, 128), (1, 128), (2, 128), (4, 128), (3, 64), (1, 256),
+                 (4, 127))
 RANDOM_B, RANDOM_CHUNKS, RANDOM_CHUNK_FRAMES = 64, 4, 2048
 # the effects chain: bench.py --hybrid's configuration and the README's
 HYBRID_CONFIGS = ((1024, 8), (8192, 32))
@@ -215,31 +222,55 @@ def check_kernel(seq_iir, iir):
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(1234)
 
-    def case(lanes, frames):
-        x = torch.randn((lanes, frames), generator=gen).to(dev)
+    def lowpass(lead):
+        # a different lowpass per element of lead: 200 Hz .. 20 kHz, Q 0.5 .. 4
+        freq = 200.0 + 19800.0 * torch.rand(lead, generator=gen)
+        q = 0.5 + 3.5 * torch.rand(lead, generator=gen)
+        return iir.biquad_lowpass(freq.to(dev), q.to(dev), 48000)
+
+    def case(lanes, frames, coef_shape=None, offset=0):
+        """x f32[lanes, F] (``offset`` floats into its storage), its state,
+        and coefficients of ``coef_shape`` (per lane by default)."""
+        n = lanes * frames
+        x = torch.randn((n + offset,), generator=gen).to(dev)[offset:].view(lanes, frames)
         z = tuple(0.1 * torch.randn((lanes,), generator=gen).to(dev)
                   for _ in range(2))
-        # a different lowpass per lane: 200 Hz .. 20 kHz, Q 0.5 .. 4
-        freq = 200.0 + 19800.0 * torch.rand((lanes,), generator=gen)
-        q = 0.5 + 3.5 * torch.rand((lanes,), generator=gen)
-        coeffs = iir.biquad_lowpass(freq.to(dev), q.to(dev), 48000)
-        return x, z, coeffs
+        return x, z, lowpass((lanes,) if coef_shape is None else coef_shape)
 
     def err(a, b):
         return float((a - b).abs().max())
 
-    worst = 0.0
-    # the main path's shape (B instances x 2 channels) and a ragged one
-    for lanes, frames in ((2 * B, 128), (1000, 100)):
-        x, z, c = case(lanes, frames)
+    def check(tag, x, z, c):
         y, (z1, z2) = seq_iir.biquad_seq(x, z, c)
         yr, (r1, r2) = seq_iir.biquad_seq_reference(x, z, c)
         torch.cuda.synchronize()
         e = max(err(y, yr), err(z1, r1), err(z2, r2))
-        log(f"K1 vs plain, lanes={lanes} F={frames}: max_abs_err={e:.3e}")
+        log(f"K1 vs plain, {tag}: max_abs_err={e:.3e}")
         if not e <= KERNEL_TOL:
-            raise AssertionError(f"K1 disagrees with its plain version: {e}")
-        worst = max(worst, e)
+            raise AssertionError(f"K1 disagrees with its plain version ({tag}): {e}")
+        return e
+
+    worst = 0.0
+    # the main path's shape (B instances x 2 channels), ragged frames (100,
+    # 127: its 4-byte copies; 1), a ragged warp, and a ring that turns over
+    for lanes, frames in ((2 * B, 128), (1000, 100), (2 * B, 127), (2 * B, 1),
+                          (33, 128), (1000, 4096)):
+        worst = max(worst, check(f"lanes={lanes} F={frames}", *case(lanes, frames)))
+
+    # x starting one float into its storage: not 16-byte aligned
+    x, z, c = case(2 * B, 128, offset=1)
+    if x.data_ptr() % 16 == 0 or not x.is_contiguous():
+        raise AssertionError("the misaligned case is aligned")
+    worst = max(worst, check(f"lanes={2 * B} F=128, x misaligned", x, z, c))
+
+    # coefficients per instance [B, 1] over [B, 2] lanes (the filter node's),
+    # one filter for all lanes, and one per channel [2] (materialised)
+    for tag, shape in (("per instance", (B, 1)), ("one for all lanes", ()),
+                       ("per channel", (2,))):
+        x, z, c = case(2 * B, 128, shape)
+        x, z = x.view(B, 2, 128), tuple(t.view(B, 2) for t in z)
+        worst = max(worst, check(f"lanes={2 * B} F=128, coefficients {tag} "
+                                 f"{tuple(c.b0.shape)}", x, z, c))
 
     # state carried across two calls == one call over both halves
     x, z, c = case(2 * B, 256)
@@ -253,13 +284,20 @@ def check_kernel(seq_iir, iir):
         raise AssertionError(f"K1 state carry disagrees: {e}")
     worst = max(worst, e)
 
-    # times at the main path's shape
-    x, z, c = case(2 * B, 128)
-    ms = cuda_ms(lambda: seq_iir.biquad_seq(x, z, c), 200)
-    plain_ms = cuda_ms(lambda: seq_iir.biquad_seq_reference(x, z, c), 10)
-    log(f"K1 time at lanes={2 * B} F=128: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms")
-    return worst, ms, plain_ms
+    # times at the main path's shape and the effects chain's at B=1024: the
+    # kernel's device time, a call with the wrapper's host work, the plain
+    # version's call
+    times = {}
+    for lanes in (2 * B, 2048):
+        x, z, c = case(lanes, 128)
+        ms = device_ms(lambda: seq_iir.biquad_seq(x, z, c), "biquad", KERNEL_REPS)
+        call_ms = cuda_ms(lambda: seq_iir.biquad_seq(x, z, c), 200)
+        plain_ms = cuda_ms(lambda: seq_iir.biquad_seq_reference(x, z, c), 10)
+        log(f"K1 time at lanes={lanes} F=128: kernel {ms:.4f} ms on the device "
+            f"({KERNEL_REPS} launches, torch.profiler), {call_ms:.4f} ms a call "
+            f"with the wrapper's host work (CUDA events), plain {plain_ms:.4f} ms")
+        times[lanes] = ms, call_ms, plain_ms
+    return worst, *times[2 * B]
 
 
 def render_mixer(ft, seq_iir, card: str):
@@ -440,8 +478,11 @@ def render_mega(ft, seq_iir, em, card: str):
         raise AssertionError(f"megakernel output peak {peak} outside (0.01, 1]")
 
     # K2's device time, and its work for the bound
-    k2_ms = device_ms(lambda: mega.render_chunk(params, m_runs[-2][2], starts[-1]),
-                      "mega_kernel", KERNEL_REPS)
+    def k2_chunk():
+        return mega.render_chunk(params, m_runs[-2][2], starts[-1])
+
+    k2_ms = device_ms(k2_chunk, "mega_kernel", KERNEL_REPS)
+    k2_call_ms = cuda_ms(k2_chunk, KERNEL_REPS)
     out, masks = m_runs[-1][0], m_runs[-1][1]
     work = kernel_work(em, prog, lw, params, m_runs[-2][2], B, K,
                        out.nbytes + masks.nbytes)
@@ -485,9 +526,10 @@ def render_mega(ft, seq_iir, em, card: str):
         f"eager {eager_wall * 1e3:.3f} ms (realtime factor "
         f"{audio_secs / eager_wall:.1f})")
     log(f"megakernel: K2 {k2_ms:.4f} ms on the device a chunk "
-        f"({KERNEL_REPS} launches, torch.profiler); {work[0] / 1e9:.3f} GB to "
-        f"move, {work[1] / 1e9:.2f} G f32 operations")
-    return launches, worst, k2_ms, eager_wall * 1e3, work
+        f"({KERNEL_REPS} launches, torch.profiler), {k2_call_ms:.4f} ms a call "
+        f"(CUDA events); {work[0] / 1e9:.3f} GB to move, {work[1] / 1e9:.2f} G "
+        f"f32 operations")
+    return launches, worst, k2_ms, k2_call_ms, eager_wall * 1e3, work
 
 
 def check_random_graphs(ft, em):
@@ -501,11 +543,16 @@ def check_random_graphs(ft, em):
         k = RANDOM_CHUNK_FRAMES // frames
         prog = random_graph(seed, device="cuda", block_frames=frames)
         mega = em.MegaRenderer(prog, RANDOM_B, k, device="cuda")
+        smem = em.shared_bytes(mega.lowered, mega.tile)
+        if em.LIBRARY.load().fw_mega_shared_bytes(
+                *em.shared_sizes(mega.lowered, mega.tile)) != smem:
+            raise AssertionError(f"random graph {seed}, F={frames}: the wrapper's "
+                                 f"{smem} B of shared memory is not the kernel's")
         params = vary_params(mega.stack_params(), seed)
         ms = rs = mega.init_state()
         statuses = []
         for c in range(RANDOM_CHUNKS):
-            start = c * RANDOM_CHUNK_FRAMES
+            start = c * k * frames
             mo, mm, ms = mega.render_chunk(params, ms, start)
             ro, rm, rs = em.mega_chunk_reference(
                 prog, mega.lowered, params, rs, start, k, RANDOM_B)
@@ -706,7 +753,7 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
         f"{h_wall * 1e3:.3f} ms (realtime factor {audio_secs / h_wall:.1f}, peak "
         f"{h_peak:.3f} GB); eager {e_wall * 1e3:.3f} ms (realtime factor "
         f"{audio_secs / e_wall:.1f}, peak {e_peak:.3f} GB)")
-    return launches, max(worst, k3_err), k3_ms, plain_ms, work
+    return launches, max(worst, k3_err), k3_ms, k3_call_ms, plain_ms, work
 
 
 def stream_in_graph(ft):
@@ -804,9 +851,17 @@ def main() -> int:
         t0 = now
 
     cuda_build.build_all([seq_iir.LIBRARY, em.LIBRARY], verbose=True)
+    if seq_iir.LIBRARY.log:
+        # two instantiations: 16-byte copies, and 4-byte copies
+        for name, report in ptxas_report(seq_iir.LIBRARY.log,
+                                         "biquad_seq_kernel").items():
+            copies = "16-byte" if "ILb1E" in name else "4-byte"
+            log(f"ptxas, biquad_seq_kernel ({copies} copies): {report}")
+    else:
+        log("ptxas: the K1 library was built before this run")
     if em.LIBRARY.log:
         for kernel in ("mega_kernel", "island_kernel"):
-            # two of each: blocks of 128 frames fixed, and any multiple of 4
+            # two of each: blocks of 128 frames fixed, and of any length
             for name, report in ptxas_report(em.LIBRARY.log, kernel).items():
                 frames = "F=128" if "Args128" in name else "any F"
                 log(f"ptxas, {kernel} ({frames}): {report}")
@@ -814,19 +869,20 @@ def main() -> int:
         log("ptxas: the megakernel library was built before this run")
     phase("2, K1 and the megakernel (K2, K3) built")
 
-    err, ms, plain_ms = check_kernel(seq_iir, iir)
+    err, ms, call_ms, plain_ms = check_kernel(seq_iir, iir)
     phase("3, K1 vs plain")
     launches = render_mixer(ft, seq_iir, card)
     phase("4, mixer eager")
-    m_launches, m_err, m_ms, m_plain_ms, m_work = render_mega(ft, seq_iir, em, card)
+    m_launches, m_err, m_ms, m_call_ms, m_plain_ms, m_work = render_mega(
+        ft, seq_iir, em, card)
     phase("5, mixer megakernel")
     r_err = check_random_graphs(ft, em)
     phase("6, random graphs")
     h_launches, h_err = 0, 0.0
     for b, k in HYBRID_CONFIGS:
         # the kernels line keeps the last configuration's times (B=8192, K=32)
-        n, e, h_ms, h_plain_ms, h_work = render_hybrid(ft, seq_iir, em, eh, card,
-                                                        b, k)
+        n, e, h_ms, h_call_ms, h_plain_ms, h_work = render_hybrid(
+            ft, seq_iir, em, eh, card, b, k)
         h_launches += n
         h_err = max(h_err, e)
         phase(f"7, effects chain hybrid B={b} K={k}")
@@ -838,21 +894,25 @@ def main() -> int:
     lanes = 2 * B  # K1 at the main path's shape: x, y [lanes, 128], coef, z in and out
     k1_work = (4 * lanes * (2 * 128 + 5 + 2 * 2), 9 * lanes * 128)
     kernels = []
-    for name, source, replaces, n, e, t, plain, work in (
+    # ms: device time by torch.profiler; call_ms: a call with the wrapper's
+    # host work, by CUDA events
+    for name, source, replaces, n, e, t, call, plain, work in (
         ("biquad_seq", "firewheel_tpu_torch/csrc/biquad.cu",
-         "firewheel_tpu/ops/pallas_iir.py:50", launches, err, ms, plain_ms, k1_work),
+         "firewheel_tpu/ops/pallas_iir.py:50", launches, err, ms, call_ms,
+         plain_ms, k1_work),
         ("megakernel", "firewheel_tpu_torch/csrc/megakernel.cu",
          "firewheel_tpu/executor_pallas.py:218", m_launches, max(m_err, r_err),
-         m_ms, m_plain_ms, m_work),
+         m_ms, m_call_ms, m_plain_ms, m_work),
         ("hybrid_island", "firewheel_tpu_torch/csrc/megakernel.cu",
          "firewheel_tpu/executor_pallas.py:617", h_launches, h_err, h_ms,
-         h_plain_ms, h_work),
+         h_call_ms, h_plain_ms, h_work),
     ):
         bound_ms, bound_by = bound(*work)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n, "max_abs_err": e, "ms": t, "plain_ms": plain,
-            "bound_ms": bound_ms, "bound_by": bound_by, "share": bound_ms / t,
+            "launches": n, "max_abs_err": e, "ms": t, "call_ms": call,
+            "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
+            "share": bound_ms / t,
             "library_ms": None,  # no one PyTorch call computes any of the three
         })
         log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "

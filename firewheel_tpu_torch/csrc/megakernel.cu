@@ -53,10 +53,15 @@
 //     its line's pointers and loud-sample count in shared memory too.
 //  c. One warp per instance and no CTA-wide barrier after the table copy.
 //     Lane l owns the float4s l, l + 32, ... of each buffer: frames
-//     4l..4l+3 at F = 128.  F may be any multiple of 4 (the wrapper raises
-//     otherwise); F = 128, every graph in the repo, has kernels of its own
-//     in which F is a compile-time constant (Args128).  Every lane computes
-//     a row's flags and smoother scalars from the words; after a
+//     4l..4l+3 at F = 128.  F may be any size: an arena row is padded to a
+//     whole float4, and the padding is kept out of every reduction (the
+//     meter, the clip count, the echo's loud count), the filter's
+//     recurrence, the echo line's tap and append, the outputs and K3's
+//     live-in copies (in_block); rows of F % 4 != 0 frames in device memory
+//     are not 16-byte aligned, so those copies go a float at a time.
+//     F = 128, every graph in the repo, has kernels of its own in which F
+//     is a compile-time constant (Args128) and no frame is padding.  Every
+//     lane computes a row's flags and smoother scalars from the words; after a
 //     __syncwarp the row's lanes publish what later rows read (flags in
 //     parallel, state words, echo counts), and every row ends in a
 //     __syncwarp.  Reductions are shuffles.  The filter's recurrence runs
@@ -81,9 +86,10 @@
 //     B=8192 but slower at B=1024.  chip_smoke.py phase 2 prints the report.
 //  f. The echo line at bandwidth: the chunk-start count and copy of the
 //     kept line, and each block's tap and append, use 16-byte accesses when
-//     the line length is a multiple of 4 and the pointers are aligned (the
-//     mixer's and the effects chain's are); 4-byte accesses otherwise.  K3's
-//     live-in and live-out copies and K2's outputs are 16-byte too.
+//     the line length and F are multiples of 4 and the pointers are aligned
+//     (the mixer's and the effects chain's are); 4-byte accesses otherwise.
+//     K3's live-in and live-out copies and K2's outputs are 16-byte too
+//     when F is a multiple of 4.
 //  g. Rows side by side: lower_schedule marks runs of 2 or 4 consecutive
 //     independent rows of dummy, beep, volume or pan (the mixer's voices)
 //     as a group, which one step of the walk runs on 32/G lanes a row, G
@@ -153,7 +159,9 @@ struct Args {
   bool* masks;    // [B, K, n_out]
   float* scratch; // [B, echo_channels, stride]: echoes the final line drops
   int64_t stride;
-  int tile, K, F, num_buffers, echo_channels;  // F % 4 == 0
+  int tile, K, F, num_buffers, echo_channels;
+  // F % 4 == 0 known at compile time (Args128); else F is any size > 0
+  static constexpr bool kWhole = false;
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -170,7 +178,8 @@ struct EchoChannel {
 constexpr int kEchoWords = sizeof(EchoChannel) / 4;
 
 // 32-bit words of shared memory (executor_mega.shared_bytes): the tables,
-// once per CTA, then per instance its arena (num_buffers x F floats), its
+// once per CTA, then per instance its arena (num_buffers rows of F floats,
+// each padded to round4(F) so that the lanes move whole float4s), its
 // echo channels, the buffers' silence flags and its leaf words.  Both
 // parts round up to 16 bytes, so every arena row is 16-byte aligned and
 // every echo channel 8-byte aligned.
@@ -178,7 +187,7 @@ __host__ __device__ inline int table_words(const Args& a) {
   return round4(a.n_ops * kRowWidth + a.n_io + a.n_consts + 2 * a.n_out + a.n_in);
 }
 __host__ __device__ inline int words_per_instance(const Args& a) {
-  return round4(a.num_buffers * a.F + kEchoWords * a.echo_channels +
+  return round4(a.num_buffers * round4(a.F) + kEchoWords * a.echo_channels +
                 a.num_buffers + a.num_words);
 }
 __host__ __device__ inline size_t shared_bytes(const Args& a) {
@@ -249,15 +258,31 @@ __device__ __forceinline__ EchoChannel& echo_ch(const Inst& I, int c) {
   return reinterpret_cast<EchoChannel*>(reinterpret_cast<int*>(smem4) + I.echo)[c];
 }
 
+// An arena row's floats: F rounded up to a float4.
+template <class A>
+__device__ __forceinline__ int pitch(const A& a) { return round4(a.F); }
 // The float4 of buffer b that holds frames 4q..4q+3.
 template <class A>
 __device__ __forceinline__ float4& frames4(const A& a, const Inst& I, int b,
                                           int q) {
-  return s_float4(I.buf + b * a.F + 4 * q);
+  return s_float4(I.buf + b * pitch(a) + 4 * q);
 }
-// Float4s in a block; lane sub of a row owns q = sub, sub + span, ...
+// Frame f of buffer b.
 template <class A>
-__device__ __forceinline__ int quads(const A& a) { return a.F >> 2; }
+__device__ __forceinline__ float& frame(const A& a, const Inst& I, int b, int f) {
+  return s_float(I.buf + b * pitch(a) + f);
+}
+// Float4s in a block, the last one padded past F when F % 4 != 0; lane sub
+// of a row owns q = sub, sub + span, ...
+template <class A>
+__device__ __forceinline__ int quads(const A& a) { return (a.F + 3) >> 2; }
+// Whether frame f of a float4 is in the block, not padding: the padding
+// never reaches a reduction, the filter's recurrence, the echo line or an
+// output.
+template <class A>
+__device__ __forceinline__ bool in_block(const A& a, int f) {
+  return A::kWhole || f < a.F;
+}
 __device__ __forceinline__ float& at(float4& v, int e) {
   return reinterpret_cast<float*>(&v)[e];
 }
@@ -307,7 +332,9 @@ __device__ Smooth smoother(const Row& r) {
   s.target = val;
   s.last = wf(r, 2);
   s.active = s.status == kActive;
-  s.x_eff = (val * cst(r, 0)) / cst(r, 0);
+  // x_eff = (val * a) / a as torch computes it on the card: its CUDA
+  // division by a Python scalar multiplies by the scalar's f32 reciprocal
+  s.x_eff = (val * cst(r, 0)) * __frcp_rn(cst(r, 0));
   s.log_b = cst(r, 1);
   s.settled = s.active && fabsf(val - s.ramp(0)) < cst(r, 2);
   return s;
@@ -516,7 +543,8 @@ __device__ void op_filter(const A& a, const Row& r, const Inst& I) {
       float4 yv;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const float v = biquad_step(bq, at(xv, e), z1, z2);
+        float v = 0.f;
+        if (in_block(a, 4 * q + e)) v = biquad_step(bq, at(xv, e), z1, z2);
         at(yv, e) = mask ? 0.f : v;
       }
       frames4(a, I, y, q) = yv;
@@ -603,8 +631,9 @@ __device__ void echo_begin(const A& a, const Row& r, const Inst& I) {
     e.scratch = a.scratch + (I.i * a.echo_channels + r.aux1 + c) * a.stride;
     e.d = d;
     e.kf = static_cast<int64_t>(a.K) * a.F;
-    e.vec = d % 4 == 0 && aligned16(e.in) && aligned16(e.out) &&
-            aligned16(e.scratch);
+    // the float4 at j = k*F + 4q is aligned only when F % 4 == 0
+    e.vec = (A::kWhole || a.F % 4 == 0) && d % 4 == 0 && aligned16(e.in) &&
+            aligned16(e.out) && aligned16(e.scratch);
     int n = 0;
     if (e.vec) {
       const float4* in = reinterpret_cast<const float4*>(e.in);
@@ -654,16 +683,29 @@ __device__ void op_echo(const A& a, const Row& r, const Inst& I, int k) {
       mask[cc] = flag(I, x_buf) != 0 && echo_ch(I, r.aux1 + c).count == 0;
       for (int q = I.lane; q < quads(a); q += kLanes) {
         const int64_t j = static_cast<int64_t>(k) * a.F + 4 * q;
+        // the last float4 of a block of F % 4 != 0 frames taps and appends
+        // only its frames in the block
+        const bool whole = in_block(a, 4 * q + 3);
         float4 x = frames4(a, I, x_buf, q);
-        float4 delayed = e.read4(j);
+        float4 delayed = splat(0.f);
+        if (whole) {
+          delayed = e.read4(j);
+        } else {
+          for (int s = 0; in_block(a, 4 * q + s); ++s) at(delayed, s) = e.read(j + s);
+        }
         float4 echo, y;
 #pragma unroll
         for (int s = 0; s < 4; ++s) {
           at(echo, s) = at(x, s) + fb * at(delayed, s);
           at(y, s) = mask[cc] ? 0.f : dry * at(x, s) + wet * at(delayed, s);
-          delta[cc] += loud(at(echo, s)) - loud(at(delayed, s));
+          if (in_block(a, 4 * q + s))
+            delta[cc] += loud(at(echo, s)) - loud(at(delayed, s));
         }
-        e.append4(e.d + j, echo);
+        if (whole) {
+          e.append4(e.d + j, echo);
+        } else {
+          for (int s = 0; in_block(a, 4 * q + s); ++s) e.append(e.d + j + s, at(echo, s));
+        }
         frames4(a, I, y_buf, q) = y;
       }
     }
@@ -696,7 +738,7 @@ __device__ void op_clip(const A& a, const Row& r, const Inst& I) {
       for (int e = 0; e < 4; ++e) {
         at(y, e) = nanmax(nanmin(at(x, e), th), -th);
         // strictly over the threshold, on audible channels only
-        over += (fabsf(at(x, e)) > th) && audible;
+        over += (fabsf(at(x, e)) > th) && audible && in_block(a, 4 * q + e);
       }
       frames4(a, I, out_buf(r, j), q) = y;
     }
@@ -721,6 +763,7 @@ __device__ void op_meter(const A& a, const Row& r, const Inst& I) {
       frames4(a, I, y_buf, q) = x;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
+        if (!in_block(a, 4 * q + e)) continue;
         peak = nanmax(peak, fabsf(at(x, e)));
         sq += at(x, e) * at(x, e);
       }
@@ -802,9 +845,15 @@ __device__ void write_outputs(const A& a, const Tables& t, const Inst& I,
     const int b = s_int(t.out_row + 2 * o);
     const bool flagged = flag(I, b) != 0;
     const bool zero = !kIsland && (s_int(t.out_row + 2 * o + 1) != 0 || flagged);
-    float4* dst = reinterpret_cast<float4*>(a.out + (at0 + o) * a.F);
-    for (int q = I.lane; q < quads(a); q += kLanes)
-      __stcs(dst + q, zero ? splat(0.f) : frames4(a, I, b, q));
+    if (A::kWhole || a.F % 4 == 0) {
+      float4* dst = reinterpret_cast<float4*>(a.out + (at0 + o) * a.F);
+      for (int q = I.lane; q < quads(a); q += kLanes)
+        __stcs(dst + q, zero ? splat(0.f) : frames4(a, I, b, q));
+    } else {  // rows of F % 4 != 0 frames are not 16-byte aligned
+      float* dst = a.out + (at0 + o) * a.F;
+      for (int f = I.lane; f < a.F; f += kLanes)
+        __stcs(dst + f, zero ? 0.f : frame(a, I, b, f));
+    }
     if (I.lane == 0) a.masks[at0 + o] = kIsland ? flagged : zero;
   }
   __syncwarp();  // the next block's rows overwrite these flags
@@ -817,8 +866,14 @@ __device__ void read_live_ins(const A& a, const Tables& t, const Inst& I,
   const int64_t at0 = (I.i * a.K + k) * a.n_in;
   for (int j = 0; j < a.n_in; ++j) {
     const int b = s_int(t.in_bufs + j);
-    const float4* src = reinterpret_cast<const float4*>(a.env + (at0 + j) * a.F);
-    for (int q = I.lane; q < quads(a); q += kLanes) frames4(a, I, b, q) = __ldcs(src + q);
+    if (A::kWhole || a.F % 4 == 0) {
+      const float4* src = reinterpret_cast<const float4*>(a.env + (at0 + j) * a.F);
+      for (int q = I.lane; q < quads(a); q += kLanes)
+        frames4(a, I, b, q) = __ldcs(src + q);
+    } else {  // the padding past F stays as it was; nothing reads it
+      const float* src = a.env + (at0 + j) * a.F;
+      for (int f = I.lane; f < a.F; f += kLanes) frame(a, I, b, f) = __ldcs(src + f);
+    }
   }
   for (int j = I.lane; j < a.n_in; j += kLanes)
     flag(I, s_int(t.in_bufs + j)) = a.env_flags[at0 + j] ? 1 : 0;
@@ -900,7 +955,7 @@ __device__ void render(const A& a) {
   const int li = threadIdx.x / kLanes;
   Inst I;
   I.buf = table_words(a) + li * words_per_instance(a);
-  I.echo = I.buf + a.num_buffers * a.F;
+  I.echo = I.buf + a.num_buffers * pitch(a);
   I.flag = I.echo + kEchoWords * a.echo_channels;
   I.word = I.flag + a.num_buffers;
   I.i = static_cast<int64_t>(blockIdx.x) * a.tile + li;
@@ -942,6 +997,7 @@ __device__ void render(const A& a) {
 // counts.  Read at run time, F cost K2 6% and K3 20% (more registers).
 struct Args128 : Args {
   static constexpr int F = 128;
+  static constexpr bool kWhole = true;
 };
 
 template <class A>
@@ -999,7 +1055,7 @@ int launch_as(bool island, const A& a, int batch, void* stream) {
 int launch(bool island, const Args& a, int batch, void* stream) {
   if (batch <= 0) return 0;
   if (a.tile <= 0 || a.tile > kMaxTile || batch % a.tile != 0 || a.K <= 0 ||
-      a.F <= 0 || a.F % 4 != 0)
+      a.F <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (a.F != Args128::F) return launch_as(island, a, batch, stream);
   Args128 fixed;

@@ -619,12 +619,12 @@ ECHO_WORDS = 8
 
 def shared_bytes(lowered: LoweredSchedule, tile: int) -> int:
     """Dynamic shared memory of one CTA (csrc/megakernel.cu:shared_bytes):
-    the tables once, then per instance the buffers, the echo channels'
-    records, the buffers' flags and the leaf words, each part rounded up to
-    16 bytes."""
+    the tables once, then per instance the buffers (each padded to a whole
+    float4), the echo channels' records, the buffers' flags and the leaf
+    words, each part rounded up to 16 bytes."""
     tables = (lowered.ops.size + lowered.io.size + lowered.consts.size
               + lowered.out_row.size + lowered.in_bufs.size)
-    per_instance = (lowered.num_buffers * lowered.frames
+    per_instance = (lowered.num_buffers * _round4(lowered.frames)
                     + ECHO_WORDS * lowered.echo_channels + lowered.num_buffers
                     + lowered.num_words)
     return 4 * (_round4(tables) + tile * _round4(per_instance))
@@ -640,16 +640,15 @@ def shared_sizes(lowered: LoweredSchedule, tile: int) -> tuple:
 def check_launchable(lowered: LoweredSchedule, tile: int, who: str) -> None:
     """Raises ``ValueError`` unless the kernel can render ``lowered`` with
     ``tile`` instances a CTA: at most ``MAX_TILE`` of them in at most
-    ``MAX_SHARED_BYTES`` of shared memory, and blocks of a multiple of 4
-    frames (each lane moves whole float4s)."""
+    ``MAX_SHARED_BYTES`` of shared memory, and blocks of at least one frame
+    (of any length: the kernel pads each arena row to a whole float4)."""
+    if lowered.frames <= 0:
+        raise ValueError(f"{who}: blocks of {lowered.frames} frames")
     smem = shared_bytes(lowered, tile)
     if tile > MAX_TILE or smem > MAX_SHARED_BYTES:
         raise ValueError(
             f"{who}: tile {tile} needs {smem} bytes of shared memory per CTA "
             f"(at most {MAX_TILE} instances and {MAX_SHARED_BYTES} bytes)")
-    if lowered.frames % 4 != 0:
-        raise ValueError(f"{who}: blocks of {lowered.frames} frames; the kernel "
-                         "takes a multiple of 4")
 
 
 class KernelOperands:

@@ -21,26 +21,32 @@ it by ~1e-5.
 
 Unlike the JAX wrapper, which takes one filter per call, the coefficients
 here are per lane: each broadcasts to ``x.shape[:-1]``, so a batch of
-instances runs a batch of different filters in one launch.
+instances runs a batch of different filters in one launch.  The kernel
+reads each of the seven per-lane operands through a lane divisor
+(:func:`lane_repeat`), so the filter node's per-instance coefficients
+``[B, 1]`` serve both channels of ``[B, 2]`` lanes without a copy.
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from .cuda_build import CudaLibrary
 from .iir import BiquadCoeffs
 
-__all__ = ["biquad_seq", "biquad_seq_reference", "LIBRARY"]
+__all__ = ["biquad_seq", "biquad_seq_reference", "lane_repeat", "LIBRARY"]
 
 
 def _bind(lib):
     fn = lib.fw_biquad_seq
-    fn.argtypes = [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p,
-    ]
+    fn.argtypes = (
+        [ctypes.c_void_p] * 3                     # x, y, z_out
+        + [ctypes.c_void_p, ctypes.c_int64] * 7   # z1, z2, b0, b1, b2, a1, a2
+        + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]  # lanes, frames, stream
+    )
     fn.restype = ctypes.c_int
 
 
@@ -71,6 +77,34 @@ def biquad_seq_reference(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
         y[..., f] = yf
         z1, z2 = _fma(b1, xf, -(a1 * yf)) + z2, _fma(b2, xf, -(a2 * yf))
     return y, (z1.clone(), z2.clone())
+
+
+def lane_repeat(shape, lead):
+    """The lane divisor ``r`` of an operand of ``shape`` broadcast to the
+    lanes ``lead``: ``broadcast_to(t, lead).reshape(-1)[l] ==
+    t.reshape(-1)[l // r]`` for every lane ``l``.  That holds when the
+    shape, padded with leading 1s, matches ``lead`` on its leading axes and
+    is 1 on the rest (a scalar, ``[B, 1]`` against ``[B, 2]``, or ``lead``
+    itself); any other broadcast gives ``None``."""
+    shape, lead = tuple(shape), tuple(lead)
+    if len(shape) > len(lead):
+        return None
+    shape = (1,) * (len(lead) - len(shape)) + shape
+    k = 0
+    while k < len(lead) and shape[k] == lead[k]:
+        k += 1
+    if any(d != 1 for d in shape[k:]):
+        return None
+    return max(math.prod(lead[k:]), 1)
+
+
+def _lane_operand(t, lead):
+    """``(contiguous tensor, lane divisor)`` for the kernel; a broadcast that
+    no divisor expresses is materialised."""
+    rep = lane_repeat(t.shape, lead)
+    if rep is None:
+        t, rep = t.broadcast_to(lead), 1
+    return t.contiguous(), rep
 
 
 def _check(name, t, device):
@@ -111,16 +145,21 @@ def biquad_seq(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
     frames = x.shape[-1]
     lanes = lead.numel()
     y = torch.empty_like(x)
-    z_in = torch.stack([z.broadcast_to(lead) for z in z_prev]).reshape(2, lanes)
-    coef = torch.stack([c.broadcast_to(lead) for c in coeffs]).reshape(5, lanes)
-    z_out = torch.empty_like(z_in)
+    z_out = torch.empty((2, lanes), dtype=torch.float32, device=x.device)
+    if lanes == 0:
+        return y, (z_out[0].reshape(lead), z_out[1].reshape(lead))
+    # z1, z2, b0, b1, b2, a1, a2: each a pointer and its lane divisor; the
+    # copies some need live until the launch is enqueued
+    operands = [_lane_operand(t, lead) for t in (*z_prev, *coeffs)]
     lib = LIBRARY.load()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.fw_biquad_seq(
-            x.data_ptr(), y.data_ptr(), z_in.data_ptr(), z_out.data_ptr(),
-            coef.data_ptr(), lanes, frames, stream,
+            x.data_ptr(), y.data_ptr(), z_out.data_ptr(),
+            *(v for t, rep in operands for v in (t.data_ptr(), rep)),
+            lanes, frames, stream,
         )
+    del operands
     if err != 0:
         raise RuntimeError(f"biquad_seq: kernel launch failed (cudaError {err})")
     biquad_seq.launches += 1

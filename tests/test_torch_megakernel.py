@@ -109,24 +109,23 @@ def test_plain_version_matches_eager_on_random_graphs(seed):
     _mega_vs_eager(prog, 3, seed)
 
 
-@pytest.mark.parametrize("frames", [64, 256])
+@pytest.mark.parametrize("frames", [64, 100, 127, 256])
 def test_plain_version_matches_eager_at_other_block_sizes(frames):
-    """Blocks of 64 and 256 frames: the kernel takes any multiple of 4."""
+    """Blocks of 64, 100, 127 and 256 frames: the kernel takes any length,
+    127 with a padded float4 at the end of each arena row."""
     prog = random_graph(3, device="cpu", block_frames=frames)
     assert lower_schedule(prog).frames == frames
     _mega_vs_eager(prog, 2, seed=3)
 
 
-@pytest.mark.parametrize("frames", [64, 100, 128, 256, 1022])
-def test_kernel_takes_blocks_of_a_multiple_of_4_frames(frames):
-    """The wrapper refuses, before any launch, a block size that is not a
-    multiple of 4 frames, and more instances a CTA than the kernel takes."""
+@pytest.mark.parametrize("frames", [64, 100, 127, 128, 1022])
+def test_kernel_takes_blocks_of_any_length(frames):
+    """The wrapper takes a block of any length (the kernel pads each arena
+    row to a whole float4), and refuses, before any launch, more instances a
+    CTA than the kernel takes."""
     lw = lower_schedule(random_graph(0, device="cpu", block_frames=frames))
-    if frames % 4:
-        with pytest.raises(ValueError, match="multiple of 4"):
-            check_launchable(lw, 1, "MegaRenderer")
-    else:
-        check_launchable(lw, 1, "MegaRenderer")
+    check_launchable(lw, 1, "MegaRenderer")
+    assert shared_bytes(lw, 1) % 16 == 0
     with pytest.raises(ValueError, match="tile 9"):
         check_launchable(lw, 9, "MegaRenderer")
 
@@ -180,22 +179,28 @@ def test_plain_version_matches_jax_batch_renderer():
     _assert_close_np(state_to_numpy(tstate), _np(jstate))
 
 
-def _port_mixer_program():
-    """``tests/test_megakernel.py:mixer_program`` built from the port's
-    classes: the same graph, node keys and params."""
+def _mixer_program(frames, port):
+    """``tests/test_megakernel.py:mixer_program`` in blocks of ``frames``,
+    from the JAX package's classes or, with ``port``, the port's: the same
+    graph, node keys and params."""
     fn = jax_mega_tests.mixer_program
-    env = dict(fn.__globals__)
-    env.update(AudioGraph=ft.AudioGraph, AudioGraphConfig=ft.AudioGraphConfig,
-               ScheduleProgram=functools.partial(ft.ScheduleProgram, device="cpu"),
-               BeepTestNode=tn.BeepTestNode,
-               VolumeNode=tn.VolumeNode, SumNode=tn.SumNode,
-               StereoPanNode=tn.StereoPanNode, HardClipNode=tn.HardClipNode)
+    env = dict(fn.__globals__, F=frames)
+    if port:
+        env.update(AudioGraph=ft.AudioGraph, AudioGraphConfig=ft.AudioGraphConfig,
+                   ScheduleProgram=functools.partial(ft.ScheduleProgram, device="cpu"),
+                   BeepTestNode=tn.BeepTestNode,
+                   VolumeNode=tn.VolumeNode, SumNode=tn.SumNode,
+                   StereoPanNode=tn.StereoPanNode, HardClipNode=tn.HardClipNode)
     return types.FunctionType(fn.__code__, env)()
 
 
-def test_plain_version_matches_jax_megakernel():
-    jprog = jax_mega_tests.mixer_program()
-    tprog = _port_mixer_program()
+@pytest.mark.parametrize("frames", [F, 127])
+def test_plain_version_matches_jax_megakernel(frames):
+    """At the mixer's 128 frames a block, and at 127 (the kernel's padded
+    arena rows)."""
+    jprog = _mixer_program(frames, port=False)
+    tprog = _mixer_program(frames, port=True)
+    assert tprog.max_block_frames == frames
     assert repr(tprog.schedule) == repr(jprog.schedule)
     b, k = 8, 2
     p = jprog.collect_params()
@@ -385,7 +390,7 @@ def _lowered(name):
 
 
 LAYOUT_GRAPHS = ["mixer", "effects_island", "random_0", "random_1", "random_2",
-                 "random_1_256"]
+                 "random_1_256", "random_0_127"]
 
 
 def _random_leaf(leaf, rng, batch):
@@ -460,7 +465,7 @@ def test_shared_bytes_counts_the_kernels_words(name):
     shared_bytes), here from the schedule itself: the tables once a CTA
     (rows of 12 words), then per instance the arena, a record of 8 words per
     echo channel, the flags and the leaf words, each part rounded up to 16
-    bytes."""
+    bytes; an arena row of F frames takes F rounded up to a float4."""
     prog, lw = _lowered(name)
     procs = [prog._procs[key] for key in lw.keys]
     by_key = {ft.node_key(sn.id): sn for sn in prog.schedule.schedule}
@@ -472,7 +477,7 @@ def test_shared_bytes_counts_the_kernels_words(name):
     leaf_words = sum(math.prod(leaf.shape) for leaf in lw.leaves
                      if leaf.path != ("line",))
     nb, f = prog.schedule.num_buffers, prog.max_block_frames
-    per_instance = nb * f + 8 * echo + nb + leaf_words
+    per_instance = nb * (-(-f // 4) * 4) + 8 * echo + nb + leaf_words
     for tile in (1, 2, 8):
         assert shared_bytes(lw, tile) == 4 * (
             -(-tables // 4) * 4 + tile * (-(-per_instance // 4) * 4))

@@ -8,6 +8,8 @@ The kernel itself runs only on a CUDA card; ``chip_smoke.py`` holds it
 against the plain version there.
 """
 
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,7 +18,9 @@ import torch
 from firewheel_tpu.ops import iir as jiir
 from firewheel_tpu.ops.pallas_iir import biquad_pallas
 from firewheel_tpu_torch.ops import iir as tiir
-from firewheel_tpu_torch.ops.seq_iir import biquad_seq, biquad_seq_reference
+from firewheel_tpu_torch.ops.seq_iir import (
+    biquad_seq, biquad_seq_reference, lane_repeat,
+)
 
 SR = 48000
 TOL = 1e-6
@@ -35,11 +39,15 @@ def _jax_lowpass(freq, q):
 
 
 @pytest.mark.parametrize(
-    "lead,frames", [((3,), 128), ((5, 2), 100), ((1037,), 64), ((), 256)]
+    "lead,frames", [((3,), 128), ((5, 2), 100), ((1037,), 64), ((), 256),
+                    ((33,), 1), ((33,), 127), ((32,), 4096)]
 )
 def test_plain_matches_pallas_interpret(lead, frames):
     """Ragged lane counts (not a multiple of the Pallas 1024-lane tile or
-    of the CUDA block) and non-zero incoming state."""
+    of the CUDA kernel's 32 lanes a CTA), non-zero incoming state, and the
+    frame counts the kernel treats apart: 1, 127 (not a multiple of 4: its
+    4-byte copies) and 4096 (longer than its ring of stages in shared
+    memory, which then turns over)."""
     rng = np.random.default_rng(7)
     x = rng.standard_normal(lead + (frames,)).astype(np.float32)
     z1 = (0.1 * rng.standard_normal(lead)).astype(np.float32)
@@ -74,12 +82,12 @@ def test_state_carried_across_two_calls():
         np.testing.assert_array_equal(a.numpy(), b.numpy())
 
 
-def test_per_lane_coefficients_match_one_jax_call_per_lane():
+@pytest.mark.parametrize("lanes,frames", [(6, 128), (33, 127), (3, 1), (2, 4096)])
+def test_per_lane_coefficients_match_one_jax_call_per_lane(lanes, frames):
     """Every lane its own filter — what a batch of instances with their own
     cutoffs gives the kernel — against one scalar-coefficient JAX call per
-    lane."""
+    lane, at the kernel's ragged shapes too."""
     rng = np.random.default_rng(3)
-    lanes, frames = 6, 128
     freqs = rng.uniform(200.0, 16000.0, lanes).astype(np.float32)
     qs = rng.uniform(0.5, 4.0, lanes).astype(np.float32)
     x = rng.standard_normal((lanes, frames)).astype(np.float32)
@@ -116,6 +124,30 @@ def test_rbj_designs_match_jax(kind):
         tc = tb(_t(freq), _t(q), SR)
     for a, b in zip(tc, jc):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=TOL, rtol=1e-6)
+
+
+@pytest.mark.parametrize("shape,lead,repeat", [
+    ((), (4, 2), 8),          # one filter for every lane
+    ((4, 1), (4, 2), 2),      # the filter node's per-instance coefficients
+    ((4, 2), (4, 2), 1),      # per lane (the state)
+    ((3, 1, 1), (3, 2, 5), 10),
+    ((1,), (4, 2), 8),
+    ((1, 2), (4, 2), None),   # the same per channel: no lane divisor
+    ((2,), (4, 2), None),
+])
+def test_lane_repeat_gathers_what_broadcast_to_gives(shape, lead, repeat):
+    """The kernel reads lane ``l``'s operand as ``c.reshape(-1)[l //
+    repeat]``; every other broadcast is materialised by the wrapper."""
+    assert lane_repeat(shape, lead) == repeat
+    c = torch.arange(math.prod(shape), dtype=torch.float32).reshape(shape)
+    want = c.broadcast_to(lead).reshape(-1)
+    if repeat is not None:
+        lanes = torch.arange(want.numel())
+        assert torch.equal(c.reshape(-1)[lanes // repeat], want)
+    else:
+        assert not any(
+            torch.equal(c.reshape(-1)[torch.arange(want.numel()) // r], want)
+            for r in range(1, want.numel() + 1) if c.numel() * r >= want.numel())
 
 
 def _args(x=None):

@@ -1,5 +1,5 @@
-"""Device time of the megakernel (K2) and the island kernel (K3) on one
-NVIDIA GPU, for the port in a given checkout.
+"""Device time of the sequential biquad (K1), the megakernel (K2) and the
+island kernel (K3) on one NVIDIA GPU, for the port in a given checkout.
 
 Run from the root of a checkout:
 
@@ -10,6 +10,10 @@ one by default), so that two designs can be timed in one run on one card.
 Each time is the kernel's device time per launch by ``torch.profiler`` over
 10 launches after a warm-up, every launch from the same params and state:
 
+* K1 at F=128 on 16 384 lanes (the eager mixer at B=8192) and 2 048 lanes
+  (the effects chain at B=1024), with a lowpass per lane and with one per
+  instance over its two channels (the filter node's call), beside a call's
+  time with the wrapper's host work (CUDA events over 200 calls);
 * K2 on the 64-node mixer at B=8192, K=32 with a cutoff per instance
   (``chip_smoke.py`` phase 5), with every pan and volume smoother at rest;
 * the same chunk with every smoother ramping: each pan and volume moved by
@@ -18,6 +22,9 @@ Each time is the kernel's device time per launch by ``torch.profiler`` over
   function, which writes zeros (not a valid render): what is saved is what
   that kind of row costs, and with every row a dummy what is left is the
   walk itself (tables, leaves, flags, outputs);
+* K2 at rest on the same mixer compiled in blocks of 127 frames (K=32):
+  the kernel's instantiation for any block length, with its padded arena
+  rows (a checkout whose kernel refuses the block prints so);
 * K3 on the effects chain's island (filter, echo, clip) inside the hybrid
   lowering at B=8192, K=32 and B=1024, K=8 (phase 7).
 
@@ -35,8 +42,9 @@ import sys
 
 import torch
 
-from chip_smoke import card_line, device_ms
+from chip_smoke import card_line, cuda_ms, device_ms
 
+K1_LANES = (16384, 2048)
 MIXER = (8192, 32)
 EFFECTS = ((8192, 32), (1024, 8))
 REPS = 10
@@ -80,10 +88,34 @@ def main() -> int:
     def emit(**kw):
         print(json.dumps({"root": root, **kw}), flush=True)
 
+    import firewheel_tpu_torch.mixer as fmixer
+    from firewheel_tpu_torch.ops import iir, seq_iir
+
+    gen = torch.Generator().manual_seed(1234)
+    for lanes in K1_LANES:
+        x = torch.randn((lanes, 128), generator=gen).to("cuda")
+        z = tuple((0.1 * torch.randn((lanes,), generator=gen)).to("cuda")
+                  for _ in range(2))
+        freq = 200.0 + 19800.0 * torch.rand((lanes,), generator=gen)
+        q = 0.5 + 3.5 * torch.rand((lanes,), generator=gen)
+        per_lane = iir.biquad_lowpass(freq.to("cuda"), q.to("cuda"), 48000)
+        n = lanes // 2
+        per_instance = iir.biquad_lowpass(freq[:n, None].to("cuda"),
+                                          q[:n, None].to("cuda"), 48000)
+        for filters, args in (
+            ("per lane", (x, z, per_lane)),
+            ("per instance", (x.view(n, 2, 128), tuple(t.view(n, 2) for t in z),
+                              per_instance)),
+        ):
+            ms = device_ms(lambda: seq_iir.biquad_seq(*args), "biquad", REPS)
+            call_ms = cuda_ms(lambda: seq_iir.biquad_seq(*args), 200)
+            emit(kernel="K1", lanes=lanes, frames=128, filters=filters,
+                 device_ms=ms, call_ms=call_ms)
+
     b, k = MIXER
     prog = ft.mixer_graph(device="cuda")
 
-    def mixer_renderer():
+    def mixer_renderer(prog=prog):
         mega = em.MegaRenderer(prog, b, k, device="cuda")
         params = mega.stack_params()
         fkey = next(key for key in params if key.startswith("filter"))
@@ -108,6 +140,24 @@ def main() -> int:
                        "mega_kernel", REPS)
         emit(kernel="K2", graph="mixer", batch=b, blocks=k, smoothers="at rest",
              rows=f"{kind} as dummies", device_ms=ms)
+
+    # the mixer in blocks of 127 frames: mixer_graph compiles with the
+    # module's BLOCK
+    fmixer.BLOCK = 127
+    try:
+        prog127 = ft.mixer_graph(device="cuda")
+    finally:
+        fmixer.BLOCK = 128
+    try:
+        mega, params = mixer_renderer(prog127)
+        _, _, rest127 = mega.render_chunk(params, mega.init_state(), 0)
+        ms = device_ms(lambda: mega.render_chunk(params, rest127, k * 127),
+                       "mega_kernel", REPS)
+        emit(kernel="K2", graph="mixer", batch=b, blocks=k, frames=127,
+             smoothers="at rest", rows="all", device_ms=ms)
+    except ValueError as e:  # a kernel that takes only multiples of 4 frames
+        emit(kernel="K2", graph="mixer", batch=b, blocks=k, frames=127,
+             refused=str(e))
 
     for b, k in EFFECTS:
         br = ft.BatchRenderer(ft.effects_chain_graph(device="cuda"), b,
