@@ -54,10 +54,27 @@ Run from the root of a checkout:  python3 chip_smoke.py
 8. Correctness only, at B=64, K=8: the hybrid against the eager path on the
    card for BASELINE config 4 (the FFT reverb), a graph with stream inputs,
    and the mixer as a graph that is one island.
+9. The streaming engine (``FirewheelCtx`` → ``GraphContext`` →
+   ``GraphProcessor``) on the card, one instance: the beep test rendered
+   offline (FFT peak at 440 Hz, peak amplitude 0.2512); the 64-node mixer
+   streamed offline for 94 buffers of 1024 frames in 128-frame blocks (a
+   volume change scheduled mid-buffer, a voice dropped and one added before
+   buffer 40, the last buffer 1000 frames), one and eight buffers a pump,
+   against the same stream on the CPU (1e-5, final state, K1 once a block,
+   K2 and K3 never); the same edit staged (deferred swap: installed within
+   two pumps, no NaN, no silent buffer, a surviving voice's state equal to
+   the immediate swap's); the effects chain with the sampler's scheduled
+   commands, card against CPU.  It prints the stream's realtime factor,
+   wall a buffer (p50, p99), kernels a block and copies a dispatch
+   (``torch.profiler``), K1's device time at the stream's 2 lanes, and the
+   underflows of a 2 s realtime run on the native paced consumer, which
+   are a measurement and fail nothing.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
-main path, its error against its plain version, its device time on the
+batched main path (``launches``) and in phase 9's stream
+(``stream_launches``; K1's device time, call and plain version at the
+stream's 2 lanes beside them), its error against its plain version, its device time on the
 card (``ms``, by ``torch.profiler``) and a call's time with its wrapper's
 host work (``call_ms``, by CUDA events), the plain version's, and its
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
@@ -75,6 +92,7 @@ import subprocess
 import sys
 import time
 
+import numpy as np
 import torch
 
 B = 8192              # instances (the README's headline configuration)
@@ -304,7 +322,7 @@ def render_mixer(ft, seq_iir, card: str):
     """Phase 4: the 64-node mixer at B x K on the card."""
     from firewheel_tpu_torch.convert import tree_map
 
-    prog = ft.mixer_graph(device="cuda")
+    prog = ft.mixer_graph(filter_backend="pallas", device="cuda")
     n_nodes = len(prog.schedule.schedule)
     if n_nodes != 64:
         raise AssertionError(f"mixer has {n_nodes} nodes, expected 64")
@@ -313,7 +331,7 @@ def render_mixer(ft, seq_iir, card: str):
     params = mixer_params(br)
     state = br.init_state()
 
-    cpu_prog = ft.mixer_graph(device="cpu")
+    cpu_prog = ft.mixer_graph(filter_backend="pallas", device="cpu")
     cpu_br = ft.BatchRenderer(cpu_prog, CHECK_INSTANCES, device="cpu")
     cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
     cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state)
@@ -401,7 +419,7 @@ def render_mega(ft, seq_iir, em, card: str):
     BatchRenderer on the card and the CPU plain version."""
     from firewheel_tpu_torch.convert import tree_map
 
-    prog = ft.mixer_graph(device="cuda")
+    prog = ft.mixer_graph(filter_backend="pallas", device="cuda")
     mega = em.MegaRenderer(prog, B, K, device="cuda")
     eager = ft.BatchRenderer(prog, B, device="cuda")
     params = mixer_params(mega)
@@ -495,7 +513,7 @@ def render_mega(ft, seq_iir, em, card: str):
         f"eager chunks")
 
     # the first instances against the CPU plain version
-    cpu_prog = ft.mixer_graph(device="cpu")
+    cpu_prog = ft.mixer_graph(filter_backend="pallas", device="cpu")
     cpu_mega = em.MegaRenderer(cpu_prog, CHECK_INSTANCES, K, device="cpu")
     cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
     cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state0)
@@ -596,7 +614,7 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
     from firewheel_tpu_torch.convert import tree_map
     from firewheel_tpu_torch.mixer import vary_effects_params
 
-    prog = ft.effects_chain_graph(device="cuda")
+    prog = ft.effects_chain_graph(filter_backend="pallas", device="cuda")
     hybrid = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
     eager = ft.BatchRenderer(prog, b, device="cuda")
     params = vary_effects_params(hybrid.stack_params())
@@ -684,8 +702,8 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
     agree("handoff eager → hybrid", ho, hm, hs, *e_runs[1])
 
     # the first instances against the CPU plain hybrid
-    cpu = ft.BatchRenderer(ft.effects_chain_graph(device="cpu"), CHECK_INSTANCES,
-                           device="cpu", lowering="hybrid")
+    cpu = ft.BatchRenderer(ft.effects_chain_graph(filter_backend="pallas", device="cpu"),
+                           CHECK_INSTANCES, device="cpu", lowering="hybrid")
     cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
     cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state0)
     cpu_worst = 0.0
@@ -784,9 +802,11 @@ def check_hybrid_graphs(ft, em, eh):
     b, k = PHASE8_B, PHASE8_K
     gen = torch.Generator(device="cpu").manual_seed(8)
     worst = 0.0
-    for name, prog in (("config 4 (FFT reverb)", effects_chain_config4_graph(device="cuda")),
+    for name, prog in (("config 4 (FFT reverb)",
+                        effects_chain_config4_graph(filter_backend="pallas", device="cuda")),
                        ("stream inputs", stream_in_graph(ft)),
-                       ("mixer, one island", ft.mixer_graph(device="cuda"))):
+                       ("mixer, one island",
+                        ft.mixer_graph(filter_backend="pallas", device="cuda"))):
         hybrid = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
         eager = ft.BatchRenderer(prog, b, device="cuda")
         params = vary_params(vary_effects_params(hybrid.stack_params()), 8)
@@ -819,6 +839,307 @@ def check_hybrid_graphs(ft, em, eh):
             f"outputs {out_e:.3e}, state {state_e:.3e} (last chunk), masks equal")
     log(f"phase 8 graphs at B={b} K={k}: max_abs_err={worst:.3e}")
     return worst
+
+
+# phase 9: the streaming engine (FirewheelCtx → GraphContext → GraphProcessor)
+STREAM_BUFFER = 1024        # frames a stream buffer (the cpal default)
+STREAM_BLOCK = 128          # frames a graph block
+STREAM_BUFFERS = 94         # ~2 s at 48 kHz; the last buffer is STREAM_TAIL frames
+STREAM_TAIL = 1000          # 7 blocks and one of 104 frames
+STREAM_VOLUME_AT = 10 * STREAM_BUFFER + 300  # voice 3's volume moves mid-buffer
+STREAM_EDIT_AT = 40         # buffer before which voice 0 goes and a voice comes
+STREAM_TOL = 1e-5           # the card's stream vs the CPU's (PERF.md §2)
+PROFILED_BUFFERS = 4
+EFFECTS_BUFFERS = 47        # ~1 s
+REALTIME_SECS = 2.0
+
+
+def stream_mixer(ft, device, chunk_buffers=1, deferred=False, buffers=STREAM_BUFFERS,
+                 profile_from=None):
+    """The 64-node mixer streamed offline through ``FirewheelCtx`` on
+    ``device``: 1024-frame buffers of 128-frame blocks, ``chunk_buffers``
+    buffers a pump, the last buffer 1000 frames (a partial block), voice 3's
+    volume scheduled at a sample inside buffer 10, and before buffer
+    ``STREAM_EDIT_AT`` voice 0 dropped and a voice added at its sum inputs
+    (installed at once, or staged with ``deferred``).  With
+    ``profile_from``, ``torch.profiler`` traces ``PROFILED_BUFFERS`` pumps
+    from that buffer.  Returns a dict of the audio, the final state on the
+    CPU, the wall of each pump, the stream's stats, the K1 launches, and a
+    surviving voice's state and the pending flag just after the edit's
+    pump."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import add_mixer, add_voice
+    from firewheel_tpu_torch.ops import seq_iir
+
+    cx = ft.FirewheelCtx(device=device)
+    g = cx.graph_mut()
+    s, voices = add_mixer(g, 19, "pallas")
+    g.node(voices[3][1]).set_percent_volume(30.0, at_sample=STREAM_VOLUME_AT)
+    frames = (buffers - 1) * STREAM_BUFFER + STREAM_TAIL
+    sink = ft.ArraySink()
+    cfg = ft.StreamConfig(buffer_frames=STREAM_BUFFER, block_frames=STREAM_BLOCK,
+                          chunk_buffers=chunk_buffers, deferred_swap=deferred)
+    cx.activate(cfg, sink=sink, duration_secs=(frames + 0.5) / 48000)
+    stream, proc = cx.stream, cx.stream._processor
+    survivor = [ft.node_key(nid) for nid in voices[5]]
+    out = {"walls": [], "pending": []}
+    prof = None
+    seq_iir.biquad_seq.launches = 0
+    t_start = time.perf_counter()
+    i = 0
+    while stream.frames_rendered < frames:
+        if i == STREAM_EDIT_AT:
+            for nid in voices[0]:
+                g.remove_node(nid)
+            voices[0] = add_voice(g, s, 0, 19)
+        if i == profile_from:
+            torch.cuda.synchronize()
+            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        cx.update(max_pump_buffers=0)  # ships the edit's schedule
+        t0 = time.perf_counter()
+        stream.pump(cfg.chunk_buffers)
+        out["walls"].append(time.perf_counter() - t0)
+        i += cfg.chunk_buffers
+        if prof is not None and i == profile_from + PROFILED_BUFFERS * cfg.chunk_buffers:
+            stream.flush()
+            torch.cuda.synchronize()
+            out["profile_wall"] = time.perf_counter() - t_prof
+            prof.__exit__(None, None, None)
+            out["profile"], prof = prof, None
+        if i == STREAM_EDIT_AT + cfg.chunk_buffers:
+            out["survivor"] = {k: tree_map(lambda t: t.cpu(), proc.state_dict()[k])
+                               for k in survivor}
+        if i > STREAM_EDIT_AT:
+            out["pending"].append(proc.has_pending())
+    stream.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t_start
+    out["k1"] = seq_iir.biquad_seq.launches
+    out["state"] = tree_map(lambda t: t.cpu(), proc.state_dict())
+    out["stats"] = stream.stats()
+    out["audio"] = sink.audio(2)
+    cx.deactivate()
+    if out["audio"].shape != (2, frames):
+        raise AssertionError(f"stream rendered {out['audio'].shape}, expected "
+                             f"{(2, frames)}")
+    return out
+
+
+def stream_effects(ft, device):
+    """The effects chain (``mixer.add_effects_chain``, filter on K1)
+    streamed offline for ~1 s: the sampler's one-shot replays from sample
+    12 077, stops at 14 405, plays at 24 011 and seeks to 0.1 s at 26 400,
+    each on its block through the per-block timelines."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import add_effects_chain, effects_chain_audio
+
+    cx = ft.FirewheelCtx(device=device)
+    g = cx.graph_mut()
+    sn = g.node(add_effects_chain(g, *effects_chain_audio(), 0.01, "pallas"))
+    sn.play(at_sample=12077)
+    sn.stop(at_sample=14405)
+    sn.play(at_sample=24011)
+    sn.set_playhead(0.1, at_sample=26400)
+    sink = ft.ArraySink()
+    cx.activate(ft.StreamConfig(buffer_frames=STREAM_BUFFER, block_frames=STREAM_BLOCK),
+                sink=sink)
+    for _ in range(EFFECTS_BUFFERS):
+        cx.update(max_pump_buffers=0)
+        cx.stream.pump(1)
+    cx.stream.flush()
+    state = tree_map(lambda t: t.cpu(), cx.stream._processor.state_dict())
+    events = [(e.name, e.count, e.total) for e in cx.poll_events()]
+    audio = sink.audio(2)
+    cx.deactivate()
+    return audio, state, events
+
+
+def stream_counts(prof, buffers: int, blocks: int):
+    """``(kernels a block, launch calls a block, host→device copies a
+    dispatch, device→host copies a dispatch, device busy microseconds, K1's
+    device microseconds)`` from a profile of ``buffers`` one-buffer
+    dispatches of ``blocks`` blocks each: kernels and copies as the device
+    ran them, launch calls as the host made them, K1's time as each of its
+    launches in the stream took it."""
+    kernels = calls = h2d = d2h = 0
+    busy = 0.0
+    k1 = []
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.time_range.elapsed_us()
+            if "biquad_seq_kernel" in e.name:
+                k1.append(e.time_range.elapsed_us())
+            if "Memcpy HtoD" in e.name:
+                h2d += 1
+            elif "Memcpy DtoH" in e.name:
+                d2h += 1
+            elif not e.name.startswith(("Memcpy", "Memset")):
+                kernels += 1
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+            calls += 1
+    n = buffers * blocks
+    if len(k1) != n:
+        raise AssertionError(f"the profile saw {len(k1)} K1 launches in {n} blocks")
+    return kernels / n, calls / n, h2d / buffers, d2h / buffers, busy, k1
+
+
+def check_stream(ft, seq_iir, em, eh, card: str):
+    """Phase 9: the streaming engine on the card, against the same streams
+    on the CPU; its numbers."""
+    # 9.1 the beep test
+    cx = ft.FirewheelCtx(device="cuda")
+    g = cx.graph_mut()
+    from firewheel_tpu_torch.nodes import BeepTestNode
+
+    beep = g.add_node(0, 2, BeepTestNode(440.0, -12.0, True))
+    for ch in range(2):
+        g.connect(beep, ch, g.graph_out_node(), ch)
+    sink = ft.ArraySink()
+    cx.activate(ft.StreamConfig(), sink=sink)
+    cx.render_offline(2.0)
+    cx.deactivate()
+    audio = sink.audio(2)
+    peak_hz = float(np.argmax(np.abs(np.fft.rfft(audio[0])))) * 48000 / audio.shape[1]
+    amp = float(np.abs(audio).max())
+    if abs(peak_hz - 440.0) > 1.0 or abs(amp - 0.2512) > 1e-4:
+        raise AssertionError(f"beep test: peak at {peak_hz} Hz, amplitude {amp}")
+    log(f"stream, beep test on the card: {audio.shape[1]} frames, FFT peak "
+        f"{peak_hz:.2f} Hz, peak amplitude {amp:.6f}")
+
+    # 9.2 the mixer on the card (one buffer a pump, and eight) and the CPU
+    cpu = stream_mixer(ft, "cpu")
+    em.MegaRenderer.launches = eh.HybridMegaRenderer.launches = 0
+    runs = {"chunk 1": stream_mixer(ft, "cuda"),
+            "chunk 8": stream_mixer(ft, "cuda", chunk_buffers=8)}
+    if em.MegaRenderer.launches or eh.HybridMegaRenderer.launches:
+        raise AssertionError("the stream launched K2 or K3")
+    blocks = (STREAM_BUFFERS - 1) * STREAM_BUFFER // STREAM_BLOCK + (
+        -(-STREAM_TAIL // STREAM_BLOCK))
+    worst = 0.0
+    for tag, run in runs.items():
+        e = float(np.abs(run["audio"] - cpu["audio"]).max())
+        state_e = tree_err(run["state"], cpu["state"])
+        if not ((run["audio"] == 0) == (cpu["audio"] == 0)).all():
+            raise AssertionError(f"stream {tag}: silent samples differ from the CPU's")
+        if not max(e, state_e) <= STREAM_TOL:
+            raise AssertionError(f"stream {tag} vs CPU: audio {e}, state {state_e}")
+        if run["k1"] != blocks:
+            raise AssertionError(f"stream {tag}: K1 launched {run['k1']} times for "
+                                 f"{blocks} blocks")
+        worst = max(worst, e, state_e)
+        log(f"stream, mixer {tag} on the card vs the CPU ({STREAM_BUFFERS} buffers, "
+            f"{blocks} blocks, volume at sample {STREAM_VOLUME_AT}, edit before "
+            f"buffer {STREAM_EDIT_AT}, last buffer {STREAM_TAIL} frames): audio "
+            f"{e:.3e}, final state {state_e:.3e}, silent samples equal; K1 "
+            f"launches {run['k1']} (one a block)")
+    peak = float(np.abs(cpu["audio"]).max())
+    if not 0.01 < peak <= 1.0 or not np.isfinite(runs["chunk 1"]["audio"]).all():
+        raise AssertionError(f"stream output peak {peak}")
+
+    # 9.3 the same edit staged (deferred swap)
+    d = stream_mixer(ft, "cuda", deferred=True, buffers=STREAM_EDIT_AT + 8)
+    installed = d["pending"].index(False) if False in d["pending"] else None
+    per_buffer = np.abs(d["audio"][:, :(STREAM_EDIT_AT + 7) * STREAM_BUFFER]).reshape(
+        2, -1, STREAM_BUFFER).max(axis=(0, 2))
+    if installed is None or installed > 2:
+        raise AssertionError(f"deferred swap: pending after the edit {d['pending'][:8]}")
+    if not np.isfinite(d["audio"]).all() or not (per_buffer > 0.01).all():
+        raise AssertionError("deferred swap: NaN or a silent buffer in the stream")
+    mig = tree_err(d["survivor"], runs["chunk 1"]["survivor"])
+    if mig != 0.0:
+        raise AssertionError(f"deferred swap: a surviving voice's state differs from "
+                             f"the immediate swap's by {mig}")
+    log(f"stream, deferred swap: installed {installed} pump(s) after the edit's, "
+        f"every buffer audible (quietest peak {per_buffer.min():.4f}), no NaN; "
+        f"voice 5's state just after the swap equals the immediate swap's")
+
+    # 9.4 the effects chain (the sampler's timelines), card vs CPU
+    ea, es, ev = stream_effects(ft, "cuda")
+    ca, cs, cv = stream_effects(ft, "cpu")
+    e_fx = max(float(np.abs(ea - ca).max()), tree_err(es, cs))
+    if not e_fx <= STREAM_TOL or ev != cv or float(np.abs(ea).max()) < 0.01:
+        raise AssertionError(f"effects stream vs CPU: {e_fx}, events {ev} vs {cv}")
+    log(f"stream, effects chain on the card vs the CPU ({EFFECTS_BUFFERS} buffers, "
+        f"scheduled play/stop/play/seek): max_abs_err={e_fx:.3e}, events {ev}")
+
+    # 9.5 the numbers
+    t = runs["chunk 1"]
+    audio_secs = t["audio"].shape[1] / 48000
+    walls = np.asarray(t["walls"][1:-1]) * 1e3  # whole 1024-frame buffers
+    log(f"stream, mixer on {card}: {audio_secs:.3f} s of audio in {t['wall']:.3f} s, "
+        f"realtime factor {audio_secs / t['wall']:.3f}; wall a 1024-frame buffer "
+        f"(a pump, pipelined) p50 {np.percentile(walls, 50):.3f} ms, p99 "
+        f"{np.percentile(walls, 99):.3f} ms (budget 21.333 ms); the stream's host "
+        f"time a buffer p50 {t['stats']['render_ms_p50']:.3f} ms, p99 "
+        f"{t['stats']['render_ms_p99']:.3f} ms")
+    c8 = runs["chunk 8"]
+    log(f"stream, mixer on {card}, 8 buffers a pump: realtime factor "
+        f"{c8['audio'].shape[1] / 48000 / c8['wall']:.3f}")
+    p = stream_mixer(ft, "cuda", buffers=12, profile_from=4)
+    per_block, calls, h2d, d2h, busy, k1_us = stream_counts(
+        p["profile"], PROFILED_BUFFERS, STREAM_BUFFER // STREAM_BLOCK)
+    top = sorted(p["profile"].key_averages(), key=lambda e: -e.self_cpu_time_total)[:8]
+    log("stream, host time by op in the profile (self CPU ms, calls): " + "; ".join(
+        f"{e.key} {e.self_cpu_time_total / 1e3:.1f} ms {e.count}" for e in top))
+    log(f"stream, torch.profiler over {PROFILED_BUFFERS} pumps on {card}: "
+        f"{per_block:.1f} kernels a block on the device ({calls:.1f} launch calls "
+        f"a block on the host), {h2d:.1f} host→device and "
+        f"{d2h:.1f} device→host copies a dispatch, device busy "
+        f"{busy / 1e3:.3f} ms of {p['profile_wall'] * 1e3:.3f} ms "
+        f"({100 * busy / 1e6 / p['profile_wall']:.1f}%)")
+
+    # K1 at the stream's width, 2 lanes (one instance, stereo): its device
+    # time in the profiled stream, and a call and its plain version here
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn((2, STREAM_BLOCK), generator=gen).to("cuda")
+    z = tuple(torch.zeros(2, device="cuda") for _ in range(2))
+    from firewheel_tpu_torch.ops import iir
+
+    c = iir.biquad_lowpass(torch.full((1,), 8000.0, device="cuda"),
+                           torch.full((1,), 0.7071, device="cuda"), 48000)
+    y, _ = seq_iir.biquad_seq(x, z, c)
+    yr, _ = seq_iir.biquad_seq_reference(x, z, c)
+    torch.cuda.synchronize()
+    k1_err = float((y - yr).abs().max())
+    if not k1_err <= KERNEL_TOL:
+        raise AssertionError(f"K1 at 2 lanes vs plain: {k1_err}")
+    k1_ms = float(np.mean(k1_us)) / 1e3
+    k1_call = cuda_ms(lambda: seq_iir.biquad_seq(x, z, c), 200)
+    k1_plain = cuda_ms(lambda: seq_iir.biquad_seq_reference(x, z, c), 10)
+    k1_bound, k1_by = bound(4 * 2 * (2 * STREAM_BLOCK + 5 + 2 * 2), 9 * 2 * STREAM_BLOCK)
+    log(f"stream: K1 at 2 lanes, F={STREAM_BLOCK} on {card}: {k1_ms * 1e3:.3f} us on "
+        f"the device (mean of its {len(k1_us)} launches in the profiled stream, "
+        f"{min(k1_us):.3f}–{max(k1_us):.3f} us), {k1_call:.4f} ms a call "
+        f"(CUDA events), plain {k1_plain:.4f} ms, bound {k1_bound * 1e3:.5f} us by "
+        f"{k1_by}; vs plain max_abs_err={k1_err:.3e}")
+
+    # underflows on the paced native consumer, realtime, into an ArraySink
+    cx = ft.FirewheelCtx(device="cuda")
+    from firewheel_tpu_torch.mixer import add_mixer
+    add_mixer(cx.graph_mut(), 19, "pallas")
+    sink = ft.ArraySink()
+    cx.activate(ft.StreamConfig(buffer_frames=STREAM_BUFFER, block_frames=STREAM_BLOCK,
+                                realtime=True), sink=sink)
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < REALTIME_SECS:
+        cx.update()
+        time.sleep(0.001)
+    rt = cx.stream.stats()
+    cx.deactivate()
+    if rt.get("consumer") != "native":
+        raise AssertionError(f"realtime stream on the {rt.get('consumer')} consumer")
+    log(f"stream, realtime {REALTIME_SECS} s on the native paced consumer on {card}: "
+        f"{rt['consumer_underflows']} underflows in {rt['consumer_periods']} periods "
+        f"(a measurement, not a failure), {rt['underflow_count']} seen by the "
+        f"stream, {sink.audio(2).shape[1]} frames to the sink, render p50 "
+        f"{rt.get('render_ms_p50', float('nan')):.3f} ms, p99 "
+        f"{rt.get('render_ms_p99', float('nan')):.3f} ms a buffer")
+    return max(worst, e_fx), t["k1"], (k1_ms, k1_call, k1_plain, k1_bound)
 
 
 def main() -> int:
@@ -888,6 +1209,9 @@ def main() -> int:
         phase(f"7, effects chain hybrid B={b} K={k}")
     h_err = max(h_err, check_hybrid_graphs(ft, em, eh))
     phase("8, hybrid on three more graphs")
+    s_err, s_launches, k1_stream = check_stream(ft, seq_iir, em, eh, card)
+    phase("9, the streaming engine")
+    log(f"phase 9: the stream on the card vs the CPU, max_abs_err={s_err:.3e}")
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -910,11 +1234,15 @@ def main() -> int:
         bound_ms, bound_by = bound(*work)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n, "max_abs_err": e, "ms": t, "call_ms": call,
+            "launches": n, "stream_launches": s_launches if name == "biquad_seq" else 0,
+            "max_abs_err": e, "ms": t, "call_ms": call,
             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / t,
             "library_ms": None,  # no one PyTorch call computes any of the three
         })
+        if name == "biquad_seq":  # at the stream's width, 2 lanes
+            kernels[-1].update(zip(("stream_ms", "stream_call_ms", "stream_plain_ms",
+                                    "stream_bound_ms"), k1_stream))
         log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "
             f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G f32 "
             f"operations), {100 * bound_ms / t:.1f}% of the bound")

@@ -20,6 +20,7 @@ one for instances, where the JAX package uses ``vmap``.  Every leaf of
 from __future__ import annotations
 
 import dataclasses
+import enum
 from typing import NamedTuple
 
 import numpy as np
@@ -34,6 +35,7 @@ __all__ = [
     "NodeProcessor",
     "AudioNode",
     "NodeActivationError",
+    "StreamStatus",
     "MAX_PORTS",
     "STREAM_SAMPLE_PERIOD",
     "UINT32_MASK",
@@ -42,6 +44,14 @@ __all__ = [
 # Hard engine constant: at most 64 ports per node, the silence-mask width
 # (node.rs:62,69; silence_mask.rs:23-29).
 MAX_PORTS = 64
+
+
+class StreamStatus(enum.IntFlag):
+    """Stream status bitflags (node.rs:120-132)."""
+
+    NONE = 0
+    INPUT_OVERFLOW = 0b01
+    OUTPUT_UNDERFLOW = 0b10
 
 
 @dataclasses.dataclass(frozen=True)
@@ -188,6 +198,19 @@ class NodeProcessor:
         new_state, bool[..., num_outputs])``.
         """
         raise NotImplementedError
+
+    def resync_from_state(self, state) -> None:
+        """Adopt a restored state's control metadata (sequence numbers)
+        into the host-side node, so that the first block after
+        ``GraphProcessor.set_state_dict`` sees no spurious command edge.
+        Default: nothing to sync."""
+
+    def event_counters(self) -> dict:
+        """Device-side event counters, ``{event_name: state_key}``: each
+        named state leaf is a monotonic 32-bit counter the kernel
+        increments when the event occurs (``core/events.py``).  Default:
+        none."""
+        return {}
 
     def group_key(self):
         """Pooling signature, or ``None``.

@@ -16,13 +16,17 @@ a member axis right after the batch dimensions and calls the kernel once.
 * ``render_block`` — one block: the ``process_block`` analog.
 * ``chunk_fn`` / ``render_chunk`` — K blocks in a Python loop (the JAX
   package's ``lax.scan``), with the per-block clocks computed once before
-  the loop.
+  the loop.  A param leaf may carry a per-block timeline
+  (:class:`PerBlock`): block ``b`` of the chunk sees its ``b``-th value.
+  A block shorter than ``max_block_frames`` (a stream's tail) advances the
+  state by exactly its frames: every kernel reads F from its inputs.
 """
 
 from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from .convert import params_from_jax, tree_map
@@ -32,13 +36,76 @@ from .core.node import (
 from .device import DEFAULT_DEVICE, resolve_device
 from .graph.compiler import CompiledSchedule, NodeID
 
-__all__ = ["node_key", "ScheduleProgram"]
+__all__ = [
+    "node_key", "PerBlock", "split_timelines", "refuse_timelines", "ScheduleProgram",
+]
 
 
 def node_key(node_id: NodeID) -> str:
     """Stable string key for state/param dicts: ``repr(NodeID)``, the same
     key as in the JAX package."""
     return repr(node_id)
+
+
+class PerBlock:
+    """A param leaf carrying a per-block timeline: ``values[K, ...]``, one
+    value per block of a K-block dispatch.
+
+    Chunked dispatch would otherwise apply params once per chunk; timeline
+    leaves restore block-accurate control inside a chunk (the reference
+    loads params every block, volume.rs:92).  Processors opt in with
+    ``collect_timeline = True``; their ``collect_params(blocks=K,
+    start_sample=..., frames=..., consume=...)`` returns PerBlock leaves
+    whenever ``start_sample`` is given."""
+
+    __slots__ = ("values",)
+
+    def __init__(self, values):
+        self.values = np.asarray(values)
+
+
+def split_timelines(tree, prefix=()):
+    """``(static, timelines)``: ``tree`` with every :class:`PerBlock` leaf
+    replaced by its block-0 value, and ``{path: values[K, ...]}`` of those
+    leaves, ``path`` the tuple of keys down to the leaf."""
+    static, timelines = {}, {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            static[k], inner = split_timelines(v, prefix + (k,))
+            timelines.update(inner)
+        elif isinstance(v, PerBlock):
+            static[k] = v.values[0]
+            timelines[prefix + (k,)] = v.values
+        else:
+            static[k] = v
+    return static, timelines
+
+
+def refuse_timelines(params, who: str) -> None:
+    """Raise when ``params`` holds :class:`PerBlock` leaves: ``who`` renders
+    a chunk with one param value per leaf."""
+    if isinstance(params, dict) and split_timelines(params)[1]:
+        raise ValueError(
+            f"{who} takes one value per param leaf a chunk; these params "
+            "carry per-block timelines (PerBlock leaves, from collect_params("
+            "start_sample=...)): render them with ScheduleProgram.render_chunk "
+            "or the GraphProcessor"
+        )
+
+
+def splice_block(params: dict, timelines: dict, b: int) -> dict:
+    """``params`` with each timeline leaf (``{path: tensor[K, ...]}``)
+    replaced by its block-``b`` value; untouched subtrees are shared."""
+    if not timelines:
+        return params
+    out = dict(params)
+    for path, values in timelines.items():
+        d = out
+        for k in path[:-1]:
+            d[k] = dict(d[k])
+            d = d[k]
+        d[path[-1]] = values[b]
+    return out
 
 
 def _stack_trees(trees, dim: int):
@@ -91,10 +158,34 @@ class ScheduleProgram:
             for key, proc in self._procs.items()
         }
 
-    def collect_params(self) -> dict[str, Any]:
+    def collect_params(
+        self,
+        blocks: float = 1,
+        start_sample: int | None = None,
+        frames: int | None = None,
+        consume: bool = True,
+    ) -> dict[str, Any]:
         """Host-side param snapshot (numpy scalars) for the next dispatch
-        (the lock-free param channel; volume.rs:92)."""
-        return {key: proc.collect_params() for key, proc in self._procs.items()}
+        (the lock-free param channel; volume.rs:92).
+
+        ``start_sample``: the dispatch's first absolute sample.  When given,
+        timeline-capable processors (``collect_timeline``) return
+        :class:`PerBlock` leaves over ``ceil(blocks)`` blocks of ``frames``
+        (``max_block_frames`` by default), so scheduled param changes land
+        on their exact block.  ``consume=False`` leaves scheduled changes
+        queued (a throwaway render)."""
+        out = {}
+        f = self.max_block_frames if frames is None else int(frames)
+        k = max(1, int(np.ceil(blocks)))
+        for key, proc in self._procs.items():
+            if getattr(proc, "collect_timeline", False):
+                out[key] = proc.collect_params(
+                    blocks=k, start_sample=start_sample, frames=f,
+                    consume=consume,
+                )
+            else:
+                out[key] = proc.collect_params()
+        return out
 
     # -- node pooling ----------------------------------------------------------
     def _build_plan(self):
@@ -256,50 +347,81 @@ class ScheduleProgram:
             params_from_jax(params, self.device), state, graph_in, in_mask, info
         )
 
+    def render_partial_block(self, frames: int, params, state, graph_in,
+                             in_mask, info: BlockInfo):
+        """A block shorter than ``max_block_frames`` (a stream's tail):
+        ``graph_in f32[..., Ni, frames]``; the state advances by exactly
+        ``frames``."""
+        if graph_in.shape[-1] != frames:
+            raise ValueError(f"graph_in has {graph_in.shape[-1]} frames, expected {frames}")
+        return self.render_block(params, state, graph_in, in_mask, info)
+
     # -- K blocks --------------------------------------------------------------
+    def block_clocks(self, start_sample, k: int, frames: int, device):
+        """``(samples int64[k], times f32[k])``: each block's first sample on
+        the modular 32-bit clock and its stream time, for ``k`` blocks of
+        ``frames`` from ``start_sample``."""
+        samples = (
+            wrap_stream_sample(start_sample)
+            + frames * torch.arange(k, dtype=torch.int64, device=device)
+        ) & 0xFFFFFFFF
+        return samples, stream_time_from_sample(samples, float(self.sample_rate))
+
+    def render_blocks(self, params, timelines, state, graph_in, in_mask, infos):
+        """Render ``len(infos)`` blocks: ``graph_in f32[..., K, Ni, F]``,
+        ``in_mask bool[..., K, Ni]``; block ``b`` sees ``infos[b]`` and, for
+        each ``{path: tensor[K, ...]}`` of ``timelines``, its ``b``-th
+        value.  Returns ``(out f32[..., K, No, F], out_mask bool[..., K, No],
+        state')``."""
+        outs, masks = [], []
+        for b, info in enumerate(infos):
+            out, om, state = self._render(
+                splice_block(params, timelines, b), state,
+                graph_in[..., b, :, :], in_mask[..., b, :], info,
+            )
+            outs.append(out)
+            masks.append(om)
+        return torch.stack(outs, dim=-3), torch.stack(masks, dim=-2), state
+
     def chunk_fn(self, num_blocks: int):
         """Build ``(params, state, graph_in[..., K, Ni, F], in_mask[..., K,
-        Ni], start_sample, status) -> (out[..., K, No, F], out_mask[..., K,
-        No], state')``: K blocks chained in a loop.  Stream time and sample
-        advance per block exactly as the streaming clock would."""
-        frames = self.max_block_frames
-        sr = float(self.sample_rate)
+        Ni], start_sample, status, timelines=None) -> (out[..., K, No, F],
+        out_mask[..., K, No], state')``: K blocks chained in a loop.  Stream
+        time and sample advance per block exactly as the streaming clock
+        would; ``timelines`` (``{path: tensor[K, ...]}``) give block ``b``
+        its own value of those param leaves."""
 
-        def chunk(params, state, graph_in, in_mask, start_sample, status):
+        def chunk(params, state, graph_in, in_mask, start_sample, status,
+                  timelines=None):
             k = graph_in.shape[-3]
             if k != num_blocks:
                 raise ValueError(f"graph_in has {k} blocks, expected {num_blocks}")
             device = graph_in.device
             # per-block clocks, computed once before the loop
-            samples = (
-                wrap_stream_sample(start_sample)
-                + frames * torch.arange(k, dtype=torch.int64, device=device)
-            ) & 0xFFFFFFFF
-            times = stream_time_from_sample(samples, sr)
+            samples, times = self.block_clocks(start_sample, k,
+                                               graph_in.shape[-1], device)
             status_t = torch.as_tensor(int(status), dtype=torch.int64,
                                        device=device)
-            outs, masks = [], []
-            for b in range(k):
-                info = BlockInfo(
-                    stream_time_secs=times[b],
-                    stream_sample=samples[b],
-                    stream_status=status_t,
-                )
-                out, om, state = self._render(
-                    params, state, graph_in[..., b, :, :], in_mask[..., b, :],
-                    info,
-                )
-                outs.append(out)
-                masks.append(om)
-            return torch.stack(outs, dim=-3), torch.stack(masks, dim=-2), state
+            infos = [BlockInfo(stream_time_secs=times[b], stream_sample=samples[b],
+                               stream_status=status_t) for b in range(k)]
+            return self.render_blocks(params, timelines or {}, state, graph_in,
+                                      in_mask, infos)
 
         return chunk
 
     def render_chunk(self, params, state, graph_in, in_mask, start_sample=0,
                      status=0):
-        """K-block render (K from ``graph_in.shape[-3]``)."""
+        """K-block render (K from ``graph_in.shape[-3]``).  ``params`` may
+        hold :class:`PerBlock` leaves of K values each (``collect_params(
+        blocks=K, start_sample=...)``)."""
         k = graph_in.shape[-3]
+        static, timelines = split_timelines(params)
+        for path, v in timelines.items():
+            if v.shape[0] != k:
+                raise ValueError(f"timeline {path}: {v.shape[0]} values for "
+                                 f"{k} blocks")
         return self.chunk_fn(k)(
-            params_from_jax(params, self.device), state, graph_in, in_mask, start_sample,
-            status,
+            params_from_jax(static, self.device), state, graph_in, in_mask,
+            start_sample, status,
+            params_from_jax(timelines, self.device),
         )

@@ -34,7 +34,7 @@ from typing import Any
 import torch
 
 from .convert import params_from_jax
-from .executor import ScheduleProgram, node_key
+from .executor import ScheduleProgram, node_key, refuse_timelines
 from .executor_mega import (
     LIBRARY,
     KernelOperands,
@@ -244,6 +244,7 @@ class HybridMegaRenderer:
         prog = self.program
         b, k, f = self.batch, self.num_blocks, prog.max_block_frames
         sched = prog.schedule.schedule
+        refuse_timelines(params, "HybridMegaRenderer")
         params = params_from_jax(params, self.device)
         if graph_in is None:
             graph_in = torch.zeros((b, k, prog.num_graph_inputs, f),

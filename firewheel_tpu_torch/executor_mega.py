@@ -47,9 +47,9 @@ import numpy as np
 import torch
 
 from .convert import params_from_jax
-from .core.node import BlockInfo, stream_time_from_sample, wrap_stream_sample
+from .core.node import BlockInfo
 from .device import DEFAULT_DEVICE, resolve_device
-from .executor import ScheduleProgram, node_key
+from .executor import ScheduleProgram, node_key, refuse_timelines
 from .nodes.beep_test import BeepTestProcessor
 from .nodes.delay import EchoProcessor
 from .nodes.dummy import DummyProcessor
@@ -441,12 +441,8 @@ def _chunk_clocks(program: ScheduleProgram, start_sample, num_blocks: int,
                   device):
     """Each block's ``BlockInfo``, as ``ScheduleProgram.chunk_fn`` computes
     them."""
-    samples = (
-        wrap_stream_sample(start_sample)
-        + program.max_block_frames
-        * torch.arange(num_blocks, dtype=torch.int64, device=device)
-    ) & 0xFFFFFFFF
-    times = stream_time_from_sample(samples, float(program.sample_rate))
+    samples, times = program.block_clocks(start_sample, num_blocks,
+                                          program.max_block_frames, device)
     status = torch.zeros((), dtype=torch.int64, device=device)
     return [BlockInfo(times[k], samples[k], status) for k in range(num_blocks)]
 
@@ -472,7 +468,10 @@ def _walk_rows(program: ScheduleProgram, lowered: LoweredSchedule,
                    if lowered.leaves[i].tree == "params"])
         s_slots = [i for i in mine if lowered.leaves[i].tree == "state"]
         s = _nest([(lowered.leaves[i].path, store.get(i)) for i in s_slots])
-        y, s2, om = program._procs[key].kernel(p, s, inputs, in_mask, info)
+        proc = program._procs[key]
+        # the filter runs the sequential recurrence in the kernel
+        kernel = getattr(proc, "sequential_kernel", proc.kernel)
+        y, s2, om = kernel(p, s, inputs, in_mask, info)
         for i, (path, t) in zip(s_slots, _flat(s2), strict=True):
             assert path == lowered.leaves[i].path, (key, path)
             store.set(i, t)
@@ -757,6 +756,7 @@ class MegaRenderer:
         return self._batched.init_state()
 
     def render_chunk(self, params, state, start_sample=0):
+        refuse_timelines(params, "MegaRenderer")
         params = params_from_jax(params, self.device)
         if self.device.type == "cpu":
             return mega_chunk_reference(self.program, self.lowered, params,

@@ -23,6 +23,7 @@ from .core.sample_resource import SampleResource
 from .device import DEFAULT_DEVICE
 from .executor import ScheduleProgram
 from .graph import AudioGraph, AudioGraphConfig
+from . import nodes as _NODES
 from .nodes import (
     BeepTestNode,
     ConvolutionReverbNode,
@@ -39,12 +40,51 @@ from .nodes import (
 )
 
 __all__ = [
-    "BLOCK", "SR", "effects_chain_config4_graph", "effects_chain_graph",
-    "mixer_graph", "random_graph", "vary_effects_params", "vary_params",
+    "BLOCK", "SR", "add_effects_chain", "add_mixer", "add_voice",
+    "effects_chain_audio", "effects_chain_config4_graph",
+    "effects_chain_graph", "mixer_graph", "random_graph", "vary_effects_params",
+    "vary_params",
 ]
 
 SR = 48000
 BLOCK = 128
+
+
+def add_voice(g: AudioGraph, s, i: int, num_voices: int, nodes=None):
+    """Voice ``i`` of the mixer: BeepTest (110·(1 + i mod 12) Hz, -18 dB) →
+    Volume 80% → StereoPan (spread over [-1, 1]) → inputs ``2i, 2i+1`` of
+    the sum ``s``.  ``nodes`` is the node module (the port's by default).
+    Returns the (beep, volume, pan) node ids."""
+    n = nodes or _NODES
+    beep = g.add_node(0, 2, n.BeepTestNode(110.0 * (1 + i % 12), -18.0, True))
+    vol = g.add_node(2, 2, n.VolumeNode(80.0))
+    pan = g.add_node(2, 2, n.StereoPanNode((i / max(num_voices - 1, 1)) * 2 - 1))
+    for src, dst, port in ((beep, vol, 0), (vol, pan, 0), (pan, s, 2 * i)):
+        g.connect(src, 0, dst, port)
+        g.connect(src, 1, dst, port + 1)
+    return beep, vol, pan
+
+
+def add_mixer(g: AudioGraph, num_voices: int = 19, filter_backend: str = "pallas",
+              nodes=None):
+    """Add the mixer's nodes to ``g`` (stereo graph output): ``num_voices``
+    voices (:func:`add_voice`) → Sum → lowpass Filter 8 kHz → Echo 0.25 s
+    fb 0.3 → HardClip 0 dB → DbMeter → out.  ``nodes`` is the node module
+    (the port's by default).  Returns ``(sum, voices)``, ``voices`` the
+    (beep, volume, pan) ids of each voice."""
+    n = nodes or _NODES
+    s = g.add_node(2 * num_voices, 2, n.SumNode())
+    voices = [add_voice(g, s, i, num_voices, n) for i in range(num_voices)]
+    filt = g.add_node(2, 2, n.FilterNode(n.FilterType.LOWPASS, 8000.0,
+                                         backend=filter_backend))
+    echo = g.add_node(2, 2, n.EchoNode(delay_secs=0.25, feedback=0.3))
+    clip = g.add_node(2, 2, n.HardClipNode(0.0))
+    meter = g.add_node(2, 2, n.DbMeterNode())
+    chain = [s, filt, echo, clip, meter, g.graph_out_node()]
+    for src, dst in zip(chain, chain[1:]):
+        g.connect(src, 0, dst, 0)
+        g.connect(src, 1, dst, 1)
+    return s, voices
 
 
 def mixer_graph(num_voices: int = 19, filter_backend: str = "pallas",
@@ -52,36 +92,18 @@ def mixer_graph(num_voices: int = 19, filter_backend: str = "pallas",
     """Build and compile the mixer → a :class:`ScheduleProgram` on
     ``device``.  ``num_voices=19`` gives the 64-node benchmark graph."""
     g = AudioGraph(AudioGraphConfig(0, 2))
-    s = g.add_node(2 * num_voices, 2, SumNode())
-    for i in range(num_voices):
-        freq = 110.0 * (1 + i % 12)
-        beep = g.add_node(0, 2, BeepTestNode(freq, -18.0, True))
-        vol = g.add_node(2, 2, VolumeNode(80.0))
-        pan = g.add_node(2, 2, StereoPanNode((i / max(num_voices - 1, 1)) * 2 - 1))
-        g.connect(beep, 0, vol, 0)
-        g.connect(beep, 1, vol, 1)
-        g.connect(vol, 0, pan, 0)
-        g.connect(vol, 1, pan, 1)
-        g.connect(pan, 0, s, 2 * i)
-        g.connect(pan, 1, s, 2 * i + 1)
-    filt = g.add_node(2, 2, FilterNode(FilterType.LOWPASS, 8000.0,
-                                       backend=filter_backend))
-    echo = g.add_node(2, 2, EchoNode(delay_secs=0.25, feedback=0.3))
-    clip = g.add_node(2, 2, HardClipNode(0.0))
-    meter = g.add_node(2, 2, DbMeterNode())
-    chain = [s, filt, echo, clip, meter, g.graph_out_node()]
-    for src, dst in zip(chain, chain[1:]):
-        g.connect(src, 0, dst, 0)
-        g.connect(src, 1, dst, 1)
-
+    add_mixer(g, num_voices, filter_backend)
     pkg = g.compile(SR, BLOCK)
     return ScheduleProgram(
         pkg.schedule, dict(pkg.new_node_processors), SR, device=device
     )
 
 
-def _chain(g, clip_audio, ir, echo_secs, filter_backend, device):
-    """sampler → filter → echo → clip → reverb → out, compiled."""
+def add_effects_chain(g: AudioGraph, clip_audio, ir, echo_secs: float,
+                      filter_backend: str = "auto"):
+    """Add sampler (cubic, playing ``clip_audio``) → lowpass 6 kHz q 0.9 →
+    echo (``echo_secs``, fb 0.35, wet 0.4) → clip at -3 dB → reverb (``ir``,
+    wet 0.35) → out to ``g``.  Returns the sampler's node id."""
     sn = SamplerNode(percent_volume=100.0, quality="cubic")
     sn.set_sample(SampleResource(clip_audio))
     sn.play()
@@ -95,6 +117,22 @@ def _chain(g, clip_audio, ir, echo_secs, filter_backend, device):
     for a, b in zip(chain[:-1], chain[1:]):
         for ch in range(2):
             g.connect(a, ch, b, ch)
+    return sampler
+
+
+def effects_chain_audio(clip_frames: int = 8192):
+    """The effects chain's seeded stereo clip (``rng(3)``, ×0.25) and
+    256-tap stereo IR (``exp(-n/48)`` envelope)."""
+    rng = np.random.default_rng(3)
+    clip_audio = (rng.standard_normal((2, clip_frames)) * 0.25).astype(np.float32)
+    ir = (rng.standard_normal((2, 256)) * np.exp(
+        -np.arange(256, dtype=np.float32) / 48.0)).astype(np.float32)
+    return clip_audio, ir
+
+
+def _chain(g, clip_audio, ir, echo_secs, filter_backend, device):
+    """sampler → filter → echo → clip → reverb → out, compiled."""
+    add_effects_chain(g, clip_audio, ir, echo_secs, filter_backend)
     pkg = g.compile(SR, BLOCK)
     return ScheduleProgram(
         pkg.schedule, dict(pkg.new_node_processors), SR, device=device
@@ -109,10 +147,7 @@ def effects_chain_graph(clip_frames: int = 8192, filter_backend: str = "auto",
     a 256-tap stereo IR (``exp(-n/48)`` envelope), which is the direct
     engine.  Partitions into torch(sampler) | island(filter, echo, clip) |
     torch(reverb)."""
-    rng = np.random.default_rng(3)
-    clip_audio = (rng.standard_normal((2, clip_frames)) * 0.25).astype(np.float32)
-    ir = (rng.standard_normal((2, 256)) * np.exp(
-        -np.arange(256, dtype=np.float32) / 48.0)).astype(np.float32)
+    clip_audio, ir = effects_chain_audio(clip_frames)
     return _chain(AudioGraph(AudioGraphConfig(0, 2)), clip_audio, ir, 0.01,
                   filter_backend, device)
 
@@ -162,7 +197,8 @@ def random_graph(seed: int, device: str | torch.device = DEFAULT_DEVICE,
                  block_frames: int = BLOCK) -> ScheduleProgram:
     """A seeded random DAG of the port's nodes, compiled to a
     :class:`ScheduleProgram` at 48 kHz, stereo out, in blocks of
-    ``block_frames`` (128 by default).
+    ``block_frames`` (128 by default).  Its filter runs the sequential
+    biquad (``backend="pallas"``), the recurrence the megakernel runs.
 
     Two or three beeps feed a shuffled chain of volumes, pans (1 and 2
     inputs), a 4→2 sum with one input left unconnected, a filter of random
@@ -208,7 +244,7 @@ def random_graph(seed: int, device: str | torch.device = DEFAULT_DEVICE,
             add(ch, ch, FilterNode(
                 _FILTER_TYPES[int(rng.integers(len(_FILTER_TYPES)))],
                 float(rng.uniform(200.0, 12000.0)), float(rng.uniform(0.5, 4.0)),
-                float(rng.uniform(-12.0, 12.0))))
+                float(rng.uniform(-12.0, 12.0)), backend="pallas"))
         elif kind == "echo":
             add(ch, ch, EchoNode(
                 delay_secs=int(rng.integers(block_frames + 1,

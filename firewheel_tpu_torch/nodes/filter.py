@@ -1,10 +1,13 @@
 """Filter node: biquad lowpass/highpass/bandpass/notch/peak/shelf sections.
 
 PyTorch port of ``firewheel_tpu/nodes/filter.py``.  Each channel runs one
-biquad section through the sequential kernel
-(:func:`~firewheel_tpu_torch.ops.seq_iir.biquad_seq`); cutoff/Q/gain are
-live params and the coefficients are rebuilt in float32 every block, per
-instance.
+biquad section, through the associative scan
+(:func:`~firewheel_tpu_torch.ops.iir.biquad_scan`, backends ``"auto"`` and
+``"scan"``, the JAX package's default) or through the sequential kernel
+(:func:`~firewheel_tpu_torch.ops.seq_iir.biquad_seq`, backend
+``"pallas"``, the port of the JAX package's Pallas kernel).  The two round
+differently.  Cutoff/Q/gain are live params and the coefficients are
+rebuilt in float32 every block, per instance.
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from ..ops.iir import (
     biquad_lowpass,
     biquad_notch,
     biquad_peaking,
+    biquad_scan,
 )
 from ..ops.seq_iir import biquad_seq
 
@@ -66,6 +70,8 @@ class FilterProcessor(NodeProcessor):
         super().__init__(sample_rate, max_block_frames, num_inputs, num_outputs)
         self._node = node
         self._design = _DESIGNS[node.filter_type]
+        # "auto" is the associative scan, as in the JAX package
+        self._backend = "scan" if node.backend == "auto" else node.backend
 
     def init_state(self):
         ch = self.num_inputs
@@ -83,9 +89,18 @@ class FilterProcessor(NodeProcessor):
         }
 
     def group_key(self):
-        return (self._node.filter_type,)
+        return (self._node.filter_type, self._backend)
 
     def kernel(self, params, state, inputs, in_mask, info):
+        run = biquad_seq if self._backend == "pallas" else biquad_scan
+        return self._kernel(params, state, inputs, in_mask, run)
+
+    def sequential_kernel(self, params, state, inputs, in_mask, info):
+        """The kernel on the sequential recurrence whatever the backend:
+        what the megakernel (K2, K3) computes for this node."""
+        return self._kernel(params, state, inputs, in_mask, biquad_seq)
+
+    def _kernel(self, params, state, inputs, in_mask, run):
         # per-instance coefficients [...] → one per lane [..., ch]
         coeffs = BiquadCoeffs(*(
             c[..., None]
@@ -94,9 +109,7 @@ class FilterProcessor(NodeProcessor):
                 self.sample_rate,
             )
         ))
-        y, (z1, z2) = biquad_seq(
-            inputs.contiguous(), (state["z1"], state["z2"]), coeffs
-        )
+        y, (z1, z2) = run(inputs.contiguous(), (state["z1"], state["z2"]), coeffs)
 
         # All-silent input with settled (zero) filter state stays silent;
         # with ringing state the filter tail is real audio — only flag
@@ -119,18 +132,10 @@ class FilterNode(AudioNode):
         gain_db: float = 0.0,
         backend: str = "auto",
     ):
-        """``backend``: ``"auto"`` and ``"pallas"`` both run the sequential
-        biquad, the port of the JAX package's Pallas kernel.  ``"scan"``
-        (the JAX package's associative scan, which rounds differently) is
-        not ported yet."""
+        """``backend``: ``"auto"`` or ``"scan"`` (the associative scan) or
+        ``"pallas"`` (the sequential biquad, kernel K1 on the card)."""
         assert filter_type in _DESIGNS, f"unknown filter type {filter_type!r}"
-        if backend == "scan":
-            raise NotImplementedError(
-                "FilterNode(backend='scan'): the associative-scan biquad is "
-                "not ported yet (ROADMAP.md, Queue 2: biquad_scan); use "
-                "'auto' or 'pallas' for the sequential biquad"
-            )
-        assert backend in ("auto", "pallas"), backend
+        assert backend in ("auto", "scan", "pallas"), backend
         self.filter_type = filter_type
         self.backend = backend
         self._freq = float(np.clip(frequency_hz, 1.0, 20_000.0))

@@ -38,6 +38,10 @@ class HardClipProcessor(NodeProcessor):
     def init_state(self):
         return {"clip_count": torch.zeros((), dtype=torch.int32)}
 
+    def event_counters(self):
+        """``clipped``: number of samples that exceeded the threshold."""
+        return {"clipped": "clip_count"}
+
     def kernel(self, params, state, inputs, in_mask, info):
         t = expand_like(params["threshold"], inputs)
         out = torch.maximum(torch.minimum(inputs, t), -t)

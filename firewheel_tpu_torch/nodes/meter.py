@@ -2,7 +2,8 @@
 
 PyTorch port of ``firewheel_tpu/nodes/meter.py``.  The kernel is a
 passthrough that folds peak (per-block max |x|, ~300 ms release) and a
-one-pole mean square (~125 ms window) into its state.
+one-pole mean square (~125 ms window) into its state; with 0 outputs the
+node is a pure sink that only meters.
 """
 
 from __future__ import annotations
@@ -62,11 +63,15 @@ class DbMeterNode(AudioNode):
         )
 
     def activate(self, sample_rate, max_block_frames, num_inputs, num_outputs):
-        if num_outputs != num_inputs:
+        if num_outputs not in (0, num_inputs):
             raise NodeActivationError(
                 "DbMeterNode passes audio through: num_outputs must equal "
-                f"num_inputs (the 0-output sink is not ported yet); got "
-                f"{num_inputs} in, {num_outputs} out"
+                f"num_inputs (or 0 for a pure sink); got {num_inputs} in, "
+                f"{num_outputs} out"
+            )
+        if num_outputs == 0:
+            return _SinkMeterProcessor(
+                sample_rate, max_block_frames, num_inputs, num_outputs
             )
         return DbMeterProcessor(
             sample_rate, max_block_frames, num_inputs, num_outputs
@@ -82,3 +87,16 @@ class DbMeterNode(AudioNode):
             "peak_db": gain_to_db_clamped_neg_100_db(peak),
             "rms_db": gain_to_db_clamped_neg_100_db(rms),
         }
+
+
+class _SinkMeterProcessor(DbMeterProcessor):
+    """Meter as a graph sink (0 outputs)."""
+
+    def kernel(self, params, state, inputs, in_mask, info):
+        _, st, _ = super().kernel(params, state, inputs, in_mask, info)
+        lead = inputs.shape[:-2]
+        return (
+            inputs.new_zeros(lead + (0, inputs.shape[-1])),
+            st,
+            in_mask.new_zeros(lead + (0,)),
+        )

@@ -20,9 +20,12 @@ negative.  The two position sums whose ``floor`` picks a sample are fused
 multiply-adds, as XLA contracts them on the CPU: one ulp at an integer
 boundary would move a tap by a whole sample.
 
-Per-block command timelines (``play(at_sample=...)`` and friends) need the
-streaming processor, which is not ported yet; ``collect_params`` with a
-``start_sample`` raises ``NotImplementedError``.
+Commands given ``at_sample=`` (play, pause, stop, seek) ride per-block
+param timelines (``executor.PerBlock``): with a ``start_sample``,
+``collect_params`` folds the commands due in the dispatch into five
+timelines (playing, seek sequence and position, play sequence, and the
+sub-block start offset of a scheduled play), so each lands on its block,
+and a play on its exact sample.
 """
 
 from __future__ import annotations
@@ -116,6 +119,8 @@ class SamplerNode(AudioNode):
         # the one-shot `ended` latch on the edge
         self._play_seq = 0
         self._sample_rate = 48000  # set at activate
+        #: (at_sample, kind, payload) commands awaiting their block
+        self._scheduled: list[tuple] = []
 
     # -- control API (sampler.rs:67-181) --------------------------------------
     def set_sample(self, sample: SampleResource, stop_playback: bool = True):
@@ -125,25 +130,48 @@ class SamplerNode(AudioNode):
             self._seek = ("loop_start",)
             self._playing = False
 
-    def play(self):
-        self._playing = True
-        self._play_seq += 1
+    def _schedule(self, at_sample: int, kind: str, payload=None):
+        self._scheduled.append((int(at_sample), kind, payload))
+        self._scheduled.sort(key=lambda e: e[0])
 
-    def pause(self):
-        self._playing = False
+    def play(self, at_sample: int | None = None):
+        """Start playback; with ``at_sample``, on that exact stream sample
+        (a retrigger of a playing voice cuts it to silence for the trigger
+        block's samples before it)."""
+        if at_sample is None:
+            self._playing = True
+            self._play_seq += 1
+        else:
+            self._schedule(at_sample, "play")
 
-    def stop(self):
+    def pause(self, at_sample: int | None = None):
+        if at_sample is None:
+            self._playing = False
+        else:
+            self._schedule(at_sample, "pause")
+
+    def stop(self, at_sample: int | None = None):
         """Stop playback and rewind to the loop start; a no-op while not
         playing (sampler.rs:118-119)."""
+        if at_sample is not None:
+            self._schedule(at_sample, "stop")
+            return
         if not self._playing:
             return
         self._playing = False
         self._seek_seq += 1
         self._seek = ("loop_start",)
 
-    def set_playhead(self, playhead_secs: float):
-        self._seek_seq += 1
-        self._seek = ("secs", float(playhead_secs))
+    def set_playhead(self, playhead_secs: float, at_sample: int | None = None):
+        if at_sample is None:
+            self._seek_seq += 1
+            self._seek = ("secs", float(playhead_secs))
+        else:
+            self._schedule(at_sample, "seek", float(playhead_secs))
+
+    def cancel_scheduled(self) -> None:
+        """Drop every ``at_sample=`` command not yet consumed by a dispatch."""
+        self._scheduled.clear()
 
     def set_loop_range(self, loop_range: Optional[LoopRange]):
         self._loop = loop_range
@@ -258,14 +286,11 @@ class SamplerProcessor(NodeProcessor):
         )
         return (shape, node.quality)
 
+    #: scheduled play/pause/stop/seek ride per-block param timelines
+    collect_timeline = True
+
     def collect_params(self, blocks=1, start_sample=None, frames=None,
                        consume=True):
-        if start_sample is not None:
-            raise NotImplementedError(
-                "SamplerProcessor.collect_params(start_sample=...): per-block "
-                "command timelines wait for the streaming processor "
-                "(ROADMAP.md, slice 2)"
-            )
         node = self._node
         if node._sample is not None:
             if self._sample_cache_src is not node._sample:
@@ -292,7 +317,7 @@ class SamplerProcessor(NodeProcessor):
         release_step = (
             1.0 / (node._release_secs * sr) if node._release_secs > 0 else 2.0
         )
-        return {
+        out = {
             "attack_step": np.float32(attack_step),
             "release_step": np.float32(release_step),
             "raw_gain": np.float32(node.raw_gain()),
@@ -308,6 +333,69 @@ class SamplerProcessor(NodeProcessor):
             "loop_end": np.uint32(_u32(loop_end)),
             "sample": data,
         }
+        if start_sample is None:
+            # batched paths: immediate values; scheduled commands stay queued
+            return out
+
+        # -- per-block command timelines --------------------------------------
+        from ..executor import PerBlock
+
+        k = max(1, int(blocks))
+        f = int(frames or self.max_block_frames)
+        start = int(start_sample)
+        playing_tl = np.full(k, bool(node._playing and has_sample))
+        seq_tl = np.full(k, np.uint32(node._seek_seq), np.uint32)
+        pos_tl = np.full(k, np.uint32(node._seek_frame(clip_sr)), np.uint32)
+        play_seq_tl = np.full(k, np.uint32(node._play_seq & 0xFFFFFFFF), np.uint32)
+        # a scheduled play's offset into its block: the trigger is sample
+        # accurate, applied at the trigger block only
+        offset_tl = np.zeros(k, np.uint32)
+        if consume and node._scheduled:
+            end = start + k * f
+            cur_playing, cur_seq = node._playing, node._seek_seq
+            cur_play_seq, cur_seek = node._play_seq, node._seek
+            remaining = []
+            for at, kind, payload in node._scheduled:
+                if at >= end:
+                    remaining.append((at, kind, payload))
+                    continue
+                b = max(0, (at - start) // f)
+                if kind == "play":
+                    cur_playing = True
+                    cur_play_seq += 1
+                    play_seq_tl[b:] = np.uint32(cur_play_seq & 0xFFFFFFFF)
+                    offset_tl[b] = np.uint32(min(max(0, at - (start + b * f)), f - 1))
+                elif kind == "pause":
+                    cur_playing = False
+                elif kind == "stop":
+                    # as the immediate stop: a no-op while not playing
+                    if cur_playing:
+                        cur_playing = False
+                        cur_seq += 1
+                        cur_seek = ("loop_start",)
+                        pos_tl[b:] = np.uint32(loop_start)
+                elif kind == "seek":
+                    cur_seq += 1
+                    cur_seek = ("secs", float(payload))
+                    pos_tl[b:] = np.uint32(_u32(round(payload * clip_sr)))
+                playing_tl[b:] = cur_playing and has_sample
+                seq_tl[b:] = np.uint32(cur_seq & 0xFFFFFFFF)
+            node._playing, node._seek_seq = cur_playing, cur_seq
+            node._play_seq, node._seek = cur_play_seq, cur_seek
+            node._scheduled = remaining
+        out["playing"] = PerBlock(playing_tl)
+        out["seek_seq"] = PerBlock(seq_tl)
+        out["seek_pos"] = PerBlock(pos_tl)
+        out["play_seq"] = PerBlock(play_seq_tl)
+        out["start_offset"] = PerBlock(offset_tl)
+        return out
+
+    def resync_from_state(self, state) -> None:
+        """Adopt restored device sequence numbers, so the first block after
+        a restore sees no spurious seek or trigger edge."""
+        node = self._node
+        for name in ("seek_seq", "loop_seq", "play_seq"):
+            setattr(node, f"_{name}", int(torch.as_tensor(state[name]).max()))
 
     def kernel(self, params, state, inputs, in_mask, info):
         frames = inputs.shape[-1]

@@ -1,10 +1,13 @@
-"""Biquad coefficients: the Audio-EQ-Cookbook (RBJ) designs.
+"""Biquad coefficients (the Audio-EQ-Cookbook designs) and the
+associative-scan biquad.
 
-PyTorch port of ``firewheel_tpu/ops/iir.py:155-257``.  The designs take
+PyTorch port of ``firewheel_tpu/ops/iir.py:155-333``.  The designs take
 float32 tensors of any shape (one filter per element: every instance of a
 batch carries its own frequency and Q) and evaluate the same float32 ops
-in the same order as the JAX package.  The sections are run by
-:func:`firewheel_tpu_torch.ops.seq_iir.biquad_seq`.
+in the same order as the JAX package.  A section runs either through
+:func:`biquad_scan` (the JAX package's default, ``FilterNode("auto")``) or
+through the sequential kernel :func:`firewheel_tpu_torch.ops.seq_iir.
+biquad_seq` (``FilterNode("pallas")``).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ __all__ = [
     "biquad_low_shelf",
     "biquad_high_shelf",
     "biquad_allpass",
+    "biquad_scan",
 ]
 
 _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
@@ -129,3 +133,90 @@ def biquad_high_shelf(freq_hz, q, gain_db, sample_rate) -> BiquadCoeffs:
         2.0 * ((A - 1.0) - (A + 1.0) * c),
         (A + 1.0) - (A - 1.0) * c - sq,
     )
+
+
+# ---------------------------------------------------------------------------
+# Biquad evaluation: associative scan over the TDF-II state recurrence
+# ---------------------------------------------------------------------------
+
+def _associative_scan(compose, elems):
+    """Inclusive scan of ``elems`` (a tuple of equally shaped tensors) along
+    the last axis, with ``compose(earlier, later)``: the recursion of
+    ``jax.lax.associative_scan``, pair for pair, so every element is
+    composed from the same partial products in the same order."""
+    n = elems[0].shape[-1]
+    if n < 2:
+        return elems
+    odd = _associative_scan(compose, compose(
+        tuple(e[..., 0:n - 1:2] for e in elems),
+        tuple(e[..., 1::2] for e in elems)))
+    if n % 2 == 0:
+        even = compose(tuple(e[..., :-1] for e in odd),
+                       tuple(e[..., 2::2] for e in elems))
+    else:
+        even = compose(odd, tuple(e[..., 2::2] for e in elems))
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        r = torch.empty_like(e)
+        r[..., 0] = e[..., 0]
+        r[..., 2::2] = ev
+        r[..., 1::2] = od
+        out.append(r)
+    return tuple(out)
+
+
+def _compose(e1, e2):
+    """``e2 ∘ e1`` of two affine maps of the 2-vector state: ``M = M2·M1``,
+    ``v = M2·v1 + v2``, the 2×2 products unrolled."""
+    p11, p12, p21, p22, q1, q2 = e1
+    r11, r12, r21, r22, s1, s2 = e2
+    return (
+        r11 * p11 + r12 * p21,
+        r11 * p12 + r12 * p22,
+        r21 * p11 + r22 * p21,
+        r21 * p12 + r22 * p22,
+        r11 * q1 + r12 * q2 + s1,
+        r21 * q1 + r22 * q2 + s2,
+    )
+
+
+def biquad_scan(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
+    """Run one biquad section along the last axis as an associative scan.
+
+    Transposed direct-form II::
+
+        y[n]  = b0*x[n] + z1[n-1]
+        z1[n] = (b1 - a1*b0)*x[n] - a1*z1[n-1] + z2[n-1]
+        z2[n] = (b2 - a2*b0)*x[n] - a2*z1[n-1]
+
+    The state ``z = (z1, z2)`` follows ``z[n] = A z[n-1] + B x[n]`` with
+    ``A = [[-a1, 1], [-a2, 0]]``; the affine maps are composed by
+    :func:`_associative_scan`, the carry is applied after the scan, and
+    ``y`` reads the shifted ``z1``.
+
+    ``x f32[..., n]``; ``z_prev = (z1, z2)`` each ``f32[...]``; each
+    coefficient broadcasts to ``x.shape[:-1]``.  Returns ``(y f32[..., n],
+    (z1_last, z2_last))``.
+    """
+    b0, b1, b2, a1, a2 = (
+        torch.as_tensor(c, dtype=torch.float32, device=x.device)[..., None]
+        for c in coeffs
+    )
+    z1p, z2p = z_prev
+    shape = x.shape
+    el = (
+        (-a1).expand(shape),
+        torch.ones_like(x),
+        (-a2).expand(shape),
+        torch.zeros_like(x),
+        (b1 - a1 * b0) * x,
+        (b2 - a2 * b0) * x,
+    )
+    c11, c12, c21, c22, w1, w2 = _associative_scan(_compose, el)
+    z1 = c11 * z1p[..., None] + c12 * z2p[..., None] + w1
+    z2 = c21 * z1p[..., None] + c22 * z2p[..., None] + w2
+    n = shape[-1]
+    z1_prev_seq = torch.cat([z1p[..., None].expand(z1[..., :1].shape),
+                             z1[..., :n - 1]], dim=-1)
+    y = b0 * x + z1_prev_seq
+    return y, (z1[..., n - 1], z2[..., n - 1])

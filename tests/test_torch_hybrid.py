@@ -17,6 +17,8 @@ port's node kernels.
   the scan rounds otherwise than the recurrence.
 * Against the port's own eager ``BatchRenderer``: bit for bit
   (``torch.equal``): both call the same node kernels on the same tensors.
+  The island runs the filter's sequential recurrence whatever its backend,
+  so those graphs build their filter with ``backend="pallas"``.
 """
 
 import types
@@ -86,6 +88,9 @@ def _jax_builder(fn):
             "ConvolutionReverbNode", "EchoNode", "FilterNode", "HardClipNode",
             "SamplerNode")},
     )
+    env["add_effects_chain"] = types.FunctionType(mixer.add_effects_chain.__code__,
+                                                  env, argdefs=(
+                                                      mixer.add_effects_chain.__defaults__))
     env["_chain"] = types.FunctionType(mixer._chain.__code__, env)
     return types.FunctionType(fn.__code__, env, argdefs=fn.__defaults__)
 
@@ -173,7 +178,8 @@ def _against_jax(tprog, jrender, jstate, chunks=3, batch=B, k=K):
 def test_hybrid_matches_jax_batch_renderer():
     jprog = _jax_builder(mixer.effects_chain_graph)(
         clip_frames=4096, filter_backend="pallas")
-    tprog = mixer.effects_chain_graph(clip_frames=4096, device="cpu")
+    tprog = mixer.effects_chain_graph(clip_frames=4096, filter_backend="pallas",
+                                      device="cpu")
     assert repr(tprog.schedule) == repr(jprog.schedule)
     assert list(tprog._procs) == list(jprog._procs)
     jbr = JBatchRenderer(jprog, B)
@@ -206,7 +212,8 @@ def test_state_hands_over_from_jax_mid_stream():
     hybrid renders the third chunk as JAX does."""
     jprog = _jax_builder(mixer.effects_chain_graph)(
         clip_frames=2048, filter_backend="pallas")
-    tprog = mixer.effects_chain_graph(clip_frames=2048, device="cpu")
+    tprog = mixer.effects_chain_graph(clip_frames=2048, filter_backend="pallas",
+                                      device="cpu")
     jbr, tbr = JBatchRenderer(jprog, B), ft.BatchRenderer(tprog, B, device="cpu",
                                                           lowering="hybrid")
     tparams = mixer.vary_effects_params(tbr.stack_params())
@@ -233,7 +240,7 @@ def test_state_hands_over_from_jax_mid_stream():
 def test_config4_fft_reverb_matches_jax():
     """BASELINE config 4: the 0.6 s IR takes the FFT engine."""
     jprog = _jax_builder(mixer.effects_chain_config4_graph)(filter_backend="pallas")
-    tprog = mixer.effects_chain_config4_graph(device="cpu")
+    tprog = mixer.effects_chain_config4_graph(filter_backend="pallas", device="cpu")
     assert repr(tprog.schedule) == repr(jprog.schedule)
     rev = next(p for p in tprog._procs.values() if isinstance(
         p, tn.reverb.ConvolutionReverbProcessor))
@@ -269,7 +276,8 @@ def _graph_input(prog, batch, seed):
 
 def _programs():
     return {
-        "effects_chain": (mixer.effects_chain_graph(clip_frames=2048, device="cpu"), 2),
+        "effects_chain": (mixer.effects_chain_graph(
+            clip_frames=2048, filter_backend="pallas", device="cpu"), 2),
         "stream_in": (_port(jh.stream_in_program), 1),
         "mixer": (_port(jh.mixer_program), 2),
     }
@@ -336,7 +344,8 @@ def test_island_matches_eager_while_smoothers_move(name):
 
 def test_state_hands_over_between_lowerings():
     """eager → hybrid → eager equals three eager chunks, bit for bit."""
-    prog = mixer.effects_chain_graph(clip_frames=2048, device="cpu")
+    prog = mixer.effects_chain_graph(clip_frames=2048, filter_backend="pallas",
+                                     device="cpu")
     eager = ft.BatchRenderer(prog, B, device="cpu")
     hybrid = ft.BatchRenderer(prog, B, device="cpu", lowering="hybrid")
     params = mixer.vary_effects_params(eager.stack_params())

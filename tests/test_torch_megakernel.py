@@ -379,7 +379,7 @@ def _lowered(name):
         prog = ft.mixer_graph(device="cpu")
         return prog, lower_schedule(prog)
     if name == "effects_island":
-        prog = effects_chain_graph(clip_frames=512, device="cpu")
+        prog = effects_chain_graph(clip_frames=512, filter_backend="pallas", device="cpu")
         hy = HybridMegaRenderer(prog, B, K, device="cpu")
         (lw,) = hy.islands.values()
         return prog, lw

@@ -193,9 +193,10 @@ def test_render_block_one_instance_matches_jax(both):
 
 
 def test_port_imports_no_jax():
-    """Importing the port and rendering one CPU chunk with each lowering
-    (eager, megakernel, and hybrid on the effects chain) leaves JAX and the
-    JAX package out of ``sys.modules``."""
+    """Importing the port, rendering one CPU chunk with each lowering
+    (eager, megakernel, and hybrid on the effects chain) and streaming the
+    mixer through ``FirewheelCtx`` (with its native ring built) leave JAX
+    and the JAX package out of ``sys.modules``."""
     code = (
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
@@ -212,8 +213,18 @@ def test_port_imports_no_jax():
         "out, om, st = hb.render_chunk(hb.stack_params(), hb.init_state(),"
         " num_blocks=2)\n"
         "assert out.shape == (2, 2, 2, 128) and float(out.abs().max()) > 0.01\n"
+        "cx = ft.FirewheelCtx(device='cpu')\n"
+        "ft.mixer.add_mixer(cx.graph_mut(), 2)\n"
+        "sink = ft.ArraySink()\n"
+        "cx.activate(ft.StreamConfig(block_frames=128), sink=sink)\n"
+        "cx.render_offline(0.05)\n"
+        "assert sink.audio(2).shape[1] >= 2400 and ft.RingBuffer(8).is_native\n"
+        "cx.deactivate()\n"
         "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
-        " 'ops.direct_conv', 'executor_hybrid'):\n"
+        " 'ops.direct_conv', 'executor_hybrid', 'processor', 'context',"
+        " 'channels', 'backend.context', 'backend.stream', 'backend.ring_buffer',"
+        " 'backend.device_info', 'core.events', 'core.interleave',"
+        " 'core.silence_mask', 'core.automation'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"

@@ -167,9 +167,57 @@ def test_filter(mask_kind):
              2, 2, params, state, x, _mask(mask_kind, rng, (B, 2)))
 
 
-def test_filter_scan_backend_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tn.FilterNode(tn.FilterType.LOWPASS, 8000.0, backend="scan")
+FILTER_TYPES = ["lowpass", "highpass", "bandpass", "notch", "allpass", "peaking",
+                "low_shelf", "high_shelf"]
+
+
+@pytest.mark.parametrize("filter_type", FILTER_TYPES)
+def test_filter_scan_backend_is_not_ported(filter_type):
+    """The associative-scan biquad (``FilterNode`` backends ``"scan"`` and
+    ``"auto"``) against the JAX package's.  ``biquad_scan`` composes the
+    same affine maps in ``lax.associative_scan``'s order, so with the same
+    coefficients it equals JAX's op by op at 8 kHz and at 20 Hz (poles at
+    the unit circle, where the scan amplifies every rounding), over 128 and
+    127 frames.  ``FilterNode("scan")`` and ``"auto"`` then match JAX's
+    node with per-instance cutoffs and Qs, and select the same backend
+    (``group_key``)."""
+    from firewheel_tpu.ops import iir as jiir
+    from firewheel_tpu_torch.ops import iir as tiir
+
+    rng = np.random.default_rng(9)
+    shelf = filter_type in ("peaking", "low_shelf", "high_shelf")
+    for freq in (8000.0, 20.0):
+        args = (np.float32(freq), np.float32(0.7071)) + (
+            (np.float32(6.0),) if shelf else ())
+        coeffs = tuple(np.float32(c) for c in
+                       getattr(jiir, "biquad_" + filter_type)(*args, SR))
+        for frames in (128, 127):
+            x = rng.standard_normal((B, 2, frames)).astype(np.float32)
+            z = (0.1 * rng.standard_normal((2, B, 2))).astype(np.float32)
+            jy, jz = jiir.biquad_scan(jnp.asarray(x), (jnp.asarray(z[0]), jnp.asarray(z[1])),
+                                      jiir.BiquadCoeffs(*coeffs))
+            ty, tz = tiir.biquad_scan(torch.from_numpy(x),
+                                      (torch.from_numpy(z[0]), torch.from_numpy(z[1])),
+                                      tiir.BiquadCoeffs(*map(torch.tensor, coeffs)))
+            np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=TOL, rtol=0)
+            for t, j in zip(tz, jz):
+                np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=TOL, rtol=0)
+
+    params = {
+        "freq": np.array([8000.0, 500.0, 12000.0, 60.0], np.float32),
+        "q": np.array([0.7071, 4.0, 1.0, 0.5], np.float32),
+        "gain_db": np.array([0.0, 6.0, -6.0, 3.0], np.float32),
+    }
+    z = (0.05 * rng.standard_normal((2, B, 2))).astype(np.float32)
+    x = rng.standard_normal((B, 2, F)).astype(np.float32)
+    for backend in ("scan", "auto"):
+        run_both(jn.FilterNode(filter_type, 8000.0, backend=backend),
+                 tn.FilterNode(filter_type, 8000.0, backend=backend), 2, 2, params,
+                 {"z1": z[0], "z2": z[1]}, x, _mask("mixed", rng, (B, 2)))
+        assert (tn.FilterNode(filter_type, backend=backend).activate(SR, F, 2, 2)
+                .group_key() == (filter_type, "scan"))
+    assert (tn.FilterNode(filter_type, backend="pallas").activate(SR, F, 2, 2)
+            .group_key() == (filter_type, "pallas"))
 
 
 @pytest.mark.parametrize("mask_kind", MASKS)
@@ -206,6 +254,20 @@ def test_db_meter(mask_kind):
     }
     x = rng.standard_normal((B, 2, F)).astype(np.float32)
     run_both(jn.DbMeterNode(), tn.DbMeterNode(), 2, 2, {}, state, x,
+             _mask(mask_kind, rng, (B, 2)))
+
+
+@pytest.mark.parametrize("mask_kind", MASKS)
+def test_db_meter_sink(mask_kind):
+    """``DbMeterNode`` with 0 outputs (a metering sink) meters its inputs
+    and outputs nothing, as the JAX package's ``_SinkMeterProcessor``."""
+    rng = np.random.default_rng(10)
+    state = {
+        "peak": rng.uniform(0.0, 1.0, (B, 2)).astype(np.float32),
+        "rms_sq": rng.uniform(0.0, 0.5, (B, 2)).astype(np.float32),
+    }
+    x = rng.standard_normal((B, 2, F)).astype(np.float32)
+    run_both(jn.DbMeterNode(), tn.DbMeterNode(), 2, 0, {}, state, x,
              _mask(mask_kind, rng, (B, 2)))
 
 

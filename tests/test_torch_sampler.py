@@ -236,6 +236,38 @@ def test_sample_resource_matches_jax():
 
 
 def test_timeline_params_are_not_ported():
-    proc = TSamplerNode().activate(SR, F, 0, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        proc.collect_params(blocks=4, start_sample=0)
+    """``collect_params(start_sample=...)`` folds the commands scheduled
+    with ``at_sample=`` into the same five per-block timelines as the JAX
+    package: a play mid-block (with its sample offset), a stop, a seek and
+    a pause inside a 6-block dispatch, and a play past it that stays
+    queued.  Without a start sample the commands stay queued."""
+    from firewheel_tpu.executor import PerBlock as JPerBlock
+    from firewheel_tpu_torch.executor import PerBlock as TPerBlock
+
+    clip = _clip(frames=4 * F)
+    procs = []
+    for mod, node in ((jsr, JSamplerNode()), (tsr, TSamplerNode())):
+        node.set_sample(mod.SampleResource(clip))
+        node.set_loop_range(None)
+        start = 10 * F
+        node.play(at_sample=start + F + 37)
+        node.stop(at_sample=start + 3 * F)
+        node.set_playhead(0.001, at_sample=start + 3 * F + 5)
+        node.play(at_sample=start + 4 * F)
+        node.pause(at_sample=start + 5 * F + 1)
+        node.play(at_sample=start + 6 * F)
+        procs.append(node.activate(SR, F, 0, 2))
+    jp, tp = (p.collect_params() for p in procs)
+    assert len(procs[1]._node._scheduled) == 6
+    jp, tp = (p.collect_params(blocks=6, start_sample=10 * F) for p in procs)
+    for key, jv in jp.items():
+        tv = tp[key]
+        if isinstance(jv, JPerBlock):
+            assert isinstance(tv, TPerBlock), key
+            np.testing.assert_array_equal(tv.values, jv.values, err_msg=key)
+        elif key != "sample":
+            np.testing.assert_array_equal(np.asarray(tv), np.asarray(jv), err_msg=key)
+    assert tp["start_offset"].values.tolist() == [0, 37, 0, 0, 0, 0]
+    assert tp["playing"].values.tolist() == [False, True, True, False, True, False]
+    assert procs[1]._node._scheduled == procs[0]._node._scheduled == [
+        (16 * F, "play", None)]
