@@ -69,12 +69,36 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (``torch.profiler``), K1's device time at the stream's 2 lanes, and the
    underflows of a 2 s realtime run on the native paced consumer, which
    are a measurement and fail nothing.
+10. The serving fleet (``SessionServer`` over ``BatchRenderer``) on the
+   card.  (a) The 64-node mixer at capacity 8192, K=32, pcm16, eager with
+   K1: 1024 sessions connected, each with its own volumes and pans; 8
+   chunks shipped through ``render_fetched`` and a flush; slots 3, 7 and
+   12 disconnected and reconnected; two chunks more with a poll between
+   two ``render_fetched`` calls.  Slots 0..15 are held against a CPU
+   SessionServer of capacity 16 that runs the same operations in the same
+   order (pcm16 within 1 LSB, the samples 1 LSB apart counted; clip events
+   equal in every poll); every vacant slot is all zeros; K1 launches 32 a
+   chunk.  (b) ``render_stream`` at capacity 8192 equals ``render_chunk``
+   and a plain ``.cpu()`` chunk by chunk, bit for bit; the walls per chunk
+   with egress and without it (the same chunks back to back, one
+   synchronize at the end), the bytes shipped, a chunk's copy to pinned
+   memory alone, and the realtime factor of the shipped audio.  (c) The
+   fleet saved mid-stream and restored into a fresh server: the next two
+   chunks bit for bit, the bytes and the seconds; at capacity 64 saved on
+   the card and restored on the CPU (1e-5).  (d) The effects chain at
+   capacity 1024, K=8, on the hybrid, pcm16, with per-slot rates, loops
+   and one-shots, against a CPU fleet on slots 0..15 (pcm16 within 1 LSB,
+   sampler events equal); one K3 launch a chunk, no K1.  (e) The mixer
+   streamed through ``FirewheelCtx``, saved at buffer 20 and continued to
+   40; a fresh ctx loads the checkpoint and renders buffers 20..40 bit for
+   bit; ``output_latency_frames`` after ``compensate_latency``.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
-batched main path (``launches``) and in phase 9's stream
-(``stream_launches``; K1's device time, call and plain version at the
-stream's 2 lanes beside them), its error against its plain version, its device time on the
+batched main path (``launches``), in phase 9's stream (``stream_launches``;
+K1's device time, call and plain version at the stream's 2 lanes beside
+them) and in phase 10's fleets (``serve_launches``), its error against its
+plain version, its device time on the
 card (``ms``, by ``torch.profiler``) and a call's time with its wrapper's
 host work (``call_ms``, by CUDA events), the plain version's, and its
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
@@ -1142,6 +1166,468 @@ def check_stream(ft, seq_iir, em, eh, card: str):
     return max(worst, e_fx), t["k1"], (k1_ms, k1_call, k1_plain, k1_bound)
 
 
+# phase 10: the serving fleet (SessionServer over BatchRenderer)
+SERVE_CAPACITY, SERVE_K = B, K   # the README's headline batch
+SERVE_SESSIONS = 1024            # live sessions; the other slots stay vacant
+SERVE_CHUNKS = 8                 # chunks through render_fetched, then flush
+SERVE_CHECK = 16                 # slots held against a CPU SessionServer
+SERVE_RECONNECT = (3, 7, 12)     # slots below SERVE_CHECK disconnected, reconnected
+EGRESS_CHUNKS = 4                # chunks a render_stream measurement
+CKPT_SMALL = 64                  # capacity of the card → CPU restore
+FX_CAPACITY, FX_K, FX_SESSIONS, FX_CHUNKS = 1024, 8, 1000, 6
+CKPT_STREAM_AT, CKPT_STREAM_END = 20, 40   # buffers: save at 20, go on to 40
+
+
+def scratch_dir(prefix: str) -> str:
+    """A fresh directory for checkpoints under the package's gitignored
+    build directory, inside the checkout."""
+    import tempfile
+
+    from firewheel_tpu_torch.ops.cuda_build import BUILD_DIR
+
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return tempfile.mkdtemp(prefix=prefix, dir=BUILD_DIR)
+
+
+def mixer_template(ft, device):
+    """The 64-node mixer (filter on K1) as a SessionServer template, idle:
+    every voice's volume at 0.  Returns the program and each voice's
+    (volume, pan) node."""
+    from firewheel_tpu_torch.mixer import SR as MIX_SR, add_mixer
+
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    _, voices = add_mixer(g, 19, "pallas")
+    handles = [(g.node(v), g.node(p)) for _, v, p in voices]
+    for vol, _ in handles:
+        vol.set_percent_volume(0.0)
+    pkg = g.compile(MIX_SR, 128)
+    prog = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), MIX_SR,
+                              device=device)
+    return prog, handles
+
+
+def mixer_session(handles, i: int):
+    """Session ``i``'s configure (the slot it gets, for the first sessions):
+    every voice's volume and pan from ``i``; one session in four loud
+    enough to clip at the 0 dB clip, the others too quiet to."""
+    def configure():
+        for v, (vol, pan) in enumerate(handles):
+            vol.set_percent_volume(100.0 if i % 4 == 0 else 15.0 + (i * 7 + v * 13) % 20)
+            pan.set_pan(((i + 3 * v) % 21) / 10.0 - 1.0)
+    return configure
+
+
+def events_of(srv) -> list:
+    """``srv.poll_events()`` as sorted (slot, node, event, count, total, lane)."""
+    return sorted((h.slot, repr(e.node_id), e.name, e.count, e.total, e.lane)
+                  for h, es in srv.poll_events().items() for e in es)
+
+
+def lsb_off(a: np.ndarray, b: np.ndarray) -> int:
+    """Samples of two pcm16 arrays 1 LSB apart; raises if any are further."""
+    d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+    if d.size and d.max() > 1:
+        raise AssertionError(f"pcm16 differs by {d.max()} LSB")
+    return int((d == 1).sum())
+
+
+def serve_mixer(ft, seq_iir, em, eh, card: str):
+    """10(a): the mixer fleet at capacity 8192, K=32, pcm16, eager with K1;
+    1024 sessions; slots 0..15 against a CPU SessionServer of capacity 16
+    that runs the same operations in the same order."""
+    cap, k = SERVE_CAPACITY, SERVE_K
+    prog, handles = mixer_template(ft, "cuda")
+    srv = ft.SessionServer(prog, cap, chunk_blocks=k, device="cuda",
+                           output_format="pcm16")
+    cprog, chandles = mixer_template(ft, "cpu")
+    cpu = ft.SessionServer(cprog, SERVE_CHECK, chunk_blocks=k, device="cpu",
+                           output_format="pcm16")
+    fleets = ((srv, handles, {}), (cpu, chandles, {}))
+    t0 = time.perf_counter()
+    for i in range(SERVE_SESSIONS):
+        for s, hs, live in fleets:
+            h = s.connect(mixer_session(hs, i))
+            if h is not None:
+                live[h.slot] = h
+    torch.cuda.synchronize()
+    connect_s = time.perf_counter() - t0
+    if (sorted(fleets[0][2]) != list(range(SERVE_SESSIONS))
+            or sorted(fleets[1][2]) != list(range(SERVE_CHECK))):
+        raise AssertionError("slot assignment is not deterministic")
+
+    def drive(s, hs, live):
+        """The operations: SERVE_CHUNKS chunks through render_fetched and a
+        flush; a poll; the reconnects; two chunks more with a poll between
+        two render_fetched calls (the first chunk in flight) and one after
+        the flush.  Returns the shipped chunks, the polls and the polls'
+        milliseconds."""
+        outs = [s.render_fetched() for _ in range(SERVE_CHUNKS)][1:] + [s.flush()]
+        t = time.perf_counter()
+        polls = [events_of(s)]
+        ms = [(time.perf_counter() - t) * 1e3]
+        for slot in SERVE_RECONNECT:
+            s.disconnect(live.pop(slot))
+        for j in range(len(SERVE_RECONNECT)):
+            h = s.connect(mixer_session(hs, SERVE_SESSIONS + j))
+            live[h.slot] = h
+        if s.render_fetched() is not None:
+            raise AssertionError("render_fetched after a flush returned a chunk")
+        t = time.perf_counter()
+        polls.append(events_of(s))
+        ms.append((time.perf_counter() - t) * 1e3)
+        outs += [s.render_fetched(), s.flush()]
+        polls.append(events_of(s))
+        return outs, polls, ms
+
+    # the main path, counts set to 0 just before it
+    seq_iir.biquad_seq.launches = 0
+    em.MegaRenderer.launches = eh.HybridMegaRenderer.launches = 0
+    t0 = time.perf_counter()
+    card_out, ev, poll_ms = drive(*fleets[0])
+    wall = (time.perf_counter() - t0) / (SERVE_CHUNKS + 2)
+    k1 = seq_iir.biquad_seq.launches
+    chunks = SERVE_CHUNKS + 2
+    if k1 != k * chunks or em.MegaRenderer.launches or eh.HybridMegaRenderer.launches:
+        raise AssertionError(f"serving: K1 launched {k1} times in {chunks} chunks of "
+                             f"K={k}, K2 {em.MegaRenderer.launches}, K3 "
+                             f"{eh.HybridMegaRenderer.launches}")
+    if sorted(fleets[0][2]) != list(range(SERVE_SESSIONS)):
+        raise AssertionError(f"reconnects did not reuse slots {SERVE_RECONNECT}")
+    cpu_out, cpu_ev, _ = drive(*fleets[1])
+
+    off = 0
+    for c, (a, b) in enumerate(zip(card_out, cpu_out, strict=True)):
+        if a.shape != (cap, k, 128, 2) or a.dtype != np.int16:
+            raise AssertionError(f"shipped chunk {c}: {a.dtype}{a.shape}")
+        off += lsb_off(a[:SERVE_CHECK], b)
+        if np.any(a[SERVE_SESSIONS:]):
+            raise AssertionError(f"chunk {c}: a vacant slot is not silent")
+    ev_check = [[e for e in poll if e[0] < SERVE_CHECK] for poll in ev]
+    clipped = sum(e[3] for poll in ev_check for e in poll)
+    if ev_check != cpu_ev or not clipped:
+        raise AssertionError(f"events differ or none: card {ev_check[0][:6]}..., "
+                             f"CPU {cpu_ev[0][:6]}...")
+    loud = int(np.abs(card_out[-1][:SERVE_SESSIONS].astype(np.int32)).max())
+    if loud < 16000:
+        raise AssertionError(f"fleet output peak {loud} LSB")
+    n_cmp = SERVE_CHECK * k * 128 * 2 * len(card_out)
+    audio_secs = cap * k * 128 / 48000
+    log(f"serving 10(a), mixer fleet on {card}: capacity {cap}, K={k}, pcm16, "
+        f"{SERVE_SESSIONS} sessions connected in {connect_s:.3f} s (with the CPU "
+        f"fleet's); {len(card_out)} chunks shipped through render_fetched/flush, "
+        f"slots {SERVE_RECONNECT} disconnected and reconnected after chunk "
+        f"{SERVE_CHUNKS}")
+    log(f"serving 10(a): slots 0..{SERVE_CHECK - 1} vs the CPU SessionServer: "
+        f"{off} of {n_cmp} samples 1 LSB apart, none further; vacant slots "
+        f"{SERVE_SESSIONS}..{cap - 1} all zero; clip events of the compared slots "
+        f"equal in all {len(ev)} polls ({clipped} clipped samples; "
+        f"{sum(len(p) for p in ev)} events in the fleet); K1 {k1} launches "
+        f"({k1 // chunks} a chunk), K2 and K3 none")
+    log(f"serving 10(a): wall per chunk through render_fetched {wall * 1e3:.3f} ms "
+        f"(realtime factor of the shipped audio {audio_secs / wall:.1f}); a poll "
+        f"with nothing in flight {poll_ms[0]:.3f} ms, between two render_fetched "
+        f"calls (it waits for the chunk in flight) {poll_ms[1]:.3f} ms")
+    return srv, k1, off
+
+
+def serve_egress(srv, card: str):
+    """10(b): render_stream at capacity 8192, pcm16, against render_chunk and
+    a plain ``.cpu()``, chunk by chunk; the walls with and without egress."""
+    br, k = srv._br, SERVE_K
+    params, state0, s0 = srv._params, srv._state, srv.sample
+    ref, state, s = [], state0, s0
+    for _ in range(EGRESS_CHUNKS):
+        out, _, state = br.render_chunk(params, state, start_sample=s, num_blocks=k)
+        ref.append(out.cpu().numpy())
+        s += k * 128
+    def bare():
+        """The same chunks back to back with no egress, one synchronize at
+        the end: the host enqueues chunk t+1 while the card renders chunk
+        t, as in render_stream."""
+        st, at = state0, s0
+        for _ in range(EGRESS_CHUNKS):
+            _, _, st = br.render_chunk(params, st, start_sample=at, num_blocks=k)
+            at += k * 128
+
+    def shipped():
+        br.render_stream(params, state0, num_chunks=EGRESS_CHUNKS, num_blocks=k,
+                         start_sample=s0, on_chunk=lambda x: None)
+
+    # bare, shipped, shipped, bare: the eager host's drift over the four
+    # runs falls on both arms alike
+    walls = {bare: [], shipped: []}
+    for fn in (bare, shipped, shipped, bare):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls[fn].append((time.perf_counter() - t0) / EGRESS_CHUNKS)
+    wall_bare, wall_egress = (sum(walls[f]) / 2 for f in (bare, shipped))
+    seen = []
+
+    def check(x):
+        if not np.array_equal(x, ref[len(seen)]):
+            raise AssertionError(f"render_stream chunk {len(seen)} differs from "
+                                 "render_chunk + .cpu()")
+        seen.append(x.nbytes)
+
+    _, _, end = br.render_stream(params, state0, num_chunks=EGRESS_CHUNKS,
+                                 num_blocks=k, start_sample=s0, on_chunk=check)
+    if len(seen) != EGRESS_CHUNKS or end != s:
+        raise AssertionError(f"render_stream delivered {len(seen)} chunks")
+    # one chunk's copy to pinned host memory alone, by CUDA events
+    out = torch.from_numpy(ref[0]).to("cuda")
+    host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+    copy_ms = cuda_ms(lambda: host.copy_(out, non_blocking=True), 5)
+    nbytes = seen[0]
+    f32_bytes = nbytes * 2
+    audio_secs = SERVE_CAPACITY * k * 128 / 48000
+    log(f"serving 10(b), render_stream on {card}: {EGRESS_CHUNKS} chunks equal to "
+        f"render_chunk + .cpu() bit for bit; {nbytes / 1e6:.1f} MB shipped a chunk "
+        f"as pcm16 ({f32_bytes / 1e6:.1f} MB as f32); one chunk's copy to pinned "
+        f"memory alone {copy_ms:.3f} ms ({nbytes / copy_ms / 1e6:.2f} GB/s)")
+    ms = {f.__name__: " and ".join(f"{w * 1e3:.3f}" for w in walls[f])
+          for f in walls}
+    log(f"serving 10(b): wall per chunk with egress {wall_egress * 1e3:.3f} ms "
+        f"({ms['shipped']}), without (render back to back + synchronize) "
+        f"{wall_bare * 1e3:.3f} ms ({ms['bare']}), run bare, shipped, shipped, "
+        f"bare; the fetch leaves {(wall_egress - wall_bare) * 1e3:.3f} ms a chunk "
+        f"exposed; egress {nbytes / wall_egress / 1e9:.3f} GB/s of wall; realtime "
+        f"factor of the shipped audio {audio_secs / wall_egress:.1f}")
+
+
+def serve_checkpoint(ft, srv, card: str):
+    """10(c): a fleet checkpoint mid-stream at capacity 8192 restored into a
+    fresh server, bit for bit; at capacity 64 saved on the card, restored on
+    the CPU."""
+    import shutil
+
+    root = scratch_dir("ckpt_")
+    try:
+        path = os.path.join(root, "fleet")
+        t0 = time.perf_counter()
+        nbytes = srv.save_checkpoint(path)
+        save_s = time.perf_counter() - t0
+        truth = [srv.render() for _ in range(2)]
+        prog, _ = mixer_template(ft, "cuda")
+        fresh = ft.SessionServer(prog, SERVE_CAPACITY, chunk_blocks=SERVE_K,
+                                 device="cuda", output_format="pcm16")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        handles = fresh.restore_checkpoint(path)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        got = [fresh.render() for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(truth, got)):
+            raise AssertionError("the restored fleet's chunks differ from the "
+                                 "uninterrupted fleet's")
+        if sorted(handles) != sorted(srv._live) or fresh.sample != srv.sample:
+            raise AssertionError("the restored fleet's sessions or clock differ")
+        del fresh, truth, got
+        log(f"serving 10(c), fleet checkpoint on {card}: capacity "
+            f"{SERVE_CAPACITY}, {len(handles)} sessions; {nbytes / 1e9:.3f} GB "
+            f"written in {save_s:.3f} s, restored into a fresh server in "
+            f"{load_s:.3f} s; the next 2 chunks equal the uninterrupted fleet's "
+            f"bit for bit")
+
+        # capacity 64, f32: saved on the card, restored on the CPU
+        sprog, sh = mixer_template(ft, "cuda")
+        small = ft.SessionServer(sprog, CKPT_SMALL, chunk_blocks=SERVE_K,
+                                 device="cuda")
+        for i in range(CKPT_SMALL // 2):
+            small.connect(mixer_session(sh, i))
+        small.render()
+        path = os.path.join(root, "small")
+        small.save_checkpoint(path)
+        want = small.render().cpu()
+        cprog, _ = mixer_template(ft, "cpu")
+        cpu = ft.SessionServer(cprog, CKPT_SMALL, chunk_blocks=SERVE_K, device="cpu")
+        cpu.restore_checkpoint(path)
+        e = float((cpu.render() - want).abs().max())
+        if not e <= SLICE_TOL or not float(want.abs().max()) > 0.05:
+            raise AssertionError(f"card checkpoint restored on the CPU: {e}")
+        log(f"serving 10(c): capacity {CKPT_SMALL} saved on the card, restored on "
+            f"the CPU: the next chunk max_abs_err={e:.3e} against the card's")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return nbytes, save_s, load_s
+
+
+def fx_template(ft, device):
+    """The effects chain (sampler → filter (K1's recurrence) → echo → clip →
+    reverb) as a SessionServer template, its sampler paused."""
+    from firewheel_tpu_torch.mixer import add_effects_chain, effects_chain_audio
+
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    sn = g.node(add_effects_chain(g, *effects_chain_audio(), 0.01, "pallas"))
+    sn.pause()
+    pkg = g.compile(48000, 128)
+    prog = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                              device=device)
+    return prog, sn
+
+
+def fx_session(sn, i: int):
+    """Session ``i``: rate 0.75 + 0.25·(i mod 6); a loop over the clip for
+    even i, a one-shot from frame 1024·(i mod 8) for odd i."""
+    from firewheel_tpu_torch.nodes import LoopRange
+
+    def configure():
+        sn.set_playback_rate(0.75 + 0.25 * (i % 6))
+        if i % 2 == 0:
+            sn.set_loop_range(LoopRange.FULL)
+        else:
+            sn.set_playhead(1024 * (i % 8) / 48000)
+        sn.play()
+    return configure
+
+
+def serve_hybrid(ft, seq_iir, em, eh, card: str):
+    """10(d): the effects chain fleet on the hybrid lowering, pcm16, with
+    per-slot rates and loops; slots 0..15 against a CPU fleet."""
+    cap, k = FX_CAPACITY, FX_K
+    prog, sn = fx_template(ft, "cuda")
+    srv = ft.SessionServer(prog, cap, chunk_blocks=k, device="cuda",
+                           lowering="hybrid", output_format="pcm16")
+    cprog, csn = fx_template(ft, "cpu")
+    cpu = ft.SessionServer(cprog, SERVE_CHECK, chunk_blocks=k, device="cpu",
+                           lowering="hybrid", output_format="pcm16")
+    for i in range(FX_SESSIONS):
+        srv.connect(fx_session(sn, i))
+        cpu.connect(fx_session(csn, i))
+    eh.HybridMegaRenderer.launches = em.MegaRenderer.launches = 0
+    seq_iir.biquad_seq.launches = 0
+    t0 = time.perf_counter()
+    outs = [srv.render_fetched() for _ in range(FX_CHUNKS)][1:] + [srv.flush()]
+    wall = (time.perf_counter() - t0) / FX_CHUNKS
+    k3, k1, k2 = (eh.HybridMegaRenderer.launches, seq_iir.biquad_seq.launches,
+                  em.MegaRenderer.launches)
+    ev = events_of(srv)
+    cpu_outs = [cpu.render_fetched() for _ in range(FX_CHUNKS)][1:] + [cpu.flush()]
+    cpu_ev = events_of(cpu)
+    if k3 != FX_CHUNKS or k1 or k2:
+        raise AssertionError(f"hybrid fleet: K3 {k3} launches in {FX_CHUNKS} chunks, "
+                             f"K1 {k1}, K2 {k2}")
+    off = 0
+    for c, (a, b) in enumerate(zip(outs, cpu_outs, strict=True)):
+        off += lsb_off(a[:SERVE_CHECK], b)
+        if np.any(a[FX_SESSIONS:]):
+            raise AssertionError(f"hybrid fleet chunk {c}: a vacant slot is not silent")
+    def sampler_events(events, slots):
+        return [e for e in events if e[0] < slots and e[2] in ("finished", "loop")]
+
+    mine = sampler_events(ev, SERVE_CHECK)
+    names = {e[2] for e in mine}
+    if mine != sampler_events(cpu_ev, SERVE_CHECK) or names != {"finished", "loop"}:
+        raise AssertionError(f"hybrid fleet events: card {mine[:6]}, CPU {cpu_ev[:6]}")
+    audio_secs = cap * k * 128 / 48000
+    log(f"serving 10(d), effects chain fleet on the hybrid on {card}: capacity "
+        f"{cap}, K={k}, pcm16, {FX_SESSIONS} sessions (per-slot rates, loops and "
+        f"one-shots), {FX_CHUNKS} chunks; slots 0..{SERVE_CHECK - 1} vs the CPU "
+        f"fleet: {off} samples 1 LSB apart, none further, sampler events equal "
+        f"({len(mine)}: {sorted(names)}), {len(sampler_events(ev, cap))} sampler "
+        f"events in the fleet; K3 {k3} "
+        f"launches (1 a chunk), K1 {k1}, K2 {k2}; wall per chunk "
+        f"{wall * 1e3:.3f} ms (realtime factor {audio_secs / wall:.1f})")
+    return k3, off
+
+
+def stream_checkpoint(ft, card: str):
+    """10(e): the 64-node mixer streamed through FirewheelCtx, saved at
+    buffer 20, continued to 40; a fresh ctx loads the checkpoint and renders
+    buffers 20..40 bit for bit the same.  Then output_latency_frames on a
+    compensated graph, and its render."""
+    import shutil
+
+    from firewheel_tpu_torch.mixer import add_mixer
+    from firewheel_tpu_torch.nodes import BeepTestNode, DelayCompNode, SumNode
+
+    cfg = ft.StreamConfig(buffer_frames=STREAM_BUFFER, block_frames=STREAM_BLOCK)
+
+    def ctx():
+        cx = ft.FirewheelCtx(device="cuda")
+        add_mixer(cx.graph_mut(), 19, "pallas")
+        sink = ft.ArraySink()
+        cx.activate(cfg, sink=sink)
+        return cx, sink
+
+    def pump(cx, n):
+        for _ in range(n):
+            cx.update(max_pump_buffers=0)
+            cx.stream.pump(1)
+        cx.stream.flush()
+
+    root = scratch_dir("stream_ckpt_")
+    try:
+        cx, sink = ctx()
+        pump(cx, CKPT_STREAM_AT)
+        cx.save_checkpoint(root)
+        pump(cx, CKPT_STREAM_END - CKPT_STREAM_AT)
+        cx.deactivate()
+        want = sink.audio(2)[:, CKPT_STREAM_AT * STREAM_BUFFER:]
+        cx, sink = ctx()
+        meta = cx.load_checkpoint(root)
+        pump(cx, CKPT_STREAM_END - CKPT_STREAM_AT)
+        cx.deactivate()
+        got = sink.audio(2)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    if meta["frames_rendered"] != CKPT_STREAM_AT * STREAM_BUFFER:
+        raise AssertionError(f"checkpoint at frame {meta['frames_rendered']}")
+    if got.shape != want.shape or not np.array_equal(got, want) or \
+            not np.abs(got).max() > 0.01:
+        raise AssertionError(f"stream resumed from the checkpoint differs: "
+                             f"{got.shape} vs {want.shape}")
+
+    # latency compensation: beep → {delay 240, direct} → sum, compensated
+    cx = ft.FirewheelCtx(device="cuda")
+    g = cx.graph_mut()
+    beep = g.add_node(0, 2, BeepTestNode(440.0, -12.0, True))
+    slow = g.add_node(2, 2, DelayCompNode(delay_secs=0.005))
+    mix = g.add_node(4, 2, SumNode())
+    for ch in range(2):
+        g.connect(beep, ch, slow, ch)
+        g.connect(slow, ch, mix, ch)
+        g.connect(beep, ch, mix, 2 + ch)
+        g.connect(mix, ch, g.graph_out_node(), ch)
+    inserted = g.compensate_latency(48000).insertions
+    sink = ft.ArraySink()
+    cx.activate(cfg, sink=sink)
+    latency = cx.output_latency_frames()
+    cx.render_offline(0.05)
+    cx.deactivate()
+    audio = sink.audio(2)
+    peak = float(np.abs(audio).max())
+    if (latency != 240 or len(inserted) != 1 or np.abs(audio[:, :240]).max() != 0.0
+            or abs(peak - 2 * 0.2512) > 2e-3):
+        raise AssertionError(f"latency: {latency} frames, {len(inserted)} insertions, "
+                             f"peak {peak}")
+    log(f"serving 10(e), stream checkpoint on {card}: the mixer saved at buffer "
+        f"{CKPT_STREAM_AT}, a fresh FirewheelCtx resumed buffers "
+        f"{CKPT_STREAM_AT}..{CKPT_STREAM_END} bit for bit; compensate_latency "
+        f"spliced one {inserted[0].frames}-frame delay, output_latency_frames() = "
+        f"{latency}, the aligned render peaks at {peak:.6f} after {latency} "
+        f"silent frames")
+
+
+def check_serving(ft, seq_iir, em, eh, card: str, phase):
+    """Phase 10: the serving fleet on the card → the launches of K1 in the
+    mixer fleet and of K3 in the hybrid fleet."""
+    srv, k1, _ = serve_mixer(ft, seq_iir, em, eh, card)
+    phase("10(a), the mixer fleet")
+    serve_egress(srv, card)
+    phase("10(b), render_stream")
+    serve_checkpoint(ft, srv, card)
+    del srv
+    torch.cuda.empty_cache()
+    phase("10(c), fleet checkpoints")
+    k3, _ = serve_hybrid(ft, seq_iir, em, eh, card)
+    phase("10(d), the hybrid fleet")
+    stream_checkpoint(ft, card)
+    phase("10(e), the stream checkpoint and latency")
+    return k1, k3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1212,6 +1698,7 @@ def main() -> int:
     s_err, s_launches, k1_stream = check_stream(ft, seq_iir, em, eh, card)
     phase("9, the streaming engine")
     log(f"phase 9: the stream on the card vs the CPU, max_abs_err={s_err:.3e}")
+    serve_k1, serve_k3 = check_serving(ft, seq_iir, em, eh, card, phase)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -1235,6 +1722,8 @@ def main() -> int:
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n, "stream_launches": s_launches if name == "biquad_seq" else 0,
+            "serve_launches": {"biquad_seq": serve_k1,
+                               "hybrid_island": serve_k3}.get(name, 0),
             "max_abs_err": e, "ms": t, "call_ms": call,
             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / t,

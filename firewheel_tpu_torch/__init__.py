@@ -3,10 +3,17 @@
 The port runs the JAX package's batched renderers on torch tensors: the
 64-node mixer (eagerly, or as one megakernel launch a chunk) and the
 effects chain (sampler → filter → echo → clip → reverb, through the hybrid
-lowering's megakernel islands).  Its streaming engine (``FirewheelCtx`` →
-``GraphContext`` → ``GraphProcessor``) renders one graph live, buffer by
-buffer, with live edits and per-block param timelines.  Its kernels are
-CUDA for NVIDIA Hopper (``csrc/``).  It imports torch and numpy, never JAX.
+lowering's megakernel islands).  A ``SessionServer`` multiplexes client
+sessions onto one batch renderer: it connects, updates, resets and
+disconnects sessions, ships each chunk to the host as interleaved pcm16
+while the next one renders, polls per-session device events, and
+checkpoints and restores the whole fleet.  Its streaming engine
+(``FirewheelCtx`` → ``GraphContext`` → ``GraphProcessor``) renders one
+graph live, buffer by buffer, with live edits, per-block param timelines,
+checkpoints, and latency compensation (``graph/latency.py`` splices
+``DelayCompNode``s onto early edges).  Checkpoints are the JAX package's
+files: either package restores the other's.  Its kernels are CUDA for
+NVIDIA Hopper (``csrc/``).  It imports torch and numpy, never JAX.
 """
 
 from .core.automation import AutomationCurve, Keyframe, ParamAutomator
@@ -32,8 +39,16 @@ from .backend import (
     available_output_devices,
 )
 from .mixer import effects_chain_graph, mixer_graph
-from .nodes import ConvolutionReverbNode, LoopRange, SamplerNode
+from .nodes import ConvolutionReverbNode, DelayCompNode, LoopRange, SamplerNode
 from .parallel import BatchRenderer
+from .serving import SessionHandle, SessionServer
+from .checkpoint import (
+    load_checkpoint,
+    load_sharded_local,
+    restore_into,
+    save_checkpoint,
+    save_sharded_checkpoint,
+)
 
 __all__ = [
     "ArraySink",
@@ -45,6 +60,7 @@ __all__ = [
     "BatchRenderer",
     "BlockInfo",
     "ConvolutionReverbNode",
+    "DelayCompNode",
     "DeviceInfo",
     "FirewheelCtx",
     "GraphContext",
@@ -61,6 +77,8 @@ __all__ = [
     "SampleResource",
     "SamplerNode",
     "ScheduleProgram",
+    "SessionHandle",
+    "SessionServer",
     "SilenceMask",
     "StreamConfig",
     "StreamStatus",
@@ -69,6 +87,11 @@ __all__ = [
     "WavSink",
     "available_output_devices",
     "effects_chain_graph",
+    "load_checkpoint",
+    "load_sharded_local",
     "mixer_graph",
     "node_key",
+    "restore_into",
+    "save_checkpoint",
+    "save_sharded_checkpoint",
 ]

@@ -220,11 +220,62 @@ class FirewheelCtx:
             self._active = None
         return user_cx
 
+    # -- checkpoint/resume ----------------------------------------------------
+    def save_checkpoint(self, path: str) -> None:
+        """Persist all recurrent audio state and the stream position to
+        ``path`` (``checkpoint.py``; the JAX package reads it too)."""
+        from ..checkpoint import save_checkpoint
+
+        if self._active is None:  # hard error, must survive python -O
+            raise RuntimeError("save_checkpoint: activate() first")
+        save_checkpoint(
+            path,
+            self._active.stream._processor,
+            extra_meta={"frames_rendered": self._active.stream.frames_rendered},
+        )
+
+    def load_checkpoint(self, path: str) -> dict:
+        """Restore state saved by :meth:`save_checkpoint` (by either
+        package) into the running engine (same graph topology required);
+        the stream clock resumes at the saved position."""
+        from ..checkpoint import restore_into
+
+        if self._active is None:  # hard error, must survive python -O
+            raise RuntimeError("load_checkpoint: activate() first")
+        meta = restore_into(path, self._active.stream._processor)
+        if "frames_rendered" in meta:
+            self._active.stream._frames_rendered = int(meta["frames_rendered"])
+        # the stream clock just jumped: block-accurate automation cursors
+        # must rewind, or they would flood the timeline catching up, or park
+        # until the clock reaches them
+        self.automation.reset_block_cursors()
+        return meta
+
     # -- conveniences ---------------------------------------------------------
     def stream_config(self):
         """The active stream's configuration, or None (the reference's
         ``stream_config()`` accessor, firewheel-cpal/src/lib.rs:28-339)."""
         return self._active.config if self._active else None
+
+    def output_latency_frames(self, sample_rate: int | None = None) -> int:
+        """Algorithmic latency of the rendered mix at ``graph_out``, in
+        frames (``graph/latency.py``: the longest-path sum of every node's
+        ``latency_frames``).  Games add the sink's buffering latency and
+        sync visuals and haptics to the total.  Activated, the active
+        stream's rate is used (``sample_rate`` is ignored); inactive, pass
+        the rate you plan to activate with, as some nodes' latency depends
+        on it."""
+        if self._active is not None:
+            sr = self._active.config.sample_rate
+        elif sample_rate is not None:
+            sr = int(sample_rate)
+        else:
+            raise RuntimeError(
+                "not activated and no sample_rate given — call "
+                "output_latency_frames(sample_rate=...) with the rate you "
+                "plan to activate with"
+            )
+        return self._cx.graph.output_latency_frames(sr)
 
     def node_state(self, node_id):
         """Host copy of a node's recurrent state (meter readback etc.)."""

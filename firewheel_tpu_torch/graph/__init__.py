@@ -1,6 +1,6 @@
-"""The DAG model and its compiler (the ``firewheel-graph`` analog), copied
-from ``firewheel_tpu/graph``; ``serialize`` and ``latency`` are not ported
-yet."""
+"""The DAG model, its compiler (the ``firewheel-graph`` analog) and the
+latency-compensation pass, copied from ``firewheel_tpu/graph``;
+``serialize`` is not ported yet."""
 
 from .arena import Arena, Index
 from .compiler import (
@@ -31,6 +31,13 @@ from .errors import (
     SrcNodeNotFound,
 )
 from .graph import AudioGraph, AudioGraphConfig, NodeWeight, SchedulePackage
+from .latency import (
+    LatencyInsertion,
+    LatencyReport,
+    compensate_latency,
+    output_latency_frames,
+    path_latencies,
+)
 
 __all__ = [
     "Arena",
@@ -62,4 +69,9 @@ __all__ = [
     "AudioGraphConfig",
     "NodeWeight",
     "SchedulePackage",
+    "LatencyInsertion",
+    "LatencyReport",
+    "compensate_latency",
+    "output_latency_frames",
+    "path_latencies",
 ]

@@ -1,7 +1,7 @@
 """The node library (the nodes ported so far)."""
 
 from .beep_test import BeepTestNode
-from .delay import EchoNode
+from .delay import DelayCompNode, EchoNode
 from .dummy import DummyAudioNode
 from .filter import FilterNode, FilterType
 from .hard_clip import HardClipNode
@@ -16,6 +16,7 @@ __all__ = [
     "BeepTestNode",
     "ConvolutionReverbNode",
     "DbMeterNode",
+    "DelayCompNode",
     "DummyAudioNode",
     "EchoNode",
     "FilterNode",

@@ -1,10 +1,17 @@
-"""Feedback echo node.
+"""Delay nodes: sample-accurate delay compensation and feedback echo.
 
-PyTorch port of ``firewheel_tpu/nodes/delay.py:EchoNode``: ``y = dry·x +
-wet·e``, ``e[n] = x[n-D] + fb·e[n-D]``, with the delay line as state.  The
-delay must be ≥ the engine block size.  The line keeps the JAX package's
-layout (oldest sample first, shifted by one block every block), so state
-converts between the packages as a plain copy.
+PyTorch port of ``firewheel_tpu/nodes/delay.py``:
+
+* :class:`DelayCompNode` — a pure N-frame delay (latency alignment; the
+  latency pass, ``graph/latency.py``, splices it onto early edges).  It
+  has no device function in the megakernel, so it renders as a torch stage
+  on the hybrid lowering and ``MegaRenderer`` refuses a graph with it.
+* :class:`EchoNode` — feedback echo ``y = dry·x + wet·e``, ``e[n] = x[n-D]
+  + fb·e[n-D]``.  The delay must be ≥ the engine block size.
+
+Both lines keep the JAX package's layout (oldest sample first, shifted by
+one block every block), so state converts between the packages as a plain
+copy.
 """
 
 from __future__ import annotations
@@ -21,11 +28,67 @@ from ..core.node import (
     NodeProcessor,
     MAX_PORTS,
 )
-from ..ops.delay import comb_init
+from ..ops.delay import comb_init, delay_init, delay_step
 
-__all__ = ["EchoNode", "EchoProcessor"]
+__all__ = ["DelayCompNode", "DelayCompProcessor", "EchoNode", "EchoProcessor"]
 
 _QUIET_F32 = float(np.float32(1e-10))
+
+
+class DelayCompProcessor(NodeProcessor):
+    def __init__(self, delay_frames, sample_rate, max_block_frames, num_inputs, num_outputs):
+        super().__init__(sample_rate, max_block_frames, num_inputs, num_outputs)
+        self.delay_frames = delay_frames
+
+    def group_key(self):
+        return (self.delay_frames,)
+
+    def init_state(self):
+        return {"buf": delay_init(self.num_inputs, self.delay_frames)}
+
+    def kernel(self, params, state, inputs, in_mask, info):
+        y, buf = delay_step(inputs, state["buf"])
+        # a freshly silent input still drains the delay line; the output is
+        # silent only when the line holds silence too
+        if self.delay_frames > 0:
+            line_quiet = (torch.abs(state["buf"]) < _QUIET_F32).all(dim=-1)
+        else:
+            line_quiet = torch.ones_like(in_mask)
+        return y, {"buf": buf}, in_mask & line_quiet
+
+
+class DelayCompNode(AudioNode):
+    debug_name = "delay_comp"
+
+    def __init__(self, delay_frames: int = 0, delay_secs: float | None = None):
+        if delay_frames < 0:
+            raise ValueError(f"delay_frames must be >= 0, got {delay_frames}")
+        self._delay_frames = int(delay_frames)
+        self._delay_secs = delay_secs
+
+    def latency_frames(self, sample_rate: int) -> int:
+        # a pure delay IS latency: reporting it makes compensate_latency
+        # account for manual alignment delays (and its own insertions)
+        if self._delay_secs is not None:
+            return int(round(self._delay_secs * sample_rate))
+        return self._delay_frames
+
+    def info(self) -> AudioNodeInfo:
+        return AudioNodeInfo(
+            num_min_supported_inputs=1,
+            num_max_supported_inputs=MAX_PORTS,
+            num_min_supported_outputs=1,
+            num_max_supported_outputs=MAX_PORTS,
+        )
+
+    def activate(self, sample_rate, max_block_frames, num_inputs, num_outputs):
+        if num_inputs != num_outputs:
+            raise NodeActivationError(
+                "DelayCompNode requires num_inputs == num_outputs; "
+                f"got {num_inputs} in, {num_outputs} out"
+            )
+        return DelayCompProcessor(self.latency_frames(sample_rate), sample_rate,
+                                  max_block_frames, num_inputs, num_outputs)
 
 
 class EchoProcessor(NodeProcessor):

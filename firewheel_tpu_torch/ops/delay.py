@@ -1,11 +1,30 @@
-"""Delay-line primitives.  PyTorch port of ``firewheel_tpu/ops/delay.py``
-(``comb_init``; the pure delay waits for the latency slice)."""
+"""Delay-line primitives: pure delays and block-feedback combs.
+
+PyTorch port of ``firewheel_tpu/ops/delay.py``.  A delay line is a state
+tensor shifted by one block every block (concatenate and slice), oldest
+sample first, in the JAX package's layout.
+"""
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["comb_init"]
+__all__ = ["delay_init", "delay_step", "comb_init"]
+
+
+def delay_init(channels: int, delay_frames: int) -> torch.Tensor:
+    """Zero history for a pure delay of ``delay_frames``."""
+    return torch.zeros((channels, max(delay_frames, 0)), dtype=torch.float32)
+
+
+def delay_step(x: torch.Tensor, buf: torch.Tensor):
+    """Delay by ``buf.shape[-1]`` frames: ``y[n] = x[n-D]``, for any D ≥ 0
+    and any block size.  Returns ``(y, new_buf)``."""
+    if buf.shape[-1] == 0:
+        return x, buf
+    combined = torch.cat([buf, x], dim=-1)  # [..., D+F]
+    f = x.shape[-1]
+    return combined[..., :f], combined[..., f:]
 
 
 def comb_init(channels: int, delay_frames: int) -> torch.Tensor:

@@ -220,11 +220,21 @@ def test_port_imports_no_jax():
         "cx.render_offline(0.05)\n"
         "assert sink.audio(2).shape[1] >= 2400 and ft.RingBuffer(8).is_native\n"
         "cx.deactivate()\n"
+        "import tempfile\n"
+        "srv = ft.SessionServer(ft.mixer_graph(num_voices=2, device='cpu'), 2,"
+        " chunk_blocks=2, device='cpu', output_format='pcm16')\n"
+        "h = srv.connect()\n"
+        "assert srv.render_fetched() is None and srv.flush().dtype.name == 'int16'\n"
+        "srv.save_checkpoint(tempfile.mkdtemp())\n"
+        "g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))\n"
+        "ft.mixer.add_mixer(g, 2)\n"
+        "assert g.compensate_latency(48000).insertions == []\n"
         "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
         " 'ops.direct_conv', 'executor_hybrid', 'processor', 'context',"
         " 'channels', 'backend.context', 'backend.stream', 'backend.ring_buffer',"
         " 'backend.device_info', 'core.events', 'core.interleave',"
-        " 'core.silence_mask', 'core.automation'):\n"
+        " 'core.silence_mask', 'core.automation', 'serving', 'checkpoint',"
+        " '_msgpack', 'graph.latency'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
@@ -257,4 +267,4 @@ def test_port_sources_never_import_jax():
 def test_batch_renderer_rejects_unported_formats():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ft.BatchRenderer(ft.mixer_graph(num_voices=1, device="cpu"), 1, device="cpu",
-                         output_format="pcm16")
+                         output_format="adpcm4")
