@@ -92,14 +92,37 @@ Run from the root of a checkout:  python3 chip_smoke.py
    streamed through ``FirewheelCtx``, saved at buffer 20 and continued to
    40; a fresh ctx loads the checkpoint and renders buffers 20..40 bit for
    bit; ``output_latency_frames`` after ``compensate_latency``.
+11. The spatial scene (BASELINE config 5, ``examples/spatial_scene.py``:
+   128 beeps through 3D spatializers, 4 group sums, a metered and clipped
+   master, 266 nodes, 258 arena buffers) on the card.  (a) Streamed through
+   ``FirewheelCtx`` as the example streams it (1024-frame buffers of
+   128-frame blocks, 8 a pump, 1.5 s, every 4th emitter orbiting 90°) with a
+   ``SpatialScene`` listener turn mid-stream, against the same stream on the
+   CPU (1e-5: audio, the meter's reading, every state leaf); its realtime
+   factor, wall a buffer, kernels a block and device busy share
+   (``torch.profiler``), and the pooled groups of beeps and spatializers.
+   (b) Eager at B=8192, K=32, every instance with its own positions,
+   volumes and occlusion, the first instances against a CPU render; wall
+   per chunk and peak memory.  (c) K2 at B=8192, K=32, tile 1 (the arena
+   fits one instance a CTA): at rest and with every 4th spatializer moving,
+   against the eager render on the card (outputs, masks, every state leaf)
+   and the first instances against the plain version on the card; one
+   launch a chunk; the shared memory against the kernel's count; device
+   time and bound; blocks of 256 frames refused (``ValueError``) before a
+   launch.  (d) Every 4th emitter doppler (torch stages) on the hybrid at
+   B=1024, K=8: against eager and the CPU plain hybrid, K3 once an island a
+   chunk, K3 timed on the beeps' island against its plain version.  (e) The
+   binaural variant eager at B=1024, K=8 against a CPU render.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
 batched main path (``launches``), in phase 9's stream (``stream_launches``;
 K1's device time, call and plain version at the stream's 2 lanes beside
-them) and in phase 10's fleets (``serve_launches``), its error against its
+them) and in phase 10's fleets (``serve_launches``), and K2 and K3 once
+more for the spatial scene of phase 11, its error against its
 plain version, its device time on the
-card (``ms``, by ``torch.profiler``) and a call's time with its wrapper's
+card (``ms``, by ``torch.profiler``, or by CUDA events where the log says
+the profile saw no device activity) and a call's time with its wrapper's
 host work (``call_ms``, by CUDA events), the plain version's, and its
 bound: the larger of the bytes it must move over 3.35 TB/s and its f32
 operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet).
@@ -171,18 +194,33 @@ def cuda_ms(fn, reps: int) -> float:
 
 def device_ms(fn, kernel: str, reps: int) -> float:
     """Mean device time per launch of the CUDA kernel whose name contains
-    ``kernel``, over ``reps`` calls of ``fn``, by ``torch.profiler``: the
-    kernel alone, without the host work its wrapper does between launches
-    (which CUDA events around the calls would count when it is longer)."""
+    ``kernel``, over ``reps`` calls of ``fn``, by ``torch.profiler`` (host
+    and device activity): the kernel alone, without the host work its
+    wrapper does between launches (which CUDA events around the calls
+    would count when it is longer).
+
+    Minutes into this script a profile has seen no device activity at all
+    (in each of four calls, in phase 11(c) or 11(d), at a profile that
+    another call took without fault; a fresh process profiled every
+    launch).  Then the launches are timed by CUDA events instead, back to
+    back, and the log says so: for a kernel that outlasts its wrapper's
+    host work, as phase 11's do, that is its device time too.  A profile
+    that sees the card but not each launch fails."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if kernel in e.key]
+    averages = prof.key_averages()
+    if not any(e.device_type == torch.autograd.DeviceType.CUDA for e in averages):
+        ms = cuda_ms(fn, reps)
+        log(f"{kernel}: torch.profiler saw no device activity; {reps} launches "
+            f"timed by CUDA events instead, {ms:.4f} ms each")
+        return ms
+    hits = [e for e in averages if kernel in e.key]
     # the mean over the launches the profiler recorded: all of them, or all
     # but one (a launch at the edge of the trace may be left out)
     if (len(hits) != 1 or not reps - 1 <= hits[0].count <= reps
@@ -203,9 +241,11 @@ def bound(nbytes: float, ops: float):
 
 def row_ops(code: int, n_in: int, n_out: int) -> int:
     """f32 operations a megakernel row does per frame (a transcendental
-    counts as one; the smoothers' per-block work is left out)."""
+    counts as one; the smoothers' per-block work is left out).  The
+    spatializer (9): the gain, the one-pole's two products and sum, and the
+    two pan gains."""
     return {0: 0, 1: 4, 2: n_in, 3: 4, 4: n_in - n_out, 5: 9 * n_in,
-            6: 5 * n_in, 7: 3 * n_in, 8: 3 * n_in}[code]
+            6: 5 * n_in, 7: 3 * n_in, 8: 3 * n_in, 9: 6}[code]
 
 
 def kernel_work(em, prog, lw, params, state, batch: int, k: int, io_bytes: int):
@@ -990,26 +1030,37 @@ def stream_counts(prof, buffers: int, blocks: int):
     dispatches of ``blocks`` blocks each: kernels and copies as the device
     ran them, launch calls as the host made them, K1's time as each of its
     launches in the stream took it."""
-    kernels = calls = h2d = d2h = 0
-    busy = 0.0
+    h2d = d2h = 0
     k1 = []
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy += e.time_range.elapsed_us()
             if "biquad_seq_kernel" in e.name:
                 k1.append(e.time_range.elapsed_us())
             if "Memcpy HtoD" in e.name:
                 h2d += 1
             elif "Memcpy DtoH" in e.name:
                 d2h += 1
-            elif not e.name.startswith(("Memcpy", "Memset")):
-                kernels += 1
-        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
-            calls += 1
     n = buffers * blocks
     if len(k1) != n:
         raise AssertionError(f"the profile saw {len(k1)} K1 launches in {n} blocks")
-    return kernels / n, calls / n, h2d / buffers, d2h / buffers, busy, k1
+    per_block, calls, busy = profile_busy(prof, n)
+    return per_block, calls, h2d / buffers, d2h / buffers, busy, k1
+
+
+def profile_busy(prof, blocks: int):
+    """``(kernels a block, launch calls a block, device busy microseconds)``
+    from a profile of ``blocks`` blocks: kernels as the device ran them
+    (copies and memsets left out), launch calls as the host made them."""
+    kernels = calls = 0
+    busy = 0.0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy += e.time_range.elapsed_us()
+            if not e.name.startswith(("Memcpy", "Memset")):
+                kernels += 1
+        elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
+            calls += 1
+    return kernels / blocks, calls / blocks, busy
 
 
 def check_stream(ft, seq_iir, em, eh, card: str):
@@ -1628,6 +1679,488 @@ def check_serving(ft, seq_iir, em, eh, card: str, phase):
     return k1, k3
 
 
+# phase 11: the spatial scene (BASELINE config 5, examples/spatial_scene.py)
+SPATIAL_SECS = 1.5           # the example's render and orbit
+SPATIAL_CHUNK_BUFFERS = 8    # buffers a stream dispatch
+SPATIAL_TURN_AT = 4          # pump before which the listener turns 30°
+SPATIAL_PROFILED = (2, 3)    # pumps [2, 3) of the stream under torch.profiler
+SPATIAL_REPS = 3             # K2 launches a device-time measurement (~1 s each)
+SPATIAL_HYBRID = (1024, 8)   # B, K of the doppler-mixed scene on the hybrid
+DOPPLER_EVERY = 4            # every 4th emitter doppler (32 of 128)
+BINAURAL = (1024, 8)         # B, K of the headphone variant
+
+
+def spatial_stream(ft, device, profile=False):
+    """The 266-node scene streamed offline through ``FirewheelCtx`` as the
+    example streams it (48 kHz, 1024-frame buffers of 128-frame blocks,
+    8 buffers a pump, 1.5 s, every 4th emitter orbiting 90°), every emitter
+    in a ``SpatialScene`` whose listener turns 30° before pump
+    SPATIAL_TURN_AT.  With ``profile``, ``torch.profiler`` traces pumps
+    SPATIAL_PROFILED and the stream ends there.  Returns a dict of the
+    audio, the final state on the CPU, the meter's reading, each pump's
+    wall, the executor's pooled groups and the profile."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import add_spatial_scene, orbit_scene
+    from firewheel_tpu_torch.nodes import DbMeterNode
+
+    cx = ft.FirewheelCtx(device=device)
+    g = cx.graph_mut()
+    meter, spats = add_spatial_scene(g)
+    orbiting = orbit_scene(cx.automation, g, spats, SPATIAL_SECS)
+    scene = ft.SpatialScene()
+    for spat, _, _ in spats:
+        scene.add(spat, g.node(spat), g.node(spat).position())
+    sink = ft.ArraySink()
+    cfg = ft.StreamConfig(buffer_frames=STREAM_BUFFER, block_frames=STREAM_BLOCK,
+                          chunk_buffers=SPATIAL_CHUNK_BUFFERS)
+    cx.activate(cfg, sink=sink)
+    stream, proc = cx.stream, cx.stream._processor
+    frames = int(SPATIAL_SECS * 48000)
+    out = {"walls": [], "orbiting": orbiting, "nodes": len(list(g.nodes()))}
+    prof = None
+    t_start = time.perf_counter()
+    i = 0
+    while stream.frames_rendered < frames and not (profile and i == SPATIAL_PROFILED[1]):
+        if i == SPATIAL_TURN_AT:
+            scene.set_listener(forward=(0.5, 0.0, -np.sqrt(0.75)))
+        if profile and i == SPATIAL_PROFILED[0]:
+            torch.cuda.synchronize()
+            prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        cx.update(max_pump_buffers=0)
+        t0 = time.perf_counter()
+        stream.pump(cfg.chunk_buffers)
+        out["walls"].append(time.perf_counter() - t0)
+        i += 1
+        if prof is not None and i == SPATIAL_PROFILED[1]:
+            stream.flush()
+            torch.cuda.synchronize()
+            out["profile_wall"] = time.perf_counter() - t_prof
+            prof.__exit__(None, None, None)
+            out["profile"], prof = prof, None
+    stream.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t_start
+    out["reading"] = DbMeterNode.read(cx.node_state(meter))
+    out["state"] = tree_map(lambda t: t.cpu(), proc.state_dict())
+    out["groups"] = [(kind, len(m), type(proc._program._procs[ft.node_key(m[0].id)]).__name__)
+                     for kind, m in proc._program._plan]
+    out["audio"] = sink.audio(2)
+    cx.deactivate()
+    return out
+
+
+def spatial_stream_check(ft, card: str):
+    """11(a): the scene streamed on the card against the same stream on the
+    CPU: audio, the meter's reading and every state leaf within 1e-5."""
+    t0 = time.perf_counter()
+    run = spatial_stream(ft, "cuda")
+    t1 = time.perf_counter()
+    cpu = spatial_stream(ft, "cpu")
+    t2 = time.perf_counter()
+    e = float(np.abs(run["audio"] - cpu["audio"]).max())
+    state_e = tree_err(run["state"], cpu["state"])
+    meter_e = max(float(np.abs(run["reading"][k] - cpu["reading"][k]).max())
+                  for k in ("peak_db", "rms_db"))
+    if run["nodes"] != 266 or run["orbiting"] != 32:
+        raise AssertionError(f"scene: {run['nodes']} nodes, {run['orbiting']} orbiting")
+    if not max(e, state_e) <= STREAM_TOL or not meter_e <= 1e-3:
+        raise AssertionError(f"spatial stream vs CPU: audio {e}, state {state_e}, "
+                             f"meter {meter_e} dB")
+    peak = float(np.abs(run["audio"]).max())
+    if not np.isfinite(run["audio"]).all() or not 0.01 < peak <= 1.0:
+        raise AssertionError(f"spatial stream peak {peak}")
+    prof = spatial_stream(ft, "cuda", profile=True)
+    t3 = time.perf_counter()
+    pumps = SPATIAL_PROFILED[1] - SPATIAL_PROFILED[0]
+    blocks = pumps * SPATIAL_CHUNK_BUFFERS * STREAM_BUFFER // STREAM_BLOCK
+    per_block, calls, busy = profile_busy(prof["profile"], blocks)
+    if not per_block:
+        raise AssertionError("the stream's profile saw no kernel on the card")
+    audio_secs = run["audio"].shape[1] / 48000
+    walls = np.asarray(run["walls"][1:]) * 1e3 / SPATIAL_CHUNK_BUFFERS
+    groups = [g for g in run["groups"] if g[2] in ("BeepTestProcessor",
+                                                    "Spatializer3DProcessor")]
+    log(f"spatial 11(a), the scene streamed on {card}: {run['nodes']} nodes, "
+        f"{run['orbiting']} emitters orbiting, listener turned before pump "
+        f"{SPATIAL_TURN_AT}; {run['audio'].shape[1]} frames vs the CPU's stream: "
+        f"audio {e:.3e}, state {state_e:.3e}, meter {meter_e:.3e} dB (peak "
+        f"{np.round(run['reading']['peak_db'], 2).tolist()} dB, rms "
+        f"{np.round(run['reading']['rms_db'], 2).tolist()} dB)")
+    log(f"spatial 11(a): the executor pools the 128 beeps and the 128 "
+        f"spatializers into {groups} (kind, members, processor)")
+    log(f"spatial 11(a): realtime factor {audio_secs / run['wall']:.3f} "
+        f"({audio_secs:.3f} s of audio in {run['wall']:.3f} s); wall a 1024-frame "
+        f"buffer (a pump of {SPATIAL_CHUNK_BUFFERS} / {SPATIAL_CHUNK_BUFFERS}) p50 "
+        f"{np.percentile(walls, 50):.3f} ms, p99 {np.percentile(walls, 99):.3f} ms "
+        f"(budget 21.333 ms); CPU stream realtime factor "
+        f"{audio_secs / cpu['wall']:.3f}")
+    log(f"spatial 11(a), torch.profiler over {pumps} pumps ({blocks} blocks) on "
+        f"{card}: {per_block:.1f} kernels a block on the device ({calls:.1f} launch "
+        f"calls a block on the host), device busy {busy / 1e3:.3f} ms of "
+        f"{prof['profile_wall'] * 1e3:.3f} ms "
+        f"({100 * busy / 1e6 / prof['profile_wall']:.1f}%)")
+    log(f"spatial 11(a): seconds of the phase, set-up included: the card's stream "
+        f"{t1 - t0:.1f}, the CPU's {t2 - t1:.1f}, the profiled stream {t3 - t2:.1f}, "
+        f"its profile read {time.perf_counter() - t3:.1f}")
+    return max(e, state_e)
+
+
+def spatial_eager(ft, card: str):
+    """11(b): the scene batched eagerly at B=8192, K=32, every instance with
+    its own emitters, the first instances against a CPU render."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import vary_spatial_params
+
+    prog = ft.spatial_scene_graph(device="cuda")
+    br = ft.BatchRenderer(prog, B, device="cuda")
+    params = vary_spatial_params(prog, br.stack_params(), 11)
+    state = br.init_state()
+    cpu_br = ft.BatchRenderer(ft.spatial_scene_graph(device="cpu"), CHECK_INSTANCES,
+                              device="cpu")
+    cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
+    cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state)
+    worst, sample, walls = 0.0, 0, []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for c in range(TIMED_CHUNKS + 1):  # the first chunk warms up, checked too
+        t0 = time.perf_counter()
+        out, om, state = br.render_chunk(params, state, start_sample=sample,
+                                         num_blocks=K)
+        torch.cuda.synchronize()
+        if c:
+            walls.append(time.perf_counter() - t0)
+        c_out, c_om, cpu_state = cpu_br.render_chunk(cpu_params, cpu_state,
+                                                     start_sample=sample, num_blocks=K)
+        e = float((out[:CHECK_INSTANCES].cpu() - c_out).abs().max())
+        if not e <= SLICE_TOL or not torch.equal(om[:CHECK_INSTANCES].cpu(), c_om):
+            raise AssertionError(f"spatial eager chunk {c}: card vs CPU {e}, or masks")
+        if not bool(torch.isfinite(out).all()):
+            raise AssertionError("spatial eager: non-finite output")
+        worst = max(worst, e)
+        sample += K * 128
+    e = tree_err(tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state), cpu_state)
+    if not e <= SLICE_TOL:
+        raise AssertionError(f"spatial eager final state vs CPU: {e}")
+    peak = float(out.abs().max())
+    if not 0.01 < peak <= 1.0:
+        raise AssertionError(f"spatial eager peak {peak}")
+    wall = float(np.mean(walls))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    audio_secs = B * K * 128 / 48000
+    log(f"spatial 11(b), the scene eager on {card}: B={B}, K={K}, per-instance "
+        f"positions, volumes and occlusion; first {CHECK_INSTANCES} instances vs the "
+        f"CPU over {TIMED_CHUNKS + 1} chunks and the final state: "
+        f"max_abs_err={max(worst, e):.3e}; wall per chunk {wall * 1e3:.3f} ms "
+        f"(realtime factor {audio_secs / wall:.1f}), peak device memory "
+        f"{peak_gb:.3f} GB")
+    return wall, max(worst, e)
+
+
+def spatial_mega(ft, seq_iir, em, card: str):
+    """11(c): K2 on the scene at B=8192, K=32, tile 1: at rest and with every
+    4th spatializer moving, against the eager render on the card and the
+    first instances against the plain version on the card; one launch a
+    chunk; blocks of 256 frames refused before any launch."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import add_spatial_scene, vary_spatial_params
+
+    prog = ft.spatial_scene_graph(device="cuda")
+    mega = em.MegaRenderer(prog, B, K, tile=1, device="cuda")
+    eager = ft.BatchRenderer(prog, B, device="cuda")
+    lw = mega.lowered
+    smem = em.shared_bytes(lw, 1)
+    kernel_smem = em.LIBRARY.load().fw_mega_shared_bytes(*em.shared_sizes(lw, 1))
+    if kernel_smem != smem or prog.schedule.num_buffers != 258:
+        raise AssertionError(f"spatial K2: the wrapper counts {smem} B of shared "
+                             f"memory, the kernel {kernel_smem} B; "
+                             f"{prog.schedule.num_buffers} buffers")
+    log(f"spatial 11(c): {len(lw.keys)} rows, {lw.num_buffers} buffers, "
+        f"{lw.num_words} leaf words; {smem} B of shared memory per CTA at tile 1 "
+        f"(the kernel's count too; at most {em.MAX_SHARED_BYTES})")
+    worst = 0.0
+
+    def agree(tag, m, e):
+        nonlocal worst
+        out_e, state_e = float((m[0] - e[0]).abs().max()), tree_err(m[2], e[2])
+        if not torch.equal(m[1], e[1]) or not max(out_e, state_e) <= MEGA_TOL:
+            raise AssertionError(f"spatial K2 vs eager, {tag}: outputs {out_e}, state "
+                                 f"{state_e}, masks equal {torch.equal(m[1], e[1])}")
+        worst = max(worst, out_e, state_e)
+        return out_e, state_e
+
+    rest = mega.stack_params()
+    state0 = mega.init_state()
+    m = mega.render_chunk(rest, state0, 0)  # warm-up, at rest
+    e = eager.render_chunk(rest, state0, start_sample=0, num_blocks=K)
+    torch.cuda.synchronize()
+    rest_err = agree("at rest", m, e)
+    rest_ms = device_ms(lambda: mega.render_chunk(rest, state0, 0), "mega_kernel",
+                        SPATIAL_REPS)
+
+    # the main path: every 4th spatializer moves each chunk, counts set to 0
+    moves = [vary_spatial_params(prog, tree_map(torch.clone, rest), 100 + c,
+                                 moving_every=4) for c in range(TIMED_CHUNKS)]
+    starts = [(c + 1) * K * 128 for c in range(TIMED_CHUNKS)]
+    em.MegaRenderer.launches = 0
+    seq_iir.biquad_seq.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m_runs, ms = [], m[2]
+    for p, start in zip(moves, starts):
+        out, masks, ms = mega.render_chunk(p, ms, start)
+        m_runs.append((out, masks, ms))
+    torch.cuda.synchronize()
+    mega_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
+    launches, k1 = em.MegaRenderer.launches, seq_iir.biquad_seq.launches
+    if launches != TIMED_CHUNKS or k1:
+        raise AssertionError(f"spatial K2: {launches} launches in {TIMED_CHUNKS} "
+                             f"chunks, K1 {k1}")
+    t0 = time.perf_counter()
+    e_runs, es = [], e[2]
+    for p, start in zip(moves, starts):
+        out, masks, es = eager.render_chunk(p, es, start_sample=start, num_blocks=K)
+        e_runs.append((out, masks, es))
+    torch.cuda.synchronize()
+    eager_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
+    for c, (mr, er) in enumerate(zip(m_runs, e_runs)):
+        move_err = agree(f"moving, chunk {c}", mr, er)
+    # spatializers whose gain target moves at chunk 0: their smoothers ramp
+    ramping = sum(int((moves[0][key]["gain"] != v["gain"]["target"]).sum())
+                  for key, v in m[2].items() if key.startswith("spatializer"))
+    if not ramping:
+        raise AssertionError("spatial K2: no spatializer smoother ramps")
+    peak = float(m_runs[-1][0].abs().max())
+    if not bool(torch.isfinite(m_runs[-1][0]).all()) or not 0.01 < peak <= 1.0:
+        raise AssertionError(f"spatial K2 peak {peak}")
+    move_ms = device_ms(lambda: mega.render_chunk(moves[-1], m_runs[-2][2], starts[-1]),
+                        "mega_kernel", SPATIAL_REPS)
+    call_ms = cuda_ms(lambda: mega.render_chunk(moves[-1], m_runs[-2][2], starts[-1]), 1)
+    work = kernel_work(em, prog, lw, moves[-1], m_runs[-2][2], B, K,
+                       m_runs[-1][0].nbytes + m_runs[-1][1].nbytes)
+
+    # the first instances against the plain version on the card
+    head = lambda t: t[:CHECK_INSTANCES].contiguous()  # noqa: E731
+    ro, rm, rs = em.mega_chunk_reference(prog, lw, tree_map(head, moves[-1]),
+                                         tree_map(head, m_runs[-2][2]), starts[-1],
+                                         K, CHECK_INSTANCES)
+    torch.cuda.synchronize()
+    plain_err = max(float((m_runs[-1][0][:CHECK_INSTANCES] - ro).abs().max()),
+                    tree_err(tree_map(head, m_runs[-1][2]), rs))
+    if not torch.equal(m_runs[-1][1][:CHECK_INSTANCES], rm) or not plain_err <= MEGA_TOL:
+        raise AssertionError(f"spatial K2 vs its plain version: {plain_err}")
+
+    # blocks of 256 frames: the arena does not fit; refused before a launch
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    add_spatial_scene(g)
+    pkg = g.compile(48000, 256)
+    big = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                             device="cuda")
+    m256 = em.MegaRenderer(big, 64, 4, device="cuda")
+    try:
+        m256.render_chunk(m256.stack_params(), m256.init_state(), 0)
+    except ValueError as err:
+        refused = str(err)
+    else:
+        raise AssertionError("K2 launched the scene in blocks of 256 frames")
+    audio_secs = B * K * 128 / 48000
+    bound_ms, bound_by = bound(*work)
+    log(f"spatial 11(c), K2 vs eager on the card (outputs, masks, every state "
+        f"leaf): at rest {rest_err[0]:.3e}/{rest_err[1]:.3e}, moving (last chunk) "
+        f"{move_err[0]:.3e}/{move_err[1]:.3e}, worst {worst:.3e}; {ramping} "
+        f"spatializer gain smoothers ramping from chunk 0's start; the first "
+        f"{CHECK_INSTANCES} instances vs the plain version on the card: "
+        f"max_abs_err={plain_err:.3e}, masks equal")
+    log(f"spatial 11(c): K2 launches {launches} in {TIMED_CHUNKS} chunks, K1 {k1}; "
+        f"K2 {rest_ms:.3f} ms on the device at rest, {move_ms:.3f} ms moving "
+        f"({SPATIAL_REPS} launches each, timed as logged above), {call_ms:.3f} ms a "
+        f"call (CUDA events); bound {bound_ms:.4f} ms by {bound_by} ({work[0] / 1e9:.3f} "
+        f"GB, {work[1] / 1e9:.2f} G f32 operations), {100 * bound_ms / move_ms:.2f}% "
+        f"of it")
+    log(f"spatial 11(c), the scene B={B} K={K} on {card}: K2 wall per chunk "
+        f"{mega_wall * 1e3:.3f} ms (realtime factor {audio_secs / mega_wall:.1f}); "
+        f"eager {eager_wall * 1e3:.3f} ms (realtime factor "
+        f"{audio_secs / eager_wall:.1f})")
+    log(f"spatial 11(c): blocks of 256 frames refused before a launch: {refused}")
+    return launches, max(worst, plain_err), move_ms, call_ms, eager_wall * 1e3, work
+
+
+def spatial_hybrid(ft, seq_iir, em, eh, card: str):
+    """11(d): the scene with every 4th emitter doppler on the hybrid at
+    B=1024, K=8: against eager on the card and the CPU plain hybrid; K3
+    once an island a chunk; K3 timed on the beeps' island."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import vary_spatial_params
+
+    b, k = SPATIAL_HYBRID
+    prog = ft.spatial_scene_graph(doppler_every=DOPPLER_EVERY, device="cuda")
+    hybrid = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
+    eager = ft.BatchRenderer(prog, b, device="cuda")
+    params = vary_spatial_params(prog, hybrid.stack_params(), 21)
+    state0 = hybrid.init_state()
+    h = hybrid.render_chunk(params, state0, start_sample=0, num_blocks=k)  # warm-up
+    e = eager.render_chunk(params, state0, start_sample=0, num_blocks=k)
+    hy = hybrid._chunk_cache[("hybrid", k)]
+    islands = len(hy.islands)
+    kinds = [kind for kind, _ in hy.segments]
+    if kinds != ["mega", "xla"] * 32 + ["mega"]:
+        raise AssertionError(f"doppler scene segments {kinds}")
+    starts = [(c + 1) * k * 128 for c in range(TIMED_CHUNKS)]
+    eh.HybridMegaRenderer.launches = em.MegaRenderer.launches = 0
+    seq_iir.biquad_seq.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h_runs, hs = [h], h[2]
+    for start in starts:
+        h_runs.append(hybrid.render_chunk(params, hs, start_sample=start, num_blocks=k))
+        hs = h_runs[-1][2]
+    torch.cuda.synchronize()
+    h_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
+    launches = eh.HybridMegaRenderer.launches
+    if (launches != islands * TIMED_CHUNKS or em.MegaRenderer.launches
+            or seq_iir.biquad_seq.launches):
+        raise AssertionError(f"doppler scene: K3 {launches} launches for {islands} "
+                             f"islands x {TIMED_CHUNKS} chunks, K2 "
+                             f"{em.MegaRenderer.launches}, K1 {seq_iir.biquad_seq.launches}")
+    t0 = time.perf_counter()
+    e_runs, es = [e], e[2]
+    for start in starts:
+        e_runs.append(eager.render_chunk(params, es, start_sample=start, num_blocks=k))
+        es = e_runs[-1][2]
+    torch.cuda.synchronize()
+    e_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
+    worst = 0.0
+    for c, (hr, er) in enumerate(zip(h_runs, e_runs)):
+        out_e, state_e = float((hr[0] - er[0]).abs().max()), tree_err(hr[2], er[2])
+        if not torch.equal(hr[1], er[1]) or not max(out_e, state_e) <= HYBRID_TOL:
+            raise AssertionError(f"doppler scene chunk {c}: hybrid vs eager {out_e}, "
+                                 f"state {state_e}")
+        worst = max(worst, out_e, state_e)
+    peak = float(h_runs[-1][0].abs().max())
+    if not bool(torch.isfinite(h_runs[-1][0]).all()) or not 0.01 < peak <= 1.0:
+        raise AssertionError(f"doppler scene peak {peak}")
+    cpu = ft.BatchRenderer(ft.spatial_scene_graph(doppler_every=DOPPLER_EVERY,
+                                                  device="cpu"),
+                           CHECK_INSTANCES, device="cpu", lowering="hybrid")
+    cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state0)
+    cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
+    cpu_worst = 0.0
+    for start, hr in zip([0] + starts, h_runs):
+        c_out, c_mask, cpu_state = cpu.render_chunk(cpu_params, cpu_state,
+                                                    start_sample=start, num_blocks=k)
+        err = float((hr[0][:CHECK_INSTANCES].cpu() - c_out).abs().max())
+        if not err <= SLICE_TOL or not torch.equal(hr[1][:CHECK_INSTANCES].cpu(), c_mask):
+            raise AssertionError(f"doppler scene vs CPU plain hybrid at {start}: {err}")
+        cpu_worst = max(cpu_worst, err)
+
+    # K3 on the first island (the 128 beeps: no live-ins) against its plain
+    # version at the same operands
+    i = 0
+    lw = hy.islands[i]
+    pseg = {key: params[key] for key in hy._keys[i]}
+    sseg = {key: h_runs[-2][2][key] for key in hy._keys[i]}
+    env = torch.zeros((b, k, 0, 128), device="cuda")
+    env_flags = torch.zeros((b, k, 0), dtype=torch.bool, device="cuda")
+    ko, kf, ks = hy._launch(i, pseg, sseg, env, env_flags)
+    ro, rf, rs = em.island_chunk_reference(prog, lw, pseg, sseg, env, env_flags,
+                                           starts[-1], k, b)
+    torch.cuda.synchronize()
+    k3_err = max(float((ko - ro).abs().max()), tree_err(ks, rs))
+    if not torch.equal(kf, rf) or not k3_err <= HYBRID_TOL:
+        raise AssertionError(f"doppler scene: K3 vs its plain version {k3_err}")
+
+    def launch():
+        return hy._launch(i, pseg, sseg, env, env_flags)
+
+    k3_ms = device_ms(launch, "island_kernel", KERNEL_REPS)
+    k3_call = cuda_ms(launch, KERNEL_REPS)
+    plain_ms = cuda_ms(lambda: em.island_chunk_reference(
+        prog, lw, pseg, sseg, env, env_flags, starts[-1], k, b), 2)
+    work = kernel_work(em, prog, lw, pseg, sseg, b, k, ko.nbytes + kf.nbytes)
+    bound_ms, bound_by = bound(*work)
+    audio_secs = b * k * 128 / 48000
+    log(f"spatial 11(d), the scene with every {DOPPLER_EVERY}th emitter doppler on "
+        f"the hybrid on {card}: B={b}, K={k}, {islands} islands between "
+        f"{kinds.count('xla')} torch stages; K3 launches {launches} in "
+        f"{TIMED_CHUNKS} chunks ({islands} a chunk), K2 and K1 none")
+    log(f"spatial 11(d): hybrid vs eager on the card ({TIMED_CHUNKS + 1} chunks, "
+        f"outputs, masks, every state leaf) max_abs_err={worst:.3e}; the first "
+        f"{CHECK_INSTANCES} instances vs the CPU plain hybrid {cpu_worst:.3e}; K3 on "
+        f"the beeps' island ({len(lw.keys)} rows) vs its plain version "
+        f"{k3_err:.3e}")
+    log(f"spatial 11(d): K3 on the beeps' island {k3_ms:.4f} ms on the device "
+        f"({k3_call:.4f} ms a call, CUDA events), plain {plain_ms:.3f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by}; hybrid wall per chunk {h_wall * 1e3:.3f} "
+        f"ms (realtime factor {audio_secs / h_wall:.1f}), eager {e_wall * 1e3:.3f} "
+        f"ms (realtime factor {audio_secs / e_wall:.1f})")
+    return launches, max(worst, cpu_worst, k3_err), k3_ms, k3_call, plain_ms, work
+
+
+def spatial_binaural(ft, card: str):
+    """11(e): the headphone variant (binaural spatializers) eager at
+    B=1024, K=8, each instance at its own volume, against a CPU render."""
+    from firewheel_tpu_torch.convert import tree_map
+
+    b, k = BINAURAL
+    prog = ft.spatial_scene_graph(binaural=True, device="cuda")
+    br = ft.BatchRenderer(prog, b, device="cuda")
+    params = br.stack_params()
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    for key, p in params.items():
+        if key.startswith("binaural"):
+            p["gain"].mul_((0.25 + 1.25 * torch.rand((b,), generator=gen)).to("cuda"))
+    state = br.init_state()
+    cpu = ft.BatchRenderer(ft.spatial_scene_graph(binaural=True, device="cpu"),
+                           CHECK_INSTANCES, device="cpu")
+    cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
+    cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state)
+    worst, walls = 0.0, []
+    for c in range(TIMED_CHUNKS + 1):
+        t0 = time.perf_counter()
+        out, om, state = br.render_chunk(params, state, start_sample=c * k * 128,
+                                         num_blocks=k)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        c_out, c_om, cpu_state = cpu.render_chunk(cpu_params, cpu_state,
+                                                  start_sample=c * k * 128, num_blocks=k)
+        err = float((out[:CHECK_INSTANCES].cpu() - c_out).abs().max())
+        if not err <= SLICE_TOL or not torch.equal(om[:CHECK_INSTANCES].cpu(), c_om):
+            raise AssertionError(f"binaural scene chunk {c} vs CPU: {err}")
+        worst = max(worst, err)
+    err = tree_err(tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state), cpu_state)
+    peak = float(out.abs().max())
+    if not err <= SLICE_TOL or not 0.01 < peak <= 1.0:
+        raise AssertionError(f"binaural scene: state {err}, peak {peak}")
+    wall = float(np.mean(walls[1:]))
+    log(f"spatial 11(e), the binaural scene eager on {card}: B={b}, K={k}, first "
+        f"{CHECK_INSTANCES} instances vs the CPU over {TIMED_CHUNKS + 1} chunks and "
+        f"the final state: max_abs_err={max(worst, err):.3e}; wall per chunk "
+        f"{wall * 1e3:.3f} ms (realtime factor {b * k * 128 / 48000 / wall:.1f})")
+    return max(worst, err)
+
+
+def check_spatial(ft, seq_iir, em, eh, card: str, phase):
+    """Phase 11: the spatial scene → K2's and K3's numbers on it."""
+    spatial_stream_check(ft, card)
+    phase("11(a), the scene streamed")
+    spatial_eager(ft, card)
+    torch.cuda.empty_cache()
+    phase("11(b), the scene eager at B=8192, K=32")
+    k2 = spatial_mega(ft, seq_iir, em, card)
+    torch.cuda.empty_cache()
+    phase("11(c), the scene on K2")
+    k3 = spatial_hybrid(ft, seq_iir, em, eh, card)
+    torch.cuda.empty_cache()
+    phase("11(d), the doppler scene on the hybrid")
+    spatial_binaural(ft, card)
+    phase("11(e), the binaural scene")
+    return k2, k3
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -1699,6 +2232,7 @@ def main() -> int:
     phase("9, the streaming engine")
     log(f"phase 9: the stream on the card vs the CPU, max_abs_err={s_err:.3e}")
     serve_k1, serve_k3 = check_serving(ft, seq_iir, em, eh, card, phase)
+    spatial_k2, spatial_k3 = check_spatial(ft, seq_iir, em, eh, card, phase)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -1717,6 +2251,12 @@ def main() -> int:
         ("hybrid_island", "firewheel_tpu_torch/csrc/megakernel.cu",
          "firewheel_tpu/executor_pallas.py:617", h_launches, h_err, h_ms,
          h_call_ms, h_plain_ms, h_work),
+        # phase 11: K2 on the spatial scene (B=8192, K=32, every 4th emitter
+        # moving) and K3 on the doppler scene's beeps island (B=1024, K=8)
+        ("megakernel_spatial_scene", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:218", *spatial_k2),
+        ("hybrid_island_spatial_scene", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:617", *spatial_k3),
     ):
         bound_ms, bound_by = bound(*work)
         kernels.append({

@@ -11,8 +11,12 @@ checkpoints and restores the whole fleet.  Its streaming engine
 (``FirewheelCtx`` → ``GraphContext`` → ``GraphProcessor``) renders one
 graph live, buffer by buffer, with live edits, per-block param timelines,
 checkpoints, and latency compensation (``graph/latency.py`` splices
-``DelayCompNode``s onto early edges).  Checkpoints are the JAX package's
-files: either package restores the other's.  Its kernels are CUDA for
+``DelayCompNode``s onto early edges).  The spatial scene (BASELINE config
+5: ``Spatializer3DNode`` with doppler and occlusion,
+``BinauralSpatializerNode``, and ``SpatialScene``'s world-space emitters
+around an ``AudioListener``) renders on every path: streamed, batched,
+and through the megakernel's spatializer row.  Checkpoints are the JAX
+package's files: either package restores the other's.  Its kernels are CUDA for
 NVIDIA Hopper (``csrc/``).  It imports torch and numpy, never JAX.
 """
 
@@ -38,8 +42,12 @@ from .backend import (
     WavSink,
     available_output_devices,
 )
-from .mixer import effects_chain_graph, mixer_graph
-from .nodes import ConvolutionReverbNode, DelayCompNode, LoopRange, SamplerNode
+from .mixer import effects_chain_graph, mixer_graph, spatial_scene_graph
+from .nodes import (
+    BinauralSpatializerNode, ConvolutionReverbNode, DelayCompNode, LoopRange,
+    SamplerNode, Spatializer3DNode,
+)
+from .scene3d import AudioListener, SpatialScene
 from .parallel import BatchRenderer
 from .serving import SessionHandle, SessionServer
 from .checkpoint import (
@@ -54,10 +62,12 @@ __all__ = [
     "ArraySink",
     "AudioGraph",
     "AudioGraphConfig",
+    "AudioListener",
     "AudioNode",
     "AudioNodeInfo",
     "AutomationCurve",
     "BatchRenderer",
+    "BinauralSpatializerNode",
     "BlockInfo",
     "ConvolutionReverbNode",
     "DelayCompNode",
@@ -80,6 +90,8 @@ __all__ = [
     "SessionHandle",
     "SessionServer",
     "SilenceMask",
+    "SpatialScene",
+    "Spatializer3DNode",
     "StreamConfig",
     "StreamStatus",
     "UpdateResult",
@@ -94,4 +106,5 @@ __all__ = [
     "restore_into",
     "save_checkpoint",
     "save_sharded_checkpoint",
+    "spatial_scene_graph",
 ]

@@ -97,6 +97,12 @@
 //     group may write a buffer that an earlier one reads (the allocator
 //     reuses it), so a grouped row reads all of its inputs before the
 //     __syncwarp that precedes its writes.
+//  h. Large arenas: the spatial scene (BASELINE config 5, 266 nodes) keeps
+//     258 buffers live, 159 376 B a CTA at F = 128, so it runs at tile 1,
+//     one warp an SM, with every row's latency exposed; at F = 256 it fits
+//     nowhere and executor_mega.check_launchable refuses it before a
+//     launch.  Its spatializer rows run their one-pole on one lane
+//     (op_spatial).
 //
 // Device functions, each the counterpart of one of the port's node kernels
 // (and through it of the JAX package's):
@@ -105,7 +111,7 @@
 //   pan     nodes/pan.py:49     sum     nodes/sum.py:34
 //   filter  nodes/filter.py:101 (the sequential recurrence of K1)
 //   echo    nodes/delay.py:116  clip    nodes/hard_clip.py:55
-//   meter   nodes/meter.py:55
+//   meter   nodes/meter.py:55       spatial nodes/spatial.py (no doppler)
 // Built with --fmad=false and precise sinf/cosf/expf: each f32 operation
 // rounds as the eager torch op does.
 
@@ -134,7 +140,9 @@ enum Field {
   kOp, kNIn, kNOut, kIo, kSlot, kNSlot, kConst, kAux0, kAux1, kWord, kNClear,
   kGroup
 };
-enum OpCode { kDummy, kBeep, kVolume, kPan, kSum, kFilter, kEcho, kClip, kMeter };
+enum OpCode {
+  kDummy, kBeep, kVolume, kPan, kSum, kFilter, kEcho, kClip, kMeter, kSpatial
+};
 enum SmootherStatus { kInactive = 0, kActive = 1, kDeactivating = 2 };
 constexpr int kLeafWidth = 4;
 enum LeafField { kLeafWord, kLeafCount, kLeafType, kLeafState };
@@ -324,13 +332,14 @@ struct Smooth {
   }
 };
 
-// words: value, target, last, status; consts: a, log_b, eps
-__device__ Smooth smoother(const Row& r) {
-  const float val = wf(r, 0);
+// words: value (at v), target, last, status (at w, w + 1, w + 2); consts:
+// a, log_b, eps
+__device__ Smooth smoother(const Row& r, int v = 0, int w = 1) {
+  const float val = wf(r, v);
   Smooth s;
-  s.status = val != wf(r, 1) ? kActive : static_cast<int>(word(r, 3));
+  s.status = val != wf(r, w) ? kActive : static_cast<int>(word(r, w + 2));
   s.target = val;
-  s.last = wf(r, 2);
+  s.last = wf(r, w + 1);
   s.active = s.status == kActive;
   // x_eff = (val * a) / a as torch computes it on the card: its CUDA
   // division by a Python scalar multiplies by the scalar's f32 reciprocal
@@ -340,12 +349,13 @@ __device__ Smooth smoother(const Row& r) {
   return s;
 }
 
-// The new state; `reset` holds the target flat (smoother_init).
+// The new state at words w, w + 1, w + 2; `reset` holds the target flat
+// (smoother_init).
 __device__ void write_smoother(const Row& r, const Smooth& s, bool reset,
-                               int frames) {
-  set_wf(r, 1, s.target);
-  set_wf(r, 2, reset ? s.target : s.new_last(frames));
-  word(r, 3) = reset ? kInactive : s.new_status();
+                               int frames, int w = 1) {
+  set_wf(r, w, s.target);
+  set_wf(r, w + 1, reset ? s.target : s.new_last(frames));
+  word(r, w + 2) = reset ? kInactive : s.new_status();
 }
 
 // The smoother's values for frames 4q..4q+3 while it ramps: out of line,
@@ -785,6 +795,67 @@ __device__ void op_meter(const A& a, const Row& r, const Inst& I) {
     flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
 }
 
+// words: gain, pan, lp_b (params); gain.{target, last, status},
+// pan.{target, last, status}, lp (state); consts: a, log_b, eps (both
+// smoothers').  mono in → x·gain → the one-pole y = (1-b)·x + b·y_prev →
+// equal-power pan → L/R.  The one-pole runs on one lane over the block
+// with biquad_step's rounding, (b0, b1, b2, a1, a2) = (1-b, 0, 0, -b, 0)
+// and z1 = b·lp: each step is y = fma(1-b, x, b·y_prev), what the plain
+// versions compute through the sequential biquad
+// (nodes/spatial.py:one_pole_seq).  The other lanes wait at the
+// __syncwarp.  Silent only when the input is silent and the lowpass tail
+// is quiet (nodes/spatial.py:_kernel).
+template <class A>
+__device__ void op_spatial(const A& a, const Row& r, const Inst& I) {
+  const Smooth g = smoother(r, 0, 3);
+  const Smooth p = smoother(r, 1, 6);
+  const float b = wf(r, 2);
+  const float lp = wf(r, 9);
+  const bool silent = all_silent(r, I) && !(fabsf(lp) >= kQuiet);
+  const int x_buf = in_buf(r, 0), l_buf = out_buf(r, 0), r_buf = out_buf(r, 1);
+  // x·gain into the left output (the input may share its buffer)
+  const float4 flat = splat(g.value(0));
+  for (int q = I.lane; q < quads(a); q += kLanes) {
+    float4 gv = g.flat() ? flat : value4(g, q);
+    float4 x = frames4(a, I, x_buf, q);
+    float4 y;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) at(y, e) = at(x, e) * at(gv, e);
+    frames4(a, I, l_buf, q) = y;
+  }
+  __syncwarp();
+  if (I.lane == 0) {
+    const BiquadCoef c = {1.0f - b, 0.f, 0.f, -b, 0.f};
+    float z1 = b * lp, z2 = 0.f, y = lp;
+    for (int f = 0; f < a.F; ++f) {
+      y = biquad_step(c, frame(a, I, l_buf, f), z1, z2);
+      frame(a, I, l_buf, f) = y;
+    }
+    set_wf(r, 9, silent ? 0.f : y);
+  }
+  __syncwarp();
+  float gl0, gr0;
+  pan_gains(p.value(0), gl0, gr0);
+  for (int q = I.lane; q < quads(a); q += kLanes) {
+    float4 y = frames4(a, I, l_buf, q);
+    float4 gl = splat(gl0), gr = splat(gr0), yl, yr;
+    if (!p.flat()) pan_gains4(p, q, gl, gr);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      at(yl, e) = silent ? 0.f : at(y, e) * at(gl, e);
+      at(yr, e) = silent ? 0.f : at(y, e) * at(gr, e);
+    }
+    frames4(a, I, l_buf, q) = yl;
+    frames4(a, I, r_buf, q) = yr;
+  }
+  __syncwarp();  // every lane has read the smoothers
+  if (I.lane < 2) flag(I, out_buf(r, I.lane)) = silent;
+  if (I.lane == 0) {
+    write_smoother(r, g, silent, a.F, 3);
+    write_smoother(r, p, silent, a.F, 6);
+  }
+}
+
 // Row n's fields, three int4 loads from the table in shared memory.
 __device__ Row read_row(const Tables& t, const Inst& I, int n) {
   const int at0 = t.ops + n * kRowWidth;
@@ -831,6 +902,7 @@ __device__ void run_row(const A& a, const Row& r, const Inst& I, int k) {
     case kEcho: op_echo(a, r, I, k); break;
     case kClip: op_clip(a, r, I); break;
     case kMeter: op_meter(a, r, I); break;
+    case kSpatial: op_spatial(a, r, I); break;
   }
   __syncwarp();  // the next row reads what this one wrote
 }

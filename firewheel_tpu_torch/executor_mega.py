@@ -33,7 +33,10 @@ graph with stream inputs is not.  Two of the JAX megakernel's semantics
 are Mosaic workarounds and are not kept: its filter falls back to the
 associative scan and its clip counter freezes.  Here the filter runs the
 sequential recurrence of K1 (``csrc/biquad_step.cuh``) and the clip counter
-counts, as on the eager path.
+counts, as on the eager path.  The spatializer's one-pole runs sequentially
+too, on the same biquad step (the eager path runs the JAX package's
+associative scan; the two agree to ~1e-7); the doppler spatializer opts
+out.
 """
 
 from __future__ import annotations
@@ -57,6 +60,7 @@ from .nodes.filter import FilterProcessor
 from .nodes.hard_clip import HardClipProcessor
 from .nodes.meter import DbMeterProcessor
 from .nodes.pan import StereoPanProcessor
+from .nodes.spatial import Spatializer3DProcessor
 from .nodes.sum import SumProcessor
 from .nodes.volume import _MUTE_F32, VolumeProcessor
 from .ops.cuda_build import CudaLibrary
@@ -155,6 +159,15 @@ OPS: dict[type, _Op] = {
         8,
         (("state", ("peak",)), ("state", ("rms_sq",))),
         consts=lambda proc: (proc._peak_decay, proc._rms_alpha),
+    ),
+    # the speaker spatializer without doppler (the doppler one opts out);
+    # its one-pole runs the sequential recurrence (sequential_kernel)
+    Spatializer3DProcessor: _Op(
+        9,
+        (("params", ("gain",)), ("params", ("pan",)), ("params", ("lp_b",)))
+        + tuple(("state", ("gain", f)) for f in _SMOOTHER)
+        + tuple(("state", ("pan", f)) for f in _SMOOTHER) + (("state", ("lp",)),),
+        consts=lambda proc: _smoother_consts(proc, 1e-5),
     ),
 }
 _ECHO = OPS[EchoProcessor].code
@@ -469,7 +482,8 @@ def _walk_rows(program: ScheduleProgram, lowered: LoweredSchedule,
         s_slots = [i for i in mine if lowered.leaves[i].tree == "state"]
         s = _nest([(lowered.leaves[i].path, store.get(i)) for i in s_slots])
         proc = program._procs[key]
-        # the filter runs the sequential recurrence in the kernel
+        # the filter's and the spatializer's recurrences run sequentially
+        # in the kernel
         kernel = getattr(proc, "sequential_kernel", proc.kernel)
         y, s2, om = kernel(p, s, inputs, in_mask, info)
         for i, (path, t) in zip(s_slots, _flat(s2), strict=True):

@@ -1,5 +1,5 @@
 """The benchmark graphs: the batched 64-node mixer, the effects chain,
-and random graphs.
+the spatial scene, and random graphs.
 
 :func:`mixer_graph` mirrors ``__graft_entry__._mixer_graph``: 19 voices of
 BeepTest → Volume → StereoPan, then Sum → lowpass Filter 8 kHz → Echo
@@ -7,23 +7,31 @@ BeepTest → Volume → StereoPan, then Sum → lowpass Filter 8 kHz → Echo
 the two sentinels.  :func:`effects_chain_graph` mirrors the graph that
 ``bench.py --hybrid`` times, and :func:`effects_chain_config4_graph` the
 BASELINE config-4 graph of ``examples/effects_chain.py``: sampler → filter
-→ echo → clip → convolution reverb.  Node keys (``repr(NodeID)``) come out
-identical to the JAX package's.  :func:`random_graph` builds seeded random
-DAGs of the mixer's nodes, and :func:`vary_params` and
+→ echo → clip → convolution reverb.  :func:`spatial_scene_graph` builds
+BASELINE config 5, the 266-node graph of ``examples/spatial_scene.py``
+(128 beeps through 3D spatializers into group sums and a metered, clipped
+master), and :func:`orbit_scene` its automation.  Node keys
+(``repr(NodeID)``) come out identical to the JAX package's.
+:func:`random_graph` builds seeded random DAGs of the mixer's nodes, and :func:`vary_params` and
 :func:`vary_effects_params` give every instance of a batch its own params,
-for holding two lowerings against each other.
+for holding two lowerings against each other; :func:`vary_spatial_params`
+does so for the spatial scene.
 """
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
+from .core.automation import AutomationCurve
 from .core.sample_resource import SampleResource
 from .device import DEFAULT_DEVICE
 from .executor import ScheduleProgram
 from .graph import AudioGraph, AudioGraphConfig
 from . import nodes as _NODES
+from .nodes.spatial import Spatializer3DProcessor
 from .nodes import (
     BeepTestNode,
     ConvolutionReverbNode,
@@ -40,10 +48,11 @@ from .nodes import (
 )
 
 __all__ = [
-    "BLOCK", "SR", "add_effects_chain", "add_mixer", "add_voice",
-    "effects_chain_audio", "effects_chain_config4_graph",
-    "effects_chain_graph", "mixer_graph", "random_graph", "vary_effects_params",
-    "vary_params",
+    "BLOCK", "SR", "add_effects_chain", "add_mixer", "add_spatial_scene",
+    "add_voice", "effects_chain_audio", "effects_chain_config4_graph",
+    "effects_chain_graph", "mixer_graph", "orbit_scene", "random_graph",
+    "spatial_scene_graph", "vary_effects_params", "vary_params",
+    "vary_spatial_params",
 ]
 
 SR = 48000
@@ -311,4 +320,120 @@ def vary_effects_params(params: dict) -> dict:
         elif "taps" in p or "h_head" in p:
             b = torch.arange(p["wet"].shape[0], device=p["wet"].device)
             p["wet"].copy_(0.2 + 0.01 * (b % 32).to(torch.float32))
+    return params
+
+
+def _emitter(i: int, num_emitters: int):
+    """Emitter ``i`` of the spatial scene (``examples/spatial_scene.py``):
+    ``(angle, radius, listener-frame position, beep frequency)`` on a
+    circle around the listener, radius 3 + (i mod 5) m."""
+    angle = 2 * math.pi * i / num_emitters
+    radius = 3.0 + (i % 5)
+    pos = (radius * math.sin(angle), 0.0, -radius * math.cos(angle))
+    return angle, radius, pos, 110.0 * 2 ** ((i % 24) / 12.0)
+
+
+def add_spatial_scene(g: AudioGraph, num_emitters: int = 128, groups: int = 4,
+                      doppler_every: int = 0, binaural: bool = False, nodes=None):
+    """Add the spatial scene's nodes to ``g`` (stereo graph output):
+    ``num_emitters`` beeps at −30 dB, each into a spatializer, ``groups``
+    group sums, a master sum, volume 90%, a dB meter and a 0 dB clip, as
+    ``examples/spatial_scene.py`` builds them.  Every ``doppler_every``-th
+    spatializer (0: none) is a doppler one; ``binaural`` puts
+    ``BinauralSpatializerNode``s in place of the speaker spatializers.
+    ``nodes`` is the node module (the port's by default).  Returns
+    ``(meter, spatializers)``, each spatializer as ``(node id, angle,
+    radius)``."""
+    n = nodes or _NODES
+    if num_emitters % groups:
+        raise ValueError(f"{num_emitters} emitters do not split into {groups} groups")
+    per_group = num_emitters // groups
+    group_sums = [g.add_node(2 * per_group, 2, n.SumNode()) for _ in range(groups)]
+    master = g.add_node(2 * groups, 2, n.SumNode())
+    spatializers = []
+    for i in range(num_emitters):
+        angle, radius, pos, freq = _emitter(i, num_emitters)
+        emitter = g.add_node(0, 1, n.BeepTestNode(freq, -30.0, True))
+        if binaural:
+            node = n.BinauralSpatializerNode(position=pos)
+        else:
+            node = n.Spatializer3DNode(
+                position=pos, doppler=bool(doppler_every) and i % doppler_every == 0)
+        spat = g.add_node(1, 2, node)
+        g.connect(emitter, 0, spat, 0)
+        grp = group_sums[i // per_group]
+        slot = i % per_group
+        g.connect(spat, 0, grp, 2 * slot)
+        g.connect(spat, 1, grp, 2 * slot + 1)
+        spatializers.append((spat, angle, radius))
+    for gi, grp in enumerate(group_sums):
+        g.connect(grp, 0, master, 2 * gi)
+        g.connect(grp, 1, master, 2 * gi + 1)
+    vol = g.add_node(2, 2, n.VolumeNode(90.0))
+    meter = g.add_node(2, 2, n.DbMeterNode())
+    clip = g.add_node(2, 2, n.HardClipNode(0.0))
+    chain = [master, vol, meter, clip, g.graph_out_node()]
+    for src, dst in zip(chain, chain[1:]):
+        g.connect(src, 0, dst, 0)
+        g.connect(src, 1, dst, 1)
+    return meter, spatializers
+
+
+def spatial_scene_graph(num_emitters: int = 128, groups: int = 4,
+                        doppler_every: int = 0, binaural: bool = False,
+                        device: str | torch.device = DEFAULT_DEVICE) -> ScheduleProgram:
+    """BASELINE config 5 (:func:`add_spatial_scene`), compiled at 48 kHz in
+    blocks of 128 frames → a :class:`ScheduleProgram` on ``device``.  The
+    defaults give the 266-node graph of ``examples/spatial_scene.py``."""
+    g = AudioGraph(AudioGraphConfig(0, 2))
+    add_spatial_scene(g, num_emitters, groups, doppler_every, binaural)
+    pkg = g.compile(SR, BLOCK)
+    return ScheduleProgram(
+        pkg.schedule, dict(pkg.new_node_processors), SR, device=device
+    )
+
+
+def orbit_scene(automation, graph, spatializers, secs: float = 1.5) -> int:
+    """The example's automation: every (n // 32)-th of the ``n``
+    spatializers (every one below 32) sweeps 90° around the listener over
+    ``secs`` seconds, through ``automation`` (a ``ParamAutomator``, e.g.
+    ``FirewheelCtx.automation``).  ``spatializers`` are
+    :func:`add_spatial_scene`'s.  Returns the number of orbiting emitters."""
+    moving = spatializers[:: max(1, len(spatializers) // 32)]
+    for spat, angle, radius in moving:
+        node = graph.node(spat)
+
+        def mover(t_angle, node=node, base=angle, r=radius):
+            a = base + t_angle
+            node.set_position((r * math.sin(a), 0.0, -r * math.cos(a)))
+
+        automation.add(f"orbit-{spat!r}", mover,
+                       AutomationCurve.linear([(0.0, 0.0), (secs, math.pi / 2)]))
+    return len(moving)
+
+
+def vary_spatial_params(program: ScheduleProgram, params: dict, seed: int,
+                        moving_every: int = 0) -> dict:
+    """Give every instance of the spatial scene's batch-stacked ``params``
+    its own emitters, in place: each speaker spatializer's position moves
+    up to 2 m from where it is, its volume gain is in [0.25, 1.5) and its
+    occlusion in [0, 1) (0 for one instance in three), staged by the node's
+    own :meth:`~firewheel_tpu_torch.nodes.spatial.Spatializer3DProcessor.
+    stage`.  With ``moving_every``, only every ``moving_every``-th
+    spatializer changes (its smoothers then ramp from the state that
+    ``init_state`` seeded).  Returns ``params``."""
+    rng = np.random.default_rng(seed)
+    spats = [(key, proc) for key, proc in program._procs.items()
+             if isinstance(proc, Spatializer3DProcessor)]
+    for j, (key, proc) in enumerate(spats):
+        if moving_every and j % moving_every:
+            continue
+        p = params[key]
+        b = p["gain"].shape[0]
+        pos = (np.asarray(proc._node._position, np.float32)
+               + rng.uniform(-2.0, 2.0, (b, 3)).astype(np.float32))
+        occ = rng.uniform(0.0, 1.0, b) * (np.arange(b) % 3 != 0)
+        staged = proc.stage(pos, rng.uniform(0.25, 1.5, b), occ)
+        for leaf, v in staged.items():
+            p[leaf].copy_(torch.from_numpy(v))
     return params

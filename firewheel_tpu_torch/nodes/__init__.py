@@ -1,6 +1,7 @@
 """The node library (the nodes ported so far)."""
 
 from .beep_test import BeepTestNode
+from .binaural import BinauralSpatializerNode
 from .delay import DelayCompNode, EchoNode
 from .dummy import DummyAudioNode
 from .filter import FilterNode, FilterType
@@ -9,11 +10,13 @@ from .meter import DbMeterNode
 from .pan import StereoPanNode
 from .reverb import ConvolutionReverbNode
 from .sampler import LoopRange, SamplerNode
+from .spatial import Spatializer3DNode
 from .sum import SumNode
 from .volume import VolumeNode
 
 __all__ = [
     "BeepTestNode",
+    "BinauralSpatializerNode",
     "ConvolutionReverbNode",
     "DbMeterNode",
     "DelayCompNode",
@@ -24,6 +27,7 @@ __all__ = [
     "HardClipNode",
     "LoopRange",
     "SamplerNode",
+    "Spatializer3DNode",
     "StereoPanNode",
     "SumNode",
     "VolumeNode",

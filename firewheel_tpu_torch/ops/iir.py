@@ -1,7 +1,7 @@
-"""Biquad coefficients (the Audio-EQ-Cookbook designs) and the
-associative-scan biquad.
+"""Biquad coefficients (the Audio-EQ-Cookbook designs), the
+associative-scan biquad, and the one-pole lowpass scan.
 
-PyTorch port of ``firewheel_tpu/ops/iir.py:155-333``.  The designs take
+PyTorch port of ``firewheel_tpu/ops/iir.py:125-333``.  The designs take
 float32 tensors of any shape (one filter per element: every instance of a
 batch carries its own frequency and Q) and evaluate the same float32 ops
 in the same order as the JAX package.  A section runs either through
@@ -29,6 +29,8 @@ __all__ = [
     "biquad_high_shelf",
     "biquad_allpass",
     "biquad_scan",
+    "one_pole_coeffs",
+    "one_pole_scan",
 ]
 
 _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
@@ -220,3 +222,55 @@ def biquad_scan(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
                              z1[..., :n - 1]], dim=-1)
     y = b0 * x + z1_prev_seq
     return y, (z1[..., n - 1], z2[..., n - 1])
+
+
+# ---------------------------------------------------------------------------
+# One-pole lowpass (the smoother's filter, generalized)
+# ---------------------------------------------------------------------------
+
+def one_pole_coeffs(cutoff_hz, sample_rate):
+    """``b = exp(-2π·fc/sr)``: the one-pole lowpass ``y = a·x + b·y_prev``
+    with ``a = 1 - b``.  A tensor in gives tensors (float32); anything else
+    numpy float32.  Returns ``(a, b)``."""
+    if isinstance(cutoff_hz, torch.Tensor):
+        b = torch.exp(-_TWO_PI_F32 * cutoff_hz.to(torch.float32)
+                      / float(np.float32(sample_rate)))
+        return 1.0 - b, b
+    b = np.exp(np.float32(-2.0 * math.pi) * cutoff_hz / np.float32(sample_rate))
+    return np.float32(1.0) - b, b
+
+
+def _fma(a, b, c):
+    """float32 ``a·b + c``, rounded as one fused multiply-add: the float64
+    product of two float32 values is exact, so only the sum rounds, to
+    float64 and then to float32.  That double rounding differs from a true
+    FMA only when the float64 sum lands exactly halfway between two float32
+    values (about one operation in 2^28), by one float32 ulp."""
+    return (a.double() * b.double() + c.double()).float()
+
+
+def _one_pole_compose(e1, e2):
+    """``e2 ∘ e1`` of two affine maps ``y ↦ m·y + v``; ``v1·m2 + v2`` is
+    the fused multiply-add that XLA makes of it on the CPU."""
+    m1, v1 = e1
+    m2, v2 = e2
+    return m1 * m2, _fma(v1, m2, v2)
+
+
+def one_pole_scan(x: torch.Tensor, y_prev: torch.Tensor, a, b):
+    """Run ``y[n] = a·x[n] + b·y[n-1]`` along the last axis.
+
+    ``x f32[..., n]``; ``y_prev f32[...]`` (the carry, ``x.shape[:-1]``);
+    ``a`` and ``b`` are Python floats or float32 tensors that broadcast to
+    ``x`` (a scalar, or ``[..., 1]`` with one coefficient per row).  The
+    affine maps ``(b, a·x[n])`` are composed by :func:`_associative_scan`,
+    as ``lax.associative_scan`` composes them, and the carry is applied
+    after the scan, with the fused multiply-adds that XLA makes on the CPU
+    (equal to the JAX package's scan under ``jit`` at 2, 127, 128 and 1024
+    frames; at 1 and 3 frames XLA fuses differently, an ulp apart).
+    Returns ``(y f32[..., n], y_last f32[...])``."""
+    m = torch.as_tensor(b, dtype=torch.float32, device=x.device).expand(x.shape)
+    v = a * x
+    mm, vv = _associative_scan(_one_pole_compose, (m, v))
+    y = _fma(mm, y_prev[..., None], vv)
+    return y, y[..., x.shape[-1] - 1]

@@ -35,7 +35,7 @@ import math
 import torch
 
 from .cuda_build import CudaLibrary
-from .iir import BiquadCoeffs
+from .iir import BiquadCoeffs, _fma
 
 __all__ = ["biquad_seq", "biquad_seq_reference", "lane_repeat", "LIBRARY"]
 
@@ -52,15 +52,6 @@ def _bind(lib):
 
 #: ``csrc/biquad.cu``, built with nvcc at first use
 LIBRARY = CudaLibrary("fw_biquad", "biquad.cu", ("biquad_step.cuh",), _bind)
-
-
-def _fma(a, b, c):
-    """float32 ``a·b + c``, rounded as one fused multiply-add: the float64
-    product of two float32 values is exact, so only the sum rounds, to
-    float64 and then to float32.  That double rounding differs from a true
-    FMA only when the float64 sum lands exactly halfway between two float32
-    values (about one operation in 2^28), by one float32 ulp."""
-    return (a.double() * b.double() + c.double()).float()
 
 
 def biquad_seq_reference(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):

@@ -194,9 +194,11 @@ def test_render_block_one_instance_matches_jax(both):
 
 def test_port_imports_no_jax():
     """Importing the port, rendering one CPU chunk with each lowering
-    (eager, megakernel, and hybrid on the effects chain) and streaming the
-    mixer through ``FirewheelCtx`` (with its native ring built) leave JAX
-    and the JAX package out of ``sys.modules``."""
+    (eager, megakernel, and hybrid on the effects chain and on the spatial
+    scene with speaker, doppler and binaural spatializers), streaming the
+    mixer through ``FirewheelCtx`` (with its native ring built) and placing
+    an emitter in a ``SpatialScene`` leave JAX and the JAX package out of
+    ``sys.modules``."""
     code = (
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
@@ -229,12 +231,21 @@ def test_port_imports_no_jax():
         "g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))\n"
         "ft.mixer.add_mixer(g, 2)\n"
         "assert g.compensate_latency(48000).insertions == []\n"
+        "for kw in ({}, {'doppler_every': 2}, {'binaural': True}):\n"
+        "    p = ft.spatial_scene_graph(4, 2, device='cpu', **kw)\n"
+        "    sb = ft.BatchRenderer(p, 2, device='cpu', lowering='hybrid')\n"
+        "    out, om, st = sb.render_chunk(sb.stack_params(), sb.init_state(),"
+        " num_blocks=2)\n"
+        "    assert float(out.abs().max()) > 0.001, kw\n"
+        "scene = ft.SpatialScene(ft.AudioListener(forward=(1.0, 0.0, 0.0)))\n"
+        "scene.add('e', ft.Spatializer3DNode(), (5.0, 0.0, 0.0))\n"
         "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
         " 'ops.direct_conv', 'executor_hybrid', 'processor', 'context',"
         " 'channels', 'backend.context', 'backend.stream', 'backend.ring_buffer',"
         " 'backend.device_info', 'core.events', 'core.interleave',"
         " 'core.silence_mask', 'core.automation', 'serving', 'checkpoint',"
-        " '_msgpack', 'graph.latency'):\n"
+        " '_msgpack', 'graph.latency', 'nodes.spatial', 'nodes.binaural',"
+        " 'scene3d', 'ops.pan', 'ops.iir'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
