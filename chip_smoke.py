@@ -4,10 +4,13 @@ Run from the root of a checkout:  python3 chip_smoke.py
 
 1. Prints the card's name and power limit.
 2. Builds the sequential-biquad kernel (``firewheel_tpu_torch/csrc/
-   biquad.cu``, K1) and the megakernel (``csrc/megakernel.cu``, K2 and K3)
-   with nvcc, one process each, and prints ptxas's registers, spills and
-   stack frame for K1 (16-byte and 4-byte copies) and for K2 and K3, each
-   with blocks of 128 frames fixed (the main path) and of any length.
+   biquad.cu``, K1), the megakernel (``csrc/megakernel.cu``, K2 and K3),
+   the IMA ADPCM encoder (``csrc/adpcm.cu``, K4), the sample scans
+   (``csrc/sample_scan.cu``, K5) and the threefry noise draw
+   (``csrc/noise.cu``, K6) with nvcc, one process each, all at once, and
+   prints ptxas's registers, spills and stack frame for K1 (16-byte and
+   4-byte copies), for K2 and K3, each with blocks of 128 frames fixed (the
+   main path) and of any length, and for K4-K6.
 3. Holds K1 against its plain PyTorch version on the card, with a
    different filter per lane: at the main path's shape, at F = 1, 100, 127
    and 4096 (longer than its ring of stages), at 33 lanes (a ragged warp),
@@ -17,6 +20,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    the wrapper materialises).  Times K1 at the main path's shape and at
    2048 lanes: its device time (``torch.profiler``) and a call with the
    wrapper's host work (CUDA events); and its plain version.
+   3(b). Holds K4 (int16[8192, 4096, 2], the adpcm4 fleet's chunk, and
+   three ragged shapes), K5 (each of its four kinds: the envelope, the
+   limiter's release and the gate's latch at 8192 lanes, the pink filter
+   at 16 384, F=128) and K6 (f32[8192, 2, 128], the blocks before and
+   after the 2^32 wrap of the stream clock) against their plain versions
+   on the card, bit for bit, and times each.
 4. Renders the 64-node mixer (filter on the kernel) with a BatchRenderer
    at B=8192 instances, K=32 blocks a chunk; checks finite outputs, the
    kernel's launch count (K per chunk) and the first instances against a
@@ -91,7 +100,14 @@ Run from the root of a checkout:  python3 chip_smoke.py
    sampler events equal); one K3 launch a chunk, no K1.  (e) The mixer
    streamed through ``FirewheelCtx``, saved at buffer 20 and continued to
    40; a fresh ctx loads the checkpoint and renders buffers 20..40 bit for
-   bit; ``output_latency_frames`` after ``compensate_latency``.
+   bit; ``output_latency_frames`` after ``compensate_latency``.  (f) The
+   mixer fleet of (a) with ``output_format="adpcm4"`` beside the same
+   fleet in pcm16: three chunks through ``render_fetched``, each a quarter
+   of pcm16's bytes plus the headers, the first bit-equal to K4's plain
+   version on the card applied to the pcm16 fleet's chunk and to the host
+   codec (``utils/adpcm.encode_ima``) for slots 0..15; K4 once a chunk;
+   ``render_stream`` against ``render_chunk`` and ``.cpu()``; both fleets'
+   shipped realtime factor, in turns.
 11. The spatial scene (BASELINE config 5, ``examples/spatial_scene.py``:
    128 beeps through 3D spatializers, 4 group sums, a metered and clipped
    master, 266 nodes, 258 arena buffers) on the card.  (a) Streamed through
@@ -113,19 +129,35 @@ Run from the root of a checkout:  python3 chip_smoke.py
    B=1024, K=8: against eager and the CPU plain hybrid, K3 once an island a
    chunk, K3 timed on the beeps' island against its plain version.  (e) The
    binaural variant eager at B=1024, K=8 against a CPU render.
+12. The mastering bus (``examples/mastering_bus.py``: pink noise ducked
+   under a beep dialogue, compressor, 255-tap FIR shelf, lookahead
+   limiter, loudness meter; ``mixer.mastering_bus_graph``).  (a) Streamed
+   through ``FirewheelCtx`` as the example streams it (256-frame buffers,
+   4 s, the dialogue on from 1.0 s to 2.5 s, the meter read every 100 ms
+   into ``IntegratedLoudness``) against the same stream on the CPU, which
+   a worker process runs while the card runs phases 2-11: audio and state
+   within 1e-5, every reading and the integrated loudness within 1e-3 LU;
+   its realtime factor, wall a buffer, K5 and K6 launches a block and the
+   kernels a block (``torch.profiler``).  (b) Eager at B=8192, K=32 with
+   per-instance seeds, thresholds, duck depth, makeup and dialogue, the
+   first instances against a CPU render; wall a chunk, peak memory, K5 and
+   K6 launches a chunk.  (c) ``MegaRenderer`` refuses it; the hybrid at
+   B=1024, K=8 (one torch stage) against eager on the card, within 1e-6.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
 batched main path (``launches``), in phase 9's stream (``stream_launches``;
 K1's device time, call and plain version at the stream's 2 lanes beside
-them) and in phase 10's fleets (``serve_launches``), and K2 and K3 once
-more for the spatial scene of phase 11, its error against its
+them) and in phase 10's fleets (``serve_launches``), K2 and K3 once
+more for the spatial scene of phase 11, and K4-K6 (launches in 10(f)'s
+fleet and 12(b)'s batched bus, times from 3(b)), its error against its
 plain version, its device time on the
 card (``ms``, by ``torch.profiler``, or by CUDA events where the log says
 the profile saw no device activity) and a call's time with its wrapper's
 host work (``call_ms``, by CUDA events), the plain version's, and its
-bound: the larger of the bytes it must move over 3.35 TB/s and its f32
-operations over 67 TFLOP/s (NVIDIA's H100 SXM data sheet).
+bound: the larger of the bytes it must move over 3.35 TB/s and its
+operations over 67 TFLOP/s, the f32 rate (NVIDIA's H100 SXM data sheet;
+K4's and K6's 32-bit integer operations are counted at that rate).
 Any failure raises and exits non-zero without that line.  Without a CUDA
 device, or without the package beside this file, it exits non-zero too.
 """
@@ -202,33 +234,38 @@ def device_ms(fn, kernel: str, reps: int) -> float:
     Minutes into this script a profile has seen no device activity at all
     (in each of four calls, in phase 11(c) or 11(d), at a profile that
     another call took without fault; a fresh process profiled every
-    launch).  Then the launches are timed by CUDA events instead, back to
-    back, and the log says so: for a kernel that outlasts its wrapper's
-    host work, as phase 11's do, that is its device time too.  A profile
-    that sees the card but not each launch fails."""
+    launch), or has seen the card but only some of the launches (one of
+    ten K3 launches in phase 11(d)).  A profile that misses launches is
+    taken once more; if that one misses them too, the launches are timed
+    by CUDA events instead, back to back, and the log says so: for a
+    kernel that outlasts its wrapper's host work, as phase 11's do, that
+    is its device time too."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    averages = prof.key_averages()
-    if not any(e.device_type == torch.autograd.DeviceType.CUDA for e in averages):
-        ms = cuda_ms(fn, reps)
-        log(f"{kernel}: torch.profiler saw no device activity; {reps} launches "
-            f"timed by CUDA events instead, {ms:.4f} ms each")
-        return ms
-    hits = [e for e in averages if kernel in e.key]
-    # the mean over the launches the profiler recorded: all of them, or all
-    # but one (a launch at the edge of the trace may be left out)
-    if (len(hits) != 1 or not reps - 1 <= hits[0].count <= reps
-            or not hits[0].device_time_total > 0):
-        raise AssertionError(f"profiler saw {[(e.key, e.count) for e in hits]} "
-                             f"for {reps} launches of {kernel}")
-    log(f"{kernel}: {hits[0].count} of {reps} launches profiled")
-    return hits[0].device_time_total / hits[0].count / 1e3
+    seen = []
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        averages = prof.key_averages()
+        if not any(e.device_type == torch.autograd.DeviceType.CUDA for e in averages):
+            seen.append("no device activity")
+            continue
+        hits = [e for e in averages if kernel in e.key]
+        # the mean over the launches the profiler recorded: all of them, or
+        # all but one (a launch at the edge of the trace may be left out)
+        if (len(hits) == 1 and reps - 1 <= hits[0].count <= reps
+                and hits[0].device_time_total > 0):
+            log(f"{kernel}: {hits[0].count} of {reps} launches profiled")
+            return hits[0].device_time_total / hits[0].count / 1e3
+        seen.append(str([(e.key, e.count) for e in hits]))
+    ms = cuda_ms(fn, reps)
+    log(f"{kernel}: torch.profiler saw {' then '.join(seen)} for {reps} launches; "
+        f"timed by CUDA events instead, {ms:.4f} ms each")
+    return ms
 
 
 def bound(nbytes: float, ops: float):
@@ -380,6 +417,139 @@ def check_kernel(seq_iir, iir):
             f"with the wrapper's host work (CUDA events), plain {plain_ms:.4f} ms")
         times[lanes] = ms, call_ms, plain_ms
     return worst, *times[2 * B]
+
+
+# phase 3(b): the kernels of the adpcm4 egress and the mastering bus
+# the bound counts K4's and K6's 32-bit integer operations at the f32 rate
+# of F32_OPS_PER_S (the data sheet gives no INT32 rate): a lower bound
+K4_OPS = 35         # 32-bit integer operations a sample (one step of the encoder)
+K6_OPS = 262        # two Threefry-2x32 hashes and the float conversion, a sample
+#: f32 operations a sample of each K5 kind (a fused multiply-add counts two)
+K5_OPS = {"envelope": 6, "limiter": 5, "gate": 14, "pink": 20}
+NOISE_SAMPLE = 2**32 - 128   # the block before the stream clock wraps
+
+
+def once_ms(fn) -> float:
+    """One call of ``fn`` timed by the host clock between two synchronizes
+    (for plain versions of thousands of small launches)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def scan_operands(dynamics, kind: str, lanes: int, gen):
+    """``(kind code, x, carry, coefs)`` for K5 at the main path's lanes:
+    levels, gains or white noise ``f32[lanes, 128]`` and each kind's state
+    and per-lane coefficients, on the card."""
+    dev = torch.device("cuda")
+
+    def u(lo, hi, shape=(lanes,)):
+        return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(dev)
+
+    if kind == "envelope":
+        return (dynamics.ENVELOPE, u(0.0, 1.0, (lanes, 128)), (u(0.0, 1.0),),
+                (u(0.99, 0.999), u(0.999, 0.99999)))
+    if kind == "limiter":
+        return (dynamics.LIMITER, u(0.2, 1.0, (lanes, 128)), (u(0.2, 1.0),),
+                (u(0.999, 0.9999),))
+    if kind == "gate":
+        carry = ((torch.rand((lanes,), generator=gen) < 0.5).float().to(dev),
+                 torch.randint(0, 60, (lanes,), generator=gen).float().to(dev),
+                 u(0.0, 1.0))
+        coefs = (u(0.02, 0.05), u(0.005, 0.02), u(0.0, 0.5), u(0.9, 0.99),
+                 u(0.999, 0.9999), torch.full((lanes,), 48.0, device=dev))
+        return dynamics.GATE, u(0.0, 0.06, (lanes, 128)), carry, coefs
+    return (dynamics.PINK, u(-1.0, 1.0, (lanes, 128)),
+            tuple(u(-20.0, 20.0) for _ in range(3)), ())
+
+
+def check_new_kernels(adpcm_device, dynamics, noise):
+    """Phase 3(b): K4, K5 (each of its four step kinds) and K6 against their
+    plain versions on the card at the main paths' shapes, bit for bit
+    (tolerance 0.0: integer-exact, or the same fused multiply-adds); each
+    one's device time (``torch.profiler``), a call's (CUDA events), the
+    plain version's, and its work → ``{name: (err, ms, call_ms, plain_ms,
+    (bytes, ops))}``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(4321)
+    res = {}
+
+    # K4 at the adpcm4 fleet's chunk (B=8192, S=K·128=4096, stereo), one
+    # instance saturating the step index at both ends; and ragged cases
+    s = K * 128
+    pcm = (torch.randn((B, s, 2), generator=gen) * 6000).clamp(-32768, 32767)
+    pcm = pcm.to(torch.int16)
+    pcm[0, : s // 2] = -32768
+    pcm[0, s // 2:] = 32767
+    pcm = pcm.to(dev)
+    for shape in ((3, 8, 2), (5, 136, 1), (33, 512, 2)):
+        x = (torch.randn(shape, generator=gen) * 9000).clamp(-32768, 32767)
+        x = x.to(torch.int16).to(dev)
+        if not torch.equal(adpcm_device.encode_ima_chunk(x),
+                           adpcm_device.encode_ima_chunk_reference(x)):
+            raise AssertionError(f"K4 disagrees with its plain version at {shape}")
+    rows = adpcm_device.encode_ima_chunk(pcm)
+    ref = {}
+    plain_ms = once_ms(lambda: ref.setdefault(
+        "rows", adpcm_device.encode_ima_chunk_reference(pcm)))
+    if not torch.equal(rows, ref["rows"]):
+        bad = int((rows != ref["rows"]).sum())
+        raise AssertionError(f"K4 disagrees with its plain version: {bad} bytes")
+    ms = device_ms(lambda: adpcm_device.encode_ima_chunk(pcm), "adpcm_encode",
+                   KERNEL_REPS)
+    call_ms = cuda_ms(lambda: adpcm_device.encode_ima_chunk(pcm), 20)
+    work = (pcm.numel() * 2 + rows.numel(), K4_OPS * pcm.numel())
+    log(f"K4 vs plain at int16{tuple(pcm.shape)} → uint8{tuple(rows.shape)}: bit "
+        f"for bit (and at 3 ragged shapes); kernel {ms:.4f} ms on the device, "
+        f"{call_ms:.4f} ms a call, plain {plain_ms:.1f} ms (one call)")
+    res["adpcm_encode"] = (0.0, ms, call_ms, plain_ms, work)
+    del pcm, rows, ref
+
+    # K5: each kind at the bus's lanes (the dynamics nodes' B; the pink
+    # filter's B x 2 channels), carry and output bit for bit
+    times = {}
+    for kind in ("envelope", "limiter", "gate", "pink"):
+        lanes = 2 * B if kind == "pink" else B
+        code, x, carry, coefs = scan_operands(dynamics, kind, lanes, gen)
+        (c_k, y_k), (c_r, y_r) = (fn(code, x, carry, coefs) for fn in
+                                  (dynamics.scan_lanes, dynamics.scan_reference))
+        torch.cuda.synchronize()
+        if not (torch.equal(y_k, y_r) and all(map(torch.equal, c_k, c_r))):
+            e = float((y_k - y_r).abs().max())
+            raise AssertionError(f"K5 ({kind}) disagrees with its plain version: {e}")
+        ms = device_ms(lambda: dynamics.scan_lanes(code, x, carry, coefs),
+                       "sample_scan", KERNEL_REPS)
+        call_ms = cuda_ms(lambda: dynamics.scan_lanes(code, x, carry, coefs), 50)
+        plain_ms = cuda_ms(lambda: dynamics.scan_reference(code, x, carry, coefs), 1)
+        nbytes = 4 * (2 * x.numel() + lanes * (2 * len(carry) + len(coefs)))
+        times[kind] = (ms, call_ms, plain_ms, (nbytes, K5_OPS[kind] * x.numel()))
+        log(f"K5 vs plain, {kind} at f32[{lanes}, 128]: bit for bit; kernel "
+            f"{ms:.4f} ms on the device, {call_ms:.4f} ms a call, plain "
+            f"{plain_ms:.2f} ms")
+    res["sample_scan"] = (0.0, *times["pink"])
+
+    # K6 at the bus's draw, f32[8192, 2, 128], the block before the clock
+    # wraps and the first after it
+    seeds = torch.randint(0, 2**32, (B,), generator=gen, dtype=torch.int64).to(dev)
+    for sample in (NOISE_SAMPLE, 0):
+        at = torch.tensor(sample, dtype=torch.int64, device=dev)
+        got = noise.noise_uniform(seeds, at, 2, 128)
+        want = noise.noise_uniform_reference(seeds, at, 2, 128)
+        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+            raise AssertionError(f"K6 disagrees with its plain version at {sample}")
+    at = torch.tensor(NOISE_SAMPLE, dtype=torch.int64, device=dev)
+    ms = device_ms(lambda: noise.noise_uniform(seeds, at, 2, 128), "noise_uniform",
+                   KERNEL_REPS)
+    call_ms = cuda_ms(lambda: noise.noise_uniform(seeds, at, 2, 128), 50)
+    plain_ms = cuda_ms(lambda: noise.noise_uniform_reference(seeds, at, 2, 128), 3)
+    n = B * 2 * 128
+    res["noise_uniform"] = (0.0, ms, call_ms, plain_ms, (4 * n + 8 * B, K6_OPS * n))
+    log(f"K6 vs plain at f32[{B}, 2, 128], stream samples {NOISE_SAMPLE} and 0: "
+        f"bit for bit; kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a "
+        f"call, plain {plain_ms:.2f} ms")
+    return res
 
 
 def render_mixer(ft, seq_iir, card: str):
@@ -1042,7 +1212,11 @@ def stream_counts(prof, buffers: int, blocks: int):
                 d2h += 1
     n = buffers * blocks
     if len(k1) != n:
-        raise AssertionError(f"the profile saw {len(k1)} K1 launches in {n} blocks")
+        # a profile minutes into the script may lose launches (see
+        # ``device_ms``): then K1's stream time is not read from it
+        log(f"stream: the profile saw {len(k1)} K1 launches in {n} blocks; K1 "
+            f"is timed at the stream's width by ``device_ms`` instead")
+        k1 = []
     per_block, calls, busy = profile_busy(prof, n)
     return per_block, calls, h2d / buffers, d2h / buffers, busy, k1
 
@@ -1183,7 +1357,11 @@ def check_stream(ft, seq_iir, em, eh, card: str):
     k1_err = float((y - yr).abs().max())
     if not k1_err <= KERNEL_TOL:
         raise AssertionError(f"K1 at 2 lanes vs plain: {k1_err}")
-    k1_ms = float(np.mean(k1_us)) / 1e3
+    if k1_us:
+        k1_ms = float(np.mean(k1_us)) / 1e3
+    else:
+        k1_ms = device_ms(lambda: seq_iir.biquad_seq(x, z, c), "biquad", 200)
+        k1_us = [k1_ms * 1e3]
     k1_call = cuda_ms(lambda: seq_iir.biquad_seq(x, z, c), 200)
     k1_plain = cuda_ms(lambda: seq_iir.biquad_seq_reference(x, z, c), 10)
     k1_bound, k1_by = bound(4 * 2 * (2 * STREAM_BLOCK + 5 + 2 * 2), 9 * 2 * STREAM_BLOCK)
@@ -1661,9 +1839,114 @@ def stream_checkpoint(ft, card: str):
         f"silent frames")
 
 
-def check_serving(ft, seq_iir, em, eh, card: str, phase):
+ADPCM_CHUNKS = 3      # chunks through render_fetched, then flush
+ADPCM_HOST_CHECK = 16  # instances held against the host codec
+
+
+def serve_adpcm(ft, seq_iir, adpcm_device, card: str):
+    """10(f): the mixer fleet of 10(a) with ``output_format="adpcm4"``
+    (capacity 8192, K=32, 1024 sessions, eager with K1), beside the same
+    fleet in pcm16: the shipped rows against K4's plain version on the
+    card applied to the pcm16 fleet's chunk, and against the host codec for
+    the first instances; ``render_stream``; both fleets' shipped realtime
+    factor in turns.  Returns K4's launches on the main path."""
+    from firewheel_tpu_torch.utils.adpcm import encode_ima
+
+    cap, k = SERVE_CAPACITY, SERVE_K
+    s = k * 128
+    fleets = {}
+    for fmt in ("adpcm4", "pcm16"):
+        prog, handles = mixer_template(ft, "cuda")
+        srv = ft.SessionServer(prog, cap, chunk_blocks=k, device="cuda",
+                               output_format=fmt)
+        for i in range(SERVE_SESSIONS):
+            srv.connect(mixer_session(handles, i))
+        fleets[fmt] = srv
+    srv, pcm = fleets["adpcm4"], fleets["pcm16"]
+
+    # the main path, counts set to 0 just before it
+    adpcm_device.encode_ima_chunk.launches = seq_iir.biquad_seq.launches = 0
+    rows = [srv.render_fetched() for _ in range(ADPCM_CHUNKS)][1:] + [srv.flush()]
+    k4, k1 = adpcm_device.encode_ima_chunk.launches, seq_iir.biquad_seq.launches
+    if k4 != ADPCM_CHUNKS or k1 != k * ADPCM_CHUNKS:
+        raise AssertionError(f"adpcm4 fleet: K4 {k4} launches, K1 {k1} in "
+                             f"{ADPCM_CHUNKS} chunks of K={k}")
+    wires = [pcm.render_fetched() for _ in range(ADPCM_CHUNKS)][1:] + [pcm.flush()]
+    ba = adpcm_device.chunk_block_align(2, s)
+    for c, (r, w) in enumerate(zip(rows, wires, strict=True)):
+        if r.dtype != np.uint8 or r.shape != (cap, ba):
+            raise AssertionError(f"adpcm4 chunk {c}: {r.dtype}{r.shape}")
+        if r.nbytes != w.nbytes // 4 + cap * 2 * 4:
+            raise AssertionError(f"adpcm4 chunk {c}: {r.nbytes} bytes for "
+                                 f"{w.nbytes} of pcm16")
+    for b in range(ADPCM_HOST_CHECK):
+        payload, _ = encode_ima(wires[0][b].reshape(s, 2).T, ba)
+        if not np.array_equal(rows[0][b], np.frombuffer(payload, np.uint8)):
+            raise AssertionError(f"adpcm4 chunk 0, slot {b}: not the host codec's bytes")
+    wire = torch.from_numpy(wires[0]).to("cuda").reshape(cap, s, 2)
+    plain = adpcm_device.encode_ima_chunk_reference(wire).cpu().numpy()
+    if not np.array_equal(rows[0], plain):
+        raise AssertionError(f"adpcm4 chunk 0: {int((rows[0] != plain).sum())} bytes "
+                             "differ from K4's plain version on the pcm16 fleet's chunk")
+    loud = int(np.abs(wires[-1][:SERVE_SESSIONS].astype(np.int32)).max())
+
+    # render_stream: the rows equal render_chunk + .cpu(), chunk by chunk
+    br = srv._br
+    params, state0, s0 = srv._params, srv._state, srv.sample
+    ref, st, at = [], state0, s0
+    for _ in range(2):
+        out, _, st = br.render_chunk(params, st, start_sample=at, num_blocks=k)
+        ref.append(out.cpu().numpy())
+        at += s
+    seen = []
+
+    def check(x):
+        if x.shape != (cap, ba) or not np.array_equal(x, ref[len(seen)]):
+            raise AssertionError(f"adpcm4 render_stream chunk {len(seen)} differs")
+        seen.append(x.nbytes)
+
+    br.render_stream(params, state0, num_chunks=2, num_blocks=k, start_sample=s0,
+                     on_chunk=check)
+    if len(seen) != 2:
+        raise AssertionError(f"adpcm4 render_stream delivered {len(seen)} chunks")
+
+    # the shipped realtime factor of both fleets, in turns (pcm16, adpcm4,
+    # adpcm4, pcm16), ADPCM_CHUNKS chunks through render_fetched each
+    walls = {"pcm16": [], "adpcm4": []}
+    for fmt in ("pcm16", "adpcm4", "adpcm4", "pcm16"):
+        f = fleets[fmt]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ADPCM_CHUNKS):
+            f.render_fetched()
+        f.flush()
+        walls[fmt].append((time.perf_counter() - t0) / ADPCM_CHUNKS)
+    audio_secs = cap * s / 48000
+    rtf = {fmt: audio_secs / (sum(w) / len(w)) for fmt, w in walls.items()}
+    log(f"serving 10(f), the mixer fleet in adpcm4 on {card}: capacity {cap}, K={k}, "
+        f"{SERVE_SESSIONS} sessions; {len(rows)} chunks shipped through "
+        f"render_fetched/flush, each a quarter of the pcm16 fleet's bytes plus "
+        f"the headers; chunk 0 bit-equal to K4's plain version on the card "
+        f"applied to the pcm16 fleet's chunk, and to the host codec "
+        f"(utils/adpcm.encode_ima) for slots 0..{ADPCM_HOST_CHECK - 1} "
+        f"(pcm16 peak {loud} LSB); render_stream equal to render_chunk + .cpu() "
+        f"for 2 chunks; K4 {k4} launches (1 a chunk), K1 {k1}")
+    log(f"serving 10(f): {rows[0].nbytes / 1e6:.3f} MB a chunk shipped as adpcm4 "
+        f"against {wires[0].nbytes / 1e6:.3f} MB as pcm16 (a quarter plus "
+        f"{cap * 2 * 4} header bytes); wall per chunk through render_fetched "
+        f"adpcm4 {' and '.join(f'{w * 1e3:.3f}' for w in walls['adpcm4'])} ms, "
+        f"pcm16 {' and '.join(f'{w * 1e3:.3f}' for w in walls['pcm16'])} ms (run "
+        f"pcm16, adpcm4, adpcm4, pcm16); realtime factor of the shipped audio "
+        f"adpcm4 {rtf['adpcm4']:.1f}, pcm16 {rtf['pcm16']:.1f}")
+    del fleets, srv, pcm, br, params, state0
+    torch.cuda.empty_cache()
+    return k4
+
+
+def check_serving(ft, seq_iir, em, eh, adpcm_device, card: str, phase):
     """Phase 10: the serving fleet on the card → the launches of K1 in the
-    mixer fleet and of K3 in the hybrid fleet."""
+    mixer fleet, of K3 in the hybrid fleet and of K4 in the adpcm4
+    fleet."""
     srv, k1, _ = serve_mixer(ft, seq_iir, em, eh, card)
     phase("10(a), the mixer fleet")
     serve_egress(srv, card)
@@ -1676,7 +1959,9 @@ def check_serving(ft, seq_iir, em, eh, card: str, phase):
     phase("10(d), the hybrid fleet")
     stream_checkpoint(ft, card)
     phase("10(e), the stream checkpoint and latency")
-    return k1, k3
+    k4 = serve_adpcm(ft, seq_iir, adpcm_device, card)
+    phase("10(f), the mixer fleet in adpcm4")
+    return k1, k3, k4
 
 
 # phase 11: the spatial scene (BASELINE config 5, examples/spatial_scene.py)
@@ -1780,7 +2065,10 @@ def spatial_stream_check(ft, card: str):
     blocks = pumps * SPATIAL_CHUNK_BUFFERS * STREAM_BUFFER // STREAM_BLOCK
     per_block, calls, busy = profile_busy(prof["profile"], blocks)
     if not per_block:
-        raise AssertionError("the stream's profile saw no kernel on the card")
+        # the card's work is held by the comparison with the CPU's stream
+        # above; only this profile's numbers are lost (see ``device_ms``)
+        log("spatial 11(a): torch.profiler saw no kernel on the card; its kernels, "
+            "launch calls and busy share below are not measured (0)")
     audio_secs = run["audio"].shape[1] / 48000
     walls = np.asarray(run["walls"][1:]) * 1e3 / SPATIAL_CHUNK_BUFFERS
     groups = [g for g in run["groups"] if g[2] in ("BeepTestProcessor",
@@ -2161,6 +2449,355 @@ def check_spatial(ft, seq_iir, em, eh, card: str, phase):
     return k2, k3
 
 
+# phase 12: the mastering bus (examples/mastering_bus.py)
+MASTER_SECS = 4.0            # the example's stream
+MASTER_BUFFER = 256          # frames a buffer and a block, as the example streams
+DIALOGUE = (1.0, 2.5)        # seconds with the dialogue on
+MASTER_PROFILED = (300, 4)   # buffers 300..303 under torch.profiler (dialogue on)
+MASTER_CHUNKS = 3            # 12(b): chunks at B=8192, K=32
+MASTER_CHECK = 2             # 12(b): instances re-rendered on the CPU
+MASTER_COMPARED = 2          # 12(b): chunks compared with the CPU render
+MASTER_HYBRID = (1024, 8)    # 12(c): B, K
+MASTER_HYBRID_TOL = 1e-6     # 12(c): hybrid vs eager on the card
+LU_TOL = 1e-3                # card vs CPU loudness readings, in LU
+
+
+def mastering_stream(device: str, profile: bool = False) -> dict:
+    """The mastering bus streamed offline through ``FirewheelCtx`` on
+    ``device`` as ``examples/mastering_bus.py`` streams it: 48 kHz stereo,
+    256-frame buffers and blocks, 4 s, the dialogue on from 1.0 s to 2.5 s,
+    the loudness meter read every 100 ms into ``IntegratedLoudness``.  With
+    ``profile``, ``torch.profiler`` traces buffers MASTER_PROFILED.
+    Returns a dict of numpy results: the audio, each reading, the
+    integrated loudness, the final state, the walls, K5's and K6's
+    launches and the profile's counts.  The CPU's run goes on in a worker
+    process (:class:`CpuStream`) while the card runs the earlier phases."""
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import firewheel_tpu_torch as ft
+    from firewheel_tpu_torch.convert import state_to_numpy
+    from firewheel_tpu_torch.mixer import add_mastering_bus
+    from firewheel_tpu_torch.nodes import IntegratedLoudness, LoudnessMeterNode
+    from firewheel_tpu_torch.ops import dynamics, noise
+
+    cx = ft.FirewheelCtx(device=device)
+    g = cx.graph_mut()
+    ids = add_mastering_bus(g)
+    voice = g.node(ids["voice"])
+    sink = ft.ArraySink()
+    frames = int(MASTER_SECS * 48000)
+    cx.activate(ft.StreamConfig(48000, 2, buffer_frames=MASTER_BUFFER), sink=sink,
+                duration_secs=MASTER_SECS)
+    stream = cx.stream
+    integ = IntegratedLoudness()
+    out = {"walls": [], "reads": []}
+    first, n_prof = MASTER_PROFILED
+    prof = None
+    dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
+    t_start = time.perf_counter()
+    i = 0
+    while stream.frames_rendered < frames:
+        sec = stream.frames_rendered / 48000
+        voice.set_enabled(DIALOGUE[0] < sec < DIALOGUE[1])
+        if profile and i == first:
+            torch.cuda.synchronize()
+            prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+            prof.__enter__()
+            t_prof = time.perf_counter()
+        cx.update(max_pump_buffers=0)
+        t0 = time.perf_counter()
+        stream.pump(1)
+        out["walls"].append(time.perf_counter() - t0)
+        i += 1
+        if prof is not None and i == first + n_prof:
+            stream.flush()
+            torch.cuda.synchronize()
+            out["profile_wall"] = time.perf_counter() - t_prof
+            prof.__exit__(None, None, None)
+            out["profile"] = profile_busy(prof, n_prof)
+            prof = None
+        if len(out["reads"]) < int(stream.frames_rendered / 48000 * 10):
+            r = LoudnessMeterNode.read(cx.node_state(ids["meter"]))
+            integ.push(r["gating_block_lufs"])
+            out["reads"].append([r["momentary_lufs"], r["short_term_lufs"],
+                                 r["gating_block_lufs"]])
+    stream.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t_start
+    out["buffers"] = i
+    out["k5"], out["k6"] = dynamics.scan_lanes.launches, noise.noise_uniform.launches
+    out["integrated"] = integ.value()
+    out["reads"] = np.asarray(out["reads"])
+    out["state"] = state_to_numpy(stream._processor.state_dict())
+    out["meter_key"] = ft.node_key(ids["meter"])
+    out["audio"] = sink.audio(2)
+    cx.deactivate()
+    if out["audio"].shape != (2, frames):
+        raise AssertionError(f"the bus streamed {out['audio'].shape}, expected "
+                             f"{(2, frames)}")
+    return out
+
+
+def _cpu_stream_worker(conn) -> None:
+    """The CPU's 12(a) stream in a worker process, on one thread; sends
+    ``("ok", result)`` or ``("error", traceback)`` to the parent."""
+    import traceback
+
+    try:
+        torch.set_num_threads(1)
+        conn.send(("ok", mastering_stream("cpu")))
+    except Exception:  # the worker's boundary: the parent raises it
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+class CpuStream:
+    """12(a)'s CPU stream, started in a spawned worker process at once.
+    :meth:`get` waits for its result (raising what the worker raised, or
+    if it died without one); :meth:`stop` ends the worker."""
+
+    def __init__(self):
+        import multiprocessing
+
+        ctx = multiprocessing.get_context("spawn")
+        self._conn, child = ctx.Pipe(duplex=False)
+        self._proc = ctx.Process(target=_cpu_stream_worker, args=(child,),
+                                 daemon=True)
+        self._proc.start()
+        child.close()
+
+    def get(self) -> dict:
+        while not self._conn.poll(1.0):
+            if not self._proc.is_alive():
+                raise RuntimeError(f"the CPU stream's worker exited "
+                                   f"({self._proc.exitcode}) without a result")
+        status, value = self._conn.recv()
+        self._proc.join(60)
+        if status != "ok":
+            raise RuntimeError(f"the CPU stream failed in its worker:\n{value}")
+        return value
+
+    def stop(self) -> None:
+        if self._proc.is_alive():
+            self._proc.terminate()
+        self._proc.join()
+        self._conn.close()
+
+
+#: the meter's leaves held by its readings: the K-weighting's 38 Hz
+#: high-pass, a pole next to 1, amplifies an ulp of its input into its state,
+#: and each 100 ms hop's energy is a sum of 4800 powers taken in another
+#: order on each device (ops/iir.py, nodes/loudness.py)
+METER_HELD_BY_READINGS = ("shelf_z", "hp_z", "ring")
+
+
+def bus_state_err(a: dict, b: dict, meter_key: str):
+    """``(largest abs difference of the float leaves but the meter's
+    filter states and ring, {meter leaf: its largest abs difference, the
+    ring's relative})`` of two bus states (numpy trees); integer and bool
+    leaves must be equal."""
+    err, meter = 0.0, {}
+    for key in b:
+        for leaf, y in b[key].items():
+            x = a[key][leaf]
+            if x.shape != y.shape or x.dtype != y.dtype:
+                raise AssertionError(f"{key}/{leaf}: {x.dtype}{x.shape} vs "
+                                     f"{y.dtype}{y.shape}")
+            if x.dtype.kind != "f":
+                if not np.array_equal(x, y):
+                    raise AssertionError(f"{key}/{leaf} differs: {x} vs {y}")
+            elif key == meter_key and leaf in METER_HELD_BY_READINGS:
+                d = np.abs(x - y)
+                if leaf == "ring":
+                    d = d / np.maximum(np.abs(y), 1e-30)
+                meter[leaf] = float(d.max())
+            elif x.size:
+                err = max(err, float(np.abs(x - y).max()))
+    return err, meter
+
+
+def master_stream_check(ft, cpu_result, card: str):
+    """12(a): the bus streamed on the card against the CPU's stream (from
+    the worker): the audio and every state leaf within 1e-5, but the
+    meter's filter states and ring, which are held by its readings (every
+    reading and the integrated loudness within 1e-3 LU) and printed."""
+    out = mastering_stream("cuda", profile=True)
+    cpu = cpu_result.get()
+    audio_err = float(np.abs(out["audio"] - cpu["audio"]).max())
+    state_err, meter_err = bus_state_err(out["state"], cpu["state"], out["meter_key"])
+    finite = np.isfinite(cpu["reads"])
+    reads_err = float(np.abs(np.where(finite, out["reads"] - cpu["reads"], 0.0)).max())
+    if not (np.isfinite(out["audio"]).all() and audio_err <= SLICE_TOL
+            and state_err <= SLICE_TOL and reads_err <= LU_TOL
+            and np.array_equal(np.isfinite(out["reads"]), finite)
+            and abs(out["integrated"] - cpu["integrated"]) <= LU_TOL):
+        raise AssertionError(f"12(a): card vs CPU audio {audio_err}, state {state_err}, "
+                             f"meter {meter_err}, readings {reads_err} LU, integrated "
+                             f"{out['integrated']} vs {cpu['integrated']}")
+    buffers = out["buffers"]
+    if out["k5"] != 4 * buffers or out["k6"] != buffers or cpu["k5"] or cpu["k6"]:
+        raise AssertionError(f"12(a): K5 {out['k5']}, K6 {out['k6']} launches in "
+                             f"{buffers} blocks (CPU {cpu['k5']}, {cpu['k6']})")
+    peak = float(np.abs(out["audio"]).max())
+    if not 0.3 < peak <= 1.0:
+        raise AssertionError(f"12(a): the bus peaks at {peak}")
+    secs = MASTER_SECS
+    walls = np.asarray(out["walls"]) * 1e3
+    log(f"12(a), the mastering bus streamed on {card}: {buffers} buffers of "
+        f"{MASTER_BUFFER} frames ({secs} s, dialogue {DIALOGUE[0]}–{DIALOGUE[1]} s), "
+        f"{len(out['reads'])} meter readings; card vs CPU: audio max_abs_err="
+        f"{audio_err:.3e}, state {state_err:.3e} (but the meter's), readings "
+        f"{reads_err:.3e} LU; the meter's shelf state {meter_err['shelf_z']:.3e}, "
+        f"high-pass state {meter_err['hp_z']:.3e}, ring {meter_err['ring']:.3e} "
+        f"relative; peak {peak:.4f}")
+    log(f"12(a): integrated loudness (R128 gate) card {out['integrated']:.4f} LUFS, "
+        f"CPU {cpu['integrated']:.4f} LUFS; final short-term card "
+        f"{out['reads'][-1][1]:.4f}, CPU {cpu['reads'][-1][1]:.4f} LUFS")
+    k_block, calls, busy = out.get("profile", (0.0, 0.0, 0.0))
+    busy_share = busy / 1e6 / out.get("profile_wall", float("inf"))
+    n_prof = MASTER_PROFILED[1]
+    log(f"12(a): stream realtime factor card {secs / out['wall']:.3f} ({out['wall']:.3f} "
+        f"s), CPU {secs / cpu['wall']:.3f} ({cpu['wall']:.3f} s, the worker process); "
+        f"wall a buffer p50 {np.percentile(walls, 50):.3f} ms, p99 "
+        f"{np.percentile(walls, 99):.3f} ms (budget {MASTER_BUFFER / 48:.3f} ms); "
+        f"K5 {out['k5'] / buffers:.0f} and K6 {out['k6'] / buffers:.0f} launches a "
+        f"block; over {n_prof} profiled buffers {k_block:.1f} kernels a block on "
+        f"the device for {calls:.1f} launch calls, device busy {busy:.0f} us, "
+        f"{100 * busy_share:.2f}% of their wall (0 when the profile saw no "
+        f"device activity)")
+    return audio_err, out["k5"], out["k6"]
+
+
+def master_batched(ft, seq_iir, dynamics, noise, card: str):
+    """12(b): the bus eager at B=8192, K=32, per-instance params
+    (``vary_mastering_params``); the first instances against a CPU render
+    of the same instances.  Returns the error and K5's and K6's
+    launches."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import vary_mastering_params
+
+    prog = ft.mastering_bus_graph(device="cuda")
+    br = ft.BatchRenderer(prog, B, device="cuda")
+    params = vary_mastering_params(prog, br.stack_params(), seed=12)
+    state = br.init_state()
+    cprog = ft.mastering_bus_graph(device="cpu")
+    cbr = ft.BatchRenderer(cprog, MASTER_CHECK, device="cpu")
+    cparams = tree_map(lambda t: t[:MASTER_CHECK].cpu().clone(), params)
+    cstate = cbr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, counts set to 0 just before it
+    dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
+    seq_iir.biquad_seq.launches = 0
+    walls, firsts = [], []
+    for c in range(MASTER_CHUNKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, om, state = br.render_chunk(params, state, start_sample=c * K * 128,
+                                         num_blocks=K)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"12(b): chunk {c} is not finite")
+        firsts.append((out[:MASTER_CHECK].cpu(), om[:MASTER_CHECK].cpu()))
+    k5, k6, k1 = dynamics.scan_lanes.launches, noise.noise_uniform.launches, \
+        seq_iir.biquad_seq.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if k5 != 4 * K * MASTER_CHUNKS or k6 != K * MASTER_CHUNKS or k1:
+        raise AssertionError(f"12(b): K5 {k5}, K6 {k6}, K1 {k1} launches in "
+                             f"{MASTER_CHUNKS} chunks of K={K}")
+    err = 0.0
+    for c in range(MASTER_COMPARED):
+        cout, cmask, cstate = cbr.render_chunk(cparams, cstate, start_sample=c * K * 128,
+                                               num_blocks=K)
+        if not torch.equal(cmask, firsts[c][1]):
+            raise AssertionError(f"12(b): chunk {c}'s masks differ from the CPU's")
+        err = max(err, float((cout - firsts[c][0]).abs().max()))
+    loud = float(firsts[-1][0].abs().max())
+    if not err <= SLICE_TOL or loud < 0.05:
+        raise AssertionError(f"12(b): first instances vs the CPU {err}, peak {loud}")
+    wall = sum(walls[1:]) / (MASTER_CHUNKS - 1)
+    audio_secs = B * K * 128 / 48000
+    log(f"12(b), the mastering bus eager on {card}: B={B}, K={K}, per-instance "
+        f"seeds, thresholds, duck depth, makeup and dialogue; instances "
+        f"0..{MASTER_CHECK - 1} vs the CPU over {MASTER_COMPARED} chunks: "
+        f"max_abs_err={err:.3e}; wall per chunk "
+        f"{' / '.join(f'{w * 1e3:.3f}' for w in walls)} ms (the first a warm-up), "
+        f"{wall * 1e3:.3f} ms after it, realtime factor {audio_secs / wall:.1f}; "
+        f"peak memory {peak_gb:.3f} GB; K5 {k5 // MASTER_CHUNKS} and K6 "
+        f"{k6 // MASTER_CHUNKS} launches a chunk, K1 none")
+    return err, k5, k6
+
+
+def master_lowerings(ft, em, eh, dynamics, noise, card: str):
+    """12(c): ``MegaRenderer`` refuses the bus (no node of it has a row in
+    K2); the hybrid at B=1024, K=8 (every node a torch stage) against
+    eager on the card."""
+    from firewheel_tpu_torch.mixer import vary_mastering_params
+
+    b, k = MASTER_HYBRID
+    prog = ft.mastering_bus_graph(device="cuda")
+    em.MegaRenderer.launches = 0
+    try:
+        em.MegaRenderer(prog, b, k, device="cuda")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("12(c): MegaRenderer accepted the mastering bus")
+    if em.MegaRenderer.launches:
+        raise AssertionError("12(c): K2 launched")
+    hy = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
+    eg = ft.BatchRenderer(prog, b, device="cuda")
+    params = vary_mastering_params(prog, eg.stack_params(), seed=13)
+    states = {"hybrid": hy.init_state(), "eager": eg.init_state()}
+    err = 0.0
+    counts = {}
+    for c in range(2):
+        res = {}
+        for name, r in (("hybrid", hy), ("eager", eg)):
+            eh.HybridMegaRenderer.launches = 0
+            dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
+            out, om, states[name] = r.render_chunk(params, states[name],
+                                                   start_sample=c * k * 128,
+                                                   num_blocks=k)
+            torch.cuda.synchronize()
+            counts[name] = (eh.HybridMegaRenderer.launches, dynamics.scan_lanes.launches,
+                            noise.noise_uniform.launches)
+            res[name] = (out, om)
+        if not torch.equal(res["hybrid"][1], res["eager"][1]):
+            raise AssertionError(f"12(c): chunk {c}'s masks differ")
+        err = max(err, float((res["hybrid"][0] - res["eager"][0]).abs().max()))
+    err = max(err, tree_err(states["hybrid"], states["eager"]))
+    if not err <= MASTER_HYBRID_TOL or counts["hybrid"] != (0, 4 * k, k):
+        raise AssertionError(f"12(c): hybrid vs eager {err}, launches (K3, K5, K6) "
+                             f"{counts['hybrid']}")
+    log(f"12(c), the bus's lowerings on {card}: MegaRenderer refuses it "
+        f"(ValueError: {refused[:60]}...); the hybrid at B={b}, K={k} is "
+        f"{len(hy._chunk_cache[('hybrid', k)].segments)} torch stage, no island; "
+        f"against eager over 2 chunks max_abs_err={err:.3e} (outputs and every "
+        f"state leaf), masks equal; a chunk launches K3 {counts['hybrid'][0]}, K5 "
+        f"{counts['hybrid'][1]}, K6 {counts['hybrid'][2]} times")
+    return err
+
+
+def check_mastering(ft, seq_iir, em, eh, dynamics, noise, cpu_result, card: str, phase):
+    """Phase 12: the mastering bus on the card → ``(err, K5 and K6 launches
+    on the batched path, K5 and K6 in the stream)``."""
+    s_err, s_k5, s_k6 = master_stream_check(ft, cpu_result, card)
+    phase("12(a), the bus streamed")
+    b_err, k5, k6 = master_batched(ft, seq_iir, dynamics, noise, card)
+    torch.cuda.empty_cache()
+    phase("12(b), the bus eager at B=8192, K=32")
+    h_err = master_lowerings(ft, em, eh, dynamics, noise, card)
+    phase("12(c), the bus's lowerings")
+    return max(s_err, b_err, h_err), k5, k6, s_k5, s_k6
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2170,13 +2807,27 @@ def main() -> int:
     import firewheel_tpu_torch as ft
     from firewheel_tpu_torch import executor_hybrid as eh
     from firewheel_tpu_torch import executor_mega as em
-    from firewheel_tpu_torch.ops import cuda_build, iir, seq_iir
+    from firewheel_tpu_torch.ops import (
+        adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
+    )
 
     if not os.path.abspath(ft.__file__).startswith(here + os.sep):
         raise RuntimeError(f"firewheel_tpu_torch imported from {ft.__file__}")
     if "jax" in sys.modules or "firewheel_tpu" in sys.modules:
         raise RuntimeError("the port imported JAX")
+    # 12(a)'s CPU stream runs in a worker process while the card runs
+    # phases 2..11; it is read in phase 12
+    cpu_stream = CpuStream()
+    try:
+        return run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir,
+                          noise, seq_iir, cpu_stream)
+    finally:
+        cpu_stream.stop()
 
+
+def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
+               cpu_stream) -> int:
+    """Phases 1..12 and the result lines."""
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -2190,7 +2841,8 @@ def main() -> int:
         log(f"phase {name}: {now - t0:.1f} s (total {now - t_start:.1f} s)")
         t0 = now
 
-    cuda_build.build_all([seq_iir.LIBRARY, em.LIBRARY], verbose=True)
+    new_libraries = (adpcm_device.LIBRARY, dynamics.LIBRARY, noise.LIBRARY)
+    cuda_build.build_all([seq_iir.LIBRARY, em.LIBRARY, *new_libraries], verbose=True)
     if seq_iir.LIBRARY.log:
         # two instantiations: 16-byte copies, and 4-byte copies
         for name, report in ptxas_report(seq_iir.LIBRARY.log,
@@ -2207,10 +2859,19 @@ def main() -> int:
                 log(f"ptxas, {kernel} ({frames}): {report}")
     else:
         log("ptxas: the megakernel library was built before this run")
-    phase("2, K1 and the megakernel (K2, K3) built")
+    for lib, kernel in zip(new_libraries, ("adpcm_encode_kernel", "sample_scan_kernel",
+                                           "noise_uniform_kernel")):
+        if lib.log:
+            for name, report in ptxas_report(lib.log, kernel).items():
+                log(f"ptxas, {name}: {report}")
+        else:
+            log(f"ptxas: {lib.name} was built before this run")
+    phase("2, K1, the megakernel (K2, K3) and K4-K6 built")
 
     err, ms, call_ms, plain_ms = check_kernel(seq_iir, iir)
     phase("3, K1 vs plain")
+    new_kernels = check_new_kernels(adpcm_device, dynamics, noise)
+    phase("3(b), K4-K6 vs plain")
     launches = render_mixer(ft, seq_iir, card)
     phase("4, mixer eager")
     m_launches, m_err, m_ms, m_call_ms, m_plain_ms, m_work = render_mega(
@@ -2231,8 +2892,11 @@ def main() -> int:
     s_err, s_launches, k1_stream = check_stream(ft, seq_iir, em, eh, card)
     phase("9, the streaming engine")
     log(f"phase 9: the stream on the card vs the CPU, max_abs_err={s_err:.3e}")
-    serve_k1, serve_k3 = check_serving(ft, seq_iir, em, eh, card, phase)
+    serve_k1, serve_k3, serve_k4 = check_serving(ft, seq_iir, em, eh, adpcm_device,
+                                                 card, phase)
     spatial_k2, spatial_k3 = check_spatial(ft, seq_iir, em, eh, card, phase)
+    bus_err, bus_k5, bus_k6, stream_k5, stream_k6 = check_mastering(
+        ft, seq_iir, em, eh, dynamics, noise, cpu_stream, card, phase)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -2257,24 +2921,36 @@ def main() -> int:
          "firewheel_tpu/executor_pallas.py:218", *spatial_k2),
         ("hybrid_island_spatial_scene", "firewheel_tpu_torch/csrc/megakernel.cu",
          "firewheel_tpu/executor_pallas.py:617", *spatial_k3),
+        # phase 3(b)'s checks and times at the main paths' shapes; launches
+        # in 10(f)'s adpcm4 fleet (K4) and 12(b)'s batched bus (K5, K6)
+        ("adpcm_encode", "firewheel_tpu_torch/csrc/adpcm.cu",
+         "firewheel_tpu/ops/adpcm_device.py:82", serve_k4,
+         *new_kernels["adpcm_encode"]),
+        ("sample_scan", "firewheel_tpu_torch/csrc/sample_scan.cu",
+         "firewheel_tpu/ops/dynamics.py:30", bus_k5, *new_kernels["sample_scan"]),
+        ("noise_uniform", "firewheel_tpu_torch/csrc/noise.cu",
+         "firewheel_tpu/nodes/generators.py:85", bus_k6,
+         *new_kernels["noise_uniform"]),
     ):
         bound_ms, bound_by = bound(*work)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
-            "launches": n, "stream_launches": s_launches if name == "biquad_seq" else 0,
-            "serve_launches": {"biquad_seq": serve_k1,
-                               "hybrid_island": serve_k3}.get(name, 0),
+            "launches": n,
+            "stream_launches": {"biquad_seq": s_launches, "sample_scan": stream_k5,
+                                "noise_uniform": stream_k6}.get(name, 0),
+            "serve_launches": {"biquad_seq": serve_k1, "hybrid_island": serve_k3,
+                               "adpcm_encode": serve_k4}.get(name, 0),
             "max_abs_err": e, "ms": t, "call_ms": call,
             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / t,
-            "library_ms": None,  # no one PyTorch call computes any of the three
+            "library_ms": None,  # no one PyTorch call computes any of them
         })
         if name == "biquad_seq":  # at the stream's width, 2 lanes
             kernels[-1].update(zip(("stream_ms", "stream_call_ms", "stream_plain_ms",
                                     "stream_bound_ms"), k1_stream))
         log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "
-            f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G f32 "
-            f"operations), {100 * bound_ms / t:.1f}% of the bound")
+            f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G "
+            f"operations at the f32 rate), {100 * bound_ms / t:.1f}% of the bound")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -6,7 +6,8 @@ effects chain (sampler → filter → echo → clip → reverb, through the hybr
 lowering's megakernel islands).  A ``SessionServer`` multiplexes client
 sessions onto one batch renderer: it connects, updates, resets and
 disconnects sessions, ships each chunk to the host as interleaved pcm16
-while the next one renders, polls per-session device events, and
+or as IMA ADPCM rows (``output_format="adpcm4"``) while the next one
+renders, polls per-session device events, and
 checkpoints and restores the whole fleet.  Its streaming engine
 (``FirewheelCtx`` → ``GraphContext`` → ``GraphProcessor``) renders one
 graph live, buffer by buffer, with live edits, per-block param timelines,
@@ -15,7 +16,10 @@ checkpoints, and latency compensation (``graph/latency.py`` splices
 5: ``Spatializer3DNode`` with doppler and occlusion,
 ``BinauralSpatializerNode``, and ``SpatialScene``'s world-space emitters
 around an ``AudioListener``) renders on every path: streamed, batched,
-and through the megakernel's spatializer row.  Checkpoints are the JAX
+and through the megakernel's spatializer row.  The mastering bus
+(``mastering_bus_graph``: pink noise ducked under a dialogue beep, a
+compressor, a 255-tap FIR shelf, a lookahead limiter and an EBU R128
+loudness meter) renders streamed and batched.  Checkpoints are the JAX
 package's files: either package restores the other's.  Its kernels are CUDA for
 NVIDIA Hopper (``csrc/``).  It imports torch and numpy, never JAX.
 """
@@ -42,7 +46,9 @@ from .backend import (
     WavSink,
     available_output_devices,
 )
-from .mixer import effects_chain_graph, mixer_graph, spatial_scene_graph
+from .mixer import (
+    effects_chain_graph, mastering_bus_graph, mixer_graph, spatial_scene_graph,
+)
 from .nodes import (
     BinauralSpatializerNode, ConvolutionReverbNode, DelayCompNode, LoopRange,
     SamplerNode, Spatializer3DNode,
@@ -99,6 +105,7 @@ __all__ = [
     "WavSink",
     "available_output_devices",
     "effects_chain_graph",
+    "mastering_bus_graph",
     "load_checkpoint",
     "load_sharded_local",
     "mixer_graph",

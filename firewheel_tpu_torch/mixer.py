@@ -15,7 +15,11 @@ master), and :func:`orbit_scene` its automation.  Node keys
 :func:`random_graph` builds seeded random DAGs of the mixer's nodes, and :func:`vary_params` and
 :func:`vary_effects_params` give every instance of a batch its own params,
 for holding two lowerings against each other; :func:`vary_spatial_params`
-does so for the spatial scene.
+does so for the spatial scene.  :func:`mastering_bus_graph` builds the
+game-audio master chain of ``examples/mastering_bus.py`` (pink-noise music
+ducked under a beep dialogue, compressor, 255-tap linear-phase FIR shelf,
+lookahead limiter, loudness meter), and :func:`vary_mastering_params`
+varies it per instance.
 """
 
 from __future__ import annotations
@@ -31,6 +35,10 @@ from .device import DEFAULT_DEVICE
 from .executor import ScheduleProgram
 from .graph import AudioGraph, AudioGraphConfig
 from . import nodes as _NODES
+from .core.units import db_to_gain
+from .nodes.dynamics import CompressorProcessor, DuckerProcessor
+from .nodes.generators import NoiseProcessor
+from .nodes.beep_test import BeepTestProcessor
 from .nodes.spatial import Spatializer3DProcessor
 from .nodes import (
     BeepTestNode,
@@ -48,10 +56,11 @@ from .nodes import (
 )
 
 __all__ = [
-    "BLOCK", "SR", "add_effects_chain", "add_mixer", "add_spatial_scene",
-    "add_voice", "effects_chain_audio", "effects_chain_config4_graph",
-    "effects_chain_graph", "mixer_graph", "orbit_scene", "random_graph",
-    "spatial_scene_graph", "vary_effects_params", "vary_params",
+    "BLOCK", "SR", "add_effects_chain", "add_mastering_bus", "add_mixer",
+    "add_spatial_scene", "add_voice", "air_shelf_taps", "effects_chain_audio",
+    "effects_chain_config4_graph", "effects_chain_graph", "mastering_bus_graph",
+    "mixer_graph", "orbit_scene", "random_graph", "spatial_scene_graph",
+    "vary_effects_params", "vary_mastering_params", "vary_params",
     "vary_spatial_params",
 ]
 
@@ -436,4 +445,96 @@ def vary_spatial_params(program: ScheduleProgram, params: dict, seed: int,
         staged = proc.stage(pos, rng.uniform(0.25, 1.5, b), occ)
         for leaf, v in staged.items():
             p[leaf].copy_(torch.from_numpy(v))
+    return params
+
+
+def air_shelf_taps(nodes=None) -> np.ndarray:
+    """The mastering bus's linear-phase "air" shelf: +2 dB above 8 kHz as a
+    255-tap FIR, the full band at 1.259 minus the excess below 8 kHz (a
+    Hamming-windowed lowpass, ``design_windowed_sinc``)."""
+    n = nodes or _NODES
+    lp = n.design_windowed_sinc("lowpass", 255, SR, 8000.0)
+    air = np.zeros(255, np.float32)
+    air[127] = 1.259
+    air += lp * (1.0 - 1.259)
+    return air
+
+
+def add_mastering_bus(g: AudioGraph, nodes=None) -> dict:
+    """Add the mastering bus of ``examples/mastering_bus.py`` to ``g``
+    (stereo graph output): pink noise (−14 dB, seed 11) as the music and a
+    280 Hz beep (−12 dB, off) as the dialogue; a ducker (threshold −40 dB,
+    depth −12 dB, 10 ms / 250 ms) with the dialogue as its sidechain; the
+    ducked music and the dialogue summed; a compressor (−18 dB, 3:1, 10 ms /
+    150 ms, makeup 3 dB); the 255-tap air shelf (:func:`air_shelf_taps`); a
+    limiter (ceiling −1 dB, 3 ms lookahead); a loudness meter.  ``nodes`` is
+    the node module (the port's by default).  Returns the node ids by name:
+    ``music``, ``voice``, ``duck``, ``mix``, ``comp``, ``eq``, ``lim``,
+    ``meter``."""
+    n = nodes or _NODES
+    ids = {
+        "music": g.add_node(0, 2, n.NoiseNode("pink", gain_db=-14.0, seed=11)),
+        "voice": g.add_node(0, 2, n.BeepTestNode(280.0, -12.0, False)),
+        "duck": g.add_node(4, 2, n.DuckerNode(threshold_db=-40.0, duck_db=-12.0,
+                                              attack_secs=0.01, release_secs=0.25)),
+        "mix": g.add_node(4, 2, n.SumNode()),
+        "comp": g.add_node(2, 2, n.CompressorNode(threshold_db=-18.0, ratio=3.0,
+                                                  attack_secs=0.01,
+                                                  release_secs=0.15, makeup_db=3.0)),
+        "eq": g.add_node(2, 2, n.FirFilterNode(air_shelf_taps(n))),
+        "lim": g.add_node(2, 2, n.LimiterNode(ceiling_db=-1.0, lookahead_secs=0.003)),
+        "meter": g.add_node(2, 2, n.LoudnessMeterNode()),
+    }
+    for c in range(2):
+        g.connect(ids["music"], c, ids["duck"], c)        # main bus
+        g.connect(ids["voice"], c, ids["duck"], 2 + c)    # sidechain
+        g.connect(ids["duck"], c, ids["mix"], c)          # ducked music
+        g.connect(ids["voice"], c, ids["mix"], 2 + c)     # the dialogue itself
+        g.connect(ids["mix"], c, ids["comp"], c)
+        g.connect(ids["comp"], c, ids["eq"], c)
+        g.connect(ids["eq"], c, ids["lim"], c)
+        g.connect(ids["lim"], c, ids["meter"], c)
+        g.connect(ids["meter"], c, g.graph_out_node(), c)
+    return ids
+
+
+def mastering_bus_graph(device: str | torch.device = DEFAULT_DEVICE) -> ScheduleProgram:
+    """The mastering bus (:func:`add_mastering_bus`), compiled at 48 kHz in
+    blocks of 128 frames → a :class:`ScheduleProgram` on ``device``."""
+    g = AudioGraph(AudioGraphConfig(0, 2))
+    add_mastering_bus(g)
+    pkg = g.compile(SR, BLOCK)
+    return ScheduleProgram(
+        pkg.schedule, dict(pkg.new_node_processors), SR, device=device
+    )
+
+
+def vary_mastering_params(program: ScheduleProgram, params: dict, seed: int) -> dict:
+    """Give every instance of the mastering bus's batch-stacked ``params``
+    its own values, in place, around the example's settings: a noise seed
+    of its own, the dialogue on in every other instance, the ducker's
+    threshold in [−46, −34) dB and depth in [−18, −6) dB, the compressor's
+    threshold in [−24, −12) dB and makeup in [0, 6) dB.  Returns
+    ``params``."""
+    rng = np.random.default_rng(seed)
+
+    def put(t, values):
+        t.copy_(torch.from_numpy(np.asarray(values)).to(t.dtype))
+
+    for key, proc in program._procs.items():
+        p = params[key]
+        if isinstance(proc, NoiseProcessor):
+            b = p["seed"].shape[0]
+            put(p["seed"], rng.integers(0, 2**32, b, dtype=np.int64))
+        elif isinstance(proc, BeepTestProcessor):
+            b = p["enabled"].shape[0]
+            put(p["enabled"], np.arange(b) % 2 == 1)
+        elif isinstance(proc, DuckerProcessor):
+            b = p["threshold_db"].shape[0]
+            put(p["threshold_db"], rng.uniform(-46.0, -34.0, b).astype(np.float32))
+            put(p["duck_db"], rng.uniform(-18.0, -6.0, b).astype(np.float32))
+        elif isinstance(proc, CompressorProcessor):
+            b = p["threshold_db"].shape[0]
+            put(p["threshold_db"], rng.uniform(-24.0, -12.0, b).astype(np.float32))
+            put(p["makeup"], db_to_gain(rng.uniform(0.0, 6.0, b).astype(np.float32)))
     return params

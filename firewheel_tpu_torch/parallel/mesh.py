@@ -11,9 +11,9 @@ The serving control plane is here too: per-instance splices
 (``update_instance``, ``reset_instance``), per-instance device events
 (``poll_events``), fleet checkpoints, and ``render_stream``, the loop that
 ships every chunk to the host (as interleaved pcm16 with
-``output_format="pcm16"``) while the next one renders.  The device mesh,
-multi-process sharding and the ``"adpcm4"`` format are not ported
-(ROADMAP.md).
+``output_format="pcm16"``, or one IMA ADPCM block per instance with
+``"adpcm4"``) while the next one renders.  The device mesh and
+multi-process sharding are not ported (ROADMAP.md).
 """
 
 from __future__ import annotations
@@ -27,6 +27,7 @@ from ..convert import as_dicts, params_from_jax, state_from_jax, tree_map
 from ..core.sample_resource import pcm_f32_to_i16
 from ..device import DEFAULT_DEVICE, resolve_device
 from ..executor import ScheduleProgram, node_key
+from ..ops.adpcm_device import encode_ima_chunk
 from ..processor import _Stager
 
 __all__ = ["BatchRenderer", "Egress"]
@@ -108,8 +109,8 @@ class BatchRenderer:
 
     Per-instance params and state carry a leading batch axis.
     ``render_chunk`` renders K blocks per call and returns ``f32[B, K, No,
-    F]``, or interleaved ``int16[B, K, F, No]`` with
-    ``output_format="pcm16"``.
+    F]``, interleaved ``int16[B, K, F, No]`` with ``output_format="pcm16"``,
+    or ``uint8[B, block_align]`` with ``"adpcm4"``.
     """
 
     def __init__(
@@ -131,17 +132,17 @@ class BatchRenderer:
         ``int16[B, K, F, No]`` (frame-major: ``out[b].reshape(K*F, No)`` is
         the wire layout) by :func:`~firewheel_tpu_torch.core.sample_resource.
         pcm_f32_to_i16`, which halves the bytes a fleet ships to the
-        host."""
+        host; ``"adpcm4"`` goes on to IMA ADPCM at 4 bits a sample on the
+        device (:func:`~firewheel_tpu_torch.ops.adpcm_device.
+        encode_ima_chunk`, K4 on the card), one block per instance a chunk,
+        ``uint8[B, (4 + K·F/2)·No]``, a quarter of pcm16's bytes plus the
+        headers (decode with :func:`~firewheel_tpu_torch.ops.adpcm_device.
+        decode_ima_chunk`); it needs ``K·F`` divisible by 8."""
         if lowering not in ("xla", "hybrid"):
             raise ValueError(f"lowering must be 'xla' or 'hybrid', got {lowering!r}")
-        if output_format == "adpcm4":
-            raise NotImplementedError(
-                "output_format='adpcm4' is not ported yet (ROADMAP.md, Queue 1 "
-                "item 13: the on-device IMA ADPCM scan); use 'f32' or 'pcm16'"
-            )
-        if output_format not in ("f32", "pcm16"):
-            raise ValueError(f"output_format must be 'f32' or 'pcm16', got "
-                             f"{output_format!r}")
+        if output_format not in ("f32", "pcm16", "adpcm4"):
+            raise ValueError(f"output_format must be 'f32', 'pcm16' or 'adpcm4', "
+                             f"got {output_format!r}")
         self.program = program
         self.batch = int(batch)
         self.device = resolve_device(device)
@@ -316,6 +317,10 @@ class BatchRenderer:
         """``f32[B, K, No, F]`` → the output format, on the device."""
         if self.output_format == "pcm16":
             return pcm_f32_to_i16(out.transpose(-1, -2)).contiguous()
+        if self.output_format == "adpcm4":
+            b, k, no, f = out.shape
+            pcm = pcm_f32_to_i16(out.transpose(-1, -2)).reshape(b, k * f, no)
+            return encode_ima_chunk(pcm)
         return out
 
     def render_chunk(self, params, state, graph_in=None, in_mask=None,
@@ -324,12 +329,16 @@ class BatchRenderer:
 
         ``graph_in``: ``f32[B, K, Ni, F]`` (zeros if None).
         Returns ``(out, out_mask [B, K, No], state')``, ``out`` as
-        ``f32[B, K, No, F]`` or, with ``output_format="pcm16"``,
-        ``int16[B, K, F, No]``.
+        ``f32[B, K, No, F]``, with ``output_format="pcm16"`` as
+        ``int16[B, K, F, No]``, and with ``"adpcm4"`` as ``uint8[B,
+        block_align]`` (one IMA ADPCM block per instance).
         """
         f = self.program.max_block_frames
         ni = self.program.num_graph_inputs
         b, k = self.batch, num_blocks
+        if self.output_format == "adpcm4" and (k * f) % 8:
+            raise ValueError(f"output_format='adpcm4' needs K·F divisible by 8, "
+                             f"got K={k}, F={f}")
         if graph_in is None:
             cached = self._silent_in_cache.get(k)
             if cached is None:
@@ -382,7 +391,8 @@ class BatchRenderer:
         ``num_chunks`` chunks and ship every chunk's audio to the host, the
         copy of chunk t overlapping the render of chunk t+1 (:class:`Egress`:
         a side stream and two pinned buffers on the card).  Pair with
-        ``output_format="pcm16"`` to halve the shipped bytes.
+        ``output_format="pcm16"`` to halve the shipped bytes, or with
+        ``"adpcm4"`` to ship an eighth of them plus the IMA headers.
 
         ``on_chunk(host_out)`` is called with each chunk in order, as a
         NumPy view of an egress buffer that stays valid until ``on_chunk``

@@ -264,9 +264,10 @@ class SessionServer:
     # -- the serving hot loop --------------------------------------------------
     def render(self, num_blocks: int | None = None):
         """Render one chunk for every slot → the renderer's output on the
-        device (``f32[B, K, No, F]``, or wire-ready ``int16[B, K, F, No]``
-        with ``output_format="pcm16"``).  Index by ``handle.slot`` for a
-        session's audio."""
+        device (``f32[B, K, No, F]``, wire-ready ``int16[B, K, F, No]``
+        with ``output_format="pcm16"``, or one IMA ADPCM block per slot,
+        ``uint8[B, block_align]``, with ``"adpcm4"``).  Index by
+        ``handle.slot`` for a session's audio."""
         k = num_blocks or self.chunk_blocks
         out, _om, self._state = self._br.render_chunk(
             self._params, self._state, start_sample=self.sample, num_blocks=k,
@@ -282,7 +283,9 @@ class SessionServer:
         caller owns; ``None`` on the first call (the pipeline primes, and
         the fleet's wire output runs one chunk behind ``self.sample``).
         Call :meth:`flush` on shutdown to drain the last chunk.  Construct
-        the server with ``output_format="pcm16"`` to halve the bytes."""
+        the server with ``output_format="pcm16"`` to halve the bytes, or
+        ``"adpcm4"`` to ship a row of IMA ADPCM per slot (an eighth of
+        f32's bytes plus the headers)."""
         fetch = self._br.egress().start(self.render(num_blocks))
         prev, self._inflight = self._inflight, fetch
         return None if prev is None else prev.wait().copy()

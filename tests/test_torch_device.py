@@ -41,6 +41,7 @@ ENTRY_POINTS = {
     "effects_chain_graph": lambda **kw: mixer.effects_chain_graph(clip_frames=512, **kw),
     "effects_chain_config4_graph": mixer.effects_chain_config4_graph,
     "random_graph": lambda **kw: mixer.random_graph(0, **kw),
+    "mastering_bus_graph": mixer.mastering_bus_graph,
 }
 
 

@@ -276,6 +276,9 @@ def test_port_sources_never_import_jax():
 
 
 def test_batch_renderer_rejects_unported_formats():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Every format the JAX package has is ported ("adpcm4" in
+    ``tests/test_torch_adpcm.py``); a format neither package has is
+    refused."""
+    with pytest.raises(ValueError, match="output_format"):
         ft.BatchRenderer(ft.mixer_graph(num_voices=1, device="cpu"), 1, device="cpu",
-                         output_format="adpcm4")
+                         output_format="mp3")
