@@ -26,6 +26,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at 16 384, F=128) and K6 (f32[8192, 2, 128], the blocks before and
    after the 2^32 wrap of the stream clock) against their plain versions
    on the card, bit for bit, and times each.
+   3(c). Holds K7's two entry points (``ops/iir.py:biquad_scan`` and
+   ``one_pole_scan``) against their plain versions on the card, bit for
+   bit, at f32[16384, 128] (the eager filter, a batched EQ band),
+   [16384, 256] (the bus's meter), [2, 1024] (a stream's dispatch) and
+   F = 1, 3 and 127, a different filter a row (lowpasses, the EQ's 150 Hz
+   shelf, the meter's 38 Hz high-pass), and times each.
 4. Renders the 64-node mixer (filter on the kernel) with a BatchRenderer
    at B=8192 instances, K=32 blocks a chunk; checks finite outputs, the
    kernel's launch count (K per chunk) and the first instances against a
@@ -143,21 +149,45 @@ Run from the root of a checkout:  python3 chip_smoke.py
    first instances against a CPU render; wall a chunk, peak memory, K5 and
    K6 launches a chunk.  (c) ``MegaRenderer`` refuses it; the hybrid at
    B=1024, K=8 (one torch stage) against eager on the card, within 1e-6.
+   K7 runs the meter's two biquads: two launches a block, counted.
+13. The FX palette of ``examples/interactive_graph.py``.  (a) The example's
+   engine (two voices → sum → clip → meter, ``mixer.add_fx_engine``)
+   streamed through ``FirewheelCtx`` (1024-frame buffers of 128-frame
+   blocks, 8 a pump, 3.07 s) while its master insert switches through every
+   kind of the palette (EQ, chorus, flanger, tremolo, waveshaper, gate) and
+   back to none, each switch a topology edit hot-swapped with state
+   migration, then a volume, a pan and a frequency change, a voice removed
+   and one added; against the same stream on the CPU (the worker of
+   12(a)), audio and state within 1e-5; K7 three launches a block while
+   the EQ is in; its realtime factor, wall a buffer and each kind's kernels
+   a block (``torch.profiler``).  (b) ``mixer.fx_palette_graph`` (eight
+   voices, every insert in series, a DC-blocked fold, stereo width, a
+   pitch-shifted mono leg, a meter) eager at B=8192, K=32 with per-instance
+   params (``vary_fx_params``): its first chunk again with the plain scans
+   in K7's place, bit for bit, and the first instances against a CPU render
+   (1e-4: the EQ's 150 Hz shelf, JAX's scan in float32, turns the devices'
+   ulps into ~2.5e-5); wall a chunk, peak memory, K7 launches a chunk.  (c)
+   ``MegaRenderer`` refuses it; the hybrid at B=1024, K=8 (the voices, sum
+   and clip one K3 island, the FX chain one torch stage) equals eager on
+   the card bit for bit.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
 batched main path (``launches``), in phase 9's stream (``stream_launches``;
 K1's device time, call and plain version at the stream's 2 lanes beside
 them) and in phase 10's fleets (``serve_launches``), K2 and K3 once
-more for the spatial scene of phase 11, and K4-K6 (launches in 10(f)'s
-fleet and 12(b)'s batched bus, times from 3(b)), its error against its
-plain version, its device time on the
+more for the spatial scene of phase 11, K4-K6 (launches in 10(f)'s
+fleet and 12(b)'s batched bus, times from 3(b)) and K7's two entry points
+(launches in 13(b)'s batched FX palette, ``stream_launches`` in 13(a) and
+12(a), times from 3(c)), its error against its plain version, its device
+time on the
 card (``ms``, by ``torch.profiler``, or by CUDA events where the log says
 the profile saw no device activity) and a call's time with its wrapper's
 host work (``call_ms``, by CUDA events), the plain version's, and its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s, the f32 rate (NVIDIA's H100 SXM data sheet;
-K4's and K6's 32-bit integer operations are counted at that rate).
+K4's and K6's 32-bit integer operations are counted at that rate; the
+one-pole's float64 operations at 34 TFLOP/s, the f64 rate).
 Any failure raises and exits non-zero without that line.  Without a CUDA
 device, or without the package beside this file, it exits non-zero too.
 """
@@ -196,6 +226,7 @@ PHASE8_B, PHASE8_K = 64, 8
 KERNEL_REPS = 10      # launches per device-time measurement
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 F32_OPS_PER_S = 67e12      # H100 SXM f32 outside the tensor cores
+F64_OPS_PER_S = 34e12      # H100 SXM f64 outside the tensor cores (NVIDIA's data sheet)
 
 
 def log(msg: str) -> None:
@@ -268,21 +299,31 @@ def device_ms(fn, kernel: str, reps: int) -> float:
     return ms
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, f64_ops: float = 0.0):
     """``(bound_ms, bound_by)``: the least time the card could take to move
     ``nbytes`` (each input read once, each output written once) and do
-    ``ops`` f32 operations, and which of the two sets it."""
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    ``ops`` f32 and ``f64_ops`` f64 operations, and which of the two sets
+    it."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = ops / F32_OPS_PER_S + f64_ops / F64_OPS_PER_S
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def row_ops(code: int, n_in: int, n_out: int) -> int:
+def row_ops(code: int, n_in: int, n_out: int, aux0: int = 0) -> int:
     """f32 operations a megakernel row does per frame (a transcendental
     counts as one; the smoothers' per-block work is left out).  The
     spatializer (9): the gain, the one-pole's two products and sum, and the
-    two pan gains."""
+    two pan gains.  The FX rows (10..18) per channel: the width's mid, side
+    and merge; the LFO phase (4), its cosine and the gain of the tremolo;
+    the waveshaper's drive, curve, mix and gain and, with the DC blocker,
+    the scan (~4 a frame, counted at the f32 rate); the gate's level, latch
+    and gains; the EQ's scan, ~28 a frame a band (csrc/assoc_scan.cu); the
+    mod delay's phase, delay, interpolated tap and mix; the pitch
+    shifter's two phases and two crossfaded taps."""
     return {0: 0, 1: 4, 2: n_in, 3: 4, 4: n_in - n_out, 5: 9 * n_in,
-            6: 5 * n_in, 7: 3 * n_in, 8: 3 * n_in, 9: 6}[code]
+            6: 5 * n_in, 7: 3 * n_in, 8: 3 * n_in, 9: 6, 10: 0, 11: 2, 12: 7,
+            13: 10 * n_in, 14: 12 * n_in, 15: 10 + 2 * n_in, 16: 28 * aux0 * n_in,
+            17: 20 * n_in, 18: 33 * n_in}[code]
 
 
 def kernel_work(em, prog, lw, params, state, batch: int, k: int, io_bytes: int):
@@ -295,7 +336,8 @@ def kernel_work(em, prog, lw, params, state, batch: int, k: int, io_bytes: int):
         v.nbytes * (2 if leaf.tree == "state" else 1)
         for leaf, v in zip(lw.leaves, values))
     ops = batch * k * lw.frames * sum(
-        row_ops(int(r[em.OP]), int(r[em.N_IN]), int(r[em.N_OUT])) for r in lw.ops)
+        row_ops(int(r[em.OP]), int(r[em.N_IN]), int(r[em.N_OUT]), int(r[em.AUX0]))
+        for r in lw.ops)
     return nbytes, ops
 
 
@@ -549,6 +591,105 @@ def check_new_kernels(adpcm_device, dynamics, noise):
     log(f"K6 vs plain at f32[{B}, 2, 128], stream samples {NOISE_SAMPLE} and 0: "
         f"bit for bit; kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a "
         f"call, plain {plain_ms:.2f} ms")
+    return res
+
+
+# phase 3(c): K7, the associative scans (csrc/assoc_scan.cu)
+#: (rows, frames): the eager effects filter and the batched EQ band (B x 2
+#: channels, 128 frames), the mastering bus's meter (256-frame blocks), a
+#: stream's 1024-frame dispatch of one instance, and ragged lengths
+SCAN_SHAPES = ((2 * B, 128), (2 * B, 256), (2, 1024), (1000, 1), (1000, 3),
+               (1000, 127))
+
+
+def scan_composes(n: int):
+    """``(up, down)``: the compositions ``lax.associative_scan``'s recursion
+    makes over ``n`` elements, up-sweep and down-sweep (level 0's included)."""
+    up = down = 0
+    while n >= 2:
+        up += n // 2
+        down += (n - 1) // 2
+        n //= 2
+    return up, down
+
+
+def scan_work(kind: str, rows: int, n: int):
+    """``(bytes, f32 ops, f64 ops)`` of one K7 call over ``rows`` rows of
+    ``n`` frames: x read and y written once, the per-row coefficients and
+    state; a biquad composition is 20 f32 operations, a leaf 2, the carry 8
+    and the output 2 a frame; a one-pole composition 1 f32 and 2 f64 (its
+    fused multiply-add in float64), a leaf 1 f32, the carry 2 f64 a frame."""
+    composes = sum(scan_composes(n))
+    if kind == "biquad":
+        return 4 * rows * (2 * n + 5 + 4), rows * (20 * composes + 12 * n), 0
+    return (4 * rows * (2 * n + 2 + 2), rows * (composes + n),
+            rows * (2 * composes + 2 * n))
+
+
+def k7_operands(iir, kind: str, rows: int, n: int, gen):
+    """``(fn, ref, args)`` for K7's ``kind`` at f32[rows, n] on the card: a
+    different filter a row (lowpasses 200 Hz–20 kHz, the EQ's 150 Hz low
+    shelf and the meter's 38 Hz high-pass in turn; one-poles b in
+    [0.05, 0.999)) and state or carry in."""
+    dev = torch.device("cuda")
+    x = torch.randn((rows, n), generator=gen).to(dev)
+    if kind == "biquad":
+        kinds = torch.arange(rows) % 3
+        freq = torch.where(kinds == 0, 200.0 + 19800.0 * torch.rand(rows, generator=gen),
+                           torch.where(kinds == 1, 150.0, 38.0))
+        q = torch.where(kinds == 0, 0.5 + 3.5 * torch.rand(rows, generator=gen),
+                        torch.full((rows,), 0.8))
+        lp = iir.biquad_lowpass(freq, q, 48000)
+        ls = iir.biquad_low_shelf(freq, q, torch.full((rows,), 4.0), 48000)
+        hp = iir.biquad_highpass(freq, q, 48000)
+        c = iir.BiquadCoeffs(*(torch.where(kinds == 0, a, torch.where(kinds == 1, b, h))
+                               .to(dev) for a, b, h in zip(lp, ls, hp)))
+        z = tuple(0.1 * torch.randn((rows,), generator=gen).to(dev) for _ in range(2))
+        return iir.biquad_scan, iir.biquad_scan_reference, (x, z, c)
+    b = (0.05 + 0.949 * torch.rand((rows, 1), generator=gen)).to(dev)
+    y0 = torch.randn((rows,), generator=gen).to(dev)
+    return iir.one_pole_scan, iir.one_pole_scan_reference, (x, y0, 1.0 - b, b)
+
+
+def check_assoc_scan(iir):
+    """Phase 3(c): K7's two entry points against their plain versions on the
+    card, bit for bit (tolerance 0.0: the same compositions rounded the same
+    way), at the callers' shapes and ragged lengths, and the DC blocker's
+    scalar coefficients; each one's device time (``torch.profiler``), a
+    call's (CUDA events), the plain version's and its work at f32[16384,
+    128] → ``{name: (err, ms, call_ms, plain_ms, work)}``."""
+    gen = torch.Generator(device="cpu").manual_seed(77)
+    res = {}
+    for kind, name in (("biquad", "biquad_scan"), ("one_pole", "one_pole_scan")):
+        for rows, n in SCAN_SHAPES:
+            fn, ref, args = k7_operands(iir, kind, rows, n, gen)
+            got, want = fn(*args), ref(*args)
+            torch.cuda.synchronize()
+            flat = lambda t: [t] if isinstance(t, torch.Tensor) else [  # noqa: E731
+                u for v in t for u in flat(v)]
+            if not all(map(torch.equal, flat(got), flat(want))):
+                e = max(float((a - b).abs().max())
+                        for a, b in zip(flat(got), flat(want)))
+                raise AssertionError(f"K7 {name} disagrees with its plain version at "
+                                     f"f32[{rows}, {n}]: {e}")
+        if kind == "one_pole":  # the DC blocker's numbers: a = 1, b = R
+            x = torch.randn((2 * B, 128), generator=gen).to("cuda")
+            y0 = torch.randn((2 * B,), generator=gen).to("cuda")
+            got = iir.one_pole_scan(x, y0, 1.0, 0.9973857)
+            want = iir.one_pole_scan_reference(x, y0, 1.0, 0.9973857)
+            if not all(map(torch.equal, got, want)):
+                raise AssertionError("K7 one_pole_scan disagrees at scalar coefficients")
+        fn, ref, args = k7_operands(iir, kind, 2 * B, 128, gen)
+        ms = device_ms(lambda: fn(*args), f"{name}_kernel", KERNEL_REPS)
+        call_ms = cuda_ms(lambda: fn(*args), 50)
+        plain_ms = cuda_ms(lambda: ref(*args), 3)
+        work = scan_work(kind, 2 * B, 128)
+        res[name] = (0.0, ms, call_ms, plain_ms, work)
+        log(f"K7 {name} vs plain at f32{[list(s) for s in SCAN_SHAPES]}: bit for bit; "
+            f"at f32[{2 * B}, 128] kernel {ms:.4f} ms on the device, {call_ms:.4f} ms "
+            f"a call, plain {plain_ms:.3f} ms; bound {bound(*work)[0]:.4f} ms by "
+            f"{bound(*work)[1]} ({work[0] / 1e6:.2f} MB, {work[1] / 1e6:.1f} M f32 and "
+            f"{work[2] / 1e6:.1f} M f64 operations)")
     return res
 
 
@@ -909,6 +1050,9 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
         raise AssertionError(f"{tag}: K1 launched {k1}, K2 {k2} times in hybrid chunks")
 
     # the same chunks with the eager BatchRenderer on the card
+    from firewheel_tpu_torch.ops import iir
+
+    iir.biquad_scan.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     e_runs = []
@@ -919,6 +1063,7 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
     torch.cuda.synchronize()
     e_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
     e_peak = torch.cuda.max_memory_allocated() / 1e9
+    e_k7 = iir.biquad_scan.launches
     for start, h, e in zip(starts, h_runs, e_runs):
         out_e, state_e = agree(f"chunk at sample {start}", *h, *e)
         if not bool(torch.isfinite(h[0]).all()):
@@ -996,7 +1141,8 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
     log(f"{tag} vs CPU plain hybrid (first {CHECK_INSTANCES} instances, "
         f"{TIMED_CHUNKS + 1} chunks and final state): max_abs_err={cpu_worst:.3e}")
     log(f"{tag}: K3 launches {launches} in {TIMED_CHUNKS} chunks ({islands} "
-        f"island), K1 {k1}, K2 {k2}")
+        f"island), K1 {k1}, K2 {k2}; the eager arm K7 {e_k7} (its filter is K1's "
+        f"\"pallas\" backend)")
     log(f"{tag}: K3 vs plain on the card at the same operands (live-ins "
         f"{silent_in:.3f} silent): max_abs_err={k3_err:.3e}, flags equal; "
         f"K3 {k3_ms:.4f} ms on the device ({k3_call_ms:.4f} ms a call with the "
@@ -1101,8 +1247,6 @@ def stream_mixer(ft, device, chunk_buffers=1, deferred=False, buffers=STREAM_BUF
     CPU, the wall of each pump, the stream's stats, the K1 launches, and a
     surviving voice's state and the pending flag just after the edit's
     pump."""
-    from torch.profiler import ProfilerActivity, profile
-
     from firewheel_tpu_torch.convert import tree_map
     from firewheel_tpu_torch.mixer import add_mixer, add_voice
     from firewheel_tpu_torch.ops import seq_iir
@@ -1119,7 +1263,7 @@ def stream_mixer(ft, device, chunk_buffers=1, deferred=False, buffers=STREAM_BUF
     stream, proc = cx.stream, cx.stream._processor
     survivor = [ft.node_key(nid) for nid in voices[5]]
     out = {"walls": [], "pending": []}
-    prof = None
+    trace = PumpTrace()
     seq_iir.biquad_seq.launches = 0
     t_start = time.perf_counter()
     i = 0
@@ -1129,21 +1273,11 @@ def stream_mixer(ft, device, chunk_buffers=1, deferred=False, buffers=STREAM_BUF
                 g.remove_node(nid)
             voices[0] = add_voice(g, s, 0, 19)
         if i == profile_from:
-            torch.cuda.synchronize()
-            prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof.__enter__()
-            t_prof = time.perf_counter()
-        cx.update(max_pump_buffers=0)  # ships the edit's schedule
-        t0 = time.perf_counter()
-        stream.pump(cfg.chunk_buffers)
-        out["walls"].append(time.perf_counter() - t0)
+            trace.start()
+        trace.pump(cx, cfg.chunk_buffers, out["walls"])  # ships the edit's schedule
         i += cfg.chunk_buffers
-        if prof is not None and i == profile_from + PROFILED_BUFFERS * cfg.chunk_buffers:
-            stream.flush()
-            torch.cuda.synchronize()
-            out["profile_wall"] = time.perf_counter() - t_prof
-            prof.__exit__(None, None, None)
-            out["profile"], prof = prof, None
+        if trace.on and i == profile_from + PROFILED_BUFFERS * cfg.chunk_buffers:
+            out["profile"], out["profile_wall"] = trace.stop(stream)
         if i == STREAM_EDIT_AT + cfg.chunk_buffers:
             out["survivor"] = {k: tree_map(lambda t: t.cpu(), proc.state_dict()[k])
                                for k in survivor}
@@ -1235,6 +1369,44 @@ def profile_busy(prof, blocks: int):
         elif e.name in ("cudaLaunchKernel", "cuLaunchKernel", "cudaLaunchKernelExC"):
             calls += 1
     return kernels / blocks, calls / blocks, busy
+
+
+class PumpTrace:
+    """``torch.profiler`` over a run of a stream's pumps: ``start()`` before
+    the first pump it traces, ``stop(stream)`` after the last (the stream
+    flushed and the card synchronised) returns the profile and the run's
+    wall; ``pump(cx, n, walls)`` updates the graph and times one pump of
+    ``n`` buffers into ``walls``."""
+
+    def __init__(self):
+        self.prof = None
+
+    @property
+    def on(self) -> bool:
+        return self.prof is not None
+
+    def start(self) -> None:
+        from torch.profiler import ProfilerActivity, profile as tprofile
+
+        torch.cuda.synchronize()
+        self.prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self.prof.__enter__()
+        self.t0 = time.perf_counter()
+
+    def stop(self, stream):
+        stream.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - self.t0
+        self.prof.__exit__(None, None, None)
+        prof, self.prof = self.prof, None
+        return prof, wall
+
+    @staticmethod
+    def pump(cx, n: int, walls: list) -> None:
+        cx.update(max_pump_buffers=0)
+        t0 = time.perf_counter()
+        cx.stream.pump(n)
+        walls.append(time.perf_counter() - t0)
 
 
 def check_stream(ft, seq_iir, em, eh, card: str):
@@ -1968,7 +2140,7 @@ def check_serving(ft, seq_iir, em, eh, adpcm_device, card: str, phase):
 SPATIAL_SECS = 1.5           # the example's render and orbit
 SPATIAL_CHUNK_BUFFERS = 8    # buffers a stream dispatch
 SPATIAL_TURN_AT = 4          # pump before which the listener turns 30°
-SPATIAL_PROFILED = (2, 3)    # pumps [2, 3) of the stream under torch.profiler
+SPATIAL_PROFILED = (2, 3)    # pumps [2, 3) under torch.profiler, one buffer each
 SPATIAL_REPS = 3             # K2 launches a device-time measurement (~1 s each)
 SPATIAL_HYBRID = (1024, 8)   # B, K of the doppler-mixed scene on the hybrid
 DOPPLER_EVERY = 4            # every 4th emitter doppler (32 of 128)
@@ -1981,14 +2153,13 @@ def spatial_stream(ft, device, profile=False):
     8 buffers a pump, 1.5 s, every 4th emitter orbiting 90°), every emitter
     in a ``SpatialScene`` whose listener turns 30° before pump
     SPATIAL_TURN_AT.  With ``profile``, ``torch.profiler`` traces pumps
-    SPATIAL_PROFILED and the stream ends there.  Returns a dict of the
+    SPATIAL_PROFILED, one buffer each, and the stream ends there.  Returns a dict of the
     audio, the final state on the CPU, the meter's reading, each pump's
     wall, the executor's pooled groups and the profile."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
     from firewheel_tpu_torch.convert import tree_map
     from firewheel_tpu_torch.mixer import add_spatial_scene, orbit_scene
     from firewheel_tpu_torch.nodes import DbMeterNode
+    from firewheel_tpu_torch.ops import iir
 
     cx = ft.FirewheelCtx(device=device)
     g = cx.graph_mut()
@@ -2004,32 +2175,26 @@ def spatial_stream(ft, device, profile=False):
     stream, proc = cx.stream, cx.stream._processor
     frames = int(SPATIAL_SECS * 48000)
     out = {"walls": [], "orbiting": orbiting, "nodes": len(list(g.nodes()))}
-    prof = None
+    trace = PumpTrace()
+    iir.one_pole_scan.launches = 0
     t_start = time.perf_counter()
     i = 0
     while stream.frames_rendered < frames and not (profile and i == SPATIAL_PROFILED[1]):
         if i == SPATIAL_TURN_AT:
             scene.set_listener(forward=(0.5, 0.0, -np.sqrt(0.75)))
         if profile and i == SPATIAL_PROFILED[0]:
-            torch.cuda.synchronize()
-            prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof.__enter__()
-            t_prof = time.perf_counter()
-        cx.update(max_pump_buffers=0)
-        t0 = time.perf_counter()
-        stream.pump(cfg.chunk_buffers)
-        out["walls"].append(time.perf_counter() - t0)
+            trace.start()
+        # a profiled pump renders one buffer: reading a profile costs
+        # seconds a thousand kernels
+        trace.pump(cx, 1 if trace.on else cfg.chunk_buffers, out["walls"])
         i += 1
-        if prof is not None and i == SPATIAL_PROFILED[1]:
-            stream.flush()
-            torch.cuda.synchronize()
-            out["profile_wall"] = time.perf_counter() - t_prof
-            prof.__exit__(None, None, None)
-            out["profile"], prof = prof, None
+        if trace.on and i == SPATIAL_PROFILED[1]:
+            out["profile"], out["profile_wall"] = trace.stop(stream)
     stream.flush()
     if device != "cpu":
         torch.cuda.synchronize()
     out["wall"] = time.perf_counter() - t_start
+    out["k7"] = iir.one_pole_scan.launches
     out["reading"] = DbMeterNode.read(cx.node_state(meter))
     out["state"] = tree_map(lambda t: t.cpu(), proc.state_dict())
     out["groups"] = [(kind, len(m), type(proc._program._procs[ft.node_key(m[0].id)]).__name__)
@@ -2062,7 +2227,7 @@ def spatial_stream_check(ft, card: str):
     prof = spatial_stream(ft, "cuda", profile=True)
     t3 = time.perf_counter()
     pumps = SPATIAL_PROFILED[1] - SPATIAL_PROFILED[0]
-    blocks = pumps * SPATIAL_CHUNK_BUFFERS * STREAM_BUFFER // STREAM_BLOCK
+    blocks = pumps * STREAM_BUFFER // STREAM_BLOCK
     per_block, calls, busy = profile_busy(prof["profile"], blocks)
     if not per_block:
         # the card's work is held by the comparison with the CPU's stream
@@ -2080,15 +2245,17 @@ def spatial_stream_check(ft, card: str):
         f"{np.round(run['reading']['peak_db'], 2).tolist()} dB, rms "
         f"{np.round(run['reading']['rms_db'], 2).tolist()} dB)")
     log(f"spatial 11(a): the executor pools the 128 beeps and the 128 "
-        f"spatializers into {groups} (kind, members, processor)")
+        f"spatializers into {groups} (kind, members, processor); K7 (the "
+        f"spatializers' one-pole) {run['k7']} launches in "
+        f"{run['audio'].shape[1] // STREAM_BLOCK} blocks")
     log(f"spatial 11(a): realtime factor {audio_secs / run['wall']:.3f} "
         f"({audio_secs:.3f} s of audio in {run['wall']:.3f} s); wall a 1024-frame "
         f"buffer (a pump of {SPATIAL_CHUNK_BUFFERS} / {SPATIAL_CHUNK_BUFFERS}) p50 "
         f"{np.percentile(walls, 50):.3f} ms, p99 {np.percentile(walls, 99):.3f} ms "
         f"(budget 21.333 ms); CPU stream realtime factor "
         f"{audio_secs / cpu['wall']:.3f}")
-    log(f"spatial 11(a), torch.profiler over {pumps} pumps ({blocks} blocks) on "
-        f"{card}: {per_block:.1f} kernels a block on the device ({calls:.1f} launch "
+    log(f"spatial 11(a), torch.profiler over {pumps} one-buffer pump(s) ({blocks} "
+        f"blocks) on {card}: {per_block:.1f} kernels a block on the device ({calls:.1f} launch "
         f"calls a block on the host), device busy {busy / 1e3:.3f} ms of "
         f"{prof['profile_wall'] * 1e3:.3f} ms "
         f"({100 * busy / 1e6 / prof['profile_wall']:.1f}%)")
@@ -2103,6 +2270,7 @@ def spatial_eager(ft, card: str):
     its own emitters, the first instances against a CPU render."""
     from firewheel_tpu_torch.convert import tree_map
     from firewheel_tpu_torch.mixer import vary_spatial_params
+    from firewheel_tpu_torch.ops import iir
 
     prog = ft.spatial_scene_graph(device="cuda")
     br = ft.BatchRenderer(prog, B, device="cuda")
@@ -2115,6 +2283,7 @@ def spatial_eager(ft, card: str):
     worst, sample, walls = 0.0, 0, []
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    iir.one_pole_scan.launches = 0
     for c in range(TIMED_CHUNKS + 1):  # the first chunk warms up, checked too
         t0 = time.perf_counter()
         out, om, state = br.render_chunk(params, state, start_sample=sample,
@@ -2145,7 +2314,8 @@ def spatial_eager(ft, card: str):
         f"CPU over {TIMED_CHUNKS + 1} chunks and the final state: "
         f"max_abs_err={max(worst, e):.3e}; wall per chunk {wall * 1e3:.3f} ms "
         f"(realtime factor {audio_secs / wall:.1f}), peak device memory "
-        f"{peak_gb:.3f} GB")
+        f"{peak_gb:.3f} GB; K7 (the spatializers' one-pole) "
+        f"{iir.one_pole_scan.launches / (TIMED_CHUNKS + 1):.0f} launches a chunk")
     return wall, max(worst, e)
 
 
@@ -2393,6 +2563,8 @@ def spatial_binaural(ft, card: str):
     B=1024, K=8, each instance at its own volume, against a CPU render."""
     from firewheel_tpu_torch.convert import tree_map
 
+    from firewheel_tpu_torch.ops import iir
+
     b, k = BINAURAL
     prog = ft.spatial_scene_graph(binaural=True, device="cuda")
     br = ft.BatchRenderer(prog, b, device="cuda")
@@ -2407,6 +2579,7 @@ def spatial_binaural(ft, card: str):
     cpu_params = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), params)
     cpu_state = tree_map(lambda t: t[:CHECK_INSTANCES].cpu(), state)
     worst, walls = 0.0, []
+    iir.one_pole_scan.launches = 0
     for c in range(TIMED_CHUNKS + 1):
         t0 = time.perf_counter()
         out, om, state = br.render_chunk(params, state, start_sample=c * k * 128,
@@ -2427,7 +2600,9 @@ def spatial_binaural(ft, card: str):
     log(f"spatial 11(e), the binaural scene eager on {card}: B={b}, K={k}, first "
         f"{CHECK_INSTANCES} instances vs the CPU over {TIMED_CHUNKS + 1} chunks and "
         f"the final state: max_abs_err={max(worst, err):.3e}; wall per chunk "
-        f"{wall * 1e3:.3f} ms (realtime factor {b * k * 128 / 48000 / wall:.1f})")
+        f"{wall * 1e3:.3f} ms (realtime factor {b * k * 128 / 48000 / wall:.1f}); K7 "
+        f"(the air and head-shadow one-poles) "
+        f"{iir.one_pole_scan.launches / (TIMED_CHUNKS + 1):.0f} launches a chunk")
     return max(worst, err)
 
 
@@ -2472,8 +2647,6 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
     integrated loudness, the final state, the walls, K5's and K6's
     launches and the profile's counts.  The CPU's run goes on in a worker
     process (:class:`CpuStream`) while the card runs the earlier phases."""
-    from torch.profiler import ProfilerActivity, profile as tprofile
-
     here = os.path.dirname(os.path.abspath(__file__))
     if here not in sys.path:
         sys.path.insert(0, here)
@@ -2481,7 +2654,7 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
     from firewheel_tpu_torch.convert import state_to_numpy
     from firewheel_tpu_torch.mixer import add_mastering_bus
     from firewheel_tpu_torch.nodes import IntegratedLoudness, LoudnessMeterNode
-    from firewheel_tpu_torch.ops import dynamics, noise
+    from firewheel_tpu_torch.ops import dynamics, iir, noise
 
     cx = ft.FirewheelCtx(device=device)
     g = cx.graph_mut()
@@ -2495,30 +2668,21 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
     integ = IntegratedLoudness()
     out = {"walls": [], "reads": []}
     first, n_prof = MASTER_PROFILED
-    prof = None
+    trace = PumpTrace()
     dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
+    iir.biquad_scan.launches = 0
     t_start = time.perf_counter()
     i = 0
     while stream.frames_rendered < frames:
         sec = stream.frames_rendered / 48000
         voice.set_enabled(DIALOGUE[0] < sec < DIALOGUE[1])
         if profile and i == first:
-            torch.cuda.synchronize()
-            prof = tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-            prof.__enter__()
-            t_prof = time.perf_counter()
-        cx.update(max_pump_buffers=0)
-        t0 = time.perf_counter()
-        stream.pump(1)
-        out["walls"].append(time.perf_counter() - t0)
+            trace.start()
+        trace.pump(cx, 1, out["walls"])
         i += 1
-        if prof is not None and i == first + n_prof:
-            stream.flush()
-            torch.cuda.synchronize()
-            out["profile_wall"] = time.perf_counter() - t_prof
-            prof.__exit__(None, None, None)
+        if trace.on and i == first + n_prof:
+            prof, out["profile_wall"] = trace.stop(stream)
             out["profile"] = profile_busy(prof, n_prof)
-            prof = None
         if len(out["reads"]) < int(stream.frames_rendered / 48000 * 10):
             r = LoudnessMeterNode.read(cx.node_state(ids["meter"]))
             integ.push(r["gating_block_lufs"])
@@ -2530,6 +2694,7 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
     out["wall"] = time.perf_counter() - t_start
     out["buffers"] = i
     out["k5"], out["k6"] = dynamics.scan_lanes.launches, noise.noise_uniform.launches
+    out["k7"] = iir.biquad_scan.launches
     out["integrated"] = integ.value()
     out["reads"] = np.asarray(out["reads"])
     out["state"] = state_to_numpy(stream._processor.state_dict())
@@ -2543,13 +2708,15 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
 
 
 def _cpu_stream_worker(conn) -> None:
-    """The CPU's 12(a) stream in a worker process, on one thread; sends
-    ``("ok", result)`` or ``("error", traceback)`` to the parent."""
+    """The CPU's streams of 12(a) and 13(a) in a worker process, on one
+    thread; sends ``("ok", {"mastering": ..., "palette": ...})`` or ``("error",
+    traceback)`` to the parent."""
     import traceback
 
     try:
         torch.set_num_threads(1)
-        conn.send(("ok", mastering_stream("cpu")))
+        conn.send(("ok", {"mastering": mastering_stream("cpu"),
+                          "palette": palette_stream("cpu")}))
     except Exception:  # the worker's boundary: the parent raises it
         conn.send(("error", traceback.format_exc()))
     finally:
@@ -2557,9 +2724,9 @@ def _cpu_stream_worker(conn) -> None:
 
 
 class CpuStream:
-    """12(a)'s CPU stream, started in a spawned worker process at once.
-    :meth:`get` waits for its result (raising what the worker raised, or
-    if it died without one); :meth:`stop` ends the worker."""
+    """12(a)'s and 13(a)'s CPU streams, started in a spawned worker process
+    at once.  :meth:`get` waits for their results (raising what the worker
+    raised, or if it died without one); :meth:`stop` ends the worker."""
 
     def __init__(self):
         import multiprocessing
@@ -2570,8 +2737,11 @@ class CpuStream:
                                  daemon=True)
         self._proc.start()
         child.close()
+        self._value = None
 
     def get(self) -> dict:
+        if self._value is not None:
+            return self._value
         while not self._conn.poll(1.0):
             if not self._proc.is_alive():
                 raise RuntimeError(f"the CPU stream's worker exited "
@@ -2580,6 +2750,7 @@ class CpuStream:
         self._proc.join(60)
         if status != "ok":
             raise RuntimeError(f"the CPU stream failed in its worker:\n{value}")
+        self._value = value
         return value
 
     def stop(self) -> None:
@@ -2627,7 +2798,7 @@ def master_stream_check(ft, cpu_result, card: str):
     meter's filter states and ring, which are held by its readings (every
     reading and the integrated loudness within 1e-3 LU) and printed."""
     out = mastering_stream("cuda", profile=True)
-    cpu = cpu_result.get()
+    cpu = cpu_result.get()["mastering"]
     audio_err = float(np.abs(out["audio"] - cpu["audio"]).max())
     state_err, meter_err = bus_state_err(out["state"], cpu["state"], out["meter_key"])
     finite = np.isfinite(cpu["reads"])
@@ -2640,9 +2811,11 @@ def master_stream_check(ft, cpu_result, card: str):
                              f"meter {meter_err}, readings {reads_err} LU, integrated "
                              f"{out['integrated']} vs {cpu['integrated']}")
     buffers = out["buffers"]
-    if out["k5"] != 4 * buffers or out["k6"] != buffers or cpu["k5"] or cpu["k6"]:
-        raise AssertionError(f"12(a): K5 {out['k5']}, K6 {out['k6']} launches in "
-                             f"{buffers} blocks (CPU {cpu['k5']}, {cpu['k6']})")
+    if (out["k5"] != 4 * buffers or out["k6"] != buffers or out["k7"] != 2 * buffers
+            or cpu["k5"] or cpu["k6"] or cpu["k7"]):
+        raise AssertionError(f"12(a): K5 {out['k5']}, K6 {out['k6']}, K7 {out['k7']} "
+                             f"launches in {buffers} blocks (CPU {cpu['k5']}, "
+                             f"{cpu['k6']}, {cpu['k7']})")
     peak = float(np.abs(out["audio"]).max())
     if not 0.3 < peak <= 1.0:
         raise AssertionError(f"12(a): the bus peaks at {peak}")
@@ -2665,12 +2838,13 @@ def master_stream_check(ft, cpu_result, card: str):
         f"s), CPU {secs / cpu['wall']:.3f} ({cpu['wall']:.3f} s, the worker process); "
         f"wall a buffer p50 {np.percentile(walls, 50):.3f} ms, p99 "
         f"{np.percentile(walls, 99):.3f} ms (budget {MASTER_BUFFER / 48:.3f} ms); "
-        f"K5 {out['k5'] / buffers:.0f} and K6 {out['k6'] / buffers:.0f} launches a "
+        f"K5 {out['k5'] / buffers:.0f}, K6 {out['k6'] / buffers:.0f} and K7 "
+        f"{out['k7'] / buffers:.0f} (the meter's K-weighting) launches a "
         f"block; over {n_prof} profiled buffers {k_block:.1f} kernels a block on "
         f"the device for {calls:.1f} launch calls, device busy {busy:.0f} us, "
         f"{100 * busy_share:.2f}% of their wall (0 when the profile saw no "
         f"device activity)")
-    return audio_err, out["k5"], out["k6"]
+    return audio_err, out["k5"], out["k6"], out["k7"]
 
 
 def master_batched(ft, seq_iir, dynamics, noise, card: str):
@@ -2680,6 +2854,7 @@ def master_batched(ft, seq_iir, dynamics, noise, card: str):
     launches."""
     from firewheel_tpu_torch.convert import tree_map
     from firewheel_tpu_torch.mixer import vary_mastering_params
+    from firewheel_tpu_torch.ops import iir
 
     prog = ft.mastering_bus_graph(device="cuda")
     br = ft.BatchRenderer(prog, B, device="cuda")
@@ -2693,7 +2868,7 @@ def master_batched(ft, seq_iir, dynamics, noise, card: str):
     torch.cuda.reset_peak_memory_stats()
     # the main path, counts set to 0 just before it
     dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
-    seq_iir.biquad_seq.launches = 0
+    seq_iir.biquad_seq.launches = iir.biquad_scan.launches = 0
     walls, firsts = [], []
     for c in range(MASTER_CHUNKS):
         torch.cuda.synchronize()
@@ -2707,9 +2882,11 @@ def master_batched(ft, seq_iir, dynamics, noise, card: str):
         firsts.append((out[:MASTER_CHECK].cpu(), om[:MASTER_CHECK].cpu()))
     k5, k6, k1 = dynamics.scan_lanes.launches, noise.noise_uniform.launches, \
         seq_iir.biquad_seq.launches
+    k7 = iir.biquad_scan.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if k5 != 4 * K * MASTER_CHUNKS or k6 != K * MASTER_CHUNKS or k1:
-        raise AssertionError(f"12(b): K5 {k5}, K6 {k6}, K1 {k1} launches in "
+    if (k5 != 4 * K * MASTER_CHUNKS or k6 != K * MASTER_CHUNKS or k1
+            or k7 != 2 * K * MASTER_CHUNKS):
+        raise AssertionError(f"12(b): K5 {k5}, K6 {k6}, K1 {k1}, K7 {k7} launches in "
                              f"{MASTER_CHUNKS} chunks of K={K}")
     err = 0.0
     for c in range(MASTER_COMPARED):
@@ -2729,8 +2906,8 @@ def master_batched(ft, seq_iir, dynamics, noise, card: str):
         f"max_abs_err={err:.3e}; wall per chunk "
         f"{' / '.join(f'{w * 1e3:.3f}' for w in walls)} ms (the first a warm-up), "
         f"{wall * 1e3:.3f} ms after it, realtime factor {audio_secs / wall:.1f}; "
-        f"peak memory {peak_gb:.3f} GB; K5 {k5 // MASTER_CHUNKS} and K6 "
-        f"{k6 // MASTER_CHUNKS} launches a chunk, K1 none")
+        f"peak memory {peak_gb:.3f} GB; K5 {k5 // MASTER_CHUNKS}, K6 "
+        f"{k6 // MASTER_CHUNKS} and K7 {k7 // MASTER_CHUNKS} launches a chunk, K1 none")
     return err, k5, k6
 
 
@@ -2739,6 +2916,7 @@ def master_lowerings(ft, em, eh, dynamics, noise, card: str):
     K2); the hybrid at B=1024, K=8 (every node a torch stage) against
     eager on the card."""
     from firewheel_tpu_torch.mixer import vary_mastering_params
+    from firewheel_tpu_torch.ops import iir
 
     b, k = MASTER_HYBRID
     prog = ft.mastering_bus_graph(device="cuda")
@@ -2762,40 +2940,481 @@ def master_lowerings(ft, em, eh, dynamics, noise, card: str):
         for name, r in (("hybrid", hy), ("eager", eg)):
             eh.HybridMegaRenderer.launches = 0
             dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
+            iir.biquad_scan.launches = 0
             out, om, states[name] = r.render_chunk(params, states[name],
                                                    start_sample=c * k * 128,
                                                    num_blocks=k)
             torch.cuda.synchronize()
             counts[name] = (eh.HybridMegaRenderer.launches, dynamics.scan_lanes.launches,
-                            noise.noise_uniform.launches)
+                            noise.noise_uniform.launches, iir.biquad_scan.launches)
             res[name] = (out, om)
         if not torch.equal(res["hybrid"][1], res["eager"][1]):
             raise AssertionError(f"12(c): chunk {c}'s masks differ")
         err = max(err, float((res["hybrid"][0] - res["eager"][0]).abs().max()))
     err = max(err, tree_err(states["hybrid"], states["eager"]))
-    if not err <= MASTER_HYBRID_TOL or counts["hybrid"] != (0, 4 * k, k):
-        raise AssertionError(f"12(c): hybrid vs eager {err}, launches (K3, K5, K6) "
+    if not err <= MASTER_HYBRID_TOL or counts["hybrid"] != (0, 4 * k, k, 2 * k):
+        raise AssertionError(f"12(c): hybrid vs eager {err}, launches (K3, K5, K6, K7) "
                              f"{counts['hybrid']}")
     log(f"12(c), the bus's lowerings on {card}: MegaRenderer refuses it "
         f"(ValueError: {refused[:60]}...); the hybrid at B={b}, K={k} is "
         f"{len(hy._chunk_cache[('hybrid', k)].segments)} torch stage, no island; "
         f"against eager over 2 chunks max_abs_err={err:.3e} (outputs and every "
         f"state leaf), masks equal; a chunk launches K3 {counts['hybrid'][0]}, K5 "
-        f"{counts['hybrid'][1]}, K6 {counts['hybrid'][2]} times")
+        f"{counts['hybrid'][1]}, K6 {counts['hybrid'][2]}, K7 {counts['hybrid'][3]} "
+        f"times")
     return err
 
 
 def check_mastering(ft, seq_iir, em, eh, dynamics, noise, cpu_result, card: str, phase):
     """Phase 12: the mastering bus on the card → ``(err, K5 and K6 launches
-    on the batched path, K5 and K6 in the stream)``."""
-    s_err, s_k5, s_k6 = master_stream_check(ft, cpu_result, card)
+    on the batched path, K5, K6 and K7 in the stream)``."""
+    s_err, s_k5, s_k6, s_k7 = master_stream_check(ft, cpu_result, card)
     phase("12(a), the bus streamed")
     b_err, k5, k6 = master_batched(ft, seq_iir, dynamics, noise, card)
     torch.cuda.empty_cache()
     phase("12(b), the bus eager at B=8192, K=32")
     h_err = master_lowerings(ft, em, eh, dynamics, noise, card)
     phase("12(c), the bus's lowerings")
-    return max(s_err, b_err, h_err), k5, k6, s_k5, s_k6
+    return max(s_err, b_err, h_err), k5, k6, s_k5, s_k6, s_k7
+
+
+# phase 13: the FX palette (examples/interactive_graph.py)
+PALETTE_PUMP_BUFFERS = 8     # 1024-frame buffers a pump, of 128-frame blocks
+#: pump before which the master insert changes
+PALETTE_SWITCHES = {2: "eq", 4: "chorus", 6: "flanger", 8: "tremolo",
+                    10: "waveshaper", 12: "gate", 14: None}
+PALETTE_EDITS_AT = 15        # pump before which a volume, a pan and a frequency change
+PALETTE_REMOVE_AT, PALETTE_ADD_AT = 16, 17   # pumps before which a voice goes, one comes
+PALETTE_PUMPS = 18           # 18 x 8 x 1024 frames, 3.07 s
+PALETTE_PROFILED = (1, 3, 5, 7, 9, 11, 13)   # the second pump of each kind, profiled
+PALETTE_EQ_BANDS = 3
+PALETTE_CHUNKS = 3           # 13(b): chunks at B=8192, K=32
+PALETTE_COMPARED = 2         # 13(b): chunks compared with the CPU render
+PALETTE_HYBRID = (1024, 8)   # 13(c): B, K
+PALETTE_MEGA_FRAMES = (128, 127)  # 13(c): K2's block sizes (127: F read at run time)
+# 13(b): the card vs the CPU.  The EQ's 150 Hz low shelf, run as JAX's
+# associative scan in float32, turns an ulp of its input into up to ~2.4e-5
+# of output (on the CPU alone, nudging 10% of the beeps' samples by one ulp
+# moves the EQ's output by 2.37e-5 and the graph's by 2.89e-5), and the
+# card's sin, cos and exp differ from the CPU's by an ulp; K7 itself is held
+# bit for bit against the plain scans on the card in the same phase, and the
+# same instances with every EQ band bypassed are held to SLICE_TOL (1e-5)
+PALETTE_SLICE_TOL = 1e-4
+
+
+def palette_stream(device: str, profile: bool = False) -> dict:
+    """The example's engine (``mixer.add_fx_engine``: two voices → sum →
+    clip → meter) streamed offline through ``FirewheelCtx`` on ``device``:
+    1024-frame buffers of 128-frame blocks, 8 a pump, PALETTE_PUMPS pumps; the
+    master insert switched through every kind of the palette and back to
+    none (``mixer.set_fx``, topology edits hot-swapped with state
+    migration), then a volume, a pan and a frequency change, a voice removed
+    and one added.  With ``profile``, ``torch.profiler`` traces pumps
+    PALETTE_PROFILED, one buffer each.  Returns a dict of numpy results: the
+    audio, the final state, the walls, K7's launches and, profiled, the
+    kernels a block of each kind."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import firewheel_tpu_torch as ft
+    from firewheel_tpu_torch.convert import state_to_numpy
+    from firewheel_tpu_torch.mixer import add_fx_engine, add_fx_voice, set_fx
+    from firewheel_tpu_torch.ops import iir
+
+    cx = ft.FirewheelCtx(device=device)
+    g = cx.graph_mut()
+    ids = add_fx_engine(g)
+    sink = ft.ArraySink()
+    cfg = ft.StreamConfig(buffer_frames=STREAM_BUFFER, block_frames=STREAM_BLOCK,
+                          chunk_buffers=PALETTE_PUMP_BUFFERS)
+    cx.activate(cfg, sink=sink)
+    stream = cx.stream
+    out = {"walls": [], "kernels": {}}
+    trace = PumpTrace()
+    kind = "none"
+    iir.biquad_scan.launches = iir.one_pole_scan.launches = 0
+    buffers = 0
+    t_start = time.perf_counter()
+    for i in range(PALETTE_PUMPS):
+        if i in PALETTE_SWITCHES:
+            kind = PALETTE_SWITCHES[i] or "none"
+            set_fx(g, ids, PALETTE_SWITCHES[i])
+        if i == PALETTE_EDITS_AT:
+            beep, vol, pan = ids["voices"][0]
+            g.node(vol).set_percent_volume(50.0)
+            g.node(pan).set_pan(0.5)
+            g.node(beep).set_frequency(550.0)
+        if i == PALETTE_REMOVE_AT:
+            for nid in ids["voices"].pop():
+                g.remove_node(nid)
+        if i == PALETTE_ADD_AT:
+            ids["voices"].append(add_fx_voice(g, ids["sum"], len(ids["voices"]), 330.0))
+        if profile and i in PALETTE_PROFILED:
+            trace.start()
+        # a profiled pump renders one buffer: its 8 blocks are enough to
+        # count, and reading a profile costs seconds a thousand kernels
+        n = 1 if trace.on else PALETTE_PUMP_BUFFERS
+        trace.pump(cx, n, out["walls"])
+        buffers += n
+        if trace.on:
+            prof, _ = trace.stop(stream)
+            out["kernels"][kind] = profile_busy(prof, STREAM_BUFFER // STREAM_BLOCK)[0]
+    stream.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t_start
+    out["k7"] = (iir.biquad_scan.launches, iir.one_pole_scan.launches)
+    out["state"] = state_to_numpy(stream._processor.state_dict())
+    out["audio"] = sink.audio(2)
+    cx.deactivate()
+    frames = buffers * STREAM_BUFFER
+    if out["audio"].shape != (2, frames):
+        raise AssertionError(f"the FX stream rendered {out['audio'].shape}, expected "
+                             f"{(2, frames)}")
+    return out
+
+
+def palette_stream_check(ft, iir, cpu_result, card: str):
+    """13(a): the FX engine streamed on the card against the CPU's stream
+    (from the worker): audio and every state leaf within 1e-5; K7 three
+    launches a block (the EQ's bands) while the EQ is in; walls, realtime
+    factor and, profiled, the kernels a block of each kind."""
+    from firewheel_tpu_torch.convert import tree_map
+
+    run = palette_stream("cuda")
+    cpu = cpu_result.get()["palette"]
+    prof = palette_stream("cuda", profile=True)
+    err = float(np.abs(run["audio"] - cpu["audio"]).max())
+    state_err = tree_err(*(tree_map(torch.from_numpy, r["state"]) for r in (run, cpu)))
+    if not max(err, state_err) <= STREAM_TOL or not np.isfinite(run["audio"]).all():
+        raise AssertionError(f"13(a): the FX stream vs the CPU's: audio {err}, state "
+                             f"{state_err}")
+    # a switch is staged and installs after the pump it precedes, with one
+    # throwaway block (``GraphProcessor.advance_pending``): the EQ renders
+    # two pumps of blocks and that block
+    eq_blocks = 2 * PALETTE_PUMP_BUFFERS * STREAM_BUFFER // STREAM_BLOCK + 1
+    if run["k7"] != (PALETTE_EQ_BANDS * eq_blocks, 0) or cpu["k7"] != (0, 0):
+        raise AssertionError(f"13(a): K7 launches {run['k7']} (biquad, one-pole) for "
+                             f"{eq_blocks} blocks with the EQ; CPU {cpu['k7']}")
+    peak = float(np.abs(run["audio"]).max())
+    if not 0.05 < peak <= 1.0:
+        raise AssertionError(f"13(a): the FX stream peaks at {peak}")
+    audio_secs = run["audio"].shape[1] / 48000
+    walls = np.asarray(run["walls"][1:]) * 1e3 / PALETTE_PUMP_BUFFERS
+    kinds = [k or "none" for k in PALETTE_SWITCHES.values()]
+    log(f"13(a), the FX engine streamed on {card}: {PALETTE_PUMPS} pumps of "
+        f"{PALETTE_PUMP_BUFFERS} buffers ({audio_secs:.3f} s), the master insert "
+        f"through {kinds}, then a volume, a pan and a frequency change, a voice "
+        f"removed and one added; card vs CPU: audio "
+        f"max_abs_err={err:.3e}, state {state_err:.3e}; peak {peak:.4f}; K7 "
+        f"{run['k7'][0]} biquad launches ({PALETTE_EQ_BANDS} a block over {eq_blocks} "
+        f"blocks with the EQ, its throwaway block included), {run['k7'][1]} one-pole")
+    log(f"13(a): realtime factor card {audio_secs / run['wall']:.3f} ({run['wall']:.3f} "
+        f"s), CPU {audio_secs / cpu['wall']:.3f} (the worker process); wall a "
+        f"1024-frame buffer (a pump / {PALETTE_PUMP_BUFFERS}) p50 "
+        f"{np.percentile(walls, 50):.3f} ms, p99 {np.percentile(walls, 99):.3f} ms "
+        f"(budget 21.333 ms)")
+    log("13(a), torch.profiler, one buffer of each kind: kernels a block on the device "
+        + ", ".join(f"{k} {v:.1f}" for k, v in prof["kernels"].items())
+        + " (0 when the profile saw no device activity)")
+    return err, run["k7"]
+
+
+def plain_scans(fn):
+    """``fn()`` with the FX nodes' scans (the EQ's bands, the waveshaper's DC
+    blocker) swapped for K7's plain versions, on the card."""
+    from firewheel_tpu_torch.nodes import eq, waveshaper
+    from firewheel_tpu_torch.ops import iir
+
+    saved = eq.biquad_scan, waveshaper.one_pole_scan
+    eq.biquad_scan = iir.biquad_scan_reference
+    waveshaper.one_pole_scan = iir.one_pole_scan_reference
+    try:
+        return fn()
+    finally:
+        eq.biquad_scan, waveshaper.one_pole_scan = saved
+
+
+def palette_batched(ft, iir, card: str):
+    """13(b): ``fx_palette_graph`` eager at B=8192, K=32 with per-instance
+    params (``vary_fx_params``); its first chunk again with the plain scans
+    in K7's place, bit for bit; the first instances against a CPU render.
+    Returns the error against the CPU and K7's launches (biquad,
+    one-pole)."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import vary_fx_params
+
+    prog = ft.fx_palette_graph(device="cuda")
+    br = ft.BatchRenderer(prog, B, device="cuda")
+    params = vary_fx_params(prog, br.stack_params(), seed=13)
+    state = state0 = br.init_state()
+    cbr = ft.BatchRenderer(ft.fx_palette_graph(device="cpu"), CHECK_INSTANCES,
+                           device="cpu")
+    cparams = tree_map(lambda t: t[:CHECK_INSTANCES].cpu().clone(), params)
+    cstate = cbr.init_state()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # the main path, counts set to 0 just before it
+    iir.biquad_scan.launches = iir.one_pole_scan.launches = 0
+    walls, firsts = [], []
+    for c in range(PALETTE_CHUNKS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, om, state = br.render_chunk(params, state, start_sample=c * K * 128,
+                                         num_blocks=K)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if not torch.isfinite(out).all():
+            raise AssertionError(f"13(b): chunk {c} is not finite")
+        firsts.append((out[:CHECK_INSTANCES].cpu(), om[:CHECK_INSTANCES].cpu()))
+        if c == 0:
+            chunk0 = (out, om, state)
+    k7 = (iir.biquad_scan.launches, iir.one_pole_scan.launches)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if k7 != (PALETTE_EQ_BANDS * K * PALETTE_CHUNKS, K * PALETTE_CHUNKS):
+        raise AssertionError(f"13(b): K7 launches {k7} (biquad, one-pole) in "
+                             f"{PALETTE_CHUNKS} chunks of K={K}")
+    # K7 in place: the first chunk with the plain scans, on the card
+    po, pm, ps = plain_scans(lambda: br.render_chunk(params, state0, start_sample=0,
+                                                     num_blocks=K))
+    torch.cuda.synchronize()
+    plain_err = max(float((po - chunk0[0]).abs().max()), tree_err(ps, chunk0[2]))
+    if plain_err != 0.0 or not torch.equal(pm, chunk0[1]):
+        raise AssertionError(f"13(b): K7 vs the plain scans in the graph: {plain_err}, "
+                             f"masks equal {torch.equal(pm, chunk0[1])}")
+    del po, pm, ps, chunk0
+    err = 0.0
+    for c in range(PALETTE_COMPARED):
+        cout, cmask, cstate = cbr.render_chunk(cparams, cstate, start_sample=c * K * 128,
+                                               num_blocks=K)
+        if not torch.equal(cmask, firsts[c][1]):
+            raise AssertionError(f"13(b): chunk {c}'s masks differ from the CPU's")
+        err = max(err, float((cout - firsts[c][0]).abs().max()))
+    loud = float(firsts[-1][0].abs().max())
+    if not err <= PALETTE_SLICE_TOL or loud < 0.05:
+        raise AssertionError(f"13(b): first instances vs the CPU {err}, peak {loud}")
+    # the witness for PALETTE_SLICE_TOL: the same instances with every EQ band
+    # the identity section, the card against the CPU, within SLICE_TOL
+    bypass = tree_map(lambda t: t[:CHECK_INSTANCES].clone(), params)
+    for key, proc in prog._procs.items():
+        if type(proc).__name__ == "ParametricEQProcessor":
+            for band in bypass[key]["bands"].values():
+                for name, t in band.items():
+                    t.fill_(1.0 if name == "b0" else 0.0)
+    small = ft.BatchRenderer(prog, CHECK_INSTANCES, device="cuda")
+    bo, bm, _ = small.render_chunk(bypass, small.init_state(), start_sample=0,
+                                   num_blocks=K)
+    co, cm, _ = cbr.render_chunk(tree_map(lambda t: t.cpu(), bypass), cbr.init_state(),
+                                 start_sample=0, num_blocks=K)
+    bypass_err = float((bo.cpu() - co).abs().max())
+    if not bypass_err <= SLICE_TOL or not torch.equal(bm.cpu(), cm):
+        raise AssertionError(f"13(b): with the EQ bypassed, the card vs the CPU "
+                             f"{bypass_err} (limit {SLICE_TOL})")
+    wall = sum(walls[1:]) / (PALETTE_CHUNKS - 1)
+    audio_secs = B * K * 128 / 48000
+    log(f"13(b), the FX palette eager on {card}: {len(prog.schedule.schedule)} nodes, "
+        f"B={B}, K={K}, per-instance voices, EQ gains, chorus rate, drives, width and "
+        f"pitch; the first chunk with the plain scans in K7's place: bit for bit "
+        f"(outputs, masks, every state leaf); instances 0..{CHECK_INSTANCES - 1} vs "
+        f"the CPU over {PALETTE_COMPARED} chunks: max_abs_err={err:.3e} (limit "
+        f"{PALETTE_SLICE_TOL:g}: the EQ's low shelf amplifies the devices' ulps; with "
+        f"every EQ band bypassed, one chunk: {bypass_err:.3e}, limit {SLICE_TOL:g}); "
+        f"wall per chunk "
+        f"{' / '.join(f'{w * 1e3:.3f}' for w in walls)} ms (the first a warm-up), "
+        f"{wall * 1e3:.3f} ms after it, realtime factor {audio_secs / wall:.1f}; peak "
+        f"memory {peak_gb:.3f} GB; K7 {k7[0] // PALETTE_CHUNKS} biquad and "
+        f"{k7[1] // PALETTE_CHUNKS} one-pole launches a chunk")
+    return err, k7
+
+
+def palette_lowerings(ft, em, eh, iir, card: str):
+    """13(c): ``MegaRenderer`` refuses the FX palette (the flanger's feedback
+    program has no row); without the flanger K2 renders it at B=1024, K=8,
+    equal to eager on the card (outputs and masks bit for bit, state to
+    MEGA_TOL: the meter's mean square sums in another order at 127 frames)
+    in blocks of 128 and of 127 frames.  The hybrid at B=1024, K=8 splits
+    the palette as the JAX package does: the voices, sum, clip, EQ and
+    chorus one K3 island, the flanger a torch stage, the rest a second
+    island; it equals eager bit for bit.  K2
+    and each island are held against their plain versions at the same
+    operands and timed.  Returns ``(err, K2's tuple, K3's tuple)``, each
+    tuple (launches, err, ms, call_ms, plain_ms, work) for the kernels
+    line."""
+    from firewheel_tpu_torch.mixer import FX_KINDS, vary_fx_params
+
+    b, k = PALETTE_HYBRID
+    prog = ft.fx_palette_graph(device="cuda")
+    em.MegaRenderer.launches = 0
+    try:
+        em.MegaRenderer(prog, b, k, device="cuda")
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError("13(c): MegaRenderer accepted the FX palette")
+
+    def k7():
+        return iir.biquad_scan.launches, iir.one_pole_scan.launches
+
+    # K2 on the palette without the flanger, against eager
+    kinds = tuple(kind for kind in FX_KINDS if kind != "flanger")
+    m_errs = {}
+    for frames in PALETTE_MEGA_FRAMES:
+        p2 = ft.fx_palette_graph(device="cuda", kinds=kinds, block_frames=frames)
+        mega = em.MegaRenderer(p2, b, k, device="cuda")
+        eg = ft.BatchRenderer(p2, b, device="cuda")
+        params = vary_fx_params(p2, eg.stack_params(), seed=15)
+        states = [mega.init_state(), eg.init_state()]
+        em.MegaRenderer.launches = 0
+        iir.biquad_scan.launches = iir.one_pole_scan.launches = 0
+        for c in range(2):
+            start = c * k * frames
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            mo, mm, states[0] = mega.render_chunk(params, states[0], start_sample=start)
+            torch.cuda.synchronize()
+            m_wall = time.perf_counter() - t0  # the second chunk's is kept
+            if c == 0:
+                m_counts = (em.MegaRenderer.launches, *k7())
+            eo, om, states[1] = eg.render_chunk(params, states[1], start_sample=start,
+                                                num_blocks=k)
+            torch.cuda.synchronize()
+            if not (torch.equal(mo, eo) and torch.equal(mm, om)):
+                raise AssertionError(f"13(c): K2 at F={frames}, chunk {c}: vs eager "
+                                     f"{float((mo - eo).abs().max())}, or masks")
+        # the meter's mean square sums in another order at F % 4 != 0
+        m_errs[frames] = tree_err(*states)
+        if (not m_errs[frames] <= MEGA_TOL or m_counts != (1, 0, 0)
+                or em.MegaRenderer.launches != 2):
+            raise AssertionError(f"13(c): K2 at F={frames}: state {m_errs[frames]}, "
+                                 f"launches (K2, K7 biquad, K7 one-pole) {m_counts}")
+        if frames == 128:
+            mega128 = (p2, mega, params, states[0], mo.nbytes + mm.nbytes)
+            walls = {"K2": m_wall}
+    log(f"13(c), the FX palette's lowerings on {card}: MegaRenderer refuses it "
+        f"(ValueError: {refused[:60]}...); without the flanger K2 renders it at "
+        f"B={b}, K={k}, against eager over 2 chunks: outputs and masks bit for bit, "
+        f"every state leaf "
+        + ", ".join(f"{e:.3e} at F={f}" for f, e in m_errs.items())
+        + f" (limit {MEGA_TOL:g}: the meter's mean square); one K2 launch a chunk "
+        f"and no K7")
+
+    # the hybrid on the whole palette, against eager
+    hy = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
+    eg = ft.BatchRenderer(prog, b, device="cuda")
+    params = vary_fx_params(prog, eg.stack_params(), seed=14)
+    states = {"hybrid": hy.init_state(), "eager": eg.init_state()}
+    counts = {}
+    h_launches = 0
+    for c in range(2):
+        res = {}
+        for name, r in (("hybrid", hy), ("eager", eg)):
+            eh.HybridMegaRenderer.launches = 0
+            iir.biquad_scan.launches = iir.one_pole_scan.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, om, states[name] = r.render_chunk(params, states[name],
+                                                   start_sample=c * k * 128,
+                                                   num_blocks=k)
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0  # the second chunk's is kept
+            counts[name] = (eh.HybridMegaRenderer.launches, *k7())
+            res[name] = (out, om)
+        h_launches += counts["hybrid"][0]
+        if not (torch.equal(res["hybrid"][0], res["eager"][0])
+                and torch.equal(res["hybrid"][1], res["eager"][1])):
+            e = float((res["hybrid"][0] - res["eager"][0]).abs().max())
+            raise AssertionError(f"13(c): chunk {c}: hybrid vs eager {e}, or masks")
+    state_err = tree_err(states["hybrid"], states["eager"])
+    split = hy._chunk_cache[("hybrid", k)]
+    segments = [kind for kind, _ in split.segments]
+    if (state_err != 0.0 or segments != ["mega", "xla", "mega"]
+            or counts["hybrid"] != (2, 0, 0)):
+        raise AssertionError(f"13(c): state {state_err}, segments {segments}, "
+                             f"launches (K3, K7 biquad, K7 one-pole) {counts['hybrid']}")
+    log(f"13(c): the hybrid at B={b}, K={k} is {segments} (the voices, sum, clip, "
+        f"EQ and chorus one K3 island, the flanger a torch stage, tremolo to meter a "
+        f"second island: the JAX package's partition); against eager over 2 chunks "
+        f"bit for bit (outputs, masks, every state leaf); a chunk launches K3 "
+        f"{counts['hybrid'][0]} times and K7 none (eager: K7 {counts['eager'][1]} "
+        f"biquad and {counts['eager'][2]} one-pole)")
+    audio_secs = b * k * 128 / 48000
+    log("13(c): wall of the second chunk (B=%d, K=%d): %s" % (b, k, ", ".join(
+        f"{name} {w * 1e3:.3f} ms (realtime factor {audio_secs / w:.1f})"
+        for name, w in (("K2 without the flanger", walls["K2"]),
+                        ("hybrid", walls["hybrid"]), ("eager", walls["eager"])))))
+
+    # K2 and each island against their plain versions at the same operands,
+    # and timed
+    p2, mega, m_params, m_state, m_io = mega128
+    ko, kf, ks = mega.render_chunk(m_params, m_state, start_sample=2 * k * 128)
+    ro, rf, rs = em.mega_chunk_reference(p2, mega.lowered, m_params, m_state,
+                                         2 * k * 128, k, b)
+    torch.cuda.synchronize()
+    k2_err = max(float((ko - ro).abs().max()), tree_err(ks, rs))
+    if k2_err != 0.0 or not torch.equal(kf, rf):
+        raise AssertionError(f"13(c): K2 vs its plain version {k2_err}, or masks")
+    launch = lambda: mega.render_chunk(m_params, m_state, start_sample=0)  # noqa: E731
+    k2 = (2, k2_err, device_ms(launch, "mega_kernel", KERNEL_REPS),
+          cuda_ms(launch, KERNEL_REPS),
+          cuda_ms(lambda: em.mega_chunk_reference(p2, mega.lowered, m_params, m_state,
+                                                  0, k, b), 1),
+          kernel_work(em, p2, mega.lowered, m_params, m_state, b, k, m_io))
+    calls = {}
+    launch_island = split._launch
+
+    def record(i, *args):
+        calls[i] = args
+        return launch_island(i, *args)
+
+    split._launch = record
+    hy.render_chunk(params, states["hybrid"], start_sample=2 * k * 128, num_blocks=k)
+    del split._launch
+    k3_ms = k3_call = k3_plain = 0.0
+    k3_bytes = k3_ops = 0
+    for i, (pseg, sseg, env, env_flags) in sorted(calls.items()):
+        lw = split.islands[i]
+        ko, kf, ks = launch_island(i, pseg, sseg, env, env_flags)
+        ro, rf, rs = em.island_chunk_reference(prog, lw, pseg, sseg, env, env_flags,
+                                               2 * k * 128, k, b)
+        torch.cuda.synchronize()
+        e = max(float((ko - ro).abs().max()), tree_err(ks, rs))
+        if e != 0.0 or not torch.equal(kf, rf):
+            raise AssertionError(f"13(c): island {i}: K3 vs its plain version {e}")
+        island = lambda: launch_island(i, pseg, sseg, env, env_flags)  # noqa: E731
+        ms = device_ms(island, "island_kernel", KERNEL_REPS)
+        call = cuda_ms(island, KERNEL_REPS)
+        plain = cuda_ms(lambda: em.island_chunk_reference(
+            prog, lw, pseg, sseg, env, env_flags, 0, k, b), 1)
+        nbytes, ops = kernel_work(em, prog, lw, pseg, sseg, b, k,
+                                  ko.nbytes + kf.nbytes + env.nbytes + env_flags.nbytes)
+        log(f"13(c): K3 on island {i} ({len(lw.keys)} rows, {lw.in_bufs.size} "
+            f"live-ins, {em.shared_bytes(lw, split.tile)} B of shared memory a CTA) vs "
+            f"its plain version 0 (outputs, flags, state); {ms:.4f} ms on the device, "
+            f"{call:.4f} ms a call (CUDA events), plain {plain:.3f} ms; bound "
+            f"{bound(nbytes, ops)[0]:.4f} ms by {bound(nbytes, ops)[1]}")
+        k3_ms, k3_call, k3_plain = k3_ms + ms, k3_call + call, k3_plain + plain
+        k3_bytes, k3_ops = k3_bytes + nbytes, k3_ops + ops
+    log(f"13(c): K2 (without the flanger, {len(mega.lowered.keys)} rows, "
+        f"{em.shared_bytes(mega.lowered, mega.tile)} B of shared memory a CTA) vs its "
+        f"plain version 0; {k2[2]:.4f} ms on the device, {k2[3]:.4f} ms a call, plain "
+        f"{k2[4]:.3f} ms; bound {bound(*k2[5])[0]:.4f} ms by {bound(*k2[5])[1]}")
+    m_err = max(m_errs.values())
+    return m_err, (2, max(k2[1], m_err), *k2[2:]), (h_launches, 0.0, k3_ms, k3_call,
+                                                     k3_plain, (k3_bytes, k3_ops))
+
+
+def check_palette(ft, em, eh, iir, cpu_result, card: str, phase):
+    """Phase 13: the FX palette on the card → ``(err, K7 launches on the
+    batched path, K7 launches in the stream, K2's and K3's tuples for the
+    kernels line)``."""
+    s_err, s_k7 = palette_stream_check(ft, iir, cpu_result, card)
+    phase("13(a), the FX engine streamed")
+    b_err, k7 = palette_batched(ft, iir, card)
+    torch.cuda.empty_cache()
+    phase("13(b), the FX palette eager at B=8192, K=32")
+    h_err, k2, k3 = palette_lowerings(ft, em, eh, iir, card)
+    phase("13(c), the FX palette's lowerings")
+    return max(s_err, b_err, h_err), k7, s_k7, k2, k3
 
 
 def main() -> int:
@@ -2841,7 +3460,7 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         log(f"phase {name}: {now - t0:.1f} s (total {now - t_start:.1f} s)")
         t0 = now
 
-    new_libraries = (adpcm_device.LIBRARY, dynamics.LIBRARY, noise.LIBRARY)
+    new_libraries = (adpcm_device.LIBRARY, dynamics.LIBRARY, noise.LIBRARY, iir.LIBRARY)
     cuda_build.build_all([seq_iir.LIBRARY, em.LIBRARY, *new_libraries], verbose=True)
     if seq_iir.LIBRARY.log:
         # two instantiations: 16-byte copies, and 4-byte copies
@@ -2853,25 +3472,30 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         log("ptxas: the K1 library was built before this run")
     if em.LIBRARY.log:
         for kernel in ("mega_kernel", "island_kernel"):
-            # two of each: blocks of 128 frames fixed, and of any length
+            # four of each: blocks of 128 frames fixed, and of any length;
+            # with the FX rows compiled in (the bool template argument), and
+            # without
             for name, report in ptxas_report(em.LIBRARY.log, kernel).items():
                 frames = "F=128" if "Args128" in name else "any F"
-                log(f"ptxas, {kernel} ({frames}): {report}")
+                rows = "FX rows" if "Lb1E" in name else "no FX rows"
+                log(f"ptxas, {kernel} ({frames}, {rows}): {report}")
     else:
         log("ptxas: the megakernel library was built before this run")
     for lib, kernel in zip(new_libraries, ("adpcm_encode_kernel", "sample_scan_kernel",
-                                           "noise_uniform_kernel")):
+                                           "noise_uniform_kernel", "scan_kernel")):
         if lib.log:
             for name, report in ptxas_report(lib.log, kernel).items():
                 log(f"ptxas, {name}: {report}")
         else:
             log(f"ptxas: {lib.name} was built before this run")
-    phase("2, K1, the megakernel (K2, K3) and K4-K6 built")
+    phase("2, K1, the megakernel (K2, K3) and K4-K7 built")
 
     err, ms, call_ms, plain_ms = check_kernel(seq_iir, iir)
     phase("3, K1 vs plain")
     new_kernels = check_new_kernels(adpcm_device, dynamics, noise)
     phase("3(b), K4-K6 vs plain")
+    new_kernels.update(check_assoc_scan(iir))
+    phase("3(c), K7 vs plain")
     launches = render_mixer(ft, seq_iir, card)
     phase("4, mixer eager")
     m_launches, m_err, m_ms, m_call_ms, m_plain_ms, m_work = render_mega(
@@ -2895,8 +3519,12 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     serve_k1, serve_k3, serve_k4 = check_serving(ft, seq_iir, em, eh, adpcm_device,
                                                  card, phase)
     spatial_k2, spatial_k3 = check_spatial(ft, seq_iir, em, eh, card, phase)
-    bus_err, bus_k5, bus_k6, stream_k5, stream_k6 = check_mastering(
+    bus_err, bus_k5, bus_k6, stream_k5, stream_k6, bus_stream_k7 = check_mastering(
         ft, seq_iir, em, eh, dynamics, noise, cpu_stream, card, phase)
+    fx_err, fx_k7, fx_stream_k7, fx_k2, fx_k3 = check_palette(ft, em, eh, iir,
+                                                              cpu_stream, card, phase)
+    log(f"phase 13: the FX palette on the card vs the CPU and eager, "
+        f"max_abs_err={fx_err:.3e}")
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -2921,6 +3549,13 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
          "firewheel_tpu/executor_pallas.py:218", *spatial_k2),
         ("hybrid_island_spatial_scene", "firewheel_tpu_torch/csrc/megakernel.cu",
          "firewheel_tpu/executor_pallas.py:617", *spatial_k3),
+        # phase 13(c): K2 on the FX palette without the flanger and K3 on the
+        # palette's two islands (ms, call and plain: both islands a chunk),
+        # B=1024, K=8
+        ("megakernel_fx_palette", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:218", *fx_k2),
+        ("hybrid_island_fx_palette", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:617", *fx_k3),
         # phase 3(b)'s checks and times at the main paths' shapes; launches
         # in 10(f)'s adpcm4 fleet (K4) and 12(b)'s batched bus (K5, K6)
         ("adpcm_encode", "firewheel_tpu_torch/csrc/adpcm.cu",
@@ -2931,13 +3566,26 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         ("noise_uniform", "firewheel_tpu_torch/csrc/noise.cu",
          "firewheel_tpu/nodes/generators.py:85", bus_k6,
          *new_kernels["noise_uniform"]),
+        # phase 3(c)'s checks and times at f32[16384, 128]; launches in 13(b)'s
+        # batched FX palette (the EQ's three bands, the fold's DC blocker)
+        ("biquad_scan", "firewheel_tpu_torch/csrc/assoc_scan.cu",
+         "firewheel_tpu/ops/iir.py:260", fx_k7[0], *new_kernels["biquad_scan"]),
+        ("one_pole_scan", "firewheel_tpu_torch/csrc/assoc_scan.cu",
+         "firewheel_tpu/ops/iir.py:132", fx_k7[1], *new_kernels["one_pole_scan"]),
     ):
         bound_ms, bound_by = bound(*work)
         kernels.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": n,
-            "stream_launches": {"biquad_seq": s_launches, "sample_scan": stream_k5,
-                                "noise_uniform": stream_k6}.get(name, 0),
+            "stream_launches": {
+                "biquad_seq": s_launches, "sample_scan": stream_k5,
+                "noise_uniform": stream_k6,
+                # 13(a)'s FX engine and 12(a)'s mastering bus
+                "biquad_scan": {"stream_fx": fx_stream_k7[0],
+                                "stream_mastering": bus_stream_k7},
+                "one_pole_scan": {"stream_fx": fx_stream_k7[1],
+                                  "stream_mastering": 0},
+            }.get(name, 0),
             "serve_launches": {"biquad_seq": serve_k1, "hybrid_island": serve_k3,
                                "adpcm_encode": serve_k4}.get(name, 0),
             "max_abs_err": e, "ms": t, "call_ms": call,
@@ -2948,9 +3596,10 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         if name == "biquad_seq":  # at the stream's width, 2 lanes
             kernels[-1].update(zip(("stream_ms", "stream_call_ms", "stream_plain_ms",
                                     "stream_bound_ms"), k1_stream))
+        f64 = f", {work[2] / 1e9:.3f} G at the f64 rate" if len(work) > 2 else ""
         log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "
             f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G "
-            f"operations at the f32 rate), {100 * bound_ms / t:.1f}% of the bound")
+            f"operations at the f32 rate{f64}), {100 * bound_ms / t:.1f}% of the bound")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -19,7 +19,10 @@ around an ``AudioListener``) renders on every path: streamed, batched,
 and through the megakernel's spatializer row.  The mastering bus
 (``mastering_bus_graph``: pink noise ducked under a dialogue beep, a
 compressor, a 255-tap FIR shelf, a lookahead limiter and an EBU R128
-loudness meter) renders streamed and batched.  Checkpoints are the JAX
+loudness meter) renders streamed and batched, and so does the FX palette
+of the interactive editor (``fx_palette_graph``: a parametric EQ,
+chorus, flanger, tremolo, waveshapers, a gate, stereo width and a pitch
+shifter).  Checkpoints are the JAX
 package's files: either package restores the other's.  Its kernels are CUDA for
 NVIDIA Hopper (``csrc/``).  It imports torch and numpy, never JAX.
 """
@@ -47,7 +50,8 @@ from .backend import (
     available_output_devices,
 )
 from .mixer import (
-    effects_chain_graph, mastering_bus_graph, mixer_graph, spatial_scene_graph,
+    effects_chain_graph, fx_palette_graph, mastering_bus_graph, mixer_graph,
+    spatial_scene_graph,
 )
 from .nodes import (
     BinauralSpatializerNode, ConvolutionReverbNode, DelayCompNode, LoopRange,
@@ -105,6 +109,7 @@ __all__ = [
     "WavSink",
     "available_output_devices",
     "effects_chain_graph",
+    "fx_palette_graph",
     "mastering_bus_graph",
     "load_checkpoint",
     "load_sharded_local",

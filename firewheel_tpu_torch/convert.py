@@ -40,6 +40,8 @@ def as_dicts(tree):
         return {k: as_dicts(v) for k, v in tree._asdict().items()}
     if isinstance(tree, tuple) and not tree:
         return {}
+    if isinstance(tree, tuple) and all(isinstance(v, dict) for v in tree):
+        return {str(i): as_dicts(v) for i, v in enumerate(tree)}
     return tree
 
 

@@ -83,7 +83,12 @@
 //     128-byte stack frame: the precise sinf/cosf slow path's local array
 //     and the out-of-line ramping paths.
 //     Capping island_kernel at 64 registers spilled and was faster at
-//     B=8192 but slower at B=1024.  chip_smoke.py phase 2 prints the report.
+//     B=8192 but slower at B=1024.  The FX rows (i.) need more: compiled
+//     into every kernel they took island_kernel to 132 registers, and at
+//     tile 1 registers, not shared memory, bound K3's residency (the
+//     effects chain's island 40% slower), so they are compiled only into
+//     the kernels that a table with FX rows launches (kFx).  chip_smoke.py
+//     phase 2 prints the report for all eight entries.
 //  f. The echo line at bandwidth: the chunk-start count and copy of the
 //     kept line, and each block's tap and append, use 16-byte accesses when
 //     the line length and F are multiples of 4 and the pointers are aligned
@@ -103,6 +108,18 @@
 //     nowhere and executor_mega.check_launchable refuses it before a
 //     launch.  Its spatializer rows run their one-pole on one lane
 //     (op_spatial).
+//  i. The FX palette's rows (examples/interactive_graph.py, every node but
+//     the flanger, whose feedback program opts out as in the JAX package):
+//     lanes over frames, each f32 operation as the eager op rounds it on
+//     the card.  The EQ's bands and the waveshaper's DC blocker are K7's
+//     associative scan (assoc_scan.cuh) on the whole warp, its levels in
+//     the instance's scratch (scan_words: a row of frames, then the
+//     levels); the gate's latch runs on lane 0 into the scratch row, as K5
+//     runs it.  The mod delay's line and the pitch ring stay in device
+//     memory as the echo's line does (an EchoLine each channel, the same
+//     echo channel records); the pitch shifter's all-silent reset zeroes
+//     its ring by moving the channel's zero_below past it and zeroing the
+//     final line's part in line_out.
 //
 // Device functions, each the counterpart of one of the port's node kernels
 // (and through it of the JAX package's):
@@ -112,6 +129,11 @@
 //   filter  nodes/filter.py:101 (the sequential recurrence of K1)
 //   echo    nodes/delay.py:116  clip    nodes/hard_clip.py:55
 //   meter   nodes/meter.py:55       spatial nodes/spatial.py (no doppler)
+//   mono_to_stereo, stereo_to_mono  nodes/channel.py
+//   width   nodes/stereo_width.py   tremolo nodes/mod_effects.py:TremoloProcessor
+//   waveshaper nodes/waveshaper.py  gate    nodes/dynamics.py:GateProcessor
+//   eq      nodes/eq.py             mod_delay nodes/mod_effects.py (no feedback)
+//   pitch   nodes/pitch_shift.py
 // Built with --fmad=false and precise sinf/cosf/expf: each f32 operation
 // rounds as the eager torch op does.
 
@@ -121,6 +143,7 @@
 #include <atomic>
 #include <type_traits>
 
+#include "assoc_scan.cuh"
 #include "biquad_step.cuh"
 
 // The CTA's dynamic shared memory.  Every access indexes this array itself
@@ -141,7 +164,9 @@ enum Field {
   kGroup
 };
 enum OpCode {
-  kDummy, kBeep, kVolume, kPan, kSum, kFilter, kEcho, kClip, kMeter, kSpatial
+  kDummy, kBeep, kVolume, kPan, kSum, kFilter, kEcho, kClip, kMeter, kSpatial,
+  kMonoToStereo, kStereoToMono, kWidth, kTremolo, kWaveshaper, kGate, kEq,
+  kModDelay, kPitch
 };
 enum SmootherStatus { kInactive = 0, kActive = 1, kDeactivating = 2 };
 constexpr int kLeafWidth = 4;
@@ -149,6 +174,8 @@ enum LeafField { kLeafWord, kLeafCount, kLeafType, kLeafState };
 enum LeafType { kWord32, kBool, kInt64 };
 
 constexpr float kQuiet = 1e-10f;
+constexpr float kRingQuiet = 0x1.197998p-40f;  // float32(1e-12): the pitch ring
+constexpr float kTwoOverPi = 0x1.45f306p-1f;   // float32(2/pi)
 constexpr float kTau = 6.28318530717958647692f;
 constexpr float kQuarterPi = 0.78539816339744830962f;
 
@@ -168,17 +195,21 @@ struct Args {
   float* scratch; // [B, echo_channels, stride]: echoes the final line drops
   int64_t stride;
   int tile, K, F, num_buffers, echo_channels;
+  int scan_words;  // per instance: the scratch of the rows that need one
+  int fx;          // the table has FX rows: launch the kernels built with them
   // F % 4 == 0 known at compile time (Args128); else F is any size > 0
   static constexpr bool kWhole = false;
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
 
-// One echo channel of an instance, in shared memory for the chunk: its
-// loud-sample count and its line's pointers (8 words).
+// One channel of a row's line in device memory (the echo's, the mod
+// delay's, the pitch shifter's ring), in shared memory for the chunk: its
+// loud-sample count, what a reset zeroed and its line's pointers (10 words).
 struct EchoChannel {
   int count;  // loud samples in the window before the current block
   int vec;    // 16-byte accesses (see EchoLine)
+  int64_t zero_below;  // logical samples below this read as 0 (a reset)
   const float* in;
   float* out;
   float* scratch;
@@ -188,7 +219,8 @@ constexpr int kEchoWords = sizeof(EchoChannel) / 4;
 // 32-bit words of shared memory (executor_mega.shared_bytes): the tables,
 // once per CTA, then per instance its arena (num_buffers rows of F floats,
 // each padded to round4(F) so that the lanes move whole float4s), its
-// echo channels, the buffers' silence flags and its leaf words.  Both
+// echo channels, the buffers' silence flags, its leaf words and the scan
+// rows' scratch.  Both
 // parts round up to 16 bytes, so every arena row is 16-byte aligned and
 // every echo channel 8-byte aligned.
 __host__ __device__ inline int table_words(const Args& a) {
@@ -196,7 +228,7 @@ __host__ __device__ inline int table_words(const Args& a) {
 }
 __host__ __device__ inline int words_per_instance(const Args& a) {
   return round4(a.num_buffers * round4(a.F) + kEchoWords * a.echo_channels +
-                a.num_buffers + a.num_words);
+                a.num_buffers + a.num_words + a.scan_words);
 }
 __host__ __device__ inline size_t shared_bytes(const Args& a) {
   return 4 * (static_cast<size_t>(table_words(a)) +
@@ -232,6 +264,7 @@ struct Inst {
   int echo;   // [echo_channels] EchoChannel
   int flag;   // [num_buffers], 1 = silent
   int word;   // [num_words]: the leaves on chip
+  int scan;   // [scan_words]: a row's frame row and scan levels
   int64_t i;  // instance
   int lane, sub, span;
   unsigned mask;  // the lanes of the row
@@ -577,9 +610,10 @@ struct EchoLine {
   const float* in;
   float* out;
   float* scratch;
-  int64_t d, kf;
+  int64_t d, kf, zero_below;
   bool vec;
   __device__ float read(int64_t j) const {
+    if (j < zero_below) return 0.f;
     if (j < d) return in[j];
     return j >= kf ? out[j - kf] : scratch[j - d];
   }
@@ -588,7 +622,8 @@ struct EchoLine {
     else scratch[j - d] = v;
   }
   __device__ float4 read4(int64_t j) const {
-    if (!vec) return make_float4(read(j), read(j + 1), read(j + 2), read(j + 3));
+    if (!vec || j < zero_below)
+      return make_float4(read(j), read(j + 1), read(j + 2), read(j + 3));
     if (j < d) return *reinterpret_cast<const float4*>(in + j);
     return *reinterpret_cast<const float4*>(j >= kf ? out + (j - kf)
                                                     : scratch + (j - d));
@@ -620,20 +655,36 @@ __device__ EchoLine echo_line(const A& a, const Row& r, const Inst& I,
   e.scratch = ec.scratch;
   e.d = r.aux0;
   e.kf = static_cast<int64_t>(a.K) * a.F;
+  e.zero_below = ec.zero_below;
   e.vec = ec.vec != 0;
   return e;
 }
 
-// Once per chunk, for each channel of an echo row: its line's pointers
-// into the instance's echo channel record; the count of loud samples of
-// the line; the copy of the part of line_in that the final line keeps.
-// words: feedback, wet, dry; the line [C, D] (leaf slot + 3) stays in device
-// memory; aux0 = D, aux1 = the row's first echo channel.
+__device__ __forceinline__ int loud_q(float x, float q) { return !(fabsf(x) < q); }
+
+// The rows with a line in device memory: the line's leaf (after the row's
+// first) and the level below which a sample is quiet.
+__device__ __forceinline__ int line_leaf(int op) {
+  return op == kEcho ? 3 : (op == kModDelay ? 6 : 2);
+}
+__device__ __forceinline__ float line_quiet(int op) {
+  return op == kPitch ? kRingQuiet : kQuiet;
+}
+__device__ __forceinline__ bool has_line(int op) {
+  return op == kEcho || op == kModDelay || op == kPitch;
+}
+
+// Once per chunk, for each channel of a row with a line (has_line): its
+// line's pointers into the instance's echo channel record; the count of
+// loud samples of the line; the copy of the part of line_in that the final
+// line keeps.  The line [C, D] stays in device memory (leaf slot +
+// line_leaf); aux0 = D, aux1 = the row's first echo channel.
 template <class A>
 __device__ void echo_begin(const A& a, const Row& r, const Inst& I) {
   const int64_t d = r.aux0;
   const int64_t n_line = static_cast<int64_t>(r.n_in) * d;
-  const int line = r.slot + 3;
+  const int line = r.slot + line_leaf(r.op);
+  const float quiet = line_quiet(r.op);
   for (int c = 0; c < r.n_in; ++c) {
     EchoLine e;
     e.in = reinterpret_cast<const float*>(a.ptrs[2 * line]) + I.i * n_line + c * d;
@@ -641,6 +692,7 @@ __device__ void echo_begin(const A& a, const Row& r, const Inst& I) {
     e.scratch = a.scratch + (I.i * a.echo_channels + r.aux1 + c) * a.stride;
     e.d = d;
     e.kf = static_cast<int64_t>(a.K) * a.F;
+    e.zero_below = 0;
     // the float4 at j = k*F + 4q is aligned only when F % 4 == 0
     e.vec = (A::kWhole || a.F % 4 == 0) && d % 4 == 0 && aligned16(e.in) &&
             aligned16(e.out) && aligned16(e.scratch);
@@ -652,13 +704,14 @@ __device__ void echo_begin(const A& a, const Row& r, const Inst& I) {
 #pragma unroll 4
       for (int64_t q = I.lane; q < d4; q += kLanes) {
         const float4 x = in[q];
-        n += loud4(x);
+        n += loud_q(x.x, quiet) + loud_q(x.y, quiet) + loud_q(x.z, quiet) +
+             loud_q(x.w, quiet);
         if (q >= kf4) out[q - kf4] = x;
       }
     } else {
       for (int64_t j = I.lane; j < e.d; j += kLanes) {
         const float x = e.in[j];
-        n += loud(x);
+        n += loud_q(x, quiet);
         if (j >= e.kf) e.out[j - e.kf] = x;
       }
     }
@@ -666,6 +719,7 @@ __device__ void echo_begin(const A& a, const Row& r, const Inst& I) {
     if (I.lane == 0) {
       EchoChannel& ec = echo_ch(I, r.aux1 + c);
       ec.count = n;
+      ec.zero_below = 0;
       ec.vec = e.vec;
       ec.in = e.in;
       ec.out = e.out;
@@ -856,6 +910,403 @@ __device__ void op_spatial(const A& a, const Row& r, const Inst& I) {
   }
 }
 
+// -- the FX palette's rows -----------------------------------------------------
+// Each computes what its node's eager kernel computes on the card, op for
+// op: every f32 operation rounds as the torch op does (the nodes divide by
+// tensors, so a division is IEEE's here too), torch.remainder is fmodf with
+// the divisor's sign, and the scans are K7's (assoc_scan.cuh).  Lanes run over frames; a recurrence that is
+// sequential in its node (the gate's latch) runs on lane 0.
+
+// torch.remainder(x, m) for m > 0 on the card: fmod, moved up by m when
+// negative
+__device__ __forceinline__ float remainder_pos(float x, float m) {
+  float r = fmodf(x, m);
+  if (r != 0.f && r < 0.f) r += m;
+  return r;
+}
+
+// nodes/mod_effects.py:_lfo_phases: frame f's phase of the channel whose
+// offset (spread·c / C) is `offs`
+__device__ __forceinline__ float lfo_phase(float phase, float rate, float offs,
+                                           int f) {
+  return remainder_pos(phase + static_cast<float>(f + 1) * rate + offs, 1.0f);
+}
+
+// The row's scratch in shared memory: one row of frames, then the scan's
+// levels (executor_mega.scan_words).
+template <class A>
+__device__ __forceinline__ float* scan_row(const A& a, const Inst& I) {
+  return &s_float(I.scan);
+}
+template <class A, class E>
+__device__ __forceinline__ E* scan_levels(const A& a, const Inst& I) {
+  return reinterpret_cast<E*>(&s_float(I.scan + pitch(a)));
+}
+
+// nodes/channel.py: MonoToStereoNode, channel 0 to both outputs
+template <class A>
+__device__ void op_mono_to_stereo(const A& a, const Row& r, const Inst& I) {
+  const bool silent = flag(I, in_buf(r, 0)) != 0;
+  for (int f = I.lane; f < a.F; f += kLanes) {
+    const float y = silent ? 0.f : frame(a, I, in_buf(r, 0), f);
+    frame(a, I, out_buf(r, 0), f) = y;
+    frame(a, I, out_buf(r, 1), f) = y;
+  }
+  __syncwarp();
+  if (I.lane < 2) flag(I, out_buf(r, I.lane)) = silent;
+}
+
+// nodes/channel.py: StereoToMonoNode, (L + R)·0.5
+template <class A>
+__device__ void op_stereo_to_mono(const A& a, const Row& r, const Inst& I) {
+  const bool silent = all_silent(r, I);
+  for (int f = I.lane; f < a.F; f += kLanes) {
+    const float m = (frame(a, I, in_buf(r, 0), f) + frame(a, I, in_buf(r, 1), f)) * 0.5f;
+    frame(a, I, out_buf(r, 0), f) = silent ? 0.f : m;
+  }
+  __syncwarp();
+  if (I.lane == 0) flag(I, out_buf(r, 0)) = silent;
+}
+
+// nodes/stereo_width.py.  words: width, width.{target, last, status};
+// consts: a, log_b, eps.  Mid/side with the smoothed width on the side; an
+// all-silent block resets the smoother to its target.
+template <class A>
+__device__ void op_width(const A& a, const Row& r, const Inst& I) {
+  const Smooth s = smoother(r);
+  const bool silent = all_silent(r, I);
+  for (int f = I.lane; f < a.F; f += kLanes) {
+    const float l = frame(a, I, in_buf(r, 0), f), rr = frame(a, I, in_buf(r, 1), f);
+    const float mid = (l + rr) * 0.5f;
+    const float side = ((l - rr) * 0.5f) * s.value(f);
+    frame(a, I, out_buf(r, 0), f) = silent ? 0.f : mid + side;
+    frame(a, I, out_buf(r, 1), f) = silent ? 0.f : mid - side;
+  }
+  __syncwarp();  // every lane has read the smoother
+  if (I.lane < 2) flag(I, out_buf(r, I.lane)) = silent;
+  if (I.lane == 0) write_smoother(r, s, silent, a.F);
+}
+
+// nodes/mod_effects.py:TremoloProcessor.  words: rate, depth, spread,
+// phase (state); aux0: bipolar (ring modulation).
+template <class A>
+__device__ void op_tremolo(const A& a, const Row& r, const Inst& I) {
+  const float rate = wf(r, 0), depth = wf(r, 1), spread = wf(r, 2);
+  const float phase = wf(r, 3);
+  for (int c = 0; c < r.n_in; ++c) {
+    const float offs = (spread * static_cast<float>(c)) / static_cast<float>(r.n_in);
+    const int x = in_buf(r, c), y = out_buf(r, c);
+    const bool silent = flag(I, x) != 0;
+    for (int f = I.lane; f < a.F; f += kLanes) {
+      const float carrier = cosf(kTau * lfo_phase(phase, rate, offs, f));
+      const float g = r.aux0 ? (1.0f - depth) + depth * carrier
+                             : 1.0f - depth * (0.5f - 0.5f * carrier);
+      const float v = frame(a, I, x, f) * g;
+      frame(a, I, y, f) = silent ? 0.f : v;
+    }
+  }
+  __syncwarp();  // every lane has read the phase
+  for (int c = I.lane; c < r.n_in; c += kLanes)
+    flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
+  if (I.lane == 0)
+    set_wf(r, 3, remainder_pos(phase + static_cast<float>(a.F) * rate, 1.0f));
+}
+
+// nodes/waveshaper.py:_shape, the curves in SHAPES' order
+__device__ __forceinline__ float shape(int curve, float v) {
+  switch (curve) {
+    case 0: return tanhf(v);
+    case 1: return kTwoOverPi * atanf(v);
+    case 2: {
+      const float t = nanmin(nanmax(v, -1.0f), 1.0f);
+      return 1.5f * t - 0.5f * t * t * t;
+    }
+    case 3: return nanmin(nanmax(v, -1.0f), 1.0f);
+    default: return fabsf(remainder_pos(v - 1.0f, 4.0f) - 2.0f) - 1.0f;
+  }
+}
+
+// The DC blocker's leaves: the one-pole map (R, 1·Δx) of x = the shaped
+// block after its last sample x1 (ops/iir.py:one_pole_scan(Δx, y1, 1, R)).
+struct DcLeaves {
+  const float* x;
+  float x1, r;
+  __device__ __forceinline__ scan::Affine1 operator()(int p) const {
+    return scan::Affine1{r, 1.0f * (x[p] - (p ? x[p - 1] : x1))};
+  }
+};
+
+// nodes/waveshaper.py.  words: drive, out, mix; with the DC blocker x1 [C],
+// y1 [C] (state); aux0: the curve, aux1: the DC blocker; consts: its pole
+// R.  The blocker is the one-pole scan of K7 on the shaped block in the
+// scratch row; a silent input still drains its tail.
+template <class A>
+__device__ void op_waveshaper(const A& a, const Row& r, const Inst& I) {
+  const float drive = wf(r, 0), gain = wf(r, 1), mix = wf(r, 2);
+  const int ch = r.n_in;
+  float* shaped = scan_row(a, I);
+  scan::Affine1* lv = scan_levels<A, scan::Affine1>(a, I);
+  for (int c = 0; c < ch; ++c) {
+    const int xb = in_buf(r, c), yb = out_buf(r, c);
+    if (!r.aux1) {
+      const bool silent = flag(I, xb) != 0;
+      for (int f = I.lane; f < a.F; f += kLanes) {
+        const float x = frame(a, I, xb, f);
+        const float v = (x + mix * (shape(r.aux0, x * drive) - x)) * gain;
+        frame(a, I, yb, f) = silent ? 0.f : v;
+      }
+      __syncwarp();
+      if (I.lane == 0) flag(I, yb) = silent;
+      continue;
+    }
+    const float x1 = wf(r, 3 + c), y1 = wf(r, 3 + ch + c);
+    const bool silent = flag(I, xb) != 0 && fabsf(x1) < kQuiet && fabsf(y1) < kQuiet;
+    for (int f = I.lane; f < a.F; f += kLanes)
+      shaped[f] = shape(r.aux0, frame(a, I, xb, f) * drive);
+    __syncwarp();
+    const DcLeaves leaf{shaped, x1, cst(r, 0)};
+    scan::sweep(lv, a.F, leaf, I.lane);
+    float y_last = 0.f;
+    for (int p = I.lane; p < a.F; p += kLanes) {
+      const scan::Affine1 m = scan::level0(lv, p, leaf);
+      const float dc = scan::fma64(m.m, y1, m.v);
+      const float x = frame(a, I, xb, p);
+      const float v = (x + mix * (dc - x)) * gain;
+      frame(a, I, yb, p) = silent ? 0.f : v;
+      if (p == a.F - 1) y_last = dc;
+    }
+    const float x_last = shaped[a.F - 1];
+    __syncwarp();  // every lane has read the state, the levels and the row
+    if ((a.F - 1) % kLanes == I.lane) {
+      set_wf(r, 3 + c, x_last);
+      set_wf(r, 3 + ch + c, y_last);
+      flag(I, yb) = silent;
+    }
+    __syncwarp();
+  }
+}
+
+// nodes/dynamics.py:GateProcessor.  words: open_lin, close_lin, floor,
+// att_b, rel_b, hold_n; open, hold, gain (state).  Lane 0 runs the latch
+// over the loudest channel's |x| as K5 does (csrc/sample_scan.cu, kGate)
+// into the scratch row; the lanes then apply the gains.
+template <class A>
+__device__ void op_gate(const A& a, const Row& r, const Inst& I) {
+  float* gains = scan_row(a, I);
+  if (I.lane == 0) {
+    const float open_lin = wf(r, 0), close_lin = wf(r, 1), floor_gain = wf(r, 2);
+    const float att = wf(r, 3), rel = wf(r, 4), hold_n = wf(r, 5);
+    float opn = wf(r, 6), hold = wf(r, 7), g = wf(r, 8);
+    for (int f = 0; f < a.F; ++f) {
+      float lvl = fabsf(frame(a, I, in_buf(r, 0), f));
+      for (int c = 1; c < r.n_in; ++c)
+        lvl = nanmax(lvl, fabsf(frame(a, I, in_buf(r, c), f)));
+      const bool above = lvl >= open_lin;
+      const bool below = lvl < close_lin;
+      const bool expired = hold <= 0.0f;
+      opn = above ? 1.0f : ((below && expired) ? 0.0f : opn);
+      hold = above ? hold_n : nanmax(hold - 1.0f, 0.0f);
+      const float target = opn + (1.0f - opn) * floor_gain;
+      const float b = target > g ? att : rel;
+      g = fmaf(b, g, (1.0f - b) * target);
+      gains[f] = g;
+    }
+    set_wf(r, 6, opn);
+    set_wf(r, 7, hold);
+    set_wf(r, 8, g);
+  }
+  __syncwarp();
+  for (int c = 0; c < r.n_in; ++c) {
+    const bool silent = flag(I, in_buf(r, c)) != 0;
+    for (int f = I.lane; f < a.F; f += kLanes) {
+      const float v = frame(a, I, in_buf(r, c), f) * gains[f];
+      frame(a, I, out_buf(r, c), f) = silent ? 0.f : v;
+    }
+  }
+  __syncwarp();
+  for (int c = I.lane; c < r.n_in; c += kLanes)
+    flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
+}
+
+// nodes/eq.py.  words: each band's b0, b1, b2, a1, a2 (params), then each
+// band's z1 [C], z2 [C] (state); aux0: bands.  Each band of each channel is
+// one K7 section (assoc_scan.cuh): band 0 reads the input buffer, a later
+// band a copy of the output buffer in the scratch row.  A channel is
+// silent when its input is and every band's state was quiet.
+template <class A>
+__device__ void op_eq(const A& a, const Row& r, const Inst& I) {
+  const int ch = r.n_in, bands = r.aux0;
+  float* copy = scan_row(a, I);
+  scan::Affine2* lv = scan_levels<A, scan::Affine2>(a, I);
+  for (int c = 0; c < ch; ++c) {
+    const int xb = in_buf(r, c), yb = out_buf(r, c);
+    float* y = &frame(a, I, yb, 0);
+    bool quiet = true;
+    for (int i = 0; i < bands; ++i) {
+      const int zw = 5 * bands + 2 * ch * i;
+      const float zp1 = wf(r, zw + c), zp2 = wf(r, zw + ch + c);
+      quiet = quiet && fabsf(zp1) < kQuiet && fabsf(zp2) < kQuiet;
+      const float* x = &frame(a, I, xb, 0);
+      if (i > 0) {
+        for (int f = I.lane; f < a.F; f += kLanes) copy[f] = y[f];
+        __syncwarp();
+        x = copy;
+      }
+      const float b0 = wf(r, 5 * i), b1 = wf(r, 5 * i + 1), b2 = wf(r, 5 * i + 2);
+      const float a1 = wf(r, 5 * i + 3), a2 = wf(r, 5 * i + 4);
+      const scan::BiquadLeaves leaf{x, -a1, -a2, b1 - a1 * b0, b2 - a2 * b0};
+      scan::sweep(lv, a.F, leaf, I.lane);
+      float z1_last = 0.f, z2_last = 0.f;
+      if (I.lane == 0) y[0] = b0 * x[0] + zp1;
+      for (int p = I.lane; p < a.F; p += kLanes) {
+        const scan::Affine2 m = scan::level0(lv, p, leaf);
+        const float z1 = m.p11 * zp1 + m.p12 * zp2 + m.q1;
+        const float z2 = m.p21 * zp1 + m.p22 * zp2 + m.q2;
+        if (p + 1 < a.F) {
+          y[p + 1] = b0 * x[p + 1] + z1;
+        } else {
+          z1_last = z1;
+          z2_last = z2;
+        }
+      }
+      __syncwarp();  // every lane has read the state, the levels and x
+      if ((a.F - 1) % kLanes == I.lane) {
+        set_wf(r, zw + c, z1_last);
+        set_wf(r, zw + ch + c, z2_last);
+      }
+      __syncwarp();
+    }
+    const bool silent = flag(I, xb) != 0 && quiet;
+    if (silent)
+      for (int f = I.lane; f < a.F; f += kLanes) y[f] = 0.f;
+    __syncwarp();
+    if (I.lane == 0) flag(I, yb) = silent;
+  }
+}
+
+// The lines of the mod delay and the pitch shifter, as the echo's
+// (EchoLine): block k's line before it is logical [k·F, k·F + W), its
+// samples are appended at W + k·F.  Index i of cat(line, x) (the mod
+// delay's seq; the pitch ring after this block's write is i + F) reads
+// the block's own input from the arena.
+template <class A>
+__device__ __forceinline__ float seq_at(const A& a, const Inst& I, const EchoLine& e,
+                                        int xb, int k, int w, int i) {
+  return i >= w ? frame(a, I, xb, i - w)
+                : e.read(static_cast<int64_t>(k) * a.F + i);
+}
+
+// nodes/mod_effects.py:ModDelayProcessor without feedback.  words: rate,
+// base, depth, mix, spread, feedback (unread), phase (state); the line
+// [C, W] (leaf slot + 6) stays in device memory; aux0 = W, aux1 = the
+// row's first echo channel.  The tap interpolates cat(line,
+// x) at W + f − delay; a channel is silent when its input is and its line
+// was quiet.
+template <class A>
+__device__ void op_mod_delay(const A& a, const Row& r, const Inst& I, int k) {
+  const float rate = wf(r, 0), base = wf(r, 1), depth = wf(r, 2), mix = wf(r, 3);
+  const float spread = wf(r, 4), phase = wf(r, 6);
+  const int w = r.aux0;
+  for (int c = 0; c < r.n_in; ++c) {
+    const EchoLine e = echo_line(a, r, I, c);
+    const int xb = in_buf(r, c), yb = out_buf(r, c);
+    const bool silent = flag(I, xb) != 0 && echo_ch(I, r.aux1 + c).count == 0;
+    const float offs = (spread * static_cast<float>(c)) / static_cast<float>(r.n_in);
+    int delta = 0;
+    for (int f = I.lane; f < a.F; f += kLanes) {
+      const float ph = lfo_phase(phase, rate, offs, f);
+      const float d = base + depth * (0.5f - 0.5f * cosf(kTau * ph));
+      const float pos = (static_cast<float>(w) + static_cast<float>(f)) - d;
+      const float i0 = floorf(pos);
+      const float frac = pos - i0;
+      const int i = static_cast<int>(i0);
+      const float s0 = seq_at(a, I, e, xb, k, w, i);
+      const float s1 = seq_at(a, I, e, xb, k, w, i + 1);
+      const float tap = s0 + (s1 - s0) * frac;
+      const float x = frame(a, I, xb, f);
+      frame(a, I, yb, f) = silent ? 0.f : x + mix * (tap - x);
+      // the line drops seq index f and appends x at W + f
+      delta += loud(x) - loud(seq_at(a, I, e, xb, k, w, f));
+      e.append(w + static_cast<int64_t>(k) * a.F + f, x);
+    }
+    delta = __reduce_add_sync(kFull, delta);
+    __syncwarp();  // every lane has read the count and the flag
+    if (I.lane == 0) {
+      echo_ch(I, r.aux1 + c).count += delta;
+      flag(I, yb) = silent;
+    }
+  }
+  __syncwarp();
+  if (I.lane == 0)
+    set_wf(r, 6, remainder_pos(phase + static_cast<float>(a.F) * rate, 1.0f));
+}
+
+// nodes/pitch_shift.py.  words: ratio, mix, phase (state); the ring [C, W]
+// (leaf slot + 2) stays in device memory; aux0 = W, aux1 = the row's first
+// echo channel.  Two taps half a wrap cycle apart read the
+// ring after this block's write; an all-silent block with a quiet ring
+// zeroes the ring (zero_below, and the final line's part in line_out) and
+// the phase.
+template <class A>
+__device__ void op_pitch(const A& a, const Row& r, const Inst& I, int k) {
+  const float ratio = wf(r, 0), mix = wf(r, 1), phase = wf(r, 2);
+  const int w = r.aux0;
+  const float span = static_cast<float>(w - w / 8);
+  const float dphase = (1.0f - ratio) / span;
+  bool silent = all_silent(r, I);
+  for (int c = 0; c < r.n_in; ++c) silent = silent && echo_ch(I, r.aux1 + c).count == 0;
+  float phase_last = 0.f;
+  for (int c = 0; c < r.n_in; ++c) {
+    const EchoLine e = echo_line(a, r, I, c);
+    const int xb = in_buf(r, c), yb = out_buf(r, c);
+    int delta = 0;
+    for (int f = I.lane; f < a.F; f += kLanes) {
+      const float t = static_cast<float>(f + 1);
+      const float pa = remainder_pos(phase + t * dphase, 1.0f);
+      const float pb = remainder_pos(pa + 0.5f, 1.0f);
+      const float now = (static_cast<float>(w - a.F) + t) - 1.0f;
+      float shifted = 0.f;
+#pragma unroll
+      for (int tap = 0; tap < 2; ++tap) {
+        const float ph = tap ? pb : pa;
+        const float pos = now - ph * span;
+        const float i0 = floorf(pos);
+        const float frac = pos - i0;
+        const int i = static_cast<int>(i0);
+        const int i1 = min(i + 1, w - 1);
+        // the ring after the write: ring index i is seq index i + F
+        const float s0 = seq_at(a, I, e, xb, k, w, i + a.F);
+        const float s1 = seq_at(a, I, e, xb, k, w, i1 + a.F);
+        const float v = (s0 + (s1 - s0) * frac) * (1.0f - fabsf(2.0f * ph - 1.0f));
+        shifted = tap ? shifted + v : v;
+      }
+      const float x = frame(a, I, xb, f);
+      frame(a, I, yb, f) = silent ? 0.f : x + mix * (shifted - x);
+      if (f == a.F - 1) phase_last = pa;
+      if (!silent) {
+        delta += loud_q(x, kRingQuiet) - loud_q(seq_at(a, I, e, xb, k, w, f), kRingQuiet);
+        e.append(w + static_cast<int64_t>(k) * a.F + f, x);
+      }
+    }
+    delta = __reduce_add_sync(kFull, delta);
+    const int64_t top = static_cast<int64_t>(k + 1) * a.F + w;
+    if (silent) {  // the ring after this block is zeros: logical [top - W, top)
+      const int64_t from = top - w > e.kf ? top - w : e.kf;
+      for (int64_t j = from + I.lane; j < top; j += kLanes)
+        e.out[j - e.kf] = 0.f;
+    }
+    __syncwarp();  // every lane has read the counts and the flags
+    if (I.lane == 0) {
+      EchoChannel& ec = echo_ch(I, r.aux1 + c);
+      ec.count = silent ? 0 : ec.count + delta;
+      if (silent) ec.zero_below = top;
+      flag(I, yb) = silent;
+    }
+  }
+  __syncwarp();
+  if ((a.F - 1) % kLanes == I.lane) set_wf(r, 2, silent ? 0.f : phase_last);
+}
+
 // Row n's fields, three int4 loads from the table in shared memory.
 __device__ Row read_row(const Tables& t, const Inst& I, int n) {
   const int at0 = t.ops + n * kRowWidth;
@@ -880,7 +1331,25 @@ __device__ Row read_row(const Tables& t, const Inst& I, int n) {
   return r;
 }
 
+// The FX rows' device functions, compiled only into the kernels for graphs
+// that have such rows (kFx): their registers (132 an island thread, not 94)
+// would cost every other graph residency, K3 on the effects chain 40%.
 template <class A>
+__device__ void run_fx_row(const A& a, const Row& r, const Inst& I, int k) {
+  switch (r.op) {
+    case kMonoToStereo: op_mono_to_stereo(a, r, I); break;
+    case kStereoToMono: op_stereo_to_mono(a, r, I); break;
+    case kWidth: op_width(a, r, I); break;
+    case kTremolo: op_tremolo(a, r, I); break;
+    case kWaveshaper: op_waveshaper(a, r, I); break;
+    case kGate: op_gate(a, r, I); break;
+    case kEq: op_eq(a, r, I); break;
+    case kModDelay: op_mod_delay(a, r, I, k); break;
+    case kPitch: op_pitch(a, r, I, k); break;
+  }
+}
+
+template <bool kFx, class A>
 __device__ void run_row(const A& a, const Row& r, const Inst& I, int k) {
   // unconnected inputs read as cleared, silent buffers (schedule.rs:310-313)
   if (r.n_clear) {
@@ -903,6 +1372,8 @@ __device__ void run_row(const A& a, const Row& r, const Inst& I, int k) {
     case kClip: op_clip(a, r, I); break;
     case kMeter: op_meter(a, r, I); break;
     case kSpatial: op_spatial(a, r, I); break;
+    default:
+      if constexpr (kFx) run_fx_row(a, r, I, k);
   }
   __syncwarp();  // the next row reads what this one wrote
 }
@@ -1019,8 +1490,9 @@ __device__ Tables load_tables(const Args& a) {
   return t;
 }
 
-// The K-block loop of one instance per warp; kIsland selects K3's operands.
-template <bool kIsland, class A>
+// The K-block loop of one instance per warp; kIsland selects K3's operands,
+// kFx the FX rows.
+template <bool kIsland, bool kFx, class A>
 __device__ void render(const A& a) {
   const Tables t = load_tables(a);
   __syncthreads();  // the CTA's only barrier
@@ -1030,6 +1502,7 @@ __device__ void render(const A& a) {
   I.echo = I.buf + a.num_buffers * pitch(a);
   I.flag = I.echo + kEchoWords * a.echo_channels;
   I.word = I.flag + a.num_buffers;
+  I.scan = I.word + a.num_words;
   I.i = static_cast<int64_t>(blockIdx.x) * a.tile + li;
   I.lane = I.sub = threadIdx.x % kLanes;
   I.span = kLanes;
@@ -1038,7 +1511,7 @@ __device__ void render(const A& a) {
   gather_leaves(a, I);
   for (int n = 0; n < a.n_ops; ++n) {
     const Row r = read_row(t, I, n);
-    if (r.op == kEcho) echo_begin(a, r, I);
+    if (has_line(r.op)) echo_begin(a, r, I);
   }
   __syncwarp();
   for (int k = 0; k < a.K; ++k) {
@@ -1051,10 +1524,10 @@ __device__ void render(const A& a) {
         J.span = 1 << log_span;
         J.sub = I.lane & (J.span - 1);
         J.mask = ((1u << J.span) - 1) << (I.lane - J.sub);
-        run_row(a, read_row(t, J, n + (I.lane >> log_span)), J, k);
+        run_row<kFx>(a, read_row(t, J, n + (I.lane >> log_span)), J, k);
         n += g;
       } else {
-        run_row(a, read_row(t, I, n), I, k);
+        run_row<kFx>(a, read_row(t, I, n), I, k);
         ++n;
       }
     }
@@ -1072,23 +1545,23 @@ struct Args128 : Args {
   static constexpr bool kWhole = true;
 };
 
-template <class A>
+template <class A, bool kFx>
 __global__ void __launch_bounds__(kMaxThreads, 1) mega_kernel(const A a) {
-  render<false>(a);
+  render<false, kFx>(a);
 }
 
-template <class A>
+template <class A, bool kFx>
 __global__ void __launch_bounds__(kMaxThreads, 1) island_kernel(const A a) {
-  render<true>(a);
+  render<true, kFx>(a);
 }
 
-// The most dynamic shared memory each of the four kernels (K2, K3; F fixed
-// or not) may take on each device so far: its attributes are set when a
-// launch needs more, not on every launch.
+// The most dynamic shared memory each of the eight kernels (K2, K3; F fixed
+// or not; with the FX rows or not) may take on each device so far: its
+// attributes are set when a launch needs more, not on every launch.
 constexpr int kMaxDevices = 64;
-std::atomic<size_t> g_allowed[4][kMaxDevices];
+std::atomic<size_t> g_allowed[8][kMaxDevices];
 
-// Lets `kernel` (number `which` of the four) take `smem` bytes of dynamic
+// Lets `kernel` (number `which` of the eight) take `smem` bytes of dynamic
 // shared memory on the current device, and asks for all of the SM's
 // unified memory as shared memory: the arena bounds how many instances an
 // SM holds.
@@ -1109,11 +1582,11 @@ cudaError_t allow_shared(void (*kernel)(A), int which, size_t smem) {
   return err;
 }
 
-template <class A>
-int launch_as(bool island, const A& a, int batch, void* stream) {
+template <class A, bool kFx>
+int launch_kernel(bool island, const A& a, int batch, void* stream) {
   const size_t smem = shared_bytes(a);
-  const auto kernel = island ? island_kernel<A> : mega_kernel<A>;
-  const int which = 2 * island + !std::is_same<A, Args>::value;
+  const auto kernel = island ? island_kernel<A, kFx> : mega_kernel<A, kFx>;
+  const int which = 4 * kFx + 2 * island + !std::is_same<A, Args>::value;
   const cudaError_t err = allow_shared(kernel, which, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<batch / a.tile, a.tile * kLanes, smem,
@@ -1121,9 +1594,15 @@ int launch_as(bool island, const A& a, int batch, void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+template <class A>
+int launch_as(bool island, const A& a, int batch, void* stream) {
+  return a.fx ? launch_kernel<A, true>(island, a, batch, stream)
+              : launch_kernel<A, false>(island, a, batch, stream);
+}
+
 // Checks the sizes, lets the kernel take its shared memory and launches
-// it, with F fixed when it is 128; returns cudaGetLastError() (0 on
-// success).
+// it, with F fixed when it is 128 and the FX rows compiled in when the
+// table has them; returns cudaGetLastError() (0 on success).
 int launch(bool island, const Args& a, int batch, void* stream) {
   if (batch <= 0) return 0;
   if (a.tile <= 0 || a.tile > kMaxTile || batch % a.tile != 0 || a.K <= 0 ||
@@ -1140,7 +1619,7 @@ Args make_args(const int* ops, const int* io, const float* consts,
                float* out, bool* masks, float* scratch, int n_ops, int n_io,
                int n_consts, int n_out, int n_leaves, int num_words,
                int64_t stride, int tile, int num_blocks, int frames,
-               int num_buffers, int echo_channels) {
+               int num_buffers, int echo_channels, int scan_words, int fx) {
   Args a = {};
   a.ops = ops;
   a.io = io;
@@ -1163,6 +1642,8 @@ Args make_args(const int* ops, const int* io, const float* consts,
   a.F = frames;
   a.num_buffers = num_buffers;
   a.echo_channels = echo_channels;
+  a.scan_words = scan_words;
+  a.fx = fx;
   return a;
 }
 
@@ -1173,7 +1654,7 @@ Args make_args(const int* ops, const int* io, const float* consts,
 extern "C" int64_t fw_mega_shared_bytes(int n_ops, int n_io, int n_consts,
                                         int n_out, int n_in, int num_words,
                                         int tile, int frames, int num_buffers,
-                                        int echo_channels) {
+                                        int echo_channels, int scan_words) {
   Args a = {};
   a.n_ops = n_ops;
   a.n_io = n_io;
@@ -1185,6 +1666,7 @@ extern "C" int64_t fw_mega_shared_bytes(int n_ops, int n_io, int n_consts,
   a.F = frames;
   a.num_buffers = num_buffers;
   a.echo_channels = echo_channels;
+  a.scan_words = scan_words;
   return static_cast<int64_t>(shared_bytes(a));
 }
 
@@ -1200,11 +1682,11 @@ extern "C" int fw_mega_render(const int* ops, const int* io,
                               int n_leaves, int num_words, int64_t stride,
                               int batch, int tile, int num_blocks, int frames,
                               int num_buffers, int echo_channels,
-                              void* stream) {
+                              int scan_words, int fx, void* stream) {
   const Args a = make_args(ops, io, consts, out_row, leaves, ptrs, out, masks,
                            scratch, n_ops, n_io, n_consts, n_out, n_leaves,
                            num_words, stride, tile, num_blocks, frames,
-                           num_buffers, echo_channels);
+                           num_buffers, echo_channels, scan_words, fx);
   return launch(false, a, batch, stream);
 }
 
@@ -1220,13 +1702,13 @@ extern "C" int fw_island_render(const int* ops, const int* io,
                                 int n_leaves, int num_words, int64_t stride,
                                 int batch, int tile, int num_blocks,
                                 int frames, int num_buffers,
-                                int echo_channels, void* stream,
-                                const int* in_bufs, int n_in,
+                                int echo_channels, int scan_words, int fx,
+                                void* stream, const int* in_bufs, int n_in,
                                 const float* env, const bool* env_flags) {
   Args a = make_args(ops, io, consts, out_row, leaves, ptrs, out, flags,
                      scratch, n_ops, n_io, n_consts, n_out, n_leaves,
                      num_words, stride, tile, num_blocks, frames, num_buffers,
-                     echo_channels);
+                     echo_channels, scan_words, fx);
   a.in_bufs = in_bufs;
   a.n_in = n_in;
   a.env = env;

@@ -36,7 +36,12 @@ sequential recurrence of K1 (``csrc/biquad_step.cuh``) and the clip counter
 counts, as on the eager path.  The spatializer's one-pole runs sequentially
 too, on the same biquad step (the eager path runs the JAX package's
 associative scan; the two agree to ~1e-7); the doppler spatializer opts
-out.
+out.  The FX palette's nodes have rows as in the JAX package, all but the
+mod delay's feedback program: the EQ's bands and the waveshaper's DC
+blocker run K7's associative scan inside the row (``csrc/assoc_scan.cuh``),
+as their eager kernels do, so these rows equal eager bit for bit; the mod
+delay's line and the pitch ring stay in device memory as the echo's line
+does.
 """
 
 from __future__ import annotations
@@ -54,15 +59,22 @@ from .core.node import BlockInfo
 from .device import DEFAULT_DEVICE, resolve_device
 from .executor import ScheduleProgram, node_key, refuse_timelines
 from .nodes.beep_test import BeepTestProcessor
+from .nodes.channel import MonoToStereoProcessor, StereoToMonoProcessor
 from .nodes.delay import EchoProcessor
 from .nodes.dummy import DummyProcessor
+from .nodes.dynamics import GateProcessor
+from .nodes.eq import ParametricEQProcessor
 from .nodes.filter import FilterProcessor
 from .nodes.hard_clip import HardClipProcessor
 from .nodes.meter import DbMeterProcessor
+from .nodes.mod_effects import ModDelayProcessor, TremoloProcessor
 from .nodes.pan import StereoPanProcessor
+from .nodes.pitch_shift import PitchShiftProcessor
 from .nodes.spatial import Spatializer3DProcessor
+from .nodes.stereo_width import StereoWidthProcessor
 from .nodes.sum import SumProcessor
 from .nodes.volume import _MUTE_F32, VolumeProcessor
+from .nodes.waveshaper import SHAPES, WaveshaperProcessor
 from .ops.cuda_build import CudaLibrary
 from .parallel.mesh import BatchRenderer
 
@@ -99,17 +111,24 @@ class _Op:
     """One device function of the kernel.
 
     ``layout`` lists the (tree, path) of every leaf of the node in the
-    order of its slots; the device function reads them by position.
-    ``in_memory`` names the leaves that stay in device memory instead of
-    the instance's leaf words (the echo's line).  ``consts`` gives the
-    processor's float constants, ``derive`` (for a ``"derived"`` leaf)
+    order of its slots (or gives them for a processor); the device function
+    reads them by position.  ``in_memory`` names the leaves that stay in
+    device memory instead of the instance's leaf words (a line: the echo's,
+    the mod delay's, the pitch ring), and ``line`` gives that line's length,
+    the row's ``AUX0``.  ``consts`` gives the processor's float constants,
+    ``aux`` its structural ints (``AUX0``, ``AUX1``) when it has no line,
+    ``scan`` the scratch words a row of ``F`` frames needs
+    (:func:`scan_words`), and ``derive`` (for a ``"derived"`` leaf)
     computes a leaf from the node's params once per chunk."""
 
     code: int
-    layout: tuple = ()
+    layout: Any = ()
     in_memory: tuple = ()
     consts: Callable[[Any], tuple] = lambda proc: ()
     derive: Optional[Callable[[Any, dict], torch.Tensor]] = None
+    line: Optional[Callable[[Any], int]] = None
+    aux: Callable[[Any], tuple] = lambda proc: (0, 0)
+    scan: Callable[[Any, int], int] = lambda proc, f: 0
 
 
 def _smoother_consts(proc, eps):
@@ -125,6 +144,27 @@ def _filter_coef(proc, p):
 
 
 _SMOOTHER = ("target", "last", "status")
+
+
+def scan_words(levels: int, frames: int) -> int:
+    """Scratch words of a row in shared memory (csrc/megakernel.cu:
+    scan_row, scan_levels): a row of ``frames`` floats padded to a float4,
+    then the associative scan's levels, ``frames − 1`` elements of
+    ``levels`` floats (6: the biquad's maps, 2: the one-pole's, 0: none)."""
+    return _round4(frames) + levels * max(frames - 1, 0)
+
+
+def _eq_layout(proc):
+    bands = range(len(proc._types))
+    return (tuple(("params", ("bands", str(i), k)) for i in bands
+                  for k in ("b0", "b1", "b2", "a1", "a2"))
+            + tuple(("state", (f"{z}_{i}",)) for i in bands for z in ("z1", "z2")))
+
+
+def _waveshaper_layout(proc):
+    dc = (("state", ("x1",)), ("state", ("y1",))) if proc._node._dc_block else ()
+    return (("params", ("drive",)), ("params", ("out",)), ("params", ("mix",))) + dc
+
 
 #: processor class → the kernel's device function for it
 OPS: dict[type, _Op] = {
@@ -153,7 +193,7 @@ OPS: dict[type, _Op] = {
     EchoProcessor: _Op(6, (
         ("params", ("feedback",)), ("params", ("wet",)), ("params", ("dry",)),
         ("state", ("line",)),
-    ), in_memory=(("state", ("line",)),)),
+    ), in_memory=(("state", ("line",)),), line=lambda proc: proc.delay_frames),
     HardClipProcessor: _Op(7, (("params", ("threshold",)), ("state", ("clip_count",)))),
     DbMeterProcessor: _Op(
         8,
@@ -169,8 +209,58 @@ OPS: dict[type, _Op] = {
         + tuple(("state", ("pan", f)) for f in _SMOOTHER) + (("state", ("lp",)),),
         consts=lambda proc: _smoother_consts(proc, 1e-5),
     ),
+    # the FX palette (examples/interactive_graph.py): every node but the
+    # flanger, whose feedback program opts out
+    MonoToStereoProcessor: _Op(10),
+    StereoToMonoProcessor: _Op(11),
+    StereoWidthProcessor: _Op(
+        12,
+        (("params", ("width",)),) + tuple(("state", ("width", f)) for f in _SMOOTHER),
+        consts=lambda proc: _smoother_consts(proc, 1e-5),
+    ),
+    TremoloProcessor: _Op(
+        13,
+        (("params", ("rate",)), ("params", ("depth",)), ("params", ("spread",)),
+         ("state", ("phase",))),
+        aux=lambda proc: (int(proc._node._bipolar), 0),
+    ),
+    WaveshaperProcessor: _Op(
+        14, _waveshaper_layout,
+        consts=lambda proc: (float(np.float32(proc._dc_r)),),
+        aux=lambda proc: (SHAPES.index(proc._node.curve), int(proc._node._dc_block)),
+        scan=lambda proc, f: scan_words(2, f) if proc._node._dc_block else 0,
+    ),
+    GateProcessor: _Op(
+        15,
+        tuple(("params", (k,)) for k in ("open_lin", "close_lin", "floor", "att_b",
+                                          "rel_b", "hold_n"))
+        + (("state", ("open",)), ("state", ("hold",)), ("state", ("gain",))),
+        scan=lambda proc, f: scan_words(0, f),
+    ),
+    ParametricEQProcessor: _Op(
+        16, _eq_layout, aux=lambda proc: (len(proc._types), 0),
+        scan=lambda proc, f: scan_words(6, f),
+    ),
+    ModDelayProcessor: _Op(
+        17,
+        tuple(("params", (k,)) for k in ("rate", "base", "depth", "mix", "spread",
+                                          "feedback"))
+        + (("state", ("line",)), ("state", ("phase",))),
+        in_memory=(("state", ("line",)),), line=lambda proc: proc._window,
+    ),
+    PitchShiftProcessor: _Op(
+        18,
+        (("params", ("ratio",)), ("params", ("mix",)), ("state", ("ring",)),
+         ("state", ("phase",))),
+        in_memory=(("state", ("ring",)),), line=lambda proc: proc._window,
+    ),
 }
-_ECHO = OPS[EchoProcessor].code
+#: device functions of rows with a line in device memory
+_LINES = {op.code for op in OPS.values() if op.line is not None}
+#: the FX palette's device functions, compiled only into the kernels that a
+#: table with such rows launches (csrc/megakernel.cu:run_fx_row)
+FX_ROWS = frozenset(range(OPS[MonoToStereoProcessor].code,
+                          OPS[PitchShiftProcessor].code + 1))
 #: device functions whose rows may run side by side on parts of a warp
 _GROUPABLE = {OPS[c].code for c in (DummyProcessor, BeepTestProcessor,
                                     VolumeProcessor, StereoPanProcessor)}
@@ -220,7 +310,8 @@ class LoweredSchedule:
     num_words: int         # leaf words per instance
     num_buffers: int
     frames: int
-    echo_channels: int     # channels of all echo rows (the kernel's counts)
+    echo_channels: int     # channels of all rows with a line (the kernel's records)
+    scan_words: int = 0    # scratch words per instance (the most a row needs)
 
 
 def _flat(tree, prefix=()):
@@ -268,7 +359,7 @@ def lower_schedule(program: ScheduleProgram, nodes=None, live_in=(),
             raise ValueError(f"nodes with no device function in an island: {bad}")
         out_row = [[b, 0] for b in (live_out or ())]
     rows, io, consts, keys, leaves, words = [], [], [], [], [], []
-    echo_channels = num_words = 0
+    echo_channels = num_words = scan = 0
     for sn in nodes:
         key = node_key(sn.id)
         proc = program._procs[key]
@@ -283,12 +374,14 @@ def lower_schedule(program: ScheduleProgram, nodes=None, live_in=(),
         if op.derive is not None:
             mine.append(LeafSpec("derived", key, ("coef",), torch.float32, (5,)))
         got = tuple((leaf.tree, leaf.path) for leaf in mine)
-        if got != op.layout:
-            raise AssertionError(f"{key}: leaves {got}, the kernel reads {op.layout}")
-        aux0 = aux1 = 0
-        if op.code == _ECHO:
-            aux0, aux1 = proc.delay_frames, echo_channels
+        layout = op.layout(proc) if callable(op.layout) else op.layout
+        if got != layout:
+            raise AssertionError(f"{key}: leaves {got}, the kernel reads {layout}")
+        aux0, aux1 = op.aux(proc)
+        if op.line is not None:
+            aux0, aux1 = op.line(proc), echo_channels
             echo_channels += proc.num_inputs
+        scan = max(scan, op.scan(proc, program.max_block_frames))
         rows.append([op.code, len(sn.input_buffers), len(sn.output_buffers),
                      len(io), len(leaves), len(mine), len(consts), aux0, aux1,
                      num_words, sum(ib.should_clear for ib in sn.input_buffers), 1])
@@ -319,6 +412,7 @@ def lower_schedule(program: ScheduleProgram, nodes=None, live_in=(),
         num_buffers=program.schedule.num_buffers,
         frames=program.max_block_frames,
         echo_channels=echo_channels,
+        scan_words=scan,
     )
 
 
@@ -605,7 +699,8 @@ def _bind(lib):
         + [ctypes.c_int] * 6           # n_ops, n_io, n_consts, n_out, n_leaves,
                                        # num_words
         + [ctypes.c_int64]             # scratch per echo channel
-        + [ctypes.c_int] * 6           # batch, tile, K, F, buffers, echo channels
+        + [ctypes.c_int] * 8           # batch, tile, K, F, buffers, echo channels,
+                                       # scan words, FX rows
         + [ctypes.c_void_p]            # stream
     )
     lib.fw_mega_render.argtypes = head
@@ -614,12 +709,13 @@ def _bind(lib):
         ctypes.c_void_p, ctypes.c_void_p,   # env, env_flags
     ]
     lib.fw_mega_render.restype = lib.fw_island_render.restype = ctypes.c_int
-    lib.fw_mega_shared_bytes.argtypes = [ctypes.c_int] * 10
+    lib.fw_mega_shared_bytes.argtypes = [ctypes.c_int] * 11
     lib.fw_mega_shared_bytes.restype = ctypes.c_int64
 
 
 #: ``csrc/megakernel.cu`` (K2 and K3), built with nvcc at first use
-LIBRARY = CudaLibrary("fw_mega", "megakernel.cu", ("biquad_step.cuh",), _bind)
+LIBRARY = CudaLibrary("fw_mega", "megakernel.cu", ("assoc_scan.cuh", "biquad_step.cuh"),
+                      _bind)
 
 
 def _round4(n: int) -> int:
@@ -627,19 +723,19 @@ def _round4(n: int) -> int:
 
 
 #: 32-bit words of one echo channel's record (csrc/megakernel.cu:EchoChannel)
-ECHO_WORDS = 8
+ECHO_WORDS = 10
 
 
 def shared_bytes(lowered: LoweredSchedule, tile: int) -> int:
     """Dynamic shared memory of one CTA (csrc/megakernel.cu:shared_bytes):
     the tables once, then per instance the buffers (each padded to a whole
-    float4), the echo channels' records, the buffers' flags and the leaf
-    words, each part rounded up to 16 bytes."""
+    float4), the echo channels' records, the buffers' flags, the leaf words
+    and the rows' scratch, each part rounded up to 16 bytes."""
     tables = (lowered.ops.size + lowered.io.size + lowered.consts.size
               + lowered.out_row.size + lowered.in_bufs.size)
     per_instance = (lowered.num_buffers * _round4(lowered.frames)
                     + ECHO_WORDS * lowered.echo_channels + lowered.num_buffers
-                    + lowered.num_words)
+                    + lowered.num_words + lowered.scan_words)
     return 4 * (_round4(tables) + tile * _round4(per_instance))
 
 
@@ -647,7 +743,8 @@ def shared_sizes(lowered: LoweredSchedule, tile: int) -> tuple:
     """The arguments of ``fw_mega_shared_bytes`` for ``lowered``."""
     return (lowered.ops.shape[0], lowered.io.size, lowered.consts.size,
             lowered.out_row.shape[0], lowered.in_bufs.size, lowered.num_words,
-            tile, lowered.frames, lowered.num_buffers, lowered.echo_channels)
+            tile, lowered.frames, lowered.num_buffers, lowered.echo_channels,
+            lowered.scan_words)
 
 
 def check_launchable(lowered: LoweredSchedule, tile: int, who: str) -> None:
@@ -715,7 +812,7 @@ class KernelOperands:
         ptrs_d = torch.tensor(ptrs or [0], dtype=torch.int64).pin_memory().to(
             dev, non_blocking=True)
         stride = max([0] + [max(0, self.num_blocks * lw.frames - int(r[AUX0]))
-                            for r in lw.ops if r[OP] == _ECHO])
+                            for r in lw.ops if r[OP] in _LINES])
         scratch = torch.empty((self.batch * lw.echo_channels * stride,),
                               dtype=torch.float32, device=dev)
         return values, ptrs_d, new, scratch, stride
@@ -723,6 +820,7 @@ class KernelOperands:
     def args(self, ptrs, out, masks, scratch, stride, stream):
         """The arguments both C entry points share, in their order."""
         lw = self.lowered
+        fx = int(bool(FX_ROWS & set(lw.ops[:, OP].tolist())))
         ops, io, consts, out_row, leaf_words, _ = self.tables
         return (ops.data_ptr(), io.data_ptr(), consts.data_ptr(),
                 out_row.data_ptr(), leaf_words.data_ptr(), ptrs.data_ptr(),
@@ -730,7 +828,7 @@ class KernelOperands:
                 lw.ops.shape[0], lw.io.size, lw.consts.size, lw.out_row.shape[0],
                 len(lw.leaves), lw.num_words, stride, self.batch, self.tile,
                 self.num_blocks, lw.frames, lw.num_buffers, lw.echo_channels,
-                stream)
+                lw.scan_words, fx, stream)
 
 
 class MegaRenderer:

@@ -19,7 +19,11 @@ does so for the spatial scene.  :func:`mastering_bus_graph` builds the
 game-audio master chain of ``examples/mastering_bus.py`` (pink-noise music
 ducked under a beep dialogue, compressor, 255-tap linear-phase FIR shelf,
 lookahead limiter, loudness meter), and :func:`vary_mastering_params`
-varies it per instance.
+varies it per instance.  :func:`fx_palette_graph` builds the engine graph of
+``examples/interactive_graph.py`` at its full width with every insert of
+its master-bus FX palette in series (EQ, chorus, flanger, tremolo,
+waveshaper, gate) and the rest of the FX nodes after them, and
+:func:`vary_fx_params` varies it per instance.
 """
 
 from __future__ import annotations
@@ -37,9 +41,15 @@ from .graph import AudioGraph, AudioGraphConfig
 from . import nodes as _NODES
 from .core.units import db_to_gain
 from .nodes.dynamics import CompressorProcessor, DuckerProcessor
+from .nodes.eq import ParametricEQProcessor
+from .nodes.filter import _DESIGNS
 from .nodes.generators import NoiseProcessor
-from .nodes.beep_test import BeepTestProcessor
+from .nodes.beep_test import BeepTestProcessor, phase_inc_fixed
+from .nodes.mod_effects import ModDelayProcessor
+from .nodes.pitch_shift import PitchShiftProcessor
 from .nodes.spatial import Spatializer3DProcessor
+from .nodes.stereo_width import StereoWidthProcessor
+from .nodes.waveshaper import WaveshaperProcessor
 from .nodes import (
     BeepTestNode,
     ConvolutionReverbNode,
@@ -56,12 +66,14 @@ from .nodes import (
 )
 
 __all__ = [
-    "BLOCK", "SR", "add_effects_chain", "add_mastering_bus", "add_mixer",
-    "add_spatial_scene", "add_voice", "air_shelf_taps", "effects_chain_audio",
-    "effects_chain_config4_graph", "effects_chain_graph", "mastering_bus_graph",
-    "mixer_graph", "orbit_scene", "random_graph", "spatial_scene_graph",
-    "vary_effects_params", "vary_mastering_params", "vary_params",
-    "vary_spatial_params",
+    "BLOCK", "FX_KINDS", "FX_VOICES", "SR", "add_effects_chain", "add_fx_palette",
+    "add_fx_engine", "add_fx_voice", "add_mastering_bus", "add_mixer", "add_spatial_scene",
+    "add_voice", "air_shelf_taps", "effects_chain_audio",
+    "effects_chain_config4_graph", "effects_chain_graph", "fx_insert",
+    "fx_palette_graph", "mastering_bus_graph", "mixer_graph", "orbit_scene",
+    "random_graph", "set_fx", "spatial_scene_graph", "vary_effects_params",
+    "vary_fx_params",
+    "vary_mastering_params", "vary_params", "vary_spatial_params",
 ]
 
 SR = 48000
@@ -537,4 +549,193 @@ def vary_mastering_params(program: ScheduleProgram, params: dict, seed: int) -> 
             b = p["threshold_db"].shape[0]
             put(p["threshold_db"], rng.uniform(-24.0, -12.0, b).astype(np.float32))
             put(p["makeup"], db_to_gain(rng.uniform(0.0, 6.0, b).astype(np.float32)))
+    return params
+
+
+#: the master-bus FX palette of ``examples/interactive_graph.py:68-79``, in order
+FX_KINDS = ("eq", "chorus", "flanger", "tremolo", "waveshaper", "gate")
+#: the example's voice limit (``MAX_VOICES``) and the voices' frequencies: its
+#: first two, then six more for the full width
+FX_VOICES = (440.0, 660.0, 220.0, 330.0, 550.0, 880.0, 770.0, 990.0)
+
+
+def fx_insert(kind: str, nodes=None):
+    """A fresh node of the example's FX palette: ``kind`` one of
+    :data:`FX_KINDS`, with the example's own params.  ``nodes`` is the node
+    module (the port's by default)."""
+    n = nodes or _NODES
+    if kind == "eq":
+        return n.ParametricEQNode([
+            n.EQBand(n.FilterType.LOW_SHELF, 150.0, 0.8, 4.0),
+            n.EQBand(n.FilterType.PEAKING, 1500.0, 1.2, -6.0),
+            n.EQBand(n.FilterType.HIGH_SHELF, 6000.0, 0.7, 3.0),
+        ])
+    if kind == "chorus":
+        return n.ModDelayNode.chorus(rate_hz=0.9, mix=0.5)
+    if kind == "flanger":
+        return n.ModDelayNode.flanger(feedback=0.6)
+    if kind == "tremolo":
+        return n.TremoloNode(rate_hz=5.0, depth=0.8)
+    if kind == "waveshaper":
+        return n.WaveshaperNode("soft", drive_db=12.0, mix=0.7)
+    if kind == "gate":
+        return n.GateNode(threshold_db=-45.0, hold_secs=0.1)
+    raise ValueError(f"unknown FX kind {kind!r}; one of {FX_KINDS}")
+
+
+def add_fx_voice(g: AudioGraph, s, slot: int, freq: float, nodes=None):
+    """The example's ``_add_voice``: BeepTest (``freq``, −15 dB) → Volume
+    80% → StereoPan centre → inputs ``2·slot, 2·slot + 1`` of the sum ``s``.
+    Returns the (beep, volume, pan) node ids."""
+    n = nodes or _NODES
+    beep = g.add_node(0, 2, n.BeepTestNode(freq, -15.0, True))
+    vol = g.add_node(2, 2, n.VolumeNode(80.0))
+    pan = g.add_node(2, 2, n.StereoPanNode(0.0))
+    for src, dst, port in ((beep, vol, 0), (vol, pan, 0), (pan, s, 2 * slot)):
+        g.connect(src, 0, dst, port)
+        g.connect(src, 1, dst, port + 1)
+    return beep, vol, pan
+
+
+def add_fx_engine(g: AudioGraph, nodes=None) -> dict:
+    """Add the engine graph of ``examples/interactive_graph.py``'s
+    ``EngineApp`` to ``g`` (stereo graph output): Sum (16 inputs, the
+    example's 8 voice slots) → HardClip 0 dB → DbMeter → out, and its first
+    two voices (:func:`add_fx_voice`, 440 and 660 Hz).  Returns the node ids
+    ``sum``, ``clip``, ``meter``, ``voices`` (a list of (beep, volume, pan))
+    and ``fx`` (the master insert's ``(kind, id)``, None: :func:`set_fx`)."""
+    n = nodes or _NODES
+    ids = {"sum": g.add_node(2 * len(FX_VOICES), 2, n.SumNode()),
+           "clip": g.add_node(2, 2, n.HardClipNode(0.0)),
+           "meter": g.add_node(2, 2, n.DbMeterNode()), "fx": None}
+    for c in range(2):
+        g.connect(ids["sum"], c, ids["clip"], c, check_for_cycles=True)
+        g.connect(ids["clip"], c, ids["meter"], c, check_for_cycles=True)
+        g.connect(ids["meter"], c, g.graph_out_node(), c, check_for_cycles=True)
+    ids["voices"] = [add_fx_voice(g, ids["sum"], i, FX_VOICES[i], n) for i in range(2)]
+    return ids
+
+
+def set_fx(g: AudioGraph, ids: dict, kind: str | None, nodes=None) -> None:
+    """The example's ``_set_fx`` on :func:`add_fx_engine`'s graph: remove
+    the current master insert (or cut clip → meter), then insert a fresh
+    ``kind`` (:func:`fx_insert`) between the clip and the meter, or, for
+    ``None``, reconnect them.  A topology edit: the running engine
+    recompiles and hot-swaps with state migration."""
+    if ids["fx"] is not None:
+        g.remove_node(ids["fx"][1])  # severs its edges
+        ids["fx"] = None
+    else:
+        for c in range(2):
+            g.disconnect(ids["clip"], c, ids["meter"], c)
+    if kind is None:
+        for c in range(2):
+            g.connect(ids["clip"], c, ids["meter"], c, check_for_cycles=True)
+        return
+    node = g.add_node(2, 2, fx_insert(kind, nodes))
+    for c in range(2):
+        g.connect(ids["clip"], c, node, c, check_for_cycles=True)
+        g.connect(node, c, ids["meter"], c, check_for_cycles=True)
+    ids["fx"] = (kind, node)
+
+
+def add_fx_palette(g: AudioGraph, num_voices: int = len(FX_VOICES), nodes=None,
+                   kinds=FX_KINDS) -> dict:
+    """Add the engine graph of ``examples/interactive_graph.py`` to ``g``
+    (stereo graph output) with every FX insert in series: ``num_voices``
+    voices (:func:`add_fx_voice`) → Sum (16 inputs, the example's 8 voice
+    slots) → HardClip 0 dB → the palette (:func:`fx_insert`, each of
+    ``kinds`` in :data:`FX_KINDS` order) → a fold waveshaper with its DC blocker →
+    StereoWidth 1.25 → StereoToMono → PitchShift +7 semitones, mix 0.5 →
+    MonoToStereo → DbMeter → out.  ``nodes`` is the node module (the port's
+    by default).  Returns the node ids: ``sum``, ``clip``, ``meter``,
+    ``voices`` (the (beep, volume, pan) of each) and each insert by kind,
+    plus ``fold``, ``width``, ``to_mono``, ``pitch``, ``to_stereo``."""
+    n = nodes or _NODES
+    ids = {"sum": g.add_node(2 * len(FX_VOICES), 2, n.SumNode())}
+    ids["voices"] = [add_fx_voice(g, ids["sum"], i, FX_VOICES[i], n)
+                     for i in range(num_voices)]
+    ids["clip"] = g.add_node(2, 2, n.HardClipNode(0.0))
+    chain = [ids["sum"], ids["clip"]]
+    for kind in (k for k in FX_KINDS if k in kinds):
+        ids[kind] = g.add_node(2, 2, fx_insert(kind, n))
+        chain.append(ids[kind])
+    ids["fold"] = g.add_node(2, 2, n.WaveshaperNode("fold", drive_db=3.0, mix=0.5,
+                                                    dc_block=True))
+    ids["width"] = g.add_node(2, 2, n.StereoWidthNode(1.25))
+    chain += [ids["fold"], ids["width"]]
+    for src, dst in zip(chain, chain[1:]):
+        g.connect(src, 0, dst, 0)
+        g.connect(src, 1, dst, 1)
+    ids["to_mono"] = g.add_node(2, 1, n.StereoToMonoNode())
+    ids["pitch"] = g.add_node(1, 1, n.PitchShiftNode(7.0, mix=0.5))
+    ids["to_stereo"] = g.add_node(1, 2, n.MonoToStereoNode())
+    ids["meter"] = g.add_node(2, 2, n.DbMeterNode())
+    g.connect(ids["width"], 0, ids["to_mono"], 0)
+    g.connect(ids["width"], 1, ids["to_mono"], 1)
+    g.connect(ids["to_mono"], 0, ids["pitch"], 0)
+    g.connect(ids["pitch"], 0, ids["to_stereo"], 0)
+    for c in range(2):
+        g.connect(ids["to_stereo"], c, ids["meter"], c)
+        g.connect(ids["meter"], c, g.graph_out_node(), c)
+    return ids
+
+
+def fx_palette_graph(num_voices: int = len(FX_VOICES),
+                     device: str | torch.device = DEFAULT_DEVICE,
+                     kinds=FX_KINDS, block_frames: int = BLOCK) -> ScheduleProgram:
+    """The FX palette graph (:func:`add_fx_palette`, with the inserts
+    ``kinds``), compiled at 48 kHz in blocks of ``block_frames`` → a
+    :class:`ScheduleProgram` on ``device``."""
+    g = AudioGraph(AudioGraphConfig(0, 2))
+    add_fx_palette(g, num_voices, kinds=kinds)
+    pkg = g.compile(SR, block_frames)
+    return ScheduleProgram(
+        pkg.schedule, dict(pkg.new_node_processors), SR, device=device
+    )
+
+
+def vary_fx_params(program: ScheduleProgram, params: dict, seed: int) -> dict:
+    """Give every instance of the FX palette's batch-stacked ``params`` its
+    own values, in place: each voice's frequency within ±25% of its own,
+    each EQ band's gain within ±6 dB of its own (the band's coefficients
+    restaged by the filter node's designs, per instance), the chorus's rate
+    in [0.3, 3) Hz, each waveshaper's drive within ±6 dB of its own, the
+    width in [0.5, 2) and the pitch shift in [−12, 12) semitones.  Returns
+    ``params``."""
+    rng = np.random.default_rng(seed)
+
+    def put(t, values):
+        t.copy_(torch.from_numpy(np.asarray(values)).to(t.dtype))
+
+    for key, proc in program._procs.items():
+        p = params[key]
+        if isinstance(proc, BeepTestProcessor):
+            b = p["inc"].shape[0]
+            freq = proc._node.freq_hz * rng.uniform(0.75, 1.25, b)
+            put(p["inc"], [phase_inc_fixed(f, proc.sample_rate) for f in freq])
+        elif isinstance(proc, ParametricEQProcessor):
+            for i, band in enumerate(proc._node._bands):
+                leaves = p["bands"][str(i)]
+                b = leaves["b0"].shape[0]
+                gain = (band.gain_db + rng.uniform(-6.0, 6.0, b)).astype(np.float32)
+                # host numbers: the designs' numpy float32 staging, as the
+                # node's collect_params stages its bands
+                c = _DESIGNS[band.band_type](band.frequency_hz, band.q, gain,
+                                             proc.sample_rate)
+                for k, v in zip(("b0", "b1", "b2", "a1", "a2"), c):
+                    put(leaves[k], np.asarray(v, np.float32))
+        elif isinstance(proc, ModDelayProcessor) and not proc._fb_mode:
+            b = p["rate"].shape[0]
+            put(p["rate"], (rng.uniform(0.3, 3.0, b) / proc.sample_rate).astype(np.float32))
+        elif isinstance(proc, WaveshaperProcessor):
+            b = p["drive"].shape[0]
+            drive_db = proc._node.drive_db() + rng.uniform(-6.0, 6.0, b)
+            put(p["drive"], db_to_gain(drive_db.astype(np.float32)).astype(np.float32))
+        elif isinstance(proc, StereoWidthProcessor):
+            b = p["width"].shape[0]
+            put(p["width"], rng.uniform(0.5, 2.0, b).astype(np.float32))
+        elif isinstance(proc, PitchShiftProcessor):
+            b = p["ratio"].shape[0]
+            put(p["ratio"], (2.0 ** (rng.uniform(-12.0, 12.0, b) / 12.0)).astype(np.float32))
     return params

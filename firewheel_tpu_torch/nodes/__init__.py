@@ -2,21 +2,27 @@
 
 from .beep_test import BeepTestNode
 from .binaural import BinauralSpatializerNode
+from .channel import MonoToStereoNode, StereoToMonoNode
 from .delay import DelayCompNode, EchoNode
 from .dummy import DummyAudioNode
 from .dynamics import CompressorNode, DuckerNode, GateNode, LimiterNode
+from .eq import EQBand, ParametricEQNode
 from .filter import FilterNode, FilterType
 from .fir import FirFilterNode, design_windowed_sinc
 from .generators import LFONode, LFOShape, NoiseNode
 from .hard_clip import HardClipNode
 from .loudness import IntegratedLoudness, LoudnessMeterNode
 from .meter import DbMeterNode
+from .mod_effects import ModDelayNode, TremoloNode
 from .pan import StereoPanNode
+from .pitch_shift import PitchShiftNode
 from .reverb import ConvolutionReverbNode
 from .sampler import LoopRange, SamplerNode
 from .spatial import Spatializer3DNode
+from .stereo_width import StereoWidthNode
 from .sum import SumNode
 from .volume import VolumeNode
+from .waveshaper import WaveshaperNode
 
 __all__ = [
     "BeepTestNode",
@@ -27,6 +33,7 @@ __all__ = [
     "DelayCompNode",
     "DuckerNode",
     "DummyAudioNode",
+    "EQBand",
     "EchoNode",
     "FilterNode",
     "FilterType",
@@ -39,11 +46,19 @@ __all__ = [
     "LimiterNode",
     "LoopRange",
     "LoudnessMeterNode",
+    "ModDelayNode",
+    "MonoToStereoNode",
     "NoiseNode",
+    "ParametricEQNode",
+    "PitchShiftNode",
     "SamplerNode",
     "Spatializer3DNode",
     "StereoPanNode",
+    "StereoToMonoNode",
+    "StereoWidthNode",
     "SumNode",
+    "TremoloNode",
     "VolumeNode",
+    "WaveshaperNode",
     "design_windowed_sinc",
 ]

@@ -266,8 +266,6 @@ class LimiterNode(AudioNode):
 
 
 class GateProcessor(NodeProcessor):
-    supports_megakernel = False  # no row in K2/K3
-
     def __init__(self, node, sample_rate, max_block_frames, num_inputs, num_outputs):
         super().__init__(sample_rate, max_block_frames, num_inputs, num_outputs)
         self._node = node

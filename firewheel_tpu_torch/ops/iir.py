@@ -4,19 +4,30 @@ associative-scan biquad, and the one-pole lowpass scan.
 PyTorch port of ``firewheel_tpu/ops/iir.py:125-333``.  The designs take
 float32 tensors of any shape (one filter per element: every instance of a
 batch carries its own frequency and Q) and evaluate the same float32 ops
-in the same order as the JAX package.  A section runs either through
+in the same order as the JAX package; given host numbers instead, they
+run in numpy float32, as the JAX package's do.  A section runs either through
 :func:`biquad_scan` (the JAX package's default, ``FilterNode("auto")``) or
 through the sequential kernel :func:`firewheel_tpu_torch.ops.seq_iir.
 biquad_seq` (``FilterNode("pallas")``).
+
+The two scans, :func:`biquad_scan` and :func:`one_pole_scan`, are wrappers:
+CPU tensors run their plain versions (:func:`biquad_scan_reference`,
+:func:`one_pole_scan_reference`, the recursion of
+``lax.associative_scan`` op by op); CUDA tensors launch
+``csrc/assoc_scan.cu`` (K7, one launch a section, the same compositions
+rounded the same way, bit for bit) or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
 import math
 from typing import NamedTuple
 
 import numpy as np
 import torch
+
+from .cuda_build import CudaLibrary
 
 __all__ = [
     "BiquadCoeffs",
@@ -29,8 +40,11 @@ __all__ = [
     "biquad_high_shelf",
     "biquad_allpass",
     "biquad_scan",
+    "biquad_scan_reference",
     "one_pole_coeffs",
     "one_pole_scan",
+    "one_pole_scan_reference",
+    "LIBRARY",
 ]
 
 _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
@@ -47,11 +61,26 @@ class BiquadCoeffs(NamedTuple):
 
 
 def _wq(freq_hz, q, sample_rate):
+    if _host(freq_hz, q):
+        # the JAX package's host staging: numpy float32, op for op
+        w0 = np.float32(2.0 * math.pi) * np.asarray(freq_hz, np.float32) / np.float32(
+            sample_rate)
+        sin_w0, cos_w0 = np.sin(w0), np.cos(w0)
+        return w0, sin_w0, cos_w0, sin_w0 / (np.float32(2.0) * np.asarray(q, np.float32))
     w0 = _TWO_PI_F32 * freq_hz.to(torch.float32) / float(np.float32(sample_rate))
     sin_w0 = torch.sin(w0)
     cos_w0 = torch.cos(w0)
     alpha = sin_w0 / (2.0 * q.to(torch.float32))
     return w0, sin_w0, cos_w0, alpha
+
+
+def _host(*vals) -> bool:
+    """True for host numbers (no tensor among ``vals``): the designs then
+    run in numpy float32, as the JAX package's do on concrete values
+    (``firewheel_tpu/ops/iir.py:_xp``), so host-staged coefficients (the
+    parametric EQ's) equal the JAX package's bit for bit; torch's and
+    numpy's float32 sin, cos and pow differ by an ulp or a few."""
+    return not any(isinstance(v, torch.Tensor) for v in vals)
 
 
 def _norm(b0, b1, b2, a0, a1, a2) -> BiquadCoeffs:
@@ -60,7 +89,13 @@ def _norm(b0, b1, b2, a0, a1, a2) -> BiquadCoeffs:
 
 
 def _gain_a(gain_db):
+    if _host(gain_db):
+        return np.power(np.float32(10.0), np.asarray(gain_db, np.float32) / 40.0)
     return torch.pow(10.0, gain_db.to(torch.float32) / 40.0)
+
+
+def _sqrt(a):
+    return np.sqrt(a) if _host(a) else torch.sqrt(a)
 
 
 def biquad_lowpass(freq_hz, q, sample_rate) -> BiquadCoeffs:
@@ -85,7 +120,7 @@ def biquad_bandpass(freq_hz, q, sample_rate) -> BiquadCoeffs:
 
 def biquad_notch(freq_hz, q, sample_rate) -> BiquadCoeffs:
     w0, s, c, alpha = _wq(freq_hz, q, sample_rate)
-    one = torch.ones_like(alpha)
+    one = np.ones_like(alpha) if _host(alpha) else torch.ones_like(alpha)
     return _norm(one, -2.0 * c, one, 1.0 + alpha, -2.0 * c, 1.0 - alpha)
 
 
@@ -112,7 +147,7 @@ def biquad_peaking(freq_hz, q, gain_db, sample_rate) -> BiquadCoeffs:
 def biquad_low_shelf(freq_hz, q, gain_db, sample_rate) -> BiquadCoeffs:
     w0, s, c, alpha = _wq(freq_hz, q, sample_rate)
     A = _gain_a(gain_db)
-    sq = 2.0 * torch.sqrt(A) * alpha
+    sq = 2.0 * _sqrt(A) * alpha
     return _norm(
         A * ((A + 1.0) - (A - 1.0) * c + sq),
         2.0 * A * ((A - 1.0) - (A + 1.0) * c),
@@ -126,7 +161,7 @@ def biquad_low_shelf(freq_hz, q, gain_db, sample_rate) -> BiquadCoeffs:
 def biquad_high_shelf(freq_hz, q, gain_db, sample_rate) -> BiquadCoeffs:
     w0, s, c, alpha = _wq(freq_hz, q, sample_rate)
     A = _gain_a(gain_db)
-    sq = 2.0 * torch.sqrt(A) * alpha
+    sq = 2.0 * _sqrt(A) * alpha
     return _norm(
         A * ((A + 1.0) + (A - 1.0) * c + sq),
         -2.0 * A * ((A - 1.0) + (A + 1.0) * c),
@@ -182,8 +217,9 @@ def _compose(e1, e2):
     )
 
 
-def biquad_scan(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
-    """Run one biquad section along the last axis as an associative scan.
+def biquad_scan_reference(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
+    """Plain version of :func:`biquad_scan`: one biquad section along the
+    last axis as an associative scan, op by op.
 
     Transposed direct-form II::
 
@@ -257,8 +293,9 @@ def _one_pole_compose(e1, e2):
     return m1 * m2, _fma(v1, m2, v2)
 
 
-def one_pole_scan(x: torch.Tensor, y_prev: torch.Tensor, a, b):
-    """Run ``y[n] = a·x[n] + b·y[n-1]`` along the last axis.
+def one_pole_scan_reference(x: torch.Tensor, y_prev: torch.Tensor, a, b):
+    """Plain version of :func:`one_pole_scan`: ``y[n] = a·x[n] + b·y[n-1]``
+    along the last axis as an associative scan, op by op.
 
     ``x f32[..., n]``; ``y_prev f32[...]`` (the carry, ``x.shape[:-1]``);
     ``a`` and ``b`` are Python floats or float32 tensors that broadcast to
@@ -274,3 +311,115 @@ def one_pole_scan(x: torch.Tensor, y_prev: torch.Tensor, a, b):
     mm, vv = _associative_scan(_one_pole_compose, (m, v))
     y = _fma(mm, y_prev[..., None], vv)
     return y, y[..., x.shape[-1] - 1]
+
+
+# ---------------------------------------------------------------------------
+# The wrappers: the plain versions on the CPU, K7 on the card
+# ---------------------------------------------------------------------------
+
+def _bind(lib):
+    for fn in (lib.fw_biquad_scan, lib.fw_one_pole_scan):
+        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
+                                               ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+
+#: ``csrc/assoc_scan.cu``, built with nvcc at first use
+LIBRARY = CudaLibrary("fw_assoc_scan", "assoc_scan.cu", ("assoc_scan.cuh",), _bind)
+
+
+def _rows(values, lead, device):
+    """Per-row operands (tensors or numbers, each broadcasting to ``lead``)
+    → one contiguous ``f32[len(values), R]`` on ``device``: the numbers go
+    over in one copy, the rows in one stack."""
+    consts = [v for v in values if not isinstance(v, torch.Tensor)]
+    host = iter(torch.from_numpy(np.asarray(consts, np.float32)).to(device)
+                if consts else ())
+    ts = [v.to(torch.float32) if isinstance(v, torch.Tensor) else next(host)
+          for v in values]
+    for t in ts:
+        if t.device != device:
+            raise ValueError(f"K7: an operand is on {t.device}, x is on {device}")
+    return torch.stack([t.broadcast_to(lead) for t in ts]).reshape(len(ts), -1)
+
+
+def _launch(entry, wrapper, x, coef, s_in, s_out):
+    """Launch K7's ``entry`` over the rows of ``x`` (contiguous) with the
+    per-row operands ``coef``, ``s_in`` and ``s_out`` (``[n, R]``,
+    contiguous, on ``x``'s device) → y; counts the launch on ``wrapper``.
+    The kernel refuses rows of no frames and rows whose levels do not fit
+    in a CTA's shared memory (cudaErrorInvalidValue, raised here)."""
+    name = wrapper.__name__
+    frames = x.shape[-1]
+    y = torch.empty_like(x)
+    rows = s_in.shape[-1]
+    if rows:
+        with torch.cuda.device(x.device):
+            stream = torch.cuda.current_stream(x.device).cuda_stream
+            err = entry(x.data_ptr(), y.data_ptr(), coef.data_ptr(), s_in.data_ptr(),
+                        s_out.data_ptr(), rows, frames, stream)
+        if err != 0:
+            raise RuntimeError(f"{name}: kernel launch failed on rows of {frames} frames "
+                               f"(cudaError {err})")
+        wrapper.launches += 1
+    return y
+
+
+def biquad_scan(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
+    """Run one biquad section along the last axis, as
+    :func:`biquad_scan_reference` does (its contract).
+
+    CPU tensors run :func:`biquad_scan_reference`.  On a CUDA tensor the
+    coefficients and the state (tensors or numbers, each broadcasting to
+    ``x.shape[:-1]``) are gathered into one row each and K7 runs the
+    section in one launch, adding one to ``biquad_scan.launches``."""
+    if x.device.type == "cpu":
+        return biquad_scan_reference(x, z_prev, coeffs)
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"biquad_scan: x must be float32 on a CUDA device or the "
+                         f"CPU, got {x.dtype} on {x.device}")
+    lead = x.shape[:-1]
+    x = x.contiguous()
+    coef = _rows(tuple(coeffs), lead, x.device)
+    z_in = _rows(tuple(z_prev), lead, x.device)
+    z_out = torch.empty_like(z_in)
+    y = _launch(LIBRARY.load().fw_biquad_scan, biquad_scan, x, coef, z_in, z_out)
+    return y, (z_out[0].reshape(lead), z_out[1].reshape(lead))
+
+
+def _per_row(c, x):
+    """A one-pole coefficient as the plain version broadcasts it (a number,
+    or a tensor that broadcasts to ``x`` with a last axis of 1) → its value
+    per row, broadcasting to ``x.shape[:-1]``."""
+    if not isinstance(c, torch.Tensor) or c.ndim == 0:
+        return c
+    if c.shape[-1] != 1:
+        raise ValueError(f"one_pole_scan: a coefficient of shape {tuple(c.shape)} "
+                         f"is not one per row of x {tuple(x.shape)}")
+    return c[..., 0]
+
+
+def one_pole_scan(x: torch.Tensor, y_prev: torch.Tensor, a, b):
+    """Run ``y[n] = a·x[n] + b·y[n-1]`` along the last axis, as
+    :func:`one_pole_scan_reference` does (its contract).
+
+    CPU tensors run :func:`one_pole_scan_reference`.  On a CUDA tensor K7
+    runs the scan in one launch and adds one to
+    ``one_pole_scan.launches``."""
+    if x.device.type == "cpu":
+        return one_pole_scan_reference(x, y_prev, a, b)
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"one_pole_scan: x must be float32 on a CUDA device or the "
+                         f"CPU, got {x.dtype} on {x.device}")
+    lead = x.shape[:-1]
+    x = x.contiguous()
+    coef = _rows((_per_row(a, x), _per_row(b, x)), lead, x.device)
+    y_in = _rows((y_prev,), lead, x.device)
+    y_out = torch.empty_like(y_in)
+    y = _launch(LIBRARY.load().fw_one_pole_scan, one_pole_scan, x, coef, y_in, y_out)
+    return y, y_out[0].reshape(lead)
+
+
+#: kernel launches since the counter was last set to 0
+biquad_scan.launches = 0
+one_pole_scan.launches = 0

@@ -31,6 +31,7 @@ import test_megakernel as jax_mega_tests
 import test_torch_mixer
 from firewheel_tpu.executor_pallas import MegaRenderer as JMegaRenderer
 from firewheel_tpu.parallel import BatchRenderer as JBatchRenderer
+from firewheel_tpu_torch import mixer
 from firewheel_tpu_torch import nodes as tn
 from firewheel_tpu_torch.convert import state_from_jax, state_to_numpy
 from firewheel_tpu_torch.core.node import NodeProcessor
@@ -383,6 +384,10 @@ def _lowered(name):
         hy = HybridMegaRenderer(prog, B, K, device="cpu")
         (lw,) = hy.islands.values()
         return prog, lw
+    if name == "fx_palette":  # every FX row; the flanger has none
+        kinds = tuple(k for k in mixer.FX_KINDS if k != "flanger")
+        prog = mixer.fx_palette_graph(num_voices=2, device="cpu", kinds=kinds)
+        return prog, lower_schedule(prog)
     _, seed, *frames = name.split("_")  # random_<seed>[_<block frames>]
     prog = random_graph(int(seed), device="cpu",
                         block_frames=int(frames[0]) if frames else F)
@@ -390,7 +395,12 @@ def _lowered(name):
 
 
 LAYOUT_GRAPHS = ["mixer", "effects_island", "random_0", "random_1", "random_2",
-                 "random_1_256", "random_0_127"]
+                 "random_1_256", "random_0_127", "fx_palette"]
+
+
+def _in_memory(prog, leaf):
+    """True for a leaf that stays in device memory (a row's line)."""
+    return (leaf.tree, leaf.path) in OPS[type(prog._procs[leaf.key])].in_memory
 
 
 def _random_leaf(leaf, rng, batch):
@@ -429,7 +439,7 @@ def test_leaf_words_round_trip(name):
         if row[5]:  # a row's words start at its first leaf's
             assert row[WORD] == lw.leaf_words[row[4], LEAF_WORD]
     for i, leaf in enumerate(lw.leaves):
-        on_chip = not (leaf.tree == "state" and leaf.path == ("line",))
+        on_chip = not _in_memory(prog, leaf)
         assert counts[i] == (math.prod(leaf.shape) if on_chip else 0)
         assert lw.leaf_words[i, LEAF_STATE] == (leaf.tree == "state")
         assert lw.leaf_words[i, LEAF_TYPE] == {
@@ -463,9 +473,10 @@ def test_leaf_words_round_trip(name):
 def test_shared_bytes_counts_the_kernels_words(name):
     """``shared_bytes`` is the kernel's count (csrc/megakernel.cu:
     shared_bytes), here from the schedule itself: the tables once a CTA
-    (rows of 12 words), then per instance the arena, a record of 8 words per
-    echo channel, the flags and the leaf words, each part rounded up to 16
-    bytes; an arena row of F frames takes F rounded up to a float4."""
+    (rows of 12 words), then per instance the arena, a record of 10 words
+    per echo channel, the flags, the leaf words and the rows' scratch, each
+    part rounded up to 16 bytes; an arena row of F frames takes F rounded up
+    to a float4."""
     prog, lw = _lowered(name)
     procs = [prog._procs[key] for key in lw.keys]
     by_key = {ft.node_key(sn.id): sn for sn in prog.schedule.schedule}
@@ -473,11 +484,11 @@ def test_shared_bytes_counts_the_kernels_words(name):
              for key in lw.keys)
     consts = sum(len(OPS[type(p)].consts(p)) for p in procs)
     tables = 12 * len(procs) + io + consts + lw.out_row.size + lw.in_bufs.size
-    echo = sum(p.num_inputs for p in procs if type(p) is tn.delay.EchoProcessor)
+    echo = sum(p.num_inputs for p in procs if OPS[type(p)].line is not None)
     leaf_words = sum(math.prod(leaf.shape) for leaf in lw.leaves
-                     if leaf.path != ("line",))
+                     if not _in_memory(prog, leaf))
     nb, f = prog.schedule.num_buffers, prog.max_block_frames
-    per_instance = nb * (-(-f // 4) * 4) + 8 * echo + nb + leaf_words
+    per_instance = nb * (-(-f // 4) * 4) + 10 * echo + nb + leaf_words + lw.scan_words
     for tile in (1, 2, 8):
         assert shared_bytes(lw, tile) == 4 * (
             -(-tables // 4) * 4 + tile * (-(-per_instance // 4) * 4))

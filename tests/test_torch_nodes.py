@@ -220,6 +220,39 @@ def test_filter_scan_backend_is_not_ported(filter_type):
             .group_key() == (filter_type, "pallas"))
 
 
+SCAN_DESIGNS = {
+    "lowpass_8k": ("lowpass", (8000.0, 0.7071)),
+    "low_shelf_150": ("low_shelf", (150.0, 0.8, 4.0)),
+    "highpass_20": ("highpass", (20.0, 0.7071)),
+}
+
+
+@pytest.mark.parametrize("frames", [1, 3, 127, 128, 256])
+@pytest.mark.parametrize("design", list(SCAN_DESIGNS))
+def test_biquad_scan_reference_is_jax_bit_for_bit(design, frames):
+    """``biquad_scan_reference`` (K7's plain version, ``ops/iir.py``)
+    against JAX's ``biquad_scan`` op by op: the same compositions in
+    ``lax.associative_scan``'s order give the same bits, output and state,
+    for odd and even lengths, a resonant low shelf and a 20 Hz high-pass
+    included."""
+    from firewheel_tpu.ops import iir as jiir
+    from firewheel_tpu_torch.ops import iir as tiir
+
+    kind, args = SCAN_DESIGNS[design]
+    rng = np.random.default_rng(frames)
+    coeffs = tuple(np.float32(c) for c in getattr(jiir, "biquad_" + kind)(*args, SR))
+    x = rng.standard_normal((B, 2, frames)).astype(np.float32)
+    z = (0.1 * rng.standard_normal((2, B, 2))).astype(np.float32)
+    jy, jz = jiir.biquad_scan(jnp.asarray(x), (jnp.asarray(z[0]), jnp.asarray(z[1])),
+                              jiir.BiquadCoeffs(*coeffs))
+    ty, tz = tiir.biquad_scan_reference(torch.from_numpy(x),
+                                        (torch.from_numpy(z[0]), torch.from_numpy(z[1])),
+                                        tiir.BiquadCoeffs(*map(torch.tensor, coeffs)))
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    for t, j in zip(tz, jz):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+
 @pytest.mark.parametrize("mask_kind", MASKS)
 def test_echo(mask_kind):
     rng = np.random.default_rng(6)

@@ -3,10 +3,11 @@ CPU.
 
 * ``one_pole_scan``: the same associative scan in ``lax.associative_scan``'s
   combine order, with the fused multiply-adds XLA makes on the CPU written
-  out: equal to JAX's under ``jit`` bit for bit at 127, 128 and 1024
-  frames; at 1 frame XLA fuses ``b·y_prev + a·x`` another way, so 1e-6
-  there.  ``one_pole_coeffs`` and ``spatial_params`` exactly on the numpy
-  path (the host staging), 1e-6 on the tensor path.
+  out: equal to JAX's under ``jit`` bit for bit at 127, 128, 256 and 1024
+  frames; at 1 and 3 frames XLA fuses another way (``b·y_prev + a·x`` at
+  1), an ulp apart, so 1e-6 there.  ``one_pole_coeffs`` and
+  ``spatial_params`` exactly on the numpy path (the host staging), 1e-6 on
+  the tensor path.
 * ``Spatializer3DProcessor.kernel`` and ``BinauralSpatializerProcessor.
   kernel`` against JAX's under ``jit(vmap)`` over four blocks with the
   state carried: 1e-6 on audio and float state (XLA contracts the gather's
@@ -49,7 +50,7 @@ BLOCKS = 4
 
 # -- ops ------------------------------------------------------------------------
 
-@pytest.mark.parametrize("frames", [1, 127, 128, 1024])
+@pytest.mark.parametrize("frames", [1, 3, 127, 128, 256, 1024])
 @pytest.mark.parametrize("case", ["per_row", "ear_column", "scalar"])
 @pytest.mark.parametrize("carried", [False, True])
 def test_one_pole_scan_matches_jax(frames, case, carried):
@@ -79,7 +80,7 @@ def test_one_pole_scan_matches_jax(frames, case, carried):
         ty, tl = tiir.one_pole_scan(torch.from_numpy(x), torch.from_numpy(y0), 0.25, 0.75)
     np.testing.assert_allclose(ty.numpy(), np.asarray(jy), atol=TOL, rtol=0)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=TOL, rtol=0)
-    if frames > 1:
+    if frames not in (1, 3):
         np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
     # and it is the recurrence
     ref, y = np.zeros(x.shape, np.float64), y0.astype(np.float64)

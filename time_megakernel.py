@@ -26,7 +26,11 @@ Each time is the kernel's device time per launch by ``torch.profiler`` over
   the kernel's instantiation for any block length, with its padded arena
   rows (a checkout whose kernel refuses the block prints so);
 * K3 on the effects chain's island (filter, echo, clip) inside the hybrid
-  lowering at B=8192, K=32 and B=1024, K=8 (phase 7).
+  lowering at B=8192, K=32 and B=1024, K=8 (phase 7);
+* the FX palette's lowerings at B=1024, K=8 (``chip_smoke.py`` 13(c), its
+  checks included): K2 on the palette without the flanger, and K3 on the
+  hybrid's two islands around it, the two islands' times summed (a
+  checkout without the FX rows skips this).
 
 Prints the card's name and power limit, then one JSON object a
 measurement.
@@ -167,6 +171,17 @@ def main() -> int:
         ms = device_ms(lambda: br.render_chunk(params, state, num_blocks=k),
                        "island_kernel", REPS)
         emit(kernel="K3", graph="effects chain", batch=b, blocks=k, device_ms=ms)
+
+    if hasattr(em, "FX_ROWS"):
+        from chip_smoke import PALETTE_HYBRID, palette_lowerings
+        from firewheel_tpu_torch import executor_hybrid as eh
+
+        _, k2, k3 = palette_lowerings(ft, em, eh, iir, card_line())
+        b, k = PALETTE_HYBRID
+        emit(kernel="K2", graph="FX palette without the flanger", batch=b, blocks=k,
+             device_ms=k2[2])
+        emit(kernel="K3", graph="FX palette, both islands", batch=b, blocks=k,
+             device_ms=k3[2])
     return 0
 
 
