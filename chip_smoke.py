@@ -10,7 +10,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    (``csrc/noise.cu``, K6) with nvcc, one process each, all at once, and
    prints ptxas's registers, spills and stack frame for K1 (16-byte and
    4-byte copies), for K2 and K3, each with blocks of 128 frames fixed (the
-   main path) and of any length, and for K4-K6.
+   main path) and of any length, with the rows beyond the mixer's compiled
+   in and without, and with the arena spilled to device memory, and for
+   K4-K7.
 3. Holds K1 against its plain PyTorch version on the card, with a
    different filter per lane: at the main path's shape, at F = 1, 100, 127
    and 4096 (longer than its ring of stages), at 33 lanes (a ragged warp),
@@ -29,9 +31,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    3(c). Holds K7's two entry points (``ops/iir.py:biquad_scan`` and
    ``one_pole_scan``) against their plain versions on the card, bit for
    bit, at f32[16384, 128] (the eager filter, a batched EQ band),
-   [16384, 256] (the bus's meter), [2, 1024] (a stream's dispatch) and
-   F = 1, 3 and 127, a different filter a row (lowpasses, the EQ's 150 Hz
-   shelf, the meter's 38 Hz high-pass), and times each.
+   [16384, 256] (the bus's meter), [2, 1024] (a stream's dispatch), F = 1,
+   3 and 127, and rows longer than a CTA's shared memory holds, whose
+   levels go to a device-memory workspace: [2, 16384] and [16384, 16384]
+   (a stream's 16 384-frame block) and [2, 32768]; a different filter a
+   row (lowpasses, the EQ's 150 Hz shelf, the meter's 38 Hz high-pass);
+   times each at [16384, 128] and [16384, 16384] beside its bound.
 4. Renders the 64-node mixer (filter on the kernel) with a BatchRenderer
    at B=8192 instances, K=32 blocks a chunk; checks finite outputs, the
    kernel's launch count (K per chunk) and the first instances against a
@@ -130,8 +135,9 @@ Run from the root of a checkout:  python3 chip_smoke.py
    against the eager render on the card (outputs, masks, every state leaf)
    and the first instances against the plain version on the card; one
    launch a chunk; the shared memory against the kernel's count; device
-   time and bound; blocks of 256 frames refused (``ValueError``) before a
-   launch.  (d) Every 4th emitter doppler (torch stages) on the hybrid at
+   time and bound.  In blocks of 256 frames at B=1024, K=8, where the
+   arena fits no CTA and spills to device memory: against eager and the
+   plain version, one launch a chunk, timed.  (d) Every 4th emitter doppler (torch stages) on the hybrid at
    B=1024, K=8: against eager and the CPU plain hybrid, K3 once an island a
    chunk, K3 timed on the beeps' island against its plain version.  (e) The
    binaural variant eager at B=1024, K=8 against a CPU render.
@@ -147,9 +153,17 @@ Run from the root of a checkout:  python3 chip_smoke.py
    kernels a block (``torch.profiler``).  (b) Eager at B=8192, K=32 with
    per-instance seeds, thresholds, duck depth, makeup and dialogue, the
    first instances against a CPU render; wall a chunk, peak memory, K5 and
-   K6 launches a chunk.  (c) ``MegaRenderer`` refuses it; the hybrid at
-   B=1024, K=8 (one torch stage) against eager on the card, within 1e-6.
-   K7 runs the meter's two biquads: two launches a block, counted.
+   K6 launches a chunk.  (c) ``MegaRenderer`` refuses it (the noise and
+   the FIR have no row); the hybrid at B=1024, K=8 and B=8192, K=32 is the
+   JAX package's partition, [noise] torch | [beep, ducker, sum,
+   compressor] K3 | [FIR] torch | [limiter, loudness meter] K3: two K3
+   launches a chunk, no K7; against eager on the card, outputs, masks and
+   every state leaf bit for bit but the meter's ring (1e-5 relative: each
+   hop's energy is summed in another order); each island against its plain
+   version and timed.  (d) The witness graph (a beep through a limiter and
+   dry, the latency pass's delay compensators, an LFO, a sum, a 0-output
+   meter) through K2 and the hybrid against eager on the card in blocks of
+   128 and 127 frames.
 13. The FX palette of ``examples/interactive_graph.py``.  (a) The example's
    engine (two voices → sum → clip → meter, ``mixer.add_fx_engine``)
    streamed through ``FirewheelCtx`` (1024-frame buffers of 128-frame
@@ -176,10 +190,12 @@ the line before the card's line lists each kernel with its launches on the
 batched main path (``launches``), in phase 9's stream (``stream_launches``;
 K1's device time, call and plain version at the stream's 2 lanes beside
 them) and in phase 10's fleets (``serve_launches``), K2 and K3 once
-more for the spatial scene of phase 11, K4-K6 (launches in 10(f)'s
+more for the spatial scene of phase 11 (and K2 with the arena spilled at
+256 frames), K3 for the mastering bus of 12(c), K4-K6 (launches in 10(f)'s
 fleet and 12(b)'s batched bus, times from 3(b)) and K7's two entry points
 (launches in 13(b)'s batched FX palette, ``stream_launches`` in 13(a) and
-12(a), times from 3(c)), its error against its plain version, its device
+12(a), times from 3(c), with the rows past shared memory beside them),
+its error against its plain version, its device
 time on the
 card (``ms``, by ``torch.profiler``, or by CUDA events where the log says
 the profile saw no device activity) and a call's time with its wrapper's
@@ -319,11 +335,20 @@ def row_ops(code: int, n_in: int, n_out: int, aux0: int = 0) -> int:
     the scan (~4 a frame, counted at the f32 rate); the gate's level, latch
     and gains; the EQ's scan, ~28 a frame a band (csrc/assoc_scan.cu); the
     mod delay's phase, delay, interpolated tap and mix; the pitch
-    shifter's two phases and two crossfaded taps."""
+    shifter's two phases and two crossfaded taps.  The mastering bus's rows
+    (19..25): the compressor's level, envelope, dB gain with its knee (its
+    log10 and pow count one each) and the gains; the ducker's the same over
+    its sidechain; the limiter's level, the window's maximum over its
+    lookahead (aux0 + 1 samples), the release and the gains; the loudness
+    meter's two scans a channel (~28 a frame each), the weighted power and
+    the hops' sums; the LFO's phase, wave and scale; the delay compensator
+    moves samples only; the sink meter is the meter."""
     return {0: 0, 1: 4, 2: n_in, 3: 4, 4: n_in - n_out, 5: 9 * n_in,
             6: 5 * n_in, 7: 3 * n_in, 8: 3 * n_in, 9: 6, 10: 0, 11: 2, 12: 7,
             13: 10 * n_in, 14: 12 * n_in, 15: 10 + 2 * n_in, 16: 28 * aux0 * n_in,
-            17: 20 * n_in, 18: 33 * n_in}[code]
+            17: 20 * n_in, 18: 33 * n_in, 19: 20 + 2 * n_in, 20: 10 + 2 * n_in,
+            21: aux0 + 6 + 3 * n_in, 22: 59 * n_in + 1, 23: 7, 24: 0,
+            25: 3 * n_in}[code]
 
 
 def kernel_work(em, prog, lw, params, state, batch: int, k: int, io_bytes: int):
@@ -600,6 +625,11 @@ def check_new_kernels(adpcm_device, dynamics, noise):
 #: stream's 1024-frame dispatch of one instance, and ragged lengths
 SCAN_SHAPES = ((2 * B, 128), (2 * B, 256), (2, 1024), (1000, 1), (1000, 3),
                (1000, 127))
+#: rows past a CTA's shared memory (the biquad's levels past 9686 frames, the
+#: one-pole's past 29 057 keep to a device-memory workspace): a stream's
+#: stereo block of 16 384 frames, the same for every instance of the batch,
+#: and 32 768 frames, where the one-pole's levels leave shared memory too
+LONG_SCAN_SHAPES = ((2, 16384), (2 * B, 16384), (2, 32768))
 
 
 def scan_composes(n: int):
@@ -654,14 +684,16 @@ def k7_operands(iir, kind: str, rows: int, n: int, gen):
 def check_assoc_scan(iir):
     """Phase 3(c): K7's two entry points against their plain versions on the
     card, bit for bit (tolerance 0.0: the same compositions rounded the same
-    way), at the callers' shapes and ragged lengths, and the DC blocker's
-    scalar coefficients; each one's device time (``torch.profiler``), a
-    call's (CUDA events), the plain version's and its work at f32[16384,
-    128] → ``{name: (err, ms, call_ms, plain_ms, work)}``."""
+    way), at the callers' shapes and ragged lengths, at rows longer than a
+    CTA's shared memory holds, and the DC blocker's scalar coefficients;
+    each one's device time (``torch.profiler``), a call's (CUDA events), the
+    plain version's and its work at f32[16384, 128] → ``{name: (err, ms,
+    call_ms, plain_ms, work)}``, and at f32[16384, 16384] →
+    ``{name: (ms, call_ms, plain_ms, work)}``."""
     gen = torch.Generator(device="cpu").manual_seed(77)
-    res = {}
+    res, long_rows = {}, {}
     for kind, name in (("biquad", "biquad_scan"), ("one_pole", "one_pole_scan")):
-        for rows, n in SCAN_SHAPES:
+        for rows, n in SCAN_SHAPES + LONG_SCAN_SHAPES:
             fn, ref, args = k7_operands(iir, kind, rows, n, gen)
             got, want = fn(*args), ref(*args)
             torch.cuda.synchronize()
@@ -672,6 +704,19 @@ def check_assoc_scan(iir):
                         for a, b in zip(flat(got), flat(want)))
                 raise AssertionError(f"K7 {name} disagrees with its plain version at "
                                      f"f32[{rows}, {n}]: {e}")
+            del got, want
+            if (rows, n) == (2 * B, 16384):  # the biquad's workspace takes 6.4 GB
+                ms = device_ms(lambda: fn(*args), f"{name}_kernel", 3)
+                call_ms = cuda_ms(lambda: fn(*args), 3)
+                plain_ms = cuda_ms(lambda: ref(*args), 1)
+                work = scan_work(kind, rows, n)
+                long_rows[name] = (ms, call_ms, plain_ms, work)
+                log(f"K7 {name} at f32[{rows}, {n}]: kernel {ms:.4f} ms on the device, "
+                    f"{call_ms:.4f} ms a call, plain {plain_ms:.3f} ms; bound "
+                    f"{bound(*work)[0]:.4f} ms by {bound(*work)[1]}, "
+                    f"{100 * bound(*work)[0] / ms:.1f}% of it")
+            del args
+            torch.cuda.empty_cache()
         if kind == "one_pole":  # the DC blocker's numbers: a = 1, b = R
             x = torch.randn((2 * B, 128), generator=gen).to("cuda")
             y0 = torch.randn((2 * B,), generator=gen).to("cuda")
@@ -685,12 +730,13 @@ def check_assoc_scan(iir):
         plain_ms = cuda_ms(lambda: ref(*args), 3)
         work = scan_work(kind, 2 * B, 128)
         res[name] = (0.0, ms, call_ms, plain_ms, work)
-        log(f"K7 {name} vs plain at f32{[list(s) for s in SCAN_SHAPES]}: bit for bit; "
+        log(f"K7 {name} vs plain at f32{[list(s) for s in SCAN_SHAPES + LONG_SCAN_SHAPES]}"
+            f": bit for bit; "
             f"at f32[{2 * B}, 128] kernel {ms:.4f} ms on the device, {call_ms:.4f} ms "
             f"a call, plain {plain_ms:.3f} ms; bound {bound(*work)[0]:.4f} ms by "
             f"{bound(*work)[1]} ({work[0] / 1e6:.2f} MB, {work[1] / 1e6:.1f} M f32 and "
             f"{work[2] / 1e6:.1f} M f64 operations)")
-    return res
+    return res, long_rows
 
 
 def render_mixer(ft, seq_iir, card: str):
@@ -2142,6 +2188,7 @@ SPATIAL_CHUNK_BUFFERS = 8    # buffers a stream dispatch
 SPATIAL_TURN_AT = 4          # pump before which the listener turns 30°
 SPATIAL_PROFILED = (2, 3)    # pumps [2, 3) under torch.profiler, one buffer each
 SPATIAL_REPS = 3             # K2 launches a device-time measurement (~1 s each)
+SPATIAL_SPILLED = (1024, 8)  # B, K of the scene in blocks of 256 frames (arena spilled)
 SPATIAL_HYBRID = (1024, 8)   # B, K of the doppler-mixed scene on the hybrid
 DOPPLER_EVERY = 4            # every 4th emitter doppler (32 of 128)
 BINAURAL = (1024, 8)         # B, K of the headphone variant
@@ -2323,9 +2370,11 @@ def spatial_mega(ft, seq_iir, em, card: str):
     """11(c): K2 on the scene at B=8192, K=32, tile 1: at rest and with every
     4th spatializer moving, against the eager render on the card and the
     first instances against the plain version on the card; one launch a
-    chunk; blocks of 256 frames refused before any launch."""
+    chunk.  Then in blocks of 256 frames at B=1024, K=8, where the arena
+    fits no CTA and spills to device memory: the same checks.  Returns the
+    kernels line's tuples for both."""
     from firewheel_tpu_torch.convert import tree_map
-    from firewheel_tpu_torch.mixer import add_spatial_scene, vary_spatial_params
+    from firewheel_tpu_torch.mixer import vary_spatial_params
 
     prog = ft.spatial_scene_graph(device="cuda")
     mega = em.MegaRenderer(prog, B, K, tile=1, device="cuda")
@@ -2412,19 +2461,7 @@ def spatial_mega(ft, seq_iir, em, card: str):
     if not torch.equal(m_runs[-1][1][:CHECK_INSTANCES], rm) or not plain_err <= MEGA_TOL:
         raise AssertionError(f"spatial K2 vs its plain version: {plain_err}")
 
-    # blocks of 256 frames: the arena does not fit; refused before a launch
-    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
-    add_spatial_scene(g)
-    pkg = g.compile(48000, 256)
-    big = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
-                             device="cuda")
-    m256 = em.MegaRenderer(big, 64, 4, device="cuda")
-    try:
-        m256.render_chunk(m256.stack_params(), m256.init_state(), 0)
-    except ValueError as err:
-        refused = str(err)
-    else:
-        raise AssertionError("K2 launched the scene in blocks of 256 frames")
+    spilled = spatial_spilled(ft, em, agree)
     audio_secs = B * K * 128 / 48000
     bound_ms, bound_by = bound(*work)
     log(f"spatial 11(c), K2 vs eager on the card (outputs, masks, every state "
@@ -2443,8 +2480,82 @@ def spatial_mega(ft, seq_iir, em, card: str):
         f"{mega_wall * 1e3:.3f} ms (realtime factor {audio_secs / mega_wall:.1f}); "
         f"eager {eager_wall * 1e3:.3f} ms (realtime factor "
         f"{audio_secs / eager_wall:.1f})")
-    log(f"spatial 11(c): blocks of 256 frames refused before a launch: {refused}")
-    return launches, max(worst, plain_err), move_ms, call_ms, eager_wall * 1e3, work
+    # plain_ms: the eager render's wall a chunk (the plain version at B=8192
+    # would take minutes)
+    return (launches, max(worst, plain_err), move_ms, call_ms, eager_wall * 1e3,
+            work), spilled
+
+
+def spatial_spilled(ft, em, agree):
+    """11(c) in blocks of 256 frames at B=1024, K=8: the 258 buffers of the
+    arena fit no CTA, so K2 keeps them in device memory (``spills``); one
+    launch a chunk, against eager on the card (``agree``) and the first
+    instances against the plain version on the card, timed.  Returns the
+    kernels line's tuple."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import add_spatial_scene, vary_spatial_params
+
+    b, k = SPATIAL_SPILLED
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    add_spatial_scene(g)
+    pkg = g.compile(48000, 256)
+    big = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                             device="cuda")
+    mega = em.MegaRenderer(big, b, k, device="cuda")
+    eager = ft.BatchRenderer(big, b, device="cuda")
+    lw = mega.lowered
+    smem = em.shared_bytes(lw, 1)
+    kernel_smem = em.LIBRARY.load().fw_mega_shared_bytes(*em.shared_sizes(lw, 1))
+    if not em.spills(lw) or kernel_smem != smem:
+        raise AssertionError(f"spatial K2 at F=256: spills {em.spills(lw)}, the wrapper "
+                             f"counts {smem} B of shared memory, the kernel {kernel_smem}")
+    params = vary_spatial_params(big, mega.stack_params(), 7, moving_every=4)
+    state0 = mega.init_state()
+    mega.render_chunk(params, state0, 0)  # warm-up
+    # the main path: one chunk, counts set to 0 just before
+    em.MegaRenderer.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m = mega.render_chunk(params, state0, 0)
+    torch.cuda.synchronize()
+    mega_wall = time.perf_counter() - t0
+    launches = em.MegaRenderer.launches
+    t0 = time.perf_counter()
+    e = eager.render_chunk(params, state0, start_sample=0, num_blocks=k)
+    torch.cuda.synchronize()
+    eager_wall = time.perf_counter() - t0
+    if launches != 1:
+        raise AssertionError(f"spatial K2 at F=256: {launches} launches in a chunk")
+    err = agree("F=256, the arena spilled", m, e)
+    peak = float(m[0].abs().max())
+    if not bool(torch.isfinite(m[0]).all()) or not 0.01 < peak <= 1.0:
+        raise AssertionError(f"spatial K2 at F=256: peak {peak}")
+    head = lambda t: t[:CHECK_INSTANCES].contiguous()  # noqa: E731
+    ro, rm, rs = em.mega_chunk_reference(big, lw, tree_map(head, params),
+                                         tree_map(head, state0), 0, k, CHECK_INSTANCES)
+    torch.cuda.synchronize()
+    plain_err = max(float((m[0][:CHECK_INSTANCES] - ro).abs().max()),
+                    tree_err(tree_map(head, m[2]), rs))
+    if not torch.equal(m[1][:CHECK_INSTANCES], rm) or not plain_err <= MEGA_TOL:
+        raise AssertionError(f"spatial K2 at F=256 vs its plain version: {plain_err}")
+    launch = lambda: mega.render_chunk(params, state0, 0)  # noqa: E731
+    ms = device_ms(launch, "mega_kernel", SPATIAL_REPS)
+    call_ms = cuda_ms(launch, 1)
+    work = kernel_work(em, big, lw, params, state0, b, k, m[0].nbytes + m[1].nbytes)
+    bound_ms, bound_by = bound(*work)
+    arena = b * lw.num_buffers * 256 * 4
+    log(f"spatial 11(c), F=256 at B={b}, K={k}: the arena ({lw.num_buffers} buffers, "
+        f"{arena / 1e6:.1f} MB in all) spills to device memory, {smem} B of shared "
+        f"memory a CTA (the kernel's count too); K2 vs eager on the card (outputs, "
+        f"masks, every state leaf) {err[0]:.3e}/{err[1]:.3e}, the first "
+        f"{CHECK_INSTANCES} instances vs the plain version {plain_err:.3e}; "
+        f"{launches} launch a chunk")
+    log(f"spatial 11(c), F=256: K2 {ms:.3f} ms on the device, {call_ms:.3f} ms a call; "
+        f"bound {bound_ms:.4f} ms by {bound_by} ({work[0] / 1e9:.3f} GB, "
+        f"{work[1] / 1e9:.2f} G f32 operations), {100 * bound_ms / ms:.2f}% of it; "
+        f"wall a chunk K2 {mega_wall * 1e3:.3f} ms, eager {eager_wall * 1e3:.3f} ms")
+    # plain_ms: the eager render's wall a chunk, as for the scene at F=128
+    return launches, max(err[0], err[1], plain_err), ms, call_ms, eager_wall * 1e3, work
 
 
 def spatial_hybrid(ft, seq_iir, em, eh, card: str):
@@ -2613,15 +2724,15 @@ def check_spatial(ft, seq_iir, em, eh, card: str, phase):
     spatial_eager(ft, card)
     torch.cuda.empty_cache()
     phase("11(b), the scene eager at B=8192, K=32")
-    k2 = spatial_mega(ft, seq_iir, em, card)
+    k2, k2_spilled = spatial_mega(ft, seq_iir, em, card)
     torch.cuda.empty_cache()
-    phase("11(c), the scene on K2")
+    phase("11(c), the scene on K2, at 128 frames and spilled at 256")
     k3 = spatial_hybrid(ft, seq_iir, em, eh, card)
     torch.cuda.empty_cache()
     phase("11(d), the doppler scene on the hybrid")
     spatial_binaural(ft, card)
     phase("11(e), the binaural scene")
-    return k2, k3
+    return k2, k3, k2_spilled
 
 
 # phase 12: the mastering bus (examples/mastering_bus.py)
@@ -2632,8 +2743,14 @@ MASTER_PROFILED = (300, 4)   # buffers 300..303 under torch.profiler (dialogue o
 MASTER_CHUNKS = 3            # 12(b): chunks at B=8192, K=32
 MASTER_CHECK = 2             # 12(b): instances re-rendered on the CPU
 MASTER_COMPARED = 2          # 12(b): chunks compared with the CPU render
-MASTER_HYBRID = (1024, 8)    # 12(c): B, K
-MASTER_HYBRID_TOL = 1e-6     # 12(c): hybrid vs eager on the card
+MASTER_HYBRID = ((1024, 8), (8192, 32))  # 12(c): B, K
+MASTER_LOWERED_CHUNKS = 3    # 12(c): chunks a configuration, the first a warm-up
+# 12(c): the loudness meter's ring, hybrid vs eager, relative: K3 sums each
+# hop's powers (up to F of them a block) in another order than torch's
+# reduction, which moves a float32 sum of n non-negative terms by at most
+# (n - 1) * 2^-24 relative, 7.6e-6 at F=128
+RING_TOL = 1e-5
+WITNESS = (1024, 8)          # 12(d): B, K
 LU_TOL = 1e-3                # card vs CPU loudness readings, in LU
 
 
@@ -2911,71 +3028,274 @@ def master_batched(ft, seq_iir, dynamics, noise, card: str):
     return err, k5, k6
 
 
+def island_times(em, prog, split, render, compare, start: int, tag: str):
+    """K3 on each island of ``split`` (a ``HybridMegaRenderer``) at the
+    operands of the chunk at ``start`` that ``render()`` renders: against
+    its plain version at the same operands (``compare(i, kernel's (out,
+    flags, state), plain's)``), then its device time, a call's, the plain
+    version's and its work, each logged → their sums over the islands,
+    ``(ms, call_ms, plain_ms, (bytes, ops))``."""
+    b, k = split.batch, split.num_blocks
+    calls = {}
+    launch_island = split._launch
+
+    def record(i, *args):
+        calls[i] = args
+        return launch_island(i, *args)
+
+    split._launch = record
+    render()
+    del split._launch
+    ms_sum = call_sum = plain_sum = 0.0
+    bytes_sum = ops_sum = 0
+    for i, (pseg, sseg, env, env_flags) in sorted(calls.items()):
+        lw = split.islands[i]
+        got = launch_island(i, pseg, sseg, env, env_flags)
+        want = em.island_chunk_reference(prog, lw, pseg, sseg, env, env_flags, start, k, b)
+        torch.cuda.synchronize()
+        compare(i, got, want)
+        island = lambda: launch_island(i, pseg, sseg, env, env_flags)  # noqa: E731
+        ms = device_ms(island, "island_kernel", KERNEL_REPS)
+        call = cuda_ms(island, KERNEL_REPS)
+        plain = cuda_ms(lambda: em.island_chunk_reference(
+            prog, lw, pseg, sseg, env, env_flags, start, k, b), 1)
+        nbytes, ops = kernel_work(em, prog, lw, pseg, sseg, b, k, got[0].nbytes
+                                  + got[1].nbytes + env.nbytes + env_flags.nbytes)
+        log(f"{tag}: K3 on island {i} ({len(lw.keys)} rows, {lw.in_bufs.size} live-ins, "
+            f"{em.shared_bytes(lw, split.tile)} B of shared memory a CTA) vs its plain "
+            f"version as checked above; {ms:.4f} ms on the device, {call:.4f} ms a call "
+            f"(CUDA events), plain {plain:.3f} ms; bound {bound(nbytes, ops)[0]:.4f} ms by "
+            f"{bound(nbytes, ops)[1]}")
+        ms_sum, call_sum, plain_sum = ms_sum + ms, call_sum + call, plain_sum + plain
+        bytes_sum, ops_sum = bytes_sum + nbytes, ops_sum + ops
+    return ms_sum, call_sum, plain_sum, (bytes_sum, ops_sum)
+
+
+def ring_err(a: dict, b: dict, meter_key: str) -> float:
+    """The loudness meter's ring's relative difference between two bus
+    states on the card (trees of tensors), every other leaf equal: the
+    lowerings sum each hop's powers in another order (``RING_TOL``)."""
+    numpy = lambda t: {key: {leaf: v.cpu().numpy() for leaf, v in st.items()}  # noqa: E731
+                       for key, st in t.items() if isinstance(st, dict)}
+    err, meter = bus_state_err(numpy(a), numpy(b), meter_key)
+    if err != 0.0 or meter.get("shelf_z", 0.0) or meter.get("hp_z", 0.0):
+        raise AssertionError(f"bus states differ: {err}, the meter's {meter}")
+    if not meter.get("ring", 0.0) <= RING_TOL:
+        raise AssertionError(f"the meter's ring {meter['ring']} relative "
+                             f"(limit {RING_TOL})")
+    return meter.get("ring", 0.0)
+
+
 def master_lowerings(ft, em, eh, dynamics, noise, card: str):
-    """12(c): ``MegaRenderer`` refuses the bus (no node of it has a row in
-    K2); the hybrid at B=1024, K=8 (every node a torch stage) against
-    eager on the card."""
+    """12(c): ``MegaRenderer`` refuses the bus (the noise and the FIR have no
+    row, as in the JAX package); the hybrid at B=1024, K=8 and B=8192, K=32
+    splits it as the JAX package does, [noise] torch | [beep, ducker, sum,
+    compressor] K3 | [FIR] torch | [limiter, loudness meter] K3: two K3
+    launches a chunk, K5 and K6 once a block (the pink noise), no K7.
+    Against eager on the card: outputs, masks and every state leaf bit for
+    bit, but the meter's ring within ``RING_TOL`` relative.  At B=8192, K=32
+    each island is held against its plain version at the same operands and
+    timed.  Returns ``(err, the kernels line's tuple for K3 on the bus)``."""
     from firewheel_tpu_torch.mixer import vary_mastering_params
     from firewheel_tpu_torch.ops import iir
 
-    b, k = MASTER_HYBRID
     prog = ft.mastering_bus_graph(device="cuda")
+    meter_key = next(key for key in prog._procs if key.startswith("loudness_meter"))
     em.MegaRenderer.launches = 0
     try:
-        em.MegaRenderer(prog, b, k, device="cuda")
+        em.MegaRenderer(prog, 1, 1, device="cuda")
     except ValueError as e:
         refused = str(e)
     else:
         raise AssertionError("12(c): MegaRenderer accepted the mastering bus")
     if em.MegaRenderer.launches:
         raise AssertionError("12(c): K2 launched")
-    hy = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
-    eg = ft.BatchRenderer(prog, b, device="cuda")
-    params = vary_mastering_params(prog, eg.stack_params(), seed=13)
-    states = {"hybrid": hy.init_state(), "eager": eg.init_state()}
-    err = 0.0
-    counts = {}
+
+    def counts():
+        return (eh.HybridMegaRenderer.launches, dynamics.scan_lanes.launches,
+                noise.noise_uniform.launches, iir.biquad_scan.launches)
+
+    ring = 0.0
+    for b, k in MASTER_HYBRID:
+        hy = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
+        eg = ft.BatchRenderer(prog, b, device="cuda")
+        params = vary_mastering_params(prog, eg.stack_params(), seed=13)
+        states = {"hybrid": hy.init_state(), "eager": eg.init_state()}
+        walls = {"hybrid": [], "eager": []}
+        got = {}
+        for c in range(MASTER_LOWERED_CHUNKS):
+            res = {}
+            for name, r in (("hybrid", hy), ("eager", eg)):
+                # the main path: counts set to 0 just before each chunk
+                eh.HybridMegaRenderer.launches = dynamics.scan_lanes.launches = 0
+                noise.noise_uniform.launches = iir.biquad_scan.launches = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out, om, states[name] = r.render_chunk(params, states[name],
+                                                       start_sample=c * k * 128,
+                                                       num_blocks=k)
+                torch.cuda.synchronize()
+                walls[name].append(time.perf_counter() - t0)
+                got[name] = counts()
+                res[name] = (out, om)
+            if got["hybrid"] != (2, k, k, 0):
+                raise AssertionError(f"12(c): B={b} K={k}, launches (K3, K5, K6, K7) "
+                                     f"{got['hybrid']} in a chunk")
+            if not (torch.equal(res["hybrid"][0], res["eager"][0])
+                    and torch.equal(res["hybrid"][1], res["eager"][1])):
+                e = float((res["hybrid"][0] - res["eager"][0]).abs().max())
+                raise AssertionError(f"12(c): B={b} K={k} chunk {c}: hybrid vs eager "
+                                     f"{e}, or masks")
+            if not bool(torch.isfinite(res["hybrid"][0]).all()):
+                raise AssertionError(f"12(c): B={b} K={k}: non-finite output")
+        ring = max(ring, ring_err(states["hybrid"], states["eager"], meter_key))
+        split = hy._chunk_cache[("hybrid", k)]
+        segments = [(kind, [type(prog._procs[ft.node_key(sn.id)]).__name__
+                            for sn in nodes]) for kind, nodes in split.segments]
+        if [kind for kind, _ in segments] != ["xla", "mega", "xla", "mega"]:
+            raise AssertionError(f"12(c): segments {segments}")
+        h_wall = sum(walls["hybrid"][1:]) / (MASTER_LOWERED_CHUNKS - 1)
+        e_wall = sum(walls["eager"][1:]) / (MASTER_LOWERED_CHUNKS - 1)
+        audio_secs = b * k * 128 / 48000
+        log(f"12(c), the bus's hybrid at B={b}, K={k} on {card}: {segments}; against "
+            f"eager over {MASTER_LOWERED_CHUNKS} chunks outputs, masks and every state "
+            f"leaf bit for bit but the meter's ring ({ring:.3e} relative, limit "
+            f"{RING_TOL:g}); a chunk launches K3 {got['hybrid'][0]}, K5 "
+            f"{got['hybrid'][1]}, K6 {got['hybrid'][2]}, K7 {got['hybrid'][3]} times "
+            f"(eager: {got['eager'][1:]}); wall a chunk after the first: hybrid "
+            f"{h_wall * 1e3:.3f} ms (realtime factor {audio_secs / h_wall:.1f}), eager "
+            f"{e_wall * 1e3:.3f} ms (realtime factor {audio_secs / e_wall:.1f})")
+    h_launches = 2 * MASTER_LOWERED_CHUNKS  # the last configuration's, counted above
+
+    # each island of the last configuration against its plain version at the
+    # same operands, and timed
+    def agree(i, got, want):
+        nonlocal ring
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"12(c): island {i}: K3 vs its plain version "
+                                 f"{float((got[0] - want[0]).abs().max())}, or flags")
+        ring = max(ring, ring_err(got[2], want[2], meter_key))
+
+    k3_ms, k3_call, k3_plain, (k3_bytes, k3_ops) = island_times(
+        em, prog, split, lambda: hy.render_chunk(params, states["hybrid"], start_sample=0,
+                                                 num_blocks=k),
+        agree, 0, "12(c)")
+    log(f"12(c): MegaRenderer refuses the bus (ValueError: {refused[:60]}...); K3 on "
+        f"both islands at B={b}, K={k}: {k3_ms:.4f} ms on the device, bound "
+        f"{bound(k3_bytes, k3_ops)[0]:.4f} ms")
+    return ring, (h_launches, ring, k3_ms, k3_call, k3_plain, (k3_bytes, k3_ops))
+
+
+def witness_graph(ft, frames: int):
+    """The rows the bus lacks in one graph: a beep through a limiter and dry
+    into a sum, with an LFO; the latency pass splices a delay compensator
+    into the dry edges and the LFO's; the sum into a 0-output meter and the
+    output.  Every node has a row, so K2 renders it whole."""
+    from firewheel_tpu_torch import nodes as n
+
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    beep = g.add_node(0, 2, n.BeepTestNode(440.0, -6.0, True))
+    lim = g.add_node(2, 2, n.LimiterNode(ceiling_db=-9.0, lookahead_secs=0.003))
+    lfo = g.add_node(0, 2, n.LFONode(n.LFOShape.TRIANGLE, 3.0, 0.1, 0.0))
+    mix = g.add_node(6, 2, n.SumNode())
+    meter = g.add_node(2, 0, n.DbMeterNode())
     for c in range(2):
-        res = {}
-        for name, r in (("hybrid", hy), ("eager", eg)):
-            eh.HybridMegaRenderer.launches = 0
-            dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
-            iir.biquad_scan.launches = 0
-            out, om, states[name] = r.render_chunk(params, states[name],
-                                                   start_sample=c * k * 128,
-                                                   num_blocks=k)
+        g.connect(beep, c, lim, c)
+        g.connect(lim, c, mix, c)
+        g.connect(beep, c, mix, 2 + c)
+        g.connect(lfo, c, mix, 4 + c)
+        g.connect(mix, c, meter, c)
+        g.connect(mix, c, g.graph_out_node(), c)
+    g.compensate_latency(48000)
+    pkg = g.compile(48000, frames)
+    return ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                              device="cuda")
+
+
+def master_witness(ft, em, eh, card: str):
+    """12(d): the witness graph through K2 and through the hybrid (one K3
+    island) against eager on the card at B=1024, K=8, in blocks of 128 and
+    of 127 frames, over three chunks with each beep off in a different
+    third of the instances and each LFO instance its own wave: outputs and
+    masks bit for bit, every state leaf within ``MEGA_TOL`` (the sink
+    meter's mean square sums in another order at 127 frames); one launch a
+    chunk each; K2 against its plain version for the first instances."""
+    from firewheel_tpu_torch.convert import tree_map
+
+    b, k = WITNESS
+    worst = 0.0
+    for frames in (128, 127):
+        prog = witness_graph(ft, frames)
+        kinds = sorted({type(p).__name__ for p in prog._procs.values()})
+        mega = em.MegaRenderer(prog, b, k, device="cuda")
+        hy = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
+        eg = ft.BatchRenderer(prog, b, device="cuda")
+        states = {"K2": mega.init_state(), "hybrid": hy.init_state(),
+                  "eager": eg.init_state()}
+        for c in range(3):
+            params = eg.stack_params()
+            for key, proc in prog._procs.items():
+                name = type(proc).__name__
+                if name == "BeepTestProcessor":
+                    params[key]["enabled"] = (torch.arange(b, device="cuda") + c) % 3 != 0
+                elif name == "LFOProcessor":
+                    params[key]["shape"] = torch.arange(b, device="cuda") % 4
+            res = {}
+            before = states["K2"]
+            em.MegaRenderer.launches = eh.HybridMegaRenderer.launches = 0
+            res["K2"] = mega.render_chunk(params, before, c * k * frames)
+            res["hybrid"] = hy.render_chunk(params, states["hybrid"],
+                                            start_sample=c * k * frames, num_blocks=k)
             torch.cuda.synchronize()
-            counts[name] = (eh.HybridMegaRenderer.launches, dynamics.scan_lanes.launches,
-                            noise.noise_uniform.launches, iir.biquad_scan.launches)
-            res[name] = (out, om)
-        if not torch.equal(res["hybrid"][1], res["eager"][1]):
-            raise AssertionError(f"12(c): chunk {c}'s masks differ")
-        err = max(err, float((res["hybrid"][0] - res["eager"][0]).abs().max()))
-    err = max(err, tree_err(states["hybrid"], states["eager"]))
-    if not err <= MASTER_HYBRID_TOL or counts["hybrid"] != (0, 4 * k, k, 2 * k):
-        raise AssertionError(f"12(c): hybrid vs eager {err}, launches (K3, K5, K6, K7) "
-                             f"{counts['hybrid']}")
-    log(f"12(c), the bus's lowerings on {card}: MegaRenderer refuses it "
-        f"(ValueError: {refused[:60]}...); the hybrid at B={b}, K={k} is "
-        f"{len(hy._chunk_cache[('hybrid', k)].segments)} torch stage, no island; "
-        f"against eager over 2 chunks max_abs_err={err:.3e} (outputs and every "
-        f"state leaf), masks equal; a chunk launches K3 {counts['hybrid'][0]}, K5 "
-        f"{counts['hybrid'][1]}, K6 {counts['hybrid'][2]}, K7 {counts['hybrid'][3]} "
-        f"times")
-    return err
+            if (em.MegaRenderer.launches, eh.HybridMegaRenderer.launches) != (1, 1):
+                raise AssertionError(f"12(d): F={frames}: K2 {em.MegaRenderer.launches}, "
+                                     f"K3 {eh.HybridMegaRenderer.launches} launches")
+            res["eager"] = eg.render_chunk(params, states["eager"],
+                                           start_sample=c * k * frames, num_blocks=k)
+            torch.cuda.synchronize()
+            for name in ("K2", "hybrid"):
+                o, m, states[name] = res[name]
+                if not (torch.equal(o, res["eager"][0]) and torch.equal(m, res["eager"][1])):
+                    raise AssertionError(f"12(d): {name} at F={frames} chunk {c}: vs eager "
+                                         f"{float((o - res['eager'][0]).abs().max())}, "
+                                         f"or masks")
+            states["eager"] = res["eager"][2]
+        # the last chunk's first instances again by the plain version
+        head = lambda t: t[:CHECK_INSTANCES].contiguous()  # noqa: E731
+        ro, rm, _ = em.mega_chunk_reference(prog, mega.lowered, tree_map(head, params),
+                                            tree_map(head, before), 2 * k * frames, k,
+                                            CHECK_INSTANCES)
+        if not (torch.equal(ro, res["K2"][0][:CHECK_INSTANCES])
+                and torch.equal(rm, res["K2"][1][:CHECK_INSTANCES])):
+            raise AssertionError(f"12(d): K2 at F={frames} vs its plain version")
+        errs = [tree_err(states[name], states["eager"]) for name in ("K2", "hybrid")]
+        peak = float(res["eager"][0].abs().max())
+        if not max(errs) <= MEGA_TOL or not 0.05 < peak:
+            raise AssertionError(f"12(d): F={frames}: state {errs}, peak {peak}")
+        worst = max(worst, *errs)
+        log(f"12(d), the witness graph ({kinds}) at F={frames}, B={b}, K={k} on {card}: "
+            f"K2 and the hybrid ({[kind for kind, _ in hy._chunk_cache[('hybrid', k)].segments]}"
+            f") against eager over 3 chunks, outputs and masks bit for bit, state "
+            f"{errs[0]:.3e} and {errs[1]:.3e}; one launch a chunk each; K2 vs its plain "
+            f"version for the first {CHECK_INSTANCES} instances bit for bit")
+    return worst
 
 
 def check_mastering(ft, seq_iir, em, eh, dynamics, noise, cpu_result, card: str, phase):
     """Phase 12: the mastering bus on the card → ``(err, K5 and K6 launches
-    on the batched path, K5, K6 and K7 in the stream)``."""
+    on the batched path, K5, K6 and K7 in the stream, K3's tuple on the
+    bus)``."""
     s_err, s_k5, s_k6, s_k7 = master_stream_check(ft, cpu_result, card)
     phase("12(a), the bus streamed")
     b_err, k5, k6 = master_batched(ft, seq_iir, dynamics, noise, card)
     torch.cuda.empty_cache()
     phase("12(b), the bus eager at B=8192, K=32")
-    h_err = master_lowerings(ft, em, eh, dynamics, noise, card)
+    h_err, k3 = master_lowerings(ft, em, eh, dynamics, noise, card)
+    torch.cuda.empty_cache()
     phase("12(c), the bus's lowerings")
-    return max(s_err, b_err, h_err), k5, k6, s_k5, s_k6, s_k7
+    w_err = master_witness(ft, em, eh, card)
+    phase("12(d), the witness graph on K2 and the hybrid")
+    return max(s_err, b_err, w_err), k5, k6, s_k5, s_k6, s_k7, k3
 
 
 # phase 13: the FX palette (examples/interactive_graph.py)
@@ -3359,41 +3679,16 @@ def palette_lowerings(ft, em, eh, iir, card: str):
           cuda_ms(lambda: em.mega_chunk_reference(p2, mega.lowered, m_params, m_state,
                                                   0, k, b), 1),
           kernel_work(em, p2, mega.lowered, m_params, m_state, b, k, m_io))
-    calls = {}
-    launch_island = split._launch
 
-    def record(i, *args):
-        calls[i] = args
-        return launch_island(i, *args)
-
-    split._launch = record
-    hy.render_chunk(params, states["hybrid"], start_sample=2 * k * 128, num_blocks=k)
-    del split._launch
-    k3_ms = k3_call = k3_plain = 0.0
-    k3_bytes = k3_ops = 0
-    for i, (pseg, sseg, env, env_flags) in sorted(calls.items()):
-        lw = split.islands[i]
-        ko, kf, ks = launch_island(i, pseg, sseg, env, env_flags)
-        ro, rf, rs = em.island_chunk_reference(prog, lw, pseg, sseg, env, env_flags,
-                                               2 * k * 128, k, b)
-        torch.cuda.synchronize()
-        e = max(float((ko - ro).abs().max()), tree_err(ks, rs))
-        if e != 0.0 or not torch.equal(kf, rf):
+    def agree(i, got, want):
+        e = max(float((got[0] - want[0]).abs().max()), tree_err(got[2], want[2]))
+        if e != 0.0 or not torch.equal(got[1], want[1]):
             raise AssertionError(f"13(c): island {i}: K3 vs its plain version {e}")
-        island = lambda: launch_island(i, pseg, sseg, env, env_flags)  # noqa: E731
-        ms = device_ms(island, "island_kernel", KERNEL_REPS)
-        call = cuda_ms(island, KERNEL_REPS)
-        plain = cuda_ms(lambda: em.island_chunk_reference(
-            prog, lw, pseg, sseg, env, env_flags, 0, k, b), 1)
-        nbytes, ops = kernel_work(em, prog, lw, pseg, sseg, b, k,
-                                  ko.nbytes + kf.nbytes + env.nbytes + env_flags.nbytes)
-        log(f"13(c): K3 on island {i} ({len(lw.keys)} rows, {lw.in_bufs.size} "
-            f"live-ins, {em.shared_bytes(lw, split.tile)} B of shared memory a CTA) vs "
-            f"its plain version 0 (outputs, flags, state); {ms:.4f} ms on the device, "
-            f"{call:.4f} ms a call (CUDA events), plain {plain:.3f} ms; bound "
-            f"{bound(nbytes, ops)[0]:.4f} ms by {bound(nbytes, ops)[1]}")
-        k3_ms, k3_call, k3_plain = k3_ms + ms, k3_call + call, k3_plain + plain
-        k3_bytes, k3_ops = k3_bytes + nbytes, k3_ops + ops
+
+    k3_ms, k3_call, k3_plain, (k3_bytes, k3_ops) = island_times(
+        em, prog, split, lambda: hy.render_chunk(params, states["hybrid"],
+                                                 start_sample=2 * k * 128, num_blocks=k),
+        agree, 2 * k * 128, "13(c)")
     log(f"13(c): K2 (without the flanger, {len(mega.lowered.keys)} rows, "
         f"{em.shared_bytes(mega.lowered, mega.tile)} B of shared memory a CTA) vs its "
         f"plain version 0; {k2[2]:.4f} ms on the device, {k2[3]:.4f} ms a call, plain "
@@ -3472,12 +3767,14 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         log("ptxas: the K1 library was built before this run")
     if em.LIBRARY.log:
         for kernel in ("mega_kernel", "island_kernel"):
-            # four of each: blocks of 128 frames fixed, and of any length;
-            # with the FX rows compiled in (the bool template argument), and
-            # without
+            # five of each: blocks of 128 frames fixed, and of any length,
+            # each with the rows beyond the mixer's compiled in (the bool
+            # template argument) and without; and the arena spilled to
+            # device memory (any length, every row)
             for name, report in ptxas_report(em.LIBRARY.log, kernel).items():
-                frames = "F=128" if "Args128" in name else "any F"
-                rows = "FX rows" if "Lb1E" in name else "no FX rows"
+                frames = ("F=128" if "Args128" in name else
+                          "the arena spilled" if "ArgsSpill" in name else "any F")
+                rows = "rows beyond the mixer's" if "Lb1E" in name else "the mixer's rows"
                 log(f"ptxas, {kernel} ({frames}, {rows}): {report}")
     else:
         log("ptxas: the megakernel library was built before this run")
@@ -3494,7 +3791,8 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     phase("3, K1 vs plain")
     new_kernels = check_new_kernels(adpcm_device, dynamics, noise)
     phase("3(b), K4-K6 vs plain")
-    new_kernels.update(check_assoc_scan(iir))
+    k7, k7_long = check_assoc_scan(iir)
+    new_kernels.update(k7)
     phase("3(c), K7 vs plain")
     launches = render_mixer(ft, seq_iir, card)
     phase("4, mixer eager")
@@ -3518,9 +3816,10 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     log(f"phase 9: the stream on the card vs the CPU, max_abs_err={s_err:.3e}")
     serve_k1, serve_k3, serve_k4 = check_serving(ft, seq_iir, em, eh, adpcm_device,
                                                  card, phase)
-    spatial_k2, spatial_k3 = check_spatial(ft, seq_iir, em, eh, card, phase)
-    bus_err, bus_k5, bus_k6, stream_k5, stream_k6, bus_stream_k7 = check_mastering(
-        ft, seq_iir, em, eh, dynamics, noise, cpu_stream, card, phase)
+    spatial_k2, spatial_k3, spatial_k2_spilled = check_spatial(ft, seq_iir, em, eh,
+                                                               card, phase)
+    bus_err, bus_k5, bus_k6, stream_k5, stream_k6, bus_stream_k7, bus_k3 = \
+        check_mastering(ft, seq_iir, em, eh, dynamics, noise, cpu_stream, card, phase)
     fx_err, fx_k7, fx_stream_k7, fx_k2, fx_k3 = check_palette(ft, em, eh, iir,
                                                               cpu_stream, card, phase)
     log(f"phase 13: the FX palette on the card vs the CPU and eager, "
@@ -3549,6 +3848,14 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
          "firewheel_tpu/executor_pallas.py:218", *spatial_k2),
         ("hybrid_island_spatial_scene", "firewheel_tpu_torch/csrc/megakernel.cu",
          "firewheel_tpu/executor_pallas.py:617", *spatial_k3),
+        # phase 11(c): K2 on the scene in blocks of 256 frames, its arena
+        # spilled to device memory (B=1024, K=8; plain_ms: eager's wall)
+        ("megakernel_spatial_scene_spilled", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:218", *spatial_k2_spilled),
+        # phase 12(c): K3 on the mastering bus's two islands (ms, call and
+        # plain: both islands a chunk), B=8192, K=32
+        ("hybrid_island_mastering_bus", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:617", *bus_k3),
         # phase 13(c): K2 on the FX palette without the flanger and K3 on the
         # palette's two islands (ms, call and plain: both islands a chunk),
         # B=1024, K=8
@@ -3596,6 +3903,11 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         if name == "biquad_seq":  # at the stream's width, 2 lanes
             kernels[-1].update(zip(("stream_ms", "stream_call_ms", "stream_plain_ms",
                                     "stream_bound_ms"), k1_stream))
+        if name in k7_long:  # rows past shared memory, f32[16384, 16384]
+            long_ms, long_call, long_plain, long_work = k7_long[name]
+            kernels[-1].update({"long_rows_ms": long_ms, "long_rows_call_ms": long_call,
+                                "long_rows_plain_ms": long_plain,
+                                "long_rows_bound_ms": bound(*long_work)[0]})
         f64 = f", {work[2] / 1e9:.3f} G at the f64 rate" if len(work) > 2 else ""
         log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "
             f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G "

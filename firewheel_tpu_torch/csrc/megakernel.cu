@@ -83,12 +83,13 @@
 //     128-byte stack frame: the precise sinf/cosf slow path's local array
 //     and the out-of-line ramping paths.
 //     Capping island_kernel at 64 registers spilled and was faster at
-//     B=8192 but slower at B=1024.  The FX rows (i.) need more: compiled
-//     into every kernel they took island_kernel to 132 registers, and at
-//     tile 1 registers, not shared memory, bound K3's residency (the
-//     effects chain's island 40% slower), so they are compiled only into
-//     the kernels that a table with FX rows launches (kFx).  chip_smoke.py
-//     phase 2 prints the report for all eight entries.
+//     B=8192 but slower at B=1024.  The rows beyond the mixer's (i., j.)
+//     need more: compiled into every kernel the FX rows took island_kernel
+//     to 132 registers, and at tile 1 registers, not shared memory, bound
+//     K3's residency (the effects chain's island 40% slower), so they are
+//     compiled only into the kernels that a table with such rows launches
+//     (kFx), and into the spilled kernels (h.).  chip_smoke.py phase 2
+//     prints the report for all ten entries.
 //  f. The echo line at bandwidth: the chunk-start count and copy of the
 //     kept line, and each block's tap and append, use 16-byte accesses when
 //     the line length and F are multiples of 4 and the pointers are aligned
@@ -104,10 +105,19 @@
 //     __syncwarp that precedes its writes.
 //  h. Large arenas: the spatial scene (BASELINE config 5, 266 nodes) keeps
 //     258 buffers live, 159 376 B a CTA at F = 128, so it runs at tile 1,
-//     one warp an SM, with every row's latency exposed; at F = 256 it fits
-//     nowhere and executor_mega.check_launchable refuses it before a
-//     launch.  Its spatializer rows run their one-pole on one lane
-//     (op_spatial).
+//     one warp an SM, with every row's latency exposed.  At F = 256 its
+//     arena (264 KB) fits no CTA: when an instance's arena does not fit at
+//     tile 1 (executor_mega.spills), every instance's buffers live in a
+//     device-memory workspace [B, num_buffers, round4(F)] that the wrapper
+//     allocates, and the flags, leaf words, echo records, scratch and
+//     tables stay in shared memory.  Rows reach buffers only through
+//     frames4/frame, which index the workspace when the argument type is
+//     ArgsSpill, a compile-time property: the kernels with the arena on
+//     chip carry no branch for it.  The spilled kernels read F at run time
+//     and compile every row in (two entries; they are not the hot path).
+//     The JAX kernel keeps its whole arena in VMEM; a lowering that keeps
+//     fewer buffers live is later work.  The spatializer rows run their
+//     one-pole on one lane (op_spatial).
 //  i. The FX palette's rows (examples/interactive_graph.py, every node but
 //     the flanger, whose feedback program opts out as in the JAX package):
 //     lanes over frames, each f32 operation as the eager op rounds it on
@@ -120,6 +130,18 @@
 //     echo channel records); the pitch shifter's all-silent reset zeroes
 //     its ring by moving the channel's zero_below past it and zeroing the
 //     final line's part in line_out.
+//  j. The mastering bus's rows (examples/mastering_bus.py; with the LFO,
+//     the latency pass's delay compensator and the meter as a sink): the
+//     compressor's and the ducker's envelopes and the limiter's release
+//     run on lane 0 as K5 runs them, into the row's scratch; the dB gain
+//     (log10f, powf) and the gains on the lanes.  The limiter's window
+//     maximum reads the level sequence (the tail, then the block) from the
+//     scratch; its dry line and the delay compensator's line stay in device
+//     memory through the echo channel records (line_loud: the limiter's
+//     quiet check is `== 0`).  The loudness meter runs its K-weighting as
+//     two K7 sections a channel (k7_section), sums each hop's powers with a
+//     warp reduction (another order than torch's: the ring is held to a
+//     tolerance) and keeps the ring, counts and indices in its words.
 //
 // Device functions, each the counterpart of one of the port's node kernels
 // (and through it of the JAX package's):
@@ -134,8 +156,12 @@
 //   waveshaper nodes/waveshaper.py  gate    nodes/dynamics.py:GateProcessor
 //   eq      nodes/eq.py             mod_delay nodes/mod_effects.py (no feedback)
 //   pitch   nodes/pitch_shift.py
-// Built with --fmad=false and precise sinf/cosf/expf: each f32 operation
-// rounds as the eager torch op does.
+//   compressor, ducker, limiter  nodes/dynamics.py
+//   loudness nodes/loudness.py      lfo     nodes/generators.py:LFOProcessor
+//   delay_comp nodes/delay.py:DelayCompProcessor
+//   sink meter nodes/meter.py:_SinkMeterProcessor (op_meter, no outputs)
+// Built with --fmad=false and precise sinf/cosf/expf/log10f/powf: each f32
+// operation rounds as the eager torch op does.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -166,7 +192,8 @@ enum Field {
 enum OpCode {
   kDummy, kBeep, kVolume, kPan, kSum, kFilter, kEcho, kClip, kMeter, kSpatial,
   kMonoToStereo, kStereoToMono, kWidth, kTremolo, kWaveshaper, kGate, kEq,
-  kModDelay, kPitch
+  kModDelay, kPitch, kCompressor, kDucker, kLimiter, kLoudness, kLfo,
+  kDelayComp, kSinkMeter
 };
 enum SmootherStatus { kInactive = 0, kActive = 1, kDeactivating = 2 };
 constexpr int kLeafWidth = 4;
@@ -178,6 +205,9 @@ constexpr float kRingQuiet = 0x1.197998p-40f;  // float32(1e-12): the pitch ring
 constexpr float kTwoOverPi = 0x1.45f306p-1f;   // float32(2/pi)
 constexpr float kTau = 6.28318530717958647692f;
 constexpr float kQuarterPi = 0.78539816339744830962f;
+constexpr float kKneeFloor = 0x1.12e0bep-30f;  // float32(1e-9): the knee's and the
+                                               // limiter's peak floor
+constexpr float kTenth = 0.1f;  // 1/10 rounded: torch's x / 10.0 on the card
 
 struct Args {
   const int* ops;
@@ -196,9 +226,14 @@ struct Args {
   int64_t stride;
   int tile, K, F, num_buffers, echo_channels;
   int scan_words;  // per instance: the scratch of the rows that need one
-  int fx;          // the table has FX rows: launch the kernels built with them
+  int fx;          // the table has rows beyond the mixer's: launch the
+                   // kernels built with them
+  int spill;       // the arena lives in device memory (`arena`), not shared
+  float* arena;    // spilled: [B, num_buffers, round4(F)]
   // F % 4 == 0 known at compile time (Args128); else F is any size > 0
   static constexpr bool kWhole = false;
+  // the arena in device memory, known at compile time (ArgsSpill)
+  static constexpr bool kSpill = false;
 };
 
 __host__ __device__ inline int round4(int n) { return (n + 3) & ~3; }
@@ -218,17 +253,20 @@ constexpr int kEchoWords = sizeof(EchoChannel) / 4;
 
 // 32-bit words of shared memory (executor_mega.shared_bytes): the tables,
 // once per CTA, then per instance its arena (num_buffers rows of F floats,
-// each padded to round4(F) so that the lanes move whole float4s), its
-// echo channels, the buffers' silence flags, its leaf words and the scan
-// rows' scratch.  Both
-// parts round up to 16 bytes, so every arena row is 16-byte aligned and
-// every echo channel 8-byte aligned.
+// each padded to round4(F) so that the lanes move whole float4s; none when
+// the arena is spilled to device memory), its echo channels, the buffers'
+// silence flags, its leaf words and the scan rows' scratch.  Both parts
+// round up to 16 bytes, so every arena row is 16-byte aligned and every
+// echo channel 8-byte aligned.
 __host__ __device__ inline int table_words(const Args& a) {
   return round4(a.n_ops * kRowWidth + a.n_io + a.n_consts + 2 * a.n_out + a.n_in);
 }
+__host__ __device__ inline int arena_words(const Args& a) {
+  return a.spill ? 0 : a.num_buffers * round4(a.F);
+}
 __host__ __device__ inline int words_per_instance(const Args& a) {
-  return round4(a.num_buffers * round4(a.F) + kEchoWords * a.echo_channels +
-                a.num_buffers + a.num_words + a.scan_words);
+  return round4(arena_words(a) + kEchoWords * a.echo_channels + a.num_buffers +
+                a.num_words + a.scan_words);
 }
 __host__ __device__ inline size_t shared_bytes(const Args& a) {
   return 4 * (static_cast<size_t>(table_words(a)) +
@@ -260,7 +298,7 @@ struct Tables {
 // buffer.  A row alone has span 32 and sub = lane; the rows with warp-wide
 // reductions (sum, filter, echo, clip, meter) always run alone.
 struct Inst {
-  int buf;    // [num_buffers][F]
+  int buf;    // [num_buffers][F] (in shared memory unless spilled)
   int echo;   // [echo_channels] EchoChannel
   int flag;   // [num_buffers], 1 = silent
   int word;   // [num_words]: the leaves on chip
@@ -302,16 +340,29 @@ __device__ __forceinline__ EchoChannel& echo_ch(const Inst& I, int c) {
 // An arena row's floats: F rounded up to a float4.
 template <class A>
 __device__ __forceinline__ int pitch(const A& a) { return round4(a.F); }
-// The float4 of buffer b that holds frames 4q..4q+3.
+// Buffer b of the instance's arena in device memory (ArgsSpill).
+template <class A>
+__device__ __forceinline__ float* spilled(const A& a, const Inst& I, int b) {
+  return a.arena + (I.i * a.num_buffers + b) * pitch(a);
+}
+// The float4 of buffer b that holds frames 4q..4q+3: in shared memory, or
+// in the spilled arena (a compile-time property of the argument type, so
+// the kernels with the arena on chip carry no branch for it).
 template <class A>
 __device__ __forceinline__ float4& frames4(const A& a, const Inst& I, int b,
                                           int q) {
-  return s_float4(I.buf + b * pitch(a) + 4 * q);
+  if constexpr (A::kSpill)
+    return reinterpret_cast<float4*>(spilled(a, I, b))[q];
+  else
+    return s_float4(I.buf + b * pitch(a) + 4 * q);
 }
 // Frame f of buffer b.
 template <class A>
 __device__ __forceinline__ float& frame(const A& a, const Inst& I, int b, int f) {
-  return s_float(I.buf + b * pitch(a) + f);
+  if constexpr (A::kSpill)
+    return spilled(a, I, b)[f];
+  else
+    return s_float(I.buf + b * pitch(a) + f);
 }
 // Float4s in a block, the last one padded past F when F % 4 != 0; lane sub
 // of a row owns q = sub, sub + span, ...
@@ -337,9 +388,6 @@ __device__ __forceinline__ float nanmin(float a, float b) {
   return (a != a || a < b) ? a : b;
 }
 __device__ __forceinline__ int loud(float x) { return !(fabsf(x) < kQuiet); }
-__device__ __forceinline__ int loud4(float4 v) {
-  return loud(v.x) + loud(v.y) + loud(v.z) + loud(v.w);
-}
 
 // core/smoother.py:smoother_set_and_process, for one value per instance.
 struct Smooth {
@@ -663,15 +711,24 @@ __device__ EchoLine echo_line(const A& a, const Row& r, const Inst& I,
 __device__ __forceinline__ int loud_q(float x, float q) { return !(fabsf(x) < q); }
 
 // The rows with a line in device memory: the line's leaf (after the row's
-// first) and the level below which a sample is quiet.
+// first) and which of its samples are loud: at or over 1e-10 (1e-12 for the
+// pitch ring), or, for the limiter's dry line, not exactly 0
+// (nodes/dynamics.py: `(delay == 0.0).all()`).  A NaN is loud.
 __device__ __forceinline__ int line_leaf(int op) {
-  return op == kEcho ? 3 : (op == kModDelay ? 6 : 2);
+  switch (op) {
+    case kEcho: return 3;
+    case kModDelay: return 6;
+    case kDelayComp: return 0;
+    default: return 2;  // kPitch, kLimiter
+  }
 }
-__device__ __forceinline__ float line_quiet(int op) {
-  return op == kPitch ? kRingQuiet : kQuiet;
+__device__ __forceinline__ int line_loud(int op, float x) {
+  if (op == kLimiter) return x != 0.f;
+  return loud_q(x, op == kPitch ? kRingQuiet : kQuiet);
 }
 __device__ __forceinline__ bool has_line(int op) {
-  return op == kEcho || op == kModDelay || op == kPitch;
+  return op == kEcho || op == kModDelay || op == kPitch || op == kLimiter ||
+         op == kDelayComp;
 }
 
 // Once per chunk, for each channel of a row with a line (has_line): its
@@ -684,7 +741,6 @@ __device__ void echo_begin(const A& a, const Row& r, const Inst& I) {
   const int64_t d = r.aux0;
   const int64_t n_line = static_cast<int64_t>(r.n_in) * d;
   const int line = r.slot + line_leaf(r.op);
-  const float quiet = line_quiet(r.op);
   for (int c = 0; c < r.n_in; ++c) {
     EchoLine e;
     e.in = reinterpret_cast<const float*>(a.ptrs[2 * line]) + I.i * n_line + c * d;
@@ -704,14 +760,14 @@ __device__ void echo_begin(const A& a, const Row& r, const Inst& I) {
 #pragma unroll 4
       for (int64_t q = I.lane; q < d4; q += kLanes) {
         const float4 x = in[q];
-        n += loud_q(x.x, quiet) + loud_q(x.y, quiet) + loud_q(x.z, quiet) +
-             loud_q(x.w, quiet);
+        n += line_loud(r.op, x.x) + line_loud(r.op, x.y) + line_loud(r.op, x.z) +
+             line_loud(r.op, x.w);
         if (q >= kf4) out[q - kf4] = x;
       }
     } else {
       for (int64_t j = I.lane; j < e.d; j += kLanes) {
         const float x = e.in[j];
-        n += loud_q(x, quiet);
+        n += line_loud(r.op, x);
         if (j >= e.kf) e.out[j - e.kf] = x;
       }
     }
@@ -814,17 +870,19 @@ __device__ void op_clip(const A& a, const Row& r, const Inst& I) {
   if (I.lane == 0) word(r, 1) += static_cast<uint32_t>(over);
 }
 
-// words: peak [C], rms_sq [C] (state); consts: peak decay, rms alpha
-template <class A>
+// words: peak [C], rms_sq [C] (state); consts: peak decay, rms alpha.
+// kSink: the meter as a graph sink (nodes/meter.py:_SinkMeterProcessor, no
+// outputs).
+template <class A, bool kSink = false>
 __device__ void op_meter(const A& a, const Row& r, const Inst& I) {
   const int ch = r.n_in;
   for (int c = 0; c < ch; ++c) {
     float peak = 0.f;
     float sq = 0.f;
-    const int x_buf = in_buf(r, c), y_buf = out_buf(r, c);
+    const int x_buf = in_buf(r, c);
     for (int q = I.lane; q < quads(a); q += kLanes) {
       float4 x = frames4(a, I, x_buf, q);
-      frames4(a, I, y_buf, q) = x;
+      if constexpr (!kSink) frames4(a, I, out_buf(r, c), q) = x;
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         if (!in_block(a, 4 * q + e)) continue;
@@ -845,8 +903,9 @@ __device__ void op_meter(const A& a, const Row& r, const Inst& I) {
     }
   }
   __syncwarp();
-  for (int c = I.lane; c < ch; c += kLanes)
-    flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
+  if constexpr (!kSink)
+    for (int c = I.lane; c < ch; c += kLanes)
+      flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
 }
 
 // words: gain, pan, lp_b (params); gain.{target, last, status},
@@ -1086,6 +1145,16 @@ __device__ void op_waveshaper(const A& a, const Row& r, const Inst& I) {
   }
 }
 
+// The loudest of inputs [c0, c1)'s |x| at frame f: torch's amax over the
+// channels (a NaN propagates).
+template <class A>
+__device__ __forceinline__ float channel_level(const A& a, const Row& r, const Inst& I,
+                                               int c0, int c1, int f) {
+  float lvl = fabsf(frame(a, I, in_buf(r, c0), f));
+  for (int c = c0 + 1; c < c1; ++c) lvl = nanmax(lvl, fabsf(frame(a, I, in_buf(r, c), f)));
+  return lvl;
+}
+
 // nodes/dynamics.py:GateProcessor.  words: open_lin, close_lin, floor,
 // att_b, rel_b, hold_n; open, hold, gain (state).  Lane 0 runs the latch
 // over the loudest channel's |x| as K5 does (csrc/sample_scan.cu, kGate)
@@ -1098,9 +1167,7 @@ __device__ void op_gate(const A& a, const Row& r, const Inst& I) {
     const float att = wf(r, 3), rel = wf(r, 4), hold_n = wf(r, 5);
     float opn = wf(r, 6), hold = wf(r, 7), g = wf(r, 8);
     for (int f = 0; f < a.F; ++f) {
-      float lvl = fabsf(frame(a, I, in_buf(r, 0), f));
-      for (int c = 1; c < r.n_in; ++c)
-        lvl = nanmax(lvl, fabsf(frame(a, I, in_buf(r, c), f)));
+      const float lvl = channel_level(a, r, I, 0, r.n_in, f);
       const bool above = lvl >= open_lin;
       const bool below = lvl < close_lin;
       const bool expired = hold <= 0.0f;
@@ -1128,11 +1195,41 @@ __device__ void op_gate(const A& a, const Row& r, const Inst& I) {
     flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
 }
 
+// One K7 biquad section (assoc_scan.cuh) over the F frames at x, as K7
+// runs a row: emit(f, y) for every frame f, and the final state into
+// (z1, z2) on the lane that holds frame F - 1, which returns true.  The
+// EQ's bands and the loudness meter's K-weighting.
+template <class A, class Emit>
+__device__ bool k7_section(const A& a, const Inst& I, const float* x,
+                           const BiquadCoef& c, float& z1, float& z2,
+                           scan::Affine2* lv, Emit emit) {
+  const scan::BiquadLeaves leaf{x, -c.a1, -c.a2, c.b1 - c.a1 * c.b0,
+                                c.b2 - c.a2 * c.b0};
+  scan::sweep(lv, a.F, leaf, I.lane);
+  const float zp1 = z1, zp2 = z2;
+  bool last = false;
+  if (I.lane == 0) emit(0, c.b0 * x[0] + zp1);
+  for (int p = I.lane; p < a.F; p += kLanes) {
+    const scan::Affine2 m = scan::level0(lv, p, leaf);
+    const float n1 = m.p11 * zp1 + m.p12 * zp2 + m.q1;
+    const float n2 = m.p21 * zp1 + m.p22 * zp2 + m.q2;
+    if (p + 1 < a.F) {
+      emit(p + 1, c.b0 * x[p + 1] + n1);
+    } else {
+      z1 = n1;
+      z2 = n2;
+      last = true;
+    }
+  }
+  __syncwarp();  // every lane has read the levels and x
+  return last;
+}
+
 // nodes/eq.py.  words: each band's b0, b1, b2, a1, a2 (params), then each
 // band's z1 [C], z2 [C] (state); aux0: bands.  Each band of each channel is
-// one K7 section (assoc_scan.cuh): band 0 reads the input buffer, a later
-// band a copy of the output buffer in the scratch row.  A channel is
-// silent when its input is and every band's state was quiet.
+// one K7 section (k7_section): band 0 reads the input buffer, a later band a
+// copy of the output buffer in the scratch row.  A channel is silent when
+// its input is and every band's state was quiet.
 template <class A>
 __device__ void op_eq(const A& a, const Row& r, const Inst& I) {
   const int ch = r.n_in, bands = r.aux0;
@@ -1144,35 +1241,19 @@ __device__ void op_eq(const A& a, const Row& r, const Inst& I) {
     bool quiet = true;
     for (int i = 0; i < bands; ++i) {
       const int zw = 5 * bands + 2 * ch * i;
-      const float zp1 = wf(r, zw + c), zp2 = wf(r, zw + ch + c);
-      quiet = quiet && fabsf(zp1) < kQuiet && fabsf(zp2) < kQuiet;
+      float z1 = wf(r, zw + c), z2 = wf(r, zw + ch + c);
+      quiet = quiet && fabsf(z1) < kQuiet && fabsf(z2) < kQuiet;
       const float* x = &frame(a, I, xb, 0);
       if (i > 0) {
         for (int f = I.lane; f < a.F; f += kLanes) copy[f] = y[f];
         __syncwarp();
         x = copy;
       }
-      const float b0 = wf(r, 5 * i), b1 = wf(r, 5 * i + 1), b2 = wf(r, 5 * i + 2);
-      const float a1 = wf(r, 5 * i + 3), a2 = wf(r, 5 * i + 4);
-      const scan::BiquadLeaves leaf{x, -a1, -a2, b1 - a1 * b0, b2 - a2 * b0};
-      scan::sweep(lv, a.F, leaf, I.lane);
-      float z1_last = 0.f, z2_last = 0.f;
-      if (I.lane == 0) y[0] = b0 * x[0] + zp1;
-      for (int p = I.lane; p < a.F; p += kLanes) {
-        const scan::Affine2 m = scan::level0(lv, p, leaf);
-        const float z1 = m.p11 * zp1 + m.p12 * zp2 + m.q1;
-        const float z2 = m.p21 * zp1 + m.p22 * zp2 + m.q2;
-        if (p + 1 < a.F) {
-          y[p + 1] = b0 * x[p + 1] + z1;
-        } else {
-          z1_last = z1;
-          z2_last = z2;
-        }
-      }
-      __syncwarp();  // every lane has read the state, the levels and x
-      if ((a.F - 1) % kLanes == I.lane) {
-        set_wf(r, zw + c, z1_last);
-        set_wf(r, zw + ch + c, z2_last);
+      const BiquadCoef bq = {wf(r, 5 * i), wf(r, 5 * i + 1), wf(r, 5 * i + 2),
+                             wf(r, 5 * i + 3), wf(r, 5 * i + 4)};
+      if (k7_section(a, I, x, bq, z1, z2, lv, [&](int f, float v) { y[f] = v; })) {
+        set_wf(r, zw + c, z1);
+        set_wf(r, zw + ch + c, z2);
       }
       __syncwarp();
     }
@@ -1307,6 +1388,283 @@ __device__ void op_pitch(const A& a, const Row& r, const Inst& I, int k) {
   if ((a.F - 1) % kLanes == I.lane) set_wf(r, 2, silent ? 0.f : phase_last);
 }
 
+// -- the mastering bus's rows ---------------------------------------------------
+// The compressor, ducker, limiter, loudness meter, LFO, delay compensator
+// and the sink meter (examples/mastering_bus.py and the latency pass), each
+// its eager kernel's ops as torch rounds them on the card: log10f and powf
+// are the precise ones torch calls, a division by a Python number is a
+// product with its float32 reciprocal, a clamp propagates a NaN.  The
+// sample recurrences (envelope, release) run on lane 0 as K5 runs them
+// (csrc/sample_scan.cu) into the row's scratch; the lanes then apply the
+// gains.
+
+// ops/dynamics.py:envelope_follow on lane 0 (K5's kEnvelope) over the level
+// of inputs [c0, c1): env[f] into `env_row`; returns the last.
+template <class A>
+__device__ float envelope_row(const A& a, const Row& r, const Inst& I, int c0, int c1,
+                              float env, float att, float rel, float* env_row) {
+  for (int f = 0; f < a.F; ++f) {
+    const float v = channel_level(a, r, I, c0, c1, f);
+    const float b = v > env ? att : rel;
+    env = fmaf(b, env, (1.0f - b) * v);
+    env_row[f] = env;
+  }
+  return env;
+}
+
+// nodes/dynamics.py:_gain_to_db and _db_to_gain
+__device__ __forceinline__ float gain_to_db(float amp) { return 20.0f * log10f(amp); }
+__device__ __forceinline__ float db_to_gain(float db) { return powf(10.0f, 0.05f * db); }
+
+// ops/dynamics.py:compressor_gain_db, op for op (1.0 / ratio is torch's
+// reciprocal times 1.0)
+__device__ __forceinline__ float compressor_gain_db(float level_db, float threshold,
+                                                    float ratio, float knee) {
+  const float over = level_db - threshold;
+  const float slope = (1.0f / ratio) * 1.0f - 1.0f;
+  const float half_knee = knee * 0.5f;
+  const float in_knee = nanmin(nanmax(over + half_knee, 0.0f), knee);
+  const float knee_gain = slope * in_knee * in_knee / (2.0f * nanmax(knee, kKneeFloor));
+  const float hard = slope * over;
+  return over <= -half_knee ? 0.0f : (over >= half_knee ? hard : knee_gain);
+}
+
+// Each input c's frames times gains[f] into output c, zeroed where input c
+// is silent; the outputs' flags are the inputs'.
+template <class A>
+__device__ void apply_gains(const A& a, const Row& r, const Inst& I, int channels,
+                            const float* gains) {
+  for (int c = 0; c < channels; ++c) {
+    const bool silent = flag(I, in_buf(r, c)) != 0;
+    for (int f = I.lane; f < a.F; f += kLanes) {
+      const float v = frame(a, I, in_buf(r, c), f) * gains[f];
+      frame(a, I, out_buf(r, c), f) = silent ? 0.f : v;
+    }
+  }
+  __syncwarp();
+  for (int c = I.lane; c < channels; c += kLanes)
+    flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
+}
+
+// nodes/dynamics.py:CompressorProcessor.  words: threshold_db, ratio,
+// knee_db, makeup, att_b, rel_b; env (state).  The envelope of the loudest
+// channel, the soft-knee gain in dB, then 10^(gain/20)·makeup.
+template <class A>
+__device__ void op_compressor(const A& a, const Row& r, const Inst& I) {
+  float* g = scan_row(a, I);
+  if (I.lane == 0)
+    set_wf(r, 6, envelope_row(a, r, I, 0, r.n_in, wf(r, 6), wf(r, 4), wf(r, 5), g));
+  __syncwarp();
+  const float threshold = wf(r, 0), ratio = wf(r, 1), knee = wf(r, 2), makeup = wf(r, 3);
+  for (int f = I.lane; f < a.F; f += kLanes)
+    g[f] = db_to_gain(compressor_gain_db(gain_to_db(g[f]), threshold, ratio, knee)) *
+           makeup;
+  __syncwarp();
+  apply_gains(a, r, I, r.n_in, g);
+}
+
+// nodes/dynamics.py:DuckerProcessor.  words: threshold_db, duck_db, att_b,
+// rel_b; env (state).  The sidechain (inputs n_out..) drives the envelope;
+// the duck depth applies through a 10 dB soft region below the threshold
+// to the main inputs (0..n_out), whose flags are the outputs'.
+template <class A>
+__device__ void op_ducker(const A& a, const Row& r, const Inst& I) {
+  const int m = r.n_out;
+  float* g = scan_row(a, I);
+  if (I.lane == 0)
+    set_wf(r, 4, envelope_row(a, r, I, m, r.n_in, wf(r, 4), wf(r, 2), wf(r, 3), g));
+  __syncwarp();
+  const float threshold = wf(r, 0), duck = wf(r, 1);
+  for (int f = I.lane; f < a.F; f += kLanes) {
+    const float over = nanmin(nanmax(((gain_to_db(g[f]) - threshold) + 10.0f) * kTenth,
+                                     0.0f), 1.0f);
+    g[f] = db_to_gain(duck * over);
+  }
+  __syncwarp();
+  apply_gains(a, r, I, m, g);
+}
+
+// Channel c of a row with a fixed line of D = aux0 frames in device memory
+// through its echo channel record (the limiter's dry line, the delay
+// compensator's): y[f] = cat(line, x)[f], times gains[f] when there are
+// gains; x is appended to the line.  The channel is silent when its input
+// is and its line held no loud sample (line_loud); `zero_silent` then
+// zeroes its output (the limiter's gate; the delay compensator passes the
+// delayed samples as they are).
+template <class A>
+__device__ void delay_channel(const A& a, const Row& r, const Inst& I, int k, int c,
+                              const float* gains, bool zero_silent) {
+  const int d = r.aux0;
+  const EchoLine e = echo_line(a, r, I, c);
+  const int xb = in_buf(r, c), yb = out_buf(r, c);
+  const bool silent = flag(I, xb) != 0 && echo_ch(I, r.aux1 + c).count == 0;
+  int delta = 0;
+  for (int f = I.lane; f < a.F; f += kLanes) {
+    const float x = frame(a, I, xb, f);
+    const float v = seq_at(a, I, e, xb, k, d, f);
+    const float y = gains ? v * gains[f] : v;
+    frame(a, I, yb, f) = zero_silent && silent ? 0.f : y;
+    if (d > 0) {  // the line drops seq index f and appends x at D + f
+      delta += line_loud(r.op, x) - line_loud(r.op, v);
+      e.append(d + static_cast<int64_t>(k) * a.F + f, x);
+    }
+  }
+  delta = __reduce_add_sync(kFull, delta);
+  __syncwarp();  // every lane has read the count and the flag
+  if (I.lane == 0) {
+    echo_ch(I, r.aux1 + c).count += delta;
+    flag(I, yb) = silent;
+  }
+}
+
+// nodes/dynamics.py:LimiterProcessor.  words: ceiling, rel_b; level_tail
+// [L], env (state); the dry line [C, L] (leaf slot + 2) stays in device
+// memory; aux0 = L, the lookahead, aux1 = the row's first echo channel.
+// The scratch holds the level sequence cat(level_tail, level) [L + F],
+// then the gains [F].  The peak over each window of L + 1 is max_pool1d's
+// (a NaN propagates), the release K5's kLimiter on lane 0.
+template <class A>
+__device__ void op_limiter(const A& a, const Row& r, const Inst& I, int k) {
+  const int la = r.aux0;
+  float* seq = scan_row(a, I);
+  float* g = seq + round4(la + a.F);
+  for (int j = I.lane; j < la; j += kLanes) seq[j] = wf(r, 2 + j);
+  for (int f = I.lane; f < a.F; f += kLanes)
+    seq[la + f] = channel_level(a, r, I, 0, r.n_in, f);
+  __syncwarp();
+  const float ceiling = wf(r, 0);
+  for (int t = I.lane; t < a.F; t += kLanes) {
+    float peak = seq[t];
+    for (int j = 1; j <= la; ++j) peak = nanmax(peak, seq[t + j]);
+    g[t] = nanmin(ceiling / nanmax(peak, kKneeFloor), 1.0f);
+  }
+  for (int j = I.lane; j < la; j += kLanes) set_wf(r, 2 + j, seq[a.F + j]);
+  __syncwarp();
+  if (I.lane == 0) {
+    const float rel = wf(r, 1);
+    const float omb = 1.0f - rel;
+    float env = wf(r, 2 + la);
+    for (int f = 0; f < a.F; ++f) {
+      env = nanmin(g[f], fmaf(rel, env, omb * g[f]));
+      g[f] = env;
+    }
+    set_wf(r, 2 + la, env);
+  }
+  __syncwarp();
+  for (int c = 0; c < r.n_in; ++c) delay_channel(a, r, I, k, c, g, true);
+}
+
+// nodes/delay.py:DelayCompProcessor.  The line [C, D] (leaf slot + 0) stays
+// in device memory; aux0 = D (0: a copy), aux1 = the row's first echo
+// channel.
+template <class A>
+__device__ void op_delay_comp(const A& a, const Row& r, const Inst& I, int k) {
+  for (int c = 0; c < r.n_in; ++c) delay_channel(a, r, I, k, c, nullptr, false);
+}
+
+// nodes/loudness.py:LoudnessMeterProcessor.  words: shelf_z [C, 2], hp_z
+// [C, 2], ring [R], counts [R] (uint32), pos, idx (state); consts: the
+// shelf's and the high-pass's b0, b1, b2, a1, a2, then the C channel
+// weights; aux0: the hop in frames, aux1: R.  Each channel's K-weighting
+// is two K7 sections (the shelf's output in the scratch's first row, the
+// weighted power summed over the channels in channel order in its second,
+// then the levels); the hops' energies are warp sums (another order than
+// torch's reduction: the ring is held to a tolerance), added to the ring
+// hop by hop in order on lane 0 after the fresh slots are cleared.  The
+// inputs pass through to the outputs (none for a sink).
+template <class A>
+__device__ void op_loudness(const A& a, const Row& r, const Inst& I) {
+  const int ch = r.n_in, hop = r.aux0, ring_len = r.aux1;
+  float* kw = scan_row(a, I);
+  float* power = kw + pitch(a);
+  scan::Affine2* lv = reinterpret_cast<scan::Affine2*>(power + pitch(a));
+  const BiquadCoef shelf = {cst(r, 0), cst(r, 1), cst(r, 2), cst(r, 3), cst(r, 4)};
+  const BiquadCoef hp = {cst(r, 5), cst(r, 6), cst(r, 7), cst(r, 8), cst(r, 9)};
+  for (int c = 0; c < ch; ++c) {
+    const float w = cst(r, 10 + c);
+    float s1 = wf(r, 2 * c), s2 = wf(r, 2 * c + 1);
+    const bool last1 = k7_section(a, I, &frame(a, I, in_buf(r, c), 0), shelf, s1, s2,
+                                  lv, [&](int f, float y) { kw[f] = y; });
+    float h1 = wf(r, 2 * ch + 2 * c), h2 = wf(r, 2 * ch + 2 * c + 1);
+    const bool last2 = k7_section(a, I, kw, hp, h1, h2, lv, [&](int f, float y) {
+      const float p = w * y * y;
+      power[f] = c == 0 ? p : power[f] + p;
+    });
+    if (last1) {
+      set_wf(r, 2 * c, s1);
+      set_wf(r, 2 * c + 1, s2);
+    }
+    if (last2) {
+      set_wf(r, 2 * ch + 2 * c, h1);
+      set_wf(r, 2 * ch + 2 * c + 1, h2);
+    }
+  }
+  // the passthrough
+  for (int c = 0; c < r.n_out; ++c)
+    for (int f = I.lane; f < a.F; f += kLanes)
+      frame(a, I, out_buf(r, c), f) = frame(a, I, in_buf(r, c), f);
+  const int ring = 4 * ch, counts = ring + ring_len, pos_w = counts + ring_len;
+  const int pos = static_cast<int>(word(r, pos_w)), idx = static_cast<int>(word(r, pos_w + 1));
+  const int total = pos + a.F;
+  const int hops = total / hop;
+  const int n_hops = (hop - 1 + a.F - 1) / hop + 1;
+  // the slots entered for the first time this block start from zero
+  for (int s = I.lane; s < ring_len; s += kLanes) {
+    int m = (s - idx - 1) % ring_len;
+    if (m < 0) m += ring_len;
+    if (m < hops) {
+      set_wf(r, ring + s, 0.f);
+      word(r, counts + s) = 0;
+    }
+  }
+  for (int h = 0; h < n_hops; ++h) {
+    // frames [lo, hi) fall in hop h
+    const int lo = max(0, h * hop - pos), hi = min(a.F, (h + 1) * hop - pos);
+    float e = 0.f;
+    for (int f = lo + I.lane; f < hi; f += kLanes) e += power[f];
+    for (int o = 16; o > 0; o >>= 1) e += __shfl_xor_sync(kFull, e, o);
+    __syncwarp();  // every lane has cleared its slots
+    if (I.lane == 0) {
+      const int slot = (idx + h) % ring_len;
+      set_wf(r, ring + slot, wf(r, ring + slot) + e);
+      word(r, counts + slot) += static_cast<uint32_t>(max(hi - lo, 0));
+    }
+  }
+  __syncwarp();  // every lane has read pos and idx
+  if (I.lane == 0) {
+    word(r, pos_w) = static_cast<uint32_t>(total % hop);
+    word(r, pos_w + 1) = static_cast<uint32_t>((idx + hops) % ring_len);
+  }
+  for (int c = I.lane; c < r.n_out; c += kLanes)
+    flag(I, out_buf(r, c)) = flag(I, in_buf(r, c));
+}
+
+// nodes/generators.py:LFOProcessor.  words: inc, depth, offset, shape,
+// phase (state; inc, shape and phase uint32).  No inputs; every output is
+// offset + depth·wave, never silent.
+template <class A>
+__device__ void op_lfo(const A& a, const Row& r, const Inst& I) {
+  const uint32_t inc = word(r, 0), shape = word(r, 3), ph = word(r, 4);
+  const float depth = wf(r, 1), offset = wf(r, 2);
+  for (int f = I.lane; f < a.F; f += kLanes) {
+    const uint32_t p = ph + static_cast<uint32_t>(f) * inc;
+    // the signed phase in cycles, [-0.5, 0.5): _signed_phase
+    const float x = static_cast<float>(static_cast<int32_t>(p)) * 0x1p-32f;
+    float wave;
+    switch (shape) {
+      case 0: wave = sinf(x * kTau); break;
+      case 1: wave = 1.0f - 4.0f * fabsf(x); break;
+      case 2: wave = 2.0f * x; break;
+      default: wave = fabsf(x) < 0.25f ? 1.0f : -1.0f;
+    }
+    const float v = offset + depth * wave;
+    for (int j = 0; j < r.n_out; ++j) frame(a, I, out_buf(r, j), f) = v;
+  }
+  __syncwarp();  // every lane has read the phase
+  for (int j = I.lane; j < r.n_out; j += kLanes) flag(I, out_buf(r, j)) = 0;
+  if (I.lane == 0) word(r, 4) = ph + static_cast<uint32_t>(a.F) * inc;
+}
+
 // Row n's fields, three int4 loads from the table in shared memory.
 __device__ Row read_row(const Tables& t, const Inst& I, int n) {
   const int at0 = t.ops + n * kRowWidth;
@@ -1331,9 +1689,10 @@ __device__ Row read_row(const Tables& t, const Inst& I, int n) {
   return r;
 }
 
-// The FX rows' device functions, compiled only into the kernels for graphs
-// that have such rows (kFx): their registers (132 an island thread, not 94)
-// would cost every other graph residency, K3 on the effects chain 40%.
+// The device functions of the rows beyond the mixer's (the FX palette's and
+// the mastering bus's), compiled only into the kernels for graphs that have
+// such rows (kFx): their registers (132 an island thread, not 94) would
+// cost every other graph residency, K3 on the effects chain 40%.
 template <class A>
 __device__ void run_fx_row(const A& a, const Row& r, const Inst& I, int k) {
   switch (r.op) {
@@ -1346,6 +1705,13 @@ __device__ void run_fx_row(const A& a, const Row& r, const Inst& I, int k) {
     case kEq: op_eq(a, r, I); break;
     case kModDelay: op_mod_delay(a, r, I, k); break;
     case kPitch: op_pitch(a, r, I, k); break;
+    case kCompressor: op_compressor(a, r, I); break;
+    case kDucker: op_ducker(a, r, I); break;
+    case kLimiter: op_limiter(a, r, I, k); break;
+    case kLoudness: op_loudness(a, r, I); break;
+    case kLfo: op_lfo(a, r, I); break;
+    case kDelayComp: op_delay_comp(a, r, I, k); break;
+    case kSinkMeter: op_meter<A, true>(a, r, I); break;
   }
 }
 
@@ -1499,7 +1865,7 @@ __device__ void render(const A& a) {
   const int li = threadIdx.x / kLanes;
   Inst I;
   I.buf = table_words(a) + li * words_per_instance(a);
-  I.echo = I.buf + a.num_buffers * pitch(a);
+  I.echo = I.buf + arena_words(a);
   I.flag = I.echo + kEchoWords * a.echo_channels;
   I.word = I.flag + a.num_buffers;
   I.scan = I.word + a.num_words;
@@ -1545,6 +1911,13 @@ struct Args128 : Args {
   static constexpr bool kWhole = true;
 };
 
+// The arena in device memory (`spill`): an instance's buffers do not fit a
+// CTA's shared memory at tile 1.  F is read at run time and every row is
+// compiled in: the kernels of a large graph are not the hot path.
+struct ArgsSpill : Args {
+  static constexpr bool kSpill = true;
+};
+
 template <class A, bool kFx>
 __global__ void __launch_bounds__(kMaxThreads, 1) mega_kernel(const A a) {
   render<false, kFx>(a);
@@ -1555,13 +1928,15 @@ __global__ void __launch_bounds__(kMaxThreads, 1) island_kernel(const A a) {
   render<true, kFx>(a);
 }
 
-// The most dynamic shared memory each of the eight kernels (K2, K3; F fixed
-// or not; with the FX rows or not) may take on each device so far: its
-// attributes are set when a launch needs more, not on every launch.
+// The most dynamic shared memory each of the ten kernels (K2, K3; F fixed
+// or not, with the rows beyond the mixer's or not; and with the arena
+// spilled) may take on each device so far: its attributes are set when a
+// launch needs more, not on every launch.
+constexpr int kKernels = 10;
 constexpr int kMaxDevices = 64;
-std::atomic<size_t> g_allowed[8][kMaxDevices];
+std::atomic<size_t> g_allowed[kKernels][kMaxDevices];
 
-// Lets `kernel` (number `which` of the eight) take `smem` bytes of dynamic
+// Lets `kernel` (number `which` of the ten) take `smem` bytes of dynamic
 // shared memory on the current device, and asks for all of the SM's
 // unified memory as shared memory: the arena bounds how many instances an
 // SM holds.
@@ -1586,7 +1961,8 @@ template <class A, bool kFx>
 int launch_kernel(bool island, const A& a, int batch, void* stream) {
   const size_t smem = shared_bytes(a);
   const auto kernel = island ? island_kernel<A, kFx> : mega_kernel<A, kFx>;
-  const int which = 4 * kFx + 2 * island + !std::is_same<A, Args>::value;
+  const int which = A::kSpill ? 8 + island
+                              : 4 * kFx + 2 * island + !std::is_same<A, Args>::value;
   const cudaError_t err = allow_shared(kernel, which, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<batch / a.tile, a.tile * kLanes, smem,
@@ -1601,13 +1977,19 @@ int launch_as(bool island, const A& a, int batch, void* stream) {
 }
 
 // Checks the sizes, lets the kernel take its shared memory and launches
-// it, with F fixed when it is 128 and the FX rows compiled in when the
-// table has them; returns cudaGetLastError() (0 on success).
+// it: with the arena spilled when `spill` is set, else with F fixed when
+// it is 128 and the rows beyond the mixer's compiled in when the table has
+// them; returns cudaGetLastError() (0 on success).
 int launch(bool island, const Args& a, int batch, void* stream) {
   if (batch <= 0) return 0;
   if (a.tile <= 0 || a.tile > kMaxTile || batch % a.tile != 0 || a.K <= 0 ||
-      a.F <= 0)
+      a.F <= 0 || (a.spill && a.arena == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  if (a.spill) {
+    ArgsSpill spilled_args;
+    static_cast<Args&>(spilled_args) = a;
+    return launch_kernel<ArgsSpill, true>(island, spilled_args, batch, stream);
+  }
   if (a.F != Args128::F) return launch_as(island, a, batch, stream);
   Args128 fixed;
   static_cast<Args&>(fixed) = a;
@@ -1616,10 +1998,11 @@ int launch(bool island, const Args& a, int batch, void* stream) {
 
 Args make_args(const int* ops, const int* io, const float* consts,
                const int* out_row, const int* leaves, const int64_t* ptrs,
-               float* out, bool* masks, float* scratch, int n_ops, int n_io,
-               int n_consts, int n_out, int n_leaves, int num_words,
+               float* out, bool* masks, float* scratch, float* arena, int n_ops,
+               int n_io, int n_consts, int n_out, int n_leaves, int num_words,
                int64_t stride, int tile, int num_blocks, int frames,
-               int num_buffers, int echo_channels, int scan_words, int fx) {
+               int num_buffers, int echo_channels, int scan_words, int fx,
+               int spill) {
   Args a = {};
   a.ops = ops;
   a.io = io;
@@ -1630,6 +2013,7 @@ Args make_args(const int* ops, const int* io, const float* consts,
   a.out = out;
   a.masks = masks;
   a.scratch = scratch;
+  a.arena = arena;
   a.n_ops = n_ops;
   a.n_io = n_io;
   a.n_consts = n_consts;
@@ -1644,6 +2028,7 @@ Args make_args(const int* ops, const int* io, const float* consts,
   a.echo_channels = echo_channels;
   a.scan_words = scan_words;
   a.fx = fx;
+  a.spill = spill;
   return a;
 }
 
@@ -1654,7 +2039,8 @@ Args make_args(const int* ops, const int* io, const float* consts,
 extern "C" int64_t fw_mega_shared_bytes(int n_ops, int n_io, int n_consts,
                                         int n_out, int n_in, int num_words,
                                         int tile, int frames, int num_buffers,
-                                        int echo_channels, int scan_words) {
+                                        int echo_channels, int scan_words,
+                                        int spill) {
   Args a = {};
   a.n_ops = n_ops;
   a.n_io = n_io;
@@ -1667,26 +2053,31 @@ extern "C" int64_t fw_mega_shared_bytes(int n_ops, int n_io, int n_consts,
   a.num_buffers = num_buffers;
   a.echo_channels = echo_channels;
   a.scan_words = scan_words;
+  a.spill = spill;
   return static_cast<int64_t>(shared_bytes(a));
 }
 
 // Renders K blocks of `batch` instances (see the top of this file for the
-// tables).  All pointers are device pointers on the current device.
-// Launches on `stream` and returns cudaGetLastError() (0 on success); it
-// does not synchronise and allocates nothing.
+// tables).  All pointers are device pointers on the current device; `arena`
+// is the spilled arena [batch, num_buffers, round4(frames)] when `spill`
+// is set (null otherwise).  Launches on `stream` and returns
+// cudaGetLastError() (0 on success); it does not synchronise and allocates
+// nothing.
 extern "C" int fw_mega_render(const int* ops, const int* io,
                               const float* consts, const int* out_row,
                               const int* leaves, const int64_t* ptrs,
                               float* out, bool* masks, float* scratch,
-                              int n_ops, int n_io, int n_consts, int n_out,
-                              int n_leaves, int num_words, int64_t stride,
-                              int batch, int tile, int num_blocks, int frames,
-                              int num_buffers, int echo_channels,
-                              int scan_words, int fx, void* stream) {
+                              float* arena, int n_ops, int n_io, int n_consts,
+                              int n_out, int n_leaves, int num_words,
+                              int64_t stride, int batch, int tile,
+                              int num_blocks, int frames, int num_buffers,
+                              int echo_channels, int scan_words, int fx,
+                              int spill, void* stream) {
   const Args a = make_args(ops, io, consts, out_row, leaves, ptrs, out, masks,
-                           scratch, n_ops, n_io, n_consts, n_out, n_leaves,
-                           num_words, stride, tile, num_blocks, frames,
-                           num_buffers, echo_channels, scan_words, fx);
+                           scratch, arena, n_ops, n_io, n_consts, n_out,
+                           n_leaves, num_words, stride, tile, num_blocks,
+                           frames, num_buffers, echo_channels, scan_words, fx,
+                           spill);
   return launch(false, a, batch, stream);
 }
 
@@ -1698,17 +2089,18 @@ extern "C" int fw_island_render(const int* ops, const int* io,
                                 const float* consts, const int* out_row,
                                 const int* leaves, const int64_t* ptrs,
                                 float* out, bool* flags, float* scratch,
-                                int n_ops, int n_io, int n_consts, int n_out,
-                                int n_leaves, int num_words, int64_t stride,
-                                int batch, int tile, int num_blocks,
-                                int frames, int num_buffers,
-                                int echo_channels, int scan_words, int fx,
+                                float* arena, int n_ops, int n_io,
+                                int n_consts, int n_out, int n_leaves,
+                                int num_words, int64_t stride, int batch,
+                                int tile, int num_blocks, int frames,
+                                int num_buffers, int echo_channels,
+                                int scan_words, int fx, int spill,
                                 void* stream, const int* in_bufs, int n_in,
                                 const float* env, const bool* env_flags) {
   Args a = make_args(ops, io, consts, out_row, leaves, ptrs, out, flags,
-                     scratch, n_ops, n_io, n_consts, n_out, n_leaves,
+                     scratch, arena, n_ops, n_io, n_consts, n_out, n_leaves,
                      num_words, stride, tile, num_blocks, frames, num_buffers,
-                     echo_channels, scan_words, fx);
+                     echo_channels, scan_words, fx, spill);
   a.in_bufs = in_bufs;
   a.n_in = n_in;
   a.env = env;

@@ -9,7 +9,9 @@ CTA, each instance's arena buffers, silence flags and leaves in shared
 memory for all K blocks, the K-block loop inside the kernel.  The same
 tables drive the island kernel K3 of the hybrid lowering (:mod:`~
 firewheel_tpu_torch.executor_hybrid`), which renders one run of the
-schedule's rows.
+schedule's rows.  An arena that does not fit a CTA's shared memory at one
+instance a CTA (:func:`spills`) lives in a device-memory workspace instead,
+the rest of the instance's part staying on chip.
 
 * :func:`lower_schedule` turns the compiled schedule, or an island of it,
   into what the kernel walks: an int32 op table (one row per interior
@@ -41,7 +43,10 @@ mod delay's feedback program: the EQ's bands and the waveshaper's DC
 blocker run K7's associative scan inside the row (``csrc/assoc_scan.cuh``),
 as their eager kernels do, so these rows equal eager bit for bit; the mod
 delay's line and the pitch ring stay in device memory as the echo's line
-does.
+does.  The mastering bus's nodes have rows too (the compressor, ducker,
+limiter and loudness meter, with the LFO, the delay compensator and the
+meter as a sink), bit for bit but the loudness meter's ring, whose hop sums
+run in another order (held to a tolerance on the card).
 """
 
 from __future__ import annotations
@@ -60,13 +65,17 @@ from .device import DEFAULT_DEVICE, resolve_device
 from .executor import ScheduleProgram, node_key, refuse_timelines
 from .nodes.beep_test import BeepTestProcessor
 from .nodes.channel import MonoToStereoProcessor, StereoToMonoProcessor
-from .nodes.delay import EchoProcessor
+from .nodes.delay import DelayCompProcessor, EchoProcessor
 from .nodes.dummy import DummyProcessor
-from .nodes.dynamics import GateProcessor
+from .nodes.dynamics import (
+    CompressorProcessor, DuckerProcessor, GateProcessor, LimiterProcessor,
+)
 from .nodes.eq import ParametricEQProcessor
 from .nodes.filter import FilterProcessor
+from .nodes.generators import LFOProcessor
 from .nodes.hard_clip import HardClipProcessor
-from .nodes.meter import DbMeterProcessor
+from .nodes.loudness import LoudnessMeterProcessor
+from .nodes.meter import DbMeterProcessor, _SinkMeterProcessor
 from .nodes.mod_effects import ModDelayProcessor, TremoloProcessor
 from .nodes.pan import StereoPanProcessor
 from .nodes.pitch_shift import PitchShiftProcessor
@@ -91,6 +100,7 @@ __all__ = [
     "mega_chunk_reference",
     "pack_leaves",
     "shared_bytes",
+    "spills",
     "supports_megakernel",
     "unpack_leaf",
 ]
@@ -166,6 +176,19 @@ def _waveshaper_layout(proc):
     return (("params", ("drive",)), ("params", ("out",)), ("params", ("mix",))) + dc
 
 
+def _params(*keys):
+    return tuple(("params", (k,)) for k in keys)
+
+
+def _loudness_consts(proc):
+    """The K-weighting's two sections (b0, b1, b2, a1, a2 each, as float32:
+    what the eager path hands K7), then the channel weights."""
+    return tuple(float(np.float32(c)) for c in (*proc._shelf, *proc._hp, *proc._weights))
+
+
+_METER = (("state", ("peak",)), ("state", ("rms_sq",)))
+
+
 #: processor class → the kernel's device function for it
 OPS: dict[type, _Op] = {
     DummyProcessor: _Op(0),
@@ -196,10 +219,7 @@ OPS: dict[type, _Op] = {
     ), in_memory=(("state", ("line",)),), line=lambda proc: proc.delay_frames),
     HardClipProcessor: _Op(7, (("params", ("threshold",)), ("state", ("clip_count",)))),
     DbMeterProcessor: _Op(
-        8,
-        (("state", ("peak",)), ("state", ("rms_sq",))),
-        consts=lambda proc: (proc._peak_decay, proc._rms_alpha),
-    ),
+        8, _METER, consts=lambda proc: (proc._peak_decay, proc._rms_alpha)),
     # the speaker spatializer without doppler (the doppler one opts out);
     # its one-pole runs the sequential recurrence (sequential_kernel)
     Spatializer3DProcessor: _Op(
@@ -232,8 +252,7 @@ OPS: dict[type, _Op] = {
     ),
     GateProcessor: _Op(
         15,
-        tuple(("params", (k,)) for k in ("open_lin", "close_lin", "floor", "att_b",
-                                          "rel_b", "hold_n"))
+        _params("open_lin", "close_lin", "floor", "att_b", "rel_b", "hold_n")
         + (("state", ("open",)), ("state", ("hold",)), ("state", ("gain",))),
         scan=lambda proc, f: scan_words(0, f),
     ),
@@ -243,8 +262,7 @@ OPS: dict[type, _Op] = {
     ),
     ModDelayProcessor: _Op(
         17,
-        tuple(("params", (k,)) for k in ("rate", "base", "depth", "mix", "spread",
-                                          "feedback"))
+        _params("rate", "base", "depth", "mix", "spread", "feedback")
         + (("state", ("line",)), ("state", ("phase",))),
         in_memory=(("state", ("line",)),), line=lambda proc: proc._window,
     ),
@@ -254,13 +272,51 @@ OPS: dict[type, _Op] = {
          ("state", ("phase",))),
         in_memory=(("state", ("ring",)),), line=lambda proc: proc._window,
     ),
+    # the mastering bus (examples/mastering_bus.py), the latency pass's
+    # delay and the meter as a sink; the envelopes and the limiter's release
+    # run on one lane into the scratch row
+    CompressorProcessor: _Op(
+        19,
+        _params("threshold_db", "ratio", "knee_db", "makeup", "att_b", "rel_b")
+        + (("state", ("env",)),),
+        scan=lambda proc, f: scan_words(0, f),
+    ),
+    DuckerProcessor: _Op(
+        20, _params("threshold_db", "duck_db", "att_b", "rel_b") + (("state", ("env",)),),
+        scan=lambda proc, f: scan_words(0, f),
+    ),
+    # the dry line in device memory; the scratch holds the level sequence
+    # (the tail, then the block) and the gains
+    LimiterProcessor: _Op(
+        21,
+        _params("ceiling", "rel_b")
+        + (("state", ("delay",)), ("state", ("level_tail",)), ("state", ("env",))),
+        in_memory=(("state", ("delay",)),), line=lambda proc: proc.lookahead,
+        scan=lambda proc, f: _round4(proc.lookahead + f) + _round4(f),
+    ),
+    # the scratch holds the shelf's output, the weighted power and the levels
+    LoudnessMeterProcessor: _Op(
+        22,
+        tuple(("state", (k,)) for k in ("shelf_z", "hp_z", "ring", "counts", "pos", "idx")),
+        consts=_loudness_consts,
+        aux=lambda proc: (proc.hop_frames, int(proc.init_state()["ring"].shape[0])),
+        scan=lambda proc, f: scan_words(6, f) + _round4(f),
+    ),
+    LFOProcessor: _Op(23, _params("inc", "depth", "offset", "shape") + (("state", ("phase",)),)),
+    DelayCompProcessor: _Op(
+        24, (("state", ("buf",)),), in_memory=(("state", ("buf",)),),
+        line=lambda proc: proc.delay_frames,
+    ),
+    _SinkMeterProcessor: _Op(
+        25, _METER, consts=lambda proc: (proc._peak_decay, proc._rms_alpha)),
 }
 #: device functions of rows with a line in device memory
 _LINES = {op.code for op in OPS.values() if op.line is not None}
-#: the FX palette's device functions, compiled only into the kernels that a
-#: table with such rows launches (csrc/megakernel.cu:run_fx_row)
+#: the device functions beyond the mixer's (the FX palette's, the mastering
+#: bus's), compiled only into the kernels that a table with such rows
+#: launches (csrc/megakernel.cu:run_fx_row)
 FX_ROWS = frozenset(range(OPS[MonoToStereoProcessor].code,
-                          OPS[PitchShiftProcessor].code + 1))
+                          OPS[_SinkMeterProcessor].code + 1))
 #: device functions whose rows may run side by side on parts of a warp
 _GROUPABLE = {OPS[c].code for c in (DummyProcessor, BeepTestProcessor,
                                     VolumeProcessor, StereoPanProcessor)}
@@ -694,13 +750,13 @@ MAX_SHARED_BYTES = 232448  # the most shared memory one CTA may take (H100)
 
 def _bind(lib):
     head = (
-        [ctypes.c_void_p] * 9          # ops, io, consts, out_row, leaves, ptrs,
-                                       # out, masks (flags), scratch
+        [ctypes.c_void_p] * 10         # ops, io, consts, out_row, leaves, ptrs,
+                                       # out, masks (flags), scratch, arena
         + [ctypes.c_int] * 6           # n_ops, n_io, n_consts, n_out, n_leaves,
                                        # num_words
         + [ctypes.c_int64]             # scratch per echo channel
-        + [ctypes.c_int] * 8           # batch, tile, K, F, buffers, echo channels,
-                                       # scan words, FX rows
+        + [ctypes.c_int] * 9           # batch, tile, K, F, buffers, echo channels,
+                                       # scan words, FX rows, spill
         + [ctypes.c_void_p]            # stream
     )
     lib.fw_mega_render.argtypes = head
@@ -709,7 +765,7 @@ def _bind(lib):
         ctypes.c_void_p, ctypes.c_void_p,   # env, env_flags
     ]
     lib.fw_mega_render.restype = lib.fw_island_render.restype = ctypes.c_int
-    lib.fw_mega_shared_bytes.argtypes = [ctypes.c_int] * 11
+    lib.fw_mega_shared_bytes.argtypes = [ctypes.c_int] * 12
     lib.fw_mega_shared_bytes.restype = ctypes.c_int64
 
 
@@ -726,17 +782,30 @@ def _round4(n: int) -> int:
 ECHO_WORDS = 10
 
 
-def shared_bytes(lowered: LoweredSchedule, tile: int) -> int:
-    """Dynamic shared memory of one CTA (csrc/megakernel.cu:shared_bytes):
-    the tables once, then per instance the buffers (each padded to a whole
-    float4), the echo channels' records, the buffers' flags, the leaf words
-    and the rows' scratch, each part rounded up to 16 bytes."""
+def _shared_bytes(lowered: LoweredSchedule, tile: int, spill: bool) -> int:
     tables = (lowered.ops.size + lowered.io.size + lowered.consts.size
               + lowered.out_row.size + lowered.in_bufs.size)
-    per_instance = (lowered.num_buffers * _round4(lowered.frames)
-                    + ECHO_WORDS * lowered.echo_channels + lowered.num_buffers
+    arena = 0 if spill else lowered.num_buffers * _round4(lowered.frames)
+    per_instance = (arena + ECHO_WORDS * lowered.echo_channels + lowered.num_buffers
                     + lowered.num_words + lowered.scan_words)
     return 4 * (_round4(tables) + tile * _round4(per_instance))
+
+
+def spills(lowered: LoweredSchedule) -> bool:
+    """True when one instance's arena does not fit a CTA's shared memory (at
+    tile 1, with everything else): the kernel then keeps every instance's
+    buffers in a device-memory workspace, ``f32[B, num_buffers,
+    round4(F)]``, and the rest on chip."""
+    return _shared_bytes(lowered, 1, False) > MAX_SHARED_BYTES
+
+
+def shared_bytes(lowered: LoweredSchedule, tile: int) -> int:
+    """Dynamic shared memory of one CTA (csrc/megakernel.cu:shared_bytes) in
+    the layout the kernel takes (:func:`spills`): the tables once, then per
+    instance the buffers (each padded to a whole float4; none when they
+    spill), the echo channels' records, the buffers' flags, the leaf words
+    and the rows' scratch, each part rounded up to 16 bytes."""
+    return _shared_bytes(lowered, tile, spills(lowered))
 
 
 def shared_sizes(lowered: LoweredSchedule, tile: int) -> tuple:
@@ -744,14 +813,16 @@ def shared_sizes(lowered: LoweredSchedule, tile: int) -> tuple:
     return (lowered.ops.shape[0], lowered.io.size, lowered.consts.size,
             lowered.out_row.shape[0], lowered.in_bufs.size, lowered.num_words,
             tile, lowered.frames, lowered.num_buffers, lowered.echo_channels,
-            lowered.scan_words)
+            lowered.scan_words, int(spills(lowered)))
 
 
 def check_launchable(lowered: LoweredSchedule, tile: int, who: str) -> None:
     """Raises ``ValueError`` unless the kernel can render ``lowered`` with
     ``tile`` instances a CTA: at most ``MAX_TILE`` of them in at most
-    ``MAX_SHARED_BYTES`` of shared memory, and blocks of at least one frame
-    (of any length: the kernel pads each arena row to a whole float4)."""
+    ``MAX_SHARED_BYTES`` of shared memory in the layout it takes (the
+    arena spilled to device memory when it does not fit at tile 1), and
+    blocks of at least one frame (of any length: the kernel pads each arena
+    row to a whole float4)."""
     if lowered.frames <= 0:
         raise ValueError(f"{who}: blocks of {lowered.frames} frames")
     smem = shared_bytes(lowered, tile)
@@ -802,8 +873,9 @@ class KernelOperands:
         them until the launch is enqueued, or the allocator hands their
         memory to the next tensor), the device table of (input, output)
         pointers per leaf, the new state leaves (a list aligned with the
-        leaves, params in their slots), and the scratch for the echoes a
-        chunk's final line does not keep."""
+        leaves, params in their slots), and the scratch: the echoes a
+        chunk's final line does not keep, then the spilled arena
+        (:func:`spills`)."""
         lw, dev = self.lowered, self.device
         values = self._checked_values(params, state)
         new = [torch.empty_like(v) if leaf.tree == "state" else v
@@ -813,22 +885,31 @@ class KernelOperands:
             dev, non_blocking=True)
         stride = max([0] + [max(0, self.num_blocks * lw.frames - int(r[AUX0]))
                             for r in lw.ops if r[OP] in _LINES])
-        scratch = torch.empty((self.batch * lw.echo_channels * stride,),
+        arena = (self.batch * lw.num_buffers * _round4(lw.frames)
+                 if spills(lw) else 0)
+        scratch = torch.empty((self._arena_offset(stride) + arena,),
                               dtype=torch.float32, device=dev)
         return values, ptrs_d, new, scratch, stride
+
+    def _arena_offset(self, stride: int) -> int:
+        """Where the spilled arena starts in the scratch, in floats: after
+        the echoes, on a 16-byte boundary (its rows are read as float4s)."""
+        return _round4(self.batch * self.lowered.echo_channels * stride)
 
     def args(self, ptrs, out, masks, scratch, stride, stream):
         """The arguments both C entry points share, in their order."""
         lw = self.lowered
         fx = int(bool(FX_ROWS & set(lw.ops[:, OP].tolist())))
+        spill = spills(lw)
+        arena = scratch.data_ptr() + 4 * self._arena_offset(stride) if spill else None
         ops, io, consts, out_row, leaf_words, _ = self.tables
         return (ops.data_ptr(), io.data_ptr(), consts.data_ptr(),
                 out_row.data_ptr(), leaf_words.data_ptr(), ptrs.data_ptr(),
-                out.data_ptr(), masks.data_ptr(), scratch.data_ptr(),
+                out.data_ptr(), masks.data_ptr(), scratch.data_ptr(), arena,
                 lw.ops.shape[0], lw.io.size, lw.consts.size, lw.out_row.shape[0],
                 len(lw.leaves), lw.num_words, stride, self.batch, self.tile,
                 self.num_blocks, lw.frames, lw.num_buffers, lw.echo_channels,
-                lw.scan_words, fx, stream)
+                lw.scan_words, fx, int(spill), stream)
 
 
 class MegaRenderer:

@@ -3,9 +3,8 @@
 PyTorch port of ``firewheel_tpu/nodes/delay.py``:
 
 * :class:`DelayCompNode` — a pure N-frame delay (latency alignment; the
-  latency pass, ``graph/latency.py``, splices it onto early edges).  It
-  has no device function in the megakernel, so it renders as a torch stage
-  on the hybrid lowering and ``MegaRenderer`` refuses a graph with it.
+  latency pass, ``graph/latency.py``, splices it onto early edges).  Its
+  row in the megakernel keeps the line in device memory, as the echo's.
 * :class:`EchoNode` — feedback echo ``y = dry·x + wet·e``, ``e[n] = x[n-D]
   + fb·e[n-D]``.  The delay must be ≥ the engine block size.
 

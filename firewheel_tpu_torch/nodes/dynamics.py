@@ -8,9 +8,8 @@ lane per instance; the dB math around them is elementwise torch.  The
 kernels take any leading batch dimensions; params are one value per
 instance.
 
-None of them has a row in the megakernels (K2, K3): on the hybrid lowering
-they run as torch stages, and ``MegaRenderer`` refuses a graph that has
-them.
+Each has a row in the megakernels (K2, K3; ``executor_mega.OPS``), which
+runs the same recurrences on one lane of the instance's warp.
 """
 
 from __future__ import annotations
@@ -77,8 +76,6 @@ def _channel_level(x: torch.Tensor) -> torch.Tensor:
 
 
 class CompressorProcessor(NodeProcessor):
-    supports_megakernel = False  # no row in K2/K3
-
     def __init__(self, node, sample_rate, max_block_frames, num_inputs, num_outputs):
         super().__init__(sample_rate, max_block_frames, num_inputs, num_outputs)
         self._node = node
@@ -169,8 +166,6 @@ class CompressorNode(AudioNode):
 
 
 class LimiterProcessor(NodeProcessor):
-    supports_megakernel = False  # no row in K2/K3
-
     def __init__(self, node, sample_rate, max_block_frames, num_inputs, num_outputs):
         super().__init__(sample_rate, max_block_frames, num_inputs, num_outputs)
         self._node = node
@@ -366,8 +361,6 @@ class GateNode(AudioNode):
 
 
 class DuckerProcessor(NodeProcessor):
-    supports_megakernel = False  # no row in K2/K3
-
     def __init__(self, node, sample_rate, max_block_frames, num_inputs, num_outputs):
         super().__init__(sample_rate, max_block_frames, num_inputs, num_outputs)
         self._node = node

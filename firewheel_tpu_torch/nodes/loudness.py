@@ -15,7 +15,8 @@ never by a scatter-add (whose float atomics sum in no fixed order on the
 card).
 
 Passthrough like ``DbMeterNode``: wire it in line (outputs mirror inputs)
-or as a pure sink (0 outputs).
+or as a pure sink (0 outputs).  It has a row in the megakernels (K2, K3;
+``executor_mega.OPS``).
 """
 
 from __future__ import annotations
@@ -42,8 +43,6 @@ _SHORT_TERM_BLOCKS = 30  # 3 s
 
 
 class LoudnessMeterProcessor(NodeProcessor):
-    supports_megakernel = False  # no row in K2/K3
-
     def __init__(self, node, sample_rate, max_block_frames, num_inputs, num_outputs):
         super().__init__(sample_rate, max_block_frames, num_inputs, num_outputs)
         self._node = node

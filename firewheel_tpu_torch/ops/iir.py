@@ -15,7 +15,7 @@ CPU tensors run their plain versions (:func:`biquad_scan_reference`,
 :func:`one_pole_scan_reference`, the recursion of
 ``lax.associative_scan`` op by op); CUDA tensors launch
 ``csrc/assoc_scan.cu`` (K7, one launch a section, the same compositions
-rounded the same way, bit for bit) or raise.
+rounded the same way, bit for bit, for rows of any length) or raise.
 """
 
 from __future__ import annotations
@@ -320,8 +320,10 @@ def one_pole_scan_reference(x: torch.Tensor, y_prev: torch.Tensor, a, b):
 def _bind(lib):
     for fn in (lib.fw_biquad_scan, lib.fw_one_pole_scan):
         fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p]
+                                               ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+    lib.fw_scan_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+    lib.fw_scan_workspace_bytes.restype = ctypes.c_int64
 
 
 #: ``csrc/assoc_scan.cu``, built with nvcc at first use
@@ -343,21 +345,28 @@ def _rows(values, lead, device):
     return torch.stack([t.broadcast_to(lead) for t in ts]).reshape(len(ts), -1)
 
 
-def _launch(entry, wrapper, x, coef, s_in, s_out):
-    """Launch K7's ``entry`` over the rows of ``x`` (contiguous) with the
-    per-row operands ``coef``, ``s_in`` and ``s_out`` (``[n, R]``,
-    contiguous, on ``x``'s device) → y; counts the launch on ``wrapper``.
-    The kernel refuses rows of no frames and rows whose levels do not fit
-    in a CTA's shared memory (cudaErrorInvalidValue, raised here)."""
+def _launch(lib, biquad: bool, wrapper, x, coef, s_in, s_out):
+    """Launch K7's biquad (``biquad``) or one-pole entry over the rows of
+    ``x`` (contiguous) with the per-row operands ``coef``, ``s_in`` and
+    ``s_out`` (``[n, R]``, contiguous, on ``x``'s device) → y; counts the
+    launch on ``wrapper``.  Rows whose levels do not fit in a CTA's shared
+    memory get a device-memory workspace of the size the kernel asks for
+    (``fw_scan_workspace_bytes``).  The kernel refuses rows of no frames
+    (cudaErrorInvalidValue, raised here)."""
     name = wrapper.__name__
     frames = x.shape[-1]
     y = torch.empty_like(x)
     rows = s_in.shape[-1]
     if rows:
+        entry = lib.fw_biquad_scan if biquad else lib.fw_one_pole_scan
+        ws_bytes = lib.fw_scan_workspace_bytes(int(biquad), rows, frames)
+        ws = (torch.empty((ws_bytes // 4,), dtype=torch.float32, device=x.device)
+              if ws_bytes else None)
         with torch.cuda.device(x.device):
             stream = torch.cuda.current_stream(x.device).cuda_stream
             err = entry(x.data_ptr(), y.data_ptr(), coef.data_ptr(), s_in.data_ptr(),
-                        s_out.data_ptr(), rows, frames, stream)
+                        s_out.data_ptr(), rows, frames,
+                        ws.data_ptr() if ws is not None else None, stream)
         if err != 0:
             raise RuntimeError(f"{name}: kernel launch failed on rows of {frames} frames "
                                f"(cudaError {err})")
@@ -383,7 +392,7 @@ def biquad_scan(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
     coef = _rows(tuple(coeffs), lead, x.device)
     z_in = _rows(tuple(z_prev), lead, x.device)
     z_out = torch.empty_like(z_in)
-    y = _launch(LIBRARY.load().fw_biquad_scan, biquad_scan, x, coef, z_in, z_out)
+    y = _launch(LIBRARY.load(), True, biquad_scan, x, coef, z_in, z_out)
     return y, (z_out[0].reshape(lead), z_out[1].reshape(lead))
 
 
@@ -416,7 +425,7 @@ def one_pole_scan(x: torch.Tensor, y_prev: torch.Tensor, a, b):
     coef = _rows((_per_row(a, x), _per_row(b, x)), lead, x.device)
     y_in = _rows((y_prev,), lead, x.device)
     y_out = torch.empty_like(y_in)
-    y = _launch(LIBRARY.load().fw_one_pole_scan, one_pole_scan, x, coef, y_in, y_out)
+    y = _launch(LIBRARY.load(), False, one_pole_scan, x, coef, y_in, y_out)
     return y, y_out[0].reshape(lead)
 
 

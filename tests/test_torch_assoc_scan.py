@@ -139,14 +139,57 @@ def test_one_pole_refuses_a_coefficient_per_frame():
 
 def test_frame_limits_fit_a_ctas_shared_memory():
     """A row's levels take ``n − 1`` maps of 24 bytes (biquad) or 8 (one
-    pole): the kernel alone knows the 227 KB a CTA may take and refuses a
-    longer row (cudaErrorInvalidValue, which the wrapper raises)."""
+    pole): the kernel alone knows the 227 KB a CTA may take.  Past it the
+    levels go to a device-memory workspace, the size of which the kernel
+    gives (``fw_scan_workspace_bytes``, 0 while they fit) and the wrapper
+    allocates, so no length but 0 frames is refused."""
     src = (cuda_build.CSRC / "assoc_scan.cu").read_text()
     assert "kMaxShared = 232448" in src
-    assert "row_bytes > (size_t)kMaxShared) return (int)cudaErrorInvalidValue" in src
+    assert "return row_bytes > (size_t)kMaxShared ? (int64_t)(row_bytes * rows) : 0;" in src
+    assert "if (n < 1) return (int)cudaErrorInvalidValue;" in src
+    assert "biquad_scan_kernel<false>, biquad_scan_kernel<true>" in src
+    assert "one_pole_scan_kernel<false>, one_pole_scan_kernel<true>" in src
+    assert 'extern "C" int64_t fw_scan_workspace_bytes(' in src
+    wrapper = (cuda_build.CSRC.parent / "ops" / "iir.py").read_text()
+    assert "fw_scan_workspace_bytes(int(biquad), rows, frames)" in wrapper
     assert not hasattr(iir, "BIQUAD_MAX_FRAMES")
     header = (cuda_build.CSRC / "assoc_scan.cuh").read_text()
     assert "sizeof" not in header and "Affine2" in header and "Affine1" in header
     for entry in ("fw_biquad_scan", "fw_one_pole_scan"):
         assert f'extern "C" int {entry}(' in src
     assert "--fmad=false" in cuda_build.NVCC_FLAGS
+
+
+def test_rows_past_shared_memory_take_the_plain_path(no_kernel):
+    """f32[2, 16384]: rows longer than a CTA's shared memory holds on the
+    card (9686 frames for the biquad, 29 057 for the one-pole) run the plain
+    versions on the CPU, and those equal the JAX package's scans bit for
+    bit there: ``biquad_scan`` op by op, ``one_pole_scan`` under ``jit``
+    (whose fused multiply-adds the plain version writes out)."""
+    import jax
+    import jax.numpy as jnp
+    from firewheel_tpu.ops import iir as jiir
+
+    rng = np.random.default_rng(16384)
+    x = rng.standard_normal((2, 16384)).astype(np.float32)
+    z = (0.1 * rng.standard_normal((2, 2))).astype(np.float32)
+    coeffs = tuple(np.float32(c) for c in jiir.biquad_low_shelf(
+        np.float32(150.0), np.float32(0.8), np.float32(4.0), 48000))
+    jy, jz = jiir.biquad_scan(jnp.asarray(x), (jnp.asarray(z[0]), jnp.asarray(z[1])),
+                              jiir.BiquadCoeffs(*coeffs))
+    ty, tz = iir.biquad_scan(torch.from_numpy(x), (torch.from_numpy(z[0]),
+                                                   torch.from_numpy(z[1])),
+                             iir.BiquadCoeffs(*map(torch.tensor, coeffs)))
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    for t, j in zip(tz, jz):
+        np.testing.assert_array_equal(t.numpy(), np.asarray(j))
+
+    b = rng.uniform(0.05, 0.99, 2).astype(np.float32)
+    a = np.float32(1.0) - b
+    y0 = rng.standard_normal(2).astype(np.float32)
+    jy, jl = jax.jit(jax.vmap(jiir.one_pole_scan))(x, y0, a, b)
+    ty, tl = iir.one_pole_scan(torch.from_numpy(x), torch.from_numpy(y0),
+                               torch.from_numpy(a)[:, None], torch.from_numpy(b)[:, None])
+    np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
+    np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
+    assert iir.biquad_scan.launches == 0 and iir.one_pole_scan.launches == 0

@@ -225,8 +225,9 @@ def test_params_and_state_trees_round_trip(name):
     make, nin, nout = NODES[name]
     jp = make(jn).activate(SR, F, nin, nout)
     tp = make(tn).activate(SR, F, nin, nout)
-    # the gate has a row in K2/K3 (the FX palette's); the others none
-    assert tp.supports_megakernel is (name == "gate")
+    # every dynamics node has a row in K2/K3 (the gate the FX palette's, the
+    # others the mastering bus's)
+    assert tp.supports_megakernel is True
     jparams = {k: np.asarray(v) for k, v in jp.collect_params().items()}
     tparams = state_to_numpy(params_from_jax(tp.collect_params(), "cpu"))
     assert jparams.keys() == tparams.keys()

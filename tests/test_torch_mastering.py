@@ -106,8 +106,10 @@ def test_mastering_bus_batched_equals_jax():
 
 
 def test_mastering_bus_refuses_the_megakernel():
-    """No node of the bus has a row in K2: ``MegaRenderer`` refuses it with
-    its existing error, before any launch."""
+    """The noise and the FIR have no row in K2 (nor in the JAX package's
+    megakernel), so ``MegaRenderer`` refuses the bus with its existing error,
+    before any launch; the hybrid renders the other six nodes in two K3
+    islands (``test_torch_bus_megakernel.py``)."""
     prog, _ = _bus_program("port")
     with pytest.raises(ValueError, match="not eligible for the megakernel"):
         MegaRenderer(prog, 1, 1, device="cpu")

@@ -280,8 +280,10 @@ def test_binaural_scene_renders_like_jax():
 @pytest.mark.parametrize("frames", [128, 256])
 def test_full_scene_shared_memory(frames):
     """The 128-emitter scene has 258 arena buffers: its arena fits one
-    instance a CTA in blocks of 128 frames and no CTA at 256, where
-    ``check_launchable`` refuses it before any launch."""
+    instance a CTA in blocks of 128 frames; at 256 it fits no CTA, so the
+    kernel keeps the buffers in a device-memory workspace (``spills``) and
+    only the rest on chip, and ``check_launchable`` accepts it.
+    ``shared_bytes`` counts the layout the kernel takes."""
     g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
     mixer.add_spatial_scene(g)
     pkg = g.compile(SR, frames)
@@ -290,10 +292,24 @@ def test_full_scene_shared_memory(frames):
     assert len(prog.schedule.schedule) == 266
     assert prog.schedule.num_buffers == 258
     lw = em.lower_schedule(prog)
+    tables = (lw.ops.size + lw.io.size + lw.consts.size + lw.out_row.size
+              + lw.in_bufs.size)
+    rest = (em.ECHO_WORDS * lw.echo_channels + lw.num_buffers + lw.num_words
+            + lw.scan_words)
+    arena = lw.num_buffers * frames
+    round4 = lambda n: -(-n // 4) * 4  # noqa: E731
     if frames == 128:
+        assert not em.spills(lw)
+        assert em.shared_bytes(lw, 1) == 4 * (round4(tables) + round4(arena + rest))
         assert em.shared_bytes(lw, 1) <= em.MAX_SHARED_BYTES < em.shared_bytes(lw, 2)
         em.check_launchable(lw, 1, "MegaRenderer")
-    else:
-        assert em.shared_bytes(lw, 1) > em.MAX_SHARED_BYTES
         with pytest.raises(ValueError, match="shared memory"):
-            em.check_launchable(lw, 1, "MegaRenderer")
+            em.check_launchable(lw, 2, "MegaRenderer")
+    else:
+        assert em.spills(lw)
+        assert 4 * (round4(tables) + round4(arena + rest)) > em.MAX_SHARED_BYTES
+        for tile in (1, 8):
+            assert em.shared_bytes(lw, tile) == 4 * (round4(tables) + tile * round4(rest))
+            em.check_launchable(lw, tile, "MegaRenderer")
+        with pytest.raises(ValueError, match="shared memory"):
+            em.check_launchable(lw, 9, "MegaRenderer")
