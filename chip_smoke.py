@@ -28,15 +28,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    at 16 384, F=128) and K6 (f32[8192, 2, 128], the blocks before and
    after the 2^32 wrap of the stream clock) against their plain versions
    on the card, bit for bit, and times each.
-   3(c). Holds K7's two entry points (``ops/iir.py:biquad_scan`` and
-   ``one_pole_scan``) against their plain versions on the card, bit for
-   bit, at f32[16384, 128] (the eager filter, a batched EQ band),
-   [16384, 256] (the bus's meter), [2, 1024] (a stream's dispatch), F = 1,
-   3 and 127, and rows longer than a CTA's shared memory holds, whose
-   levels go to a device-memory workspace: [2, 16384] and [16384, 16384]
-   (a stream's 16 384-frame block) and [2, 32768]; a different filter a
-   row (lowpasses, the EQ's 150 Hz shelf, the meter's 38 Hz high-pass);
-   times each at [16384, 128] and [16384, 16384] beside its bound.
+   3(c). Holds K7's entry points (``ops/iir.py:biquad_scan``,
+   ``one_pole_scan`` and ``biquad_cascade``) against their plain versions
+   on the card, bit for bit, at f32[16384, 128] (the eager filter, a
+   batched EQ band), [16384, 256] (the bus's meter), [2, 128] and
+   [2, 256] (the streams' rows), 32 and 64 frames (the register kernels'
+   other lengths), [2, 1024] (a stream's dispatch), F = 512, 1, 3 and 127
+   (the shared design), rows longer than a CTA's shared memory holds,
+   whose levels go to a device-memory workspace ([2, 16384] and
+   [16384, 16384], a stream's 16 384-frame block, and [2, 32768]), the
+   spatializers' pooled one-pole rows [1048576, 128], and cascades of 2,
+   3 and 9 sections at the batched and the streams' rows and at ragged and
+   long ones; a different filter a row (lowpasses, the EQ's 150 Hz shelf,
+   the meter's 38 Hz high-pass).  Times each entry at the main paths' and
+   the streams' shapes and at [16384, 16384] beside its bound.
 4. Renders the 64-node mixer (filter on the kernel) with a BatchRenderer
    at B=8192 instances, K=32 blocks a chunk; checks finite outputs, the
    kernel's launch count (K per chunk) and the first instances against a
@@ -172,8 +177,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    back to none, each switch a topology edit hot-swapped with state
    migration, then a volume, a pan and a frequency change, a voice removed
    and one added; against the same stream on the CPU (the worker of
-   12(a)), audio and state within 1e-5; K7 three launches a block while
-   the EQ is in; its realtime factor, wall a buffer and each kind's kernels
+   12(a)), audio and state within 1e-5; K7 one launch a block while the
+   EQ is in (its three bands one cascade); its realtime factor, wall a buffer and each kind's kernels
    a block (``torch.profiler``).  (b) ``mixer.fx_palette_graph`` (eight
    voices, every insert in series, a DC-blocked fold, stereo width, a
    pitch-shifted mono leg, a meter) eager at B=8192, K=32 with per-instance
@@ -192,12 +197,12 @@ K1's device time, call and plain version at the stream's 2 lanes beside
 them) and in phase 10's fleets (``serve_launches``), K2 and K3 once
 more for the spatial scene of phase 11 (and K2 with the arena spilled at
 256 frames), K3 for the mastering bus of 12(c), K4-K6 (launches in 10(f)'s
-fleet and 12(b)'s batched bus, times from 3(b)) and K7's two entry points
-(launches in 13(b)'s batched FX palette, ``stream_launches`` in 13(a) and
-12(a), times from 3(c), with the rows past shared memory beside them),
-its error against its plain version, its device
-time on the
-card (``ms``, by ``torch.profiler``, or by CUDA events where the log says
+fleet and 12(b)'s batched bus, times from 3(b)) and K7's two kernels, the
+biquad (``biquad_scan``, timed as 13(b)'s cascade of the EQ's three bands)
+and the one-pole (launches in 13(b)'s batched FX palette,
+``stream_launches`` in 13(a) and 12(a), times from 3(c), every other shape
+3(c) timed under ``at``), its error against its plain version, its device
+time on the card (``ms``, by ``torch.profiler``, or by CUDA events where the log says
 the profile saw no device activity) and a call's time with its wrapper's
 host work (``call_ms``, by CUDA events), the plain version's, and its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
@@ -271,9 +276,10 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, kernel: str, reps: int) -> float:
-    """Mean device time per launch of the CUDA kernel whose name contains
-    ``kernel``, over ``reps`` calls of ``fn``, by ``torch.profiler`` (host
+def device_ms(fn, kernel: str, reps: int, launches: int = 1) -> float:
+    """Mean device time per call of ``fn`` in the CUDA kernel whose name
+    contains ``kernel``, which each call launches ``launches`` times, over
+    ``reps`` calls, by ``torch.profiler`` (host
     and device activity): the kernel alone, without the host work its
     wrapper does between launches (which CUDA events around the calls
     would count when it is longer).
@@ -304,14 +310,15 @@ def device_ms(fn, kernel: str, reps: int) -> float:
         hits = [e for e in averages if kernel in e.key]
         # the mean over the launches the profiler recorded: all of them, or
         # all but one (a launch at the edge of the trace may be left out)
-        if (len(hits) == 1 and reps - 1 <= hits[0].count <= reps
+        n = reps * launches
+        if (len(hits) == 1 and n - 1 <= hits[0].count <= n
                 and hits[0].device_time_total > 0):
-            log(f"{kernel}: {hits[0].count} of {reps} launches profiled")
-            return hits[0].device_time_total / hits[0].count / 1e3
+            log(f"{kernel}: {hits[0].count} of {n} launches profiled")
+            return hits[0].device_time_total / hits[0].count * launches / 1e3
         seen.append(str([(e.key, e.count) for e in hits]))
     ms = cuda_ms(fn, reps)
-    log(f"{kernel}: torch.profiler saw {' then '.join(seen)} for {reps} launches; "
-        f"timed by CUDA events instead, {ms:.4f} ms each")
+    log(f"{kernel}: torch.profiler saw {' then '.join(seen)} for {reps * launches} "
+        f"launches; timed by CUDA events instead, {ms:.4f} ms a call")
     return ms
 
 
@@ -621,15 +628,37 @@ def check_new_kernels(adpcm_device, dynamics, noise):
 
 # phase 3(c): K7, the associative scans (csrc/assoc_scan.cu)
 #: (rows, frames): the eager effects filter and the batched EQ band (B x 2
-#: channels, 128 frames), the mastering bus's meter (256-frame blocks), a
-#: stream's 1024-frame dispatch of one instance, and ragged lengths
-SCAN_SHAPES = ((2 * B, 128), (2 * B, 256), (2, 1024), (1000, 1), (1000, 3),
-               (1000, 127))
+#: channels, 128 frames), the mastering bus's meter (256-frame blocks), the
+#: streams' stereo rows (128- and 256-frame blocks), a stream's 1024-frame
+#: dispatch of one instance, the register kernels' other lengths (32, 64),
+#: and lengths the shared design runs (512, 1, 3, 127)
+SCAN_SHAPES = ((2 * B, 128), (2 * B, 256), (2, 128), (2, 256), (2, 1024), (1000, 32),
+               (1000, 64), (1000, 512), (1000, 1), (1000, 3), (1000, 127))
 #: rows past a CTA's shared memory (the biquad's levels past 9686 frames, the
 #: one-pole's past 29 057 keep to a device-memory workspace): a stream's
 #: stereo block of 16 384 frames, the same for every instance of the batch,
 #: and 32 768 frames, where the one-pole's levels leave shared memory too
 LONG_SCAN_SHAPES = ((2, 16384), (2 * B, 16384), (2, 32768))
+#: the one-pole's rows in spatial-b8192-k32: 128 spatializers pooled over
+#: B instances (nodes/spatial.py), 128 frames
+POOLED_ONE_POLE = (128 * B, 128)
+#: (rows, frames, sections) of biquad_cascade: the batched EQ's three bands
+#: and the bus's K-weighting (two), the streams' rows, ragged and long rows
+#: (the shared design, the intermediate outputs in the workspace), and more
+#: sections than a launch takes (two launches)
+CASCADE_SHAPES = ((2 * B, 128, 3), (2 * B, 128, 2), (2, 128, 3), (2, 256, 2),
+                  (1000, 127, 3), (2, 1024, 2), (2, 16384, 2), (2, 128, 9))
+#: where 3(c) times K7: (kind, rows, frames, sections)
+SCAN_TIMED = (("biquad", 2 * B, 128, 1), ("one_pole", 2 * B, 128, 1),
+              ("one_pole", *POOLED_ONE_POLE, 1), ("biquad", 2, 128, 1),
+              ("one_pole", 2, 128, 1), ("biquad", 2, 256, 1), ("one_pole", 2, 256, 1),
+              ("cascade", 2 * B, 128, 3), ("cascade", 2 * B, 128, 2),
+              ("cascade", 2, 128, 3), ("cascade", 2, 256, 2))
+#: and the rows past shared memory (the shared design, three launches each)
+SCAN_TIMED_LONG = (("biquad", 2 * B, 16384, 1), ("one_pole", 2 * B, 16384, 1))
+#: K7's kernels by name in a profile (both designs of each entry)
+K7_KERNEL = {"biquad": "biquad_scan_kernel", "cascade": "biquad_scan_kernel",
+             "one_pole": "one_pole_scan_kernel"}
 
 
 def scan_composes(n: int):
@@ -643,28 +672,36 @@ def scan_composes(n: int):
     return up, down
 
 
-def scan_work(kind: str, rows: int, n: int):
+def scan_work(kind: str, rows: int, n: int, sections: int = 1):
     """``(bytes, f32 ops, f64 ops)`` of one K7 call over ``rows`` rows of
     ``n`` frames: x read and y written once, the per-row coefficients and
     state; a biquad composition is 20 f32 operations, a leaf 2, the carry 8
-    and the output 2 a frame; a one-pole composition 1 f32 and 2 f64 (its
-    fused multiply-add in float64), a leaf 1 f32, the carry 2 f64 a frame."""
+    and the output 2 a frame, each section; a one-pole composition 1 f32 and
+    2 f64 (its fused multiply-add in float64), a leaf 1 f32, the carry 2 f64
+    a frame."""
     composes = sum(scan_composes(n))
-    if kind == "biquad":
-        return 4 * rows * (2 * n + 5 + 4), rows * (20 * composes + 12 * n), 0
+    if kind in ("biquad", "cascade"):
+        return (4 * rows * (2 * n + sections * (5 + 4)),
+                sections * rows * (20 * composes + 12 * n), 0)
     return (4 * rows * (2 * n + 2 + 2), rows * (composes + n),
             rows * (2 * composes + 2 * n))
 
 
-def k7_operands(iir, kind: str, rows: int, n: int, gen):
-    """``(fn, ref, args)`` for K7's ``kind`` at f32[rows, n] on the card: a
-    different filter a row (lowpasses 200 Hz–20 kHz, the EQ's 150 Hz low
-    shelf and the meter's 38 Hz high-pass in turn; one-poles b in
-    [0.05, 0.999)) and state or carry in."""
+def k7_operands(iir, kind: str, rows: int, n: int, gen, sections: int = 1):
+    """``(fn, ref, args)`` for K7's ``kind`` (``biquad``, ``cascade`` of
+    ``sections``, ``one_pole``) at f32[rows, n] on the card: a different
+    filter a row (lowpasses 200 Hz–20 kHz, the EQ's 150 Hz low shelf and
+    the meter's 38 Hz high-pass in turn, each section its own; one-poles b
+    in [0.05, 0.999)) and state or carry in."""
     dev = torch.device("cuda")
     x = torch.randn((rows, n), generator=gen).to(dev)
-    if kind == "biquad":
-        kinds = torch.arange(rows) % 3
+    if kind == "one_pole":
+        b = (0.05 + 0.949 * torch.rand((rows, 1), generator=gen)).to(dev)
+        y0 = torch.randn((rows,), generator=gen).to(dev)
+        return iir.one_pole_scan, iir.one_pole_scan_reference, (x, y0, 1.0 - b, b)
+
+    def section(s):
+        kinds = (torch.arange(rows) + s) % 3
         freq = torch.where(kinds == 0, 200.0 + 19800.0 * torch.rand(rows, generator=gen),
                            torch.where(kinds == 1, 150.0, 38.0))
         q = torch.where(kinds == 0, 0.5 + 3.5 * torch.rand(rows, generator=gen),
@@ -675,68 +712,75 @@ def k7_operands(iir, kind: str, rows: int, n: int, gen):
         c = iir.BiquadCoeffs(*(torch.where(kinds == 0, a, torch.where(kinds == 1, b, h))
                                .to(dev) for a, b, h in zip(lp, ls, hp)))
         z = tuple(0.1 * torch.randn((rows,), generator=gen).to(dev) for _ in range(2))
+        return c, z
+
+    if kind == "biquad":
+        c, z = section(0)
         return iir.biquad_scan, iir.biquad_scan_reference, (x, z, c)
-    b = (0.05 + 0.949 * torch.rand((rows, 1), generator=gen)).to(dev)
-    y0 = torch.randn((rows,), generator=gen).to(dev)
-    return iir.one_pole_scan, iir.one_pole_scan_reference, (x, y0, 1.0 - b, b)
+    cs, zs = zip(*(section(s) for s in range(sections)))
+    return iir.biquad_cascade, iir.biquad_cascade_reference, (x, zs, cs)
+
+
+def k7_label(kind: str, rows: int, n: int, sections: int = 1) -> str:
+    return f"{kind} f32[{rows}, {n}]" + (f" S={sections}" if kind == "cascade" else "")
 
 
 def check_assoc_scan(iir):
-    """Phase 3(c): K7's two entry points against their plain versions on the
-    card, bit for bit (tolerance 0.0: the same compositions rounded the same
-    way), at the callers' shapes and ragged lengths, at rows longer than a
-    CTA's shared memory holds, and the DC blocker's scalar coefficients;
-    each one's device time (``torch.profiler``), a call's (CUDA events), the
-    plain version's and its work at f32[16384, 128] → ``{name: (err, ms,
-    call_ms, plain_ms, work)}``, and at f32[16384, 16384] →
-    ``{name: (ms, call_ms, plain_ms, work)}``."""
+    """Phase 3(c): K7's entry points (``biquad_scan``, ``one_pole_scan``,
+    ``biquad_cascade``) against their plain versions on the card, bit for
+    bit (tolerance 0.0: the same compositions rounded the same way), at the
+    callers' shapes and ragged lengths (both designs: the tree in registers
+    for 32, 64, 128 and 256 frames, the shared one otherwise), at rows
+    longer than a CTA's shared memory holds, at the spatializers' pooled
+    rows, and the DC blocker's scalar coefficients; at SCAN_TIMED each
+    one's device time (``torch.profiler``), a call's (CUDA events), the
+    plain version's and its work → ``{label: (err, ms, call_ms, plain_ms,
+    work)}`` (``k7_label``), f32[16384, 16384] included."""
     gen = torch.Generator(device="cpu").manual_seed(77)
-    res, long_rows = {}, {}
-    for kind, name in (("biquad", "biquad_scan"), ("one_pole", "one_pole_scan")):
-        for rows, n in SCAN_SHAPES + LONG_SCAN_SHAPES:
-            fn, ref, args = k7_operands(iir, kind, rows, n, gen)
-            got, want = fn(*args), ref(*args)
-            torch.cuda.synchronize()
-            flat = lambda t: [t] if isinstance(t, torch.Tensor) else [  # noqa: E731
-                u for v in t for u in flat(v)]
-            if not all(map(torch.equal, flat(got), flat(want))):
-                e = max(float((a - b).abs().max())
-                        for a, b in zip(flat(got), flat(want)))
-                raise AssertionError(f"K7 {name} disagrees with its plain version at "
-                                     f"f32[{rows}, {n}]: {e}")
-            del got, want
-            if (rows, n) == (2 * B, 16384):  # the biquad's workspace takes 6.4 GB
-                ms = device_ms(lambda: fn(*args), f"{name}_kernel", 3)
-                call_ms = cuda_ms(lambda: fn(*args), 3)
-                plain_ms = cuda_ms(lambda: ref(*args), 1)
-                work = scan_work(kind, rows, n)
-                long_rows[name] = (ms, call_ms, plain_ms, work)
-                log(f"K7 {name} at f32[{rows}, {n}]: kernel {ms:.4f} ms on the device, "
-                    f"{call_ms:.4f} ms a call, plain {plain_ms:.3f} ms; bound "
-                    f"{bound(*work)[0]:.4f} ms by {bound(*work)[1]}, "
-                    f"{100 * bound(*work)[0] / ms:.1f}% of it")
-            del args
-            torch.cuda.empty_cache()
-        if kind == "one_pole":  # the DC blocker's numbers: a = 1, b = R
-            x = torch.randn((2 * B, 128), generator=gen).to("cuda")
-            y0 = torch.randn((2 * B,), generator=gen).to("cuda")
-            got = iir.one_pole_scan(x, y0, 1.0, 0.9973857)
-            want = iir.one_pole_scan_reference(x, y0, 1.0, 0.9973857)
-            if not all(map(torch.equal, got, want)):
-                raise AssertionError("K7 one_pole_scan disagrees at scalar coefficients")
-        fn, ref, args = k7_operands(iir, kind, 2 * B, 128, gen)
-        ms = device_ms(lambda: fn(*args), f"{name}_kernel", KERNEL_REPS)
-        call_ms = cuda_ms(lambda: fn(*args), 50)
-        plain_ms = cuda_ms(lambda: ref(*args), 3)
-        work = scan_work(kind, 2 * B, 128)
-        res[name] = (0.0, ms, call_ms, plain_ms, work)
-        log(f"K7 {name} vs plain at f32{[list(s) for s in SCAN_SHAPES + LONG_SCAN_SHAPES]}"
-            f": bit for bit; "
-            f"at f32[{2 * B}, 128] kernel {ms:.4f} ms on the device, {call_ms:.4f} ms "
-            f"a call, plain {plain_ms:.3f} ms; bound {bound(*work)[0]:.4f} ms by "
-            f"{bound(*work)[1]} ({work[0] / 1e6:.2f} MB, {work[1] / 1e6:.1f} M f32 and "
-            f"{work[2] / 1e6:.1f} M f64 operations)")
-    return res, long_rows
+    timed = set(SCAN_TIMED + SCAN_TIMED_LONG)
+    cases = [(kind, rows, n, 1) for kind in ("biquad", "one_pole")
+             for rows, n in SCAN_SHAPES + LONG_SCAN_SHAPES]
+    cases += [("one_pole", *POOLED_ONE_POLE, 1)]
+    cases += [("cascade", rows, n, s) for rows, n, s in CASCADE_SHAPES]
+    flat = lambda t: [t] if isinstance(t, torch.Tensor) else [  # noqa: E731
+        u for v in t for u in flat(v)]
+    res = {}
+    for kind, rows, n, s in cases:
+        fn, ref, args = k7_operands(iir, kind, rows, n, gen, s)
+        got, want = fn(*args), ref(*args)
+        torch.cuda.synchronize()
+        label = k7_label(kind, rows, n, s)
+        if not all(map(torch.equal, flat(got), flat(want))):
+            e = max(float((a - b).abs().max()) for a, b in zip(flat(got), flat(want)))
+            raise AssertionError(f"K7 {label} disagrees with its plain version: {e}")
+        del got, want
+        if (kind, rows, n, s) in timed:
+            # the biquad's workspace takes 6.4 GB at f32[16384, 16384]
+            reps = 3 if n > 1024 else KERNEL_REPS
+            ms = device_ms(lambda: fn(*args), K7_KERNEL[kind], reps)
+            call_ms = cuda_ms(lambda: fn(*args), reps if n > 1024 else 50)
+            plain_ms = cuda_ms(lambda: ref(*args), 1)
+            work = scan_work(kind, rows, n, s)
+            res[label] = (0.0, ms, call_ms, plain_ms, work)
+            b_ms, b_by = bound(*work)
+            log(f"K7 {label}: kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a "
+                f"call, plain {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
+                f"({work[0] / 1e6:.2f} MB, {work[1] / 1e6:.1f} M f32 and "
+                f"{work[2] / 1e6:.1f} M f64 operations), {100 * b_ms / ms:.1f}% of it")
+        del args
+        torch.cuda.empty_cache()
+    # the DC blocker's numbers: a = 1, b = R
+    x = torch.randn((2 * B, 128), generator=gen).to("cuda")
+    y0 = torch.randn((2 * B,), generator=gen).to("cuda")
+    got = iir.one_pole_scan(x, y0, 1.0, 0.9973857)
+    want = iir.one_pole_scan_reference(x, y0, 1.0, 0.9973857)
+    if not all(map(torch.equal, got, want)):
+        raise AssertionError("K7 one_pole_scan disagrees at scalar coefficients")
+    log(f"K7 vs plain: bit for bit at {len(cases) + 1} shapes: biquad_scan and "
+        f"one_pole_scan at f32{[list(s) for s in SCAN_SHAPES + LONG_SCAN_SHAPES]}, "
+        f"one_pole_scan at f32{list(POOLED_ONE_POLE)} and with scalar coefficients, "
+        f"biquad_cascade at (rows, frames, sections) {list(CASCADE_SHAPES)}")
+    return res
 
 
 def render_mixer(ft, seq_iir, card: str):
@@ -1098,7 +1142,7 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
     # the same chunks with the eager BatchRenderer on the card
     from firewheel_tpu_torch.ops import iir
 
-    iir.biquad_scan.launches = 0
+    iir.biquad_cascade.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     e_runs = []
@@ -1109,7 +1153,7 @@ def render_hybrid(ft, seq_iir, em, eh, card: str, b: int, k: int):
     torch.cuda.synchronize()
     e_wall = (time.perf_counter() - t0) / TIMED_CHUNKS
     e_peak = torch.cuda.max_memory_allocated() / 1e9
-    e_k7 = iir.biquad_scan.launches
+    e_k7 = iir.biquad_cascade.launches
     for start, h, e in zip(starts, h_runs, e_runs):
         out_e, state_e = agree(f"chunk at sample {start}", *h, *e)
         if not bool(torch.isfinite(h[0]).all()):
@@ -2353,6 +2397,10 @@ def spatial_eager(ft, card: str):
     peak = float(out.abs().max())
     if not 0.01 < peak <= 1.0:
         raise AssertionError(f"spatial eager peak {peak}")
+    # the 128 spatializers pool into one group: one one-pole launch a block
+    if iir.one_pole_scan.launches != K * (TIMED_CHUNKS + 1):
+        raise AssertionError(f"spatial eager: K7 launched {iir.one_pole_scan.launches} "
+                             f"times in {TIMED_CHUNKS + 1} chunks of K={K}")
     wall = float(np.mean(walls))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     audio_secs = B * K * 128 / 48000
@@ -2787,7 +2835,7 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
     first, n_prof = MASTER_PROFILED
     trace = PumpTrace()
     dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
-    iir.biquad_scan.launches = 0
+    iir.biquad_cascade.launches = 0
     t_start = time.perf_counter()
     i = 0
     while stream.frames_rendered < frames:
@@ -2811,7 +2859,7 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
     out["wall"] = time.perf_counter() - t_start
     out["buffers"] = i
     out["k5"], out["k6"] = dynamics.scan_lanes.launches, noise.noise_uniform.launches
-    out["k7"] = iir.biquad_scan.launches
+    out["k7"] = iir.biquad_cascade.launches
     out["integrated"] = integ.value()
     out["reads"] = np.asarray(out["reads"])
     out["state"] = state_to_numpy(stream._processor.state_dict())
@@ -2928,7 +2976,7 @@ def master_stream_check(ft, cpu_result, card: str):
                              f"meter {meter_err}, readings {reads_err} LU, integrated "
                              f"{out['integrated']} vs {cpu['integrated']}")
     buffers = out["buffers"]
-    if (out["k5"] != 4 * buffers or out["k6"] != buffers or out["k7"] != 2 * buffers
+    if (out["k5"] != 4 * buffers or out["k6"] != buffers or out["k7"] != buffers
             or cpu["k5"] or cpu["k6"] or cpu["k7"]):
         raise AssertionError(f"12(a): K5 {out['k5']}, K6 {out['k6']}, K7 {out['k7']} "
                              f"launches in {buffers} blocks (CPU {cpu['k5']}, "
@@ -2985,7 +3033,7 @@ def master_batched(ft, seq_iir, dynamics, noise, card: str):
     torch.cuda.reset_peak_memory_stats()
     # the main path, counts set to 0 just before it
     dynamics.scan_lanes.launches = noise.noise_uniform.launches = 0
-    seq_iir.biquad_seq.launches = iir.biquad_scan.launches = 0
+    seq_iir.biquad_seq.launches = iir.biquad_cascade.launches = 0
     walls, firsts = [], []
     for c in range(MASTER_CHUNKS):
         torch.cuda.synchronize()
@@ -2999,10 +3047,10 @@ def master_batched(ft, seq_iir, dynamics, noise, card: str):
         firsts.append((out[:MASTER_CHECK].cpu(), om[:MASTER_CHECK].cpu()))
     k5, k6, k1 = dynamics.scan_lanes.launches, noise.noise_uniform.launches, \
         seq_iir.biquad_seq.launches
-    k7 = iir.biquad_scan.launches
+    k7 = iir.biquad_cascade.launches
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     if (k5 != 4 * K * MASTER_CHUNKS or k6 != K * MASTER_CHUNKS or k1
-            or k7 != 2 * K * MASTER_CHUNKS):
+            or k7 != K * MASTER_CHUNKS):
         raise AssertionError(f"12(b): K5 {k5}, K6 {k6}, K1 {k1}, K7 {k7} launches in "
                              f"{MASTER_CHUNKS} chunks of K={K}")
     err = 0.0
@@ -3113,7 +3161,7 @@ def master_lowerings(ft, em, eh, dynamics, noise, card: str):
 
     def counts():
         return (eh.HybridMegaRenderer.launches, dynamics.scan_lanes.launches,
-                noise.noise_uniform.launches, iir.biquad_scan.launches)
+                noise.noise_uniform.launches, iir.biquad_cascade.launches)
 
     ring = 0.0
     for b, k in MASTER_HYBRID:
@@ -3128,7 +3176,7 @@ def master_lowerings(ft, em, eh, dynamics, noise, card: str):
             for name, r in (("hybrid", hy), ("eager", eg)):
                 # the main path: counts set to 0 just before each chunk
                 eh.HybridMegaRenderer.launches = dynamics.scan_lanes.launches = 0
-                noise.noise_uniform.launches = iir.biquad_scan.launches = 0
+                noise.noise_uniform.launches = iir.biquad_cascade.launches = 0
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
                 out, om, states[name] = r.render_chunk(params, states[name],
@@ -3352,7 +3400,7 @@ def palette_stream(device: str, profile: bool = False) -> dict:
     out = {"walls": [], "kernels": {}}
     trace = PumpTrace()
     kind = "none"
-    iir.biquad_scan.launches = iir.one_pole_scan.launches = 0
+    iir.biquad_cascade.launches = iir.one_pole_scan.launches = 0
     buffers = 0
     t_start = time.perf_counter()
     for i in range(PALETTE_PUMPS):
@@ -3383,7 +3431,7 @@ def palette_stream(device: str, profile: bool = False) -> dict:
     if device != "cpu":
         torch.cuda.synchronize()
     out["wall"] = time.perf_counter() - t_start
-    out["k7"] = (iir.biquad_scan.launches, iir.one_pole_scan.launches)
+    out["k7"] = (iir.biquad_cascade.launches, iir.one_pole_scan.launches)
     out["state"] = state_to_numpy(stream._processor.state_dict())
     out["audio"] = sink.audio(2)
     cx.deactivate()
@@ -3396,8 +3444,8 @@ def palette_stream(device: str, profile: bool = False) -> dict:
 
 def palette_stream_check(ft, iir, cpu_result, card: str):
     """13(a): the FX engine streamed on the card against the CPU's stream
-    (from the worker): audio and every state leaf within 1e-5; K7 three
-    launches a block (the EQ's bands) while the EQ is in; walls, realtime
+    (from the worker): audio and every state leaf within 1e-5; K7 one
+    launch a block (the EQ's bands, one cascade) while the EQ is in; walls, realtime
     factor and, profiled, the kernels a block of each kind."""
     from firewheel_tpu_torch.convert import tree_map
 
@@ -3413,7 +3461,7 @@ def palette_stream_check(ft, iir, cpu_result, card: str):
     # throwaway block (``GraphProcessor.advance_pending``): the EQ renders
     # two pumps of blocks and that block
     eq_blocks = 2 * PALETTE_PUMP_BUFFERS * STREAM_BUFFER // STREAM_BLOCK + 1
-    if run["k7"] != (PALETTE_EQ_BANDS * eq_blocks, 0) or cpu["k7"] != (0, 0):
+    if run["k7"] != (eq_blocks, 0) or cpu["k7"] != (0, 0):
         raise AssertionError(f"13(a): K7 launches {run['k7']} (biquad, one-pole) for "
                              f"{eq_blocks} blocks with the EQ; CPU {cpu['k7']}")
     peak = float(np.abs(run["audio"]).max())
@@ -3427,8 +3475,9 @@ def palette_stream_check(ft, iir, cpu_result, card: str):
         f"through {kinds}, then a volume, a pan and a frequency change, a voice "
         f"removed and one added; card vs CPU: audio "
         f"max_abs_err={err:.3e}, state {state_err:.3e}; peak {peak:.4f}; K7 "
-        f"{run['k7'][0]} biquad launches ({PALETTE_EQ_BANDS} a block over {eq_blocks} "
-        f"blocks with the EQ, its throwaway block included), {run['k7'][1]} one-pole")
+        f"{run['k7'][0]} biquad launches (one a block, the EQ's {PALETTE_EQ_BANDS} "
+        f"bands in one cascade, over {eq_blocks} blocks with the EQ, its throwaway "
+        f"block included), {run['k7'][1]} one-pole")
     log(f"13(a): realtime factor card {audio_secs / run['wall']:.3f} ({run['wall']:.3f} "
         f"s), CPU {audio_secs / cpu['wall']:.3f} (the worker process); wall a "
         f"1024-frame buffer (a pump / {PALETTE_PUMP_BUFFERS}) p50 "
@@ -3446,13 +3495,13 @@ def plain_scans(fn):
     from firewheel_tpu_torch.nodes import eq, waveshaper
     from firewheel_tpu_torch.ops import iir
 
-    saved = eq.biquad_scan, waveshaper.one_pole_scan
-    eq.biquad_scan = iir.biquad_scan_reference
+    saved = eq.biquad_cascade, waveshaper.one_pole_scan
+    eq.biquad_cascade = iir.biquad_cascade_reference
     waveshaper.one_pole_scan = iir.one_pole_scan_reference
     try:
         return fn()
     finally:
-        eq.biquad_scan, waveshaper.one_pole_scan = saved
+        eq.biquad_cascade, waveshaper.one_pole_scan = saved
 
 
 def palette_batched(ft, iir, card: str):
@@ -3475,7 +3524,7 @@ def palette_batched(ft, iir, card: str):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     # the main path, counts set to 0 just before it
-    iir.biquad_scan.launches = iir.one_pole_scan.launches = 0
+    iir.biquad_cascade.launches = iir.one_pole_scan.launches = 0
     walls, firsts = [], []
     for c in range(PALETTE_CHUNKS):
         torch.cuda.synchronize()
@@ -3489,9 +3538,10 @@ def palette_batched(ft, iir, card: str):
         firsts.append((out[:CHECK_INSTANCES].cpu(), om[:CHECK_INSTANCES].cpu()))
         if c == 0:
             chunk0 = (out, om, state)
-    k7 = (iir.biquad_scan.launches, iir.one_pole_scan.launches)
+    k7 = (iir.biquad_cascade.launches, iir.one_pole_scan.launches)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    if k7 != (PALETTE_EQ_BANDS * K * PALETTE_CHUNKS, K * PALETTE_CHUNKS):
+    # the EQ's bands one cascade a block, the fold's DC blocker one one-pole
+    if k7 != (K * PALETTE_CHUNKS, K * PALETTE_CHUNKS):
         raise AssertionError(f"13(b): K7 launches {k7} (biquad, one-pole) in "
                              f"{PALETTE_CHUNKS} chunks of K={K}")
     # K7 in place: the first chunk with the plain scans, on the card
@@ -3573,7 +3623,7 @@ def palette_lowerings(ft, em, eh, iir, card: str):
         raise AssertionError("13(c): MegaRenderer accepted the FX palette")
 
     def k7():
-        return iir.biquad_scan.launches, iir.one_pole_scan.launches
+        return iir.biquad_cascade.launches, iir.one_pole_scan.launches
 
     # K2 on the palette without the flanger, against eager
     kinds = tuple(kind for kind in FX_KINDS if kind != "flanger")
@@ -3585,7 +3635,7 @@ def palette_lowerings(ft, em, eh, iir, card: str):
         params = vary_fx_params(p2, eg.stack_params(), seed=15)
         states = [mega.init_state(), eg.init_state()]
         em.MegaRenderer.launches = 0
-        iir.biquad_scan.launches = iir.one_pole_scan.launches = 0
+        iir.biquad_cascade.launches = iir.one_pole_scan.launches = 0
         for c in range(2):
             start = c * k * frames
             torch.cuda.synchronize()
@@ -3629,7 +3679,7 @@ def palette_lowerings(ft, em, eh, iir, card: str):
         res = {}
         for name, r in (("hybrid", hy), ("eager", eg)):
             eh.HybridMegaRenderer.launches = 0
-            iir.biquad_scan.launches = iir.one_pole_scan.launches = 0
+            iir.biquad_cascade.launches = iir.one_pole_scan.launches = 0
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             out, om, states[name] = r.render_chunk(params, states[name],
@@ -3791,8 +3841,7 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     phase("3, K1 vs plain")
     new_kernels = check_new_kernels(adpcm_device, dynamics, noise)
     phase("3(b), K4-K6 vs plain")
-    k7, k7_long = check_assoc_scan(iir)
-    new_kernels.update(k7)
+    k7 = check_assoc_scan(iir)
     phase("3(c), K7 vs plain")
     launches = render_mixer(ft, seq_iir, card)
     phase("4, mixer eager")
@@ -3873,12 +3922,16 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         ("noise_uniform", "firewheel_tpu_torch/csrc/noise.cu",
          "firewheel_tpu/nodes/generators.py:85", bus_k6,
          *new_kernels["noise_uniform"]),
-        # phase 3(c)'s checks and times at f32[16384, 128]; launches in 13(b)'s
-        # batched FX palette (the EQ's three bands, the fold's DC blocker)
+        # phase 3(c)'s checks and times, launches in 13(b)'s batched FX
+        # palette: K7's biquad kernel (its wrapper biquad_cascade, biquad_scan
+        # the one-section call) at the EQ's three bands over f32[16384, 128],
+        # the one-pole (the fold's DC blocker) at f32[16384, 128]; each one's
+        # other shapes under "at"
         ("biquad_scan", "firewheel_tpu_torch/csrc/assoc_scan.cu",
-         "firewheel_tpu/ops/iir.py:260", fx_k7[0], *new_kernels["biquad_scan"]),
+         "firewheel_tpu/ops/iir.py:260", fx_k7[0],
+         *k7[k7_label("cascade", 2 * B, 128, 3)]),
         ("one_pole_scan", "firewheel_tpu_torch/csrc/assoc_scan.cu",
-         "firewheel_tpu/ops/iir.py:132", fx_k7[1], *new_kernels["one_pole_scan"]),
+         "firewheel_tpu/ops/iir.py:132", fx_k7[1], *k7[k7_label("one_pole", 2 * B, 128)]),
     ):
         bound_ms, bound_by = bound(*work)
         kernels.append({
@@ -3903,11 +3956,13 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         if name == "biquad_seq":  # at the stream's width, 2 lanes
             kernels[-1].update(zip(("stream_ms", "stream_call_ms", "stream_plain_ms",
                                     "stream_bound_ms"), k1_stream))
-        if name in k7_long:  # rows past shared memory, f32[16384, 16384]
-            long_ms, long_call, long_plain, long_work = k7_long[name]
-            kernels[-1].update({"long_rows_ms": long_ms, "long_rows_call_ms": long_call,
-                                "long_rows_plain_ms": long_plain,
-                                "long_rows_bound_ms": bound(*long_work)[0]})
+        if name in ("biquad_scan", "one_pole_scan"):  # every shape 3(c) timed
+            kinds = ("biquad ", "cascade ") if name == "biquad_scan" else ("one_pole ",)
+            kernels[-1]["at"] = {
+                label: {"ms": k_ms, "call_ms": k_call, "plain_ms": k_plain,
+                        "bound_ms": bound(*k_work)[0], "share": bound(*k_work)[0] / k_ms}
+                for label, (_, k_ms, k_call, k_plain, k_work) in k7.items()
+                if label.startswith(kinds)}
         f64 = f", {work[2] / 1e9:.3f} G at the f64 rate" if len(work) > 2 else ""
         log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "
             f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G "

@@ -1,8 +1,10 @@
 """Parametric EQ node: a cascade of RBJ biquad bands with live controls.
 
 PyTorch port of ``firewheel_tpu/nodes/eq.py``.  Each band is one RBJ
-section run through :func:`~firewheel_tpu_torch.ops.iir.biquad_scan` (one
-launch of K7 a band on the card; in K2/K3 the EQ's row runs the same scan).
+section; the bands run in series through
+:func:`~firewheel_tpu_torch.ops.iir.biquad_cascade`, bit for bit the JAX
+package's ``biquad_scan`` a band (one launch of K7 a block on the card; in
+K2/K3 the EQ's row runs the same scan).
 The band types and count are structural;
 every frequency, Q, gain and a per-band ``enabled`` bypass are live params,
 staged on the host as float32 coefficients by the filter node's designs
@@ -31,7 +33,7 @@ from ..core.node import (
     NodeProcessor,
     MAX_PORTS,
 )
-from ..ops.iir import BiquadCoeffs, biquad_scan
+from ..ops.iir import BiquadCoeffs, biquad_cascade
 from .filter import FilterType, _DESIGNS, _QUIET_F32
 
 __all__ = ["EQBand", "ParametricEQNode", "ParametricEQProcessor"]
@@ -89,18 +91,21 @@ class ParametricEQProcessor(NodeProcessor):
         return {"bands": bands}
 
     def kernel(self, params, state, inputs, in_mask, info):
-        y = inputs
-        new_state = {}
         # per-channel quietness, so one ringing channel does not mark its
         # silent sibling audible
         quiet = torch.ones(in_mask.shape, dtype=torch.bool, device=in_mask.device)
+        sections, states = [], []
         for i in range(len(self._types)):
             band = params["bands"][str(i)]
             # per-instance coefficients [...] → one per channel [..., 1]
-            c = BiquadCoeffs(*(band[k][..., None] for k in BiquadCoeffs._fields))
+            sections.append(BiquadCoeffs(*(band[k][..., None]
+                                           for k in BiquadCoeffs._fields)))
             z1, z2 = state[f"z1_{i}"], state[f"z2_{i}"]
             quiet = quiet & (torch.abs(z1) < _QUIET_F32) & (torch.abs(z2) < _QUIET_F32)
-            y, (z1, z2) = biquad_scan(y, (z1, z2), c)
+            states.append((z1, z2))
+        y, states = biquad_cascade(inputs, states, sections)
+        new_state = {}
+        for i, (z1, z2) in enumerate(states):
             new_state[f"z1_{i}"] = z1
             new_state[f"z2_{i}"] = z2
 

@@ -1,8 +1,9 @@
 """EBU R128 / ITU-R BS.1770 loudness meter node.
 
 PyTorch port of ``firewheel_tpu/nodes/loudness.py``.  The kernel runs the
-K-weighting pre-filter (two biquads through the associative scan,
-``ops/iir.py:biquad_scan``, as the JAX package does) and integrates the
+K-weighting pre-filter (two biquads through the associative scan, as the
+JAX package does, in series as one ``ops/iir.py:biquad_cascade``: one
+launch of K7 a block on the card) and integrates the
 channel-weighted mean square into a ring of 100 ms gating blocks.  On the
 host, :meth:`LoudnessMeterNode.read` turns the ring into momentary (400 ms)
 and short-term (3 s) loudness, and :class:`IntegratedLoudness` applies the
@@ -31,7 +32,7 @@ from ..core.node import (
     NodeProcessor,
     MAX_PORTS,
 )
-from ..ops.iir import BiquadCoeffs, biquad_scan
+from ..ops.iir import BiquadCoeffs, biquad_cascade
 from ..ops.loudness import k_weighting_coeffs, lufs_from_mean_square
 
 __all__ = ["LoudnessMeterNode", "LoudnessMeterProcessor", "IntegratedLoudness"]
@@ -98,8 +99,9 @@ class LoudnessMeterProcessor(NodeProcessor):
         hop = self.hop_frames
         # K-weighting
         sz, hz = state["shelf_z"], state["hp_z"]
-        y, z1 = biquad_scan(inputs, (sz[..., 0], sz[..., 1]), self._shelf)
-        y, z2 = biquad_scan(y, (hz[..., 0], hz[..., 1]), self._hp)
+        y, (z1, z2) = biquad_cascade(
+            inputs, ((sz[..., 0], sz[..., 1]), (hz[..., 0], hz[..., 1])),
+            (self._shelf, self._hp))
 
         # the weighted, channel-summed instantaneous power [..., F]
         w = self._weights_tensor(inputs.device)

@@ -10,12 +10,15 @@ run in numpy float32, as the JAX package's do.  A section runs either through
 through the sequential kernel :func:`firewheel_tpu_torch.ops.seq_iir.
 biquad_seq` (``FilterNode("pallas")``).
 
-The two scans, :func:`biquad_scan` and :func:`one_pole_scan`, are wrappers:
-CPU tensors run their plain versions (:func:`biquad_scan_reference`,
-:func:`one_pole_scan_reference`, the recursion of
-``lax.associative_scan`` op by op); CUDA tensors launch
-``csrc/assoc_scan.cu`` (K7, one launch a section, the same compositions
-rounded the same way, bit for bit, for rows of any length) or raise.
+The scans, :func:`biquad_cascade` (biquad sections in series over the
+same rows; :func:`biquad_scan` is its one-section call) and
+:func:`one_pole_scan`, are wrappers: CPU tensors run their plain versions
+(:func:`biquad_cascade_reference`, :func:`biquad_scan_reference`,
+:func:`one_pole_scan_reference`, the recursion of ``lax.associative_scan``
+op by op); CUDA tensors launch ``csrc/assoc_scan.cu`` (K7, one launch a
+call, the same compositions rounded the same way, bit for bit, for rows of
+any length) or raise.  Numbers go to the kernel by value and tensors in
+place, so a call copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -41,6 +44,9 @@ __all__ = [
     "biquad_allpass",
     "biquad_scan",
     "biquad_scan_reference",
+    "biquad_cascade",
+    "biquad_cascade_reference",
+    "MAX_SECTIONS",
     "one_pole_coeffs",
     "one_pole_scan",
     "one_pole_scan_reference",
@@ -313,16 +319,57 @@ def one_pole_scan_reference(x: torch.Tensor, y_prev: torch.Tensor, a, b):
     return y, y[..., x.shape[-1] - 1]
 
 
+
+
+def biquad_cascade_reference(x: torch.Tensor, states, sections):
+    """Plain version of :func:`biquad_cascade`: the sections in series, each
+    one :func:`biquad_scan_reference` on the output of the one before.
+    Returns ``(y, ((z1, z2), ...))``, the states in the sections' order."""
+    out = []
+    for z, c in zip(states, sections, strict=True):
+        x, z = biquad_scan_reference(x, z, c)
+        out.append(z)
+    return x, tuple(out)
+
+
 # ---------------------------------------------------------------------------
 # The wrappers: the plain versions on the CPU, K7 on the card
 # ---------------------------------------------------------------------------
 
+#: a cascade's sections a launch (``csrc/assoc_scan.cu:kMaxSections``)
+MAX_SECTIONS = 8
+
+
+class _Operand(ctypes.Structure):
+    """``csrc/assoc_scan.cu:Operand``: row ``r`` of rows ``[outer, inner]``
+    reads ``p[(r // inner) * so + (r % inner) * si]``, or ``v`` when ``p``
+    is null."""
+
+    _fields_ = [("p", ctypes.c_void_p), ("so", ctypes.c_int64), ("si", ctypes.c_int64),
+                ("v", ctypes.c_float)]
+
+
+class _BiquadArgs(ctypes.Structure):
+    _fields_ = [("coef", (_Operand * 5) * MAX_SECTIONS),
+                ("z_in", (_Operand * 2) * MAX_SECTIONS),
+                ("z_out", ctypes.c_void_p), ("inner", ctypes.c_int64),
+                ("sections", ctypes.c_int)]
+
+
+class _OnePoleArgs(ctypes.Structure):
+    _fields_ = [("a", _Operand), ("b", _Operand), ("y_in", _Operand),
+                ("y_out", ctypes.c_void_p), ("inner", ctypes.c_int64)]
+
+
 def _bind(lib):
-    for fn in (lib.fw_biquad_scan, lib.fw_one_pole_scan):
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int64, ctypes.c_int,
-                                               ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.fw_scan_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int]
+    tail = [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p]
+    lib.fw_biquad_cascade.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.POINTER(_BiquadArgs), *tail]
+    lib.fw_one_pole_scan.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.POINTER(_OnePoleArgs), *tail]
+    lib.fw_biquad_cascade.restype = lib.fw_one_pole_scan.restype = ctypes.c_int
+    lib.fw_scan_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+                                            ctypes.c_int]
     lib.fw_scan_workspace_bytes.restype = ctypes.c_int64
 
 
@@ -330,70 +377,165 @@ def _bind(lib):
 LIBRARY = CudaLibrary("fw_assoc_scan", "assoc_scan.cu", ("assoc_scan.cuh",), _bind)
 
 
-def _rows(values, lead, device):
-    """Per-row operands (tensors or numbers, each broadcasting to ``lead``)
-    → one contiguous ``f32[len(values), R]`` on ``device``: the numbers go
-    over in one copy, the rows in one stack."""
-    consts = [v for v in values if not isinstance(v, torch.Tensor)]
-    host = iter(torch.from_numpy(np.asarray(consts, np.float32)).to(device)
-                if consts else ())
-    ts = [v.to(torch.float32) if isinstance(v, torch.Tensor) else next(host)
-          for v in values]
-    for t in ts:
-        if t.device != device:
-            raise ValueError(f"K7: an operand is on {t.device}, x is on {device}")
-    return torch.stack([t.broadcast_to(lead) for t in ts]).reshape(len(ts), -1)
+def _row_strides(shape, strides, lead):
+    """The element strides ``(outer, inner)`` with which the rows
+    ``[prod(lead[:-1]), lead[-1]]`` read a tensor of ``shape`` and
+    ``strides`` broadcast to ``lead``, or None when its leading axes do not
+    fold into one stride.  Raises when it does not broadcast."""
+    if len(shape) > len(lead) and any(s != 1 for s in shape[:len(shape) - len(lead)]):
+        raise ValueError(f"K7: an operand of shape {tuple(shape)} does not broadcast "
+                         f"to the rows {tuple(lead)}")
+    pad = len(lead) - len(shape)
+    st = []
+    for k, size in enumerate(lead):
+        j = k - pad
+        have = shape[j] if j >= 0 else 1
+        if have == size and size != 1:
+            st.append(strides[j])
+        elif have == 1:
+            st.append(0)
+        else:
+            raise ValueError(f"K7: an operand of shape {tuple(shape)} does not "
+                             f"broadcast to the rows {tuple(lead)}")
+    if not st:
+        return 0, 0
+    outer = expect = None
+    for k in range(len(lead) - 2, -1, -1):
+        if lead[k] == 1:
+            continue
+        if outer is None:
+            outer, expect = st[k], st[k] * lead[k]
+        elif st[k] != expect:
+            return None
+        else:
+            expect *= lead[k]
+    return outer or 0, st[-1]
 
 
-def _launch(lib, biquad: bool, wrapper, x, coef, s_in, s_out):
-    """Launch K7's biquad (``biquad``) or one-pole entry over the rows of
-    ``x`` (contiguous) with the per-row operands ``coef``, ``s_in`` and
-    ``s_out`` (``[n, R]``, contiguous, on ``x``'s device) → y; counts the
-    launch on ``wrapper``.  Rows whose levels do not fit in a CTA's shared
-    memory get a device-memory workspace of the size the kernel asks for
-    (``fw_scan_workspace_bytes``).  The kernel refuses rows of no frames
-    (cudaErrorInvalidValue, raised here)."""
-    name = wrapper.__name__
+def _operand(v, lead, device):
+    """A per-row operand (a number, or a tensor that broadcasts to
+    ``lead``) as the kernel reads it → ``(tensor or None, outer stride,
+    inner stride, value)``.  A number goes by value; a float32 tensor is
+    read in place where its leading axes fold into one stride, else from a
+    contiguous copy on the device.  Host arrays of more than one value cross
+    in one copy."""
+    if isinstance(v, (float, int, np.floating)):
+        return None, 0, 0, float(np.float32(v))
+    if not isinstance(v, torch.Tensor):
+        a = np.asarray(v, np.float32)
+        if a.size == 1:
+            return None, 0, 0, float(a.reshape(()))
+        v = torch.from_numpy(np.ascontiguousarray(a)).to(device)
+    if v.device != device:
+        raise ValueError(f"K7: an operand is on {v.device}, x is on {device}")
+    if v.dtype != torch.float32:
+        v = v.float()
+    if lead and v.shape[:-1] == lead[:-1] and v.is_contiguous():
+        if v.shape[-1] == lead[-1]:  # one value a row, in order
+            return v, lead[-1], 1, 0.0
+        if v.shape[-1] == 1:  # one value for the last axis (a filter an instance)
+            return v, 1, 0, 0.0
+    strides = _row_strides(v.shape, v.stride(), lead)
+    if strides is None:
+        v = v.broadcast_to(lead).contiguous()
+        strides = _row_strides(v.shape, v.stride(), lead)
+    return (v, *strides, 0.0)
+
+
+def _c_operand(op, keep) -> _Operand:
+    t, so, si, v = op
+    if t is None:
+        return _Operand(None, 0, 0, v)
+    keep.append(t)
+    return _Operand(t.data_ptr(), so, si, v)
+
+
+def _check(x: torch.Tensor, name: str) -> torch.Tensor:
+    """x for the kernel: float32 on a CUDA device, contiguous, aligned to 16
+    bytes (the register kernels' vector loads)."""
+    if x.device.type != "cuda" or x.dtype != torch.float32:
+        raise ValueError(f"{name}: x must be float32 on a CUDA device or the CPU, "
+                         f"got {x.dtype} on {x.device}")
+    x = x.contiguous()
+    return x.clone() if x.data_ptr() % 16 else x
+
+
+def _launch(entry: str, wrapper, x, args, biquad: bool, sections: int, rows: int):
+    """Launch ``entry`` (``fw_biquad_cascade`` or ``fw_one_pole_scan``) over
+    the rows of ``x`` with ``args`` → y; counts the launch on ``wrapper``.
+    Rows the shared design runs past a CTA's shared memory, and a cascade's
+    intermediate outputs there, get the device-memory workspace the kernel
+    asks for (``fw_scan_workspace_bytes``).  The kernel refuses rows of no
+    frames (cudaErrorInvalidValue, raised here)."""
     frames = x.shape[-1]
     y = torch.empty_like(x)
-    rows = s_in.shape[-1]
     if rows:
-        entry = lib.fw_biquad_scan if biquad else lib.fw_one_pole_scan
-        ws_bytes = lib.fw_scan_workspace_bytes(int(biquad), rows, frames)
+        lib = LIBRARY.load()
+        ws_bytes = lib.fw_scan_workspace_bytes(int(biquad), rows, frames, sections)
         ws = (torch.empty((ws_bytes // 4,), dtype=torch.float32, device=x.device)
               if ws_bytes else None)
-        with torch.cuda.device(x.device):
-            stream = torch.cuda.current_stream(x.device).cuda_stream
-            err = entry(x.data_ptr(), y.data_ptr(), coef.data_ptr(), s_in.data_ptr(),
-                        s_out.data_ptr(), rows, frames,
-                        ws.data_ptr() if ws is not None else None, stream)
+        if x.device.index != torch.cuda.current_device():
+            with torch.cuda.device(x.device):
+                stream = torch.cuda.current_stream().cuda_stream
+        else:
+            stream = torch.cuda.current_stream().cuda_stream
+        err = getattr(lib, entry)(x.data_ptr(), y.data_ptr(), ctypes.byref(args), rows, frames,
+                         ws.data_ptr() if ws is not None else None, stream)
         if err != 0:
-            raise RuntimeError(f"{name}: kernel launch failed on rows of {frames} frames "
-                               f"(cudaError {err})")
+            raise RuntimeError(f"{wrapper.__name__}: kernel launch failed on rows of "
+                               f"{frames} frames (cudaError {err})")
         wrapper.launches += 1
     return y
 
 
+def biquad_cascade(x: torch.Tensor, states, sections):
+    """Run biquad sections in series along the last axis: section ``s + 1``
+    filters section ``s``'s output, as :func:`biquad_cascade_reference`
+    does (its contract: bit for bit the calls of :func:`biquad_scan` it
+    replaces).  ``states``: each section's ``(z1, z2)``; ``sections``: each
+    section's :class:`BiquadCoeffs`; tensors or numbers, each broadcasting
+    to ``x.shape[:-1]``.  Returns ``(y, ((z1, z2), ...))``.
+
+    CPU tensors run :func:`biquad_cascade_reference`.  On a CUDA tensor K7
+    runs up to :data:`MAX_SECTIONS` sections a launch, each one's output
+    kept on chip as the next one's input, and adds one to
+    ``biquad_cascade.launches`` a launch."""
+    states, sections = tuple(states), tuple(sections)
+    if not sections or len(states) != len(sections):
+        raise ValueError(f"biquad_cascade: {len(sections)} sections, {len(states)} states")
+    if x.device.type == "cpu":
+        return biquad_cascade_reference(x, states, sections)
+    x = _check(x, "biquad_cascade")
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    out = []
+    for i in range(0, len(sections), MAX_SECTIONS):
+        part = sections[i:i + MAX_SECTIONS]
+        keep = []
+        # [S, 2, rows] for the kernel; each state a view of one row
+        z_out = torch.empty((2 * len(part),) + lead, dtype=torch.float32, device=x.device)
+        args = _BiquadArgs(z_out=z_out.data_ptr(), inner=lead[-1] if lead else 1,
+                           sections=len(part))
+        for s, (c, z) in enumerate(zip(part, states[i:i + MAX_SECTIONS])):
+            coef, z_in = args.coef[s], args.z_in[s]
+            for k, v in enumerate(c):
+                coef[k] = _c_operand(_operand(v, lead, x.device), keep)
+            for k, v in enumerate(z):
+                z_in[k] = _c_operand(_operand(v, lead, x.device), keep)
+        x = _launch("fw_biquad_cascade", biquad_cascade, x, args, True,
+                    len(part), rows)
+        zs = z_out.unbind(0)
+        out.extend(zip(zs[0::2], zs[1::2]))
+    return x, tuple(out)
+
+
 def biquad_scan(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
     """Run one biquad section along the last axis, as
-    :func:`biquad_scan_reference` does (its contract).
-
-    CPU tensors run :func:`biquad_scan_reference`.  On a CUDA tensor the
-    coefficients and the state (tensors or numbers, each broadcasting to
-    ``x.shape[:-1]``) are gathered into one row each and K7 runs the
-    section in one launch, adding one to ``biquad_scan.launches``."""
-    if x.device.type == "cpu":
-        return biquad_scan_reference(x, z_prev, coeffs)
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise ValueError(f"biquad_scan: x must be float32 on a CUDA device or the "
-                         f"CPU, got {x.dtype} on {x.device}")
-    lead = x.shape[:-1]
-    x = x.contiguous()
-    coef = _rows(tuple(coeffs), lead, x.device)
-    z_in = _rows(tuple(z_prev), lead, x.device)
-    z_out = torch.empty_like(z_in)
-    y = _launch(LIBRARY.load(), True, biquad_scan, x, coef, z_in, z_out)
-    return y, (z_out[0].reshape(lead), z_out[1].reshape(lead))
+    :func:`biquad_scan_reference` does (its contract): the one-section
+    :func:`biquad_cascade` (CPU tensors run the plain version; on a CUDA
+    tensor one launch of K7, counted on ``biquad_cascade.launches``)."""
+    y, (z,) = biquad_cascade(x, (z_prev,), (coeffs,))
+    return y, z
 
 
 def _per_row(c, x):
@@ -417,18 +559,19 @@ def one_pole_scan(x: torch.Tensor, y_prev: torch.Tensor, a, b):
     ``one_pole_scan.launches``."""
     if x.device.type == "cpu":
         return one_pole_scan_reference(x, y_prev, a, b)
-    if x.device.type != "cuda" or x.dtype != torch.float32:
-        raise ValueError(f"one_pole_scan: x must be float32 on a CUDA device or the "
-                         f"CPU, got {x.dtype} on {x.device}")
+    x = _check(x, "one_pole_scan")
     lead = x.shape[:-1]
-    x = x.contiguous()
-    coef = _rows((_per_row(a, x), _per_row(b, x)), lead, x.device)
-    y_in = _rows((y_prev,), lead, x.device)
-    y_out = torch.empty_like(y_in)
-    y = _launch(LIBRARY.load(), False, one_pole_scan, x, coef, y_in, y_out)
-    return y, y_out[0].reshape(lead)
+    rows = math.prod(lead)
+    keep = []
+    y_out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    args = _OnePoleArgs(
+        *(_c_operand(_operand(v, lead, x.device), keep)
+          for v in (_per_row(a, x), _per_row(b, x), y_prev)),
+        y_out=y_out.data_ptr(), inner=lead[-1] if lead else 1)
+    y = _launch("fw_one_pole_scan", one_pole_scan, x, args, False, 1, rows)
+    return y, y_out.view(lead)
 
 
 #: kernel launches since the counter was last set to 0
-biquad_scan.launches = 0
+biquad_cascade.launches = 0
 one_pole_scan.launches = 0

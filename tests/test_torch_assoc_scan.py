@@ -5,12 +5,14 @@ A CPU tensor runs the plain version (``biquad_scan_reference``,
 ``one_pole_scan_reference``; held against JAX bit for bit in
 ``test_torch_nodes.py`` and ``test_torch_spatial.py``) and never builds or
 loads ``csrc/assoc_scan.cu``.  The rows the wrapper hands the kernel on the
-card (``_rows``: the coefficients ``[5, R]`` in ``BiquadCoeffs`` order, the
-state ``[2, R]``, the one-pole's ``(a, b)`` ``[2, R]``) are checked here by
+card (``_operand``: each coefficient and state value as a number or a
+tensor read in place at an outer and an inner stride) are checked here by
 running the plain version row by row on them: each row gives what the whole
 call gives for it, bit for bit.  The kernel itself is held against the
 plain version on the card by ``chip_smoke.py`` (phase 3(c)).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -37,8 +39,20 @@ def no_kernel(monkeypatch):
 
     monkeypatch.setattr(iir.LIBRARY, "load", refuse)
     monkeypatch.setattr(cuda_build, "_nvcc", refuse)
-    monkeypatch.setattr(iir.biquad_scan, "launches", 0)
+    monkeypatch.setattr(iir.biquad_cascade, "launches", 0)
     monkeypatch.setattr(iir.one_pole_scan, "launches", 0)
+
+
+def staged_rows(value, lead):
+    """The per-row values the kernel reads for one operand the wrapper
+    stages (``iir._operand``), with the kernel's index: row ``r`` of
+    ``[R // inner, inner]`` at ``(r // inner) * so + (r % inner) * si``."""
+    t, so, si, v = iir._operand(value, lead, torch.device("cpu"))
+    rows, inner = math.prod(lead), (lead[-1] if lead else 1)
+    if t is None:
+        return torch.full((rows,), v, dtype=torch.float32)
+    return torch.as_strided(t, (rows // inner, inner), (so, si),
+                            t.storage_offset()).reshape(-1)
 
 
 def test_cpu_tensors_take_the_plain_path_without_the_kernel(no_kernel):
@@ -52,7 +66,7 @@ def test_cpu_tensors_take_the_plain_path_without_the_kernel(no_kernel):
     y, last = iir.one_pole_scan(x, z[0], 1.0 - b, b)
     yr, lr = iir.one_pole_scan_reference(x, z[0], 1.0 - b, b)
     assert torch.equal(y, yr) and torch.equal(last, lr)
-    assert iir.biquad_scan.launches == 0 and iir.one_pole_scan.launches == 0
+    assert iir.biquad_cascade.launches == 0 and iir.one_pole_scan.launches == 0
     assert iir.LIBRARY._lib is None
 
 
@@ -75,10 +89,10 @@ COEF_SHAPES = {"per_instance": (B, 1), "per_row": (B, CH), "per_channel": (CH,),
 @pytest.mark.parametrize("frames", [1, 3, F, 128])
 @pytest.mark.parametrize("shape", list(COEF_SHAPES))
 def test_biquad_rows_are_the_kernels_layout(shape, frames):
-    """The operands ``biquad_scan`` gathers for the kernel, ``coef [5, R]``
-    and ``z [2, R]`` over the rows of ``x [B, CH, F]``: the plain version
-    row by row on them gives the whole call's output and state, bit for
-    bit."""
+    """The operands ``biquad_scan`` stages for the kernel, the coefficients
+    and the state per row of ``x [B, CH, F]`` (numbers by value, tensors in
+    place): the plain version row by row on them gives the whole call's
+    output and state, bit for bit."""
     x = torch.randn(B, CH, frames)
     z = (torch.randn(B, CH), torch.randn(B, CH))
     if COEF_SHAPES[shape] is None:
@@ -86,10 +100,11 @@ def test_biquad_rows_are_the_kernels_layout(shape, frames):
     else:
         c = _lowpass(COEF_SHAPES[shape], 2)
     lead = x.shape[:-1]
-    coef = iir._rows(tuple(c), lead, x.device)
-    z_in = iir._rows(z, lead, x.device)
+    coef = torch.stack([staged_rows(v, lead) for v in c])
+    z_in = torch.stack([staged_rows(v, lead) for v in z])
     assert coef.shape == (5, B * CH) and z_in.shape == (2, B * CH)
-    assert coef.is_contiguous() and z_in.is_contiguous()
+    if COEF_SHAPES[shape] is None:
+        assert all(iir._operand(v, lead, x.device)[0] is None for v in c)
     y, (z1, z2) = iir.biquad_scan_reference(
         x, z, iir.BiquadCoeffs(*(torch.as_tensor(v) for v in c)))
     rows = x.reshape(-1, frames)
@@ -113,15 +128,15 @@ ONE_POLE_COEFS = {
 @pytest.mark.parametrize("frames", [1, 3, F, 128])
 @pytest.mark.parametrize("case", list(ONE_POLE_COEFS))
 def test_one_pole_rows_are_the_kernels_layout(case, frames):
-    """``one_pole_scan``'s operands for the kernel, ``coef [2, R]`` (a, b)
-    and ``y_prev [1, R]``: the plain version row by row on them gives the
-    whole call's output and carry, bit for bit."""
+    """``one_pole_scan``'s operands for the kernel, ``(a, b)`` and ``y_prev``
+    per row: the plain version row by row on them gives the whole call's
+    output and carry, bit for bit."""
     x = torch.randn(B, CH, frames)
     y0 = torch.randn(B, CH)
     a, b = ONE_POLE_COEFS[case](torch.rand(B, CH) * 0.98)
     lead = x.shape[:-1]
-    coef = iir._rows((iir._per_row(a, x), iir._per_row(b, x)), lead, x.device)
-    y_in = iir._rows((y0,), lead, x.device)
+    coef = torch.stack([staged_rows(iir._per_row(v, x), lead) for v in (a, b)])
+    y_in = staged_rows(y0, lead)[None]
     assert coef.shape == (2, B * CH) and y_in.shape == (1, B * CH)
     y, last = iir.one_pole_scan_reference(x, y0, a, b)
     rows = x.reshape(-1, frames)
@@ -142,20 +157,24 @@ def test_frame_limits_fit_a_ctas_shared_memory():
     pole): the kernel alone knows the 227 KB a CTA may take.  Past it the
     levels go to a device-memory workspace, the size of which the kernel
     gives (``fw_scan_workspace_bytes``, 0 while they fit) and the wrapper
-    allocates, so no length but 0 frames is refused."""
+    allocates, so no length but 0 frames is refused.  The register kernels
+    (32, 64, 128 and 256 frames) need neither."""
     src = (cuda_build.CSRC / "assoc_scan.cu").read_text()
     assert "kMaxShared = 232448" in src
-    assert "return row_bytes > (size_t)kMaxShared ? (int64_t)(row_bytes * rows) : 0;" in src
-    assert "if (n < 1) return (int)cudaErrorInvalidValue;" in src
-    assert "biquad_scan_kernel<false>, biquad_scan_kernel<true>" in src
-    assert "one_pole_scan_kernel<false>, one_pole_scan_kernel<true>" in src
+    assert "if (row_bytes > (size_t)kMaxShared) return Plan{true, kMaxWarps, 0};" in src
+    assert "if (rows <= 0 || n < 1 || in_registers(n)) return 0;" in src
+    assert "return n >= 32 && n <= 256 && (n & (n - 1)) == 0;" in src
+    assert "if (frames < 1 || args->inner < 1) return (int)cudaErrorInvalidValue;" in src
+    assert "plan.global ? biquad_scan_kernel<true> : biquad_scan_kernel<false>" in src
+    assert "plan.global ? one_pole_scan_kernel<true> : one_pole_scan_kernel<false>" in src
     assert 'extern "C" int64_t fw_scan_workspace_bytes(' in src
     wrapper = (cuda_build.CSRC.parent / "ops" / "iir.py").read_text()
-    assert "fw_scan_workspace_bytes(int(biquad), rows, frames)" in wrapper
+    assert "fw_scan_workspace_bytes(int(biquad), rows, frames, sections)" in wrapper
+    assert f"kMaxSections = {iir.MAX_SECTIONS};" in src
     assert not hasattr(iir, "BIQUAD_MAX_FRAMES")
     header = (cuda_build.CSRC / "assoc_scan.cuh").read_text()
     assert "sizeof" not in header and "Affine2" in header and "Affine1" in header
-    for entry in ("fw_biquad_scan", "fw_one_pole_scan"):
+    for entry in ("fw_biquad_cascade", "fw_one_pole_scan"):
         assert f'extern "C" int {entry}(' in src
     assert "--fmad=false" in cuda_build.NVCC_FLAGS
 
@@ -192,4 +211,4 @@ def test_rows_past_shared_memory_take_the_plain_path(no_kernel):
                                torch.from_numpy(a)[:, None], torch.from_numpy(b)[:, None])
     np.testing.assert_array_equal(ty.numpy(), np.asarray(jy))
     np.testing.assert_array_equal(tl.numpy(), np.asarray(jl))
-    assert iir.biquad_scan.launches == 0 and iir.one_pole_scan.launches == 0
+    assert iir.biquad_cascade.launches == 0 and iir.one_pole_scan.launches == 0

@@ -1,12 +1,14 @@
-"""Device time of the sequential biquad (K1), the megakernel (K2) and the
-island kernel (K3) on one NVIDIA GPU, for the port in a given checkout.
+"""Device time of the sequential biquad (K1), the megakernel (K2), the
+island kernel (K3) and the associative scans (K7) on one NVIDIA GPU, for the
+port in a given checkout.
 
 Run from the root of a checkout:
 
-    python3 time_megakernel.py [--root DIR]
+    python3 time_megakernel.py [--root DIR] [--kernels k1,k2,k2rows,k3,palette,k7]
 
 ``--root`` names the checkout whose ``firewheel_tpu_torch`` is timed (this
-one by default), so that two designs can be timed in one run on one card.
+one by default), so that two designs can be timed in one run on one card;
+``--kernels`` the measurements below to take (all by default).
 Each time is the kernel's device time per launch by ``torch.profiler`` over
 10 launches after a warm-up, every launch from the same params and state:
 
@@ -18,11 +20,11 @@ Each time is the kernel's device time per launch by ``torch.profiler`` over
   (``chip_smoke.py`` phase 5), with every pan and volume smoother at rest;
 * the same chunk with every smoother ramping: each pan and volume moved by
   2e-3, so that it ramps for ~20 of the 32 blocks, settles and rests;
-* K2 at rest with the rows of one kind replaced by the dummy device
+* (k2rows) K2 at rest with the rows of one kind replaced by the dummy device
   function, which writes zeros (not a valid render): what is saved is what
   that kind of row costs, and with every row a dummy what is left is the
   walk itself (tables, leaves, flags, outputs);
-* K2 at rest on the same mixer compiled in blocks of 127 frames (K=32):
+* (k2rows) K2 at rest on the same mixer compiled in blocks of 127 frames (K=32):
   the kernel's instantiation for any block length, with its padded arena
   rows (a checkout whose kernel refuses the block prints so);
 * K3 on the effects chain's island (filter, echo, clip) inside the hybrid
@@ -30,7 +32,16 @@ Each time is the kernel's device time per launch by ``torch.profiler`` over
 * the FX palette's lowerings at B=1024, K=8 (``chip_smoke.py`` 13(c), its
   checks included): K2 on the palette without the flanger, and K3 on the
   hybrid's two islands around it, the two islands' times summed (a
-  checkout without the FX rows skips this).
+  checkout without the FX rows or without ``biquad_cascade`` skips this);
+* K7 at ``chip_smoke.SCAN_TIMED``'s shapes: ``biquad_scan`` and
+  ``one_pole_scan`` at f32[16384, 128] (the batched rows), the one-pole at
+  f32[1048576, 128] (the spatial scene's pooled spatializers), both at
+  [2, 128] and [2, 256] (the streams' rows), and ``biquad_cascade`` of 3
+  and 2 sections (the EQ's bands, the meter's K-weighting) at the batched
+  and the streams' rows, and both at f32[16384, 16384] (rows past shared
+  memory), beside a call's time (CUDA events over 50 calls, 3 for the long
+  rows) and the bound; a checkout without ``biquad_cascade`` runs the sections
+  as that many ``biquad_scan`` calls, and its device time is their sum.
 
 Prints the card's name and power limit, then one JSON object a
 measurement.
@@ -73,28 +84,42 @@ def move_smoothed(params: dict) -> dict:
     return moved
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("time_megakernel: no CUDA device", file=sys.stderr)
-        return 2
-    root = os.path.abspath(args.root)
-    sys.path.insert(0, root)
-    import firewheel_tpu_torch as ft
-    from firewheel_tpu_torch import executor_mega as em
-    from firewheel_tpu_torch.mixer import vary_effects_params
+def time_k7(iir, emit) -> None:
+    """K7 at SCAN_TIMED's shapes (see the module's docstring)."""
+    import types
 
-    print(f"card: {card_line()}; torch {torch.__version__}; port from {ft.__file__}",
-          flush=True)
+    from chip_smoke import (K7_KERNEL, SCAN_TIMED, SCAN_TIMED_LONG, bound, k7_operands,
+                            scan_work)
 
-    def emit(**kw):
-        print(json.dumps({"root": root, **kw}), flush=True)
+    chained = not hasattr(iir, "biquad_cascade")
+    if chained:
+        def chain(scan):
+            def run(x, states, sections):
+                out = []
+                for z, c in zip(states, sections):
+                    x, z = scan(x, z, c)
+                    out.append(z)
+                return x, tuple(out)
+            return run
+        iir = types.SimpleNamespace(**vars(iir), biquad_cascade=chain(iir.biquad_scan),
+                                    biquad_cascade_reference=chain(
+                                        iir.biquad_scan_reference))
+    gen = torch.Generator().manual_seed(77)
+    for kind, rows, n, sections in SCAN_TIMED + SCAN_TIMED_LONG:
+        fn, _, args = k7_operands(iir, kind, rows, n, gen, sections)
+        launches = sections if chained and kind == "cascade" else 1
+        reps = 3 if n > 1024 else REPS
+        ms = device_ms(lambda: fn(*args), K7_KERNEL[kind], reps, launches)
+        call_ms = cuda_ms(lambda: fn(*args), reps if n > 1024 else 50)
+        b_ms = bound(*scan_work(kind, rows, n, sections))[0]
+        emit(kernel="K7", entry=kind, rows=rows, frames=n, sections=sections,
+             launches=launches, device_ms=ms, call_ms=call_ms, bound_ms=b_ms,
+             share=b_ms / ms)
+        del args
+        torch.cuda.empty_cache()
 
-    import firewheel_tpu_torch.mixer as fmixer
-    from firewheel_tpu_torch.ops import iir, seq_iir
 
+def time_k1(iir, seq_iir, emit) -> None:
     gen = torch.Generator().manual_seed(1234)
     for lanes in K1_LANES:
         x = torch.randn((lanes, 128), generator=gen).to("cuda")
@@ -116,6 +141,12 @@ def main() -> int:
             emit(kernel="K1", lanes=lanes, frames=128, filters=filters,
                  device_ms=ms, call_ms=call_ms)
 
+
+def time_k2(ft, em, take, emit) -> None:
+    """K2 on the mixer at rest and ramping (k2), and by kind of row and at
+    127-frame blocks (k2rows)."""
+    import firewheel_tpu_torch.mixer as fmixer
+
     b, k = MIXER
     prog = ft.mixer_graph(device="cuda")
 
@@ -130,11 +161,14 @@ def main() -> int:
     mega, params = mixer_renderer()
     # a chunk from the defaults leaves every smoother at rest
     _, _, rest = mega.render_chunk(params, mega.init_state(), 0)
-    for smoothers, p in (("at rest", params), ("ramping", move_smoothed(params))):
-        ms = device_ms(lambda: mega.render_chunk(p, rest, k * 128), "mega_kernel",
-                       REPS)
-        emit(kernel="K2", graph="mixer", batch=b, blocks=k, smoothers=smoothers,
-             rows="all", device_ms=ms)
+    if "k2" in take:
+        for smoothers, p in (("at rest", params), ("ramping", move_smoothed(params))):
+            ms = device_ms(lambda: mega.render_chunk(p, rest, k * 128), "mega_kernel",
+                           REPS)
+            emit(kernel="K2", graph="mixer", batch=b, blocks=k, smoothers=smoothers,
+                 rows="all", device_ms=ms)
+    if "k2rows" not in take:
+        return
     for kind, codes in DUMMIES.items():
         mega, _ = mixer_renderer()
         ops = mega.lowered.ops.copy()
@@ -163,6 +197,10 @@ def main() -> int:
         emit(kernel="K2", graph="mixer", batch=b, blocks=k, frames=127,
              refused=str(e))
 
+
+def time_k3(ft, emit) -> None:
+    from firewheel_tpu_torch.mixer import vary_effects_params
+
     for b, k in EFFECTS:
         br = ft.BatchRenderer(ft.effects_chain_graph(device="cuda"), b,
                               device="cuda", lowering="hybrid")
@@ -172,16 +210,51 @@ def main() -> int:
                        "island_kernel", REPS)
         emit(kernel="K3", graph="effects chain", batch=b, blocks=k, device_ms=ms)
 
-    if hasattr(em, "FX_ROWS"):
-        from chip_smoke import PALETTE_HYBRID, palette_lowerings
-        from firewheel_tpu_torch import executor_hybrid as eh
 
-        _, k2, k3 = palette_lowerings(ft, em, eh, iir, card_line())
-        b, k = PALETTE_HYBRID
-        emit(kernel="K2", graph="FX palette without the flanger", batch=b, blocks=k,
-             device_ms=k2[2])
-        emit(kernel="K3", graph="FX palette, both islands", batch=b, blocks=k,
-             device_ms=k3[2])
+def time_palette(ft, em, iir, emit) -> None:
+    from chip_smoke import PALETTE_HYBRID, palette_lowerings
+    from firewheel_tpu_torch import executor_hybrid as eh
+
+    _, k2, k3 = palette_lowerings(ft, em, eh, iir, card_line())
+    b, k = PALETTE_HYBRID
+    emit(kernel="K2", graph="FX palette without the flanger", batch=b, blocks=k,
+         device_ms=k2[2])
+    emit(kernel="K3", graph="FX palette, both islands", batch=b, blocks=k,
+         device_ms=k3[2])
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--root", default=os.path.dirname(os.path.abspath(__file__)))
+    ap.add_argument("--kernels", default="k1,k2,k2rows,k3,palette,k7")
+    args = ap.parse_args()
+    take = set(args.kernels.split(","))
+    if not torch.cuda.is_available():
+        print("time_megakernel: no CUDA device", file=sys.stderr)
+        return 2
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    import firewheel_tpu_torch as ft
+    from firewheel_tpu_torch import executor_mega as em
+    from firewheel_tpu_torch.ops import iir, seq_iir
+
+    print(f"card: {card_line()}; torch {torch.__version__}; port from {ft.__file__}",
+          flush=True)
+
+    def emit(**kw):
+        print(json.dumps({"root": root, **kw}), flush=True)
+
+    if "k7" in take:
+        time_k7(iir, emit)
+    if "k1" in take:
+        time_k1(iir, seq_iir, emit)
+    if take & {"k2", "k2rows"}:
+        time_k2(ft, em, take, emit)
+    if "k3" in take:
+        time_k3(ft, emit)
+    # the palette's checks count K7 through biquad_cascade
+    if "palette" in take and hasattr(em, "FX_ROWS") and hasattr(iir, "biquad_cascade"):
+        time_palette(ft, em, iir, emit)
     return 0
 
 
