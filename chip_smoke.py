@@ -23,11 +23,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
    2048 lanes: its device time (``torch.profiler``) and a call with the
    wrapper's host work (CUDA events); and its plain version.
    3(b). Holds K4 (int16[8192, 4096, 2], the adpcm4 fleet's chunk, and
-   three ragged shapes), K5 (each of its four kinds: the envelope, the
-   limiter's release and the gate's latch at 8192 lanes, the pink filter
-   at 16 384, F=128) and K6 (f32[8192, 2, 128], the blocks before and
+   six ragged shapes: odd batches, S not a multiple of the kernel's
+   64-sample stage, 1, 3 and 33 channels), K5 (each of its four kinds: the
+   envelope, the limiter's release and the gate's latch at 8192 lanes, the
+   pink filter at 16 384, F=128; each also at the streams' [1, 256] and
+   [2, 256], at [3, 127] and [33, 4096]; coefficients per lane, as
+   numbers, as 0-d tensors and as broadcast views, the pink's poles as one
+   state read in place) and K6 (f32[8192, 2, 128], the blocks before and
    after the 2^32 wrap of the stream clock) against their plain versions
-   on the card, bit for bit, and times each.
+   on the card, bit for bit, and times each (K5 at its main and the
+   streams' shapes).
    3(c). Holds K7's entry points (``ops/iir.py:biquad_scan``,
    ``one_pole_scan`` and ``biquad_cascade``) against their plain versions
    on the card, bit for bit, at f32[16384, 128] (the eager filter, a
@@ -513,39 +518,88 @@ def once_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def scan_operands(dynamics, kind: str, lanes: int, gen):
-    """``(kind code, x, carry, coefs)`` for K5 at the main path's lanes:
-    levels, gains or white noise ``f32[lanes, 128]`` and each kind's state
-    and per-lane coefficients, on the card."""
-    dev = torch.device("cuda")
+#: K5's kinds by name (``ops/dynamics.py``'s kind codes are attributes there)
+K5_KINDS = ("envelope", "limiter", "gate", "pink")
+#: (lanes, frames) where 3(b) holds K5 bit for bit, each kind: the batched
+#: bus (the dynamics' B lanes, the pink filter's B x 2 channels), the
+#: streams' 1 and 2 lanes at 256 frames, a ragged warp at 127 frames (the
+#: 4-byte copies) and rows longer than the ring of stages
+K5_SHAPES = ((B, 128), (2 * B, 128), (1, 256), (2, 256), (3, 127), (33, 4096))
+#: where 3(b) times K5: each kind at its main path's lanes and the streams'
+K5_TIMED = ((B, 128), (1, 256), (2, 256))
+#: K4 beside the fleet's chunk: ragged batches, S not a multiple of the
+#: kernel's 64-sample stage, 1, 3 and 33 channels
+K4_SHAPES = ((3, 8, 2), (5, 136, 1), (33, 512, 2), (9, 1000, 2), (4, 72, 3), (2, 200, 33))
 
-    def u(lo, hi, shape=(lanes,)):
+
+def k5_lanes(kind: str, lanes: int) -> int:
+    """The pink filter runs two lanes an instance (its stereo channels)."""
+    return 2 * lanes if kind == "pink" and lanes == B else lanes
+
+
+def scan_operands(dynamics, kind: str, lanes: int, gen, frames: int = 128,
+                  form: str = "lane"):
+    """``(kind code, x, carry, coefs)`` for K5 at ``f32[lanes, frames]``:
+    levels, gains or white noise and each kind's state and coefficients on
+    the card, the coefficients per lane (``form="lane"``), numbers, 0-d
+    tensors, or one an instance of two lanes (``"broadcast"``: x
+    ``[lanes / 2, 2, frames]``, coefficients ``[lanes / 2, 1]`` read in
+    place); the pink's poles per lane or as one ``[lanes, 3]`` state
+    (``"stacked"``, the node's)."""
+    dev = torch.device("cuda")
+    lead = (lanes // 2, 2) if form == "broadcast" else (lanes,)
+
+    def u(lo, hi, shape=lead):
         return (lo + (hi - lo) * torch.rand(shape, generator=gen)).to(dev)
 
+    def coef(lo, hi):
+        if form == "number":
+            return float(lo + (hi - lo) * torch.rand((), generator=gen))
+        if form == "zero_d":
+            return u(lo, hi, ())
+        if form == "broadcast":
+            return u(lo, hi, (lanes // 2, 1))
+        return u(lo, hi)
+
+    x = lambda lo, hi: u(lo, hi, lead + (frames,))  # noqa: E731
     if kind == "envelope":
-        return (dynamics.ENVELOPE, u(0.0, 1.0, (lanes, 128)), (u(0.0, 1.0),),
-                (u(0.99, 0.999), u(0.999, 0.99999)))
+        return dynamics.ENVELOPE, x(0.0, 1.0), (u(0.0, 1.0),), (coef(0.99, 0.999),
+                                                                coef(0.999, 0.99999))
     if kind == "limiter":
-        return (dynamics.LIMITER, u(0.2, 1.0, (lanes, 128)), (u(0.2, 1.0),),
-                (u(0.999, 0.9999),))
+        return dynamics.LIMITER, x(0.2, 1.0), (u(0.2, 1.0),), (coef(0.999, 0.9999),)
     if kind == "gate":
-        carry = ((torch.rand((lanes,), generator=gen) < 0.5).float().to(dev),
-                 torch.randint(0, 60, (lanes,), generator=gen).float().to(dev),
+        carry = ((torch.rand(lead, generator=gen) < 0.5).float().to(dev),
+                 torch.randint(0, 60, lead, generator=gen).float().to(dev),
                  u(0.0, 1.0))
-        coefs = (u(0.02, 0.05), u(0.005, 0.02), u(0.0, 0.5), u(0.9, 0.99),
-                 u(0.999, 0.9999), torch.full((lanes,), 48.0, device=dev))
-        return dynamics.GATE, u(0.0, 0.06, (lanes, 128)), carry, coefs
-    return (dynamics.PINK, u(-1.0, 1.0, (lanes, 128)),
-            tuple(u(-20.0, 20.0) for _ in range(3)), ())
+        coefs = (coef(0.02, 0.05), coef(0.005, 0.02), coef(0.0, 0.5), coef(0.9, 0.99),
+                 coef(0.999, 0.9999), 48.0 if form == "number" else
+                 torch.full(lead, 48.0, device=dev))
+        return dynamics.GATE, x(0.0, 0.06), carry, coefs
+    carry = (u(-20.0, 20.0, lead + (3,)) if form == "stacked"
+             else tuple(u(-20.0, 20.0) for _ in range(3)))
+    return dynamics.PINK, x(-1.0, 1.0), carry, ()
+
+
+def k5_work(x, carry, coefs):
+    """Bytes K5 must move: x read and y written, the carry in and out, the
+    per-lane coefficients (a number or a 0-d tensor read once)."""
+    lanes = x.numel() // x.shape[-1]
+    n_carry = carry.shape[-1] if isinstance(carry, torch.Tensor) else len(carry)
+    per_lane = sum(isinstance(c, torch.Tensor) and c.numel() > 1 for c in coefs)
+    return 4 * (2 * x.numel() + lanes * (2 * n_carry + per_lane))
 
 
 def check_new_kernels(adpcm_device, dynamics, noise):
     """Phase 3(b): K4, K5 (each of its four step kinds) and K6 against their
-    plain versions on the card at the main paths' shapes, bit for bit
-    (tolerance 0.0: integer-exact, or the same fused multiply-adds); each
-    one's device time (``torch.profiler``), a call's (CUDA events), the
-    plain version's, and its work → ``{name: (err, ms, call_ms, plain_ms,
-    (bytes, ops))}``."""
+    plain versions on the card, bit for bit (tolerance 0.0: integer-exact,
+    or the same fused multiply-adds): K4 at the fleet's chunk and at
+    K4_SHAPES, K5 at K5_SHAPES with the coefficients per lane, and at its
+    main shapes also as numbers, 0-d tensors and broadcast views, and the
+    pink's poles as one state read in place; each one's device time
+    (``torch.profiler``), a call's (CUDA events), the plain version's, and
+    its work at the main shapes (K5 also at the streams') → ``{name: (err,
+    ms, call_ms, plain_ms, (bytes, ops))}``, K5's other timed shapes under
+    ``"sample_scan_at"`` by label."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(4321)
     res = {}
@@ -558,7 +612,7 @@ def check_new_kernels(adpcm_device, dynamics, noise):
     pcm[0, : s // 2] = -32768
     pcm[0, s // 2:] = 32767
     pcm = pcm.to(dev)
-    for shape in ((3, 8, 2), (5, 136, 1), (33, 512, 2)):
+    for shape in K4_SHAPES:
         x = (torch.randn(shape, generator=gen) * 9000).clamp(-32768, 32767)
         x = x.to(torch.int16).to(dev)
         if not torch.equal(adpcm_device.encode_ima_chunk(x),
@@ -576,33 +630,56 @@ def check_new_kernels(adpcm_device, dynamics, noise):
     call_ms = cuda_ms(lambda: adpcm_device.encode_ima_chunk(pcm), 20)
     work = (pcm.numel() * 2 + rows.numel(), K4_OPS * pcm.numel())
     log(f"K4 vs plain at int16{tuple(pcm.shape)} → uint8{tuple(rows.shape)}: bit "
-        f"for bit (and at 3 ragged shapes); kernel {ms:.4f} ms on the device, "
-        f"{call_ms:.4f} ms a call, plain {plain_ms:.1f} ms (one call)")
+        f"for bit (and at {list(K4_SHAPES)}); kernel {ms:.4f} ms on the device, "
+        f"{call_ms:.4f} ms a call, plain {plain_ms:.1f} ms (one call); serial "
+        f"chain {ms / s * 1e6:.2f} ns a sample")
     res["adpcm_encode"] = (0.0, ms, call_ms, plain_ms, work)
     del pcm, rows, ref
 
-    # K5: each kind at the bus's lanes (the dynamics nodes' B; the pink
-    # filter's B x 2 channels), carry and output bit for bit
-    times = {}
-    for kind in ("envelope", "limiter", "gate", "pink"):
-        lanes = 2 * B if kind == "pink" else B
-        code, x, carry, coefs = scan_operands(dynamics, kind, lanes, gen)
+    # K5: each kind at K5_SHAPES, carry and output bit for bit; at the main
+    # shapes each form of operand
+    def check(code, kind, x, carry, coefs, label):
         (c_k, y_k), (c_r, y_r) = (fn(code, x, carry, coefs) for fn in
                                   (dynamics.scan_lanes, dynamics.scan_reference))
         torch.cuda.synchronize()
+        c_k, c_r = ((c,) if isinstance(c, torch.Tensor) else c for c in (c_k, c_r))
         if not (torch.equal(y_k, y_r) and all(map(torch.equal, c_k, c_r))):
             e = float((y_k - y_r).abs().max())
-            raise AssertionError(f"K5 ({kind}) disagrees with its plain version: {e}")
-        ms = device_ms(lambda: dynamics.scan_lanes(code, x, carry, coefs),
-                       "sample_scan", KERNEL_REPS)
-        call_ms = cuda_ms(lambda: dynamics.scan_lanes(code, x, carry, coefs), 50)
-        plain_ms = cuda_ms(lambda: dynamics.scan_reference(code, x, carry, coefs), 1)
-        nbytes = 4 * (2 * x.numel() + lanes * (2 * len(carry) + len(coefs)))
-        times[kind] = (ms, call_ms, plain_ms, (nbytes, K5_OPS[kind] * x.numel()))
-        log(f"K5 vs plain, {kind} at f32[{lanes}, 128]: bit for bit; kernel "
-            f"{ms:.4f} ms on the device, {call_ms:.4f} ms a call, plain "
-            f"{plain_ms:.2f} ms")
-    res["sample_scan"] = (0.0, *times["pink"])
+            raise AssertionError(f"K5 ({kind}, {label}) disagrees with its plain "
+                                 f"version: {e}")
+
+    cases = 0
+    for kind in K5_KINDS:
+        for lanes, n in K5_SHAPES:
+            if lanes in (B, 2 * B) and lanes != k5_lanes(kind, B):
+                continue  # the pink at 2B lanes, the others at B
+            forms = (("lane", "stacked") if kind == "pink" else
+                     ("lane", "number", "zero_d", "broadcast") if lanes >= B else ("lane",))
+            for form in forms:
+                code, x, carry, coefs = scan_operands(dynamics, kind, lanes, gen, n, form)
+                check(code, kind, x, carry, coefs, f"f32[{lanes}, {n}], {form}")
+                cases += 1
+    log(f"K5 vs plain: bit for bit in {cases} cases, each kind at "
+        f"{[list(sh) for sh in K5_SHAPES]} (the pink at {2 * B} lanes, the others at "
+        f"{B}), coefficients per lane, as numbers, 0-d tensors and broadcast views, "
+        f"the pink's poles in place")
+    times = {}
+    for kind in K5_KINDS:
+        for lanes, n in K5_TIMED:
+            lanes = k5_lanes(kind, lanes)
+            code, x, carry, coefs = scan_operands(dynamics, kind, lanes, gen, n)
+            ms = device_ms(lambda: dynamics.scan_lanes(code, x, carry, coefs),
+                           "sample_scan", KERNEL_REPS)
+            call_ms = cuda_ms(lambda: dynamics.scan_lanes(code, x, carry, coefs), 50)
+            plain_ms = cuda_ms(lambda: dynamics.scan_reference(code, x, carry, coefs), 1)
+            work = (k5_work(x, carry, coefs), K5_OPS[kind] * x.numel())
+            times[f"{kind} f32[{lanes}, {n}]"] = (0.0, ms, call_ms, plain_ms, work)
+            b_ms = bound(*work)[0]
+            log(f"K5 {kind} at f32[{lanes}, {n}]: kernel {ms:.4f} ms on the device, "
+                f"{call_ms:.4f} ms a call, plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms "
+                f"by bytes ({work[0] / 1e6:.3f} MB), {100 * b_ms / ms:.1f}% of it")
+    res["sample_scan"] = times[f"pink f32[{2 * B}, 128]"]
+    res["sample_scan_at"] = times
 
     # K6 at the bus's draw, f32[8192, 2, 128], the block before the clock
     # wraps and the first after it
@@ -3956,6 +4033,12 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         if name == "biquad_seq":  # at the stream's width, 2 lanes
             kernels[-1].update(zip(("stream_ms", "stream_call_ms", "stream_plain_ms",
                                     "stream_bound_ms"), k1_stream))
+        if name == "sample_scan":  # every kind and shape 3(b) timed
+            kernels[-1]["at"] = {
+                label: {"ms": k_ms, "call_ms": k_call, "plain_ms": k_plain,
+                        "bound_ms": bound(*k_work)[0], "share": bound(*k_work)[0] / k_ms}
+                for label, (_, k_ms, k_call, k_plain, k_work)
+                in new_kernels["sample_scan_at"].items()}
         if name in ("biquad_scan", "one_pole_scan"):  # every shape 3(c) timed
             kinds = ("biquad ", "cascade ") if name == "biquad_scan" else ("one_pole ",)
             kernels[-1]["at"] = {

@@ -80,10 +80,10 @@ class NoiseProcessor(NodeProcessor):
         if self._node._color != "pink":
             noise = white * params["gain"][..., None, None]
             return gate(noise, silent), {"pink": state["pink"]}, _flag_mask(silent, ch)
-        poles, pink = scan_lanes(PINK, white, state["pink"].unbind(-1), ())
+        # the poles [..., ch, 3] go to K5 and come back in that layout
+        poles, pink = scan_lanes(PINK, white, state["pink"], ())
         noise = pink * params["gain"][..., None, None]
-        return (gate(noise, silent), {"pink": torch.stack(poles, dim=-1)},
-                _flag_mask(silent, ch))
+        return gate(noise, silent), {"pink": poles}, _flag_mask(silent, ch)
 
 
 class NoiseNode(AudioNode):

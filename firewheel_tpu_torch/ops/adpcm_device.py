@@ -18,7 +18,8 @@ of the final frame, as the host encoder pads).  Decode with
   port has no uint32 arithmetic on the CPU), nibbles packed after it.
 * :func:`encode_ima_chunk` — the wrapper.  CPU tensors run the plain
   version; CUDA tensors launch ``csrc/adpcm.cu`` (K4, one thread per
-  instance and channel) or raise.  Both equal
+  instance and channel, the input staged through shared memory, the
+  quantizer as :func:`quantize_by_count`) or raise.  Both equal
   :func:`~firewheel_tpu_torch.utils.adpcm.encode_ima` bit for bit.
 """
 
@@ -33,10 +34,12 @@ from ..utils.adpcm import IMA_STEP_TABLE
 from .cuda_build import CudaLibrary
 
 __all__ = [
+    "MAX_CHANNELS",
     "chunk_block_align",
     "decode_ima_chunk",
     "encode_ima_chunk",
     "encode_ima_chunk_reference",
+    "quantize_by_count",
     "LIBRARY",
 ]
 
@@ -50,6 +53,9 @@ def _bind(lib):
 
 #: ``csrc/adpcm.cu``, built with nvcc at first use
 LIBRARY = CudaLibrary("fw_adpcm", "adpcm.cu", (), _bind)
+
+#: channels K4 takes (``csrc/adpcm.cu:kMaxChannels``): a graph's outputs
+MAX_CHANNELS = 64
 
 
 def chunk_block_align(num_channels: int, frames: int) -> int:
@@ -111,6 +117,25 @@ def encode_ima_chunk_reference(pcm_i16: torch.Tensor) -> torch.Tensor:
     return torch.cat([head, payload], dim=1).to(torch.uint8)
 
 
+def quantize_by_count(ad: torch.Tensor, step: torch.Tensor):
+    """IMA's quantizer as K4 computes it: ``(mag, dq)`` for ``|diff| = ad``
+    against ``step``.  The successive approximation's first bit is ``ad >=
+    s``; its other two are the count of the thresholds ``q, h, h + q`` (``h
+    = s >> 1``, ``q = s >> 2``) that the remainder ``r = ad - b4·s``
+    reaches, and ``dq = (s >> 3) + b4·s`` plus the largest of them it
+    reaches.  That is :func:`encode_ima_chunk_reference`'s successive
+    approximation for every step of the table (the thresholds increase for
+    ``s >= 7``), with the three comparisons side by side."""
+    b4 = ad >= step
+    r = torch.where(b4, ad - step, ad)
+    q, h = step >> 2, step >> 1
+    thresholds = torch.stack([q, h, h + q])
+    reached = r >= thresholds
+    top = torch.where(reached, thresholds, torch.zeros_like(thresholds)).amax(0)
+    mag = 4 * b4.to(ad.dtype) + reached.sum(0)
+    return mag, (step >> 3) + torch.where(b4, step, 0) + top
+
+
 def encode_ima_chunk(pcm_i16: torch.Tensor) -> torch.Tensor:
     """Encode int16 ``[B, S, No]`` (interleaved frames, S divisible by 8) →
     uint8 ``[B, block_align]`` IMA blocks on the tensor's device.
@@ -125,7 +150,12 @@ def encode_ima_chunk(pcm_i16: torch.Tensor) -> torch.Tensor:
     if pcm_i16.device.type != "cuda":
         raise ValueError(f"encode_ima_chunk: unsupported device {pcm_i16.device}")
     b, s, no = pcm_i16.shape
+    if no > MAX_CHANNELS:
+        raise ValueError(f"encode_ima_chunk: K4 takes up to {MAX_CHANNELS} channels, "
+                         f"got {no}")
     x = pcm_i16.contiguous()
+    if x.data_ptr() % 16:  # the kernel's 16-byte copies
+        x = x.clone()
     out = torch.empty((b, chunk_block_align(no, s)), dtype=torch.uint8, device=x.device)
     if b == 0 or no == 0:
         return out

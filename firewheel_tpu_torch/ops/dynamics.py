@@ -10,7 +10,9 @@ PyTorch port of ``firewheel_tpu/ops/dynamics.py``.
   (:data:`ENVELOPE`, :data:`LIMITER`, :data:`GATE`, :data:`PINK`), one lane
   per row of ``x``.  CPU tensors run :func:`scan_reference` (the kind's
   step through :func:`sample_scan`); CUDA tensors launch
-  ``csrc/sample_scan.cu`` (K5, one thread a lane) or raise.  Each step
+  ``csrc/sample_scan.cu`` (K5: a warp's 32 lanes a CTA, their frames
+  staged through shared memory) or raise, with the operands where they
+  lie (:func:`stage`, K7's ``iir._operand``).  Each step
   writes out the fused multiply-adds that XLA makes of the JAX package's
   scan body on the CPU (``ops/iir.py:_fma``), and the kernel the same
   ``fmaf``, so the two agree to the bit and both match the JAX package.
@@ -22,12 +24,14 @@ PyTorch port of ``firewheel_tpu/ops/dynamics.py``.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
 from .cuda_build import CudaLibrary
+from .iir import _c_operand, _Operand, _operand
 
 __all__ = [
     "ENVELOPE", "LIMITER", "GATE", "PINK",
@@ -46,8 +50,7 @@ ENVELOPE, LIMITER, GATE, PINK = 0, 1, 2, 3
 
 def _bind(lib):
     fn = lib.fw_sample_scan
-    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 5 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.POINTER(_Args), ctypes.c_void_p]
     fn.restype = ctypes.c_int
 
 
@@ -142,42 +145,101 @@ _KINDS = {
 }
 
 
-def _operands(kind, x, carry, coefs):
-    """Validate and broadcast: the carry and the coefficients, each to the
-    lanes ``x.shape[:-1]``."""
+def _check(kind, x, carry, coefs):
+    """Validate the call → ``(carry leaves, stacked)``: ``carry`` is a tuple
+    of leaves, or one tensor ``[..., n_carry]`` whose last axis holds them
+    (``stacked``)."""
     if kind not in _KINDS:
         raise ValueError(f"scan_lanes: unknown kind {kind!r}")
     _, n_carry, n_coef = _KINDS[kind]
     if not isinstance(x, torch.Tensor) or x.dtype != torch.float32:
         raise TypeError("scan_lanes: x must be a float32 tensor")
-    if len(carry) != n_carry or len(coefs) != n_coef:
+    stacked = isinstance(carry, torch.Tensor)
+    if stacked and (carry.ndim == 0 or carry.shape[-1] != n_carry):
+        raise ValueError(f"scan_lanes: kind {kind} takes {n_carry} carry leaves, got "
+                         f"a tensor of shape {tuple(carry.shape)}")
+    leaves = tuple(carry[..., k] for k in range(n_carry)) if stacked else tuple(carry)
+    if len(leaves) != n_carry or len(coefs) != n_coef:
         raise ValueError(f"scan_lanes: kind {kind} takes {n_carry} carry leaves "
-                         f"and {n_coef} coefficients, got {len(carry)}, {len(coefs)}")
-    lead = x.shape[:-1]
-
-    def lanes(t, what):
-        if not isinstance(t, torch.Tensor):
-            t = torch.tensor(_f32(t), dtype=torch.float32, device=x.device)
-        if t.dtype != torch.float32 or t.device != x.device:
-            raise ValueError(f"scan_lanes: {what} must be float32 on {x.device}")
-        return t.broadcast_to(lead)
-
-    return (tuple(lanes(c, "carry") for c in carry),
-            tuple(lanes(c, "coefficients") for c in coefs))
+                         f"and {n_coef} coefficients, got {len(leaves)}, {len(coefs)}")
+    for t in leaves + tuple(coefs):
+        if isinstance(t, torch.Tensor) and (t.dtype != torch.float32
+                                            or t.device != x.device):
+            raise ValueError(f"scan_lanes: the carry and the coefficients must be "
+                             f"float32 on {x.device}")
+    return leaves, stacked
 
 
 def scan_reference(kind, x, carry, coefs):
     """Plain version of :func:`scan_lanes`: the kind's step through
     :func:`sample_scan`, on the tensors' device."""
-    carry, coefs = _operands(kind, x, carry, coefs)
+    leaves, stacked = _check(kind, x, carry, coefs)
+    lead = x.shape[:-1]
+
+    def lanes(t):
+        if not isinstance(t, torch.Tensor):
+            t = torch.tensor(_f32(t), dtype=torch.float32, device=x.device)
+        return t.broadcast_to(lead)
+
+    coefs = tuple(map(lanes, coefs))
     step = _KINDS[kind][0]
-    return sample_scan(lambda c, xv: step(coefs, c, xv), carry, x)
+    out, y = sample_scan(lambda c, xv: step(coefs, c, xv), tuple(map(lanes, leaves)), x)
+    return (torch.stack(out, dim=-1) if stacked else out), y
+
+
+class _Args(ctypes.Structure):
+    """``csrc/sample_scan.cu:k5::Args``."""
+
+    _fields_ = [("x", ctypes.c_void_p), ("y", ctypes.c_void_p),
+                ("carry", _Operand * 3), ("coef", _Operand * 6),
+                ("carry_out", ctypes.c_void_p), ("out_leaf", ctypes.c_int64),
+                ("out_lane", ctypes.c_int64), ("inner", ctypes.c_int64),
+                ("lanes", ctypes.c_int64), ("frames", ctypes.c_int)]
+
+
+class Staged(NamedTuple):
+    """What :func:`scan_lanes` hands the kernel: ``x`` and ``y`` as
+    ``[lanes, F]``; each carry leaf and coefficient as ``iir._operand``
+    stages it, ``(tensor or None, outer stride, inner stride, value)``
+    over the lanes ``[lanes // inner, inner]``; and ``carry_out``, where
+    the kernel writes leaf ``k`` of lane ``l`` at element ``k·out_leaf +
+    l·out_lane``."""
+
+    x: torch.Tensor
+    y: torch.Tensor
+    carry: tuple
+    coefs: tuple
+    carry_out: torch.Tensor
+    out_leaf: int
+    out_lane: int
+    inner: int
+
+
+def stage(x, leaves, coefs, stacked: bool) -> Staged:
+    """The kernel's operands (:class:`Staged`) for checked ``leaves`` and
+    ``coefs``: numbers by value, tensors in place where their leading axes
+    fold into one stride; no stack, no copy from the host.  The carry goes
+    out as one tensor ``[..., n_carry]`` when ``stacked``, else as
+    ``[n_carry, ...]`` whose rows are the leaves."""
+    lead = x.shape[:-1]
+    x = x.contiguous()
+    n = len(leaves)
+    if stacked:
+        carry_out = torch.empty(lead + (n,), dtype=torch.float32, device=x.device)
+        out_leaf, out_lane = 1, n
+    else:
+        carry_out = torch.empty((n,) + lead, dtype=torch.float32, device=x.device)
+        out_leaf, out_lane = lead.numel(), 1
+    staged = lambda vs: tuple(_operand(v, lead, x.device) for v in vs)  # noqa: E731
+    return Staged(x, torch.empty_like(x), staged(leaves), staged(coefs), carry_out,
+                  out_leaf, out_lane, lead[-1] if lead else 1)
 
 
 def scan_lanes(kind, x, carry, coefs):
     """Run the recurrence ``kind`` along the last axis of ``x f32[..., F]``,
-    one lane per row.  ``carry`` and ``coefs`` are tuples of float32
-    tensors (or floats) that broadcast to ``x.shape[:-1]``:
+    one lane per row.  ``carry`` is a tuple of float32 tensors (or numbers)
+    that broadcast to ``x.shape[:-1]``, or one tensor ``[..., n_carry]``
+    that holds them along its last axis; ``coefs`` a tuple of such leaves:
 
     * :data:`ENVELOPE`: carry ``(env,)``, coefs ``(attack_b, release_b)``;
     * :data:`LIMITER`: carry ``(env,)``, coefs ``(release_b,)``;
@@ -185,34 +247,39 @@ def scan_lanes(kind, x, carry, coefs):
       close_lin, floor, attack_b, release_b, hold_n)``;
     * :data:`PINK`: carry the three poles, no coefs.
 
-    Returns ``(carry', y f32[..., F])``, each carry leaf shaped
-    ``x.shape[:-1]``.  CPU tensors run :func:`scan_reference`; CUDA tensors
-    launch K5 and add one to ``scan_lanes.launches``."""
+    Returns ``(carry', y f32[..., F])``, the carry in the form it came in:
+    a tuple of leaves shaped ``x.shape[:-1]``, or one tensor
+    ``x.shape[:-1] + (n_carry,)``.  CPU tensors run :func:`scan_reference`;
+    CUDA tensors launch K5 on the operands where they lie (:func:`stage`)
+    and add one to ``scan_lanes.launches``."""
+    leaves, stacked = _check(kind, x, carry, coefs)
     if x.device.type == "cpu":
         return scan_reference(kind, x, carry, coefs)
-    carry, coefs = _operands(kind, x, carry, coefs)
     if x.device.type != "cuda":
         raise ValueError(f"scan_lanes: unsupported device {x.device}")
-    lead = x.shape[:-1]
-    lanes = lead.numel()
-    x = x.contiguous()
-    y = torch.empty_like(x)
-    carry_in = torch.stack(carry).reshape(len(carry), lanes).contiguous()
-    coef = (torch.stack(coefs).reshape(len(coefs), lanes).contiguous() if coefs
-            else carry_in)  # PINK reads none
-    carry_out = torch.empty_like(carry_in)
-    if lanes == 0:
-        return tuple(c.reshape(lead) for c in carry_out), y
-    lib = LIBRARY.load()
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = lib.fw_sample_scan(kind, x.data_ptr(), y.data_ptr(), carry_in.data_ptr(),
-                                 carry_out.data_ptr(), coef.data_ptr(), lanes,
-                                 x.shape[-1], stream)
-    if err != 0:
-        raise RuntimeError(f"scan_lanes: kernel launch failed (cudaError {err})")
-    scan_lanes.launches += 1
-    return tuple(c.reshape(lead) for c in carry_out), y
+    s = stage(x, leaves, coefs, stacked)
+    lanes = s.x.shape[:-1].numel()
+    if lanes:
+        keep = []
+        args = _Args(x=s.x.data_ptr(), y=s.y.data_ptr(), carry_out=s.carry_out.data_ptr(),
+                     out_leaf=s.out_leaf, out_lane=s.out_lane, inner=s.inner,
+                     lanes=lanes, frames=s.x.shape[-1])
+        for k, op in enumerate(s.carry):
+            args.carry[k] = _c_operand(op, keep)
+        for k, op in enumerate(s.coefs):
+            args.coef[k] = _c_operand(op, keep)
+        lib = LIBRARY.load()
+        if x.device.index != torch.cuda.current_device():
+            with torch.cuda.device(x.device):
+                err = lib.fw_sample_scan(kind, ctypes.byref(args),
+                                         torch.cuda.current_stream().cuda_stream)
+        else:
+            err = lib.fw_sample_scan(kind, ctypes.byref(args),
+                                     torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"scan_lanes: kernel launch failed (cudaError {err})")
+        scan_lanes.launches += 1
+    return (s.carry_out if stacked else s.carry_out.unbind(0)), s.y
 
 
 #: kernel launches since the counter was last set to 0

@@ -383,7 +383,7 @@ def _row_strides(shape, strides, lead):
     ``strides`` broadcast to ``lead``, or None when its leading axes do not
     fold into one stride.  Raises when it does not broadcast."""
     if len(shape) > len(lead) and any(s != 1 for s in shape[:len(shape) - len(lead)]):
-        raise ValueError(f"K7: an operand of shape {tuple(shape)} does not broadcast "
+        raise ValueError(f"an operand of shape {tuple(shape)} does not broadcast "
                          f"to the rows {tuple(lead)}")
     pad = len(lead) - len(shape)
     st = []
@@ -395,7 +395,7 @@ def _row_strides(shape, strides, lead):
         elif have == 1:
             st.append(0)
         else:
-            raise ValueError(f"K7: an operand of shape {tuple(shape)} does not "
+            raise ValueError(f"an operand of shape {tuple(shape)} does not "
                              f"broadcast to the rows {tuple(lead)}")
     if not st:
         return 0, 0
@@ -427,10 +427,10 @@ def _operand(v, lead, device):
             return None, 0, 0, float(a.reshape(()))
         v = torch.from_numpy(np.ascontiguousarray(a)).to(device)
     if v.device != device:
-        raise ValueError(f"K7: an operand is on {v.device}, x is on {device}")
+        raise ValueError(f"an operand is on {v.device}, x is on {device}")
     if v.dtype != torch.float32:
         v = v.float()
-    if lead and v.shape[:-1] == lead[:-1] and v.is_contiguous():
+    if lead and v.ndim == len(lead) and v.shape[:-1] == lead[:-1] and v.is_contiguous():
         if v.shape[-1] == lead[-1]:  # one value a row, in order
             return v, lead[-1], 1, 0.0
         if v.shape[-1] == 1:  # one value for the last axis (a filter an instance)

@@ -173,3 +173,37 @@ def test_params_and_state_trees_round_trip(make):
         for k in jstate:
             assert got[k].dtype == jstate[k].dtype and got[k].shape == jstate[k].shape
             np.testing.assert_array_equal(got[k], jstate[k])
+
+
+@pytest.mark.parametrize("frames", [F, 100])
+def test_pink_node_hands_its_poles_to_k5_in_place(monkeypatch, frames):
+    """The pink node passes its state ``[B, 2, 3]`` to ``scan_lanes`` as it
+    lies and keeps the ``[B, 2, 3]`` that comes back, with no unbind and no
+    stack: the state it carries is the one the poles as three leaves give,
+    bit for bit, and its noise the same."""
+    from firewheel_tpu_torch.nodes import generators as tgen
+
+    carried = []
+
+    def spy(kind, x, carry, coefs):
+        carried.append(carry)
+        return td.scan_lanes(kind, x, carry, coefs)
+
+    monkeypatch.setattr(tgen, "scan_lanes", spy)
+    rng = np.random.default_rng(21)
+    proc = tn.NoiseNode("pink", seed=5).activate(SR, F, 0, 2)
+    params = {"gain": torch.from_numpy(rng.uniform(0.05, 1.0, B).astype(np.float32)),
+              "enabled": torch.tensor([True, False, True, True]),
+              "seed": torch.from_numpy(SEEDS[:B].astype(np.int64))}
+    state = {"pink": torch.from_numpy(rng.uniform(-5.0, 5.0, (B, 2, 3)).astype(np.float32))}
+    info = tnode.BlockInfo.make(stream_sample=2**32 - frames)
+    out, new_state, _ = proc.kernel(params, state, torch.zeros((B, 0, frames)),
+                                    torch.zeros((B, 0), dtype=torch.bool), info)
+    assert len(carried) == 1 and carried[0] is state["pink"]
+    white = noise.noise_uniform(params["seed"], info.stream_sample, 2, frames)
+    poles, pink = td.scan_reference(td.PINK, white, state["pink"].unbind(-1), ())
+    want = torch.stack(poles, dim=-1)
+    assert new_state["pink"].shape == (B, 2, 3)
+    np.testing.assert_array_equal(new_state["pink"].numpy(), want.numpy())
+    gain = torch.where(params["enabled"], params["gain"], 0.0)[:, None, None]
+    np.testing.assert_array_equal(out[0].numpy(), (pink * gain)[0].numpy())

@@ -1,10 +1,11 @@
 """Device time of the sequential biquad (K1), the megakernel (K2), the
-island kernel (K3) and the associative scans (K7) on one NVIDIA GPU, for the
+island kernel (K3), the ADPCM encoder (K4), the sample scans (K5), the
+noise draw (K6) and the associative scans (K7) on one NVIDIA GPU, for the
 port in a given checkout.
 
 Run from the root of a checkout:
 
-    python3 time_megakernel.py [--root DIR] [--kernels k1,k2,k2rows,k3,palette,k7]
+    python3 time_megakernel.py [--root DIR] [--kernels k1,k2,k2rows,k3,palette,k7,k4,k5,k6]
 
 ``--root`` names the checkout whose ``firewheel_tpu_torch`` is timed (this
 one by default), so that two designs can be timed in one run on one card;
@@ -41,7 +42,13 @@ Each time is the kernel's device time per launch by ``torch.profiler`` over
   and the streams' rows, and both at f32[16384, 16384] (rows past shared
   memory), beside a call's time (CUDA events over 50 calls, 3 for the long
   rows) and the bound; a checkout without ``biquad_cascade`` runs the sections
-  as that many ``biquad_scan`` calls, and its device time is their sum.
+  as that many ``biquad_scan`` calls, and its device time is their sum;
+* (k4, k5, k6) as ``chip_smoke.py`` phase 3(b) times them: K4 at the
+  adpcm4 fleet's int16[8192, 4096, 2], K5 each kind at ``K5_TIMED`` (the
+  batched bus's lanes, the pink's 16 384, and the streams' [1, 256] and
+  [2, 256]) with the coefficients per lane, K6 at f32[8192, 2, 128]; each
+  beside a call's time (CUDA events over 50 calls, 20 for K4) and its
+  bound.  They are not in the default set: name them.
 
 Prints the card's name and power limit, then one JSON object a
 measurement.
@@ -117,6 +124,46 @@ def time_k7(iir, emit) -> None:
              share=b_ms / ms)
         del args
         torch.cuda.empty_cache()
+
+
+def time_k456(ops, take, emit) -> None:
+    """K4 at the adpcm4 fleet's chunk, K5 (each kind) at ``chip_smoke.
+    K5_TIMED``'s shapes and K6 at the bus's draw, as phase 3(b) times them."""
+    from chip_smoke import (B, K, K4_OPS, K5_KINDS, K5_OPS, K5_TIMED, K6_OPS,
+                            NOISE_SAMPLE, bound, k5_lanes, k5_work, scan_operands)
+
+    gen = torch.Generator().manual_seed(4321)
+    if "k4" in take:
+        s = K * 128
+        pcm = (torch.randn((B, s, 2), generator=gen) * 6000).clamp(-32768, 32767)
+        pcm = pcm.to(torch.int16).to("cuda")
+        fn = lambda: ops.adpcm_device.encode_ima_chunk(pcm)  # noqa: E731
+        ms = device_ms(fn, "adpcm_encode", REPS)
+        call_ms = cuda_ms(fn, 20)
+        b_ms = bound(pcm.numel() * 2 + fn().numel(), K4_OPS * pcm.numel())[0]
+        emit(kernel="K4", shape=list(pcm.shape), device_ms=ms, call_ms=call_ms,
+             bound_ms=b_ms, share=b_ms / ms, ns_a_sample=ms / s * 1e6)
+    if "k5" in take:
+        dyn = ops.dynamics
+        for kind in K5_KINDS:
+            for lanes, n in K5_TIMED:
+                lanes = k5_lanes(kind, lanes)
+                code, x, carry, coefs = scan_operands(dyn, kind, lanes, gen, n)
+                fn = lambda: dyn.scan_lanes(code, x, carry, coefs)  # noqa: E731
+                ms = device_ms(fn, "sample_scan", REPS)
+                call_ms = cuda_ms(fn, 50)
+                b_ms = bound(k5_work(x, carry, coefs), K5_OPS[kind] * x.numel())[0]
+                emit(kernel="K5", kind=kind, lanes=lanes, frames=n, device_ms=ms,
+                     call_ms=call_ms, bound_ms=b_ms, share=b_ms / ms)
+    if "k6" in take:
+        seeds = torch.randint(0, 2**32, (B,), generator=gen, dtype=torch.int64).to("cuda")
+        at = torch.tensor(NOISE_SAMPLE, dtype=torch.int64, device="cuda")
+        fn = lambda: ops.noise.noise_uniform(seeds, at, 2, 128)  # noqa: E731
+        ms = device_ms(fn, "noise_uniform", REPS)
+        n = B * 2 * 128
+        b_ms = bound(4 * n + 8 * B, K6_OPS * n)[0]
+        emit(kernel="K6", shape=[B, 2, 128], device_ms=ms, call_ms=cuda_ms(fn, 50),
+             bound_ms=b_ms, share=b_ms / ms)
 
 
 def time_k1(iir, seq_iir, emit) -> None:
@@ -246,6 +293,11 @@ def main() -> int:
 
     if "k7" in take:
         time_k7(iir, emit)
+    if take & {"k4", "k5", "k6"}:
+        from firewheel_tpu_torch import ops
+        from firewheel_tpu_torch.ops import adpcm_device, dynamics, noise  # noqa: F401
+
+        time_k456(ops, take, emit)
     if "k1" in take:
         time_k1(iir, seq_iir, emit)
     if take & {"k2", "k2rows"}:
