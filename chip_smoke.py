@@ -29,10 +29,12 @@ Run from the root of a checkout:  python3 chip_smoke.py
    pink filter at 16 384, F=128; each also at the streams' [1, 256] and
    [2, 256], at [3, 127] and [33, 4096]; coefficients per lane, as
    numbers, as 0-d tensors and as broadcast views, the pink's poles as one
-   state read in place) and K6 (f32[8192, 2, 128], the blocks before and
-   after the 2^32 wrap of the stream clock) against their plain versions
-   on the card, bit for bit, and times each (K5 at its main and the
-   streams' shapes).
+   state read in place) and K6 (f32[8192, 2, 128], the stream's
+   [1, 2, 256], the hybrid's [1024, 2, 128], and ragged draws [3, 1, 1],
+   [5, 2, 127], [33, 2, 100], [2, 3, 257], [1024, 2, 127], [300, 3, 257],
+   [4200, 2, 127]; each at the blocks before and after the 2^32 wrap of
+   the stream clock) against their plain versions on the card, bit for bit,
+   and times each (K5 and K6 at their main and the streams' shapes).
    3(c). Holds K7's entry points (``ops/iir.py:biquad_scan``,
    ``one_pole_scan`` and ``biquad_cascade``) against their plain versions
    on the card, bit for bit, at f32[16384, 128] (the eager filter, a
@@ -502,10 +504,31 @@ def check_kernel(seq_iir, iir):
 # the bound counts K4's and K6's 32-bit integer operations at the f32 rate
 # of F32_OPS_PER_S (the data sheet gives no INT32 rate): a lower bound
 K4_OPS = 35         # 32-bit integer operations a sample (one step of the encoder)
-K6_OPS = 262        # two Threefry-2x32 hashes and the float conversion, a sample
+# K6's operations, each charged where the draw needs it (csrc/noise.cu).
+# A sample: its count into the hash (x1 = i + k1, 1 add; x0 is k0, a move,
+# since the count's high word is 0), 20 rounds of an add, a rotate (one
+# funnel shift) and an XOR (60), five key injections of 2 adds (10), and
+# its float (an XOR of the two words, a shift, an OR, and a fused
+# multiply-add counted as two: 5).  A lane: its key, the hash of (0,
+# sample) under (0, seed) (the parity word 1 XOR, x1 = sample + seed 1
+# add, 60, five injections of 3 adds: 77), and its samples' key schedule
+# (the parity word, 2 XORs, and the injections' five key-plus-round
+# constants, 5 adds: 7), the same for all its samples
+K6_SAMPLE_OPS = 76
+K6_LANE_OPS = 84
 #: f32 operations a sample of each K5 kind (a fused multiply-add counts two)
 K5_OPS = {"envelope": 6, "limiter": 5, "gate": 14, "pink": 20}
 NOISE_SAMPLE = 2**32 - 128   # the block before the stream clock wraps
+#: (lanes, channels, frames) where 3(b) holds K6 bit for bit: the batched
+#: bus's draw, the stream's (one instance, 256-frame blocks), the hybrid's
+#: at B=1024, ragged small draws (one element a thread: one element; 127
+#: and 100 frames; 771 elements, a row past a CTA's 256 threads) and
+#: ragged larger ones (runs of 4 and 8 cut by the row's end, rows that
+#: start off 16 bytes: 4-byte stores)
+K6_SHAPES = ((B, 2, 128), (1, 2, 256), (1024, 2, 128), (3, 1, 1), (5, 2, 127),
+             (33, 2, 100), (2, 3, 257), (1024, 2, 127), (300, 3, 257), (4200, 2, 127))
+#: where 3(b) times K6: the batched bus's draw and the stream's
+K6_TIMED = ((B, 2, 128), (1, 2, 256))
 
 
 def once_ms(fn) -> float:
@@ -580,6 +603,14 @@ def scan_operands(dynamics, kind: str, lanes: int, gen, frames: int = 128,
     return dynamics.PINK, x(-1.0, 1.0), carry, ()
 
 
+def k6_work(lanes: int, per_lane: int):
+    """Bytes and operations K6 must do for ``lanes`` rows of ``per_lane``
+    samples: the f32 output written and the int64 seeds read; a sample's
+    hash and float, a lane's key hash and key schedule."""
+    n = lanes * per_lane
+    return 4 * n + 8 * lanes, K6_SAMPLE_OPS * n + K6_LANE_OPS * lanes
+
+
 def k5_work(x, carry, coefs):
     """Bytes K5 must move: x read and y written, the carry in and out, the
     per-lane coefficients (a number or a 0-d tensor read once)."""
@@ -599,7 +630,7 @@ def check_new_kernels(adpcm_device, dynamics, noise):
     (``torch.profiler``), a call's (CUDA events), the plain version's, and
     its work at the main shapes (K5 also at the streams') → ``{name: (err,
     ms, call_ms, plain_ms, (bytes, ops))}``, K5's other timed shapes under
-    ``"sample_scan_at"`` by label."""
+    ``"sample_scan_at"`` by label, K6's under ``"noise_uniform_at"``."""
     dev = torch.device("cuda")
     gen = torch.Generator(device="cpu").manual_seed(4321)
     res = {}
@@ -681,25 +712,38 @@ def check_new_kernels(adpcm_device, dynamics, noise):
     res["sample_scan"] = times[f"pink f32[{2 * B}, 128]"]
     res["sample_scan_at"] = times
 
-    # K6 at the bus's draw, f32[8192, 2, 128], the block before the clock
-    # wraps and the first after it
-    seeds = torch.randint(0, 2**32, (B,), generator=gen, dtype=torch.int64).to(dev)
-    for sample in (NOISE_SAMPLE, 0):
-        at = torch.tensor(sample, dtype=torch.int64, device=dev)
-        got = noise.noise_uniform(seeds, at, 2, 128)
-        want = noise.noise_uniform_reference(seeds, at, 2, 128)
-        if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
-            raise AssertionError(f"K6 disagrees with its plain version at {sample}")
+    # K6 at K6_SHAPES, the block before the clock wraps and the first after it
+    def k6_seeds(lanes):
+        return torch.randint(0, 2**32, (lanes,), generator=gen, dtype=torch.int64).to(dev)
+
+    for lanes, ch, f in K6_SHAPES:
+        seeds = k6_seeds(lanes)
+        for sample in (NOISE_SAMPLE, 0):
+            at = torch.tensor(sample, dtype=torch.int64, device=dev)
+            got = noise.noise_uniform(seeds, at, ch, f)
+            want = noise.noise_uniform_reference(seeds, at, ch, f)
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"K6 disagrees with its plain version at "
+                                     f"[{lanes}, {ch}, {f}], stream sample {sample}")
+    log(f"K6 vs plain: bit for bit at {[list(sh) for sh in K6_SHAPES]}, stream "
+        f"samples {NOISE_SAMPLE} and 0")
     at = torch.tensor(NOISE_SAMPLE, dtype=torch.int64, device=dev)
-    ms = device_ms(lambda: noise.noise_uniform(seeds, at, 2, 128), "noise_uniform",
-                   KERNEL_REPS)
-    call_ms = cuda_ms(lambda: noise.noise_uniform(seeds, at, 2, 128), 50)
-    plain_ms = cuda_ms(lambda: noise.noise_uniform_reference(seeds, at, 2, 128), 3)
-    n = B * 2 * 128
-    res["noise_uniform"] = (0.0, ms, call_ms, plain_ms, (4 * n + 8 * B, K6_OPS * n))
-    log(f"K6 vs plain at f32[{B}, 2, 128], stream samples {NOISE_SAMPLE} and 0: "
-        f"bit for bit; kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a "
-        f"call, plain {plain_ms:.2f} ms")
+    times = {}
+    for lanes, ch, f in K6_TIMED:
+        seeds = k6_seeds(lanes)
+        ms = device_ms(lambda: noise.noise_uniform(seeds, at, ch, f), "noise_uniform",
+                       KERNEL_REPS)
+        call_ms = cuda_ms(lambda: noise.noise_uniform(seeds, at, ch, f), 50)
+        plain_ms = cuda_ms(lambda: noise.noise_uniform_reference(seeds, at, ch, f), 3)
+        work = k6_work(lanes, ch * f)
+        times[f"f32[{lanes}, {ch}, {f}]"] = (0.0, ms, call_ms, plain_ms, work)
+        b_ms, b_by = bound(*work)
+        log(f"K6 at f32[{lanes}, {ch}, {f}]: kernel {ms:.4f} ms on the device, "
+            f"{call_ms:.4f} ms a call, plain {plain_ms:.2f} ms; bound {b_ms:.4f} ms by "
+            f"{b_by} ({work[0] / 1e6:.3f} MB, {work[1] / 1e9:.4f} G operations), "
+            f"{100 * b_ms / ms:.1f}% of it")
+    res["noise_uniform"] = times[f"f32[{B}, 2, 128]"]
+    res["noise_uniform_at"] = times
     return res
 
 
@@ -4033,12 +4077,12 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         if name == "biquad_seq":  # at the stream's width, 2 lanes
             kernels[-1].update(zip(("stream_ms", "stream_call_ms", "stream_plain_ms",
                                     "stream_bound_ms"), k1_stream))
-        if name == "sample_scan":  # every kind and shape 3(b) timed
+        if name in ("sample_scan", "noise_uniform"):  # every kind and shape 3(b) timed
             kernels[-1]["at"] = {
                 label: {"ms": k_ms, "call_ms": k_call, "plain_ms": k_plain,
                         "bound_ms": bound(*k_work)[0], "share": bound(*k_work)[0] / k_ms}
                 for label, (_, k_ms, k_call, k_plain, k_work)
-                in new_kernels["sample_scan_at"].items()}
+                in new_kernels[f"{name}_at"].items()}
         if name in ("biquad_scan", "one_pole_scan"):  # every shape 3(c) timed
             kinds = ("biquad ", "cascade ") if name == "biquad_scan" else ("one_pole ",)
             kernels[-1]["at"] = {

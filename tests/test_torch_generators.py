@@ -4,10 +4,13 @@
 The noise must be JAX's own bits: ``jax.random``'s threefry2x32 in JAX
 0.9's partitionable mode, computed by the port on int64 masked to 32 bits.
 Keys, raw bits and the uniform draw are compared bit for bit for several
-seeds and stream samples, across the 2^32 wrap of the stream clock.  The
-nodes run B=4 instances (``vmap`` on the JAX side) at 1e-6 absolute: the
-pink filter's scan equals JAX's bit for bit, the LFO's sine may differ by
-an ulp of torch's and XLA's sin.
+seeds and stream samples, across the 2^32 wrap of the stream clock.  K6's
+launch geometry (``noise.launch_geometry``) must draw every element of
+every lane once, and the plain version in the kernel's order
+(``_noise_by_tiles``) must give JAX's bits.  The nodes run
+B=4 instances (``vmap`` on the JAX side) at 1e-6 absolute: the pink
+filter's scan equals JAX's bit for bit, the LFO's sine may differ by an
+ulp of torch's and XLA's sin.
 """
 
 import jax
@@ -80,6 +83,102 @@ def test_threefry_known_answer():
     z = np.zeros(1, np.uint32)
     j0, j1 = prng.threefry2x32_p.bind(z, z, z, z)
     assert (int(j0[0]), int(j1[0])) == (y0, y1)
+
+
+def _thread_elements(geo, lanes, per_lane):
+    """``(lane, element)`` of every element each thread of ``geo``'s launch
+    draws, by K6's index math: int64 ``[threads, elems]`` each, -1 where a
+    thread's run passes its lane's end or it has no lane."""
+    bx, by, ty, tx = torch.meshgrid(
+        *(torch.arange(n) for n in (*geo.grid, geo.cta_lanes, geo.lane_threads)),
+        indexing="ij")
+    lane = (bx * geo.cta_lanes + ty).reshape(-1, 1)
+    i = ((by * geo.lane_threads + tx) * geo.elems).reshape(-1, 1) + torch.arange(geo.elems)
+    live = (lane < lanes) & (i < per_lane)
+    return torch.where(live, lane, -1), torch.where(live, i, -1)
+
+
+def _noise_by_tiles(seed, stream_sample, channels, frames):
+    """``noise.noise_uniform`` in K6's order: each lane's key hashed once,
+    then every thread's run of elements found by :func:`_thread_elements`
+    and hashed from the counts ``(0, i)``."""
+    lanes, per_lane = seed.numel(), channels * frames
+    k0, k1 = noise.fold_in(noise.prng_key(seed.reshape(-1)), stream_sample)
+    lane, i = _thread_elements(noise.launch_geometry(lanes, per_lane), lanes, per_lane)
+    live = lane >= 0
+    lane, i = lane[live], i[live]
+    y0, y1 = noise.threefry2x32(k0[lane], k1[lane], 0, i)
+    out = torch.empty(lanes * per_lane, dtype=torch.float32)
+    out[lane * per_lane + i] = noise.uniform_from_bits(y0 ^ y1)
+    return out.reshape(*seed.shape, channels, frames)
+
+
+@pytest.mark.parametrize("per_lane", [1, 100, 127, 256, 257, 512])
+@pytest.mark.parametrize("lanes", [1, 3, 8192])
+def test_launch_geometry_draws_every_element_once(lanes, per_lane):
+    """Every (lane, element) of K6's launch is drawn by exactly one thread,
+    each thread's run lies in one lane, and in a large draw rows of a
+    multiple of a run go out as whole runs of 16-byte stores."""
+    geo = noise.launch_geometry(lanes, per_lane)
+    assert geo.elems == next(e for n, e in noise.RUNS if lanes * per_lane >= n)
+    assert geo.lane_threads * geo.cta_lanes == noise.THREADS
+    lane, i = _thread_elements(geo, lanes, per_lane)
+    live = lane >= 0
+    flat = (lane * per_lane + i)[live]
+    assert torch.equal(torch.bincount(flat, minlength=lanes * per_lane),
+                       torch.ones(lanes * per_lane, dtype=torch.int64))
+    first = lane[:, :1]
+    assert torch.all((lane == first) | ~live)
+    assert torch.all((i[:, 1:] == i[:, :1] + torch.arange(1, geo.elems)) | ~live[:, 1:])
+    if per_lane % geo.elems == 0 and geo.elems % 4 == 0:
+        used = live.any(1)
+        assert torch.all(live[used]) and torch.all(flat.reshape(-1, geo.elems)[:, 0] % 4 == 0)
+
+
+@pytest.mark.parametrize("lanes, per_lane", [(1, 2**32), (2**16, 2**16), (1, 2**27 + 1),
+                                             (0, 256)])
+def test_launch_geometry_refuses_past_its_indices(lanes, per_lane):
+    """A lane of 2^32 elements (its counts' high word not 0), 2^32 elements
+    in all, more than 65 535 CTAs along a lane, or nothing to draw."""
+    with pytest.raises(ValueError, match="noise_uniform"):
+        noise.launch_geometry(lanes, per_lane)
+
+
+@pytest.mark.parametrize("sample", [2**32 - 128, 0])
+@pytest.mark.parametrize("lanes, channels, frames", [
+    (8192, 2, 128), (1, 2, 256), (3, 1, 1), (5, 2, 127), (33, 2, 100), (2, 3, 257),
+    (1024, 2, 127), (300, 3, 257), (4200, 2, 127)])
+def test_noise_by_tiles_equals_jax_bit_for_bit(lanes, channels, frames, sample):
+    """K6's order (each lane's key once, each thread's run by the
+    geometry's index math) against ``jax.random.uniform(fold_in(PRNGKey(
+    seed), sample), ...)`` at the bus's and the stream's draws, ragged
+    rows (small draws, one element a thread; larger ones, runs of 4 and 8
+    cut by the row's end), and the two blocks around the clock's wrap."""
+    rng = np.random.default_rng(14)
+    seeds = rng.integers(0, 2**32, lanes, dtype=np.uint64).astype(np.uint32)
+    seeds[: len(SEEDS)] = SEEDS[:lanes]
+
+    def draw(seed):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed), np.uint32(sample))
+        return jax.random.uniform(key, (channels, frames), jnp.float32, minval=-1.0,
+                                  maxval=1.0)
+
+    want = jax.vmap(draw)(seeds)
+    got = _noise_by_tiles(torch.from_numpy(seeds.astype(np.int64)),
+                          torch.tensor(sample, dtype=torch.int64), channels, frames)
+    assert got.shape == (lanes, channels, frames)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+def test_uniform_as_one_fma_is_jax_conversion():
+    """K6 forms the float as fmaf(f, 2, -3) for f = 1.mantissa in [1, 2):
+    for every one of the 2^23 mantissas that is exactly
+    ``uniform_from_bits`` (JAX's (f - 1)·2 + (-1), then its max with -1)."""
+    mantissa = torch.arange(2**23, dtype=torch.int64)
+    f = (mantissa | 0x3F800000).to(torch.int32).view(torch.float32)
+    fma = (2.0 * f.double() - 3.0).float()  # exact in float64: one rounding, as fmaf
+    want = noise.uniform_from_bits(mantissa << 9)
+    assert torch.equal(fma.view(torch.int32), want.view(torch.int32))
 
 
 def _pink_jax(z, w):

@@ -46,20 +46,30 @@ Each time is the kernel's device time per launch by ``torch.profiler`` over
 * (k4, k5, k6) as ``chip_smoke.py`` phase 3(b) times them: K4 at the
   adpcm4 fleet's int16[8192, 4096, 2], K5 each kind at ``K5_TIMED`` (the
   batched bus's lanes, the pink's 16 384, and the streams' [1, 256] and
-  [2, 256]) with the coefficients per lane, K6 at f32[8192, 2, 128]; each
-  beside a call's time (CUDA events over 50 calls, 20 for K4) and its
-  bound.  They are not in the default set: name them.
+  [2, 256]) with the coefficients per lane, K6 at ``K6_TIMED``'s
+  f32[8192, 2, 128] and the stream's [1, 2, 256] and at ``K6_SWEEP``'s
+  draws around its run lengths' thresholds; each beside a call's time
+  (CUDA events over 50 calls, 20 for K4) and its bound; for K6 also
+  ptxas's report of its entries (one a run length) and their SASS
+  (``cuobjdump -sass``) counted by opcode, split at each entry's barrier:
+  what comes before it hashes the CTA's lane keys, what comes after is a
+  thread's run of elements.
+  They are not in the default set: name them.
 
-Prints the card's name and power limit, then one JSON object a
-measurement.
+Prints the card's name, power limit and highest SM clock, then one JSON
+object a measurement.
 """
 
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
 import json
 import os
+import re
+import shutil
+import subprocess
 import sys
 
 import torch
@@ -70,6 +80,11 @@ K1_LANES = (16384, 2048)
 MIXER = (8192, 32)
 EFFECTS = ((8192, 32), (1024, 8))
 REPS = 10
+#: K6's draws beside chip_smoke.K6_TIMED, (lanes, channels, frames): on
+#: both sides of each threshold of ops/noise.py:RUNS (2^16 and 2^20
+#: elements), the hybrid bus's at B=1024, and small ones
+K6_SWEEP = ((2, 2, 256), (32, 2, 128), (255, 2, 128), (256, 2, 128), (1024, 2, 128),
+            (4095, 2, 128), (4096, 2, 128))
 RAMP_STEP = 2e-3
 # op codes (csrc/megakernel.cu:OpCode) replaced by the dummy (0)
 DUMMIES = {
@@ -126,11 +141,41 @@ def time_k7(iir, emit) -> None:
         torch.cuda.empty_cache()
 
 
+def sass_counts(library, kernel: str) -> dict:
+    """The SASS of each entry of ``library`` (a built ``CudaLibrary``) whose
+    name contains ``kernel``, by ``cuobjdump -sass``, by entry: instructions
+    counted by opcode (with its modifiers), those up to the entry's first
+    barrier (``BAR``) apart from those after it."""
+    cuobjdump = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(library.path())], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    entries, parts, part = {}, None, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :")[1].strip()
+            parts = None
+            if kernel in name:
+                parts = entries[name] = {"up_to_barrier": collections.Counter(),
+                                         "after_barrier": collections.Counter()}
+                part = "up_to_barrier"
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)", line)
+        if parts is not None and m:
+            parts[part][m.group(1)] += 1
+            if m.group(1).startswith("BAR"):
+                part = "after_barrier"
+    return {name: {where: {"total": sum(c.values()), "by_opcode": dict(c.most_common())}
+                   for where, c in parts.items()}
+            for name, parts in entries.items()}
+
+
 def time_k456(ops, take, emit) -> None:
     """K4 at the adpcm4 fleet's chunk, K5 (each kind) at ``chip_smoke.
-    K5_TIMED``'s shapes and K6 at the bus's draw, as phase 3(b) times them."""
-    from chip_smoke import (B, K, K4_OPS, K5_KINDS, K5_OPS, K5_TIMED, K6_OPS,
-                            NOISE_SAMPLE, bound, k5_lanes, k5_work, scan_operands)
+    K5_TIMED``'s shapes and K6 at ``K6_TIMED``'s, as phase 3(b) times them."""
+    from chip_smoke import (B, K, K4_OPS, K5_KINDS, K5_OPS, K5_TIMED, K6_TIMED,
+                            NOISE_SAMPLE, bound, k5_lanes, k5_work, k6_work,
+                            scan_operands)
 
     gen = torch.Generator().manual_seed(4321)
     if "k4" in take:
@@ -156,14 +201,22 @@ def time_k456(ops, take, emit) -> None:
                 emit(kernel="K5", kind=kind, lanes=lanes, frames=n, device_ms=ms,
                      call_ms=call_ms, bound_ms=b_ms, share=b_ms / ms)
     if "k6" in take:
-        seeds = torch.randint(0, 2**32, (B,), generator=gen, dtype=torch.int64).to("cuda")
+        from chip_smoke import ptxas_report
+        from firewheel_tpu_torch.ops import cuda_build
+
+        cuda_build.build_all([ops.noise.LIBRARY], verbose=True)
+        emit(kernel="K6", ptxas=ptxas_report(ops.noise.LIBRARY.log, "noise_uniform")
+             if ops.noise.LIBRARY.log else "built before this run",
+             sass=sass_counts(ops.noise.LIBRARY, "noise_uniform"))
         at = torch.tensor(NOISE_SAMPLE, dtype=torch.int64, device="cuda")
-        fn = lambda: ops.noise.noise_uniform(seeds, at, 2, 128)  # noqa: E731
-        ms = device_ms(fn, "noise_uniform", REPS)
-        n = B * 2 * 128
-        b_ms = bound(4 * n + 8 * B, K6_OPS * n)[0]
-        emit(kernel="K6", shape=[B, 2, 128], device_ms=ms, call_ms=cuda_ms(fn, 50),
-             bound_ms=b_ms, share=b_ms / ms)
+        for lanes, ch, f in K6_TIMED + K6_SWEEP:
+            seeds = torch.randint(0, 2**32, (lanes,), generator=gen,
+                                  dtype=torch.int64).to("cuda")
+            fn = lambda: ops.noise.noise_uniform(seeds, at, ch, f)  # noqa: E731
+            ms = device_ms(fn, "noise_uniform", REPS)
+            b_ms = bound(*k6_work(lanes, ch * f))[0]
+            emit(kernel="K6", shape=[lanes, ch, f], device_ms=ms, call_ms=cuda_ms(fn, 50),
+                 bound_ms=b_ms, share=b_ms / ms)
 
 
 def time_k1(iir, seq_iir, emit) -> None:
@@ -285,8 +338,10 @@ def main() -> int:
     from firewheel_tpu_torch import executor_mega as em
     from firewheel_tpu_torch.ops import iir, seq_iir
 
-    print(f"card: {card_line()}; torch {torch.__version__}; port from {ft.__file__}",
-          flush=True)
+    clock = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+                           capture_output=True, text=True, timeout=60).stdout.strip()
+    print(f"card: {card_line()}; highest SM clock {clock}; torch {torch.__version__}; "
+          f"port from {ft.__file__}", flush=True)
 
     def emit(**kw):
         print(json.dumps({"root": root, **kw}), flush=True)
