@@ -196,6 +196,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``MegaRenderer`` refuses it; the hybrid at B=1024, K=8 (the voices, sum
    and clip one K3 island, the FX chain one torch stage) equals eager on
    the card bit for bit.
+14. The sampler and formats slice: no kernel of the port's lies on it, and
+   K1-K7 must launch no time.  (a) ``examples/music_player.py``'s session
+   through ``FirewheelCtx`` (``MusicPlayer`` over two streaming decks,
+   512-frame buffers of 128-frame blocks): tracks written from a seed (a
+   2 s WAV intro, a 2.7 s FLAC bed by ``encode_flac`` of 129 600 frames, not
+   a block multiple, a 2 s WAV outro); the intro, the bed queued with a
+   0.5 s crossfade, re-played looped past its seam, a 0.5 s crossfade to
+   the outro, a 0.3 s faded stop, 6.9 s in all; in one-buffer dispatches
+   and, in a worker process at the same time, four-buffer dispatches, each
+   against the same session on the CPU, run by the worker of 12(a) (1e-5,
+   equal finish events);
+   the stream's realtime factor, wall a buffer (p50, p99), the decks'
+   refills, kernels a block and the device's busy share (``torch.profiler``).
+   (b) One ``GranularSamplerNode`` at its defaults (2048-frame grains, 4
+   overlapping, SOLA on) on a 20 s stereo tone sequence streamed for 3 s:
+   tempo 0.75 at +3 st, tempo 1.25 at −5 st, a pause, a resume, a seek;
+   against the CPU in lockstep through the card's state after each buffer
+   (1e-5; every integer leaf and the anchors exactly) under the lag rule:
+   where the state differs, the CPU replays the buffer's blocks and accepts
+   the difference only where a spawn's best two SOLA scores lie within
+   1e-5 relative, counting it.  (c) ``BatchRenderer`` (eager) at B=8192,
+   K=32: one 2 s stereo clip broadcast (f32[8192, 2, 96000]), each instance
+   its own tempo (0.5-2.0), pitch (±12 st) and start, one in sixteen
+   starting near the end (every one's finish event fires); three chunks,
+   eight rows held against a CPU render of the same instances from the
+   card's state at each chunk (audio 1e-5, the anchors, slot and phase
+   exactly, finish counts equal) under the lag rule; wall a chunk, the
+   realtime factor, kernels a block, the busy share, peak memory.  (d) A
+   scene saved by ``save_graph`` (granular, a looped sampler, a streaming
+   deck on a WAV file, a beep, a sum, volume, pan, echo and a clip) loaded
+   by ``load_graph`` renders on the card bit for bit as the graph built
+   directly, and within 1e-5 of the CPU.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
@@ -2994,15 +3026,18 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
 
 
 def _cpu_stream_worker(conn) -> None:
-    """The CPU's streams of 12(a) and 13(a) in a worker process, on one
-    thread; sends ``("ok", {"mastering": ..., "palette": ...})`` or ``("error",
-    traceback)`` to the parent."""
+    """The CPU's streams of 12(a), 13(a) and 14(a) in a worker process, on
+    one thread; sends ``("ok", name, result)`` for each as it finishes
+    (``"mastering"``, ``"palette"``, ``"music"``), or ``("error",
+    traceback)``, to the parent."""
     import traceback
 
     try:
         torch.set_num_threads(1)
-        conn.send(("ok", {"mastering": mastering_stream("cpu"),
-                          "palette": palette_stream("cpu")}))
+        for name, run in (("mastering", lambda: mastering_stream("cpu")),
+                          ("palette", lambda: palette_stream("cpu")),
+                          ("music", music_reference)):
+            conn.send(("ok", name, run()))
     except Exception:  # the worker's boundary: the parent raises it
         conn.send(("error", traceback.format_exc()))
     finally:
@@ -3010,9 +3045,10 @@ def _cpu_stream_worker(conn) -> None:
 
 
 class CpuStream:
-    """12(a)'s and 13(a)'s CPU streams, started in a spawned worker process
-    at once.  :meth:`get` waits for their results (raising what the worker
-    raised, or if it died without one); :meth:`stop` ends the worker."""
+    """12(a)'s, 13(a)'s and 14(a)'s CPU streams, started in a spawned worker
+    process at once.  ``get()[name]`` waits for that stream's result
+    (raising what the worker raised, or if it died without one); :meth:`stop`
+    ends the worker."""
 
     def __init__(self):
         import multiprocessing
@@ -3023,21 +3059,22 @@ class CpuStream:
                                  daemon=True)
         self._proc.start()
         child.close()
-        self._value = None
+        self._results: dict = {}
 
-    def get(self) -> dict:
-        if self._value is not None:
-            return self._value
-        while not self._conn.poll(1.0):
-            if not self._proc.is_alive():
-                raise RuntimeError(f"the CPU stream's worker exited "
-                                   f"({self._proc.exitcode}) without a result")
-        status, value = self._conn.recv()
-        self._proc.join(60)
-        if status != "ok":
-            raise RuntimeError(f"the CPU stream failed in its worker:\n{value}")
-        self._value = value
-        return value
+    def get(self) -> "CpuStream":
+        return self
+
+    def __getitem__(self, name: str) -> dict:
+        while name not in self._results:
+            while not self._conn.poll(1.0):
+                if not self._proc.is_alive():
+                    raise RuntimeError(f"the CPU stream's worker exited "
+                                       f"({self._proc.exitcode}) without {name!r}")
+            status, *value = self._conn.recv()
+            if status != "ok":
+                raise RuntimeError(f"the CPU stream failed in its worker:\n{value[0]}")
+            self._results[value[0]] = value[1]
+        return self._results[name]
 
     def stop(self) -> None:
         if self._proc.is_alive():
@@ -3883,6 +3920,621 @@ def check_palette(ft, em, eh, iir, cpu_result, card: str, phase):
     return max(s_err, b_err, h_err), k7, s_k7, k2, k3
 
 
+# -- phase 14: the sampler and formats slice ---------------------------------
+
+MUSIC_BUFFER = 512           # frames a buffer (the example's); 128-frame blocks
+#: the bed: 2.7 s (cut from 9.7 s, PERF.md §4), 1012.5 blocks, so its loop
+#: seam falls inside a block; longer than the decks' 2 s window
+MUSIC_BED_FRAMES = 129600
+MUSIC_TRACK_SECS = 2.0       # the intro and the outro (cut from 8 s: PERF.md §4)
+#: the session, in buffers of 512 frames: the intro plays and the bed is
+#: queued with a 0.5 s crossfade at 0 (the bed starts at 1.5 s); the bed
+#: re-played looped at MUSIC_LOOP_AT (2.47 s; its seam at 5.17 s); a 0.5 s
+#: crossfade to the outro at MUSIC_XFADE_AT (5.42 s); a 0.3 s faded stop
+#: at MUSIC_STOP_AT (6.40 s); the end at MUSIC_END (6.91 s)
+MUSIC_LOOP_AT, MUSIC_XFADE_AT, MUSIC_STOP_AT, MUSIC_END = 232, 508, 600, 648
+MUSIC_POLL_EVERY = 32        # buffers between the player's update and poll
+MUSIC_PROFILED = (400, 8)    # buffers [400, 408) under torch.profiler
+GRAN_CLIP_SECS = 20.0        # 14(b)'s clip, a tone sequence
+GRAN_BUFFERS = 282           # 3 s of 512-frame buffers (cut from 6 s: PERF.md §4)
+#: 14(b)'s controls by buffer: tempo 0.75 at +3 st and play; tempo 1.25
+#: at -5 st; a pause; a resume; a seek to 12 s
+GRAN_CONTROLS = {0: (("set_tempo", 0.75), ("set_pitch_semitones", 3.0), ("play",)),
+                 70: (("set_tempo", 1.25), ("set_pitch_semitones", -5.0)),
+                 140: (("pause",),), 165: (("play",),), 210: (("set_playhead", 12.0),)}
+GRAN_PROFILED = (100, 8)     # 14(b)'s buffers under torch.profiler
+GRAN_B, GRAN_K, GRAN_CHUNKS = 8192, 32, 3   # 14(c)
+GRAN_BATCH_CLIP_SECS = 2.0
+GRAN_CHECK = (0, 1, 1170, 2341, 4096, 5851, 7022, 8191)  # 14(c)'s rows held on the CPU
+LAG_REL = 1e-5               # the lag rule: the best two scores this close
+SLICE_EXACT = ("src_int", "src_frac", "ages", "ring_int", "ring_frac", "slot", "phase",
+               "ended", "finish_count")
+
+
+def music_tracks(ft, root: str):
+    """The session's tracks from seed 15: 48 kHz stereo, a WAV intro and
+    outro of MUSIC_TRACK_SECS, a FLAC bed of MUSIC_BED_FRAMES
+    (``encode_flac``)."""
+    from firewheel_tpu_torch.utils.flac_encode import encode_flac
+    from firewheel_tpu_torch.utils.wav import write_wav
+
+    rng = np.random.default_rng(15)
+    paths = []
+    for name, frames, freqs in (
+            ("intro.wav", int(MUSIC_TRACK_SECS * 48000), (220, 277, 330)),
+            ("bed.flac", MUSIC_BED_FRAMES, (110, 165, 220, 277)),
+            ("outro.wav", int(MUSIC_TRACK_SECS * 48000), (330, 277, 220, 165))):
+        t = np.arange(frames) / 48000
+        step = frames // (4 * len(freqs))
+        note = np.minimum(np.arange(frames) // step, 4 * len(freqs) - 1)
+        f = np.asarray(freqs, np.float64)[note % len(freqs)]
+        sig = np.sin(2 * np.pi * f * t) * np.exp(-3.0 * (t - note * step / 48000))
+        audio = (0.4 * np.stack([sig, 0.8 * sig])
+                 + 0.01 * rng.standard_normal((2, frames))).astype(np.float32)
+        path = os.path.join(root, name)
+        if name.endswith(".flac"):
+            encode_flac(audio, 48000, path=path)
+        else:
+            write_wav(path, audio, 48000, dtype="i16")
+        paths.append(path)
+    return paths
+
+
+def track_name(reader) -> str:
+    """A finished track's name: a WAV reader's file, else its reader's type
+    (the bed's ``FlacStreamReader``)."""
+    path = getattr(reader, "path", None)
+    return os.path.basename(path) if path else type(reader).__name__
+
+
+def music_session(ft, device: str, tracks, chunk_buffers: int = 1,
+                  profile: bool = False) -> dict:
+    """14(a): ``examples/music_player.py``'s session through the port's
+    ``FirewheelCtx`` on ``device``: intro, the bed queued with a crossfade,
+    looped past its seam, a crossfade to the outro, a faded stop.  Returns
+    the audio, the finished tracks in poll order, the walls a buffer, the
+    decks' refills and (``profile``) the profile's counts."""
+    intro, bed, outro = tracks
+    cx = ft.FirewheelCtx(device=device)
+    player = ft.MusicPlayer(cx.graph_mut(), clock=lambda: cx.stream.frames_rendered)
+    sink = ft.ArraySink()
+    cx.activate(ft.StreamConfig(48000, 2, buffer_frames=MUSIC_BUFFER, block_frames=128,
+                                chunk_buffers=chunk_buffers), sink=sink)
+    stream = cx.stream
+    out = {"walls": [], "finished": []}
+    trace = PumpTrace()
+    controls = {0: lambda: (player.play(intro), player.queue(bed, crossfade_secs=0.5)),
+                MUSIC_LOOP_AT: lambda: player.play(bed, loop=True),
+                MUSIC_XFADE_AT: lambda: player.crossfade_to(outro, 0.5),
+                MUSIC_STOP_AT: lambda: player.stop(fade_secs=0.3)}
+    t_start = time.perf_counter()
+    b = 0
+    while b < MUSIC_END:
+        if b in controls:
+            controls[b]()
+        if profile and b == MUSIC_PROFILED[0]:
+            trace.start()
+        walls = []
+        PumpTrace.pump(cx, chunk_buffers, walls)
+        out["walls"] += [walls[0] / chunk_buffers] * chunk_buffers
+        b += chunk_buffers
+        if trace.on and b == sum(MUSIC_PROFILED):
+            prof, out["profile_wall"] = trace.stop(stream)
+            out["profile"] = profile_busy(prof, MUSIC_PROFILED[1] * MUSIC_BUFFER // 128)
+        if b % MUSIC_POLL_EVERY == 0:
+            player.update()
+            out["finished"] += [track_name(r) for _, r in player.poll(cx.poll_events())]
+    stream.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t_start
+    out["finished"] += [track_name(r) for _, r in player.poll(cx.poll_events())]
+    out["refills"] = sum(p.refill_count for p in stream._processor._processors.values()
+                         if hasattr(p, "refill_count"))
+    out["audio"] = sink.audio(2)
+    cx.deactivate()
+    return out
+
+
+def stream_stats(out: dict, frames: int) -> str:
+    walls = np.asarray(out["walls"]) * 1e3
+    return (f"RTF {frames / 48000 / out['wall']:.3f}, wall a buffer p50 "
+            f"{np.percentile(walls, 50):.3f} ms, p99 {np.percentile(walls, 99):.3f} ms")
+
+
+def music_reference() -> dict:
+    """14(a)'s tracks, written once, and the session on the CPU (in the
+    worker process: :class:`CpuStream`)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import firewheel_tpu_torch as ft
+
+    tracks = music_tracks(ft, scratch_dir("music-"))
+    return {"tracks": tracks, **music_session(ft, "cpu", tracks)}
+
+
+def _music_card_worker(conn, tracks) -> None:
+    """14(a)'s four-buffer session on the card, in a worker process beside
+    the one-buffer session (both are host-bound: each takes a core);
+    sends ``("ok", result)`` or ``("error", traceback)``."""
+    import traceback
+
+    try:
+        here = os.path.dirname(os.path.abspath(__file__))
+        if here not in sys.path:
+            sys.path.insert(0, here)
+        import firewheel_tpu_torch as ft
+
+        conn.send(("ok", music_session(ft, "cuda", tracks, 4)))
+    except Exception:  # the worker's boundary: the parent raises it
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def check_music(ft, cpu_result, card: str) -> float:
+    """14(a): the music session on the card, in one-buffer dispatches here
+    and four-buffer dispatches in a worker process at the same time, each
+    against the same session on the CPU (from the CPU worker)."""
+    import multiprocessing
+
+    want = cpu_result.get()["music"]
+    tracks = want["tracks"]
+    ctx = multiprocessing.get_context("spawn")
+    conn, child = ctx.Pipe(duplex=False)
+    proc = ctx.Process(target=_music_card_worker, args=(child, tracks), daemon=True)
+    proc.start()
+    child.close()
+    try:
+        runs = {1: music_session(ft, "cuda", tracks, 1, profile=True)}
+        while not conn.poll(1.0):
+            if not proc.is_alive():
+                raise RuntimeError(f"14(a)'s worker exited ({proc.exitcode}) without "
+                                   "a result")
+        status, value = conn.recv()
+        if status != "ok":
+            raise RuntimeError(f"14(a)'s four-buffer session failed in its worker:\n{value}")
+        runs[4] = value
+    finally:
+        proc.join(60)
+        if proc.is_alive():
+            proc.terminate()
+            proc.join()
+        conn.close()
+    err = 0.0
+    for chunk_buffers, got in runs.items():
+        if got["audio"].shape != want["audio"].shape or not np.isfinite(got["audio"]).all():
+            raise AssertionError(f"14(a): the session rendered {got['audio'].shape}, "
+                                 f"the CPU {want['audio'].shape}")
+        e = float(np.abs(got["audio"] - want["audio"]).max())
+        if e > SLICE_TOL:
+            raise AssertionError(f"14(a): the card vs the CPU, chunk_buffers="
+                                 f"{chunk_buffers}: max_abs_err={e:.3e}")
+        if got["finished"] != want["finished"]:
+            raise AssertionError(f"14(a): finish events {got['finished']}, the CPU's "
+                                 f"{want['finished']}")
+        err = max(err, e)
+        line = (f"phase 14(a), the music session, {chunk_buffers} buffer(s) a dispatch "
+                f"({'here' if chunk_buffers == 1 else 'in a worker process, meanwhile'}, "
+                f"{card}): {stream_stats(got, got['audio'].shape[1])}, refills "
+                f"{got['refills']}, max_abs_err vs the CPU {e:.3e}, finish events "
+                f"{got['finished']}")
+        if "profile" in got:
+            per_block, calls, busy = got["profile"]
+            line += (f"; {per_block:.1f} kernels a 128-frame block ({calls:.1f} launch "
+                     f"calls), device busy {100 * busy / 1e6 / got['profile_wall']:.2f}% "
+                     f"of {MUSIC_PROFILED[1]} profiled buffers")
+        log(line)
+    peak = float(np.abs(want["audio"]).max())
+    if peak < 0.1 or want["finished"] != ["intro.wav", "FlacStreamReader"]:
+        raise AssertionError(f"14(a): peak {peak}, finish events {want['finished']}")
+    return err
+
+
+def gran_clip(seconds: float, seed: int) -> np.ndarray:
+    """A stereo tone sequence, a new frequency every 0.1 s, from ``seed``."""
+    n = int(seconds * 48000)
+    rng = np.random.default_rng(seed)
+    f = rng.uniform(110.0, 880.0, size=n // 4800 + 1)[np.arange(n) // 4800]
+    ph = np.cumsum(2 * np.pi * f / 48000)
+    return np.stack([0.4 * np.sin(ph), 0.3 * np.sin(ph + 0.5)]).astype(np.float32)
+
+
+def gran_params(proc, device):
+    """A granular processor's params as tensors on ``device``."""
+    from firewheel_tpu_torch.convert import params_from_jax
+
+    p = proc.collect_params()
+    sample = p.pop("sample")
+    p = params_from_jax(p, device)
+    p["sample"] = sample.to(device)
+    return p
+
+
+def near_tie(proc, params, state, blocks: int) -> bool:
+    """Whether a spawn of the next ``blocks`` blocks from ``state`` (one
+    instance or a batch; CPU tensors) has its best two SOLA scores within
+    LAG_REL relative: where two devices may pick different lags.  Renders
+    the blocks with the processor's kernel on the CPU."""
+    from firewheel_tpu_torch.core.node import BlockInfo
+
+    frames = proc.max_block_frames
+    empty = torch.zeros(state["src_int"].shape + (0, frames))
+    emask = torch.zeros(state["src_int"].shape + (0,), dtype=torch.bool)
+    tie = torch.zeros(state["src_int"].shape, dtype=torch.bool)
+    for _ in range(blocks):
+        for use, scores in proc.sola_scores(params, state, frames):
+            top = torch.topk(scores, 2, dim=-1).values
+            gap = (top[..., 0] - top[..., 1]) <= LAG_REL * top[..., 0].abs()
+            tie |= use & gap
+        _, state, _ = proc.kernel(params, state, empty, emask, BlockInfo.make())
+    return tie
+
+
+def granular_stream(ft, device: str, clip, record: bool = False, profile: bool = False):
+    """14(b): one ``GranularSamplerNode`` at its defaults through
+    ``FirewheelCtx`` on ``device``, 512-frame buffers of 128-frame blocks,
+    GRAN_CONTROLS applied.  Returns the audio, the walls a buffer and
+    (``record``) the state tree after every buffer, cloned on the device
+    during the run and fetched after it (no synchronisation in the run)."""
+    from firewheel_tpu_torch.convert import state_to_numpy, tree_map
+
+    cx = ft.FirewheelCtx(device=device)
+    g = cx.graph_mut()
+    node = ft.GranularSamplerNode()
+    nid = g.add_node(0, 2, node)
+    g.connect(nid, 0, g.graph_out_node(), 0)
+    g.connect(nid, 1, g.graph_out_node(), 1)
+    node.set_sample(ft.SampleResource(clip, sample_rate=48000.0))
+    sink = ft.ArraySink()
+    cx.activate(ft.StreamConfig(48000, 2, buffer_frames=MUSIC_BUFFER, block_frames=128),
+                sink=sink)
+    out = {"walls": [], "states": [], "key": ft.node_key(nid)}
+    trace = PumpTrace()
+    t_start = time.perf_counter()
+    for b in range(GRAN_BUFFERS):
+        for call in GRAN_CONTROLS.get(b, ()):
+            getattr(node, call[0])(*call[1:])
+        if profile and b == GRAN_PROFILED[0]:
+            trace.start()
+        PumpTrace.pump(cx, 1, out["walls"])
+        if trace.on and b + 1 == sum(GRAN_PROFILED):
+            prof, out["profile_wall"] = trace.stop(cx.stream)
+            out["profile"] = profile_busy(prof, GRAN_PROFILED[1] * MUSIC_BUFFER // 128)
+        if record:
+            out["states"].append(tree_map(torch.clone, cx.stream._processor.state_dict()))
+    cx.stream.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t_start
+    out["states"] = [state_to_numpy(st) for st in out["states"]]
+    out["audio"] = sink.audio(2)
+    cx.deactivate()
+    return out
+
+
+def exact_diff(a: dict, b: dict) -> list:
+    """The granular state leaves that differ between two numpy trees."""
+    return [k for k in SLICE_EXACT if not np.array_equal(a[k], b[k])]
+
+
+def check_granular_stream(ft, card: str):
+    """14(b): the card's stream against the CPU's, run in lockstep through
+    the card's recorded states: where a buffer's state differs, the CPU
+    replays that buffer's blocks; a spawn whose best two scores lie within
+    LAG_REL accepts the difference (counted; the CPU adopts the card's
+    state and that buffer's audio is not compared), anything else fails."""
+    from firewheel_tpu_torch.convert import state_from_jax, state_to_numpy
+
+    clip = gran_clip(GRAN_CLIP_SECS, 14)
+    card_run = granular_stream(ft, "cuda", clip, record=True, profile=True)
+    key = card_run["key"]
+
+    cx = ft.FirewheelCtx(device="cpu")
+    g = cx.graph_mut()
+    node = ft.GranularSamplerNode()
+    nid = g.add_node(0, 2, node)
+    g.connect(nid, 0, g.graph_out_node(), 0)
+    g.connect(nid, 1, g.graph_out_node(), 1)
+    node.set_sample(ft.SampleResource(clip, sample_rate=48000.0))
+    sink = ft.ArraySink()
+    cx.activate(ft.StreamConfig(48000, 2, buffer_frames=MUSIC_BUFFER, block_frames=128),
+                sink=sink)
+    proc = cx.stream._processor
+    gproc = proc._processors[nid]
+    accepted = []
+    for b in range(GRAN_BUFFERS):
+        for call in GRAN_CONTROLS.get(b, ()):
+            getattr(node, call[0])(*call[1:])
+        before = state_from_jax(state_to_numpy(proc.state_dict())[key], "cpu")
+        cx.update(max_pump_buffers=0)
+        cx.stream.pump(1)
+        mine = state_to_numpy(proc.state_dict())
+        theirs = card_run["states"][b]
+        differ = exact_diff(mine[key], theirs[key])
+        if differ:
+            # the params of this buffer, as the pump collected them
+            if not near_tie(gproc, gran_params(gproc, "cpu"), before,
+                            MUSIC_BUFFER // 128):
+                raise AssertionError(f"14(b): buffer {b}: {differ} differ from the "
+                                     "card's and no spawn's best two scores lie within "
+                                     f"{LAG_REL} relative")
+            accepted.append(b)
+            proc.set_state_dict(theirs)
+    cx.stream.flush()
+    want = sink.audio(2)
+    cx.deactivate()
+    got = card_run["audio"]
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"14(b): {got.shape} against the CPU's {want.shape}")
+    keep = np.ones(got.shape[1], bool)
+    for b in accepted:
+        keep[b * MUSIC_BUFFER:(b + 1) * MUSIC_BUFFER] = False
+    err = float(np.abs(got - want)[:, keep].max())
+    if err > SLICE_TOL or float(np.abs(got).max()) < 0.1:
+        raise AssertionError(f"14(b): the card vs the CPU max_abs_err={err:.3e}")
+    per_block, calls, busy = card_run["profile"]
+    log(f"phase 14(b), the granular stream ({card}): "
+        f"{stream_stats(card_run, got.shape[1])}, {per_block:.1f} kernels a block "
+        f"({calls:.1f} launch calls), device busy "
+        f"{100 * busy / 1e6 / card_run['profile_wall']:.2f}% of {GRAN_PROFILED[1]} "
+        f"profiled buffers; max_abs_err vs the CPU {err:.3e}; lag rule: "
+        f"{len(accepted)} of {GRAN_BUFFERS} buffers accepted a different lag "
+        f"(buffers {accepted})")
+    return err
+
+
+def granular_program(ft, device: str, clip):
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    node = ft.GranularSamplerNode()
+    node.set_sample(ft.SampleResource(clip, sample_rate=48000.0))
+    node.play()
+    nid = g.add_node(0, 2, node)
+    g.connect(nid, 0, g.graph_out_node(), 0)
+    g.connect(nid, 1, g.graph_out_node(), 1)
+    sched = g.compile(48000, 128)
+    prog = ft.ScheduleProgram(sched.schedule, dict(sched.new_node_processors), 48000,
+                              device=device)
+    return prog, ft.node_key(nid)
+
+
+def granular_instances(b: int, clip_frames: int):
+    """Per-instance tempo (0.5-2.0), pitch (±12 st) and start playhead; one
+    instance in sixteen starts within 0.2 s of the clip's end."""
+    i = np.arange(b)
+    tempo = (0.5 + 1.5 * i / max(b - 1, 1)).astype(np.float32)
+    semis = -12.0 + 24.0 * ((i * 7919) % b) / max(b - 1, 1)
+    pitch = (2.0 ** (semis / 12.0)).astype(np.float32)
+    rng = np.random.default_rng(16)
+    start = rng.integers(0, clip_frames - 24000, b)
+    near = i % 16 == 0
+    # the near-end ones end inside the run: 0.1 s of output at most
+    start[near] = clip_frames - (rng.uniform(0.0, 0.1, near.sum()) * 48000
+                                 * tempo[near]).astype(np.int64) - 1
+    return tempo, pitch, start.astype(np.uint32)
+
+
+def check_granular_batched(ft, card: str):
+    """14(c): ``BatchRenderer`` (eager) at B=8192, K=32 with per-instance
+    tempo, pitch and start; GRAN_CHECK's rows held against a CPU render of
+    the same instances, chunk by chunk from the card's state, under the lag
+    rule."""
+    from firewheel_tpu_torch.convert import state_from_jax, state_to_numpy
+
+    clip = gran_clip(GRAN_BATCH_CLIP_SECS, 17)
+    prog, key = granular_program(ft, "cuda", clip)
+    br = ft.BatchRenderer(prog, GRAN_B, device="cuda")
+    params = br.stack_params()
+    tempo, pitch, start = granular_instances(GRAN_B, clip.shape[1])
+    p = params[key]
+    p["tempo"] = torch.from_numpy(tempo).cuda()
+    p["pitch"] = torch.from_numpy(pitch).cuda()
+    p["seek_pos"] = torch.from_numpy(start.astype(np.int64)).cuda()
+    state = br.init_state()
+    rows = torch.tensor(GRAN_CHECK)
+    cprog, ckey = granular_program(ft, "cpu", clip)
+    cproc = cprog._procs[ckey]
+    cparams = {k: (v[rows].cpu() if k != "sample" else
+                   torch.from_numpy(clip)[None].expand(len(GRAN_CHECK), *clip.shape))
+               for k, v in p.items()}
+    info = ft.BlockInfo.make()
+    torch.cuda.reset_peak_memory_stats()
+    accepted, walls, err = [], [], 0.0
+    finish = np.zeros(len(GRAN_CHECK), np.int64)
+    for c in range(GRAN_CHUNKS):
+        before = state_from_jax(_rows(state[key], rows), "cpu")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _, state = br.render_chunk(params, state, num_blocks=GRAN_K)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        got = out[rows.cuda()].cpu().numpy()  # [8, K, 2, F]
+        theirs = _rows(state[key], rows)
+        # the CPU: the same instances, block by block from the same state
+        st = before
+        empty = torch.zeros((len(GRAN_CHECK), 0, 128))
+        emask = torch.zeros((len(GRAN_CHECK), 0), dtype=torch.bool)
+        want = []
+        for _ in range(GRAN_K):
+            o, st, _ = cproc.kernel(cparams, st, empty, emask, info)
+            want.append(o.numpy())
+        want = np.stack(want, axis=1)
+        mine = state_to_numpy(st)
+        for j, r in enumerate(GRAN_CHECK):
+            diff = [k for k in SLICE_EXACT if not np.array_equal(mine[k][j], theirs[k][j])]
+            e = float(np.abs(got[j] - want[j]).max())
+            if not diff and e <= SLICE_TOL:
+                err = max(err, e)
+                continue
+            one = {k: (v[j:j + 1] if not isinstance(v, dict) else
+                       {kk: vv[j:j + 1] for kk, vv in v.items()}) for k, v in before.items()}
+            pj = {k: v[j:j + 1] for k, v in cparams.items()}
+            if not bool(near_tie(cproc, pj, one, GRAN_K)[0]):
+                raise AssertionError(f"14(c): instance {r}, chunk {c}: {diff} differ, "
+                                     f"audio by {e:.3e}, and no spawn's best two scores "
+                                     f"lie within {LAG_REL} relative")
+            accepted.append((c, r))
+        finish = theirs["finish_count"].astype(np.int64)
+        if not np.array_equal(theirs["finish_count"], mine["finish_count"]):
+            raise AssertionError("14(c): finish counts differ from the CPU's")
+        if not np.isfinite(got).all():
+            raise AssertionError("14(c): non-finite output")
+    peak = torch.cuda.max_memory_allocated()
+    fired = sum(e.count for e in br.poll_events(state) if e.name == "finished")
+    near = int((np.arange(GRAN_B) % 16 == 0).sum())
+    near_rows = [i for i, r in enumerate(GRAN_CHECK) if r % 16 == 0]
+    if fired != near or not (finish[near_rows] == 1).all():
+        raise AssertionError(f"14(c): {fired} finish events, {near} instances start "
+                             "near the end")
+    # kernels a block and the device's busy share over one more chunk
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        br.render_chunk(params, state, num_blocks=GRAN_K)
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    per_block, calls, busy = profile_busy(prof, GRAN_K)
+    wall = float(np.median(walls[1:]))
+    log(f"phase 14(c), granular B={GRAN_B} K={GRAN_K} eager ({card}): wall a chunk "
+        f"{[round(w * 1e3, 3) for w in walls]} ms, RTF "
+        f"{GRAN_B * GRAN_K * 128 / 48000 / wall:.1f}, {per_block:.1f} kernels a block "
+        f"({calls:.1f} launch calls), device busy {100 * busy / 1e6 / prof_wall:.2f}% "
+        f"of a profiled chunk ({prof_wall * 1e3:.1f} ms), peak memory "
+        f"{peak / 2**30:.3f} GiB; {fired} finish events ({near} instances start near "
+        f"the end); rows {list(GRAN_CHECK)} vs the CPU max_abs_err={err:.3e}; lag "
+        f"rule: {len(accepted)} (chunk, instance) differences accepted {accepted}")
+    del params, state, br
+    torch.cuda.empty_cache()
+    return err
+
+
+def _rows(tree, rows):
+    """The numpy rows ``rows`` of a state tree of batched tensors."""
+    from firewheel_tpu_torch.convert import state_to_numpy
+
+    idx = rows.to(next(iter(_leaves(tree))).device)
+    return state_to_numpy({k: (v[idx] if not isinstance(v, dict) else
+                               {kk: vv[idx] for kk, vv in v.items()})
+                           for k, v in tree.items()})
+
+
+def _leaves(tree):
+    for v in tree.values():
+        if isinstance(v, dict):
+            yield from _leaves(v)
+        else:
+            yield v
+
+
+def scene_graph(ft, wav: str):
+    """14(d)'s scene: a granular voice, a looped cubic sampler, a streaming
+    deck on a WAV file and a beep, summed through volume, pan, echo and a
+    clip; clips from seed 18."""
+    rng = np.random.default_rng(18)
+    n = ft.nodes
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    gran = n.GranularSamplerNode(grain_frames=1024)
+    gran.set_sample(ft.SampleResource(gran_clip(0.5, 18), sample_rate=44100.0))
+    gran.set_tempo(0.8)
+    gran.set_pitch_semitones(3.0)
+    smp = n.SamplerNode(80.0, quality="cubic")
+    smp.set_sample(ft.SampleResource(
+        (0.3 * rng.standard_normal((2, 6000))).astype(np.float32)))
+    smp.set_loop_range(n.LoopRange.FULL)
+    smp.set_playback_rate(1.1)
+    deck = n.StreamingSamplerNode(ft.utils.wav.WavStreamReader(wav), percent_volume=70.0,
+                                  window_secs=0.25)
+    sources = [g.add_node(0, 2, x) for x in (gran, smp, deck,
+                                              n.BeepTestNode(440.0, -18.0))]
+    mix = g.add_node(8, 2, n.SumNode())
+    chain = [g.add_node(2, 2, x) for x in (
+        n.VolumeNode(80.0), n.StereoPanNode(-0.2),
+        n.EchoNode(delay_secs=0.05, feedback=0.3, wet=0.3), n.HardClipNode(-1.0))]
+    for c in range(2):
+        for i, s in enumerate(sources):
+            g.connect(s, c, mix, 2 * i + c)
+        prev = mix
+        for nid in chain:
+            g.connect(prev, c, nid, c)
+            prev = nid
+        g.connect(prev, c, g.graph_out_node(), c)
+    return g
+
+
+SCENE_BLOCKS = (8, 3)        # 14(d): K a chunk, chunks
+
+
+def render_scene(ft, g, device: str) -> np.ndarray:
+    for e in g.nodes():
+        if hasattr(e.weight.node, "play"):
+            e.weight.node.play()
+    sched = g.compile(48000, 128)
+    prog = ft.ScheduleProgram(sched.schedule, dict(sched.new_node_processors), 48000,
+                              device=device)
+    k, chunks = SCENE_BLOCKS
+    gi = torch.zeros((k, 0, 128), device=device)
+    im = torch.zeros((k, 0), dtype=torch.bool, device=device)
+    state = prog.init_state()
+    outs = []
+    for c in range(chunks):
+        out, _, state = prog.render_chunk(prog.collect_params(), state, gi, im, c * k * 128)
+        outs.append(out.cpu().numpy())
+    return np.concatenate(outs)
+
+
+def check_scene(ft, card: str) -> float:
+    """14(d): a scene saved by ``save_graph`` on the host, loaded by
+    ``load_graph`` and rendered on the card, against the same graph built
+    directly (bit for bit) and the loaded scene on the CPU (1e-5)."""
+    from firewheel_tpu_torch.utils.wav import write_wav
+
+    root = scratch_dir("scene-")
+    wav = os.path.join(root, "deck.wav")
+    write_wav(wav, (0.2 * np.random.default_rng(19).standard_normal((2, 48000))).astype(
+        np.float32), 48000)
+    path = os.path.join(root, "scene.npz")
+    ft.save_graph(scene_graph(ft, wav), path)
+    loaded = render_scene(ft, ft.load_graph(path)[0], "cuda")
+    direct = render_scene(ft, scene_graph(ft, wav), "cuda")
+    cpu = render_scene(ft, ft.load_graph(path)[0], "cpu")
+    if not np.array_equal(loaded, direct):
+        raise AssertionError("14(d): the loaded scene renders apart from the direct graph")
+    err = float(np.abs(loaded - cpu).max())
+    if err > SLICE_TOL or float(np.abs(loaded).max()) < 0.05:
+        raise AssertionError(f"14(d): the card vs the CPU max_abs_err={err:.3e}")
+    log(f"phase 14(d), a scene file on the card ({card}): loaded == built bit for bit "
+        f"over {SCENE_BLOCKS[0] * SCENE_BLOCKS[1]} blocks, vs the CPU max_abs_err={err:.3e}")
+    return err
+
+
+def check_slice(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, cpu_result,
+                card: str, phase) -> float:
+    """Phase 14: the granular sampler, the streaming sampler with the stream
+    formats, the music player and scene files on the card.  No kernel of
+    the port's lies on these paths: K1-K7 must launch no time."""
+    counters = (seq_iir.biquad_seq, em.MegaRenderer, eh.HybridMegaRenderer,
+                adpcm_device.encode_ima_chunk, dynamics.scan_lanes,
+                noise.noise_uniform, iir.biquad_cascade, iir.one_pole_scan)
+    for c in counters:
+        c.launches = 0
+    err = check_music(ft, cpu_result, card)
+    phase("14(a), the music session streamed")
+    err = max(err, check_granular_stream(ft, card))
+    phase("14(b), the granular stream")
+    err = max(err, check_granular_batched(ft, card))
+    phase("14(c), granular at B=8192, K=32")
+    err = max(err, check_scene(ft, card))
+    launched = {c.__name__: c.launches for c in counters}
+    if any(launched.values()):
+        raise AssertionError(f"phase 14 launched kernels of the port's: {launched}")
+    log(f"phase 14: launches of K1-K7 on these paths {launched}")
+    phase("14(d), a scene file")
+    return err
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3912,7 +4564,7 @@ def main() -> int:
 
 def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
                cpu_stream) -> int:
-    """Phases 1..12 and the result lines."""
+    """Phases 1..14 and the result lines."""
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -3994,6 +4646,10 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                                                               cpu_stream, card, phase)
     log(f"phase 13: the FX palette on the card vs the CPU and eager, "
         f"max_abs_err={fx_err:.3e}")
+    slice_err = check_slice(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise,
+                            cpu_stream, card, phase)
+    log(f"phase 14: the sampler and formats slice on the card vs the CPU, "
+        f"max_abs_err={slice_err:.3e}")
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 

@@ -23,8 +23,15 @@ loudness meter) renders streamed and batched, and so does the FX palette
 of the interactive editor (``fx_palette_graph``: a parametric EQ,
 chorus, flanger, tremolo, waveshapers, a gate, stereo width and a pitch
 shifter).  Checkpoints are the JAX
-package's files: either package restores the other's.  Its kernels are CUDA for
-NVIDIA Hopper (``csrc/``).  It imports torch and numpy, never JAX.
+package's files: either package restores the other's.  Clips play through
+the granular sampler (``GranularSamplerNode``: tempo and pitch apart) and
+stream from disk or a callback through ``StreamingSamplerNode``, whose
+readers come from the format registry (``open_stream_reader``,
+``load_audio``: WAV, AIFF, AU, FLAC, and MP3, Ogg Vorbis and Opus where the
+system has the codec); ``MusicPlayer`` sequences, loops and crossfades
+tracks over two streaming decks.  ``save_graph``/``load_graph`` write and
+read the JAX package's scene files.  Its kernels are CUDA for NVIDIA Hopper
+(``csrc/``).  It imports torch and numpy, never JAX.
 """
 
 from .core.automation import AutomationCurve, Keyframe, ParamAutomator
@@ -33,10 +40,23 @@ from .core.node import (
     AudioNode, AudioNodeInfo, BlockInfo, NodeActivationError, NodeProcessor,
     StreamStatus,
 )
+from .core.flac import FlacStreamReader, decode_flac
+from .core.formats import (
+    as_stream_reader, load_audio, open_stream_reader, register_format,
+    register_stream_reader, supported_formats, supported_stream_formats,
+)
 from .core.sample_resource import SampleResource
 from .core.silence_mask import SilenceMask
+from .core.smoother import ParamSmoother, SmootherConfig, SmootherState
+from .core.units import (
+    db_to_gain, db_to_gain_clamped_neg_100_db, gain_to_db,
+    gain_to_db_clamped_neg_100_db, percent_volume_to_raw_gain,
+)
 from .executor import ScheduleProgram, node_key
-from .graph import AudioGraph, AudioGraphConfig
+from .graph import (
+    AudioGraph, AudioGraphConfig, CompiledSchedule, Edge, EdgeID, NodeID,
+    SchedulePackage, load_graph, save_graph,
+)
 from .context import GraphContext, UpdateResult, UpdateStatus
 from .processor import GraphProcessor, ProcessorStatus
 from .backend import (
@@ -54,9 +74,13 @@ from .mixer import (
     spatial_scene_graph,
 )
 from .nodes import (
-    BinauralSpatializerNode, ConvolutionReverbNode, DelayCompNode, LoopRange,
-    SamplerNode, Spatializer3DNode,
+    BinauralSpatializerNode, CallbackStreamReader, ConvolutionReverbNode,
+    DelayCompNode, GranularSamplerNode, LoopRange, SamplerNode,
+    Spatializer3DNode, StreamingSamplerNode,
 )
+from .music import MusicPlayer
+from .utils.flac_encode import encode_flac
+from .utils.opus import OpusSink
 from .scene3d import AudioListener, SpatialScene
 from .parallel import BatchRenderer
 from .serving import SessionHandle, SessionServer
@@ -67,56 +91,89 @@ from .checkpoint import (
     save_checkpoint,
     save_sharded_checkpoint,
 )
+from . import nodes, utils
 
 __all__ = [
     "ArraySink",
+    "as_stream_reader",
     "AudioGraph",
     "AudioGraphConfig",
     "AudioListener",
     "AudioNode",
     "AudioNodeInfo",
     "AutomationCurve",
+    "available_output_devices",
     "BatchRenderer",
     "BinauralSpatializerNode",
     "BlockInfo",
+    "CallbackStreamReader",
+    "CompiledSchedule",
     "ConvolutionReverbNode",
+    "db_to_gain",
+    "db_to_gain_clamped_neg_100_db",
+    "decode_flac",
     "DelayCompNode",
     "DeviceInfo",
+    "Edge",
+    "EdgeID",
+    "effects_chain_graph",
+    "encode_flac",
     "FirewheelCtx",
+    "FlacStreamReader",
+    "fx_palette_graph",
+    "gain_to_db",
+    "gain_to_db_clamped_neg_100_db",
+    "GranularSamplerNode",
     "GraphContext",
     "GraphProcessor",
     "Keyframe",
+    "load_audio",
+    "load_checkpoint",
+    "load_graph",
+    "load_sharded_local",
     "LoopRange",
+    "mastering_bus_graph",
+    "mixer_graph",
+    "MusicPlayer",
+    "node_key",
     "NodeActivationError",
     "NodeEvent",
+    "NodeID",
     "NodeProcessor",
+    "nodes",
+    "open_stream_reader",
+    "OpusSink",
     "OutputStream",
     "ParamAutomator",
+    "ParamSmoother",
+    "percent_volume_to_raw_gain",
     "ProcessorStatus",
+    "register_format",
+    "register_stream_reader",
+    "restore_into",
     "RingBuffer",
     "SampleResource",
     "SamplerNode",
+    "save_checkpoint",
+    "save_graph",
+    "save_sharded_checkpoint",
+    "SchedulePackage",
     "ScheduleProgram",
     "SessionHandle",
     "SessionServer",
     "SilenceMask",
-    "SpatialScene",
+    "SmootherConfig",
+    "SmootherState",
+    "spatial_scene_graph",
     "Spatializer3DNode",
+    "SpatialScene",
     "StreamConfig",
+    "StreamingSamplerNode",
     "StreamStatus",
+    "supported_formats",
+    "supported_stream_formats",
     "UpdateResult",
     "UpdateStatus",
+    "utils",
     "WavSink",
-    "available_output_devices",
-    "effects_chain_graph",
-    "fx_palette_graph",
-    "mastering_bus_graph",
-    "load_checkpoint",
-    "load_sharded_local",
-    "mixer_graph",
-    "node_key",
-    "restore_into",
-    "save_checkpoint",
-    "save_sharded_checkpoint",
-    "spatial_scene_graph",
 ]

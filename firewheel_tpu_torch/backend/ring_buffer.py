@@ -1,8 +1,10 @@
 """SPSC ring buffer and paced consumer: ctypes bindings to native C++.
 
 PyTorch port of ``firewheel_tpu/backend/ring_buffer.py`` with its own copy
-of the C++ (``native/ringbuf.cpp``, ``native/consumer.cpp``).  g++ builds
-them at first use into the package's gitignored ``_build/``, under a name
+of the C++ (``native/ringbuf.cpp``, ``native/consumer.cpp``, and the FLAC
+decoder's ``native/lpc.cpp`` and ``native/crc.cpp``, which
+``core/flac.py`` loads through :func:`_load_native`).  g++ builds them at
+first use into the package's gitignored ``_build/``, under a name
 keyed by the hash of the sources; a pure-Python ring (a numpy buffer under
 a lock) keeps the engine working without a toolchain.
 
@@ -29,7 +31,8 @@ log = logging.getLogger(__name__)
 __all__ = ["RingBuffer", "NativeConsumer"]
 
 _NATIVE_DIR = Path(__file__).resolve().parent / "native"
-_SRCS = (_NATIVE_DIR / "ringbuf.cpp", _NATIVE_DIR / "consumer.cpp")
+_SRCS = tuple(_NATIVE_DIR / name for name in
+              ("ringbuf.cpp", "consumer.cpp", "lpc.cpp", "crc.cpp"))
 _GXX_FLAGS = ("-O2", "-shared", "-fPIC", "-std=c++17")
 
 _lib = None

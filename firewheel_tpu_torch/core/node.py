@@ -39,6 +39,7 @@ __all__ = [
     "MAX_PORTS",
     "STREAM_SAMPLE_PERIOD",
     "UINT32_MASK",
+    "wrap_int32",
 ]
 
 # Hard engine constant: at most 64 ports per node, the silence-mask width
@@ -88,6 +89,12 @@ def gate(x: torch.Tensor, silent_flag: torch.Tensor) -> torch.Tensor:
 #: unsigned 32-bit counter that wraps every 2^32 samples (~24.8 h @ 48 kHz)
 STREAM_SAMPLE_PERIOD = 1 << 32
 UINT32_MASK = STREAM_SAMPLE_PERIOD - 1
+
+
+def wrap_int32(x: torch.Tensor) -> torch.Tensor:
+    """An int64 tensor wrapped to the int32 value with the same low 32
+    bits: what the JAX package's int32 arithmetic gives."""
+    return ((x + (1 << 31)) & UINT32_MASK) - (1 << 31)
 
 
 def wrap_stream_sample(start_sample):

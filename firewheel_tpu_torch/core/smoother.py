@@ -9,19 +9,24 @@ status machine.  The ramp is evaluated in closed form::
     y[i] = x_eff + (y0 - x_eff) * b^(i+1),   x_eff = (x*a)/a
 
 The state is a dict ``{"target", "last", "status"}`` of tensors with any
-leading batch shape (the JAX package's ``SmootherState`` fields).
+leading batch shape: the fields of :class:`SmootherState`, which
+``convert.as_dicts`` turns into that dict.  :class:`ParamSmoother` is the
+host-side smoother with the reference's imperative API, in numpy.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 __all__ = [
     "SmootherConfig",
+    "SmootherState",
+    "ParamSmoother",
     "SMOOTHER_INACTIVE",
     "SMOOTHER_ACTIVE",
     "SMOOTHER_DEACTIVATING",
@@ -43,6 +48,22 @@ class SmootherConfig:
 
     smooth_secs: float = 10.0 / 1000.0
     settle_epsilon: float = 0.00001
+
+
+class SmootherState(NamedTuple):
+    """The smoother's recurrent carry, as the JAX package names it.
+
+    ``target``: the value being smoothed toward (smoother.rs ``input``).
+    ``last``:   the most recent output sample (smoother.rs ``last_output``).
+    ``status``: int32 status machine value.
+
+    The kernels carry it as a dict of these fields (:func:`smoother_init`);
+    ``SmootherState(**state)`` and ``state._asdict()`` convert.
+    """
+
+    target: torch.Tensor
+    last: torch.Tensor
+    status: torch.Tensor
 
 
 def smoother_coeffs(sample_rate: int, config: SmootherConfig = SmootherConfig()):
@@ -137,3 +158,83 @@ def smoother_set_and_process(
     )
     new_state = {"target": target, "last": new_last, "status": new_status}
     return values, new_state, new_status != SMOOTHER_INACTIVE
+
+
+class ParamSmoother:
+    """Host-side smoother with the reference's imperative API.
+
+    Useful for host-driven control paths and as an executable spec; the
+    compiled graph path uses :func:`smoother_set_and_process` directly.
+    """
+
+    def __init__(
+        self,
+        val: float,
+        sample_rate: int,
+        max_block_frames: int,
+        config: SmootherConfig = SmootherConfig(),
+    ):
+        self._coeffs = smoother_coeffs(sample_rate, config)
+        self._eps = config.settle_epsilon
+        self._max_block_frames = max_block_frames
+        self._target = np.float32(val)
+        self._last = np.float32(val)
+        self._status = SMOOTHER_INACTIVE
+
+    # -- queries (smoother.rs:143-153, 208-226) -----------------------------
+    def dest(self) -> float:
+        return float(self._target)
+
+    def current_value(self):
+        return float(self._last), self._status
+
+    def is_active(self) -> bool:
+        return self._status != SMOOTHER_INACTIVE
+
+    def constant_value(self):
+        return None if self.is_active() else float(self._target)
+
+    def max_block_frames(self) -> int:
+        return self._max_block_frames
+
+    # -- mutation ------------------------------------------------------------
+    def reset(self, val: float):
+        self._target = np.float32(val)
+        self._last = np.float32(val)
+        self._status = SMOOTHER_INACTIVE
+
+    def set(self, val: float):
+        val = np.float32(val)
+        if val != self._target:
+            self._target = val
+            self._status = SMOOTHER_ACTIVE
+
+    def process(self, frames: int) -> tuple[np.ndarray, int]:
+        frames = min(frames, self._max_block_frames)
+        b, a, log_b = self._coeffs
+        if self._status != SMOOTHER_ACTIVE or frames == 0:
+            if self._status == SMOOTHER_DEACTIVATING:
+                self._status = SMOOTHER_INACTIVE
+                return np.full(frames, self._last, np.float32), SMOOTHER_DEACTIVATING
+            return np.full(frames, self._last, np.float32), self._status
+
+        # Float64-exact closed form, truncated to f32 (the golden semantics).
+        inp = np.float32(self._target * a)
+        x_eff = np.float64(inp) / np.float64(a)
+        kpow = np.exp(
+            np.arange(1, frames + 1, dtype=np.float64) * math.log(float(b))
+        )
+        ramp = (x_eff + (np.float64(self._last) - x_eff) * kpow).astype(np.float32)
+
+        if abs(float(self._target) - float(ramp[0])) < self._eps:
+            out = np.full(frames, self._target, np.float32)
+            self._last = np.float32(self._target)
+            self._status = SMOOTHER_DEACTIVATING
+            return out, SMOOTHER_DEACTIVATING
+
+        self._last = np.float32(ramp[-1])
+        return ramp, SMOOTHER_ACTIVE
+
+    def set_and_process(self, val: float, frames: int):
+        self.set(val)
+        return self.process(frames)

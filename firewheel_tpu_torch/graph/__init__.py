@@ -1,6 +1,6 @@
 """The DAG model, its compiler (the ``firewheel-graph`` analog) and the
-latency-compensation pass, copied from ``firewheel_tpu/graph``;
-``serialize`` is not ported yet."""
+latency-compensation pass and the scene files (``serialize``), copied from
+``firewheel_tpu/graph``."""
 
 from .arena import Arena, Index
 from .compiler import (
@@ -75,3 +75,7 @@ __all__ = [
     "output_latency_frames",
     "path_latencies",
 ]
+
+from .serialize import SCENE_VERSION, load_graph, register_node_class, save_graph  # noqa: E402
+
+__all__ += ["SCENE_VERSION", "load_graph", "register_node_class", "save_graph"]

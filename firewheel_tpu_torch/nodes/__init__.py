@@ -4,12 +4,13 @@ from .beep_test import BeepTestNode
 from .binaural import BinauralSpatializerNode
 from .channel import MonoToStereoNode, StereoToMonoNode
 from .delay import DelayCompNode, EchoNode
-from .dummy import DummyAudioNode
+from .dummy import DummyAudioNode, DummyProcessor
 from .dynamics import CompressorNode, DuckerNode, GateNode, LimiterNode
 from .eq import EQBand, ParametricEQNode
 from .filter import FilterNode, FilterType
 from .fir import FirFilterNode, design_windowed_sinc
 from .generators import LFONode, LFOShape, NoiseNode
+from .granular import GranularSamplerNode
 from .hard_clip import HardClipNode
 from .loudness import IntegratedLoudness, LoudnessMeterNode
 from .meter import DbMeterNode
@@ -20,6 +21,7 @@ from .reverb import ConvolutionReverbNode
 from .sampler import LoopRange, SamplerNode
 from .spatial import Spatializer3DNode
 from .stereo_width import StereoWidthNode
+from .streaming_sampler import CallbackStreamReader, StreamingSamplerNode
 from .sum import SumNode
 from .volume import VolumeNode
 from .waveshaper import WaveshaperNode
@@ -27,18 +29,21 @@ from .waveshaper import WaveshaperNode
 __all__ = [
     "BeepTestNode",
     "BinauralSpatializerNode",
+    "CallbackStreamReader",
     "CompressorNode",
     "ConvolutionReverbNode",
     "DbMeterNode",
     "DelayCompNode",
     "DuckerNode",
     "DummyAudioNode",
+    "DummyProcessor",
     "EQBand",
     "EchoNode",
     "FilterNode",
     "FilterType",
     "FirFilterNode",
     "GateNode",
+    "GranularSamplerNode",
     "HardClipNode",
     "IntegratedLoudness",
     "LFONode",
@@ -56,6 +61,7 @@ __all__ = [
     "StereoPanNode",
     "StereoToMonoNode",
     "StereoWidthNode",
+    "StreamingSamplerNode",
     "SumNode",
     "TremoloNode",
     "VolumeNode",

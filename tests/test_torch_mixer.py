@@ -196,9 +196,11 @@ def test_port_imports_no_jax():
     """Importing the port, rendering one CPU chunk with each lowering
     (eager, megakernel, and hybrid on the effects chain and on the spatial
     scene with speaker, doppler and binaural spatializers), streaming the
-    mixer through ``FirewheelCtx`` (with its native ring built) and placing
-    an emitter in a ``SpatialScene`` leave JAX and the JAX package out of
-    ``sys.modules``."""
+    mixer through ``FirewheelCtx`` (with its native ring built), placing
+    an emitter in a ``SpatialScene``, importing each module of the sampler
+    and formats slice, and streaming a granular voice beside a
+    ``MusicPlayer`` deck playing a FLAC file, then saving the scene, leave
+    JAX and the JAX package out of ``sys.modules``."""
     code = (
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
@@ -239,13 +241,34 @@ def test_port_imports_no_jax():
         "    assert float(out.abs().max()) > 0.001, kw\n"
         "scene = ft.SpatialScene(ft.AudioListener(forward=(1.0, 0.0, 0.0)))\n"
         "scene.add('e', ft.Spatializer3DNode(), (5.0, 0.0, 0.0))\n"
+        "import importlib, numpy as np\n"
+        "for m in ('nodes.granular', 'nodes.streaming_sampler', 'core.formats',"
+        " 'core.flac', 'core.ranges', 'utils.wav', 'utils.flac_encode', 'utils.mp3',"
+        " 'utils.vorbis', 'utils.opus', 'utils.resample', 'music', 'graph.serialize'):\n"
+        "    importlib.import_module('firewheel_tpu_torch.' + m)\n"
+        "cx = ft.FirewheelCtx(device='cpu')\n"
+        "player = ft.MusicPlayer(cx.graph_mut(), clock=lambda: cx.stream.frames_rendered)\n"
+        "gran = ft.GranularSamplerNode(grain_frames=512)\n"
+        "gran.set_sample(ft.SampleResource(np.ones((2, 4000), np.float32)))\n"
+        "gran.play()\n"
+        "cx.graph_mut().add_node(0, 2, gran)\n"
+        "path = tempfile.mkdtemp() + '/t.flac'\n"
+        "ft.encode_flac(np.zeros((2, 3000), np.float32), 48000, path=path)\n"
+        "cx.activate(ft.StreamConfig(block_frames=128, buffer_frames=512), sink=ft.ArraySink())\n"
+        "player.play(path)\n"
+        "cx.render_offline(0.05)\n"
+        "ft.save_graph(cx.graph_mut(), tempfile.mkdtemp() + '/s.npz')\n"
+        "cx.deactivate()\n"
         "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
         " 'ops.direct_conv', 'executor_hybrid', 'processor', 'context',"
         " 'channels', 'backend.context', 'backend.stream', 'backend.ring_buffer',"
         " 'backend.device_info', 'core.events', 'core.interleave',"
         " 'core.silence_mask', 'core.automation', 'serving', 'checkpoint',"
         " '_msgpack', 'graph.latency', 'nodes.spatial', 'nodes.binaural',"
-        " 'scene3d', 'ops.pan', 'ops.iir'):\n"
+        " 'scene3d', 'ops.pan', 'ops.iir', 'nodes.granular', 'nodes.streaming_sampler',"
+        " 'core.formats', 'core.flac', 'core.ranges', 'utils.wav', 'utils.flac_encode',"
+        " 'utils.mp3', 'utils.vorbis', 'utils.opus', 'utils.resample', 'music',"
+        " 'graph.serialize'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
