@@ -228,12 +228,41 @@ Run from the root of a checkout:  python3 chip_smoke.py
    deck on a WAV file, a beep, a sum, volume, pan, echo and a clip) loaded
    by ``load_graph`` renders on the card bit for bit as the graph built
    directly, and within 1e-5 of the CPU.
+15. The voice pool, MIDI playback, HTTP streaming and the node validator.
+   No kernel of the port's lies on (a)-(c): K1-K7 must launch no time there.
+   (a) ``examples/voice_pool_game.py``'s battle on an 8-voice ``VoicePool``
+   through ``FirewheelCtx`` (1024-frame buffers of 128-frame blocks, 3 s):
+   shots scheduled 50 ms ahead, inside blocks, overlapping; a volley of
+   seven priority-3 lasers after which a footstep is dropped (``play``
+   returns ``None``); an explosion that steals a laser's voice; the looping
+   hum ducked and then stopped by its handle; ``finished_handles(cx.
+   poll_events())`` each tick; the clips' noise seeded from a stable hash
+   of their names.  Against the same session on the CPU (the worker of
+   12(a)): audio within 1e-5, the handles, dropped shots, steals and
+   finished handles equal; the pool's samplers one pooled group of 8 in
+   the executor's plan.  Its realtime factor, wall a buffer (p50, p99) and
+   kernels a block (``torch.profiler``).  (b) ``examples/midi_jukebox.py``:
+   its ``demo_song`` with a control track on the bass's channel (RPN 0,0
+   sets a 7-semitone bend range, an NRPN select and its data entry follow
+   and must leave it, then bends) parsed by ``parse_midi`` and played by
+   ``MidiSequencer`` on a 24-voice pool, ``update()`` every 4 buffers, 3 s,
+   against the CPU: audio within 1e-5, skipped and dropped notes equal; its
+   realtime factor, wall a buffer and kernels a block.
+   (c) A seeded 2 s 48 kHz stereo pcm16 WAV served by a localhost
+   ``ThreadingHTTPServer`` with byte ranges, streamed by a
+   ``StreamingSamplerNode`` through ``HttpWavStreamReader``: bit for bit the
+   same node reading the file from disk on the card, within 1e-5 of the
+   CPU.  (d) ``testing.validate_node(..., device="cuda")`` on
+   ``FilterNode(backend="pallas")`` (K1), ``CompressorNode`` (K5),
+   ``NoiseNode("pink")`` (K6, K5) and ``ParametricEQNode`` (K7): every
+   check passes and each kernel launches.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
 batched main path (``launches``), in phase 9's stream (``stream_launches``;
 K1's device time, call and plain version at the stream's 2 lanes beside
-them) and in phase 10's fleets (``serve_launches``), K2 and K3 once
+them), in phase 10's fleets (``serve_launches``) and in 15(d)'s validator
+(``validator_launches``), K2 and K3 once
 more for the spatial scene of phase 11 (and K2 with the arena spilled at
 256 frames), K3 for the mastering bus of 12(c), K4-K6 (launches in 10(f)'s
 fleet and 12(b)'s batched bus, times from 3(b)) and K7's two kernels, the
@@ -291,6 +320,16 @@ F64_OPS_PER_S = 34e12      # H100 SXM f64 outside the tensor cores (NVIDIA's dat
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def _port():
+    """The port beside this file (for the functions a worker process runs)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    if here not in sys.path:
+        sys.path.insert(0, here)
+    import firewheel_tpu_torch as ft
+
+    return ft
 
 
 def card_line() -> str:
@@ -2965,10 +3004,7 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
     integrated loudness, the final state, the walls, K5's and K6's
     launches and the profile's counts.  The CPU's run goes on in a worker
     process (:class:`CpuStream`) while the card runs the earlier phases."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    if here not in sys.path:
-        sys.path.insert(0, here)
-    import firewheel_tpu_torch as ft
+    ft = _port()
     from firewheel_tpu_torch.convert import state_to_numpy
     from firewheel_tpu_torch.mixer import add_mastering_bus
     from firewheel_tpu_torch.nodes import IntegratedLoudness, LoudnessMeterNode
@@ -3026,17 +3062,19 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
 
 
 def _cpu_stream_worker(conn) -> None:
-    """The CPU's streams of 12(a), 13(a) and 14(a) in a worker process, on
-    one thread; sends ``("ok", name, result)`` for each as it finishes
-    (``"mastering"``, ``"palette"``, ``"music"``), or ``("error",
-    traceback)``, to the parent."""
+    """The CPU's streams of 12(a), 13(a), 14(a), 15(a) and 15(b) in a worker
+    process, on one thread; sends ``("ok", name, result)`` for each as it
+    finishes (``"mastering"``, ``"palette"``, ``"music"``, ``"pool"``,
+    ``"jukebox"``), or ``("error", traceback)``, to the parent."""
     import traceback
 
     try:
         torch.set_num_threads(1)
         for name, run in (("mastering", lambda: mastering_stream("cpu")),
                           ("palette", lambda: palette_stream("cpu")),
-                          ("music", music_reference)):
+                          ("music", music_reference),
+                          ("pool", lambda: voice_pool_session("cpu")),
+                          ("jukebox", lambda: jukebox_session("cpu"))):
             conn.send(("ok", name, run()))
     except Exception:  # the worker's boundary: the parent raises it
         conn.send(("error", traceback.format_exc()))
@@ -3045,7 +3083,7 @@ def _cpu_stream_worker(conn) -> None:
 
 
 class CpuStream:
-    """12(a)'s, 13(a)'s and 14(a)'s CPU streams, started in a spawned worker
+    """The CPU streams of 12(a), 13(a), 14(a), 15(a) and 15(b), started in a spawned worker
     process at once.  ``get()[name]`` waits for that stream's result
     (raising what the worker raised, or if it died without one); :meth:`stop`
     ends the worker."""
@@ -3539,10 +3577,7 @@ def palette_stream(device: str, profile: bool = False) -> dict:
     PALETTE_PROFILED, one buffer each.  Returns a dict of numpy results: the
     audio, the final state, the walls, K7's launches and, profiled, the
     kernels a block of each kind."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    if here not in sys.path:
-        sys.path.insert(0, here)
-    import firewheel_tpu_torch as ft
+    ft = _port()
     from firewheel_tpu_torch.convert import state_to_numpy
     from firewheel_tpu_torch.mixer import add_fx_engine, add_fx_voice, set_fx
     from firewheel_tpu_torch.ops import iir
@@ -4045,11 +4080,7 @@ def stream_stats(out: dict, frames: int) -> str:
 def music_reference() -> dict:
     """14(a)'s tracks, written once, and the session on the CPU (in the
     worker process: :class:`CpuStream`)."""
-    here = os.path.dirname(os.path.abspath(__file__))
-    if here not in sys.path:
-        sys.path.insert(0, here)
-    import firewheel_tpu_torch as ft
-
+    ft = _port()
     tracks = music_tracks(ft, scratch_dir("music-"))
     return {"tracks": tracks, **music_session(ft, "cpu", tracks)}
 
@@ -4061,11 +4092,7 @@ def _music_card_worker(conn, tracks) -> None:
     import traceback
 
     try:
-        here = os.path.dirname(os.path.abspath(__file__))
-        if here not in sys.path:
-            sys.path.insert(0, here)
-        import firewheel_tpu_torch as ft
-
+        ft = _port()
         conn.send(("ok", music_session(ft, "cuda", tracks, 4)))
     except Exception:  # the worker's boundary: the parent raises it
         conn.send(("error", traceback.format_exc()))
@@ -4535,6 +4562,497 @@ def check_slice(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, cpu_res
     return err
 
 
+# -- phase 15: the voice pool, MIDI playback, HTTP streaming, the validator --
+
+POOL_BUFFER = 1024           # frames a buffer (cpal's default), of 128-frame blocks
+POOL_BUFFERS = 141           # 15(a): 3.0 s (the example renders 6 s: PERF.md §4)
+POOL_TICK = 8                # buffers a game tick, 171 ms (the example's is 330 ms)
+POOL_LEAD = 2400             # samples a shot is scheduled ahead of the render head
+#: 15(a)'s game, by tick: the hum looped at tick 0; a footstep each tick in
+#: POOL_STEPS and a laser 0.1 s after it on 55% of them; at POOL_VOLLEY seven
+#: lasers (priority 3) and a footstep that finds every voice outranking it;
+#: at POOL_BOOM the explosion (priority 5) steals a volley laser and the hum
+#: ducks; at POOL_HUSH the hum's handle stops it
+POOL_STEPS, POOL_VOLLEY, POOL_BOOM, POOL_HUSH = range(1, 15), 5, 8, 12
+POOL_PROFILED = (64, 4)      # 15(a)'s buffers under torch.profiler
+JUKE_BUFFERS = 141           # 15(b): 3.0 s of the song (it is 13.7 s: PERF.md §4)
+JUKE_UPDATE = 4              # buffers between the sequencer's updates (85 ms)
+JUKE_PROFILED = (64, 2)      # 15(b)'s buffers under torch.profiler
+HTTP_SECS = 2.0              # 15(c)'s WAV
+HTTP_BUFFER = 512
+
+
+def pool_clip(ft, kind: str):
+    """``examples/voice_pool_game.py``'s procedural sound effects, with the
+    noise seeded from a stable hash of the name (the example's ``hash(kind)``
+    differs between processes)."""
+    import zlib
+
+    sr = 48000
+    rng = np.random.default_rng(zlib.crc32(kind.encode()) & 0xFFFF)
+    if kind == "footstep":  # 40 ms filtered noise thump
+        n = int(0.04 * sr)
+        x = rng.standard_normal(n).astype(np.float32)
+        env = np.exp(-np.linspace(0, 9, n)).astype(np.float32)
+        for _ in range(3):
+            x = np.convolve(x, np.ones(8, np.float32) / 8, "same")
+        return ft.SampleResource((x * env)[None, :] * 2.0, sample_rate=sr)
+    t = np.arange(int({"laser": 0.12, "explosion": 0.6, "engine": 0.25}[kind] * sr),
+                  dtype=np.float32) / sr
+    if kind == "laser":  # 120 ms descending chirp
+        ph = np.cumsum(2 * np.pi * (2600.0 * np.exp(-t * 18.0) + 300.0) / sr).astype(
+            np.float32)
+        return ft.SampleResource((np.sin(ph) * np.exp(-t * 25.0) * 0.8)[None, :],
+                                 sample_rate=sr)
+    if kind == "explosion":  # 600 ms noise burst with rumble
+        x = rng.standard_normal(len(t)).astype(np.float32)
+        for _ in range(4):
+            x = np.convolve(x, np.ones(16, np.float32) / 16, "same")
+        rumble = np.sin(2 * np.pi * 55.0 * t) * np.exp(-t * 4.0)
+        return ft.SampleResource(((x * 3.0 + rumble) * np.exp(-t * 6.0))[None, :].astype(
+            np.float32), sample_rate=sr)
+    x = sum(np.sin(2 * np.pi * f0 * t) * a  # 250 ms loopable hum
+            for f0, a in ((82.0, 0.5), (164.0, 0.25), (123.0, 0.15)))
+    return ft.SampleResource(x[None, :].astype(np.float32), sample_rate=sr)
+
+
+def pool_groups(cx) -> list:
+    """The sizes of the pooled groups of samplers in the stream's schedule
+    (a lone sampler counts as a group of 1)."""
+    from firewheel_tpu_torch.executor import node_key
+
+    program = cx.stream._processor._program
+    return [len(members) for _, members in program._plan
+            if type(program._procs[node_key(members[0].id)]).__name__ == "SamplerProcessor"]
+
+
+def stream_session(cx, buffers: int, control, profile=None) -> dict:
+    """Pump ``buffers`` one at a time, calling ``control(b)`` before buffer
+    ``b``; ``profile = (first, n)`` traces buffers [first, first + n).
+    Returns the walls a buffer, the wall (the profiler's own start and stop
+    left out, ``profiler_s``) and the profile's counts."""
+    out = {"walls": [], "profiler_s": 0.0}
+    trace = PumpTrace()
+    t_start = time.perf_counter()
+    for b in range(buffers):
+        control(b)
+        if profile and b == profile[0]:
+            t0 = time.perf_counter()
+            trace.start()
+            out["profiler_s"] += time.perf_counter() - t0
+        PumpTrace.pump(cx, 1, out["walls"])
+        if trace.on and b + 1 == sum(profile):
+            prof, out["profile_wall"] = trace.stop(cx.stream)
+            t0 = time.perf_counter()
+            out["profile"] = profile_busy(prof, profile[1] * POOL_BUFFER // 128)
+            del prof
+            out["profiler_s"] += time.perf_counter() - t0
+    cx.stream.flush()
+    if cx.device.type == "cuda":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t_start - out["profiler_s"]
+    return out
+
+
+def voice_pool_session(device: str, profile: bool = False) -> dict:
+    """15(a): ``examples/voice_pool_game.py``'s battle on an 8-voice
+    ``VoicePool`` through ``FirewheelCtx`` on ``device``: overlapping shots
+    scheduled inside blocks, a volley that leaves a footstep dropped, an
+    explosion that steals a voice, the looping hum ducked and stopped by its
+    handle, finished handles polled each tick.  Returns the audio, the
+    handles, the dropped shots, the steals, the finished handles, the
+    pooled groups, the walls and (``profile``) the profile's counts."""
+    ft = _port()
+    cx = ft.FirewheelCtx(device=device)
+    pool = ft.VoicePool(cx.graph_mut(), num_voices=8, max_clip_frames=1 << 15,
+                        declick_secs=0.003, clock=lambda: cx.stream.frames_rendered)
+    clips = {k: pool_clip(ft, k) for k in ("footstep", "laser", "explosion", "engine")}
+    pool.preload(*clips.values())
+    sink = ft.ArraySink()
+    cx.activate(ft.StreamConfig(48000, 2, buffer_frames=POOL_BUFFER, block_frames=128),
+                sink=sink)
+    rng = np.random.default_rng(7)
+    rec = {"handles": [], "dropped": [], "steals": 0, "finished": []}
+    hum = []
+
+    def shot(tick, clip, now, **kw):
+        busy = pool.active_voices(now=now) == pool.num_voices
+        h = pool.play(clips[clip], now=now, **kw)
+        rec["handles"].append(None if h is None else (h._index, h._gen))
+        if h is None:
+            rec["dropped"].append((tick, clip))
+        rec["steals"] += int(busy and h is not None)
+        return h
+
+    def control(b):
+        if b % POOL_TICK:
+            return
+        tick, now = b // POOL_TICK, cx.stream.frames_rendered
+        rec["finished"] += [(tick, h._index, h._gen)
+                            for h in pool.finished_handles(cx.poll_events())]
+        when = now + POOL_LEAD
+        if tick == 0:
+            hum.append(shot(tick, "engine", now, loop=True, gain_db=-18.0, priority=10,
+                            when=128))
+        elif tick == POOL_VOLLEY:
+            for i in range(7):
+                shot(tick, "laser", now, gain_db=-12.0, pan=i / 3.0 - 1.0, priority=3,
+                     rate=0.9 + 0.05 * i, when=when + 37 * i)
+            shot(tick, "footstep", now, gain_db=-8.0, when=when)
+        elif tick in POOL_STEPS:
+            shot(tick, "footstep", now, gain_db=-8.0 - rng.uniform(0, 3),
+                 pan=rng.uniform(-0.4, 0.4), rate=rng.uniform(0.92, 1.08), when=when)
+            if rng.random() < 0.55:
+                shot(tick, "laser", now, gain_db=-10.0, pan=rng.uniform(-1, 1),
+                     rate=rng.uniform(0.8, 1.3), when=when + 4800)
+        if tick == POOL_BOOM:
+            shot(tick, "explosion", now, gain_db=-9.0, priority=5, when=when)
+            hum[0].set_gain_db(-24.0)  # duck the hum under the blast
+        if tick == POOL_HUSH:
+            hum[0].stop(at_sample=when)
+        if b == POOL_TICK:  # the schedule compiled, the clips set
+            rec["groups"] = pool_groups(cx)
+
+    out = stream_session(cx, POOL_BUFFERS, control, POOL_PROFILED if profile else None)
+    rec["finished"] += [(POOL_BUFFERS // POOL_TICK + 1, h._index, h._gen)
+                        for h in pool.finished_handles(cx.poll_events())]
+    rec["hum_alive"] = hum[0].alive
+    rec["audio"] = sink.audio(2)
+    cx.deactivate()
+    return {**rec, **out}
+
+
+def _smf_track(events) -> bytes:
+    def varlen(v):
+        out = [v & 0x7F]
+        v >>= 7
+        while v:
+            out.append((v & 0x7F) | 0x80)
+            v >>= 7
+        return bytes(reversed(out))
+
+    body = b"".join(varlen(d) + e for d, e in events) + varlen(0) + bytes([0xFF, 0x2F, 0])
+    return b"MTrk" + len(body).to_bytes(4, "big") + body
+
+
+def demo_song(tpq: int = 480, control=()) -> bytes:
+    """``examples/midi_jukebox.py:demo_song``: two bars of lead, bass and
+    kick/snare at 140 bpm, looped 4x; ``control`` adds a track of (delta,
+    event) pairs."""
+    lead_bar = [64, 67, 71, 67, 72, 71, 67, 64]
+    bass_bar = [40, 40, 43, 47]
+    eighth, quarter = tpq // 2, tpq
+    lead = [(0, bytes([0xFF, 0x51, 0x03]) + (428_571).to_bytes(3, "big"))]
+    bass, drums = [], []
+    for bar in range(8):
+        for n in lead_bar:
+            nn = n + (12 if bar % 4 == 3 else 0)
+            lead += [(0, bytes([0x90, nn, 96])), (eighth - 30, bytes([0x80, nn, 0])),
+                     (30, b"")]
+        for n in bass_bar:
+            bass += [(0, bytes([0x91, n, 110])), (quarter - 20, bytes([0x81, n, 0])),
+                     (20, b"")]
+        for beat in range(4):
+            drum = 36 if beat % 2 == 0 else 38
+            drums += [(0, bytes([0x99, drum, 127])), (quarter, bytes([0x89, drum, 0]))]
+
+    def merge_deltas(evs):  # drop the zero-length spacers, keeping their time
+        out, carry = [], 0
+        for d, e in evs:
+            if e:
+                out.append((d + carry, e))
+                carry = 0
+            else:
+                carry += d
+        return out
+
+    tracks = [merge_deltas(lead), merge_deltas(bass), merge_deltas(drums)]
+    if control:
+        tracks.append(list(control))
+    head = (b"MThd" + (6).to_bytes(4, "big") + (1).to_bytes(2, "big")
+            + len(tracks).to_bytes(2, "big") + tpq.to_bytes(2, "big"))
+    return head + b"".join(_smf_track(t) for t in tracks)
+
+
+def _cc(ch, num, val) -> bytes:
+    return bytes([0xB0 | ch, num, val])
+
+
+def _bend(ch, value14) -> bytes:
+    return bytes([0xE0 | ch, value14 & 0x7F, (value14 >> 7) & 0x7F])
+
+
+#: 15(b)'s control track on the bass's channel: RPN 0,0 sets a 7-semitone
+#: bend range, an NRPN select and its data entry follow (the port's parser
+#: keeps the range; the reference's moved it to 64), then bends of +1/4 and
+#: -1/2 of the range, back to centre, and the channel volume to 100
+JUKE_CONTROL = ((0, _cc(1, 101, 0)), (0, _cc(1, 100, 0)), (0, _cc(1, 6, 7)),
+                (0, _cc(1, 99, 2)), (0, _cc(1, 98, 9)), (0, _cc(1, 6, 64)),
+                (960, _bend(1, 8192 + 2048)), (480, _cc(1, 7, 100)),
+                (480, _bend(1, 8192 - 4096)), (960, _bend(1, 8192)))
+
+
+def juke_clip(ft, freq, secs, kind):
+    """``examples/midi_jukebox.py:synth_clip``."""
+    t = np.arange(int(secs * 48000)) / 48000
+    if kind == "pulse":
+        x = np.sign(np.sin(2 * np.pi * freq * t) + 0.3).astype(np.float32)
+    elif kind == "tri":
+        x = (2 / np.pi * np.arcsin(np.sin(2 * np.pi * freq * t))).astype(np.float32)
+    else:
+        x = np.random.default_rng(7).standard_normal(len(t)).astype(np.float32)
+    env = np.exp(-t / (secs / 4)).astype(np.float32)
+    return ft.SampleResource((0.3 * x * env)[None, :], sample_rate=48000)
+
+
+def jukebox_session(device: str, profile: bool = False) -> dict:
+    """15(b): ``examples/midi_jukebox.py`` on the port: ``demo_song`` with
+    :data:`JUKE_CONTROL` parsed by ``parse_midi`` and driven by
+    ``MidiSequencer`` onto a 24-voice ``VoicePool`` through ``FirewheelCtx``
+    on ``device``, ``update()`` every JUKE_UPDATE buffers."""
+    ft = _port()
+    from firewheel_tpu_torch.utils.midi import Instrument, MidiSequencer, parse_midi
+
+    cx = ft.FirewheelCtx(device=device)
+    pool = ft.VoicePool(cx.graph_mut(), num_voices=24, max_clip_frames=1 << 16,
+                        clock=lambda: cx.stream.frames_rendered)
+    sink = ft.ArraySink()
+    cx.activate(ft.StreamConfig(48000, 2, buffer_frames=POOL_BUFFER, block_frames=128),
+                sink=sink)
+    song = parse_midi(demo_song(control=JUKE_CONTROL))
+    seq = MidiSequencer(pool, song, {
+        0: Instrument(juke_clip(ft, 440.0, 0.8, "pulse"), root_note=69, gain_db=-6,
+                      pan=-0.2),
+        1: Instrument(juke_clip(ft, 110.0, 1.2, "tri"), root_note=45, gain_db=-3),
+        9: {36: Instrument(juke_clip(ft, 55.0, 0.25, "tri"), root_note=36),
+            38: Instrument(juke_clip(ft, 0.0, 0.15, "noise"), root_note=38, gain_db=-8,
+                           pan=0.15)},
+    }, horizon_secs=0.5)
+    seq.start()
+
+    def control(b):
+        if b % JUKE_UPDATE == 0:
+            seq.update()
+        if b == 1:
+            out["groups"] = pool_groups(cx)
+
+    out = {}
+    out.update(stream_session(cx, JUKE_BUFFERS, control, JUKE_PROFILED if profile else None))
+    out.update(audio=sink.audio(2), skipped=seq.skipped_notes, dropped=seq.dropped_notes,
+               scheduled=seq._next, bends=song.bend_changes)
+    cx.deactivate()
+    return out
+
+
+def _pool_stats(got: dict, card: str, what: str, profiled: int) -> str:
+    line = f"{what} ({card}): {stream_stats(got, got['audio'].shape[1])}"
+    if "profile" in got:
+        per_block, calls, busy = got["profile"]
+        line += (f"; {per_block:.1f} kernels a 128-frame block ({calls:.1f} launch calls"
+                 f"), device busy {100 * busy / 1e6 / got['profile_wall']:.2f}% of "
+                 f"{profiled} profiled buffers (the profiler's start and stop "
+                 f"{got['profiler_s']:.1f} s, left out of the RTF)")
+        if per_block == 0:
+            line += " (the profile saw no device activity: read the launch calls)"
+    return line
+
+
+def check_pool(cpu_result, card: str) -> float:
+    """15(a): the voice-pool battle on the card against the same session on
+    the CPU (the worker of 12(a))."""
+    want = cpu_result.get()["pool"]
+    got = voice_pool_session("cuda", profile=True)
+    if got["audio"].shape != want["audio"].shape or not np.isfinite(got["audio"]).all():
+        raise AssertionError(f"15(a): the session rendered {got['audio'].shape}, the CPU "
+                             f"{want['audio'].shape}")
+    err = float(np.abs(got["audio"] - want["audio"]).max())
+    if err > SLICE_TOL:
+        raise AssertionError(f"15(a): the card vs the CPU max_abs_err={err:.3e}")
+    for key in ("handles", "dropped", "steals", "finished", "groups", "hum_alive"):
+        if got[key] != want[key]:
+            raise AssertionError(f"15(a): {key} {got[key]}, the CPU's {want[key]}")
+    if got["groups"] != [8]:
+        raise AssertionError(f"15(a): the pool's samplers ran in groups {got['groups']}, "
+                             "not one pooled group of 8")
+    if (not got["dropped"] or got["steals"] < 1 or got["hum_alive"]
+            or len(got["finished"]) < 3 or float(np.abs(got["audio"]).max()) < 0.05):
+        raise AssertionError(f"15(a): dropped {got['dropped']}, steals {got['steals']}, "
+                             f"hum alive {got['hum_alive']}, finished {got['finished']}")
+    stats = _pool_stats(got, card, "the voice-pool battle, 8 voices", POOL_PROFILED[1])
+    log(f"phase 15(a), {stats}; "
+        f"pooled sampler groups {got['groups']}, {len(got['handles'])} shots, "
+        f"{got['steals']} steals, dropped {got['dropped']}, "
+        f"{len(got['finished'])} finished handles; max_abs_err vs the CPU {err:.3e}")
+    return err
+
+
+def check_jukebox(cpu_result, card: str) -> float:
+    """15(b): the MIDI jukebox on the card against the same session on the
+    CPU (the worker of 12(a))."""
+    want = cpu_result.get()["jukebox"]
+    got = jukebox_session("cuda", profile=True)
+    if got["audio"].shape != want["audio"].shape or not np.isfinite(got["audio"]).all():
+        raise AssertionError(f"15(b): the session rendered {got['audio'].shape}, the CPU "
+                             f"{want['audio'].shape}")
+    err = float(np.abs(got["audio"] - want["audio"]).max())
+    if err > SLICE_TOL:
+        raise AssertionError(f"15(b): the card vs the CPU max_abs_err={err:.3e}")
+    for key in ("skipped", "dropped", "scheduled", "groups"):
+        if got[key] != want[key]:
+            raise AssertionError(f"15(b): {key} {got[key]}, the CPU's {want[key]}")
+    # the NRPN data entry left the 7-semitone range: +1/4 of it is +1.75 st
+    bends = [round(s, 6) for _, ch, s in got["bends"] if ch == 1]
+    if bends != [1.75, -3.5, 0.0] or got["groups"] != [24]:
+        raise AssertionError(f"15(b): the bass's bends {bends}, groups {got['groups']}")
+    if float(np.abs(got["audio"]).max()) < 0.05 or got["scheduled"] < 20:
+        raise AssertionError(f"15(b): peak {np.abs(got['audio']).max()}, "
+                             f"{got['scheduled']} notes scheduled")
+    stats = _pool_stats(got, card, "the MIDI jukebox, 24 voices", JUKE_PROFILED[1])
+    log(f"phase 15(b), {stats}; {got['scheduled']} notes "
+        f"scheduled, skipped {got['skipped']}, dropped {got['dropped']}, the bass's bends "
+        f"{bends} st; max_abs_err vs the CPU {err:.3e}")
+    return err
+
+
+def _range_server(files: dict):
+    """A localhost ``ThreadingHTTPServer`` serving ``files`` (path → bytes)
+    with byte ranges, as ``tests/test_net_stream.py`` serves them; returns
+    the server and its base URL."""
+    import threading
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class Handler(BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = files.get(self.path)
+            if body is None:
+                self.send_error(404)
+                return
+            lo_s, hi_s = self.headers.get("Range", "bytes=0-").split("=", 1)[1].split("-")
+            lo, hi = int(lo_s), min(int(hi_s) if hi_s else len(body) - 1, len(body) - 1)
+            self.send_response(206)
+            self.send_header("Content-Range", f"bytes {lo}-{hi}/{len(body)}")
+            self.send_header("Content-Length", str(hi + 1 - lo))
+            self.end_headers()
+            self.wfile.write(body[lo:hi + 1])
+
+        def log_message(self, *args):
+            pass
+
+    srv = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return srv, f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def check_http(ft, card: str) -> float:
+    """15(c): a seeded 2 s 48 kHz stereo pcm16 WAV served over localhost
+    HTTP, streamed by a ``StreamingSamplerNode`` through
+    ``HttpWavStreamReader`` on the card: bit for bit against the same node
+    reading the file from disk on the card, and within 1e-5 of the CPU."""
+    from firewheel_tpu_torch.utils.net_stream import HttpWavStreamReader
+    from firewheel_tpu_torch.utils.wav import WavStreamReader, write_wav
+
+    path = os.path.join(scratch_dir("http-"), "clip.wav")
+    t = np.arange(int(HTTP_SECS * 48000)) / 48000
+    audio = (0.3 * np.stack([np.sin(2 * np.pi * 330 * t), np.sin(2 * np.pi * 495 * t)])
+             + 0.05 * np.random.default_rng(21).standard_normal((2, len(t))))
+    write_wav(path, audio.astype(np.float32), 48000, dtype="i16")
+    with open(path, "rb") as f:
+        srv, base = _range_server({"/clip.wav": f.read()})
+    try:
+        def render(reader, device):
+            cx = ft.FirewheelCtx(device=device)
+            g = cx.graph_mut()
+            deck = g.add_node(0, 2, ft.StreamingSamplerNode(reader, window_secs=0.25))
+            for c in range(2):
+                g.connect(deck, c, g.graph_out_node(), c)
+            sink = ft.ArraySink()
+            cx.activate(ft.StreamConfig(48000, 2, buffer_frames=HTTP_BUFFER,
+                                        block_frames=128), sink=sink)
+            g.node(deck).play()
+            t0 = time.perf_counter()
+            cx.render_offline(HTTP_SECS + 0.1)
+            wall = time.perf_counter() - t0
+            cx.deactivate()
+            return sink.audio(2), wall
+
+        net_reader = HttpWavStreamReader(base + "/clip.wav", segment_bytes=65536)
+        net, wall = render(net_reader, "cuda")
+        disk, _ = render(WavStreamReader(path), "cuda")
+        cpu, _ = render(HttpWavStreamReader(base + "/clip.wav", segment_bytes=65536), "cpu")
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    if not np.array_equal(net, disk):
+        raise AssertionError("15(c): the HTTP stream renders apart from the disk's: "
+                             f"max {float(np.abs(net - disk).max()):.3e}")
+    err = float(np.abs(net - cpu).max())
+    if err > SLICE_TOL or float(np.abs(net).max()) < 0.1:
+        raise AssertionError(f"15(c): the card vs the CPU max_abs_err={err:.3e}, peak "
+                             f"{np.abs(net).max()}")
+    log(f"phase 15(c), a WAV over localhost HTTP on the card ({card}): HTTP == disk bit "
+        f"for bit over {net.shape[1]} frames, {net_reader.source.request_count} requests, "
+        f"RTF {net.shape[1] / 48000 / wall:.3f}; vs the CPU max_abs_err={err:.3e}")
+    return err
+
+
+def check_validator(ft, seq_iir, dynamics, noise, iir) -> dict:
+    """15(d): the port's ``validate_node`` on the card for the nodes whose
+    kernels the port wrote by hand; every check must pass and each kernel
+    must launch.  Returns the launches by wrapper."""
+    from firewheel_tpu_torch import nodes as n
+    from firewheel_tpu_torch.testing import validate_node
+
+    counters = (seq_iir.biquad_seq, dynamics.scan_lanes, noise.noise_uniform,
+                iir.biquad_cascade, iir.one_pole_scan)
+    for c in counters:
+        c.launches = 0
+    for name, node, n_in, wants in (
+            ("FilterNode(backend='pallas')",
+             n.FilterNode(n.FilterType.LOWPASS, 2000.0, backend="pallas"), 2, ("biquad_seq",)),
+            ("CompressorNode", n.CompressorNode(), 2, ("scan_lanes",)),
+            ("NoiseNode('pink')", n.NoiseNode("pink"), 0, ("noise_uniform", "scan_lanes")),
+            ("ParametricEQNode", n.ParametricEQNode(), 2, ("biquad_cascade",))):
+        before = {c.__name__: c.launches for c in counters}
+        report = validate_node(node, n_in, 2, device="cuda")
+        launched = {c.__name__: c.launches - before[c.__name__] for c in counters}
+        failed = {k: v for k, v in report.items() if k != "supports_megakernel" and v != "ok"}
+        if failed or len(report) < 8 or not all(launched[w] for w in wants):
+            raise AssertionError(f"15(d): {name}: {report}, launches {launched}")
+        log(f"phase 15(d), validate_node({name}, device='cuda'): "
+            f"{', '.join(k for k in report if report[k] == 'ok')} ok; launches "
+            f"{ {k: v for k, v in launched.items() if v} }")
+    return {c.__name__: c.launches for c in counters}
+
+
+def check_pool_slice(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, cpu_result,
+                     card: str, phase):
+    """Phase 15: the voice pool, MIDI playback, HTTP streaming and the node
+    validator on the card.  No kernel of the port's lies on 15(a)-(c): K1-K7
+    must launch no time there; 15(d) must launch K1, K5, K6 and K7.
+    Returns 15(d)'s launches by wrapper."""
+    counters = (seq_iir.biquad_seq, em.MegaRenderer, eh.HybridMegaRenderer,
+                adpcm_device.encode_ima_chunk, dynamics.scan_lanes,
+                noise.noise_uniform, iir.biquad_cascade, iir.one_pole_scan)
+    for c in counters:
+        c.launches = 0
+    t0 = time.perf_counter()
+    err = check_pool(cpu_result, card)
+    phase("15(a), the voice pool")
+    err = max(err, check_jukebox(cpu_result, card))
+    phase("15(b), the MIDI jukebox")
+    err = max(err, check_http(ft, card))
+    launched = {c.__name__: c.launches for c in counters}
+    if any(launched.values()):
+        raise AssertionError(f"15(a)-(c) launched kernels of the port's: {launched}")
+    log(f"phase 15(a)-(c): launches of K1-K7 on these paths {launched}")
+    phase("15(c), a WAV over HTTP")
+    validator = check_validator(ft, seq_iir, dynamics, noise, iir)
+    phase("15(d), the validator on the card")
+    log(f"phase 15: {time.perf_counter() - t0:.1f} s; the card vs the CPU, "
+        f"max_abs_err={err:.3e}")
+    return validator
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4564,7 +5082,7 @@ def main() -> int:
 
 def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
                cpu_stream) -> int:
-    """Phases 1..14 and the result lines."""
+    """Phases 1..15 and the result lines."""
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -4650,6 +5168,8 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                             cpu_stream, card, phase)
     log(f"phase 14: the sampler and formats slice on the card vs the CPU, "
         f"max_abs_err={slice_err:.3e}")
+    validator = check_pool_slice(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise,
+                                 cpu_stream, card, phase)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -4725,6 +5245,12 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
             }.get(name, 0),
             "serve_launches": {"biquad_seq": serve_k1, "hybrid_island": serve_k3,
                                "adpcm_encode": serve_k4}.get(name, 0),
+            # 15(d): validate_node on the card (the EQ's cascade is K7's biquad)
+            "validator_launches": {"biquad_seq": validator["biquad_seq"],
+                                   "sample_scan": validator["scan_lanes"],
+                                   "noise_uniform": validator["noise_uniform"],
+                                   "biquad_scan": validator["biquad_cascade"],
+                                   "one_pole_scan": validator["one_pole_scan"]}.get(name, 0),
             "max_abs_err": e, "ms": t, "call_ms": call,
             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / t,

@@ -30,8 +30,10 @@ readers come from the format registry (``open_stream_reader``,
 ``load_audio``: WAV, AIFF, AU, FLAC, and MP3, Ogg Vorbis and Opus where the
 system has the codec); ``MusicPlayer`` sequences, loops and crossfades
 tracks over two streaming decks.  ``save_graph``/``load_graph`` write and
-read the JAX package's scene files.  Its kernels are CUDA for NVIDIA Hopper
-(``csrc/``).  It imports torch and numpy, never JAX.
+read the JAX package's scene files.  ``VoicePool`` fires sound effects
+over a fixed bank of pooled samplers, which ``utils.MidiSequencer`` drives
+from a MIDI file; ``utils.HttpWavStreamReader`` streams a WAV over HTTP.
+Its kernels are CUDA for NVIDIA Hopper (``csrc/``).  It imports torch and numpy, never JAX.
 """
 
 from .core.automation import AutomationCurve, Keyframe, ParamAutomator
@@ -79,6 +81,7 @@ from .nodes import (
     Spatializer3DNode, StreamingSamplerNode,
 )
 from .music import MusicPlayer
+from .voice_pool import VoiceHandle, VoicePool
 from .utils.flac_encode import encode_flac
 from .utils.opus import OpusSink
 from .scene3d import AudioListener, SpatialScene
@@ -175,5 +178,7 @@ __all__ = [
     "UpdateResult",
     "UpdateStatus",
     "utils",
+    "VoiceHandle",
+    "VoicePool",
     "WavSink",
 ]

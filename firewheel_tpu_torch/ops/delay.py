@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["delay_init", "delay_step", "comb_init"]
+__all__ = ["delay_init", "delay_step", "comb_init", "comb_step"]
 
 
 def delay_init(channels: int, delay_frames: int) -> torch.Tensor:
@@ -31,3 +31,16 @@ def comb_init(channels: int, delay_frames: int) -> torch.Tensor:
     """Zero history for a feedback comb of ``delay_frames`` (must be ≥ the
     block size — in-block feedback would need a sequential recurrence)."""
     return torch.zeros((channels, delay_frames), dtype=torch.float32)
+
+
+def comb_step(x: torch.Tensor, buf: torch.Tensor, feedback):
+    """Feedback comb ``y[n] = x[n] + g·y[n-D]`` with D ≥ block size.
+
+    ``buf`` holds the last D output samples; ``feedback`` is a number or a
+    tensor that broadcasts against ``x``, rounded to float32 as the JAX
+    package rounds it.  Returns ``(y, new_buf)``."""
+    f = x.shape[-1]
+    assert buf.shape[-1] >= f, "comb delay must be >= block size"
+    g = torch.as_tensor(feedback, dtype=torch.float32, device=x.device)
+    y = x + g * buf[..., :f]
+    return y, torch.cat([buf[..., f:], y], dim=-1)

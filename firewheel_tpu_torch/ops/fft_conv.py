@@ -1,16 +1,20 @@
-"""Zero-latency partitioned FFT convolution: long FIR filters (reverb IRs).
+"""Partitioned FFT convolution: long FIR filters (reverb IRs).
 
-PyTorch port of the any-hop engine of ``firewheel_tpu/ops/fft_conv.py``
-(``conv_partition_ir``, ``conv_state_init``, ``conv_step``), on
-``torch.fft``:
+PyTorch port of ``firewheel_tpu/ops/fft_conv.py``, on ``torch.fft``.  Two
+engines:
 
-* the IR's head partition ``h[:F]`` is convolved directly every call
-  (overlap-save with hop n), so the output has no block latency;
-* partitions ≥ 1 ride a frequency-domain delay line (FDL) that is updated
-  exactly at partition boundaries; each update's F-sample tail contribution
-  joins a small FIFO from which every call emits its n samples.
+* the fixed-hop frequency-domain delay line (``partition_ir``,
+  ``fdl_init``, ``fdl_step``): uniformly partitioned overlap-save, the
+  hop fixed at the partition size;
+* the zero-latency any-hop engine (``conv_partition_ir``,
+  ``conv_state_init``, ``conv_step``) that the reverb runs.  The IR's head
+  partition ``h[:F]`` is convolved directly every call (overlap-save with
+  hop n), so the output has no block latency; partitions ≥ 1 ride a
+  frequency-domain delay line (FDL) that is updated exactly at partition
+  boundaries; each update's F-sample tail contribution joins a small FIFO
+  from which every call emits its n samples.
 
-The spectra (``H_tail``) and the delay line (``fdl``) keep the JAX
+The spectra (``H``, ``H_tail``) and the delay lines (``fdl``) keep the JAX
 package's layout in the param and state trees, float32 real/imag pairs
 ``[..., 2]``, so state and params convert between the packages as plain
 copies; the complex math views them with ``torch.view_as_complex``.
@@ -27,7 +31,67 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["conv_partition_ir", "conv_state_init", "conv_step"]
+__all__ = [
+    "partition_ir", "fdl_init", "fdl_step",
+    "conv_partition_ir", "conv_state_init", "conv_step",
+]
+
+
+def _partitions(ir, block_frames: int) -> np.ndarray:
+    """An IR ``f32[ch, L]`` (or ``[L]``) cut into block-sized partitions,
+    the last zero-padded: ``f32[P, ch, F]``."""
+    ir = np.atleast_2d(np.asarray(ir, np.float32))
+    ch, length = ir.shape
+    p = max(1, -(-length // block_frames))
+    padded = np.zeros((ch, p * block_frames), np.float32)
+    padded[:, :length] = ir
+    return padded.reshape(ch, p, block_frames).transpose(1, 0, 2)
+
+
+def _spectra(parts: np.ndarray, n: int) -> np.ndarray:
+    """The n-point spectra of ``parts`` as float32 real/imag pairs."""
+    H = np.fft.rfft(parts, n=n, axis=-1).astype(np.complex64)
+    return np.stack([H.real, H.imag], axis=-1).astype(np.float32)
+
+
+def partition_ir(ir, block_frames: int) -> np.ndarray:
+    """Transform an impulse response for :func:`fdl_step` (host-side
+    numpy, once per IR).
+
+    ``ir``: ``f32[ch, L]`` (or ``[L]``).  Returns ``H f32[P, ch, F+1, 2]``:
+    each partition zero-padded to 2F (a linear, not circular, convolution)
+    and transformed."""
+    return _spectra(_partitions(ir, block_frames), 2 * block_frames)
+
+
+def fdl_init(num_partitions: int, channels: int, block_frames: int):
+    """Fresh state for :func:`fdl_step`: the delay line ``f32[P, ch, F+1,
+    2]`` (real/imag pairs) and the overlap-save input tail ``f32[ch, F]``."""
+    return (
+        torch.zeros((num_partitions, channels, block_frames + 1, 2),
+                    dtype=torch.float32),
+        torch.zeros((channels, block_frames), dtype=torch.float32),
+    )
+
+
+def fdl_step(x: torch.Tensor, state, H):
+    """Convolve one block; the hop equals the partition size F (use
+    :func:`conv_step` for any hop).
+
+    ``x``: ``f32[..., ch, F]``; ``state``: ``(fdl f32[..., P, ch, F+1, 2],
+    x_prev f32[..., ch, F])`` from :func:`fdl_init`; ``H``: from
+    :func:`partition_ir`, ``f32[..., P, irch, F+1, 2]`` with irch 1 (one IR
+    for every channel) or ch, a tensor or a numpy array.  Returns ``(y
+    f32[..., ch, F], new_state)``."""
+    fdl_ri, x_prev = state
+    f = x.shape[-1]
+    X = torch.fft.rfft(torch.cat([x_prev, x], dim=-1), dim=-1)  # [..., ch, F+1]
+    # the newest spectrum at partition 0, aligned with the IR's first
+    fdl = torch.view_as_complex(fdl_ri.contiguous())
+    fdl = torch.cat([X.unsqueeze(-3), fdl[..., :-1, :, :]], dim=-3)
+    H = torch.view_as_complex(torch.as_tensor(H, device=x.device).contiguous())
+    y = torch.fft.irfft((H * fdl).sum(dim=-3), n=2 * f, dim=-1)[..., f:]
+    return y, (torch.view_as_real(fdl), x)
 
 
 def _next_pow2(v: int) -> int:
@@ -46,19 +110,8 @@ def conv_partition_ir(ir, block_frames: int):
     partition in the time domain, later partitions as LP-point spectra in
     real/imag pairs.
     """
-    ir = np.atleast_2d(np.asarray(ir, np.float32))
-    ch, length = ir.shape
-    f = block_frames
-    lp = _next_pow2(2 * f)
-    p = max(1, -(-length // f))
-    padded = np.zeros((ch, p * f), np.float32)
-    padded[:, :length] = ir
-    h_head = padded[:, :f]
-    tail = padded[:, f:].reshape(ch, p - 1, f).transpose(1, 0, 2)
-    H_tail = np.fft.rfft(tail, n=lp, axis=-1).astype(np.complex64)
-    return h_head, np.stack([H_tail.real, H_tail.imag], axis=-1).astype(
-        np.float32
-    )
+    parts = _partitions(ir, block_frames)
+    return parts[0], _spectra(parts[1:], _next_pow2(2 * block_frames))
 
 
 def conv_state_init(num_partitions: int, channels: int, block_frames: int):

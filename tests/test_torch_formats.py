@@ -83,22 +83,35 @@ def test_aiff_and_au_decode_match_jax(tmp_path, width):
         assert sr == 22050 and got.shape == (2, 500)
 
 
+# The JAX registries' built-in entries, read when this module is imported.
+# Collection imports every test module before any test runs in a worker, so
+# these are the entries the JAX package registers itself: two of its own
+# tests (``tests/test_codecs.py``, ``tests/test_formats.py``) register
+# ``.dummy`` and ``.fake`` into the live dicts and leave them there.
+JAX_FORMATS = jfmt.supported_formats()
+JAX_STREAM_FORMATS = jfmt.supported_stream_formats()
+
+
 def test_registry_and_custom_decoders(tmp_path):
-    assert tfmt.supported_formats() == jfmt.supported_formats()
-    assert tfmt.supported_stream_formats() == jfmt.supported_stream_formats()
+    assert tfmt.supported_formats() == JAX_FORMATS
+    assert tfmt.supported_stream_formats() == JAX_STREAM_FORMATS
     p = str(tmp_path / "x.xyz")
     open(p, "wb").write(b"\xff\xfb")
     with pytest.raises(ValueError, match="no decoder registered"):
         tfmt.load_audio(p)
     with pytest.raises(ValueError, match="no stream reader registered"):
         tfmt.open_stream_reader(p)
+    jax_before = jfmt.supported_formats()
     tfmt.register_format(".fake", lambda path: (np.ones((1, 100), np.float32) * 0.25, 8000))
-    q = str(tmp_path / "x.fake")
-    open(q, "w").write("")
-    res, sr = tfmt.load_audio(q)
-    assert sr == 8000 and isinstance(res.data, torch.Tensor)
-    assert (res.data == 0.25).all() and ".fake" not in jfmt.supported_formats()
-    del tfmt._LOADERS[".fake"]
+    try:
+        q = str(tmp_path / "x.fake")
+        open(q, "w").write("")
+        res, sr = tfmt.load_audio(q)
+        assert sr == 8000 and isinstance(res.data, torch.Tensor)
+        assert (res.data == 0.25).all()
+        assert jfmt.supported_formats() == jax_before
+    finally:
+        del tfmt._LOADERS[".fake"]
 
 
 @pytest.mark.parametrize("bits,channels,block", [(16, 2, 4096), (24, 2, 1024),

@@ -199,8 +199,10 @@ def test_port_imports_no_jax():
     mixer through ``FirewheelCtx`` (with its native ring built), placing
     an emitter in a ``SpatialScene``, importing each module of the sampler
     and formats slice, and streaming a granular voice beside a
-    ``MusicPlayer`` deck playing a FLAC file, then saving the scene, leave
-    JAX and the JAX package out of ``sys.modules``."""
+    ``MusicPlayer`` deck playing a FLAC file, then saving the scene,
+    importing the ``ops`` namespace, validating a node, and playing a
+    MIDI note through a ``VoicePool``, leave JAX and the JAX package out of
+    ``sys.modules``."""
     code = (
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
@@ -259,6 +261,23 @@ def test_port_imports_no_jax():
         "cx.render_offline(0.05)\n"
         "ft.save_graph(cx.graph_mut(), tempfile.mkdtemp() + '/s.npz')\n"
         "cx.deactivate()\n"
+        "from firewheel_tpu_torch import ops, testing, utils\n"
+        "assert len(ops.__all__) == 23 and all(hasattr(ops, n) for n in ops.__all__)\n"
+        "assert testing.validate_node(ft.nodes.VolumeNode(80.0), 2, 2, device='cpu')"
+        "['vmap'] == 'ok'\n"
+        "cx = ft.FirewheelCtx(device='cpu')\n"
+        "pool = ft.VoicePool(cx.graph_mut(), num_voices=2, max_clip_frames=256,"
+        " clock=lambda: cx.stream.frames_rendered)\n"
+        "cx.activate(ft.StreamConfig(block_frames=128, buffer_frames=256), sink=ft.ArraySink())\n"
+        "seq = utils.MidiSequencer(pool, utils.parse_midi(bytes.fromhex("
+        "'4d546864000000060000000101e04d54726b0000000c00903c40608"
+        "03c0000ff2f00')), {0: utils.Instrument(ft.SampleResource("
+        "np.ones((1, 200), np.float32)))})\n"
+        "seq.start()\n"
+        "seq.update()\n"
+        "cx.render_offline(0.05)\n"
+        "cx.deactivate()\n"
+        "assert utils.HttpWavStreamReader and utils.SegmentCache\n"
         "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
         " 'ops.direct_conv', 'executor_hybrid', 'processor', 'context',"
         " 'channels', 'backend.context', 'backend.stream', 'backend.ring_buffer',"
@@ -268,7 +287,8 @@ def test_port_imports_no_jax():
         " 'scene3d', 'ops.pan', 'ops.iir', 'nodes.granular', 'nodes.streaming_sampler',"
         " 'core.formats', 'core.flac', 'core.ranges', 'utils.wav', 'utils.flac_encode',"
         " 'utils.mp3', 'utils.vorbis', 'utils.opus', 'utils.resample', 'music',"
-        " 'graph.serialize'):\n"
+        " 'graph.serialize', 'voice_pool', 'utils.midi', 'utils.net_stream', 'ops',"
+        " 'ops.delay', 'testing'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
