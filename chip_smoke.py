@@ -256,13 +256,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``FilterNode(backend="pallas")`` (K1), ``CompressorNode`` (K5),
    ``NoiseNode("pink")`` (K6, K5) and ``ParametricEQNode`` (K7): every
    check passes and each kernel launches.
+16. Scale-out over ``torch.distributed``.  (a) One process joins an NCCL
+   group of one (``initialize_multihost``, the default backend); a
+   ``BatchRenderer`` over ``make_mesh({"dp": 1})`` renders the mixer of
+   phase 4 at B=8192, K=32 bit for bit as the unmeshed renderer from the
+   same params and state (K1 32 launches a chunk); a ``VoiceParallelMixer``
+   over ``make_mesh({"vp": 1})`` runs (c)'s configuration, its
+   ``all_reduce`` an NCCL call.  (b) Two processes (this script with
+   ``--mesh-rank``) share the card over gloo, a stand-in for two cards
+   (NCCL refuses two ranks on one device): the mixer fleet at dp=2, B=8192,
+   K=32, 4096 rows a rank: each rank's rows within 1e-6 of the unsharded
+   render on the card over six chunks; splices at instances 3 and 6000 and
+   a reset at 4099 land only on their owners; the ranks' clip events, by
+   global instance, equal the unsharded poll; both ranks checkpoint
+   mid-stream, and a fresh two-rank fleet and this process (2 → 1) restore
+   it, the next two chunks bit for bit, the first instances within 1e-5 of
+   the CPU.  Each rank's wall a chunk, the fleet's instances a second and
+   phase 4's beside them, measured.  (c) ``VoiceParallelMixer``: 64 voices
+   of the mixer's voice (beep → volume → pan, each its own frequency,
+   volume and pan) into its bus (lowpass 8 kHz on K1 → echo → clip →
+   meter), K=32, three chunks, at vp=1 and at vp=2 over (b)'s ranks (one
+   ``all_reduce`` of f32[32, 2, 128] a chunk, CUDA tensors over gloo),
+   within 1e-5 of the unmeshed mixer on the card and the CPU, master state
+   included; K1 once a block; the wall a chunk and each collective's time.
+   (d) ``utils.profiler.trace`` with ``annotate("render-chunk")`` around one
+   chunk of (a): the trace holds the annotation and names K1's kernel.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
 batched main path (``launches``), in phase 9's stream (``stream_launches``;
 K1's device time, call and plain version at the stream's 2 lanes beside
 them), in phase 10's fleets (``serve_launches``) and in 15(d)'s validator
-(``validator_launches``), K2 and K3 once
+(``validator_launches``) and in phase 16 (``mesh_launches``), K2 and K3 once
 more for the spatial scene of phase 11 (and K2 with the arena spilled at
 256 frames), K3 for the mastering bus of 12(c), K4-K6 (launches in 10(f)'s
 fleet and 12(b)'s batched bus, times from 3(b)) and K7's two kernels, the
@@ -1058,15 +1083,17 @@ def render_mixer(ft, seq_iir, card: str):
     log(f"mixer: wall per chunk {wall * 1e3:.3f} ms, realtime factor "
         f"{audio_secs / wall:.1f}, peak device memory {peak_gb:.3f} GB, "
         f"K1 launches {launches} ({launches // TIMED_CHUNKS} per chunk)")
-    return launches
+    return launches, wall
 
 
-def mixer_params(renderer):
-    """The mixer's params with a different cutoff per instance (phase 4's)."""
+def mixer_params(renderer, rows: slice = slice(0, B)):
+    """The mixer's params with a different cutoff per instance (phase 4's),
+    for the global ``rows`` the renderer holds (a meshed renderer's
+    ``local_rows``)."""
     params = renderer.stack_params()
     fkey = next(k for k in params if k.startswith("filter"))
     params[fkey]["freq"] = 8000.0 - 100.0 * (
-        torch.arange(B, device="cuda") % 64
+        torch.arange(B, device="cuda")[rows] % 64
     ).to(torch.float32)
     return params
 
@@ -5053,6 +5080,478 @@ def check_pool_slice(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, cp
     return validator
 
 
+MESH_RANKS = 2             # 16(b), 16(c): processes sharing the one card (gloo)
+MESH_TOL = 1e-6            # 16(b): a rank's rows vs the unsharded render on the card
+MESH_SPLICED = (3, 6000)   # 16(b): instances spliced loud, one on each rank
+MESH_RESET = 4099          # 16(b): the instance reset (rank 1's)
+MESH_CHUNKS = 6            # 16(b): 3 timed, a splice and a poll, a checkpoint, 2 more
+MIX_VOICES = 64            # 16(c): the mixer's voices over "vp"
+MIX_CHUNKS = 3             # 16(c): chunks of K blocks carrying state
+MIX_TOL = 1e-5             # 16(c): meshed vs unmeshed and card vs CPU
+RANK_TIMEOUT = 240.0       # seconds a rank of 16(b) may take, its set-up included
+
+
+def loud_splice(prog) -> dict:
+    """One instance's params of the mixer with every voice's volume at
+    200 %: spliced into an instance, it clips (16(b)'s events)."""
+    tree = prog.collect_params()
+    for key, p in tree.items():
+        if isinstance(p, dict) and "raw_gain" in p:
+            tree[key] = dict(p, raw_gain=np.float32(2.0))
+    return tree
+
+
+def mesh_events(renderer, state) -> list:
+    """``renderer.poll_events(state)`` as sorted (instance, node, event,
+    count, total, lane) lists."""
+    return sorted([e.instance, repr(e.node_id), e.name, e.count, e.total,
+                   -1 if e.lane is None else e.lane]
+                  for e in renderer.poll_events(state))
+
+
+def _leaves(tree) -> list:
+    return [x for v in tree.values() for x in _leaves(v)] if isinstance(tree, dict) \
+        else [tree]
+
+
+def owner_only(renderer, tree, index: int, fn) -> None:
+    """Run ``fn()`` (an in-place splice of ``tree`` at global ``index``)
+    and check that it changed ``index``'s row where this process owns it
+    and nothing else, bit for bit."""
+    before = [t.clone() for t in _leaves(tree)]
+    fn()
+    local = index - renderer.local_rows.start
+    owner = 0 <= local < renderer.local_rows.stop - renderer.local_rows.start
+    changed = False
+    for b, a in zip(before, _leaves(tree)):
+        if owner:
+            changed |= not torch.equal(b[local], a[local])
+            b, a = torch.cat([b[:local], b[local + 1:]]), torch.cat([a[:local], a[local + 1:]])
+        if not torch.equal(b, a):
+            raise AssertionError(f"a splice at instance {index} wrote other rows")
+    if owner and not changed:
+        raise AssertionError(f"a splice at instance {index} left its row as it was")
+
+
+class _CollectiveTimer:
+    """Times each ``torch.distributed.all_reduce`` while active: the card
+    synchronised before the call starts its clock, and again when it ends."""
+
+    def __init__(self):
+        self.ms: list = []
+
+    def __enter__(self):
+        import torch.distributed as dist
+
+        self._dist, self._orig = dist, dist.all_reduce
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            work = self._orig(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.ms.append((time.perf_counter() - t0) * 1e3)
+            return work
+
+        dist.all_reduce = timed
+        return self
+
+    def __exit__(self, *exc):
+        self._dist.all_reduce = self._orig
+
+
+def read_trace(path: str):
+    """``(annotated, K1 kernels, kernels)`` of a Chrome trace: whether it
+    holds the "render-chunk" region, and its kernel events."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    annotated = any(e.get("name") == "render-chunk" for e in events)
+    return annotated, sum("biquad_seq_kernel" in n for n in kernels), len(kernels)
+
+
+def traced_chunk(renderer, params, state, c: int, logdir: str):
+    """One chunk under ``utils.profiler.trace`` with ``annotate(
+    "render-chunk")`` → (the trace's path, :func:`read_trace` of it,
+    seconds with the export)."""
+    from firewheel_tpu_torch.utils import annotate, trace
+
+    t0 = time.perf_counter()
+    with trace(logdir):
+        with annotate("render-chunk"):
+            renderer.render_chunk(params, state, start_sample=c * K * 128, num_blocks=K)
+    seconds = time.perf_counter() - t0
+    path = max((os.path.join(logdir, f) for f in os.listdir(logdir)), key=os.path.getmtime)
+    return path, read_trace(path), seconds
+
+
+def mix_run(mixer, params, state):
+    """16(c): MIX_CHUNKS chunks of K blocks → (outputs [chunks, K, 2, F] on
+    the host, final state, walls a chunk in ms)."""
+    outs, walls = [], []
+    cuda = mixer.device.type == "cuda"
+    for c in range(MIX_CHUNKS):
+        if cuda:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _, state = mixer.render_chunk(params, state, start_sample=c * K * 128,
+                                           num_blocks=K)
+        if cuda:
+            torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        outs.append(out.cpu())
+    return torch.stack(outs), state, walls
+
+
+def mesh_rank(argv) -> int:
+    """One rank of 16(b) and 16(c), started by :func:`check_scale_out`:
+    ``chip_smoke.py --mesh-rank RANK PORT WORK``.  Joins a gloo group of
+    MESH_RANKS on ``cuda:0``, builds its half of the dp=2 fleet and of the
+    vp=2 mixer, waits for ``WORK/go``, renders, and writes its rows and
+    numbers into ``WORK``."""
+    rank, port, work = int(argv[0]), argv[1], argv[2]
+    ft = _port()
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import voice_mix_programs, voice_snapshots
+    from firewheel_tpu_torch.ops import seq_iir
+    from firewheel_tpu_torch.parallel import (
+        BatchRenderer, VoiceParallelMixer, initialize_multihost, make_mesh,
+    )
+
+    torch.cuda.set_device(0)
+    initialize_multihost(f"localhost:{port}", MESH_RANKS, rank, backend="gloo")
+    dp = make_mesh({"dp": MESH_RANKS})
+    prog = ft.mixer_graph(filter_backend="pallas", device="cuda")
+    br = BatchRenderer(prog, B, device="cuda", mesh=dp)
+    params, state = mixer_params(br, br.local_rows), br.init_state()
+    vprog, mprog, voice = voice_mix_programs("pallas", "cuda")
+    mixer = VoiceParallelMixer(vprog, MIX_VOICES, mprog, mesh=make_mesh({"vp": MESH_RANKS}),
+                               axis="vp")
+    mparams = mixer.stack_voice_params(voice_snapshots(vprog, voice, MIX_VOICES))
+    if "jax" in sys.modules or "firewheel_tpu" in sys.modules:
+        raise RuntimeError("a rank imported JAX")
+    open(os.path.join(work, f"ready{rank}"), "w").close()
+    mix_run(mixer, mparams, mixer.init_state())  # warm-up: the vp group's first collective
+    deadline = time.time() + RANK_TIMEOUT
+    go = os.path.join(work, "go")
+    while not os.path.exists(go):
+        if time.time() > deadline:
+            raise TimeoutError("no go from the parent")
+        time.sleep(0.02)
+    torch.distributed.barrier()
+
+    got = {"rank": rank, "rows": [br.local_rows.start, br.local_rows.stop]}
+    outs, walls, window = [], [], [time.time()]
+    seq_iir.biquad_seq.launches = 0
+    for c in range(MESH_CHUNKS):
+        if c == 3:
+            got["events"] = [mesh_events(br, state)]
+            for index in MESH_SPLICED:
+                owner_only(br, params, index,
+                           lambda: br.update_instance(params, index, loud_splice(prog)))
+            owner_only(br, state, MESH_RESET, lambda: br.reset_instance(state, MESH_RESET))
+        if c == 4:
+            got["events"].append(mesh_events(br, state))
+            t0 = time.perf_counter()
+            got["ckpt_bytes"] = br.save_checkpoint(os.path.join(work, "ck"), state)
+            got["ckpt_s"] = time.perf_counter() - t0
+            at_save = tree_map(lambda t: t.clone(), state)
+        t0 = time.perf_counter()
+        out, _, state = br.render_chunk(params, state, start_sample=c * K * 128,
+                                        num_blocks=K)
+        torch.cuda.synchronize()
+        if c < 3:
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if c == 2:
+                window.append(time.time())
+                got["k1"] = seq_iir.biquad_seq.launches
+        outs.append(out)
+    got.update(walls=walls, window=window)
+    # a fresh 2-rank fleet restored from the checkpoint: the next two chunks
+    fresh = BatchRenderer(prog, B, device="cuda", mesh=dp)
+    t0 = time.perf_counter()
+    restored, meta = fresh.restore_checkpoint(os.path.join(work, "ck"))
+    torch.cuda.synchronize()
+    got["restore_s"] = time.perf_counter() - t0
+    if meta["process_count"] != MESH_RANKS or tree_err(restored, at_save) != 0.0:
+        raise AssertionError("the restored rows differ from the saved ones")
+    for c in (4, 5):
+        out, _, restored = fresh.render_chunk(params, restored, start_sample=c * K * 128,
+                                              num_blocks=K)
+        if not torch.equal(out, outs[c]):
+            raise AssertionError(f"chunk {c} of the restored 2-rank fleet differs")
+    for c, out in enumerate(outs):
+        np.save(os.path.join(work, f"rank{rank}_c{c}.npy"), out.cpu().numpy())
+    del outs, fresh, restored, at_save
+
+    # 16(c): the mixer's 64 voices at vp=2
+    seq_iir.biquad_seq.launches = 0
+    collectives = mixer.collectives
+    with _CollectiveTimer() as timer:
+        mouts, mstate, mwalls = mix_run(mixer, mparams, mixer.init_state())
+    got.update(mix_walls=mwalls, mix_k1=seq_iir.biquad_seq.launches,
+               collectives=mixer.collectives - collectives, collective_ms=timer.ms,
+               voices=[mixer.local_voices.start, mixer.local_voices.stop])
+    torch.save({"out": mouts, "master": tree_map(lambda t: t.cpu(), mstate["master"])},
+               os.path.join(work, f"mix{rank}.pt"))
+    with open(os.path.join(work, f"rank{rank}.json"), "w") as f:
+        json.dump(got, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def start_mesh_ranks(work: str) -> list:
+    """Start 16(b)'s ranks: this script with ``--mesh-rank``, one process
+    each, their output in ``WORK/rank<r>.log``."""
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    here = os.path.abspath(__file__)
+    return [subprocess.Popen([sys.executable, here, "--mesh-rank", str(r), str(port), work],
+                             stdout=open(os.path.join(work, f"rank{r}.log"), "w"),
+                             stderr=subprocess.STDOUT)
+            for r in range(MESH_RANKS)]
+
+
+def wait_mesh_ranks(procs, work: str, deadline: float) -> None:
+    """Wait for every rank to exit 0 by ``deadline`` (time.time()); a rank
+    that fails or outlives it fails the phase with its log's tail."""
+    for r, p in enumerate(procs):
+        try:
+            rc = p.wait(timeout=max(deadline - time.time(), 1.0))
+        except subprocess.TimeoutExpired:
+            rc = None
+        if rc != 0:
+            with open(os.path.join(work, f"rank{r}.log")) as f:
+                tail = f.read()[-3000:]
+            raise AssertionError(f"16(b) rank {r} {'timed out' if rc is None else f'exited {rc}'}:"
+                                 f"\n{tail}")
+
+
+def check_scale_out(ft, seq_iir, card: str, phase, phase4_wall: float) -> dict:
+    """Phase 16: scale-out over torch.distributed → K1's launches in it."""
+    import shutil
+    import socket
+
+    import torch.distributed as dist
+
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import voice_mix_programs, voice_snapshots
+    from firewheel_tpu_torch.parallel import (
+        BatchRenderer, VoiceParallelMixer, initialize_multihost, make_mesh,
+    )
+    work = scratch_dir("mesh_")
+    procs = start_mesh_ranks(work)
+    launches = {}
+    try:
+        # 16(a): one process, NCCL, a world of 1
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        initialize_multihost(f"localhost:{port}", 1, 0)
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"the default backend is {dist.get_backend()}")
+        prog = ft.mixer_graph(filter_backend="pallas", device="cuda")
+        br0 = BatchRenderer(prog, B, device="cuda")
+        brm = BatchRenderer(prog, B, device="cuda", mesh=make_mesh({"dp": 1}))
+        p0, s0 = mixer_params(br0), br0.init_state()
+        pm, sm = mixer_params(brm, brm.local_rows), brm.init_state()
+        ref, k1 = [], []
+        for c in range(3):
+            out0, _, s0 = br0.render_chunk(p0, s0, start_sample=c * K * 128, num_blocks=K)
+            seq_iir.biquad_seq.launches = 0
+            outm, _, sm = brm.render_chunk(pm, sm, start_sample=c * K * 128, num_blocks=K)
+            torch.cuda.synchronize()
+            k1.append(seq_iir.biquad_seq.launches)
+            if not torch.equal(out0, outm):
+                raise AssertionError(f"16(a): chunk {c} of the dp=1 renderer differs")
+            ref.append(out0)
+        if k1 != [K] * 3 or tree_err(s0, sm) != 0.0:
+            raise AssertionError(f"16(a): K1 launches {k1}, state {tree_err(s0, sm)}")
+        launches["16(a) dp=1"] = sum(k1)
+        log(f"phase 16(a), BatchRenderer over make_mesh({{'dp': 1}}) on NCCL, a world of "
+            f"1 ({card}): the mixer at B={B}, K={K}, 3 chunks bit for bit the unmeshed "
+            f"renderer's, outputs and state; K1 launches {k1}")
+
+        # 16(d): the profiler around one chunk of the meshed renderer
+        seq_iir.biquad_seq.launches = 0
+        path, (annotated, k1_events, kernels), trace_s = traced_chunk(
+            brm, pm, sm, 3, os.path.join(work, "trace"))
+        if not annotated or not k1_events:
+            raise AssertionError(f"16(d): the trace holds the annotation {annotated}, "
+                                 f"{k1_events} K1 kernels of {kernels}")
+        launches["16(d) profiled chunk"] = seq_iir.biquad_seq.launches
+        log(f"phase 16(d), utils.profiler.trace around one chunk: "
+            f"{os.path.getsize(path) / 1e6:.1f} MB, the 'render-chunk' annotation, "
+            f"{k1_events} biquad_seq_kernel launches of {kernels} kernels; "
+            f"{trace_s:.1f} s with the export")
+        del brm, pm, sm
+
+        # 16(c) at vp=1, the unmeshed mixer on the card, and the CPU's
+        vprog, mprog, voice = voice_mix_programs("pallas", "cuda")
+        snaps = voice_snapshots(vprog, voice, MIX_VOICES)
+        m1 = VoiceParallelMixer(vprog, MIX_VOICES, mprog, mesh=make_mesh({"vp": 1}),
+                                axis="vp")
+        m0 = VoiceParallelMixer(vprog, MIX_VOICES, mprog)
+        for m in (m0, m1):  # warm-up: the kernels, NCCL's communicator
+            mix_run(m, m.stack_voice_params(snaps), m.init_state())
+        seq_iir.biquad_seq.launches = 0
+        collectives = m1.collectives
+        with _CollectiveTimer() as timer:
+            mix1, st1, walls1 = mix_run(m1, m1.stack_voice_params(snaps), m1.init_state())
+        launches["16(c) vp=1"] = seq_iir.biquad_seq.launches
+        collectives = m1.collectives - collectives
+        mix0, st0, walls0 = mix_run(m0, m0.stack_voice_params(snaps), m0.init_state())
+        cvprog, cmprog, cvoice = voice_mix_programs("pallas", "cpu")
+        mc = VoiceParallelMixer(cvprog, MIX_VOICES, cmprog)
+        mixc, stc, _ = mix_run(mc, mc.stack_voice_params(
+            voice_snapshots(cvprog, cvoice, MIX_VOICES)), mc.init_state())
+        e10 = max(float((mix1 - mix0).abs().max()), tree_err(st1["master"], st0["master"]))
+        e1c = max(float((mix1 - mixc).abs().max()), tree_err(st1["master"], stc["master"]))
+        peak = float(mixc.abs().max())
+        if not (e10 <= MIX_TOL and e1c <= MIX_TOL and 0.01 < peak <= 1.0):
+            raise AssertionError(f"16(c) vp=1: vs unmeshed {e10}, vs CPU {e1c}, peak {peak}")
+        if launches["16(c) vp=1"] != K * MIX_CHUNKS or collectives != MIX_CHUNKS:
+            raise AssertionError(f"16(c) vp=1: K1 {launches['16(c) vp=1']}, "
+                                 f"collectives {collectives}")
+        log(f"phase 16(c), VoiceParallelMixer, {MIX_VOICES} voices at vp=1 on NCCL ({card}):"
+            f" K={K}, {MIX_CHUNKS} chunks, wall a chunk {[round(w, 3) for w in walls1]} ms "
+            f"(unmeshed {[round(w, 3) for w in walls0]} ms); {collectives} all_reduce "
+            f"(NCCL), "
+            f"{[round(t, 3) for t in timer.ms]} ms each; K1 launches "
+            f"{launches['16(c) vp=1']}; vs unmeshed max_abs_err={e10:.3e}, vs the CPU "
+            f"{e1c:.3e}, master state included")
+
+        # 16(b)'s reference: the unsharded fleet through the ranks' calls
+        ref_events = []
+        for c in range(3, MESH_CHUNKS):
+            if c == 3:
+                ref_events.append(mesh_events(br0, s0))
+                for index in MESH_SPLICED:
+                    br0.update_instance(p0, index, loud_splice(prog))
+                br0.reset_instance(s0, MESH_RESET)
+            if c == 4:
+                ref_events.append(mesh_events(br0, s0))
+            out0, _, s0 = br0.render_chunk(p0, s0, start_sample=c * K * 128, num_blocks=K)
+            ref.append(out0)
+        torch.cuda.synchronize()
+        phase("16(a), (c) at vp=1 and (d), and 16(b)'s unsharded reference")
+
+        # 16(b): two ranks share the card over gloo, 16(c) at vp=2
+        deadline = time.time() + RANK_TIMEOUT
+        while not all(os.path.exists(os.path.join(work, f"ready{r}"))
+                      for r in range(MESH_RANKS)):
+            if time.time() > deadline or any(p.poll() is not None for p in procs):
+                wait_mesh_ranks(procs, work, time.time())
+            time.sleep(0.05)
+        open(os.path.join(work, "go"), "w").close()
+        wait_mesh_ranks(procs, work, deadline)
+        ranks = []
+        for r in range(MESH_RANKS):
+            with open(os.path.join(work, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        err, bit = 0.0, True
+        for got in ranks:
+            rows = slice(*got["rows"])
+            for c in range(MESH_CHUNKS):
+                mine = torch.from_numpy(np.load(os.path.join(
+                    work, f"rank{got['rank']}_c{c}.npy"))).cuda()
+                err = max(err, float((mine - ref[c][rows]).abs().max()))
+                bit &= torch.equal(mine, ref[c][rows])
+                if c >= 4:
+                    ref[c][rows] = mine  # the uninterrupted 2-rank fleet's chunk
+        if not err <= MESH_TOL:
+            raise AssertionError(f"16(b): a rank's rows vs the unsharded render {err}")
+        for p in range(2):
+            union = sorted(e for got in ranks for e in got["events"][p])
+            if union != ref_events[p]:
+                raise AssertionError(f"16(b): poll {p}: the ranks' events differ from the "
+                                     f"unsharded fleet's")
+        spliced = {e[0] for e in ref_events[1]}
+        if not set(MESH_SPLICED) <= spliced:
+            raise AssertionError("16(b): no clip events from the spliced instances")
+
+        # the checkpoint restored in this process (2 → 1), bit for bit
+        brr = BatchRenderer(prog, B, device="cuda")
+        restored, meta = brr.restore_checkpoint(os.path.join(work, "ck"))
+        if meta["rank_offsets"] != [0, B // 2]:
+            raise AssertionError(f"16(b): rank_offsets {meta['rank_offsets']}")
+        cpu_prog = ft.mixer_graph(filter_backend="pallas", device="cpu")
+        cpu_br = ft.BatchRenderer(cpu_prog, CHECK_INSTANCES, device="cpu")
+        rows = slice(0, CHECK_INSTANCES)
+        cpu_params = tree_map(lambda t: t[rows].cpu(), p0)
+        cpu_state = tree_map(lambda t: t[rows].cpu(), restored)
+        cpu_err = 0.0
+        for c in (4, 5):
+            out, _, restored = brr.render_chunk(p0, restored, start_sample=c * K * 128,
+                                                num_blocks=K)
+            if not torch.equal(out, ref[c]):
+                raise AssertionError(f"16(b): chunk {c} restored 2 → 1 differs")
+            cpu_out, _, cpu_state = cpu_br.render_chunk(
+                cpu_params, cpu_state, start_sample=c * K * 128, num_blocks=K)
+            cpu_err = max(cpu_err, float((out[rows].cpu() - cpu_out).abs().max()))
+        if not cpu_err <= SLICE_TOL:
+            raise AssertionError(f"16(b): the restored fleet vs the CPU {cpu_err}")
+        launches["16(b) dp=2 ranks"] = [got["k1"] for got in ranks]
+        if launches["16(b) dp=2 ranks"] != [K * 3] * MESH_RANKS:
+            raise AssertionError(f"16(b): K1 launches {launches['16(b) dp=2 ranks']}")
+        audio = B * K * 128 / 48000
+        rank_walls = [float(np.mean(got["walls"][1:])) for got in ranks]
+        window = max(g["window"][1] for g in ranks) - min(g["window"][0] for g in ranks)
+        log(f"phase 16(b), BatchRenderer over make_mesh({{'dp': {MESH_RANKS}}}) on gloo, "
+            f"{MESH_RANKS} processes sharing one card (a stand-in for {MESH_RANKS} cards: "
+            f"NCCL refuses two ranks on one device) ({card}): the mixer at B={B}, K={K}, "
+            f"{B // MESH_RANKS} rows a rank; each rank's rows vs the unsharded render on "
+            f"the card over {MESH_CHUNKS} chunks max_abs_err={err:.3e} "
+            f"({'bit for bit' if bit else 'not bit for bit'}); splices at {MESH_SPLICED} and "
+            f"the reset at {MESH_RESET} on their owners only; the ranks' clip events "
+            f"(global instances, {len(ref_events[0])} and {len(ref_events[1])}) equal the "
+            f"unsharded poll; the checkpoint ({[g['ckpt_bytes'] / 1e9 for g in ranks]} GB in "
+            f"{[round(g['ckpt_s'], 3) for g in ranks]} s) restored by a fresh 2-rank fleet "
+            f"({[round(g['restore_s'], 3) for g in ranks]} s) and in one process (2 → 1): "
+            f"the next 2 chunks bit for bit; restored rows vs the CPU "
+            f"max_abs_err={cpu_err:.3e}; K1 launches {launches['16(b) dp=2 ranks']}")
+        log(f"phase 16(b), measured, nothing claimed: wall a chunk per rank "
+            f"{[[round(w, 3) for w in g['walls']] for g in ranks]} ms (the first chunk "
+            f"a fresh process's first), mean of chunks 2-3 {[round(w, 3) for w in rank_walls]} "
+            f"ms; the fleet's 3 chunks in {window * 1e3:.3f} ms from the first rank's start "
+            f"to the last rank's end, {3 * B / window:.0f} instances a second, RTF "
+            f"{3 * audio / window:.1f}; beside it one process at B={B}, phase 4: "
+            f"{phase4_wall * 1e3:.3f} ms a chunk, {B / phase4_wall:.0f} instances a "
+            f"second, RTF {audio / phase4_wall:.1f}")
+
+        # 16(c) at vp=2: each rank's mix against the unmeshed card's and the CPU's
+        launches["16(c) vp=2 ranks"] = [got["mix_k1"] for got in ranks]
+        e2 = 0.0
+        for got in ranks:
+            mix = torch.load(os.path.join(work, f"mix{got['rank']}.pt"))
+            e2 = max(e2, *(float((mix["out"] - m).abs().max()) for m in (mixc, mix0, mix1)),
+                     tree_err(mix["master"], stc["master"]),
+                     tree_err(mix["master"], st0["master"]))
+        if not e2 <= MIX_TOL or launches["16(c) vp=2 ranks"] != [K * MIX_CHUNKS] * MESH_RANKS \
+                or any(g["collectives"] != MIX_CHUNKS for g in ranks):
+            raise AssertionError(f"16(c) vp=2: err {e2}, K1 {launches['16(c) vp=2 ranks']}, "
+                                 f"collectives {[g['collectives'] for g in ranks]}")
+        log(f"phase 16(c), VoiceParallelMixer at vp={MESH_RANKS} on gloo, CUDA tensors, "
+            f"two processes on one card ({card}): voices {[g['voices'] for g in ranks]}; "
+            f"wall a chunk {[[round(w, 3) for w in g['mix_walls']] for g in ranks]} ms; "
+            f"{ranks[0]['collectives']} all_reduce of f32[{K}, 2, 128] a rank, one a chunk, "
+            f"{[[round(t, 3) for t in g['collective_ms']] for g in ranks]} ms each; vs the "
+            f"CPU and vp=1 max_abs_err={e2:.3e}, master state included; K1 launches "
+            f"{launches['16(c) vp=2 ranks']}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(work, ignore_errors=True)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5082,7 +5581,7 @@ def main() -> int:
 
 def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
                cpu_stream) -> int:
-    """Phases 1..15 and the result lines."""
+    """Phases 1..16 and the result lines."""
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5134,7 +5633,7 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     phase("3(b), K4-K6 vs plain")
     k7 = check_assoc_scan(iir)
     phase("3(c), K7 vs plain")
-    launches = render_mixer(ft, seq_iir, card)
+    launches, mixer_wall = render_mixer(ft, seq_iir, card)
     phase("4, mixer eager")
     m_launches, m_err, m_ms, m_call_ms, m_plain_ms, m_work = render_mega(
         ft, seq_iir, em, card)
@@ -5170,6 +5669,8 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         f"max_abs_err={slice_err:.3e}")
     validator = check_pool_slice(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise,
                                  cpu_stream, card, phase)
+    mesh_k1 = check_scale_out(ft, seq_iir, card, phase, mixer_wall)
+    phase("16(b) and (c) at vp=2, two ranks on the card")
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -5246,6 +5747,9 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
             "serve_launches": {"biquad_seq": serve_k1, "hybrid_island": serve_k3,
                                "adpcm_encode": serve_k4}.get(name, 0),
             # 15(d): validate_node on the card (the EQ's cascade is K7's biquad)
+            # phase 16: the dp=1 and dp=2 fleets, the vp=1 and vp=2 mixers
+            # (each rank's count), the profiled chunk
+            "mesh_launches": mesh_k1 if name == "biquad_seq" else {},
             "validator_launches": {"biquad_seq": validator["biquad_seq"],
                                    "sample_scan": validator["scan_lanes"],
                                    "noise_uniform": validator["noise_uniform"],
@@ -5290,4 +5794,4 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(mesh_rank(sys.argv[2:]) if sys.argv[1:2] == ["--mesh-rank"] else main())

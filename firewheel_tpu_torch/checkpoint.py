@@ -16,12 +16,16 @@ Format: a directory holding
 
 **Fleet checkpoints** (:meth:`BatchRenderer.save_checkpoint`) use the JAX
 package's per-process layout: ``state.rank<k>.msgpack`` holds rank k's
-rows of the batch axis, and ``meta.json`` the fleet's metadata.  The port
-runs in one process, so it writes one rank file; it reads a checkpoint
-written by any number of ranks.  It records each rank's first row in
-``meta.json`` (``rank_offsets``) and places the rows by those offsets when
-it reads them back; the JAX package's files carry no offsets and are read
-in rank order.
+rows of the batch axis, and ``meta.json`` the fleet's metadata.  Every
+rank of a fleet (:mod:`~firewheel_tpu_torch.parallel.distributed`) writes
+its own rows; rank 0 publishes ``meta.json`` atomically, and a barrier on
+the process group then holds every rank until all the files exist.  The
+port records each rank's first row in ``meta.json`` (``rank_offsets``)
+and places the rows by those offsets when it reads them back; the JAX
+package's files carry no offsets and are read in rank order, the order
+the port's ranks write them in, so either package reads the other's
+files.  A fleet restores onto any number of ranks: each reads the rank
+files that overlap its rows.
 """
 
 from __future__ import annotations
@@ -47,8 +51,15 @@ __all__ = [
 
 _STATE_FILE = "state.msgpack"
 _META_FILE = "meta.json"
-#: the port runs in one process: it writes and reads as rank 0 of 1
-_RANK, _PROCESS_COUNT = 0, 1
+
+
+def _topology() -> tuple[int, int]:
+    """``(rank, process count)`` of the fleet's process group, read at
+    each call (tests mock them in :mod:`~firewheel_tpu_torch.parallel.
+    distributed`)."""
+    from .parallel import distributed
+
+    return distributed.process_index(), distributed.process_count()
 
 
 def _file_dtype(t) -> np.dtype:
@@ -120,19 +131,41 @@ def read_meta(path: str) -> dict:
 # ---------------------------------------------------------------------------
 
 def save_sharded_checkpoint(path: str, state, meta: dict | None = None) -> int:
-    """Write a batch-stacked state (or params) tree to ``path`` as rank 0
-    of one process, with the fleet metadata.  Returns the bytes of the
-    state file."""
+    """Write this process's rows of a batch-stacked state (or params) tree
+    to ``path``; rank 0 also publishes the fleet metadata.  Every process
+    of the fleet calls this with the same ``path`` (a shared filesystem)
+    and returns once every rank's file and ``meta.json`` exist.  Rank k's
+    rows start at k times this process's rows, the JAX package's layout.
+    Returns the bytes of this rank's state file."""
+    rank, count = _topology()
+    per = _leading_extent(state)
+    offsets = [k * per for k in range(count)]
     os.makedirs(path, exist_ok=True)
-    nbytes = _write(os.path.join(path, f"state.rank{_RANK}.msgpack"), state)
-    full_meta = {
-        "sharded": True,
-        "process_count": _PROCESS_COUNT,
-        "rank_offsets": [0],
-        "node_keys": sorted(state.keys()) if isinstance(state, dict) else None,
-    }
-    _publish_meta(path, _merge_meta(full_meta, meta, "meta"))
+    nbytes = _write(os.path.join(path, f"state.rank{rank}.msgpack"), state)
+    if rank == 0:
+        full_meta = {
+            "sharded": True,
+            "process_count": count,
+            "rank_offsets": offsets,
+            "node_keys": sorted(state.keys()) if isinstance(state, dict) else None,
+        }
+        _publish_meta(path, _merge_meta(full_meta, meta, "meta"))
+    if count > 1:
+        import torch.distributed as dist
+
+        # the other ranks read meta.json (and each other's files) once this
+        # returns: hold them until rank 0 has published it
+        dist.barrier()
     return nbytes
+
+
+def _leading_extent(tree) -> int:
+    """The batch every leaf of ``tree`` leads with."""
+    extents = set()
+    tree_map(lambda t: extents.add(int(t.shape[0])), as_dicts(tree))
+    if len(extents) > 1:
+        raise ValueError(f"leaves lead with different extents {sorted(extents)}")
+    return extents.pop() if extents else 0
 
 
 def _rank_offsets(meta: dict, ranks: int, per: int) -> list[int]:
@@ -150,40 +183,57 @@ def _rank_offsets(meta: dict, ranks: int, per: int) -> list[int]:
     return offsets
 
 
-def load_sharded_local(path: str, local_template, *, global_batch: int | None = None):
+def load_sharded_local(path: str, local_template, *, global_batch: int | None = None,
+                       rows: slice | None = None):
     """Load this process's rows → ``(local_tree, meta)``: nested dicts of
     numpy with the file's dtypes (:func:`~firewheel_tpu_torch.convert.
     state_from_jax` lifts them).
 
-    ``local_template``: the tree's structure and shapes with the batch
-    leading every leaf (tensors on any device, ``"meta"`` ones included).
-    A checkpoint written by another number of processes needs
-    ``global_batch``, the batch every leaf shares; its rank files are then
-    read and their rows placed by each rank's offset."""
+    ``local_template``: the tree's structure and shapes with this
+    process's rows leading every leaf (tensors on any device, ``"meta"``
+    ones included).  ``rows``: the rows of the global batch to load
+    (a renderer's ``local_rows``); by default this rank's contiguous share
+    of ``global_batch``, or its own rank file when the checkpoint was
+    written by as many processes as this fleet has.  Loading other rows,
+    or from a checkpoint written by another number of processes, needs
+    ``global_batch``, the batch every leaf shares; the rank files that
+    overlap the rows are then read and their rows placed by each rank's
+    offset."""
     meta = read_meta(path)
-    if meta.get("process_count") != _PROCESS_COUNT:
-        if global_batch is None:
-            raise ValueError(
-                f"fleet size mismatch: checkpoint has {meta.get('process_count')} "
-                f"processes, this fleet has {_PROCESS_COUNT} (pass "
-                "global_batch= to reshard)"
-            )
-        return _load_resharded(path, local_template, meta, int(global_batch)), meta
-    return _read(os.path.join(path, f"state.rank{_RANK}.msgpack"),
-                 local_template), meta
-
-
-def _load_resharded(path: str, local_template, meta: dict, global_batch: int):
-    """Rebuild this process's rows from a checkpoint written by ``P``
-    processes, each rank file a contiguous ``[global_batch/P]`` run of rows
-    starting at that rank's offset."""
-    P, Q, r = int(meta["process_count"]), _PROCESS_COUNT, _RANK
-    if P < 1 or global_batch % P or global_batch % Q:
+    rank, count = _topology()
+    if rows is None and meta.get("process_count") == count:
+        return _read(os.path.join(path, f"state.rank{rank}.msgpack"),
+                     local_template), meta
+    if global_batch is None:
         raise ValueError(
-            f"global_batch {global_batch} must divide by both the "
-            f"checkpoint's process count ({P}) and this fleet's ({Q})"
+            f"fleet size mismatch: checkpoint has {meta.get('process_count')} "
+            f"processes, this fleet has {count} (pass global_batch= to reshard)"
         )
-    old_per, new_per = global_batch // P, global_batch // Q
+    global_batch = int(global_batch)
+    if rows is None:
+        if global_batch % count:
+            raise ValueError(f"global_batch {global_batch} must divide by this "
+                             f"fleet's process count ({count})")
+        per = global_batch // count
+        rows = slice(rank * per, (rank + 1) * per)
+    return _load_resharded(path, local_template, meta, global_batch, rows), meta
+
+
+def _load_resharded(path: str, local_template, meta: dict, global_batch: int,
+                    rows: slice):
+    """Rebuild ``rows`` of the global batch from a checkpoint written by
+    ``P`` processes, each rank file a contiguous ``[global_batch/P]`` run
+    of rows starting at that rank's offset."""
+    P = int(meta["process_count"])
+    if P < 1 or global_batch % P:
+        raise ValueError(
+            f"global_batch {global_batch} must divide by the checkpoint's "
+            f"process count ({P})"
+        )
+    start, end = rows.start, rows.stop
+    if not 0 <= start < end <= global_batch:
+        raise ValueError(f"rows {start}:{end} outside a batch of {global_batch}")
+    old_per, new_per = global_batch // P, end - start
     template = as_dicts(local_template)
 
     def leaves(t):
@@ -199,7 +249,6 @@ def _load_resharded(path: str, local_template, meta: dict, global_batch: int):
                               device="meta"),
         template)
     offsets = _rank_offsets(meta, P, old_per)
-    start, end = r * new_per, (r + 1) * new_per
     parts = []
     for k in sorted(range(P), key=lambda k: offsets[k]):
         lo, hi = max(start - offsets[k], 0), min(end - offsets[k], old_per)

@@ -23,7 +23,10 @@ varies it per instance.  :func:`fx_palette_graph` builds the engine graph of
 ``examples/interactive_graph.py`` at its full width with every insert of
 its master-bus FX palette in series (EQ, chorus, flanger, tremolo,
 waveshaper, gate) and the rest of the FX nodes after them, and
-:func:`vary_fx_params` varies it per instance.
+:func:`vary_fx_params` varies it per instance.  :func:`voice_mix_programs`
+splits the mixer for a ``VoiceParallelMixer``: one voice as its own
+program, the bus as the master, and :func:`voice_snapshots` gives each
+voice its own frequency, volume and pan.
 """
 
 from __future__ import annotations
@@ -68,16 +71,43 @@ from .nodes import (
 __all__ = [
     "BLOCK", "FX_KINDS", "FX_VOICES", "SR", "add_effects_chain", "add_fx_palette",
     "add_fx_engine", "add_fx_voice", "add_mastering_bus", "add_mixer", "add_spatial_scene",
-    "add_voice", "air_shelf_taps", "effects_chain_audio",
+    "add_mix_bus", "add_voice", "add_voice_graph", "air_shelf_taps", "effects_chain_audio",
     "effects_chain_config4_graph", "effects_chain_graph", "fx_insert",
     "fx_palette_graph", "mastering_bus_graph", "mixer_graph", "orbit_scene",
     "random_graph", "set_fx", "spatial_scene_graph", "vary_effects_params",
     "vary_fx_params",
-    "vary_mastering_params", "vary_params", "vary_spatial_params",
+    "vary_mastering_params", "vary_params", "vary_spatial_params", "voice_mix_programs",
+    "voice_snapshots",
 ]
 
 SR = 48000
 BLOCK = 128
+
+
+def _add_voice_chain(g: AudioGraph, beep, volume, pan, dst, port: int) -> tuple:
+    """Add the voice ``beep`` → ``volume`` → ``pan`` (stereo nodes) to
+    ``g``, into inputs ``port, port + 1`` of ``dst`` → the three ids."""
+    ids = (g.add_node(0, 2, beep), g.add_node(2, 2, volume), g.add_node(2, 2, pan))
+    for src, d, p in ((ids[0], ids[1], 0), (ids[1], ids[2], 0), (ids[2], dst, port)):
+        g.connect(src, 0, d, p)
+        g.connect(src, 1, d, p + 1)
+    return ids
+
+
+def _add_bus_chain(g: AudioGraph, src, filter_backend: str, n) -> None:
+    """Add the mixer's bus to ``g``: ``src`` → lowpass Filter 8 kHz → Echo
+    0.25 s fb 0.3 → HardClip 0 dB → DbMeter → out (``n``: the node
+    module)."""
+    chain = [src,
+             g.add_node(2, 2, n.FilterNode(n.FilterType.LOWPASS, 8000.0,
+                                           backend=filter_backend)),
+             g.add_node(2, 2, n.EchoNode(delay_secs=0.25, feedback=0.3)),
+             g.add_node(2, 2, n.HardClipNode(0.0)),
+             g.add_node(2, 2, n.DbMeterNode()),
+             g.graph_out_node()]
+    for a, b in zip(chain, chain[1:]):
+        g.connect(a, 0, b, 0)
+        g.connect(a, 1, b, 1)
 
 
 def add_voice(g: AudioGraph, s, i: int, num_voices: int, nodes=None):
@@ -86,13 +116,9 @@ def add_voice(g: AudioGraph, s, i: int, num_voices: int, nodes=None):
     the sum ``s``.  ``nodes`` is the node module (the port's by default).
     Returns the (beep, volume, pan) node ids."""
     n = nodes or _NODES
-    beep = g.add_node(0, 2, n.BeepTestNode(110.0 * (1 + i % 12), -18.0, True))
-    vol = g.add_node(2, 2, n.VolumeNode(80.0))
-    pan = g.add_node(2, 2, n.StereoPanNode((i / max(num_voices - 1, 1)) * 2 - 1))
-    for src, dst, port in ((beep, vol, 0), (vol, pan, 0), (pan, s, 2 * i)):
-        g.connect(src, 0, dst, port)
-        g.connect(src, 1, dst, port + 1)
-    return beep, vol, pan
+    return _add_voice_chain(g, n.BeepTestNode(110.0 * (1 + i % 12), -18.0, True),
+                            n.VolumeNode(80.0),
+                            n.StereoPanNode((i / max(num_voices - 1, 1)) * 2 - 1), s, 2 * i)
 
 
 def add_mixer(g: AudioGraph, num_voices: int = 19, filter_backend: str = "pallas",
@@ -105,16 +131,60 @@ def add_mixer(g: AudioGraph, num_voices: int = 19, filter_backend: str = "pallas
     n = nodes or _NODES
     s = g.add_node(2 * num_voices, 2, n.SumNode())
     voices = [add_voice(g, s, i, num_voices, n) for i in range(num_voices)]
-    filt = g.add_node(2, 2, n.FilterNode(n.FilterType.LOWPASS, 8000.0,
-                                         backend=filter_backend))
-    echo = g.add_node(2, 2, n.EchoNode(delay_secs=0.25, feedback=0.3))
-    clip = g.add_node(2, 2, n.HardClipNode(0.0))
-    meter = g.add_node(2, 2, n.DbMeterNode())
-    chain = [s, filt, echo, clip, meter, g.graph_out_node()]
-    for src, dst in zip(chain, chain[1:]):
-        g.connect(src, 0, dst, 0)
-        g.connect(src, 1, dst, 1)
+    _add_bus_chain(g, s, filter_backend, n)
     return s, voices
+
+
+def add_voice_graph(g: AudioGraph, nodes=None) -> dict:
+    """One voice of the mixer as a graph of its own, for
+    :class:`~firewheel_tpu_torch.parallel.mesh.VoiceParallelMixer`:
+    BeepTest (110 Hz, -18 dB) → Volume 80% → StereoPan (centre) → out.
+    Returns the nodes (``"beep"``, ``"volume"``, ``"pan"``), whose setters
+    give each voice its own snapshot (:func:`voice_snapshots`)."""
+    n = nodes or _NODES
+    v = {"beep": n.BeepTestNode(110.0, -18.0, True), "volume": n.VolumeNode(80.0),
+         "pan": n.StereoPanNode(0.0)}
+    _add_voice_chain(g, v["beep"], v["volume"], v["pan"], g.graph_out_node(), 0)
+    return v
+
+
+def add_mix_bus(g: AudioGraph, filter_backend: str = "pallas", nodes=None) -> None:
+    """The mixer's bus as a graph of its own, on the stereo mix at its
+    inputs (the master program of a ``VoiceParallelMixer``): see
+    :func:`add_mixer`."""
+    _add_bus_chain(g, g.graph_in_node(), filter_backend, nodes or _NODES)
+
+
+def voice_mix_programs(filter_backend: str = "pallas",
+                       device: str | torch.device = DEFAULT_DEVICE):
+    """The mixer split for a ``VoiceParallelMixer`` → ``(voice_program,
+    master_program, voice_nodes)``: :func:`add_voice_graph` and
+    :func:`add_mix_bus`, compiled on ``device``."""
+    def compile_(g):
+        pkg = g.compile(SR, BLOCK)
+        return ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), SR,
+                               device=device)
+
+    g = AudioGraph(AudioGraphConfig(0, 2))
+    voice = add_voice_graph(g)
+    vprog = compile_(g)
+    g = AudioGraph(AudioGraphConfig(num_graph_inputs=2, num_graph_outputs=2))
+    add_mix_bus(g, filter_backend)
+    return vprog, compile_(g), voice
+
+
+def voice_snapshots(program: ScheduleProgram, voice: dict, num_voices: int) -> list:
+    """One param snapshot a voice, each its own: voice i at 55·(2 + i) Hz,
+    volume 40 + (37·i mod 60) %, panned across [-1, 1].  ``voice``: the
+    nodes :func:`add_voice_graph` returned for ``program``'s graph (either
+    package's)."""
+    snaps = []
+    for i in range(num_voices):
+        voice["beep"].set_frequency(55.0 * (2 + i))
+        voice["volume"].set_percent_volume(40.0 + (37 * i) % 60)
+        voice["pan"].set_pan(2.0 * i / max(num_voices - 1, 1) - 1.0)
+        snaps.append(program.collect_params())
+    return snaps
 
 
 def mixer_graph(num_voices: int = 19, filter_backend: str = "pallas",

@@ -1,23 +1,37 @@
-"""Batched instances on one device: the serving fleet's renderer.
+"""Scale-out: batched instances and voice-parallel mixing over a device mesh.
 
-PyTorch port of ``firewheel_tpu/parallel/mesh.py:BatchRenderer`` without
-the mesh: a game server renders many independent instances of one graph,
-whose params and state carry a leading batch axis B (the JAX package's
-``vmap``).  Two lowerings: ``"xla"`` (the eager executor, every node a
-torch kernel, one block at a time) and ``"hybrid"`` (megakernel islands
-between torch stages, ``executor_hybrid.HybridMegaRenderer``).
+PyTorch port of ``firewheel_tpu/parallel/mesh.py``.  A game server renders
+many independent instances of one graph, whose params and state carry a
+leading batch axis B (the JAX package's ``vmap``).  Two lowerings:
+``"xla"`` (the eager executor, every node a torch kernel, one block at a
+time) and ``"hybrid"`` (megakernel islands between torch stages,
+``executor_hybrid.HybridMegaRenderer``).
+
+* **Instance batching ("dp")**: with a mesh, :class:`BatchRenderer` shards
+  the batch over one of its axes.  Torch runs one process per device
+  (:mod:`.distributed`): every process makes the same calls with the same
+  global arguments, and holds, renders and returns only its own
+  contiguous block of rows (``local_rows``).  Instances are independent,
+  so rendering needs no collective.
+* **Voice parallelism ("vp")**: :class:`VoiceParallelMixer` shards one big
+  mix's voices over a mesh axis; each process renders its voices, the mix
+  is one ``all_reduce`` a chunk over that axis, and every process runs the
+  master bus on the replicated mix.
+
+Both compose: a 2-D mesh ``{"dp": ..., "vp": ...}`` shards instances on
+one axis and voices on the other.
 
 The serving control plane is here too: per-instance splices
 (``update_instance``, ``reset_instance``), per-instance device events
-(``poll_events``), fleet checkpoints, and ``render_stream``, the loop that
-ships every chunk to the host (as interleaved pcm16 with
+(``poll_events``), per-rank fleet checkpoints, and ``render_stream``, the
+loop that ships every chunk to the host (as interleaved pcm16 with
 ``output_format="pcm16"``, or one IMA ADPCM block per instance with
-``"adpcm4"``) while the next one renders.  The device mesh and
-multi-process sharding are not ported (ROADMAP.md).
+``"adpcm4"``) while the next one renders.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Optional, Sequence
 
 import numpy as np
@@ -29,8 +43,49 @@ from ..device import DEFAULT_DEVICE, resolve_device
 from ..executor import ScheduleProgram, node_key
 from ..ops.adpcm_device import encode_ima_chunk
 from ..processor import _Stager
+from . import distributed
 
-__all__ = ["BatchRenderer", "Egress"]
+__all__ = ["BatchRenderer", "Egress", "VoiceParallelMixer", "make_mesh"]
+
+
+def make_mesh(axis_sizes: dict[str, int], devices: str = "cuda"):
+    """A ``torch.distributed.device_mesh.DeviceMesh`` over the fleet's
+    processes with named axes, e.g. ``make_mesh({"dp": 4, "vp": 2})``:
+    torch's counterpart of ``jax.sharding.Mesh``.  Its ``size(axis)``,
+    ``get_local_rank(axis)`` and ``get_group(axis)`` are what the
+    renderers read.
+
+    Torch runs one process per device, where JAX meshes the devices of
+    one process: the product of ``axis_sizes`` must equal the world size
+    of the process group (:func:`~.distributed.initialize_multihost`),
+    ranks laid out in row-major order over the axes.  Every process calls
+    this with the same arguments (it creates a process group per axis).
+    ``devices`` names the device type: the card by default, ``"cpu"``
+    with the gloo backend.  Several ranks may share one device."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = tuple(int(v) for v in axis_sizes.values())
+    world = distributed.process_count()
+    if not distributed._initialized():
+        raise RuntimeError("make_mesh needs the fleet's process group: call "
+                           "initialize_multihost first")
+    if math.prod(shape) != world:
+        raise ValueError(f"mesh {dict(axis_sizes)} has {math.prod(shape)} ranks, "
+                         f"the process group {world}")
+    return init_device_mesh(devices, shape, mesh_dim_names=tuple(axis_sizes))
+
+
+def _shard(total: int, mesh, axis: str, what: str) -> slice:
+    """This process's contiguous block of ``total`` items sharded over
+    ``axis`` of ``mesh`` (all of them without a mesh)."""
+    if mesh is None:
+        return slice(0, total)
+    n = mesh.size(mesh.mesh_dim_names.index(axis))
+    if total % n:
+        raise ValueError(f"{what} {total} must divide over mesh axis {axis}={n}")
+    per = total // n
+    start = mesh.get_local_rank(axis) * per
+    return slice(start, start + per)
 
 
 class _Fetch:
@@ -105,12 +160,21 @@ def _unalias(state, params):
 
 class BatchRenderer:
     """Render B independent graph instances per dispatch on ``device`` (the
-    card unless the caller passes ``device="cpu"``).
+    card unless the caller passes ``device="cpu"``), optionally sharded
+    over an axis of a mesh (:func:`make_mesh`).
 
     Per-instance params and state carry a leading batch axis.
     ``render_chunk`` renders K blocks per call and returns ``f32[B, K, No,
     F]``, interleaved ``int16[B, K, F, No]`` with ``output_format="pcm16"``,
     or ``uint8[B, block_align]`` with ``"adpcm4"``.
+
+    With a mesh, B is the global batch and every process makes the same
+    calls with the same global arguments (instance indices, ``graph_in``
+    and param lists for all B instances).  Each process holds only its
+    rows, ``local_rows``: a contiguous block of ``B / mesh.size(axis)`` at
+    ``mesh.get_local_rank(axis)`` (ranks along the mesh's other axes hold
+    the same rows).  Its trees and outputs lead with those rows, never
+    with all B.
     """
 
     def __init__(
@@ -121,8 +185,12 @@ class BatchRenderer:
         output_format: str = "f32",
         lowering: str = "xla",
         tile: int = 1,
+        mesh=None,
+        axis: str = "dp",
     ):
-        """``lowering``: ``"xla"`` (the eager executor; the name is the JAX
+        """``mesh``/``axis``: shard the batch over this axis of a
+        :func:`make_mesh` mesh (``batch`` must divide by its size).
+        ``lowering``: ``"xla"`` (the eager executor; the name is the JAX
         package's) or ``"hybrid"`` (megakernel islands between torch
         stages); ``tile``: instances per CTA of the hybrid's island kernel.
         Both lowerings take and return the same param and state trees.
@@ -145,23 +213,28 @@ class BatchRenderer:
                              f"got {output_format!r}")
         self.program = program
         self.batch = int(batch)
+        self.mesh = mesh
+        self.axis = axis
+        #: this process's rows of the global batch
+        self.local_rows = _shard(self.batch, mesh, axis, "batch")
+        self._rows = self.local_rows.stop - self.local_rows.start
         self.device = resolve_device(device)
         self.output_format = output_format
         self.lowering = lowering
         self._tile = int(tile)
         self._chunk_cache: dict[Any, Any] = {}
         self._silent_in_cache: dict[int, Any] = {}
-        #: poll_events() baselines: (node_key, event) -> int64[B, lanes]
+        #: poll_events() baselines: (node_key, event) -> int64[rows, lanes]
         self._event_totals: dict[tuple, np.ndarray] = {}
         self._egress: Optional[Egress] = None
         self._stager = _Stager(self.device)
 
     # -- state/params with a leading batch axis -------------------------------
     def _broadcast(self, tree):
-        """One instance's tree → ``[B, ...]`` tensors on the device, copied
-        once per leaf on the device (no B-fold host staging)."""
+        """One instance's tree → ``[rows, ...]`` tensors on the device,
+        copied once per leaf on the device (no rows-fold host staging)."""
         return tree_map(
-            lambda t: t.unsqueeze(0).expand((self.batch,) + t.shape).clone(),
+            lambda t: t.unsqueeze(0).expand((self._rows,) + t.shape).clone(),
             params_from_jax(tree, self.device),
         )
 
@@ -170,32 +243,50 @@ class BatchRenderer:
 
     def stack_params(self, params_list: Optional[Sequence[Any]] = None):
         """Stack per-instance param snapshots (or broadcast one: ``None``,
-        or the same snapshot object for every instance)."""
+        or the same snapshot object for every instance).  ``params_list``
+        holds all B instances' snapshots; only this process's rows are
+        stacked, on the host, and put on the device."""
         if params_list is None:
             return self._broadcast(self.program.collect_params())
         if len(params_list) != self.batch:
             raise ValueError(
                 f"{len(params_list)} param snapshots for a batch of {self.batch}"
             )
-        if all(p is params_list[0] for p in params_list):
-            return self._broadcast(params_list[0])
+        mine = params_list[self.local_rows]
+        if all(p is mine[0] for p in mine):
+            return self._broadcast(mine[0])
         stacked = tree_map(
             lambda *xs: np.stack([np.asarray(x) for x in xs]),
-            *(as_dicts(p) for p in params_list),
+            *(as_dicts(p) for p in mine),
         )
         return params_from_jax(stacked, self.device)
 
     # -- per-instance control plane ----------------------------------------------
+    def _local_index(self, index: int) -> Optional[int]:
+        """Global instance ``index`` → its row in this process's trees, or
+        None where another process owns it."""
+        index = int(index)
+        if not 0 <= index < self.batch:
+            raise IndexError(f"instance {index} outside a batch of {self.batch}")
+        local = index - self.local_rows.start
+        return local if 0 <= local < self._rows else None
+
     def update_instance(self, stacked, index: int, tree_i):
         """Write one instance's slice of a stacked params or state tree.
 
         The write is IN PLACE (the JAX package returns a new tree), in the
         device's stream order: a chunk already enqueued renders the old
         values, the next one the new.  It moves one instance's worth of
-        data and never copies the other B−1 instances.  Returns
-        ``stacked``."""
+        data and never copies the other B−1 instances.  ``index`` is the
+        global instance: with a mesh only the process that owns it writes,
+        and the others return their tree unchanged (no collective).
+        Returns ``stacked``."""
+        local = self._local_index(index)
+        if local is None:
+            return stacked
+
         def write(s, x):
-            s[index] = x
+            s[local] = x
 
         # one staged host→device copy (pinned on the card, asynchronous):
         # a splice never waits for the chunk in flight
@@ -216,7 +307,7 @@ class BatchRenderer:
 
     @staticmethod
     def _totals(t: torch.Tensor) -> np.ndarray:
-        """A batched counter leaf → its 32-bit totals ``int64[B, lanes]``:
+        """A batched counter leaf → its 32-bit totals ``int64[rows, lanes]``:
         one device→host fetch.  On the card that waits for the chunk in
         flight, as the JAX package's ``np.asarray`` does."""
         raw = t.cpu().numpy()
@@ -224,9 +315,10 @@ class BatchRenderer:
 
     def poll_events(self, state):
         """Per-instance node events for a serving fleet (``list[NodeEvent]``
-        with ``instance`` the batch index): one host fetch of each declared
-        counter leaf covers all B instances.  Diff baselines live on this
-        renderer, so poll from one place per renderer."""
+        with ``instance`` the global batch index): one host fetch of each
+        declared counter leaf covers this process's instances, and each
+        process reports its own.  Diff baselines live on this renderer, so
+        poll from one place per renderer."""
         from ..core.events import NodeEvent, diff_counters
 
         ids = {node_key(sn.id): sn.id for sn in self.program.schedule.schedule}
@@ -243,7 +335,8 @@ class BatchRenderer:
                 out.append(NodeEvent(
                     node_id=ids.get(key, key), name=name,
                     count=int(delta[b, lane]), total=int(cur[b, lane]),
-                    lane=None if scalar else int(lane), instance=int(b),
+                    lane=None if scalar else int(lane),
+                    instance=self.local_rows.start + int(b),
                 ))
         return out
 
@@ -255,40 +348,62 @@ class BatchRenderer:
         current node values; SessionServer passes its saved idle snapshot).
         The instance's poll baselines move to the template's counters, so
         the next poll reports only the new tenant's events.  In place, as
-        :meth:`update_instance`; returns ``state``."""
+        :meth:`update_instance`, and only on the process that owns
+        ``index``; returns ``state``."""
         tmpl = template if template is not None else self.program.init_state()
+        local = self._local_index(index)
+        if local is None:
+            return state
         for key, name, leaf in self._counter_leaves(tmpl):
             totals = self._event_totals.get((key, name))
-            if totals is not None and index < totals.shape[0]:
+            if totals is not None and local < totals.shape[0]:
                 value = torch.as_tensor(leaf).reshape(1, -1)
-                totals[index] = self._totals(value)[0]
+                totals[local] = self._totals(value)[0]
         return self.update_instance(state, index, tmpl)
 
     # -- fleet checkpoint/restore ----------------------------------------------
     def save_checkpoint(self, path: str, state, extra_meta: dict | None = None) -> int:
         """Snapshot the fleet's recurrent state to ``path`` (a directory; see
-        ``checkpoint.py``).  Returns the bytes of the state file."""
-        from ..checkpoint import save_sharded_checkpoint
-
+        ``checkpoint.py``): each process writes its own rows, and every
+        process of the fleet calls this with the same ``path``.  Returns
+        the bytes of this process's state file."""
         meta = {
             "batch": self.batch,
+            "axis": self.axis,
             "sample_rate": self.program.sample_rate,
             "max_block_frames": self.program.max_block_frames,
         }
         if extra_meta:
             meta.update(extra_meta)
-        return save_sharded_checkpoint(path, state, meta)
+        return self._save_rows(path, state, meta)
+
+    def _save_rows(self, path: str, tree, meta: dict | None = None) -> int:
+        """Write this process's rows of ``tree`` as its rank file of the
+        fleet checkpoint at ``path``.  The batch axis must span every
+        process: ranks that hold the same rows (an axis beside the
+        batch's) cannot write one checkpoint, and every rank raises."""
+        from ..checkpoint import save_sharded_checkpoint
+
+        n = 1 if self.mesh is None else self.mesh.size(self.mesh.mesh_dim_names.index(self.axis))
+        count = distributed.process_count()
+        if n != count:
+            raise ValueError(
+                f"the batch axis {self.axis}={n} does not span the {count} processes: "
+                "their rows do not tile the batch, so they cannot write one checkpoint")
+        return save_sharded_checkpoint(path, tree, meta)
 
     def _batched_template(self, tree):
-        """``tree``'s structure with ``[B, ...]`` leaves, on no device."""
-        return tree_map(lambda t: torch.empty((self.batch,) + tuple(t.shape),
+        """``tree``'s structure with ``[rows, ...]`` leaves, on no device."""
+        return tree_map(lambda t: torch.empty((self._rows,) + tuple(t.shape),
                                               dtype=t.dtype, device="meta"), tree)
 
     def restore_checkpoint(self, path: str):
-        """Restore a fleet checkpoint (from either package) → ``(state,
-        meta)``: bit-exact resume.  The metadata is checked before the state
-        is read; the event baselines move to the restored totals, so the
-        next ``poll_events()`` reports only post-restore events."""
+        """Restore a fleet checkpoint (from either package, written by any
+        number of processes) → ``(state, meta)``: this process reads the
+        rank files that overlap its rows.  Bit-exact resume.  The metadata
+        is checked before the state is read; the event baselines move to
+        the restored totals, so the next ``poll_events()`` reports only
+        post-restore events."""
         from ..checkpoint import load_sharded_local, read_meta
 
         meta = read_meta(path)
@@ -301,15 +416,15 @@ class BatchRenderer:
                                  f"renderer {have}")
         local, meta = load_sharded_local(
             path, self._batched_template(self.program.init_state()),
-            global_batch=self.batch)
+            global_batch=self.batch, rows=self.local_rows)
         state = self._lift_local(local)
         for key, name, leaf in self._counter_leaves(state):
             self._event_totals[(key, name)] = self._totals(leaf)
         return state, meta
 
     def _lift_local(self, local_tree):
-        """Loaded ``[B, ...]`` host leaves (uint32 where the port carries
-        int64) → the batch tree on the device."""
+        """Loaded ``[rows, ...]`` host leaves (uint32 where the port carries
+        int64) → this process's batch tree on the device."""
         return state_from_jax(local_tree, self.device)
 
     # -- rendering ------------------------------------------------------------
@@ -327,15 +442,18 @@ class BatchRenderer:
                      start_sample=0, status=0, num_blocks: int = 8):
         """Render ``num_blocks`` blocks for every instance.
 
-        ``graph_in``: ``f32[B, K, Ni, F]`` (zeros if None).
-        Returns ``(out, out_mask [B, K, No], state')``, ``out`` as
-        ``f32[B, K, No, F]``, with ``output_format="pcm16"`` as
-        ``int16[B, K, F, No]``, and with ``"adpcm4"`` as ``uint8[B,
-        block_align]`` (one IMA ADPCM block per instance).
+        ``graph_in``: ``f32[B, K, Ni, F]`` (zeros if None), and ``in_mask``
+        ``bool[B, K, Ni]``, for the global batch; with a mesh this process
+        renders its rows of them.  Returns ``(out, out_mask [B, K, No],
+        state')``, ``out`` as ``f32[B, K, No, F]``, with
+        ``output_format="pcm16"`` as ``int16[B, K, F, No]``, and with
+        ``"adpcm4"`` as ``uint8[B, block_align]`` (one IMA ADPCM block per
+        instance); with a mesh, B is this process's rows (``local_rows``).
         """
         f = self.program.max_block_frames
         ni = self.program.num_graph_inputs
-        b, k = self.batch, num_blocks
+        b, k = self._rows, num_blocks
+        graph_in, in_mask = self._mine(graph_in), self._mine(in_mask)
         if self.output_format == "adpcm4" and (k * f) % 8:
             raise ValueError(f"output_format='adpcm4' needs K·F divisible by 8, "
                              f"got K={k}, F={f}")
@@ -377,6 +495,15 @@ class BatchRenderer:
                 self._chunk_cache[k] = fn
             out, om, st = fn(params, state, graph_in, in_mask, start_sample, status)
         return self._format(out), om, _unalias(st, params)
+
+    def _mine(self, x):
+        """This process's rows of a global ``[B, ...]`` operand."""
+        if x is None or self._rows == self.batch:
+            return x
+        if x.shape[0] != self.batch:
+            raise ValueError(f"an operand of {x.shape[0]} rows for a batch of "
+                             f"{self.batch}")
+        return x[self.local_rows]
 
     def egress(self) -> Egress:
         """This renderer's :class:`Egress` (its two host buffers)."""
@@ -421,3 +548,112 @@ class BatchRenderer:
             deliver(pending.wait())
         return collected, state, s
 
+
+
+class VoiceParallelMixer:
+    """Shard a many-voice mix over a mesh axis: each process renders its
+    voices, the mix is an ``all_reduce`` over the voice axis, then every
+    process runs the master bus on the replicated mix.
+
+    ``voice_program``: the compiled single-voice graph; the voices are a
+    leading batch axis of its params and state, as :class:`BatchRenderer`
+    batches instances.  ``master_program``: optional bus chain applied to
+    the summed mix; its graph takes ``num_graph_inputs`` equal to the
+    voice graph's outputs.  Params and state are ``{"voices": ...,
+    "master": ...}`` trees, the JAX package's.  With a mesh each process
+    holds ``num_voices / mesh.size(axis)`` voices (a contiguous block at
+    ``mesh.get_local_rank(axis)``) and a replica of the master's.
+
+    No voice reads the mix, so a chunk renders its K blocks of voices
+    first and reduces their K mixes in one ``all_reduce`` (``f32[K, ch,
+    F]``) before the master runs its K blocks: the outputs of a reduction
+    a block, in one collective a chunk (``collectives`` counts them).
+    """
+
+    def __init__(
+        self,
+        voice_program: ScheduleProgram,
+        num_voices: int,
+        master_program: Optional[ScheduleProgram] = None,
+        mesh=None,
+        axis: str = "vp",
+    ):
+        self.voice_program = voice_program
+        self.master_program = master_program
+        self.num_voices = int(num_voices)
+        self.mesh = mesh
+        self.axis = axis
+        #: this process's voices
+        self.local_voices = _shard(self.num_voices, mesh, axis, "num_voices")
+        self._voices = self.local_voices.stop - self.local_voices.start
+        self.device = voice_program.device
+        #: all_reduce calls made (one a chunk with a mesh)
+        self.collectives = 0
+        self._chunk_cache: dict[int, Any] = {}
+
+    def init_state(self):
+        voice = tree_map(lambda t: t.unsqueeze(0).expand((self._voices,) + t.shape)
+                         .clone(), self.voice_program.init_state())
+        master = (self.master_program.init_state()
+                  if self.master_program is not None else {})
+        return {"voices": voice, "master": master}
+
+    def stack_voice_params(self, params_list: Optional[Sequence[Any]] = None):
+        """``params_list``: all ``num_voices`` voices' snapshots (the voice
+        program's current params for every voice by default); this
+        process's voices are stacked on the host and put on the device."""
+        if params_list is None:
+            params_list = [self.voice_program.collect_params()] * self.num_voices
+        if len(params_list) != self.num_voices:
+            raise ValueError(f"{len(params_list)} param snapshots for "
+                             f"{self.num_voices} voices")
+        voices = tree_map(lambda *xs: np.stack([np.asarray(x) for x in xs]),
+                          *(as_dicts(p) for p in list(params_list)[self.local_voices]))
+        master = (self.master_program.collect_params()
+                  if self.master_program is not None else {})
+        return {"voices": params_from_jax(voices, self.device),
+                "master": params_from_jax(master, self.device)}
+
+    def step_fn(self, num_blocks: int):
+        """``(params, state, start_sample) -> (out f32[K, ch, F], out_mask
+        bool[K, ch], state')``: K blocks of every local voice, the mix
+        (one ``all_reduce`` with a mesh), then K blocks of the master bus.
+        The block clocks are :meth:`~firewheel_tpu_torch.executor.
+        ScheduleProgram.block_clocks`' (``wrap_stream_sample`` and
+        ``stream_time_from_sample``), the same for every voice."""
+        vp, mp = self.voice_program, self.master_program
+        voice_chunk = vp.chunk_fn(num_blocks)
+        master_chunk = mp.chunk_fn(num_blocks) if mp is not None else None
+        group = self.mesh.get_group(self.axis) if self.mesh is not None else None
+        f, ni = vp.max_block_frames, vp.num_graph_inputs
+
+        def chunk(params, state, start_sample):
+            k, v, dev = num_blocks, self._voices, self.device
+            outs, _, vstate = voice_chunk(
+                params_from_jax(params["voices"], dev), state["voices"],
+                torch.zeros((v, k, ni, f), dtype=torch.float32, device=dev),
+                torch.ones((v, k, ni), dtype=torch.bool, device=dev),
+                start_sample, 0)
+            mix = outs.sum(dim=0)  # [K, ch, F]
+            if group is not None:
+                torch.distributed.all_reduce(mix, op=torch.distributed.ReduceOp.SUM,
+                                             group=group)
+                self.collectives += 1
+            not_silent = torch.zeros(mix.shape[:-1], dtype=torch.bool, device=dev)
+            if master_chunk is None:
+                return mix, not_silent, {"voices": vstate, "master": {}}
+            out, om, mstate = master_chunk(
+                params_from_jax(params["master"], dev), state["master"], mix,
+                not_silent, start_sample, 0)
+            return out, om, {"voices": vstate, "master": mstate}
+
+        return chunk
+
+    def render_chunk(self, params, state, start_sample=0, num_blocks: int = 8):
+        """Render ``num_blocks`` blocks of the mix → ``(out f32[K, ch, F],
+        out_mask bool[K, ch], state')``, the same on every process."""
+        fn = self._chunk_cache.get(num_blocks)
+        if fn is None:
+            fn = self.step_fn(num_blocks)
+            self._chunk_cache[num_blocks] = fn
+        return fn(params, state, start_sample)

@@ -20,7 +20,10 @@ slot allocator with generation-checked session handles over a single
 
 Capacity is fixed per server (the renderer's batch); run one server per
 (graph shape, batch) and route sessions between servers in the
-application.
+application.  Over a mesh (``mesh=``/``axis=`` pass through to the
+renderer) every process of the fleet runs the same server and makes the
+same calls: each renders its own slots, checkpoints them to its own rank
+file, and polls its own slots' events.
 """
 
 from __future__ import annotations
@@ -131,7 +134,8 @@ class SessionServer:
 
     ``renderer_kwargs`` pass through to :class:`BatchRenderer`
     (``device``, the card unless ``"cpu"`` is passed; ``lowering``;
-    ``output_format``; ``tile``).
+    ``output_format``; ``tile``; ``mesh`` and ``axis`` to shard the slots
+    over a mesh axis).
     """
 
     def __init__(
@@ -267,7 +271,8 @@ class SessionServer:
         device (``f32[B, K, No, F]``, wire-ready ``int16[B, K, F, No]``
         with ``output_format="pcm16"``, or one IMA ADPCM block per slot,
         ``uint8[B, block_align]``, with ``"adpcm4"``).  Index by
-        ``handle.slot`` for a session's audio."""
+        ``handle.slot`` for a session's audio; over a mesh B is this
+        process's slots, ``handle.slot - renderer.local_rows.start``."""
         k = num_blocks or self.chunk_blocks
         out, _om, self._state = self._br.render_chunk(
             self._params, self._state, start_sample=self.sample, num_blocks=k,
@@ -300,11 +305,11 @@ class SessionServer:
     def save_checkpoint(self, path: str, extra_meta: dict | None = None) -> int:
         """Snapshot the whole fleet mid-stream: state and params, plus the
         slot allocator's control block (generations, free list, stream
-        clock).  The chunk in flight in ``render_fetched`` is not part of
-        the snapshot: ``flush()`` before saving.  Returns the bytes of the
-        state and params files."""
-        from .checkpoint import save_sharded_checkpoint
-
+        clock).  Over a mesh every process calls this with the same
+        ``path`` and writes its own slots.  The chunk in flight in
+        ``render_fetched`` is not part of the snapshot: ``flush()`` before
+        saving.  Returns the bytes of this process's state and params
+        files."""
         meta = {
             "session_server": {
                 "capacity": self.capacity,
@@ -321,14 +326,15 @@ class SessionServer:
             meta.update(extra_meta)
         nbytes = self._br.save_checkpoint(os.path.join(path, "state"), self._state,
                                           extra_meta=meta)
-        return nbytes + save_sharded_checkpoint(os.path.join(path, "params"),
-                                                self._params)
+        return nbytes + self._br._save_rows(os.path.join(path, "params"),
+                                            self._params)
 
     def restore_checkpoint(self, path: str):
         """Resume a saved fleet on a freshly constructed server (same
-        template program and capacity) → ``{slot: SessionHandle}`` for every
-        session live at save time (the application re-associates its
-        clients by slot).  The resumed render is bit-exact, and the event
+        template program and capacity; the mesh and the process count may
+        differ: each process reads the rank files that overlap its slots)
+        → ``{slot: SessionHandle}`` for every session live at save time
+        (the application re-associates its clients by slot).  The resumed render is bit-exact, and the event
         counters re-baseline, so ``poll_events`` reports only post-restore
         events.  One documented loss: per-session control snapshots (the
         basis of partial ``update()`` composition) are host callback state
@@ -347,7 +353,8 @@ class SessionServer:
         template = tree_map(lambda t: torch.empty_like(t, device="meta"),
                             self._params)
         local, _ = load_sharded_local(os.path.join(path, "params"), template,
-                                      global_batch=self.capacity)
+                                      global_batch=self.capacity,
+                                      rows=self._br.local_rows)
         self._params = self._br._lift_local(local)
         self._state = state
         # the restored state carries device-side command sequence numbers
@@ -375,7 +382,8 @@ class SessionServer:
         ``{SessionHandle: [NodeEvent, ...]}``.  Events from vacant or
         re-assigned slots are dropped (the renderer re-baselines a slot's
         counters on reset, so a new tenant never inherits its
-        predecessor's totals).  On the card the poll waits for the chunk in
+        predecessor's totals).  Over a mesh each process reports its own
+        slots' sessions.  On the card the poll waits for the chunk in
         flight."""
         out: dict = {}
         for e in self._br.poll_events(self._state):

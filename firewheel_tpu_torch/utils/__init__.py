@@ -9,6 +9,8 @@ from .flac_encode import encode_flac
 from .midi import Instrument, MidiNote, MidiSequencer, MidiSong, parse_midi
 from .net_stream import HttpByteSource, HttpWavStreamReader, SegmentCache
 from .resample import resample
+from .viz import ascii_graph, schedule_table, to_dot, to_html
+from .profiler import annotate, trace
 
 __all__ = [
     "read_wav",
@@ -26,4 +28,10 @@ __all__ = [
     "HttpByteSource",
     "HttpWavStreamReader",
     "SegmentCache",
+    "ascii_graph",
+    "schedule_table",
+    "to_dot",
+    "to_html",
+    "annotate",
+    "trace",
 ]

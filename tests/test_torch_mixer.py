@@ -200,9 +200,11 @@ def test_port_imports_no_jax():
     an emitter in a ``SpatialScene``, importing each module of the sampler
     and formats slice, and streaming a granular voice beside a
     ``MusicPlayer`` deck playing a FLAC file, then saving the scene,
-    importing the ``ops`` namespace, validating a node, and playing a
-    MIDI note through a ``VoicePool``, leave JAX and the JAX package out of
-    ``sys.modules``."""
+    importing the ``ops`` namespace, validating a node, playing a MIDI
+    note through a ``VoicePool``, and importing the scale-out (``parallel``
+    with ``distributed``, slicing a batch with no process group), ``viz``,
+    the profiler and the OS-audio module, leave JAX and the JAX package out
+    of ``sys.modules``."""
     code = (
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
@@ -278,6 +280,13 @@ def test_port_imports_no_jax():
         "cx.render_offline(0.05)\n"
         "cx.deactivate()\n"
         "assert utils.HttpWavStreamReader and utils.SegmentCache\n"
+        "from firewheel_tpu_torch import parallel\n"
+        "from firewheel_tpu_torch.parallel import distributed\n"
+        "import firewheel_tpu_torch.utils.viz, firewheel_tpu_torch.utils.profiler\n"
+        "import firewheel_tpu_torch.backend.os_audio as osa\n"
+        "assert parallel.local_batch_slice(8) == slice(0, 8) and len(parallel.__all__) == 5\n"
+        "assert all(hasattr(parallel, n) for n in parallel.__all__)\n"
+        "assert osa.os_audio_available() in (True, False)\n"
         "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
         " 'ops.direct_conv', 'executor_hybrid', 'processor', 'context',"
         " 'channels', 'backend.context', 'backend.stream', 'backend.ring_buffer',"
@@ -288,7 +297,8 @@ def test_port_imports_no_jax():
         " 'core.formats', 'core.flac', 'core.ranges', 'utils.wav', 'utils.flac_encode',"
         " 'utils.mp3', 'utils.vorbis', 'utils.opus', 'utils.resample', 'music',"
         " 'graph.serialize', 'voice_pool', 'utils.midi', 'utils.net_stream', 'ops',"
-        " 'ops.delay', 'testing'):\n"
+        " 'ops.delay', 'testing', 'parallel', 'parallel.distributed', 'utils.viz',"
+        " 'utils.profiler', 'backend.os_audio'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
