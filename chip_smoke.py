@@ -12,7 +12,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    4-byte copies), for K2 and K3, each with blocks of 128 frames fixed (the
    main path) and of any length, with the rows beyond the mixer's compiled
    in and without, and with the arena spilled to device memory, and for
-   K4-K7.
+   K4-K9 (K8, ``csrc/assoc_scan_bwd.cu``, and K9, ``csrc/sample_scan_bwd.cu``:
+   the backwards of K7 and K5).
 3. Holds K1 against its plain PyTorch version on the card, with a
    different filter per lane: at the main path's shape, at F = 1, 100, 127
    and 4096 (longer than its ring of stages), at 33 lanes (a ragged warp),
@@ -281,6 +282,39 @@ Run from the root of a checkout:  python3 chip_smoke.py
    included; K1 once a block; the wall a chunk and each collective's time.
    (d) ``utils.profiler.trace`` with ``annotate("render-chunk")`` around one
    chunk of (a): the trace holds the annotation and names K1's kernel.
+17. Differentiable rendering.  (a) K8 (``ops/iir.py:biquad_cascade_backward``
+   and ``one_pole_scan_backward``) against its plain backward on the card,
+   within 1e-5 of each gradient's largest magnitude, at 3(c)'s operands:
+   f32[16384, 128] (one section and the EQ's three), the one-pole there
+   and at [1048576, 128], the streams' [2, 128] and [2, 256], [33, 4096],
+   [1000, 127] (4-byte copies) and nine sections through autograd (two
+   launches each way); timed as K7 is.  (b) K9
+   (``ops/dynamics.py:scan_lanes_backward``) likewise, each kind at 3(b)'s
+   shapes, the carry-out gradients non-zero.  (a) and (b) run right after
+   3(c): from phase 11 on a profile has seen no device activity, and these
+   kernels are shorter than their wrappers' host work, which CUDA events
+   would time in its place.  (c) The 64-node mixer with
+   its filter on the associative scan (``"auto"``, the JAX package's
+   default) trained on the card: B=1024, K=8 through ``chunk_fn``, each
+   instance's 19 gains, 19 pans and the lowpass's frequency and Q leaves
+   ``[B]``; the loss each instance's channel energies against a target
+   rendered from other params; 5 SGD steps, the loss falling at each; the
+   first step's gradients of the first instances within 1e-4 of the CPU's
+   (autograd of the plain scans); K7 once a block a forward, K8 once a block
+   a backward, no other kernel in either; the wall a step, peak memory and
+   a profiled step's kernels and device time.  (d) ``examples/
+   autotune_mix.py``'s configuration (three voices, 24 blocks of 256
+   frames, 80 steps at rate 8.0, clipped to [0, 4]; the three probes as
+   instances of one batch) converges to loss < 1e-6.  (e) The mastering
+   bus at B=256, K=16: each instance's gradient with respect to the
+   compressor's threshold and makeup and the limiter's ceiling within 1e-4
+   of the CPU's for the first instances; K9 launches in the backward.  (f)
+   K1, K2 and K3 raise ``NotImplementedError`` where an operand requires a
+   gradient under grad mode (as ``jax.grad`` through the JAX package's
+   ``pallas_call`` raises), and run bit for bit as before under
+   ``torch.no_grad``.  (g) Where the machine has two devices, K5, K7, K8
+   and K9 on cuda:0's tensors with another device current equal the same
+   launches with cuda:0 current (with one device the log says so).
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
@@ -294,9 +328,13 @@ fleet and 12(b)'s batched bus, times from 3(b)) and K7's two kernels, the
 biquad (``biquad_scan``, timed as 13(b)'s cascade of the EQ's three bands)
 and the one-pole (launches in 13(b)'s batched FX palette,
 ``stream_launches`` in 13(a) and 12(a), times from 3(c), every other shape
-3(c) timed under ``at``), its error against its plain version, its device
-time on the card (``ms``, by ``torch.profiler``, or by CUDA events where the log says
-the profile saw no device activity) and a call's time with its wrapper's
+3(c) timed under ``at``), K8 (``assoc_scan_backward``: launches in 17(c),
+times at the EQ's cascade from 17(a), its other shapes under ``at``) and
+K9 (``sample_scan_backward``: launches in 17(e), the limiter's; times at
+the limiter's [8192, 128] from 17(b), under ``timed_at``), its error
+against its plain version, its device time on the card (``ms``, by
+``torch.profiler``, or by CUDA events where the profile saw no device
+activity: ``ms_by`` says which) and a call's time with its wrapper's
 host work (``call_ms``, by CUDA events), the plain version's, and its
 bound: the larger of the bytes it must move over 3.35 TB/s and its
 operations over 67 TFLOP/s, the f32 rate (NVIDIA's H100 SXM data sheet;
@@ -379,7 +417,26 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def device_ms(fn, kernel: str, reps: int, launches: int = 1) -> float:
+class Timed(float):
+    """A time in ms with how it was taken (``how``): "torch.profiler", the
+    kernel's own device time, or "CUDA events", calls back to back with
+    their wrappers' host work.  A sum keeps its terms' method ("torch.profiler
+    and CUDA events" where they differ)."""
+
+    def __new__(cls, ms: float, how: str):
+        t = super().__new__(cls, ms)
+        t.how = how
+        return t
+
+    def __add__(self, other):
+        how = getattr(other, "how", self.how)
+        return Timed(float(self) + float(other),
+                     self.how if how == self.how else "torch.profiler and CUDA events")
+
+    __radd__ = __add__
+
+
+def device_ms(fn, kernel: str, reps: int, launches: int = 1) -> Timed:
     """Mean device time per call of ``fn`` in the CUDA kernel whose name
     contains ``kernel``, which each call launches ``launches`` times, over
     ``reps`` calls, by ``torch.profiler`` (host
@@ -395,7 +452,9 @@ def device_ms(fn, kernel: str, reps: int, launches: int = 1) -> float:
     taken once more; if that one misses them too, the launches are timed
     by CUDA events instead, back to back, and the log says so: for a
     kernel that outlasts its wrapper's host work, as phase 11's do, that
-    is its device time too."""
+    is its device time too; for a kernel shorter than its wrapper's host
+    work it is the call's.  The result says which (:class:`Timed`), and the
+    kernels line gives it beside each time (``ms_by``)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -417,12 +476,13 @@ def device_ms(fn, kernel: str, reps: int, launches: int = 1) -> float:
         if (len(hits) == 1 and n - 1 <= hits[0].count <= n
                 and hits[0].device_time_total > 0):
             log(f"{kernel}: {hits[0].count} of {n} launches profiled")
-            return hits[0].device_time_total / hits[0].count * launches / 1e3
+            return Timed(hits[0].device_time_total / hits[0].count * launches / 1e3,
+                         "torch.profiler")
         seen.append(str([(e.key, e.count) for e in hits]))
     ms = cuda_ms(fn, reps)
     log(f"{kernel}: torch.profiler saw {' then '.join(seen)} for {reps * launches} "
         f"launches; timed by CUDA events instead, {ms:.4f} ms a call")
-    return ms
+    return Timed(ms, "CUDA events")
 
 
 def bound(nbytes: float, ops: float, f64_ops: float = 0.0):
@@ -5552,6 +5612,649 @@ def check_scale_out(ft, seq_iir, card: str, phase, phase4_wall: float) -> dict:
     return launches
 
 
+# -- phase 17: differentiable rendering (K8, K9) --------------------------------
+#: (kind, rows, frames, sections) where 17(a) holds K8 against its plain
+#: backward: 3(c)'s operands at the eager filter's and the batched EQ's
+#: rows (one section, the EQ's three), the one-pole there and at the
+#: spatializers' pooled rows, the streams' rows, a long ragged-free row, and
+#: nine sections (two launches each way, through autograd)
+K8_CASES = (("biquad", 2 * B, 128, 1), ("cascade", 2 * B, 128, 3),
+            ("one_pole", 2 * B, 128, 1), ("one_pole", *POOLED_ONE_POLE, 1),
+            ("biquad", 2, 128, 1), ("one_pole", 2, 128, 1), ("biquad", 2, 256, 1),
+            ("one_pole", 2, 256, 1), ("biquad", 33, 4096, 1), ("one_pole", 33, 4096, 1),
+            ("cascade", 1000, 127, 3), ("cascade", 2, 128, 9))
+#: where 17(a) times K8
+K8_TIMED = (("cascade", 2 * B, 128, 3), ("biquad", 2 * B, 128, 1),
+            ("one_pole", 2 * B, 128, 1), ("one_pole", *POOLED_ONE_POLE, 1),
+            ("biquad", 2, 128, 1))
+#: K8's and K9's kernels by name in a profile
+K8_KERNEL = {"biquad": "biquad_bwd_kernel", "cascade": "biquad_bwd_kernel",
+             "one_pole": "one_pole_bwd_kernel"}
+K9_KERNEL = "sample_scan_bwd_kernel"
+#: f32 operations a frame of each K9 kind (its adjoint; the gate's latch
+#: recomputed forward besides)
+K9_OPS = {"envelope": 8, "limiter": 11, "gate": 26, "pink": 14}
+#: K8 and K9 vs their plain backwards on the card, relative to each
+#: gradient's largest magnitude: the same float32 operations in the same
+#: order (built with --fmad=false), bit for bit when nothing else differs
+BWD_TOL = 1e-5
+GRAD_B, GRAD_K, GRAD_STEPS = 1024, 8, 5   # 17(c): instances, blocks a chunk, SGD steps
+#: 17(c) and 17(e): the card's gradients vs the CPU's for the same
+#: instances, relative to each leaf's largest magnitude (K8 runs the
+#: adjoint frame by frame, the CPU autograd over the scan's tree)
+GRAD_TOL = 1e-4
+#: 17(c)'s learning rate for each kind of leaf
+GRAD_LR = {"raw_gain": 8.0, "pan": 8.0, "freq": 1.0e8, "q": 10.0}
+TUNE_FRAMES, TUNE_BLOCKS, TUNE_STEPS, TUNE_RATE = 256, 24, 80, 8.0  # 17(d)
+TUNE_TARGET = (0.05, 0.10, 0.02)      # 17(d): each voice's RMS (the example's)
+BUS_GRAD = (256, 16)                  # 17(e): B, K on the card
+BUS_LEAVES = (("compressor", "threshold_db"), ("compressor", "makeup"),
+              ("limiter", "ceiling"))
+
+
+def _rel_err(got, want) -> float:
+    """max |got − want| over the largest |want|."""
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    return float((got - want).abs().max()) / scale if scale else float((got - want).abs().max())
+
+
+def _flat(t):
+    return [t] if isinstance(t, torch.Tensor) else [u for v in t for u in _flat(v)]
+
+
+def k8_work(kind: str, rows: int, n: int, sections: int = 1):
+    """``(bytes, f32 ops)`` K8 must do over ``rows`` rows of ``n`` frames:
+    x, y and g_y read and g_x written; per row each section's
+    coefficients, state in and state-out gradient read and their
+    gradients written.  A section's adjoint is 19 operations a frame, each
+    earlier section's input recomputed 9; the one-pole's adjoint 7."""
+    if kind == "one_pole":
+        return 4 * rows * (4 * n + 4 + 3), 7 * rows * n
+    return (4 * rows * (4 * n + sections * (9 + 7)),
+            rows * n * (19 * sections + 9 * (sections - 1)))
+
+
+def k9_work(x, carry, coefs, kind: str):
+    """``(bytes, f32 ops)`` K9 must do: the arrays its adjoint reads, x, y
+    and g_y (the pink's, which is linear, g_y alone), and g_x written; the
+    carry in (not the pink's), the carry-out gradient and the carry's
+    gradient; the per-lane coefficients and their gradients."""
+    lanes = x.numel() // x.shape[-1]
+    n_carry = carry.shape[-1] if isinstance(carry, torch.Tensor) else len(carry)
+    per_lane = sum(isinstance(c, torch.Tensor) and c.numel() > 1 for c in coefs)
+    arrays, carries = (2, 2) if kind == "pink" else (4, 3)
+    return (4 * (arrays * x.numel() + lanes * (carries * n_carry + 2 * per_lane)),
+            K9_OPS[kind] * x.numel())
+
+
+def k8_case(iir, kind: str, rows: int, n: int, s: int, gen):
+    """K8's call and its plain backward on one case of ``K8_CASES`` →
+    ``(fn, ref)``; nine sections go through autograd of ``biquad_cascade``
+    (two launches each way), held against the plain backward of each
+    launch's sections."""
+    dev = torch.device("cuda")
+    _, _, args = k7_operands(iir, kind, rows, n, gen, s)
+    rnd = lambda shape: torch.randn(shape, generator=gen).to(dev)  # noqa: E731
+    if kind == "one_pole":
+        x, y0, a, b = args
+        y, _ = iir.one_pole_scan(x, y0, a, b)
+        g_y, g_last = rnd((rows, n)), rnd((rows,))
+        call = (x, y, y0, a, b, g_y, g_last)
+        return (lambda: iir.one_pole_scan_backward(*call),
+                lambda: iir.one_pole_scan_backward_reference(*call))
+    x, zs, cs = (args[0], (args[1],), (args[2],)) if kind == "biquad" else args
+    y, _ = iir.biquad_cascade(x, zs, cs)
+    g_y = rnd((rows, n))
+    g_z = tuple((rnd((rows,)), rnd((rows,))) for _ in cs)
+    call = (x, y, zs, cs, g_y, g_z)
+    if s <= iir.MAX_SECTIONS:
+        return (lambda: iir.biquad_cascade_backward(*call),
+                lambda: iir.biquad_cascade_backward_reference(*call))
+
+    def ref():
+        # the plain backward of each launch's sections, last launch first,
+        # each from the input and output that launch had
+        m = iir.MAX_SECTIONS
+        mid, _ = iir.biquad_cascade(x, zs[:m], cs[:m])
+        g_mid, gz2, gc2 = iir.biquad_cascade_backward_reference(mid, y, zs[m:], cs[m:], g_y,
+                                                                g_z[m:])
+        g_x, gz1, gc1 = iir.biquad_cascade_backward_reference(x, mid, zs[:m], cs[:m], g_mid,
+                                                              g_z[:m])
+        return g_x, gz1 + gz2, gc1 + gc2
+
+    def through_autograd():
+        leaves = [x] + [v for z in zs for v in z] + [v for c in cs for v in c]
+        leaves = [t.detach().requires_grad_() for t in leaves]
+        lx, it = leaves[0], iter(leaves[1:])
+        lz = [(next(it), next(it)) for _ in zs]
+        lc = [iir.BiquadCoeffs(*(next(it) for _ in range(5))) for _ in cs]
+        out, zo = iir.biquad_cascade(lx, lz, lc)
+        loss = (out * g_y).sum() + sum((z * g).sum() for zz, gg in zip(zo, g_z)
+                                       for z, g in zip(zz, gg))
+        g = torch.autograd.grad(loss, leaves)
+        k = 1 + 2 * len(zs)
+        return (g[0], tuple((g[1 + 2 * i], g[2 + 2 * i]) for i in range(len(zs))),
+                tuple(iir.BiquadCoeffs(*g[k + 5 * i:k + 5 * i + 5]) for i in range(len(cs))))
+
+    return through_autograd, ref
+
+
+def check_k8(iir) -> dict:
+    """17(a): K8 (``biquad_cascade_backward``, ``one_pole_scan_backward``)
+    against its plain backward on the card at ``K8_CASES`` → ``{label: (err,
+    ms, call_ms, plain_ms, work)}`` at ``K8_TIMED`` (``err`` the largest
+    absolute difference; every case within ``BWD_TOL`` of its gradient's
+    largest magnitude)."""
+    gen = torch.Generator(device="cpu").manual_seed(1717)
+    res, worst_rel, worst_abs = {}, 0.0, 0.0
+    for kind, rows, n, s in K8_CASES:
+        label = k7_label(kind, rows, n, s)
+        fn, ref = k8_case(iir, kind, rows, n, s, gen)
+        before = iir.biquad_cascade_backward.launches + iir.one_pole_scan_backward.launches
+        got = _flat(fn())
+        torch.cuda.synchronize()
+        launched = (iir.biquad_cascade_backward.launches
+                    + iir.one_pole_scan_backward.launches - before)
+        want = _flat(ref())
+        rel = max(_rel_err(a, b) for a, b in zip(got, want))
+        err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+        if not (len(got) == len(want) and rel <= BWD_TOL):
+            raise AssertionError(f"K8 {label} disagrees with its plain backward: {rel}")
+        if launched != -(-s // iir.MAX_SECTIONS):
+            raise AssertionError(f"K8 {label}: {launched} launches")
+        worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+        if (kind, rows, n, s) in K8_TIMED:
+            ms = device_ms(fn, K8_KERNEL[kind], KERNEL_REPS)
+            call_ms = cuda_ms(fn, 50)
+            plain_ms = cuda_ms(ref, 1)
+            work = k8_work(kind, rows, n, s)
+            res[label] = (err, ms, call_ms, plain_ms, work)
+            b_ms, b_by = bound(*work)
+            log(f"K8 {label}: kernel {ms:.4f} ms on the device, {call_ms:.4f} ms a call, "
+                f"plain backward {plain_ms:.3f} ms; bound {b_ms:.4f} ms by {b_by} "
+                f"({work[0] / 1e6:.2f} MB, {work[1] / 1e6:.1f} M f32 operations), "
+                f"{100 * b_ms / ms:.1f}% of it")
+        del fn, ref, got, want
+        torch.cuda.empty_cache()
+    log(f"K8 vs its plain backward: {len(K8_CASES)} cases {[k7_label(*c) for c in K8_CASES]}, "
+        f"largest difference {worst_abs:.3e}, {worst_rel:.3e} of its gradient's largest "
+        f"magnitude (tolerance {BWD_TOL})")
+    return res
+
+
+def check_k9(dynamics) -> dict:
+    """17(b): K9 (``scan_lanes_backward``) against its plain backward on the
+    card, each kind at 3(b)'s shapes (``K5_SHAPES``, the pink's poles also
+    stacked), the carry-out gradients non-zero → ``{label: (err, ms,
+    call_ms, plain_ms, work)}`` at ``K5_TIMED``."""
+    gen = torch.Generator(device="cpu").manual_seed(1718)
+    rnd = lambda t: torch.randn(t.shape, generator=gen).to(t.device)  # noqa: E731
+    res, worst_rel, worst_abs, cases = {}, 0.0, 0.0, 0
+    for kind in K5_KINDS:
+        for lanes, n in K5_SHAPES:
+            if lanes in (B, 2 * B) and lanes != k5_lanes(kind, B):
+                continue
+            for form in (("lane", "stacked") if kind == "pink" and lanes >= B else ("lane",)):
+                code, x, carry, coefs = scan_operands(dynamics, kind, lanes, gen, n, form)
+                out, y = dynamics.scan_lanes(code, x, carry, coefs)
+                g_y = rnd(y)
+                g_out = rnd(out) if isinstance(out, torch.Tensor) else tuple(map(rnd, out))
+                call = (code, x, carry, coefs, y, g_y, g_out)
+                before = dynamics.scan_lanes_backward.launches
+                got = _flat(dynamics.scan_lanes_backward(*call))
+                torch.cuda.synchronize()
+                want = _flat(dynamics.scan_lanes_backward_reference(*call))
+                rel = max(_rel_err(a, b) for a, b in zip(got, want))
+                err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+                label = f"{kind} f32[{lanes}, {n}], {form}"
+                if not (len(got) == len(want) and rel <= BWD_TOL
+                        and dynamics.scan_lanes_backward.launches == before + 1):
+                    raise AssertionError(f"K9 {label} disagrees with its plain backward: "
+                                         f"{rel}")
+                worst_rel, worst_abs = max(worst_rel, rel), max(worst_abs, err)
+                cases += 1
+                if (lanes, n) in [(k5_lanes(kind, lb), nb) for lb, nb in K5_TIMED] \
+                        and form == "lane":
+                    fn = lambda: dynamics.scan_lanes_backward(*call)  # noqa: E731
+                    ms = device_ms(fn, K9_KERNEL, KERNEL_REPS)
+                    call_ms = cuda_ms(fn, 50)
+                    plain_ms = cuda_ms(lambda: dynamics.scan_lanes_backward_reference(*call), 1)
+                    work = k9_work(x, carry, coefs, kind)
+                    res[f"{kind} f32[{lanes}, {n}]"] = (err, ms, call_ms, plain_ms, work)
+                    b_ms = bound(*work)[0]
+                    log(f"K9 {kind} at f32[{lanes}, {n}]: kernel {ms:.4f} ms on the device, "
+                        f"{call_ms:.4f} ms a call, plain backward {plain_ms:.2f} ms; bound "
+                        f"{b_ms:.4f} ms by bytes ({work[0] / 1e6:.3f} MB), "
+                        f"{100 * b_ms / ms:.1f}% of it")
+    log(f"K9 vs its plain backward: {cases} cases, each kind at "
+        f"{[list(sh) for sh in K5_SHAPES]} (the pink at {2 * B} lanes, the others at {B}), "
+        f"largest difference {worst_abs:.3e}, {worst_rel:.3e} of its gradient's largest "
+        f"magnitude (tolerance {BWD_TOL})")
+    return res
+
+
+def kernel_counts(seq_iir, em, eh, adpcm_device, dynamics, iir, noise) -> dict:
+    """Every kernel wrapper's launch count, by kernel."""
+    return {"K1": seq_iir.biquad_seq.launches, "K2": em.MegaRenderer.launches,
+            "K3": eh.HybridMegaRenderer.launches,
+            "K4": adpcm_device.encode_ima_chunk.launches,
+            "K5": dynamics.scan_lanes.launches, "K6": noise.noise_uniform.launches,
+            "K7": iir.biquad_cascade.launches + iir.one_pole_scan.launches,
+            "K8": iir.biquad_cascade_backward.launches + iir.one_pole_scan_backward.launches,
+            "K9": dynamics.scan_lanes_backward.launches}
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+def mixer_grad_leaves(prog, b: int, seed: int, device) -> dict:
+    """``{(node key, param): f32[b]}``: each instance's 19 voices' gains and
+    pans and the lowpass's frequency and Q, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    leaves = {}
+    for key, proc in prog._procs.items():
+        name = type(proc).__name__
+        if name == "VolumeProcessor":
+            leaves[(key, "raw_gain")] = rng.uniform(0.3, 1.0, b)
+        elif name == "StereoPanProcessor":
+            leaves[(key, "pan")] = rng.uniform(-0.8, 0.8, b)
+        elif name == "FilterProcessor":
+            leaves[(key, "freq")] = rng.uniform(4000.0, 12000.0, b)
+            leaves[(key, "q")] = rng.uniform(0.5, 1.2, b)
+    return {k: torch.tensor(v, dtype=torch.float32, device=device) for k, v in leaves.items()}
+
+
+def with_leaves(params: dict, leaves: dict) -> dict:
+    p = {key: dict(v) for key, v in params.items()}
+    for (key, name), t in leaves.items():
+        p[key][name] = t
+    return p
+
+
+def chunk_energy(prog, params, state, b: int, k: int):
+    """Each instance's mean square over a chunk of ``k`` blocks, by channel
+    → f32[b, 2]."""
+    dev = prog.device
+    out, _, _ = prog.chunk_fn(k)(
+        params, state, torch.zeros((b, k, 0, prog.max_block_frames), device=dev),
+        torch.zeros((b, k, 0), dtype=torch.bool, device=dev), 0, 0)
+    return (out ** 2).mean(dim=(1, 3))
+
+
+def mixer_grads(prog, params, state, leaves, target, k: int):
+    """The loss (each instance's channel energies against ``target``,
+    squared and summed) and its gradients with respect to ``leaves``."""
+    b = target.shape[0]
+    req = {n: t.detach().requires_grad_() for n, t in leaves.items()}
+    energy = chunk_energy(prog, with_leaves(params, req), state, b, k)
+    loss = ((energy - target) ** 2).sum()
+    grads = torch.autograd.grad(loss, list(req.values()))
+    return loss.detach(), dict(zip(req, grads))
+
+
+def profile_step(step):
+    """``(kernels, device_ms)`` of one call of ``step`` by ``torch.profiler``,
+    or ``(None, None)`` when the profile saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
+    if not dev:
+        return None, None
+    return sum(e.count for e in dev), sum(e.device_time_total for e in dev) / 1e3
+
+
+def train_mixer(ft, counts, iir, card: str) -> dict:
+    """17(c): the 64-node mixer (``filter_backend="auto"``) trained on the
+    card at B=GRAD_B, K=GRAD_K through ``chunk_fn``: each instance's
+    voices' gains and pans and the filter's frequency and Q are leaves
+    ``[B]``; the loss is each instance's channel energies against a target
+    rendered from other params; GRAD_STEPS of SGD, the loss falling at each.
+    The first step's gradients of CHECK_INSTANCES instances against the CPU's;
+    K8 once a block a backward, K1–K7 and K9 none in it."""
+    prog = ft.mixer_graph(19, "auto", device="cuda")
+    br = ft.BatchRenderer(prog, GRAD_B, device="cuda")
+    params, state = br.stack_params(), br.init_state()
+    leaves = mixer_grad_leaves(prog, GRAD_B, 17, "cuda")
+    with torch.no_grad():
+        target = chunk_energy(prog, with_leaves(params, mixer_grad_leaves(prog, GRAD_B, 71,
+                                                                           "cuda")),
+                              state, GRAD_B, GRAD_K)
+    losses, walls, fwd, bwd = [], [], [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    first = None
+    for step in range(GRAD_STEPS + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c0 = counts()
+        req = {n: t.detach().requires_grad_() for n, t in leaves.items()}
+        energy = chunk_energy(prog, with_leaves(params, req), state, GRAD_B, GRAD_K)
+        loss = ((energy - target) ** 2).sum()
+        c1 = counts()
+        if step == GRAD_STEPS:  # the loss after the last step
+            losses.append(float(loss.detach()))
+            break
+        grads = dict(zip(req, torch.autograd.grad(loss, list(req.values()))))
+        c2 = counts()
+        with torch.no_grad():
+            leaves = {n: t - GRAD_LR[n[1]] * grads[n] for n, t in leaves.items()}
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss.detach()))
+        fwd.append(_delta(c1, c0))
+        bwd.append(_delta(c2, c1))
+        if first is None:
+            first = ({n: t.detach().clone() for n, t in req.items()}, grads)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if not all(b < a for a, b in zip(losses, losses[1:])) or not np.isfinite(losses).all():
+        raise AssertionError(f"17(c): the loss did not fall at every step: {losses}")
+    for f, b in zip(fwd, bwd):
+        if f["K7"] != GRAD_K or b["K8"] != GRAD_K or any(
+                v for k, v in b.items() if k != "K8") or any(
+                v for k, v in f.items() if k != "K7"):
+            raise AssertionError(f"17(c): launches in a forward {f}, in a backward {b}")
+
+    # the first step's gradients of the first instances, on the CPU
+    from firewheel_tpu_torch.convert import tree_map
+
+    start, grads = first
+    rows = slice(0, CHECK_INSTANCES)
+    cpu_prog = ft.mixer_graph(19, "auto", device="cpu")
+    _, cpu_grads = mixer_grads(
+        cpu_prog, tree_map(lambda t: t[rows].cpu(), params),
+        tree_map(lambda t: t[rows].cpu(), state),
+        {n: t[rows].cpu() for n, t in start.items()}, target[rows].cpu(), GRAD_K)
+    errs = {}
+    for kind in GRAD_LR:
+        names = [n for n in grads if n[1] == kind]
+        card_g = torch.stack([grads[n][rows].cpu() for n in names])
+        cpu_g = torch.stack([cpu_grads[n] for n in names])
+        errs[kind] = _rel_err(card_g, cpu_g)
+        if not (errs[kind] <= GRAD_TOL and bool(cpu_g.abs().max() > 0)):
+            raise AssertionError(f"17(c): {kind} gradients, card vs CPU {errs[kind]}")
+    worst = max(errs.values())
+    kernels, dev_ms = profile_step(lambda: mixer_grads(prog, params, state, leaves, target,
+                                                       GRAD_K))
+    wall = float(np.median(walls[1:]))
+    busy = (f"{kernels} kernels, {dev_ms:.3f} ms of device time, "
+            f"{100 * (1 - dev_ms / wall):.1f}% of the median step's wall idle"
+            if kernels else "not measured (the profile saw no device activity)")
+    log(f"phase 17(c), the 64-node mixer (filter 'auto') trained on the card ({card}): "
+        f"B={GRAD_B}, K={GRAD_K}, {4 * 19 // 2 + 2} leaves [B] (19 gains, 19 pans, the "
+        f"lowpass's frequency and Q); loss {[f'{v:.6e}' for v in losses]} over "
+        f"{GRAD_STEPS} SGD steps, falling at each; wall a step (forward and backward) "
+        f"{[round(w, 3) for w in walls]} ms, median of steps 2-{GRAD_STEPS} {wall:.3f} ms; "
+        f"peak device memory {peak_gb:.3f} GB; launches a forward {fwd[0]}, a backward "
+        f"{bwd[0]}; a profiled step: {busy}; the first step's gradients of instances "
+        f"0-{CHECK_INSTANCES - 1} vs the CPU's, by leaf kind, of its largest magnitude "
+        f"{ {k: f'{v:.3e}' for k, v in errs.items()} }")
+    return {"launches": sum(b["K8"] for b in bwd), "wall_ms": wall, "peak_gb": peak_gb,
+            "kernels": kernels, "device_ms": dev_ms, "err": worst}
+
+
+def tune_graph(ft, device):
+    """``examples/autotune_mix.py``'s graph on the port: three detuned
+    beeps (220, 440, 880 Hz, −6 dB) through volumes into a sum, a pan, out,
+    at 48 kHz in blocks of 256 frames → (program, the volumes' keys)."""
+    from firewheel_tpu_torch import nodes as tn
+    from firewheel_tpu_torch.executor import node_key
+
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    mix = g.add_node(6, 2, tn.SumNode())
+    vols = []
+    for i, freq in enumerate((220.0, 440.0, 880.0)):
+        beep = g.add_node(0, 2, tn.BeepTestNode(freq, -6.0, True))
+        vol = g.add_node(2, 2, tn.VolumeNode(100.0))
+        g.connect(beep, 0, vol, 0)
+        g.connect(beep, 1, vol, 1)
+        g.connect(vol, 0, mix, 2 * i)
+        g.connect(vol, 1, mix, 2 * i + 1)
+        vols.append(node_key(vol))
+    pan = g.add_node(2, 2, tn.StereoPanNode(0.0))
+    g.connect(mix, 0, pan, 0)
+    g.connect(mix, 1, pan, 1)
+    g.connect(pan, 0, g.graph_out_node(), 0)
+    g.connect(pan, 1, g.graph_out_node(), 1)
+    pkg = g.compile(48000, TUNE_FRAMES)
+    return ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                              device=device), vols
+
+
+def autotune(ft, card: str) -> dict:
+    """17(d): ``examples/autotune_mix.py`` on the card: three voices' gains
+    fitted to each voice's RMS (rendered alone) over TUNE_BLOCKS blocks of
+    TUNE_FRAMES, the last block measured; TUNE_STEPS of gradient descent at
+    TUNE_RATE, clipped to [0, 4].  The three probes (each voice alone) are
+    three instances of one batch.  Must reach loss < 1e-6."""
+    prog, vols = tune_graph(ft, "cuda")
+    br = ft.BatchRenderer(prog, 3, device="cuda")
+    params, state = br.stack_params(), br.init_state()
+    target = torch.tensor(TUNE_TARGET, device="cuda")
+    sel = torch.eye(3, device="cuda")
+    chunk = prog.chunk_fn(TUNE_BLOCKS)
+    zeros = (torch.zeros((3, TUNE_BLOCKS, 0, TUNE_FRAMES), device="cuda"),
+             torch.zeros((3, TUNE_BLOCKS, 0), dtype=torch.bool, device="cuda"))
+
+    def loss_of(gains):
+        # instance i renders voice i alone: gains · sel[i]
+        p = with_leaves(params, {(k, "raw_gain"): gains[v] * sel[:, v]
+                                 for v, k in enumerate(vols)})
+        out, _, _ = chunk(p, state, *zeros, 0, 0)
+        rms = (out[:, -1] ** 2).mean(dim=(1, 2)).sqrt()
+        return ((rms - target) ** 2).sum(), rms
+
+    gains = torch.full((3,), 0.5, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(TUNE_STEPS):
+        g = gains.detach().requires_grad_()
+        (grad,) = torch.autograd.grad(loss_of(g)[0], g)
+        gains = (gains - TUNE_RATE * grad).clamp(0.0, 4.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with torch.no_grad():
+        loss, rms = loss_of(gains)
+    if not float(loss) < 1e-6:
+        raise AssertionError(f"17(d): autotune did not converge: loss {float(loss)}, "
+                             f"gains {gains.tolist()}")
+    log(f"phase 17(d), examples/autotune_mix.py's configuration on the card ({card}): "
+        f"{TUNE_STEPS} steps at rate {TUNE_RATE}, {TUNE_BLOCKS} blocks of {TUNE_FRAMES} "
+        f"frames, the three probes as instances of one batch: loss {float(loss):.3e} "
+        f"(< 1e-6), gains {[round(v, 4) for v in gains.tolist()]}, per-voice RMS "
+        f"{[round(v, 4) for v in rms.tolist()]} (target {list(TUNE_TARGET)}); "
+        f"{wall:.2f} s, {wall / TUNE_STEPS * 1e3:.1f} ms a step")
+    return {"wall_s": wall, "loss": float(loss)}
+
+
+def bus_grads(ft, device, b: int, rows=None, params=None):
+    """The mastering bus's gradients of each instance's mean square over
+    BUS_GRAD[1] blocks with respect to the compressor's threshold and makeup
+    and the limiter's ceiling → ``(grads {(kind, name): f32[b]}, params)``;
+    ``params`` (the card's, varied per instance) cut to ``rows`` for the
+    CPU."""
+    from firewheel_tpu_torch import mixer
+    from firewheel_tpu_torch.convert import tree_map
+
+    prog = ft.mastering_bus_graph(device=device)
+    br = ft.BatchRenderer(prog, b, device=device)
+    if params is None:
+        params = mixer.vary_mastering_params(prog, br.stack_params(), 17)
+        # ceilings the bus reaches (−1 dB is above its peaks): the limiter
+        # acts, and its release scan is differentiated
+        lim = next(k for k, p in prog._procs.items() if type(p).__name__ == "LimiterProcessor")
+        params[lim]["ceiling"] = torch.from_numpy(np.random.default_rng(17).uniform(
+            0.15, 0.35, b).astype(np.float32)).to(device)
+    else:
+        params = tree_map(lambda t: t[rows].to(device), params)
+    keys = {type(p).__name__.replace("Processor", "").lower(): k
+            for k, p in prog._procs.items()}
+    leaves = {(kind, name): params[keys[kind]][name].detach().clone().requires_grad_()
+              for kind, name in BUS_LEAVES}
+    p = with_leaves(params, {(keys[kind], name): t for (kind, name), t in leaves.items()})
+    k = BUS_GRAD[1]
+    out, _, _ = prog.chunk_fn(k)(
+        p, br.init_state(), torch.zeros((b, k, 0, prog.max_block_frames), device=device),
+        torch.zeros((b, k, 0), dtype=torch.bool, device=device), 0, 0)
+    loss = (out ** 2).mean(dim=(1, 2, 3)).sum()
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    return dict(zip(leaves, grads)), params
+
+
+def bus_dynamics(ft, counts, card: str) -> dict:
+    """17(e): the mastering bus's dynamics differentiated on the card
+    (B, K = BUS_GRAD): the compressor's threshold and makeup and the
+    limiter's ceiling per instance, against the CPU for CHECK_INSTANCES; K9
+    launches in the backward (the limiter's release, once a block)."""
+    c0 = counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    grads, params = bus_grads(ft, "cuda", BUS_GRAD[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = _delta(counts(), c0)
+    cpu, _ = bus_grads(ft, "cpu", CHECK_INSTANCES, slice(0, CHECK_INSTANCES), params)
+    worst = 0.0
+    for n in grads:
+        e = _rel_err(grads[n][:CHECK_INSTANCES].cpu(), cpu[n])
+        if not (e <= GRAD_TOL and bool(cpu[n].abs().max() > 0)):
+            raise AssertionError(f"17(e): {n} gradients, card vs CPU {e}")
+        worst = max(worst, e)
+    if launched["K9"] < BUS_GRAD[1] or launched["K1"] or launched["K2"] or launched["K3"]:
+        raise AssertionError(f"17(e): launches {launched}")
+    log(f"phase 17(e), the mastering bus's dynamics differentiated on the card ({card}): "
+        f"B={BUS_GRAD[0]}, K={BUS_GRAD[1]}, gradients of {[n for n in grads]} per instance "
+        f"vs the CPU's for instances 0-{CHECK_INSTANCES - 1}: {worst:.3e} of each leaf's "
+        f"largest; forward and backward {wall:.3f} s; launches {launched}")
+    return {"launches": launched["K9"], "err": worst}
+
+
+def check_refusals(ft, seq_iir, em, eh, card: str) -> None:
+    """17(f): K1, K2 and K3 refuse a gradient (``NotImplementedError``, as
+    ``jax.grad`` through the JAX package's ``pallas_call`` raises) where an
+    operand requires one under grad mode, and under ``torch.no_grad`` run as
+    before, bit for bit and counted."""
+    from firewheel_tpu_torch.ops.iir import BiquadCoeffs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device="cpu").manual_seed(1719)
+    x = torch.randn((64, 128), generator=gen).to(dev)
+    c = BiquadCoeffs(*(torch.full((64,), v, device=dev) for v in (0.2, 0.3, 0.1, -0.5, 0.2)))
+    z = (torch.zeros(64, device=dev), torch.zeros(64, device=dev))
+
+    def refused(fn):
+        try:
+            fn()
+        except NotImplementedError:
+            return True
+        return False
+
+    def leaf(params, name):
+        params = {k: dict(v) for k, v in params.items()}
+        key = next(k for k, v in params.items() if name in v)
+        params[key][name] = params[key][name].clone().requires_grad_()
+        return params
+
+    want = seq_iir.biquad_seq(x, z, c)[0]
+    n = seq_iir.biquad_seq.launches
+    ok = {"K1": refused(lambda: seq_iir.biquad_seq(x.clone().requires_grad_(), z, c))}
+    with torch.no_grad():
+        ok["K1 no_grad"] = torch.equal(seq_iir.biquad_seq(x.clone().requires_grad_(), z, c)[0],
+                                       want) and seq_iir.biquad_seq.launches == n + 1
+    mega = em.MegaRenderer(ft.mixer_graph(filter_backend="pallas", device="cuda"), 64, 2,
+                           device="cuda")
+    p, s = mega.stack_params(), mega.init_state()
+    want = mega.render_chunk(p, s)[0]
+    n = em.MegaRenderer.launches
+    ok["K2"] = refused(lambda: mega.render_chunk(leaf(p, "q"), s))
+    with torch.no_grad():
+        ok["K2 no_grad"] = torch.equal(mega.render_chunk(leaf(p, "q"), s)[0], want) \
+            and em.MegaRenderer.launches == n + 1
+    hybrid = eh.HybridMegaRenderer(ft.effects_chain_graph(device="cuda"), 64, 2,
+                                   device="cuda")
+    p, s = hybrid.stack_params(), hybrid.init_state()
+    want = hybrid.render_chunk(p, s)[0]
+    n = eh.HybridMegaRenderer.launches
+    ok["K3"] = refused(lambda: hybrid.render_chunk(leaf(p, "freq"), s))
+    with torch.no_grad():
+        ok["K3 no_grad"] = torch.equal(hybrid.render_chunk(leaf(p, "freq"), s)[0], want) \
+            and eh.HybridMegaRenderer.launches > n
+    torch.cuda.synchronize()
+    if not all(ok.values()):
+        raise AssertionError(f"17(f): {ok}")
+    log(f"phase 17(f), the kernels with no backward ({card}): K1 (biquad_seq), K2 "
+        f"(MegaRenderer) and K3 (HybridMegaRenderer) raise NotImplementedError where an "
+        f"operand requires a gradient under grad mode, and under torch.no_grad render bit "
+        f"for bit as without the gradient, each launched")
+
+
+def check_other_device(iir, dynamics) -> None:
+    """17(g): K5, K7, K8 and K9 on tensors of cuda:0 while another device is
+    current.  Each wrapper makes its tensor's device current for the launch
+    (CUDA refuses a launch onto another device's stream): the results equal
+    the same calls made with cuda:0 current, bit for bit.  Needs two
+    devices; with one, the log says it was not run."""
+    if torch.cuda.device_count() < 2:
+        log("17(g): one device: K5, K7, K8 and K9 with another device current not run")
+        return
+    gen = torch.Generator(device="cpu").manual_seed(1719)
+    with torch.cuda.device(0):
+        _, _, (x, y0, a, b) = k7_operands(iir, "one_pole", 64, 128, gen)
+        _, _, (xb, zb, cb) = k7_operands(iir, "biquad", 64, 128, gen)
+        code, xs, carry, coefs = scan_operands(dynamics, "limiter", 64, gen)
+        g = torch.randn((64, 128), generator=gen).to(x.device)
+        g_last = torch.randn((64,), generator=gen).to(x.device)
+    out = lambda: iir.one_pole_scan(x, y0, a, b)[0]  # noqa: E731
+    calls = {
+        "K7 one_pole_scan": lambda: iir.one_pole_scan(x, y0, a, b),
+        "K7 biquad_scan": lambda: iir.biquad_scan(xb, zb, cb),
+        "K5 scan_lanes": lambda: dynamics.scan_lanes(code, xs, carry, coefs),
+        "K8 one_pole_scan_backward": lambda: iir.one_pole_scan_backward(
+            x, out(), y0, a, b, g, g_last),
+        "K9 scan_lanes_backward": lambda: dynamics.scan_lanes_backward(
+            code, xs, carry, coefs, dynamics.scan_lanes(code, xs, carry, coefs)[1], g,
+            (g_last,)),
+    }
+    other = torch.cuda.device_count() - 1
+    for name, fn in calls.items():
+        with torch.cuda.device(0):
+            want = _flat(fn())
+            torch.cuda.synchronize()
+        with torch.cuda.device(other):
+            got = _flat(fn())
+            torch.cuda.synchronize(x.device)
+        if not (len(got) == len(want) and all(u.device == x.device and torch.equal(u, v)
+                                              for u, v in zip(got, want))):
+            raise AssertionError(f"17(g): {name} with cuda:{other} current differs")
+    log(f"17(g): {', '.join(calls)} on cuda:0 with cuda:{other} current: bit for bit "
+        "the launches with cuda:0 current")
+
+
+def check_gradients(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, card: str,
+                    phase, res: dict) -> dict:
+    """Phase 17 (c)-(g): differentiable rendering on the card → ``res``
+    (17(a)'s and 17(b)'s numbers) with 17(c)'s and 17(e)'s, for the
+    kernels line."""
+    counts = lambda: kernel_counts(seq_iir, em, eh, adpcm_device, dynamics,  # noqa: E731
+                                   iir, noise)
+    res = dict(res)
+    res["train"] = train_mixer(ft, counts, iir, card)
+    phase("17(c), the mixer trained")
+    res["tune"] = autotune(ft, card)
+    phase("17(d), autotune_mix")
+    res["bus"] = bus_dynamics(ft, counts, card)
+    phase("17(e), the bus's dynamics")
+    check_refusals(ft, seq_iir, em, eh, card)
+    phase("17(f), K1-K3 refuse a gradient")
+    check_other_device(iir, dynamics)
+    phase("17(g), launches with another device current")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -5581,7 +6284,7 @@ def main() -> int:
 
 def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
                cpu_stream) -> int:
-    """Phases 1..16 and the result lines."""
+    """Phases 1..17 and the result lines."""
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -5595,7 +6298,8 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         log(f"phase {name}: {now - t0:.1f} s (total {now - t_start:.1f} s)")
         t0 = now
 
-    new_libraries = (adpcm_device.LIBRARY, dynamics.LIBRARY, noise.LIBRARY, iir.LIBRARY)
+    new_libraries = (adpcm_device.LIBRARY, dynamics.LIBRARY, noise.LIBRARY, iir.LIBRARY,
+                     iir.BWD_LIBRARY, dynamics.BWD_LIBRARY)
     cuda_build.build_all([seq_iir.LIBRARY, em.LIBRARY, *new_libraries], verbose=True)
     if seq_iir.LIBRARY.log:
         # two instantiations: 16-byte copies, and 4-byte copies
@@ -5619,13 +6323,14 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     else:
         log("ptxas: the megakernel library was built before this run")
     for lib, kernel in zip(new_libraries, ("adpcm_encode_kernel", "sample_scan_kernel",
-                                           "noise_uniform_kernel", "scan_kernel")):
+                                           "noise_uniform_kernel", "scan_kernel",
+                                           "bwd_kernel", "sample_scan_bwd_kernel")):
         if lib.log:
             for name, report in ptxas_report(lib.log, kernel).items():
                 log(f"ptxas, {name}: {report}")
         else:
             log(f"ptxas: {lib.name} was built before this run")
-    phase("2, K1, the megakernel (K2, K3) and K4-K7 built")
+    phase("2, K1, the megakernel (K2, K3) and K4-K9 built")
 
     err, ms, call_ms, plain_ms = check_kernel(seq_iir, iir)
     phase("3, K1 vs plain")
@@ -5633,6 +6338,11 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     phase("3(b), K4-K6 vs plain")
     k7 = check_assoc_scan(iir)
     phase("3(c), K7 vs plain")
+    # K8 and K9 beside K7 and K5, while a profile still sees the card
+    bwd = {"k8": check_k8(iir)}
+    phase("17(a), K8 vs its plain backward")
+    bwd["k9"] = check_k9(dynamics)
+    phase("17(b), K9 vs its plain backward")
     launches, mixer_wall = render_mixer(ft, seq_iir, card)
     phase("4, mixer eager")
     m_launches, m_err, m_ms, m_call_ms, m_plain_ms, m_work = render_mega(
@@ -5671,6 +6381,8 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                                  cpu_stream, card, phase)
     mesh_k1 = check_scale_out(ft, seq_iir, card, phase, mixer_wall)
     phase("16(b) and (c) at vp=2, two ranks on the card")
+    grads = check_gradients(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, card,
+                            phase, bwd)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -5730,6 +6442,17 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
          *k7[k7_label("cascade", 2 * B, 128, 3)]),
         ("one_pole_scan", "firewheel_tpu_torch/csrc/assoc_scan.cu",
          "firewheel_tpu/ops/iir.py:132", fx_k7[1], *k7[k7_label("one_pole", 2 * B, 128)]),
+        # phase 17: K8, K7's backwards (the autodiff of the JAX package's
+        # associative scans; launches in 17(c)'s training steps, times at
+        # the EQ's cascade from 17(a), its other shapes under "at"), and
+        # K9, K5's (launches in 17(e)'s bus, all of them the limiter's;
+        # times at the limiter's f32[8192, 128] from 17(b))
+        ("assoc_scan_backward", "firewheel_tpu_torch/csrc/assoc_scan_bwd.cu",
+         "firewheel_tpu/ops/iir.py:260", grads["train"]["launches"],
+         *grads["k8"][k7_label("cascade", 2 * B, 128, 3)]),
+        ("sample_scan_backward", "firewheel_tpu_torch/csrc/sample_scan_bwd.cu",
+         "firewheel_tpu/ops/dynamics.py:30", grads["bus"]["launches"],
+         *grads["k9"][f"limiter f32[{B}, 128]"]),
     ):
         bound_ms, bound_by = bound(*work)
         kernels.append({
@@ -5755,7 +6478,7 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                                    "noise_uniform": validator["noise_uniform"],
                                    "biquad_scan": validator["biquad_cascade"],
                                    "one_pole_scan": validator["one_pole_scan"]}.get(name, 0),
-            "max_abs_err": e, "ms": t, "call_ms": call,
+            "max_abs_err": e, "ms": t, "ms_by": t.how, "call_ms": call,
             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / t,
             "library_ms": None,  # no one PyTorch call computes any of them
@@ -5765,14 +6488,24 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                                     "stream_bound_ms"), k1_stream))
         if name in ("sample_scan", "noise_uniform"):  # every kind and shape 3(b) timed
             kernels[-1]["at"] = {
-                label: {"ms": k_ms, "call_ms": k_call, "plain_ms": k_plain,
+                label: {"ms": k_ms, "ms_by": k_ms.how, "call_ms": k_call, "plain_ms": k_plain,
                         "bound_ms": bound(*k_work)[0], "share": bound(*k_work)[0] / k_ms}
                 for label, (_, k_ms, k_call, k_plain, k_work)
                 in new_kernels[f"{name}_at"].items()}
+        if name in ("assoc_scan_backward", "sample_scan_backward"):  # every shape timed
+            kernels[-1]["timed_at"] = (k7_label("cascade", 2 * B, 128, 3)
+                                       if name == "assoc_scan_backward"
+                                       else f"limiter f32[{B}, 128]")
+            kernels[-1]["at"] = {
+                label: {"ms": k_ms, "ms_by": k_ms.how, "call_ms": k_call, "plain_ms": k_plain,
+                        "bound_ms": bound(*k_work)[0], "share": bound(*k_work)[0] / k_ms,
+                        "max_abs_err": k_err}
+                for label, (k_err, k_ms, k_call, k_plain, k_work)
+                in grads["k8" if name == "assoc_scan_backward" else "k9"].items()}
         if name in ("biquad_scan", "one_pole_scan"):  # every shape 3(c) timed
             kinds = ("biquad ", "cascade ") if name == "biquad_scan" else ("one_pole ",)
             kernels[-1]["at"] = {
-                label: {"ms": k_ms, "call_ms": k_call, "plain_ms": k_plain,
+                label: {"ms": k_ms, "ms_by": k_ms.how, "call_ms": k_call, "plain_ms": k_plain,
                         "bound_ms": bound(*k_work)[0], "share": bound(*k_work)[0] / k_ms}
                 for label, (_, k_ms, k_call, k_plain, k_work) in k7.items()
                 if label.startswith(kinds)}

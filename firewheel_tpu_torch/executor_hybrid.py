@@ -35,6 +35,7 @@ import torch
 
 from .convert import params_from_jax
 from .executor import ScheduleProgram, node_key, refuse_timelines
+from .ops.grad import refuse_gradients
 from .executor_mega import (
     LIBRARY,
     KernelOperands,
@@ -245,6 +246,7 @@ class HybridMegaRenderer:
         b, k, f = self.batch, self.num_blocks, prog.max_block_frames
         sched = prog.schedule.schedule
         refuse_timelines(params, "HybridMegaRenderer")
+        refuse_gradients("HybridMegaRenderer (K3)", params, state, graph_in)
         params = params_from_jax(params, self.device)
         if graph_in is None:
             graph_in = torch.zeros((b, k, prog.num_graph_inputs, f),

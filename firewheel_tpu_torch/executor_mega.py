@@ -85,6 +85,7 @@ from .nodes.sum import SumProcessor
 from .nodes.volume import _MUTE_F32, VolumeProcessor
 from .nodes.waveshaper import SHAPES, WaveshaperProcessor
 from .ops.cuda_build import CudaLibrary
+from .ops.grad import refuse_gradients
 from .parallel.mesh import BatchRenderer
 
 __all__ = [
@@ -950,6 +951,7 @@ class MegaRenderer:
 
     def render_chunk(self, params, state, start_sample=0):
         refuse_timelines(params, "MegaRenderer")
+        refuse_gradients("MegaRenderer (K2)", params, state)
         params = params_from_jax(params, self.device)
         if self.device.type == "cpu":
             return mega_chunk_reference(self.program, self.lowered, params,

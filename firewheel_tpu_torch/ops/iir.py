@@ -19,10 +19,21 @@ op by op); CUDA tensors launch ``csrc/assoc_scan.cu`` (K7, one launch a
 call, the same compositions rounded the same way, bit for bit, for rows of
 any length) or raise.  Numbers go to the kernel by value and tensors in
 place, so a call copies nothing from the host.
+
+Their backwards, :func:`biquad_cascade_backward` and
+:func:`one_pole_scan_backward`, are wrappers of the same kind: CPU tensors
+run the plain reverse-time recurrences
+(:func:`biquad_cascade_backward_reference`,
+:func:`one_pole_scan_backward_reference`); CUDA tensors launch
+``csrc/assoc_scan_bwd.cu`` (K8) or raise.  On the card, where autograd
+records, the forward wrappers launch K7 inside a
+``torch.autograd.Function`` whose backward launches K8; on the CPU
+autograd differentiates the plain scans, as JAX differentiates its own.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import math
 from typing import NamedTuple
@@ -50,7 +61,12 @@ __all__ = [
     "one_pole_coeffs",
     "one_pole_scan",
     "one_pole_scan_reference",
+    "biquad_cascade_backward",
+    "biquad_cascade_backward_reference",
+    "one_pole_scan_backward",
+    "one_pole_scan_backward_reference",
     "LIBRARY",
+    "BWD_LIBRARY",
 ]
 
 _TWO_PI_F32 = float(np.float32(2.0 * math.pi))
@@ -333,6 +349,117 @@ def biquad_cascade_reference(x: torch.Tensor, states, sections):
 
 
 # ---------------------------------------------------------------------------
+# The backwards: reverse-time recurrences, frame by frame
+# ---------------------------------------------------------------------------
+
+def _rows(v, lead, device) -> torch.Tensor:
+    """A per-row operand (a number, or a tensor that broadcasts to
+    ``lead``) as float32 ``[*lead]``."""
+    return torch.as_tensor(v, dtype=torch.float32, device=device).broadcast_to(lead)
+
+
+def one_pole_scan_backward_reference(x, y, y_prev, a, b, g_y, g_y_last):
+    """Plain version of :func:`one_pole_scan_backward`: the vector-Jacobian
+    product of :func:`one_pole_scan` at ``(x, y_prev, a, b)``, whose output
+    was ``y``, for the output gradients ``g_y f32[..., n]`` and ``g_y_last
+    f32[...]``.
+
+    The adjoint of ``y[n] = a·x[n] + b·y[n-1]`` runs backwards in time:
+    ``λ[n] = g_y[n] + b·λ[n+1]`` (``g_y_last`` joins at the last frame),
+    ``g_x[n] = a·λ[n]``, ``g_a = Σ λ·x``, ``g_b = Σ λ[n]·y[n-1]`` and the
+    carry's ``g_y_prev = b·λ[0]``, in float32, one frame at a time.  ``a``
+    and ``b`` broadcast as :func:`one_pole_scan` takes them; their gradients
+    come out one a row.  Returns ``(g_x f32[..., n], g_y_prev f32[...],
+    (g_a, g_b))``, each gradient but ``g_x`` shaped ``x.shape[:-1]``."""
+    lead, n = x.shape[:-1], x.shape[-1]
+    a, b = (_rows(_per_row(c, x), lead, x.device) for c in (a, b))
+    lam = g_y_last.to(torch.float32).broadcast_to(lead)
+    g_a = torch.zeros(lead, dtype=torch.float32, device=x.device)
+    g_b = torch.zeros_like(g_a)
+    g_x = torch.empty_like(x)
+    for i in range(n - 1, -1, -1):
+        lam = lam + g_y[..., i]
+        g_x[..., i] = a * lam
+        g_a = g_a + lam * x[..., i]
+        g_b = g_b + lam * (y[..., i - 1] if i else y_prev)
+        lam = b * lam
+    return g_x, lam, (g_a, g_b)
+
+
+def _seq_forward(x: torch.Tensor, z_prev, coeffs):
+    """One TDF-II biquad section run frame by frame in float32 (``y = b0·x
+    + z1``, ``z1 = (b1·x − a1·y) + z2``, ``z2 = b2·x − a2·y``), each
+    coefficient broadcasting to ``x.shape[:-1]``: the inputs of a cascade's
+    later sections as its backward recomputes them.  Returns ``y``."""
+    lead = x.shape[:-1]
+    b0, b1, b2, a1, a2 = (_rows(c, lead, x.device) for c in coeffs)
+    z1, z2 = (_rows(z, lead, x.device) for z in z_prev)
+    y = torch.empty_like(x)
+    for i in range(x.shape[-1]):
+        xi = x[..., i]
+        yi = b0 * xi + z1
+        z1 = (b1 * xi - a1 * yi) + z2
+        z2 = b2 * xi - a2 * yi
+        y[..., i] = yi
+    return y
+
+
+def _section_backward(x, y, coeffs, g_y, g_z_out):
+    """The vector-Jacobian product of one biquad section (``biquad_scan``)
+    whose input was ``x`` and output ``y``, for ``g_y f32[..., n]`` and the
+    state out's ``g_z_out = (g_z1, g_z2)``.
+
+    The adjoint ``μ = (μ1, μ2)`` of the state runs the transposed recurrence
+    backwards: the output's adjoint is ``e = (g_y[n] − a1·μ1) − a2·μ2``;
+    ``g_x[n] = (b0·e + b1·μ1) + b2·μ2``; ``g_b0 += e·x[n]``, ``g_b1 +=
+    μ1·x[n]``, ``g_b2 += μ2·x[n]``, ``g_a1 −= μ1·y[n]``, ``g_a2 −=
+    μ2·y[n]``; then ``μ ← (e, μ1)``.  The section's states are not needed.
+    Returns ``(g_x, (g_z1_in, g_z2_in), BiquadCoeffs of per-row
+    gradients)``."""
+    lead = x.shape[:-1]
+    b0, b1, b2, a1, a2 = (_rows(c, lead, x.device) for c in coeffs)
+    mu1, mu2 = (g.to(torch.float32).broadcast_to(lead) for g in g_z_out)
+    g = [torch.zeros(lead, dtype=torch.float32, device=x.device) for _ in range(5)]
+    g_x = torch.empty_like(x)
+    for i in range(x.shape[-1] - 1, -1, -1):
+        xi, yi = x[..., i], y[..., i]
+        e = (g_y[..., i] - a1 * mu1) - a2 * mu2
+        g_x[..., i] = (b0 * e + b1 * mu1) + b2 * mu2
+        g[0] = g[0] + e * xi
+        g[1] = g[1] + mu1 * xi
+        g[2] = g[2] + mu2 * xi
+        g[3] = g[3] - mu1 * yi
+        g[4] = g[4] - mu2 * yi
+        mu1, mu2 = e, mu1
+    return g_x, (mu1, mu2), BiquadCoeffs(*g)
+
+
+def biquad_cascade_backward_reference(x, y, states, sections, g_y, g_states):
+    """Plain version of :func:`biquad_cascade_backward`: the vector-Jacobian
+    product of :func:`biquad_cascade` at ``(x, states, sections)``, whose
+    output was ``y``, for ``g_y`` and each section's state-out gradients
+    ``g_states = ((g_z1, g_z2), ...)``.
+
+    The sections run in reverse order, each through
+    :func:`_section_backward`.  Section ``s``'s input is
+    recomputed from ``x`` and the initial states by running the sections
+    before it frame by frame (:func:`_seq_forward`); the last
+    section's output is ``y``.  Returns ``(g_x, ((g_z1_in, g_z2_in), ...),
+    (BiquadCoeffs, ...))``, the per-row gradients in the sections' order."""
+    states, sections = tuple(states), tuple(sections)
+    ins = [x]
+    for z, c in zip(states[:-1], sections[:-1]):
+        ins.append(_seq_forward(ins[-1], z, c))
+    outs = ins[1:] + [y]
+    g_z, g_c = [None] * len(sections), [None] * len(sections)
+    g = g_y
+    for s in range(len(sections) - 1, -1, -1):
+        g, g_z[s], g_c[s] = _section_backward(
+            ins[s], outs[s], sections[s], g, g_states[s])
+    return g, tuple(g_z), tuple(g_c)
+
+
+# ---------------------------------------------------------------------------
 # The wrappers: the plain versions on the CPU, K7 on the card
 # ---------------------------------------------------------------------------
 
@@ -460,6 +587,15 @@ def _check(x: torch.Tensor, name: str) -> torch.Tensor:
     return x.clone() if x.data_ptr() % 16 else x
 
 
+@contextlib.contextmanager
+def _on_device(device: torch.device):
+    """Make ``device`` the current CUDA device for a launch of K5, K7, K8
+    or K9 (CUDA refuses a launch onto another device's stream) and yield
+    its current stream, as the kernels take it."""
+    with torch.cuda.device(device):
+        yield torch.cuda.current_stream().cuda_stream
+
+
 def _launch(entry: str, wrapper, x, args, biquad: bool, sections: int, rows: int):
     """Launch ``entry`` (``fw_biquad_cascade`` or ``fw_one_pole_scan``) over
     the rows of ``x`` with ``args`` → y; counts the launch on ``wrapper``.
@@ -474,18 +610,147 @@ def _launch(entry: str, wrapper, x, args, biquad: bool, sections: int, rows: int
         ws_bytes = lib.fw_scan_workspace_bytes(int(biquad), rows, frames, sections)
         ws = (torch.empty((ws_bytes // 4,), dtype=torch.float32, device=x.device)
               if ws_bytes else None)
-        if x.device.index != torch.cuda.current_device():
-            with torch.cuda.device(x.device):
-                stream = torch.cuda.current_stream().cuda_stream
-        else:
-            stream = torch.cuda.current_stream().cuda_stream
-        err = getattr(lib, entry)(x.data_ptr(), y.data_ptr(), ctypes.byref(args), rows, frames,
-                         ws.data_ptr() if ws is not None else None, stream)
+        with _on_device(x.device) as stream:
+            err = getattr(lib, entry)(x.data_ptr(), y.data_ptr(), ctypes.byref(args), rows,
+                                      frames, ws.data_ptr() if ws is not None else None, stream)
         if err != 0:
             raise RuntimeError(f"{wrapper.__name__}: kernel launch failed on rows of "
                                f"{frames} frames (cudaError {err})")
         wrapper.launches += 1
     return y
+
+
+def _cascade_launch(x, states, sections):
+    """One launch of K7 over up to :data:`MAX_SECTIONS` sections on a
+    checked ``x`` (:func:`_check`) → ``(y, z_out f32[2·S, *lead])``, the
+    states out in the sections' order."""
+    lead = x.shape[:-1]
+    keep = []
+    # [S, 2, rows] for the kernel; each state a view of one row
+    z_out = torch.empty((2 * len(sections),) + lead, dtype=torch.float32, device=x.device)
+    args = _BiquadArgs(z_out=z_out.data_ptr(), inner=lead[-1] if lead else 1,
+                       sections=len(sections))
+    for s, (c, z) in enumerate(zip(sections, states)):
+        coef, z_in = args.coef[s], args.z_in[s]
+        for k, v in enumerate(c):
+            coef[k] = _c_operand(_operand(v, lead, x.device), keep)
+        for k, v in enumerate(z):
+            z_in[k] = _c_operand(_operand(v, lead, x.device), keep)
+    y = _launch("fw_biquad_cascade", biquad_cascade, x, args, True, len(sections),
+                math.prod(lead))
+    return y, z_out
+
+
+def _one_pole_launch(x, y_prev, a, b):
+    """One launch of K7's one-pole on a checked ``x``, ``a`` and ``b`` one a
+    row (:func:`_per_row`) → ``(y, y_out f32[*lead])``."""
+    lead = x.shape[:-1]
+    rows = math.prod(lead)
+    keep = []
+    y_out = torch.empty((rows,), dtype=torch.float32, device=x.device)
+    args = _OnePoleArgs(*(_c_operand(_operand(v, lead, x.device), keep)
+                          for v in (a, b, y_prev)),
+                        y_out=y_out.data_ptr(), inner=lead[-1] if lead else 1)
+    y = _launch("fw_one_pole_scan", one_pole_scan, x, args, False, 1, rows)
+    return y, y_out.view(lead)
+
+
+def _wants_grad(*values) -> bool:
+    """True when autograd records: grad mode is on and a tensor among
+    ``values`` requires a gradient."""
+    return torch.is_grad_enabled() and any(
+        isinstance(v, torch.Tensor) and v.requires_grad for v in values)
+
+
+def _sum_to(g: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """A per-row gradient ``g`` summed to the shape of the operand ``v``
+    that was broadcast to its rows (leading axes of 1 beyond the rows'
+    included)."""
+    shape = v.shape[max(v.ndim - g.ndim, 0):]
+    return g.sum_to_size(shape).reshape(v.shape).to(v.dtype)
+
+
+def _input_grads(ctx, first: int, values, per_row):
+    """The gradients an autograd Function returns for its operand inputs
+    ``values`` (inputs ``first``, ``first + 1``, ...): each tensor's
+    per-row gradient summed to its shape where autograd asks for it, None
+    for numbers."""
+    return tuple(
+        _sum_to(g, v) if isinstance(v, torch.Tensor) and ctx.needs_input_grad[first + i]
+        else None
+        for i, (v, g) in enumerate(zip(values, per_row)))
+
+
+def _saved(ctx, values):
+    """Keep the numbers among ``values`` on ``ctx`` and return the tensors,
+    for ``save_for_backward``; :func:`_restored` puts them back in order."""
+    ctx.numbers = [None if isinstance(v, torch.Tensor) else v for v in values]
+    return [v for v in values if isinstance(v, torch.Tensor)]
+
+
+def _restored(ctx, tensors):
+    it = iter(tensors)
+    return [next(it) if v is None else v for v in ctx.numbers]
+
+
+def _split_sections(flat):
+    """``(sections, states)`` from the flat operands: each section's five
+    coefficients and then its two states."""
+    sections = tuple(BiquadCoeffs(*flat[i:i + 5]) for i in range(0, len(flat), 7))
+    states = tuple(tuple(flat[i + 5:i + 7]) for i in range(0, len(flat), 7))
+    return sections, states
+
+
+class _CascadeFn(torch.autograd.Function):
+    """Up to :data:`MAX_SECTIONS` biquad sections on the card: K7 forward
+    (:func:`_cascade_launch`, its counts and bits unchanged), K8 backward
+    (:func:`biquad_cascade_backward`).  Inputs ``(x, *flat)``: each
+    section's ``b0, b1, b2, a1, a2, z1, z2``, tensors or numbers.  Outputs
+    ``(y, z_out)``; the state-out gradient reaches the backward through
+    ``z_out``, so a render of K blocks differentiates through its
+    states."""
+
+    @staticmethod
+    def forward(ctx, x, *flat):
+        sections, states = _split_sections(flat)
+        y, z_out = _cascade_launch(x, states, sections)
+        ctx.save_for_backward(x, y, *_saved(ctx, flat))
+        return y, z_out
+
+    @staticmethod
+    def backward(ctx, g_y, g_z):
+        x, y, *tensors = ctx.saved_tensors
+        flat = _restored(ctx, tensors)
+        sections, states = _split_sections(flat)
+        zs = g_z.unbind(0)
+        g_x, g_states, g_coeffs = biquad_cascade_backward(
+            x, y, states, sections, g_y, tuple(zip(zs[0::2], zs[1::2])))
+        per_row = [g for c, z in zip(g_coeffs, g_states) for g in (*c, *z)]
+        return (g_x if ctx.needs_input_grad[0] else None,
+                *_input_grads(ctx, 1, flat, per_row))
+
+
+class _OnePoleFn(torch.autograd.Function):
+    """The one-pole on the card: K7 forward (:func:`_one_pole_launch`), K8
+    backward (:func:`one_pole_scan_backward`).  Inputs ``(x, y_prev, a,
+    b)``, ``a`` and ``b`` one a row; outputs ``(y, y_last)``."""
+
+    @staticmethod
+    def forward(ctx, x, y_prev, a, b):
+        y, y_last = _one_pole_launch(x, y_prev, a, b)
+        ctx.save_for_backward(x, y, *_saved(ctx, (y_prev, a, b)))
+        return y, y_last
+
+    @staticmethod
+    def backward(ctx, g_y, g_last):
+        x, y, *tensors = ctx.saved_tensors
+        y_prev, a, b = operands = _restored(ctx, tensors)
+        # a and b as one_pole_scan takes them: one a row, against the frames
+        a_f, b_f = (c[..., None] if isinstance(c, torch.Tensor) and c.ndim else c
+                    for c in (a, b))
+        g_x, g_prev, (g_a, g_b) = one_pole_scan_backward(x, y, y_prev, a_f, b_f, g_y, g_last)
+        return (g_x if ctx.needs_input_grad[0] else None,
+                *_input_grads(ctx, 1, operands, (g_prev, g_a, g_b)))
 
 
 def biquad_cascade(x: torch.Tensor, states, sections):
@@ -496,34 +761,26 @@ def biquad_cascade(x: torch.Tensor, states, sections):
     section's :class:`BiquadCoeffs`; tensors or numbers, each broadcasting
     to ``x.shape[:-1]``.  Returns ``(y, ((z1, z2), ...))``.
 
-    CPU tensors run :func:`biquad_cascade_reference`.  On a CUDA tensor K7
-    runs up to :data:`MAX_SECTIONS` sections a launch, each one's output
-    kept on chip as the next one's input, and adds one to
-    ``biquad_cascade.launches`` a launch."""
+    CPU tensors run :func:`biquad_cascade_reference` (autograd
+    differentiates its scan, as JAX differentiates its own).  On a CUDA
+    tensor K7 runs up to :data:`MAX_SECTIONS` sections a launch, each one's
+    output kept on chip as the next one's input, and adds one to
+    ``biquad_cascade.launches`` a launch; where autograd records, each
+    launch is a :class:`_CascadeFn` whose backward launches K8."""
     states, sections = tuple(states), tuple(sections)
     if not sections or len(states) != len(sections):
         raise ValueError(f"biquad_cascade: {len(sections)} sections, {len(states)} states")
     if x.device.type == "cpu":
         return biquad_cascade_reference(x, states, sections)
     x = _check(x, "biquad_cascade")
-    lead = x.shape[:-1]
-    rows = math.prod(lead)
     out = []
     for i in range(0, len(sections), MAX_SECTIONS):
-        part = sections[i:i + MAX_SECTIONS]
-        keep = []
-        # [S, 2, rows] for the kernel; each state a view of one row
-        z_out = torch.empty((2 * len(part),) + lead, dtype=torch.float32, device=x.device)
-        args = _BiquadArgs(z_out=z_out.data_ptr(), inner=lead[-1] if lead else 1,
-                           sections=len(part))
-        for s, (c, z) in enumerate(zip(part, states[i:i + MAX_SECTIONS])):
-            coef, z_in = args.coef[s], args.z_in[s]
-            for k, v in enumerate(c):
-                coef[k] = _c_operand(_operand(v, lead, x.device), keep)
-            for k, v in enumerate(z):
-                z_in[k] = _c_operand(_operand(v, lead, x.device), keep)
-        x = _launch("fw_biquad_cascade", biquad_cascade, x, args, True,
-                    len(part), rows)
+        part, zpart = sections[i:i + MAX_SECTIONS], states[i:i + MAX_SECTIONS]
+        flat = [v for c, z in zip(part, zpart) for v in (*c, *z)]
+        if _wants_grad(x, *flat):
+            x, z_out = _CascadeFn.apply(x, *flat)
+        else:
+            x, z_out = _cascade_launch(x, zpart, part)
         zs = z_out.unbind(0)
         out.extend(zip(zs[0::2], zs[1::2]))
     return x, tuple(out)
@@ -555,23 +812,151 @@ def one_pole_scan(x: torch.Tensor, y_prev: torch.Tensor, a, b):
     :func:`one_pole_scan_reference` does (its contract).
 
     CPU tensors run :func:`one_pole_scan_reference`.  On a CUDA tensor K7
-    runs the scan in one launch and adds one to
-    ``one_pole_scan.launches``."""
+    runs the scan in one launch and adds one to ``one_pole_scan.launches``;
+    where autograd records, the launch is a :class:`_OnePoleFn` whose
+    backward launches K8."""
     if x.device.type == "cpu":
         return one_pole_scan_reference(x, y_prev, a, b)
     x = _check(x, "one_pole_scan")
+    a, b = _per_row(a, x), _per_row(b, x)
+    if _wants_grad(x, y_prev, a, b):
+        return _OnePoleFn.apply(x, y_prev, a, b)
+    return _one_pole_launch(x, y_prev, a, b)
+
+
+# ---------------------------------------------------------------------------
+# K8: the backwards on the card (csrc/assoc_scan_bwd.cu)
+# ---------------------------------------------------------------------------
+
+class _BiquadBwdArgs(ctypes.Structure):
+    """``csrc/assoc_scan_bwd.cu:k8::BiquadBwdArgs``."""
+
+    _fields_ = [("coef", (_Operand * 5) * MAX_SECTIONS),
+                ("z_in", (_Operand * 2) * MAX_SECTIONS),
+                ("g_z_out", (_Operand * 2) * MAX_SECTIONS),
+                ("x", ctypes.c_void_p), ("y", ctypes.c_void_p), ("g_y", ctypes.c_void_p),
+                ("g_x", ctypes.c_void_p), ("g_coef", ctypes.c_void_p),
+                ("g_z_in", ctypes.c_void_p), ("ws", ctypes.c_void_p),
+                ("inner", ctypes.c_int64), ("rows", ctypes.c_int64),
+                ("frames", ctypes.c_int), ("sections", ctypes.c_int)]
+
+
+class _OnePoleBwdArgs(ctypes.Structure):
+    """``csrc/assoc_scan_bwd.cu:k8::OnePoleBwdArgs``."""
+
+    _fields_ = [("a", _Operand), ("b", _Operand), ("y_in", _Operand),
+                ("g_y_out", _Operand),
+                ("x", ctypes.c_void_p), ("y", ctypes.c_void_p), ("g_y", ctypes.c_void_p),
+                ("g_x", ctypes.c_void_p), ("g_coef", ctypes.c_void_p),
+                ("g_y_in", ctypes.c_void_p),
+                ("inner", ctypes.c_int64), ("rows", ctypes.c_int64), ("frames", ctypes.c_int)]
+
+
+def _bind_bwd(lib):
+    lib.fw_biquad_cascade_bwd.argtypes = [ctypes.POINTER(_BiquadBwdArgs), ctypes.c_void_p]
+    lib.fw_one_pole_scan_bwd.argtypes = [ctypes.POINTER(_OnePoleBwdArgs), ctypes.c_void_p]
+    lib.fw_biquad_cascade_bwd.restype = lib.fw_one_pole_scan_bwd.restype = ctypes.c_int
+
+
+#: ``csrc/assoc_scan_bwd.cu`` (K8), built with nvcc at first use
+BWD_LIBRARY = CudaLibrary("fw_assoc_scan_bwd", "assoc_scan_bwd.cu", ("reverse_stage.cuh",),
+                          _bind_bwd)
+
+
+def _bwd_launch(entry: str, wrapper, args, x) -> None:
+    lib = BWD_LIBRARY.load()
+    with _on_device(x.device) as stream:
+        err = getattr(lib, entry)(ctypes.byref(args), stream)
+    if err != 0:
+        raise RuntimeError(f"{wrapper.__name__}: kernel launch failed on rows of "
+                           f"{x.shape[-1]} frames (cudaError {err})")
+    wrapper.launches += 1
+
+
+def biquad_cascade_backward(x, y, states, sections, g_y, g_states):
+    """The vector-Jacobian product of :func:`biquad_cascade` at ``(x,
+    states, sections)`` whose output was ``y``, for the gradients ``g_y``
+    and ``g_states`` (each section's ``(g_z1, g_z2)`` out), as
+    :func:`biquad_cascade_backward_reference` computes it (its contract,
+    to rounding).  Returns ``(g_x, ((g_z1_in, g_z2_in), ...),
+    (BiquadCoeffs, ...))``, the coefficient gradients one a row.
+
+    CPU tensors run the plain version.  On a CUDA tensor K8 runs up to
+    :data:`MAX_SECTIONS` sections in one launch (more raise), the earlier
+    sections' outputs recomputed into a device-memory workspace, and adds
+    one to ``biquad_cascade_backward.launches``."""
+    states, sections = tuple(states), tuple(sections)
+    if not sections or not len(states) == len(sections) == len(g_states):
+        raise ValueError(f"biquad_cascade_backward: {len(sections)} sections, "
+                         f"{len(states)} states, {len(g_states)} state gradients")
+    if x.device.type == "cpu":
+        return biquad_cascade_backward_reference(x, y, states, sections, g_y, g_states)
+    if len(sections) > MAX_SECTIONS:
+        raise ValueError(f"biquad_cascade_backward: {len(sections)} sections, K8 takes "
+                         f"at most {MAX_SECTIONS} a launch")
+    x, y, g_y = (_check(t, "biquad_cascade_backward") for t in (x, y, g_y))
+    if not x.shape == y.shape == g_y.shape:
+        raise ValueError(f"biquad_cascade_backward: x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}, g_y {tuple(g_y.shape)}")
+    lead, frames = x.shape[:-1], x.shape[-1]
+    rows, n = math.prod(lead), len(sections)
+    g_x = torch.empty_like(x)
+    g_coef = torch.empty((n, 5) + lead, dtype=torch.float32, device=x.device)
+    g_zin = torch.empty((n, 2) + lead, dtype=torch.float32, device=x.device)
+    if rows:
+        ws = (torch.empty((n - 1, rows, frames), dtype=torch.float32, device=x.device)
+              if n > 1 else None)
+        args = _BiquadBwdArgs(
+            x=x.data_ptr(), y=y.data_ptr(), g_y=g_y.data_ptr(), g_x=g_x.data_ptr(),
+            g_coef=g_coef.data_ptr(), g_z_in=g_zin.data_ptr(),
+            ws=ws.data_ptr() if ws is not None else None,
+            inner=lead[-1] if lead else 1, rows=rows, frames=frames, sections=n)
+        keep = []
+        for s, (c, z, gz) in enumerate(zip(sections, states, g_states)):
+            for k, v in enumerate(c):
+                args.coef[s][k] = _c_operand(_operand(v, lead, x.device), keep)
+            for k in range(2):
+                args.z_in[s][k] = _c_operand(_operand(z[k], lead, x.device), keep)
+                args.g_z_out[s][k] = _c_operand(_operand(gz[k], lead, x.device), keep)
+        _bwd_launch("fw_biquad_cascade_bwd", biquad_cascade_backward, args, x)
+    return (g_x, tuple((g[0], g[1]) for g in g_zin),
+            tuple(BiquadCoeffs(*g) for g in g_coef))
+
+
+def one_pole_scan_backward(x, y, y_prev, a, b, g_y, g_y_last):
+    """The vector-Jacobian product of :func:`one_pole_scan` at ``(x,
+    y_prev, a, b)`` whose output was ``y``, for ``g_y`` and ``g_y_last``,
+    as :func:`one_pole_scan_backward_reference` computes it (its contract,
+    to rounding).  Returns ``(g_x, g_y_prev, (g_a, g_b))``, the
+    coefficient gradients one a row.
+
+    CPU tensors run the plain version.  On a CUDA tensor K8 runs it in one
+    launch and adds one to ``one_pole_scan_backward.launches``."""
+    if x.device.type == "cpu":
+        return one_pole_scan_backward_reference(x, y, y_prev, a, b, g_y, g_y_last)
+    x, y, g_y = (_check(t, "one_pole_scan_backward") for t in (x, y, g_y))
+    if not x.shape == y.shape == g_y.shape:
+        raise ValueError(f"one_pole_scan_backward: x {tuple(x.shape)}, y "
+                         f"{tuple(y.shape)}, g_y {tuple(g_y.shape)}")
     lead = x.shape[:-1]
     rows = math.prod(lead)
-    keep = []
-    y_out = torch.empty((rows,), dtype=torch.float32, device=x.device)
-    args = _OnePoleArgs(
-        *(_c_operand(_operand(v, lead, x.device), keep)
-          for v in (_per_row(a, x), _per_row(b, x), y_prev)),
-        y_out=y_out.data_ptr(), inner=lead[-1] if lead else 1)
-    y = _launch("fw_one_pole_scan", one_pole_scan, x, args, False, 1, rows)
-    return y, y_out.view(lead)
+    g_x = torch.empty_like(x)
+    g_coef = torch.empty((2,) + lead, dtype=torch.float32, device=x.device)
+    g_prev = torch.empty(lead, dtype=torch.float32, device=x.device)
+    if rows:
+        keep = []
+        args = _OnePoleBwdArgs(
+            *(_c_operand(_operand(v, lead, x.device), keep)
+              for v in (_per_row(a, x), _per_row(b, x), y_prev, g_y_last)),
+            x=x.data_ptr(), y=y.data_ptr(), g_y=g_y.data_ptr(), g_x=g_x.data_ptr(),
+            g_coef=g_coef.data_ptr(), g_y_in=g_prev.data_ptr(),
+            inner=lead[-1] if lead else 1, rows=rows, frames=x.shape[-1])
+        _bwd_launch("fw_one_pole_scan_bwd", one_pole_scan_backward, args, x)
+    return g_x, g_prev, (g_coef[0], g_coef[1])
 
 
 #: kernel launches since the counter was last set to 0
 biquad_cascade.launches = 0
 one_pole_scan.launches = 0
+biquad_cascade_backward.launches = 0
+one_pole_scan_backward.launches = 0

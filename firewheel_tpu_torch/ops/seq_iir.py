@@ -35,6 +35,7 @@ import math
 import torch
 
 from .cuda_build import CudaLibrary
+from .grad import refuse_gradients
 from .iir import BiquadCoeffs, _fma
 
 __all__ = ["biquad_seq", "biquad_seq_reference", "lane_repeat", "LIBRARY"]
@@ -118,7 +119,9 @@ def biquad_seq(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
     (z1', z2'))`` with the states shaped ``x.shape[:-1]``.
 
     CPU tensors run :func:`biquad_seq_reference`; CUDA tensors launch the
-    kernel and add one to ``biquad_seq.launches``.
+    kernel and add one to ``biquad_seq.launches``.  Where autograd records
+    and an operand requires a gradient it raises ``NotImplementedError``, on
+    either device: the kernel has no backward.
     """
     _check("x", x, x.device)
     if not x.is_contiguous():
@@ -127,6 +130,7 @@ def biquad_seq(x: torch.Tensor, z_prev, coeffs: BiquadCoeffs):
         _check(name, t, x.device)
     for name, t in zip(BiquadCoeffs._fields, coeffs):
         _check(name, t, x.device)
+    refuse_gradients("biquad_seq (K1)", x, *z_prev, *coeffs)
     if x.device.type == "cpu":
         return biquad_seq_reference(x, z_prev, coeffs)
     if x.device.type != "cuda":
