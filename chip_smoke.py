@@ -285,12 +285,16 @@ Run from the root of a checkout:  python3 chip_smoke.py
 17. Differentiable rendering.  (a) K8 (``ops/iir.py:biquad_cascade_backward``
    and ``one_pole_scan_backward``) against its plain backward on the card,
    within 1e-5 of each gradient's largest magnitude, at 3(c)'s operands:
-   f32[16384, 128] (one section and the EQ's three), the one-pole there
-   and at [1048576, 128], the streams' [2, 128] and [2, 256], [33, 4096],
-   [1000, 127] (4-byte copies) and nine sections through autograd (two
-   launches each way); timed as K7 is.  (b) K9
-   (``ops/dynamics.py:scan_lanes_backward``) likewise, each kind at 3(b)'s
-   shapes, the carry-out gradients non-zero.  (a) and (b) run right after
+   f32[16384, 128] (one section, the EQ's three, two and eight), the
+   one-pole there and at [1048576, 128], the streams' [2, 128] and [2,
+   256] (a cascade of three at [2, 128]), [33, 4096] (one section and
+   three), [33, 127] and [1000, 127] (4-byte copies, a ragged last stage,
+   three sections) and nine sections through autograd (two launches each
+   way); timed as K7 is.  (b) K9 (``ops/dynamics.py:scan_lanes_backward``)
+   likewise, each kind at 3(b)'s shapes, the gate also at [1000, 127] and,
+   at [1, 256], [2, 256], [33, 4096] and [1000, 127], with sparse bursts
+   of level (its hold counting down across stages, the gate closing), the
+   carry-out gradients non-zero.  (a) and (b) run right after
    3(c): from phase 11 on a profile has seen no device activity, and these
    kernels are shorter than their wrappers' host work, which CUDA events
    would time in its place.  (c) The 64-node mixer with
@@ -314,7 +318,20 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``pallas_call`` raises), and run bit for bit as before under
    ``torch.no_grad``.  (g) Where the machine has two devices, K5, K7, K8
    and K9 on cuda:0's tensors with another device current equal the same
-   launches with cuda:0 current (with one device the log says so).
+   launches with cuda:0 current (with one device the log says so).  (h)
+   The FX palette's voices → its three-band EQ → a gate that opens and
+   closes within the chunk (``mixer.eq_gate_graph``) at B=8192, K=8, each
+   instance's voices and EQ gains from ``vary_fx_params``: one SGD step
+   (forward, backward, update) of Σ over instances of the mean square with
+   respect to each band's gain in dB (its coefficients designed from it
+   inside the gradient) and the gate's floor, per instance; K7 and K5 once
+   a block forward, K8 (S=3) and K9 (the gate) once a block backward and
+   nothing else; the gradients equal on the card to the same step's with
+   the kernels' plain versions in their place (``plain_kernels``), the
+   first instances' within 1e-4 of the CPU's by that arithmetic (and the
+   CPU's autograd through the plain scans beside it, logged); the floor's
+   gradient non-zero in every instance; the step's wall, a profiled step's
+   kernels, idle share and K8's and K9's device time, and peak memory.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
@@ -331,7 +348,8 @@ and the one-pole (launches in 13(b)'s batched FX palette,
 3(c) timed under ``at``), K8 (``assoc_scan_backward``: launches in 17(c),
 times at the EQ's cascade from 17(a), its other shapes under ``at``) and
 K9 (``sample_scan_backward``: launches in 17(e), the limiter's; times at
-the limiter's [8192, 128] from 17(b), under ``timed_at``), its error
+the limiter's [8192, 128] from 17(b), under ``timed_at``), both with
+their launches in 17(h)'s backward (``eq_gate_launches``), its error
 against its plain version, its device time on the card (``ms``, by
 ``torch.profiler``, or by CUDA events where the profile saw no device
 activity: ``ms_by`` says which) and a call's time with its wrapper's
@@ -346,6 +364,7 @@ device, or without the package beside this file, it exits non-zero too.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 import re
@@ -5615,16 +5634,21 @@ def check_scale_out(ft, seq_iir, card: str, phase, phase4_wall: float) -> dict:
 # -- phase 17: differentiable rendering (K8, K9) --------------------------------
 #: (kind, rows, frames, sections) where 17(a) holds K8 against its plain
 #: backward: 3(c)'s operands at the eager filter's and the batched EQ's
-#: rows (one section, the EQ's three), the one-pole there and at the
-#: spatializers' pooled rows, the streams' rows, a long ragged-free row, and
-#: nine sections (two launches each way, through autograd)
+#: rows (one section, the EQ's three; two and eight, the most a launch
+#: takes), the one-pole there and at the spatializers' pooled rows, the
+#: streams' rows, long rows, a ragged warp whose first stage run backwards
+#: is ragged (33 rows of 127 frames) or is not (4096), and nine sections
+#: (two launches each way, through autograd)
 K8_CASES = (("biquad", 2 * B, 128, 1), ("cascade", 2 * B, 128, 3),
+            ("cascade", 2 * B, 128, 2), ("cascade", 2 * B, 128, 8),
             ("one_pole", 2 * B, 128, 1), ("one_pole", *POOLED_ONE_POLE, 1),
             ("biquad", 2, 128, 1), ("one_pole", 2, 128, 1), ("biquad", 2, 256, 1),
-            ("one_pole", 2, 256, 1), ("biquad", 33, 4096, 1), ("one_pole", 33, 4096, 1),
+            ("one_pole", 2, 256, 1), ("cascade", 2, 128, 3), ("biquad", 33, 4096, 1),
+            ("one_pole", 33, 4096, 1), ("cascade", 33, 127, 3), ("cascade", 33, 4096, 3),
             ("cascade", 1000, 127, 3), ("cascade", 2, 128, 9))
 #: where 17(a) times K8
 K8_TIMED = (("cascade", 2 * B, 128, 3), ("biquad", 2 * B, 128, 1),
+            ("cascade", 2 * B, 128, 2), ("cascade", 2 * B, 128, 8),
             ("one_pole", 2 * B, 128, 1), ("one_pole", *POOLED_ONE_POLE, 1),
             ("biquad", 2, 128, 1))
 #: K8's and K9's kernels by name in a profile
@@ -5634,6 +5658,11 @@ K9_KERNEL = "sample_scan_bwd_kernel"
 #: f32 operations a frame of each K9 kind (its adjoint; the gate's latch
 #: recomputed forward besides)
 K9_OPS = {"envelope": 8, "limiter": 11, "gate": 26, "pink": 14}
+#: 17(b)'s gate beside K5_SHAPES: [1000, 127] (ragged last stages), and at
+#: these shapes also levels mostly below its close threshold with a burst
+#: above its open one every ~40 frames (the "sparse" form), so that its
+#: 48-frame hold counts down across stage boundaries and the gate closes
+K9_GATE_SHAPES = ((1, 256), (2, 256), (33, 4096), (1000, 127))
 #: K8 and K9 vs their plain backwards on the card, relative to each
 #: gradient's largest magnitude: the same float32 operations in the same
 #: order (built with --fmad=false), bit for bit when nothing else differs
@@ -5650,6 +5679,9 @@ TUNE_TARGET = (0.05, 0.10, 0.02)      # 17(d): each voice's RMS (the example's)
 BUS_GRAD = (256, 16)                  # 17(e): B, K on the card
 BUS_LEAVES = (("compressor", "threshold_db"), ("compressor", "makeup"),
               ("limiter", "ceiling"))
+EQ_GATE_GRAD = (8192, 8)              # 17(h): B, K (16 384 EQ rows, 8192 gate lanes)
+EQ_GATE_LR = {"gain": 20.0, "floor": 0.5}  # 17(h)'s SGD step, by kind of leaf
+EQ_GATE_STEPS = 3                     # 17(h): steps timed (the first warms up)
 
 
 def _rel_err(got, want) -> float:
@@ -5791,11 +5823,18 @@ def check_k9(dynamics) -> dict:
     rnd = lambda t: torch.randn(t.shape, generator=gen).to(t.device)  # noqa: E731
     res, worst_rel, worst_abs, cases = {}, 0.0, 0.0, 0
     for kind in K5_KINDS:
-        for lanes, n in K5_SHAPES:
+        for lanes, n in K5_SHAPES + (K9_GATE_SHAPES[-1:] if kind == "gate" else ()):
             if lanes in (B, 2 * B) and lanes != k5_lanes(kind, B):
                 continue
-            for form in (("lane", "stacked") if kind == "pink" and lanes >= B else ("lane",)):
-                code, x, carry, coefs = scan_operands(dynamics, kind, lanes, gen, n, form)
+            forms = (("lane", "stacked") if kind == "pink" and lanes >= B else
+                     ("lane", "sparse") if kind == "gate" and (lanes, n) in K9_GATE_SHAPES
+                     else ("lane",))
+            for form in forms:
+                code, x, carry, coefs = scan_operands(dynamics, kind, lanes, gen, n,
+                                                      "lane" if form == "sparse" else form)
+                if form == "sparse":
+                    x = torch.where(torch.rand((lanes, n), generator=gen) < 1 / 40, 0.08,
+                                    0.001).to(x.device)
                 out, y = dynamics.scan_lanes(code, x, carry, coefs)
                 g_y = rnd(y)
                 g_out = rnd(out) if isinstance(out, torch.Tensor) else tuple(map(rnd, out))
@@ -5828,6 +5867,8 @@ def check_k9(dynamics) -> dict:
                         f"{100 * b_ms / ms:.1f}% of it")
     log(f"K9 vs its plain backward: {cases} cases, each kind at "
         f"{[list(sh) for sh in K5_SHAPES]} (the pink at {2 * B} lanes, the others at {B}), "
+        f"the gate also at {list(K9_GATE_SHAPES[-1])} and with sparse bursts at "
+        f"{[list(sh) for sh in K9_GATE_SHAPES]}, "
         f"largest difference {worst_abs:.3e}, {worst_rel:.3e} of its gradient's largest "
         f"magnitude (tolerance {BWD_TOL})")
     return res
@@ -5893,9 +5934,11 @@ def mixer_grads(prog, params, state, leaves, target, k: int):
     return loss.detach(), dict(zip(req, grads))
 
 
-def profile_step(step):
-    """``(kernels, device_ms)`` of one call of ``step`` by ``torch.profiler``,
-    or ``(None, None)`` when the profile saw no device activity."""
+def profile_step(step, names=()):
+    """``(kernels, device_ms, {name: device_ms})`` of one call of ``step`` by
+    ``torch.profiler``: the kernels it ran, their device time, and the
+    device time of the kernels whose name contains each of ``names``;
+    ``(None, None, {})`` when the profile saw no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -5904,8 +5947,9 @@ def profile_step(step):
     dev = [e for e in prof.key_averages()
            if e.device_type == torch.autograd.DeviceType.CUDA and e.device_time_total > 0]
     if not dev:
-        return None, None
-    return sum(e.count for e in dev), sum(e.device_time_total for e in dev) / 1e3
+        return None, None, {}
+    return (sum(e.count for e in dev), sum(e.device_time_total for e in dev) / 1e3,
+            {n: sum(e.device_time_total for e in dev if n in e.key) / 1e3 for n in names})
 
 
 def train_mixer(ft, counts, iir, card: str) -> dict:
@@ -5978,8 +6022,8 @@ def train_mixer(ft, counts, iir, card: str) -> dict:
         if not (errs[kind] <= GRAD_TOL and bool(cpu_g.abs().max() > 0)):
             raise AssertionError(f"17(c): {kind} gradients, card vs CPU {errs[kind]}")
     worst = max(errs.values())
-    kernels, dev_ms = profile_step(lambda: mixer_grads(prog, params, state, leaves, target,
-                                                       GRAD_K))
+    kernels, dev_ms, _ = profile_step(lambda: mixer_grads(prog, params, state, leaves, target,
+                                                          GRAD_K))
     wall = float(np.median(walls[1:]))
     busy = (f"{kernels} kernels, {dev_ms:.3f} ms of device time, "
             f"{100 * (1 - dev_ms / wall):.1f}% of the median step's wall idle"
@@ -6133,6 +6177,210 @@ def bus_dynamics(ft, counts, card: str) -> dict:
     return {"launches": launched["K9"], "err": worst}
 
 
+def plain_kernels(fn):
+    """``fn()`` with the EQ's cascade and the dynamics nodes' scans run as
+    the kernels' autograd nodes (``iir._CascadeFn``, ``dynamics._ScanFn``)
+    with the kernels' plain versions in their place, forward (K7's, K5's)
+    and backward (K8's, K9's), on the tensors' own device: the kernels'
+    arithmetic in their order, on the card without them, and on the CPU
+    beside autograd's own order."""
+    from firewheel_tpu_torch.nodes import dynamics as node_dynamics, eq
+    from firewheel_tpu_torch.ops import dynamics, iir
+
+    def cascade_launch(x, states, sections):
+        y, zs = iir.biquad_cascade_reference(x, states, sections)
+        return y, torch.stack([z.broadcast_to(x.shape[:-1]) for pair in zs for z in pair])
+
+    def scan_launch(kind, x, leaves, coefs, stacked):
+        out, y = dynamics.scan_reference(kind, x, tuple(leaves), coefs)
+        return y, torch.stack([o.broadcast_to(x.shape[:-1]) for o in out],
+                              dim=-1 if stacked else 0)
+
+    def cascade(x, states, sections):
+        flat = [v for c, z in zip(sections, states) for v in (*c, *z)]
+        y, z_out = iir._CascadeFn.apply(x, *flat)
+        zs = z_out.unbind(0)
+        return y, tuple(zip(zs[0::2], zs[1::2]))
+
+    def scan(kind, x, carry, coefs):
+        leaves, stacked = dynamics._check(kind, x, carry, coefs)
+        y, out = dynamics._ScanFn.apply(kind, stacked, x, *leaves, *coefs)
+        return (out if stacked else out.unbind(0)), y
+
+    swaps = ((iir, "_cascade_launch", cascade_launch),
+             (iir, "biquad_cascade_backward", iir.biquad_cascade_backward_reference),
+             (dynamics, "_scan_launch", scan_launch),
+             (dynamics, "scan_lanes_backward", dynamics.scan_lanes_backward_reference),
+             (eq, "biquad_cascade", cascade), (node_dynamics, "scan_lanes", scan))
+    saved = [(m, n, getattr(m, n)) for m, n, _ in swaps]
+    for m, n, v in swaps:
+        setattr(m, n, v)
+    try:
+        return fn()
+    finally:
+        for m, n, v in saved:
+            setattr(m, n, v)
+
+
+def _proc_key(prog, name: str) -> str:
+    (key,) = [k for k, p in prog._procs.items() if type(p).__name__ == name]
+    return key
+
+
+def eq_gate_loss(prog, params, state, leaves: dict, k: int):
+    """Σ over instances of the mean square of a chunk of ``k`` blocks of
+    ``mixer.eq_gate_graph`` with ``leaves`` in ``params``: each EQ band's
+    gain in dB (``("gain", i)``, f32[b] on the host: the band's
+    coefficients are designed there from it by the filter node's design,
+    inside the gradient, and copied to the program's device) and the gate's
+    floor (``("floor",)``)."""
+    from firewheel_tpu_torch import mixer
+    from firewheel_tpu_torch.nodes.filter import _DESIGNS
+
+    dev = prog.device
+    eq, gate = _proc_key(prog, "ParametricEQProcessor"), _proc_key(prog, "GateProcessor")
+    bands = dict(params[eq]["bands"])
+    for i, band in enumerate(prog._procs[eq]._node._bands):
+        c = _DESIGNS[band.band_type](band.frequency_hz, band.q, leaves[("gain", i)], mixer.SR)
+        bands[str(i)] = {n: v.to(dev) for n, v in zip(c._fields, c)}
+    p = {**params, eq: {"bands": bands},
+         gate: {**params[gate], "floor": leaves[("floor",)].to(dev)}}
+    b = leaves[("floor",)].shape[0]
+    out, _, _ = prog.chunk_fn(k)(
+        p, state, torch.zeros((b, k, 0, prog.max_block_frames), device=dev),
+        torch.zeros((b, k, 0), dtype=torch.bool, device=dev), 0, 0)
+    return (out ** 2).mean(dim=(1, 2, 3)).sum()
+
+
+def eq_gate_step(prog, params, state, leaves: dict, k: int, counts=None):
+    """The loss (:func:`eq_gate_loss`) and its gradients with respect to
+    ``leaves`` → ``(loss, grads, launches in the forward, in the
+    backward)`` (the launches empty without ``counts``)."""
+    req = {n: t.detach().clone().requires_grad_() for n, t in leaves.items()}
+    c0 = counts() if counts else {}
+    loss = eq_gate_loss(prog, params, state, req, k)
+    c1 = counts() if counts else {}
+    grads = dict(zip(req, torch.autograd.grad(loss, list(req.values()))))
+    c2 = counts() if counts else {}
+    return loss.detach(), grads, _delta(c1, c0), _delta(c2, c1)
+
+
+def eq_gate_grad(ft, counts, card: str) -> dict:
+    """17(h): one SGD step of the FX palette's voices → its three-band EQ →
+    a gate that opens and closes within the chunk in every instance
+    (``mixer.eq_gate_graph``) on the card at B, K = EQ_GATE_GRAD, each
+    instance's voices and EQ gains from ``vary_fx_params``: the gradients of
+    Σ over instances of the mean square with respect to each band's gain
+    and the gate's floor, per instance.  K7 and K5 once a block forward, K8
+    (the EQ's three sections) and K9 (the gate) once a block backward and
+    nothing else; the gradients equal to the same step's with the kernels'
+    plain versions in their place (:func:`plain_kernels`) on the card
+    (within BWD_TOL, bit for bit expected); the first instances' within
+    GRAD_TOL of the CPU's by the same arithmetic, by kind of leaf as 17(c)
+    holds them (the three gains together), and the CPU's autograd through
+    the plain scans beside them, logged; the floor's gradient non-zero in
+    every instance; the loss lower after the step.  Reports the step's wall, a profiled step's kernels,
+    idle share and K8's and K9's device ms, and peak memory."""
+    from firewheel_tpu_torch import mixer
+    from firewheel_tpu_torch.convert import tree_map
+
+    b, k = EQ_GATE_GRAD
+    prog = mixer.eq_gate_graph(device="cuda")
+    br = ft.BatchRenderer(prog, b, device="cuda")
+    gains = {}
+    params = mixer.vary_fx_params(prog, br.stack_params(), 19, gains)
+    state = br.init_state()
+    eq = _proc_key(prog, "ParametricEQProcessor")
+    leaves = {("gain", i): torch.from_numpy(gains[(eq, i)]) for i in range(len(
+        prog._procs[eq]._node._bands))}
+    leaves[("floor",)] = torch.from_numpy(
+        np.random.default_rng(19).uniform(0.05, 0.3, b).astype(np.float32))
+
+    walls = []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(EQ_GATE_STEPS):
+        t0 = time.perf_counter()
+        loss, grads, fwd, bwd = eq_gate_step(prog, params, state, leaves, k, counts)
+        with torch.no_grad():
+            stepped = {n: t - EQ_GATE_LR[n[0]] * grads[n] for n, t in leaves.items()}
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        want_f = {"K5": k, "K7": k}
+        want_b = {"K8": k, "K9": k}
+        if any(v != want_f.get(n, 0) for n, v in fwd.items()) or any(
+                v != want_b.get(n, 0) for n, v in bwd.items()):
+            raise AssertionError(f"17(h): launches in a forward {fwd}, in a backward {bwd}")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    with torch.no_grad():
+        after = float(eq_gate_loss(prog, params, state, stepped, k))
+    if not (np.isfinite(after) and after < float(loss)):
+        raise AssertionError(f"17(h): the loss did not fall: {float(loss)} -> {after}")
+    floor_g = grads[("floor",)]
+    if not bool((floor_g != 0).all()):
+        raise AssertionError(f"17(h): the floor's gradient is 0 in "
+                             f"{int((floor_g == 0).sum())} instances: the gate never closed")
+
+    # the same step with the kernels' plain versions in their place, on the
+    # card: the kernels' bits
+    _, plain, _, _ = plain_kernels(lambda: eq_gate_step(prog, params, state, leaves, k))
+    plain_err = max(float((grads[n] - plain[n]).abs().max()) for n in grads)
+    if max(_rel_err(grads[n], plain[n]) for n in grads) > BWD_TOL:
+        raise AssertionError(f"17(h): the kernels vs their plain versions on the card "
+                             f"{plain_err}")
+    # the first instances on the CPU, by the same arithmetic (the plain
+    # versions, the backwards' frame by frame), and by autograd through the
+    # plain scans, the order 17(c) holds the card to: the EQ's 150 Hz low
+    # shelf parts the two float32 orders of the gains' derivative by more
+    # than GRAD_TOL (logged)
+    rows = slice(0, CHECK_INSTANCES)
+    cpu_step = functools.partial(
+        eq_gate_step, mixer.eq_gate_graph(device="cpu"),
+        tree_map(lambda t: t[rows].cpu(), params), tree_map(lambda t: t[rows].cpu(), state),
+        {n: t[rows] for n, t in leaves.items()}, k)
+    _, cpu_grads, _, _ = plain_kernels(cpu_step)
+    _, auto_grads, _, _ = cpu_step()
+
+    def by_kind(got, want, check):
+        errs = {}
+        for kind in EQ_GATE_LR:
+            names = [n for n in got if n[0] == kind]
+            g = torch.stack([got[n][rows].cpu() for n in names])
+            w = torch.stack([want[n] for n in names])
+            errs[kind] = _rel_err(g, w)
+            if check and not (errs[kind] <= GRAD_TOL and bool((w != 0).all())):
+                raise AssertionError(f"17(h): {kind} gradients, card vs CPU {errs[kind]}")
+        return errs
+
+    errs = by_kind(grads, cpu_grads, True)
+    orders = by_kind(cpu_grads, auto_grads, False)
+
+    kernels, dev_ms, by = profile_step(
+        lambda: eq_gate_step(prog, params, state, leaves, k),
+        (K8_KERNEL["cascade"], K9_KERNEL))
+    wall = float(np.median(walls[1:]))
+    busy = (f"{kernels} kernels, {dev_ms:.3f} ms of device time, "
+            f"{100 * (1 - dev_ms / wall):.1f}% of the median step's wall idle; K8 "
+            f"{by[K8_KERNEL['cascade']]:.4f} ms and K9 {by[K9_KERNEL]:.4f} ms of it "
+            f"({k} launches each)"
+            if kernels else "not measured (the profile saw no device activity)")
+    log(f"phase 17(h), the EQ -> gate gradient on the card ({card}): B={b}, K={k}, "
+        f"{len(leaves)} leaves [B] (the EQ's three gains, the gate's floor); loss "
+        f"{float(loss):.6e}, {after:.6e} after one SGD step; wall a step (forward, backward "
+        f"and update) {[round(w, 3) for w in walls]} ms, median of steps 2-"
+        f"{EQ_GATE_STEPS} {wall:.3f} ms; peak device memory {peak_gb:.3f} GB; launches a "
+        f"forward {fwd}, a backward {bwd}; a profiled step: {busy}; vs the kernels' plain "
+        f"versions on the card max_abs_err={plain_err:.3e}; gradients of instances "
+        f"0-{CHECK_INSTANCES - 1} vs the CPU's by the same arithmetic, of the largest "
+        f"magnitude of each kind of leaf { {k: f'{e:.3e}' for k, e in errs.items()} }; on "
+        f"the CPU, autograd through the plain scans vs that arithmetic "
+        f"{ {k: f'{e:.3e}' for k, e in orders.items()} }")
+    return {"launches": {"K8": bwd["K8"], "K9": bwd["K9"]}, "wall_ms": wall,
+            "peak_gb": peak_gb, "kernels": kernels, "device_ms": dev_ms,
+            "k8_ms": by.get(K8_KERNEL["cascade"]), "k9_ms": by.get(K9_KERNEL),
+            "err": max(errs.values()), "plain_err": plain_err}
+
+
 def check_refusals(ft, seq_iir, em, eh, card: str) -> None:
     """17(f): K1, K2 and K3 refuse a gradient (``NotImplementedError``, as
     ``jax.grad`` through the JAX package's ``pallas_call`` raises) where an
@@ -6236,9 +6484,9 @@ def check_other_device(iir, dynamics) -> None:
 
 def check_gradients(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, card: str,
                     phase, res: dict) -> dict:
-    """Phase 17 (c)-(g): differentiable rendering on the card → ``res``
-    (17(a)'s and 17(b)'s numbers) with 17(c)'s and 17(e)'s, for the
-    kernels line."""
+    """Phase 17 (c)-(h): differentiable rendering on the card → ``res``
+    (17(a)'s and 17(b)'s numbers) with 17(c)'s, 17(e)'s and 17(h)'s, for
+    the kernels line."""
     counts = lambda: kernel_counts(seq_iir, em, eh, adpcm_device, dynamics,  # noqa: E731
                                    iir, noise)
     res = dict(res)
@@ -6252,6 +6500,8 @@ def check_gradients(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, car
     phase("17(f), K1-K3 refuse a gradient")
     check_other_device(iir, dynamics)
     phase("17(g), launches with another device current")
+    res["eq_gate"] = eq_gate_grad(ft, counts, card)
+    phase("17(h), the EQ -> gate gradient")
     return res
 
 
@@ -6478,6 +6728,9 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                                    "noise_uniform": validator["noise_uniform"],
                                    "biquad_scan": validator["biquad_cascade"],
                                    "one_pole_scan": validator["one_pole_scan"]}.get(name, 0),
+            # 17(h): K8 (the EQ's cascade) and K9 (the gate) in its backward
+            "eq_gate_launches": grads["eq_gate"]["launches"].get(
+                {"assoc_scan_backward": "K8", "sample_scan_backward": "K9"}.get(name), 0),
             "max_abs_err": e, "ms": t, "ms_by": t.how, "call_ms": call,
             "plain_ms": plain, "bound_ms": bound_ms, "bound_by": bound_by,
             "share": bound_ms / t,

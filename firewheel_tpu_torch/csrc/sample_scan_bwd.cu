@@ -17,30 +17,54 @@
 //    recomputed; the lesser side takes lam, a tie half each way (torch's
 //    and JAX's minimum); u's share goes on to g, rel and env_prev.
 //  * gate: the latch (open, hold) is recomputed forward from the level and
-//    the carry into a device-memory workspace [2, lanes, frames] (each
-//    frame's open value and the hold it started from), then run
-//    backwards: the gain's adjoint through b = target > g_prev ? att : rel,
-//    the target's into floor and into open where neither branch of its
-//    latch fires, the hold's through max(hold - 1, 0) (a tie at 0 half) to
-//    hold_n where the level opens the gate.  The level and the thresholds
-//    get none: they enter comparisons only.
+//    the carry (each frame's open value and the hold it started from),
+//    then run backwards: the gain's adjoint through b = target > g_prev ?
+//    att : rel, the target's into floor and into open where neither
+//    branch of its latch fires, the hold's through max(hold - 1, 0) (a tie
+//    at 0 half) to hold_n where the level opens the gate.  The level and
+//    the thresholds get none: they enter comparisons only.
 //  * pink: linear; q = g_y / 4, g_x = ((c0 lam0 + c1 lam1) + c2 lam2) +
 //    (c0 + c1 + c2 + 0.1848) q, lam_k <- a_k (lam_k + q).
 //
 // Design: K5's, run backwards.  One warp a CTA, one lane a thread; x, y
-// and g_y (and the gate's workspace) go through shared memory in stages of
-// 32 frames by cp.async, last stage first (csrc/reverse_stage.cuh), y with
-// the frame before the stage beside it (load_halo), so that a frame's
-// y[n - 1] is read from the tile at every frame; the pink's adjoint, which
-// is linear, stages g_y alone.  g_x leaves a stage at a time in coalesced
-// 16-byte stores; the per-lane coefficient gradients are sums in
-// registers, written once.
+// and g_y go through shared memory in stages of 32 frames by cp.async,
+// last stage first (csrc/reverse_stage.cuh), y with the frame before the
+// stage beside it (load_halo), so that a frame's y[n - 1] is read from the
+// tile at every frame; the pink's adjoint, which is linear, stages g_y
+// alone.  g_x leaves a stage at a time in coalesced 16-byte stores; the
+// per-lane coefficient gradients are sums in registers, written once.
 //
-// What bounds it on an H100: bytes.  x, y and g_y read and g_x written, 16
-// bytes a frame (17 MB for the bus's 8192 lanes of 128 frames, 5.0 us at
-// 3.35 TB/s; the gate's workspace written and read besides, 16 more); the
-// pink's g_y read and g_x written, 8 bytes a frame; against a recurrence of
-// a few dependent operations a frame.
+//  a. A full stage of the kinds that read x and y runs a loop over its 8
+//     quads of 4 frames, a pair of quads a turn (the pink's, a few
+//     operations a frame, runs unrolled), the pair's x, y and g_y (the
+//     gate's latch too) read as float4s from the thread's rows of the tiles
+//     before either is run and its g_x written back the same way: the
+//     reads sit off the chain that
+//     carries the adjoint, a quarter-warp's float4s hit distinct banks (a
+//     float a thread from one column of 32 rows meets 4 threads a bank),
+//     and the stage's code stays small.  A ragged last stage runs a frame
+//     at a time.  The steps are branch-free, every operand of a choice
+//     computed before it (bwd::pick where nvcc would not keep a select): a
+//     choice one of whose operands was computed on its side alone (0.5 lam,
+//     a sum added on one side) compiled to a branch a frame, which split
+//     the stage into blocks scheduled one frame at a time.
+//  b. The gate's latch never leaves the chip: a checkpoint sweep, forwards
+//     over the staged x, writes the latch's (open, hold) at the start of
+//     each stage to a small array [2, stages, lanes] (2/32 of one array's
+//     bytes); the backward sweep, in the same ring (run_sweeps), recomputes
+//     the stage's latch from its checkpoint and the x tile it has staged
+//     into two tiles beside the ring, then runs the adjoint.
+//  c. Each lane's operations run in the plain version's serial order: bit
+//     for bit.
+//
+// What bounds it on an H100: bytes, and the warps' instructions.  x, y and
+// g_y read and g_x written, 16 bytes a frame (17 MB for the bus's 8192
+// lanes of 128 frames, 5.0 us at 3.35 TB/s); the gate reads x once more
+// for its checkpoint sweep, 20 bytes a frame (21 MB, 6.3 us); the pink's
+// g_y read and g_x written, 8 bytes a frame.  At 8192 lanes the card holds
+// two warps an SM, each issuing one lane's serial chain and its copies'
+// addresses: the gate's ~70 instructions a frame, its latch twice and its
+// adjoint, set its time.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,7 +80,8 @@ using bwd::Operand;
 
 // x, y, g_y, g_x [lanes, frames]; the forward's carry in and coefficients,
 // and the carry-out gradients, per lane; g_carry [n_carry, lanes], g_coef
-// [n_coef, lanes]; ws the gate's workspace [2, lanes, frames]
+// [n_coef, lanes]; ckpt the gate's latch checkpoints [2, stages, lanes]
+// (open, then hold; stages = ceil(frames / 32)), null for the other kinds
 struct Args {
     const float* x;
     const float* y;
@@ -67,7 +92,7 @@ struct Args {
     Operand g_carry_out[kMaxCarry];
     float* g_carry;
     float* g_coef;
-    float* ws;
+    float* ckpt;
     int64_t inner, lanes;
     int frames;
 };
@@ -81,31 +106,35 @@ using k9::Args;
 
 enum Kind { kEnvelope = 0, kLimiter = 1, kGate = 2, kPink = 3 };
 
-// The adjoints, by kind.  step(xi, prev, g) runs frame n backwards from
-// x[n], y[n - 1] (prev) and g_y[n], and returns g_x[n] (the pink's,
-// step(g), from g_y[n] alone: kIn = 1); store writes the carry's and the
-// coefficients' gradients.
+constexpr int kRing = 2;  // stages of the staged arrays in flight
+
+// The adjoints, by kind.  step(xi, prev, g, o, h) runs frame n backwards
+// from x[n], y[n - 1] (prev) and g_y[n] (the gate: and the latch's open
+// value o and the hold h it started from at frame n), and returns g_x[n]
+// (the pink's, step(g), from g_y[n] alone: kIn = 1); store writes the
+// carry's and the coefficients' gradients.  kLatch: the gate's latch is
+// recomputed (Latch).
 
 struct EnvelopeBwd {
     static constexpr int kIn = 3;  // x, y, g_y
+    static constexpr bool kLatch = false;
     float att, rel, env0, lam, g_att = 0.0f, g_rel = 0.0f;
-    __device__ EnvelopeBwd(const Args& a, int64_t lane) {
-        att = at(a.coef[0], lane, a.inner);
-        rel = at(a.coef[1], lane, a.inner);
-        env0 = at(a.carry[0], lane, a.inner);
-        lam = at(a.g_carry_out[0], lane, a.inner);
+    __device__ EnvelopeBwd(const Args& a, RowAt ra) {
+        att = at(a.coef[0], ra);
+        rel = at(a.coef[1], ra);
+        env0 = at(a.carry[0], ra);
+        lam = at(a.g_carry_out[0], ra);
     }
     __device__ float carry_in() const { return env0; }
-    __device__ __forceinline__ float step(float xi, float prev, float g, const Tile*, int, int) {
+    __device__ __forceinline__ float step(float xi, float prev, float g, float, float) {
         lam = lam + g;
         const bool up = xi > prev;
         const float b = up ? att : rel;
         const float gx = lam * (1.0f - b);
         const float gb = lam * (prev - xi);
-        if (up)
-            g_att = g_att + gb;
-        else
-            g_rel = g_rel + gb;
+        const float ga = g_att + gb, gr = g_rel + gb;
+        g_att = up ? ga : g_att;
+        g_rel = up ? g_rel : gr;
         lam = lam * b;
         return gx;
     }
@@ -118,18 +147,20 @@ struct EnvelopeBwd {
 
 struct LimiterBwd {
     static constexpr int kIn = 3;
+    static constexpr bool kLatch = false;
     float rel, omb, env0, lam, g_rel = 0.0f;
-    __device__ LimiterBwd(const Args& a, int64_t lane) {
-        rel = at(a.coef[0], lane, a.inner);
+    __device__ LimiterBwd(const Args& a, RowAt ra) {
+        rel = at(a.coef[0], ra);
         omb = 1.0f - rel;
-        env0 = at(a.carry[0], lane, a.inner);
-        lam = at(a.g_carry_out[0], lane, a.inner);
+        env0 = at(a.carry[0], ra);
+        lam = at(a.g_carry_out[0], ra);
     }
     __device__ float carry_in() const { return env0; }
-    __device__ __forceinline__ float step(float gi, float prev, float g, const Tile*, int, int) {
+    __device__ __forceinline__ float step(float gi, float prev, float g, float, float) {
         lam = lam + g;
         const float u = fmaf(rel, prev, omb * gi);  // the step's release, as K5 computed it
-        const float to_u = u < gi ? lam : (u == gi ? 0.5f * lam : 0.0f);
+        const float half = 0.5f * lam;
+        const float to_u = u < gi ? lam : (u == gi ? half : 0.0f);
         const float gx = (lam - to_u) + to_u * omb;
         g_rel = g_rel + to_u * (prev - gi);
         lam = to_u * rel;
@@ -141,44 +172,64 @@ struct LimiterBwd {
     }
 };
 
+// The gate's latch, forwards from the level: each frame's open value (o)
+// and the hold it started from (h).
+struct Latch {
+    float open_lin, close_lin, hold_n, opn, hold;
+    __device__ Latch(const Args& a, RowAt ra) {
+        open_lin = at(a.coef[0], ra);
+        close_lin = at(a.coef[1], ra);
+        hold_n = at(a.coef[5], ra);
+        opn = at(a.carry[0], ra);
+        hold = at(a.carry[1], ra);
+    }
+    __device__ __forceinline__ void step(float lvl, float& o, float& h) {
+        const bool above = lvl >= open_lin;
+        const bool shut = (lvl < close_lin) & (hold <= 0.0f);
+        h = hold;
+        opn = above ? 1.0f : (shut ? 0.0f : opn);
+        const float d = hold - 1.0f;
+        const float dm = d > 0.0f ? d : 0.0f;
+        hold = above ? hold_n : (d != d ? d : dm);
+        o = opn;
+    }
+};
+
 struct GateBwd {
-    static constexpr int kIn = 5;  // x, y, g_y, and the workspace's open and hold
+    static constexpr int kIn = 3;  // x, y, g_y; the latch in two tiles beside the ring
+    static constexpr bool kLatch = true;
     float open_lin, close_lin, floor_gain, att, rel, g0;
     float lam_o, lam_h, lam_g;
     float g_floor = 0.0f, g_att = 0.0f, g_rel = 0.0f, g_hold_n = 0.0f;
-    __device__ GateBwd(const Args& a, int64_t lane) {
-        open_lin = at(a.coef[0], lane, a.inner);
-        close_lin = at(a.coef[1], lane, a.inner);
-        floor_gain = at(a.coef[2], lane, a.inner);
-        att = at(a.coef[3], lane, a.inner);
-        rel = at(a.coef[4], lane, a.inner);
-        g0 = at(a.carry[2], lane, a.inner);
-        lam_o = at(a.g_carry_out[0], lane, a.inner);
-        lam_h = at(a.g_carry_out[1], lane, a.inner);
-        lam_g = at(a.g_carry_out[2], lane, a.inner);
+    __device__ GateBwd(const Args& a, RowAt ra) {
+        open_lin = at(a.coef[0], ra);
+        close_lin = at(a.coef[1], ra);
+        floor_gain = at(a.coef[2], ra);
+        att = at(a.coef[3], ra);
+        rel = at(a.coef[4], ra);
+        g0 = at(a.carry[2], ra);
+        lam_o = at(a.g_carry_out[0], ra);
+        lam_h = at(a.g_carry_out[1], ra);
+        lam_g = at(a.g_carry_out[2], ra);
     }
     __device__ float carry_in() const { return g0; }
-    __device__ __forceinline__ float step(float lvl, float prev, float g, const Tile* slot,
-                                          int t, int f) {
+    __device__ __forceinline__ float step(float lvl, float prev, float g, float o, float h) {
         lam_g = lam_g + g;
-        const float o = slot[3][t][f];  // the frame's open value
-        const float h = slot[4][t][f];  // the hold it started from
         const bool above = lvl >= open_lin;
-        const bool keep = !above && !(lvl < close_lin && h <= 0.0f);
+        const bool keep = !above & !((lvl < close_lin) & (h <= 0.0f));
         const float target = o + (1.0f - o) * floor_gain;
         const bool up = target > prev;
         const float b = up ? att : rel;
         const float gb = lam_g * (prev - target);
-        if (up)
-            g_att = g_att + gb;
-        else
-            g_rel = g_rel + gb;
+        const float ga = g_att + gb, gr = g_rel + gb;
+        g_att = up ? ga : g_att;
+        g_rel = up ? g_rel : gr;
         const float lam_t = lam_g * (1.0f - b);
         g_floor = g_floor + lam_t * (1.0f - o);
-        lam_o = keep ? lam_o + lam_t * (1.0f - floor_gain) : 0.0f;
-        if (above) g_hold_n = g_hold_n + lam_h;
+        lam_o = pick(keep, lam_o + lam_t * (1.0f - floor_gain), 0.0f);
+        g_hold_n = pick(above, g_hold_n + lam_h, g_hold_n);
         const float d = h - 1.0f;
-        lam_h = (above || d < 0.0f) ? 0.0f : (d == 0.0f ? 0.5f * lam_h : lam_h);
+        lam_h = pick(above | (d < 0.0f), 0.0f, pick(d == 0.0f, 0.5f * lam_h, lam_h));
         lam_g = lam_g * b;
         return 0.0f;  // the level enters comparisons only
     }
@@ -202,11 +253,12 @@ constexpr float kCSum = ((kC0 + kC1) + kC2) + 0.1848f;
 
 struct PinkBwd {
     static constexpr int kIn = 1;  // g_y
+    static constexpr bool kLatch = false;
     float lam0, lam1, lam2;
-    __device__ PinkBwd(const Args& a, int64_t lane) {
-        lam0 = at(a.g_carry_out[0], lane, a.inner);
-        lam1 = at(a.g_carry_out[1], lane, a.inner);
-        lam2 = at(a.g_carry_out[2], lane, a.inner);
+    __device__ PinkBwd(const Args& a, RowAt ra) {
+        lam0 = at(a.g_carry_out[0], ra);
+        lam1 = at(a.g_carry_out[1], ra);
+        lam2 = at(a.g_carry_out[2], ra);
     }
     __device__ __forceinline__ float step(float g) {
         const float q = g * 0.25f;
@@ -223,81 +275,162 @@ struct PinkBwd {
     }
 };
 
-// The gate's latch, forward over the lane's frames from the level and the
-// carry: tile 1 of each stage gets the hold each frame started from, tile 2
-// the frame's open value, stored to the workspace.
-template <bool kVec>
-__device__ void gate_latch(const Args& a, Tile (*ring)[GateBwd::kIn], int64_t lane0,
-                           int rows, bool live, int64_t lane, int t) {
-    const float open_lin = at(a.coef[0], lane, a.inner);
-    const float close_lin = at(a.coef[1], lane, a.inner);
-    const float hold_n = at(a.coef[5], lane, a.inner);
-    float opn = at(a.carry[0], lane, a.inner);
-    float hold = at(a.carry[1], lane, a.inner);
-    const int64_t plane = a.lanes * a.frames;
-    const float* src[1] = {a.x};
-    float* const dst[2] = {a.ws + plane, a.ws};
-    const int out[2] = {1, 2};
-    run_stages<1, 2, GateBwd::kIn, kVec, false>(
-        src, dst, out, ring, lane0, rows, a.frames, t, [&](Tile* slot, int, int nf) {
-            if (!live) return;
-            for (int f = 0; f < nf; ++f) {
-                const float lvl = slot[0][t][f];
-                const bool above = lvl >= open_lin;
-                slot[1][t][f] = hold;
-                opn = above ? 1.0f : ((lvl < close_lin && hold <= 0.0f) ? 0.0f : opn);
-                const float h = hold - 1.0f;
-                hold = above ? hold_n : (h != h ? h : (h > 0.0f ? h : 0.0f));
-                slot[2][t][f] = opn;
-            }
-        });
+// Dynamic shared memory: kRing slots of K::kIn tiles, then the gate's two
+// latch tiles (open, hold).
+template <class K>
+constexpr size_t shared_bytes() {
+    return ring_bytes(kRing, K::kIn, K::kLatch ? 2 : 0);
 }
 
 template <class K, bool kVec>
 __global__ void __launch_bounds__(kLanes) sample_scan_bwd_kernel(const Args a) {
-    __shared__ __align__(16) Tile ring[kRing][K::kIn];
+    extern __shared__ __align__(16) unsigned char smem[];
+    Tile(*ring)[K::kIn] = reinterpret_cast<Tile(*)[K::kIn]>(smem);
+    Tile* latch = reinterpret_cast<Tile*>(smem) + kRing * K::kIn;  // the gate's: open, hold
 
     const int t = threadIdx.x;
     const int64_t lane0 = static_cast<int64_t>(blockIdx.x) * kLanes;
     const int rows = static_cast<int>(a.lanes - lane0 < kLanes ? a.lanes - lane0 : kLanes);
     const bool live = t < rows;
     const int64_t lane = live ? lane0 + t : lane0;
+    const int stages = (a.frames + kStage - 1) / kStage;
 
-    if constexpr (K::kIn == GateBwd::kIn) gate_latch<kVec>(a, ring, lane0, rows, live, lane, t);
-
-    K k(a, lane);
+    const RowAt ra = row_at(lane, a.inner);
+    K k(a, ra);
     float* const dst[1] = {a.g_x};
+
     if constexpr (K::kIn == 1) {  // the pink: g_y in tile 0, g_x out of it
         const float* src[1] = {a.g_y};
         const int out[1] = {0};
-        run_stages<1, 1, 1, kVec, true>(
-            src, dst, out, ring, lane0, rows, a.frames, t, [&](Tile* slot, int, int nf) {
+        run_sweeps<0, 1, 1, 1, kRing, kVec>(
+            src, dst, out, ring, lane0, rows, a.frames, t, NoSweep(), [&](Tile* slot, int, int nf) {
                 if (!live) return;
-                float* gr = slot[0][t];
-                for (int f = nf - 1; f >= 0; --f) gr[f] = k.step(gr[f]);
+                if (nf == kStage) {
+                    float4* g4 = quads(slot[0], t);
+#pragma unroll
+                    for (int q = kQuads - 1; q >= 0; --q) {
+                        float4 f = g4[q];
+                        f.w = k.step(f.w);
+                        f.z = k.step(f.z);
+                        f.y = k.step(f.y);
+                        f.x = k.step(f.x);
+                        g4[q] = f;
+                    }
+                } else {
+                    float* gr = slot[0][t];
+                    for (int f = nf - 1; f >= 0; --f) gr[f] = k.step(gr[f]);
+                }
             });
     } else {
-        const int64_t plane = a.lanes * a.frames;
-        const float* src[K::kIn];
-        src[0] = a.x;
-        src[1] = a.y;
-        src[2] = a.g_y;
-        if constexpr (K::kIn == GateBwd::kIn) {
-            src[3] = a.ws;
-            src[4] = a.ws + plane;
-        }
+        // the gate: the latch at the start of the stage run next
+        Latch l(a, ra);
+        auto ck = [&](int j, int s) {
+            return a.ckpt + (static_cast<int64_t>(j) * stages + s) * a.lanes + lane;
+        };
+        float n_open = 0.0f, n_hold = 0.0f;
+        // its checkpoint sweep
+        auto checkpoint = [&](Tile* slot, int s, int nf) {
+            if (!live) return;
+            *ck(0, s) = n_open = l.opn;
+            *ck(1, s) = n_hold = l.hold;
+            float o, h;
+            if (nf == kStage) {
+                const float4* x4 = quads(slot[0], t);
+#pragma unroll
+                for (int q = 0; q < kQuads; ++q) {
+                    const float4 f = x4[q];
+                    l.step(f.x, o, h);
+                    l.step(f.y, o, h);
+                    l.step(f.z, o, h);
+                    l.step(f.w, o, h);
+                }
+            } else {
+                for (int f = 0; f < nf; ++f) l.step(slot[0][t][f], o, h);
+            }
+        };
+        const float* src[3] = {a.x, a.y, a.g_y};
         const int out[1] = {2};
         // y's tile (1) carries the frame before its stage: y[n - 1] at every
-        // frame from the tile, the carry in at the lane's first
-        run_stages<K::kIn, 1, K::kIn, kVec, true, 1>(
-            src, dst, out, ring, lane0, rows, a.frames, t, [&](Tile* slot, int s, int nf) {
+        // frame from the tile, the carry in at the lane's first; the gate's
+        // checkpoint sweep first, in the same ring (x staged alone)
+        run_sweeps<K::kLatch ? 1 : 0, 3, 1, K::kIn, kRing, kVec, 1>(
+            src, dst, out, ring, lane0, rows, a.frames, t, checkpoint,
+            [&](Tile* slot, int s, int nf) {
                 if (!live) return;
-                const float* xr = slot[0][t];
-                const float* yr = slot[1][t];
-                float* gr = slot[2][t];
-                const float y_before = s ? yr[kStage] : k.carry_in();
-                for (int f = nf - 1; f >= 0; --f)
-                    gr[f] = k.step(xr[f], f ? yr[f - 1] : y_before, gr[f], slot, t, f);
+                const float y_before = s ? slot[1][t][kStage] : k.carry_in();
+                if constexpr (K::kLatch) {  // the stage's latch, from its checkpoint
+                    l.opn = n_open;
+                    l.hold = n_hold;
+                    if (s > 0) {  // the next stage's, read while this one runs
+                        n_open = *ck(0, s - 1);
+                        n_hold = *ck(1, s - 1);
+                    }
+                    if (nf == kStage) {
+                        const float4* x4 = quads(slot[0], t);
+                        float4* o4 = quads(latch[0], t);
+                        float4* h4 = quads(latch[1], t);
+#pragma unroll
+                        for (int q = 0; q < kQuads; ++q) {
+                            const float4 f = x4[q];
+                            float4 o, h;
+                            l.step(f.x, o.x, h.x);
+                            l.step(f.y, o.y, h.y);
+                            l.step(f.z, o.z, h.z);
+                            l.step(f.w, o.w, h.w);
+                            o4[q] = o;
+                            h4[q] = h;
+                        }
+                    } else {
+                        for (int f = 0; f < nf; ++f)
+                            l.step(slot[0][t][f], latch[0][t][f], latch[1][t][f]);
+                    }
+                }
+                if (nf == kStage) {
+                    const float4* x4 = quads(slot[0], t);
+                    const float4* y4 = quads(slot[1], t);
+                    const float4* o4 = quads(latch[0], t);
+                    const float4* h4 = quads(latch[1], t);
+                    float4* g4 = quads(slot[2], t);
+                    // quad q's operands, read a pair of quads before either
+                    // is stored; a loop, so that the stage's code stays small
+                    struct Quad {
+                        float4 x, y, g, o, h;
+                        float yb;
+                    };
+                    const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+                    auto load = [&](int q) {
+                        Quad d;
+                        d.x = x4[q];
+                        d.y = y4[q];
+                        d.yb = q ? slot[1][t][4 * q - 1] : y_before;
+                        d.g = g4[q];
+                        d.o = K::kLatch ? o4[q] : zero;
+                        d.h = K::kLatch ? h4[q] : zero;
+                        return d;
+                    };
+                    auto run = [&](const Quad& d) {
+                        float4 gq;
+                        gq.w = k.step(d.x.w, d.y.z, d.g.w, d.o.w, d.h.w);
+                        gq.z = k.step(d.x.z, d.y.y, d.g.z, d.o.z, d.h.z);
+                        gq.y = k.step(d.x.y, d.y.x, d.g.y, d.o.y, d.h.y);
+                        gq.x = k.step(d.x.x, d.yb, d.g.x, d.o.x, d.h.x);
+                        return gq;
+                    };
+#pragma unroll 1
+                    for (int q = kQuads - 1; q > 0; q -= 2) {
+                        const Quad d1 = load(q), d0 = load(q - 1);
+                        g4[q] = run(d1);
+                        g4[q - 1] = run(d0);
+                    }
+                } else {
+                    const float* xr = slot[0][t];
+                    const float* yr = slot[1][t];
+                    float* gr = slot[2][t];
+                    for (int f = nf - 1; f >= 0; --f)
+                        gr[f] = k.step(xr[f], f ? yr[f - 1] : y_before, gr[f],
+                                       K::kLatch ? latch[0][t][f] : 0.0f,
+                                       K::kLatch ? latch[1][t][f] : 0.0f);
+                }
             });
     }
     if (live) k.store(a, lane);
@@ -305,14 +438,11 @@ __global__ void __launch_bounds__(kLanes) sample_scan_bwd_kernel(const Args a) {
 
 template <class K>
 int launch(const Args& a, cudaStream_t s) {
-    const unsigned blocks = static_cast<unsigned>((a.lanes + kLanes - 1) / kLanes);
     const bool vec = a.frames % 4 == 0 && aligned16(a.x) && aligned16(a.y) &&
-                     aligned16(a.g_y) && aligned16(a.g_x) && (a.ws == nullptr || aligned16(a.ws));
-    if (vec)
-        sample_scan_bwd_kernel<K, true><<<blocks, kLanes, 0, s>>>(a);
-    else
-        sample_scan_bwd_kernel<K, false><<<blocks, kLanes, 0, s>>>(a);
-    return static_cast<int>(cudaGetLastError());
+                     aligned16(a.g_y) && aligned16(a.g_x);
+    return vec ? launch_kernel(sample_scan_bwd_kernel<K, true>, a.lanes, shared_bytes<K>(), s, a)
+               : launch_kernel(sample_scan_bwd_kernel<K, false>, a.lanes, shared_bytes<K>(), s,
+                               a);
 }
 
 }  // namespace
@@ -320,11 +450,11 @@ int launch(const Args& a, cudaStream_t s) {
 // kind as fw_sample_scan's (0 envelope, 1 limiter, 2 gate, 3 pink); the
 // operands as k9::Args says.  Launches on `stream` and returns
 // cudaGetLastError() (cudaErrorInvalidValue for an unknown kind, a bad
-// shape or the gate's workspace missing); it does not synchronise.
+// shape or the gate's checkpoints missing); it does not synchronise.
 extern "C" int fw_sample_scan_bwd(int kind, const k9::Args* args, void* stream) {
     const Args& a = *args;
     if (a.lanes <= 0) return 0;
-    if (a.frames < 0 || a.inner < 1 || (kind == kGate && a.ws == nullptr && a.frames > 0))
+    if (a.frames < 0 || a.inner < 1 || (kind == kGate && a.ckpt == nullptr && a.frames > 0))
         return static_cast<int>(cudaErrorInvalidValue);
     const cudaStream_t s = static_cast<cudaStream_t>(stream);
     switch (kind) {

@@ -70,9 +70,10 @@ from .nodes import (
 
 __all__ = [
     "BLOCK", "FX_KINDS", "FX_VOICES", "SR", "add_effects_chain", "add_fx_palette",
-    "add_fx_engine", "add_fx_voice", "add_mastering_bus", "add_mixer", "add_spatial_scene",
+    "EQ_GATE", "add_eq_gate", "add_fx_engine", "add_fx_voice", "add_mastering_bus",
+    "add_mixer", "add_spatial_scene",
     "add_mix_bus", "add_voice", "add_voice_graph", "air_shelf_taps", "effects_chain_audio",
-    "effects_chain_config4_graph", "effects_chain_graph", "fx_insert",
+    "effects_chain_config4_graph", "effects_chain_graph", "eq_gate_graph", "fx_insert",
     "fx_palette_graph", "mastering_bus_graph", "mixer_graph", "orbit_scene",
     "random_graph", "set_fx", "spatial_scene_graph", "vary_effects_params",
     "vary_fx_params",
@@ -765,14 +766,55 @@ def fx_palette_graph(num_voices: int = len(FX_VOICES),
     )
 
 
-def vary_fx_params(program: ScheduleProgram, params: dict, seed: int) -> dict:
+#: the gate of :func:`add_eq_gate`: it opens on the voices' peaks and closes
+#: between them within every block (−9 dB, 3 dB of hysteresis, no hold), so
+#: that its floor's gradient is not 0
+EQ_GATE = {"threshold_db": -9.0, "range_db": -20.0, "attack_secs": 0.0005,
+           "release_secs": 0.002, "hold_secs": 0.0, "hysteresis_db": 3.0}
+
+
+def add_eq_gate(g: AudioGraph, num_voices: int = len(FX_VOICES), nodes=None) -> dict:
+    """Add the FX palette's voices and EQ with a gate after it to ``g``
+    (stereo graph output): ``num_voices`` voices (:func:`add_fx_voice`) →
+    Sum (16 inputs) → the palette's EQ (:func:`fx_insert`, three bands) →
+    ``GateNode(**EQ_GATE)`` → out.  ``nodes`` is the node module (the
+    port's by default).  Returns the node ids ``sum``, ``eq``, ``gate`` and
+    ``voices``."""
+    n = nodes or _NODES
+    ids = {"sum": g.add_node(2 * len(FX_VOICES), 2, n.SumNode())}
+    ids["voices"] = [add_fx_voice(g, ids["sum"], i, FX_VOICES[i], n)
+                     for i in range(num_voices)]
+    ids["eq"] = g.add_node(2, 2, fx_insert("eq", n))
+    ids["gate"] = g.add_node(2, 2, n.GateNode(**EQ_GATE))
+    chain = [ids["sum"], ids["eq"], ids["gate"], g.graph_out_node()]
+    for src, dst in zip(chain, chain[1:]):
+        g.connect(src, 0, dst, 0)
+        g.connect(src, 1, dst, 1)
+    return ids
+
+
+def eq_gate_graph(num_voices: int = len(FX_VOICES),
+                  device: str | torch.device = DEFAULT_DEVICE) -> ScheduleProgram:
+    """:func:`add_eq_gate`'s graph compiled at 48 kHz in blocks of
+    :data:`BLOCK` → a :class:`ScheduleProgram` on ``device``."""
+    g = AudioGraph(AudioGraphConfig(0, 2))
+    add_eq_gate(g, num_voices)
+    pkg = g.compile(SR, BLOCK)
+    return ScheduleProgram(
+        pkg.schedule, dict(pkg.new_node_processors), SR, device=device
+    )
+
+
+def vary_fx_params(program: ScheduleProgram, params: dict, seed: int,
+                   gains: dict | None = None) -> dict:
     """Give every instance of the FX palette's batch-stacked ``params`` its
     own values, in place: each voice's frequency within ±25% of its own,
     each EQ band's gain within ±6 dB of its own (the band's coefficients
     restaged by the filter node's designs, per instance), the chorus's rate
     in [0.3, 3) Hz, each waveshaper's drive within ±6 dB of its own, the
-    width in [0.5, 2) and the pitch shift in [−12, 12) semitones.  Returns
-    ``params``."""
+    width in [0.5, 2) and the pitch shift in [−12, 12) semitones.  The EQ's
+    per-instance gains in dB (float32 ``[B]``) go into ``gains``, when
+    given, under ``(node key, band index)``.  Returns ``params``."""
     rng = np.random.default_rng(seed)
 
     def put(t, values):
@@ -789,6 +831,8 @@ def vary_fx_params(program: ScheduleProgram, params: dict, seed: int) -> dict:
                 leaves = p["bands"][str(i)]
                 b = leaves["b0"].shape[0]
                 gain = (band.gain_db + rng.uniform(-6.0, 6.0, b)).astype(np.float32)
+                if gains is not None:
+                    gains[(key, i)] = gain
                 # host numbers: the designs' numpy float32 staging, as the
                 # node's collect_params stages its bands
                 c = _DESIGNS[band.band_type](band.frequency_hz, band.q, gain,

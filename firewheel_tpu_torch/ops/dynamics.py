@@ -462,7 +462,7 @@ class _BwdArgs(ctypes.Structure):
                 ("g_x", ctypes.c_void_p),
                 ("carry", _Operand * 3), ("coef", _Operand * 6), ("g_carry_out", _Operand * 3),
                 ("g_carry", ctypes.c_void_p), ("g_coef", ctypes.c_void_p),
-                ("ws", ctypes.c_void_p),
+                ("ckpt", ctypes.c_void_p),
                 ("inner", ctypes.c_int64), ("lanes", ctypes.c_int64), ("frames", ctypes.c_int)]
 
 
@@ -484,8 +484,10 @@ def scan_lanes_backward(kind, x, carry, coefs, y, g_y, g_carry_out):
     form ``carry`` came in, the coefficients' one a lane.
 
     CPU tensors run the plain version.  On a CUDA tensor K9 runs it in one
-    launch (the gate's latch recomputed into a device-memory workspace)
-    and adds one to ``scan_lanes_backward.launches``."""
+    launch and adds one to ``scan_lanes_backward.launches``; the gate's
+    latch is recomputed on chip, a stage of 32 frames at a time, from its
+    ``(open, hold)`` at each stage's start, which a first sweep over ``x``
+    writes to a ``[2, stages, lanes]`` array allocated here."""
     leaves, stacked = _check(kind, x, carry, coefs)
     if x.device.type == "cpu":
         return scan_lanes_backward_reference(kind, x, carry, coefs, y, g_y, g_carry_out)
@@ -507,11 +509,12 @@ def scan_lanes_backward(kind, x, carry, coefs, y, g_y, g_carry_out):
     g_coef = torch.empty((n_coef,) + lead, dtype=torch.float32, device=x.device)
     lanes = lead.numel()
     if lanes:
-        ws = (torch.empty((2, lanes, frames), dtype=torch.float32, device=x.device)
-              if kind == GATE else None)
+        ckpt = (torch.empty((2, -(-frames // 32), lanes), dtype=torch.float32,
+                            device=x.device) if kind == GATE and frames else None)
         args = _BwdArgs(x=x.data_ptr(), y=y.data_ptr(), g_y=g_y.data_ptr(),
                         g_x=g_x.data_ptr(), g_carry=g_carry.data_ptr(),
-                        g_coef=g_coef.data_ptr(), ws=ws.data_ptr() if ws is not None else None,
+                        g_coef=g_coef.data_ptr(),
+                        ckpt=ckpt.data_ptr() if ckpt is not None else None,
                         inner=lead[-1] if lead else 1, lanes=lanes, frames=frames)
         keep = []
         for k, v in enumerate(leaves):

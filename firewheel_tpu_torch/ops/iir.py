@@ -836,7 +836,7 @@ class _BiquadBwdArgs(ctypes.Structure):
                 ("g_z_out", (_Operand * 2) * MAX_SECTIONS),
                 ("x", ctypes.c_void_p), ("y", ctypes.c_void_p), ("g_y", ctypes.c_void_p),
                 ("g_x", ctypes.c_void_p), ("g_coef", ctypes.c_void_p),
-                ("g_z_in", ctypes.c_void_p), ("ws", ctypes.c_void_p),
+                ("g_z_in", ctypes.c_void_p), ("ckpt", ctypes.c_void_p),
                 ("inner", ctypes.c_int64), ("rows", ctypes.c_int64),
                 ("frames", ctypes.c_int), ("sections", ctypes.c_int)]
 
@@ -882,9 +882,11 @@ def biquad_cascade_backward(x, y, states, sections, g_y, g_states):
     (BiquadCoeffs, ...))``, the coefficient gradients one a row.
 
     CPU tensors run the plain version.  On a CUDA tensor K8 runs up to
-    :data:`MAX_SECTIONS` sections in one launch (more raise), the earlier
-    sections' outputs recomputed into a device-memory workspace, and adds
-    one to ``biquad_cascade_backward.launches``."""
+    :data:`MAX_SECTIONS` sections in one launch (more raise) and adds one
+    to ``biquad_cascade_backward.launches``: the earlier sections' inputs
+    are recomputed on chip, a stage of 32 frames at a time, from their
+    states at each stage's start, which a first sweep over ``x`` writes to
+    a ``[S − 1, 2, stages, rows]`` array allocated here."""
     states, sections = tuple(states), tuple(sections)
     if not sections or not len(states) == len(sections) == len(g_states):
         raise ValueError(f"biquad_cascade_backward: {len(sections)} sections, "
@@ -904,12 +906,12 @@ def biquad_cascade_backward(x, y, states, sections, g_y, g_states):
     g_coef = torch.empty((n, 5) + lead, dtype=torch.float32, device=x.device)
     g_zin = torch.empty((n, 2) + lead, dtype=torch.float32, device=x.device)
     if rows:
-        ws = (torch.empty((n - 1, rows, frames), dtype=torch.float32, device=x.device)
-              if n > 1 else None)
+        ckpt = (torch.empty((n - 1, 2, -(-frames // 32), rows), dtype=torch.float32,
+                            device=x.device) if n > 1 else None)
         args = _BiquadBwdArgs(
             x=x.data_ptr(), y=y.data_ptr(), g_y=g_y.data_ptr(), g_x=g_x.data_ptr(),
             g_coef=g_coef.data_ptr(), g_z_in=g_zin.data_ptr(),
-            ws=ws.data_ptr() if ws is not None else None,
+            ckpt=ckpt.data_ptr() if ckpt is not None else None,
             inner=lead[-1] if lead else 1, rows=rows, frames=frames, sections=n)
         keep = []
         for s, (c, z, gz) in enumerate(zip(sections, states, g_states)):

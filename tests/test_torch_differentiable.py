@@ -133,13 +133,19 @@ def _compile_both(add):
     return jprog, tprog, ids
 
 
-def _grads_both(jprog, tprog, leaves, warm=0):
+def _put(p, key, v):
+    """Set the param ``key = (node key, param)`` of ``p`` to ``v``."""
+    p[key[0]][key[1]] = v
+
+
+def _grads_both(jprog, tprog, leaves, warm=0, put=_put):
     """The gradient of the mean square of ``BLOCKS`` rendered blocks (each
     package's ``chunk_fn``, the state carried) with respect to ``leaves``
     (``{(node key, param): value}``), by ``jax.grad`` on the JAX package
     and by autograd on the port, from the same float32 values, after
     ``warm`` blocks rendered at the graph's own params outside the gradient
-    → two dicts of floats."""
+    → two dicts of floats.  ``put(params, key, value)`` places a leaf in
+    either package's params (a JAX tracer or a torch tensor)."""
     keys = sorted(leaves)
     values = [np.float32(leaves[k]) for k in keys]
     jparams = jprog.collect_params()
@@ -162,8 +168,8 @@ def _grads_both(jprog, tprog, leaves, warm=0):
 
     def jloss(vals):
         p = {k: dict(v) for k, v in jparams.items()}
-        for (node, name), v in zip(keys, vals):
-            p[node][name] = v
+        for key, v in zip(keys, vals):
+            put(p, key, v)
         outs = jchunk(p, jstate, BLOCKS, warm * f)[0]
         return jnp.sum(jnp.mean(outs ** 2, axis=(1, 2)))
 
@@ -173,8 +179,8 @@ def _grads_both(jprog, tprog, leaves, warm=0):
         compiler_options={"xla_backend_optimization_level": 0})(vals)
     tvals = [torch.tensor(v, requires_grad=True) for v in values]
     p = {k: dict(v) for k, v in tparams.items()}
-    for (node, name), v in zip(keys, tvals):
-        p[node][name] = v
+    for key, v in zip(keys, tvals):
+        put(p, key, v)
     outs = tchunk(p, tstate, BLOCKS, warm * f)[0]
     tg = torch.autograd.grad((outs ** 2).mean(dim=(1, 2)).sum(), tvals)
     return ({k: float(v) for k, v in zip(keys, jg)},
@@ -235,6 +241,44 @@ def test_dynamics_chain_gradient_matches_jax():
     # one block first: the compressor's envelope starts at 0, −inf dB, where
     # either package's gradient of the knee's unselected branch is NaN
     jgrad, tgrad = _grads_both(jprog, tprog, leaves, warm=1)
+    _held(jgrad, tgrad)
+    assert all(v != 0.0 for v in tgrad.values()), tgrad
+
+
+def test_eq_gate_gradient_matches_jax():
+    """``chip_smoke.py`` 17(h)'s path at one instance: the FX palette's
+    voices → its three-band EQ (one cascade of K7 a block on the card, K8
+    backwards) → a gate that opens and closes within each block (K5, K9),
+    with respect to each band's gain in dB (its coefficients designed from
+    the gain inside the gradient, by each package's own filter designs) and
+    the gate's floor."""
+    def add(g, nodes):
+        ids = mixer.add_eq_gate(g, nodes=nodes)
+        return repr(ids["eq"]), repr(ids["gate"])
+
+    jprog, tprog, (eq, gate) = _compile_both(add)
+    bands = tprog._procs[eq]._node._bands
+
+    def put(p, key, v):
+        node, name = key
+        if not name.startswith("gain"):
+            return _put(p, key, v)
+        i = int(name[4:])
+        band = bands[i]
+        if isinstance(v, torch.Tensor):
+            c = tn.filter._DESIGNS[band.band_type](band.frequency_hz, band.q, v, mixer.SR)
+            p[node] = {"bands": {**p[node]["bands"], str(i): dict(zip(iir.BiquadCoeffs._fields, c))}}
+        else:
+            c = jn.filter._BUILDERS[band.band_type](band.frequency_hz, band.q, v, mixer.SR)
+            new = list(p[node]["bands"])
+            new[i] = dict(zip(iir.BiquadCoeffs._fields, c))
+            p[node] = {"bands": tuple(new)}
+
+    rng = np.random.default_rng(19)
+    leaves = {(eq, f"gain{i}"): band.gain_db + rng.uniform(-6.0, 6.0)
+              for i, band in enumerate(bands)}
+    leaves[(gate, "floor")] = rng.uniform(0.05, 0.3)
+    jgrad, tgrad = _grads_both(jprog, tprog, leaves, put=put)
     _held(jgrad, tgrad)
     assert all(v != 0.0 for v in tgrad.values()), tgrad
 

@@ -1,11 +1,11 @@
 """Device time of the sequential biquad (K1), the megakernel (K2), the
 island kernel (K3), the ADPCM encoder (K4), the sample scans (K5), the
-noise draw (K6) and the associative scans (K7) on one NVIDIA GPU, for the
-port in a given checkout.
+noise draw (K6), the associative scans (K7) and their backwards (K8, K9) on
+one NVIDIA GPU, for the port in a given checkout.
 
 Run from the root of a checkout:
 
-    python3 time_megakernel.py [--root DIR] [--kernels k1,k2,k2rows,k3,palette,k7,k4,k5,k6]
+    python3 time_megakernel.py [--root DIR] [--kernels k1,k2,k2rows,k3,palette,k7,k4,k5,k6,k8,k9]
 
 ``--root`` names the checkout whose ``firewheel_tpu_torch`` is timed (this
 one by default), so that two designs can be timed in one run on one card;
@@ -53,7 +53,14 @@ Each time is the kernel's device time per launch by ``torch.profiler`` over
   ptxas's report of its entries (one a run length) and their SASS
   (``cuobjdump -sass``) counted by opcode, split at each entry's barrier:
   what comes before it hashes the CTA's lane keys, what comes after is a
-  thread's run of elements.
+  thread's run of elements;
+* (k8, k9) as ``chip_smoke.py`` phases 17(a) and 17(b) time them: K8 (the
+  backwards of K7's scans) at ``K8_TIMED``'s cases (the EQ's cascade of
+  three sections, two and eight, one section and the one-pole at
+  f32[16384, 128], the one-pole at the pooled spatializers' rows, one
+  section at [2, 128]) and K9 (K5's backward) each kind at ``K5_TIMED``'s
+  shapes, each beside a call's time (CUDA events over 50 calls) and its
+  bound, and ptxas's report of their entries where this run built them.
   They are not in the default set: name them.
 
 Prints the card's name, power limit and highest SM clock, then one JSON
@@ -219,6 +226,49 @@ def time_k456(ops, take, emit) -> None:
                  bound_ms=b_ms, share=b_ms / ms)
 
 
+def time_k89(ops, take, emit) -> None:
+    """K8 at ``chip_smoke.K8_TIMED``'s shapes and K9 (each kind) at
+    ``K5_TIMED``'s, as phases 17(a) and 17(b) time them, with ptxas's
+    report of the backward libraries' entries where this run built them."""
+    from chip_smoke import (K5_KINDS, K5_TIMED, K8_KERNEL, K8_TIMED, K9_KERNEL, bound,
+                            k5_lanes, k7_label, k8_case, k8_work, k9_work, ptxas_report,
+                            scan_operands)
+    from firewheel_tpu_torch.ops import cuda_build
+
+    libs = [lib for key, lib in (("k8", ops.iir.BWD_LIBRARY), ("k9", ops.dynamics.BWD_LIBRARY))
+            if key in take]
+    cuda_build.build_all(libs, verbose=True)
+    for lib in libs:
+        emit(library=lib.name, ptxas=ptxas_report(lib.log, "bwd_kernel") if lib.log
+             else "built before this run")
+    if "k8" in take:
+        gen = torch.Generator().manual_seed(1717)
+        for kind, rows, n, s in K8_TIMED:
+            fn, _ = k8_case(ops.iir, kind, rows, n, s, gen)
+            ms = device_ms(fn, K8_KERNEL[kind], REPS)
+            b_ms = bound(*k8_work(kind, rows, n, s))[0]
+            emit(kernel="K8", case=k7_label(kind, rows, n, s), device_ms=ms,
+                 call_ms=cuda_ms(fn, 50), bound_ms=b_ms, share=b_ms / ms)
+            del fn
+            torch.cuda.empty_cache()
+    if "k9" in take:
+        dyn = ops.dynamics
+        gen = torch.Generator().manual_seed(1718)
+        for kind in K5_KINDS:
+            for lanes, n in K5_TIMED:
+                lanes = k5_lanes(kind, lanes)
+                code, x, carry, coefs = scan_operands(dyn, kind, lanes, gen, n)
+                out, y = dyn.scan_lanes(code, x, carry, coefs)
+                g_y = torch.randn(y.shape, generator=gen).to(y.device)
+                g_out = tuple(torch.randn(o.shape, generator=gen).to(o.device) for o in out)
+                call = (code, x, carry, coefs, y, g_y, g_out)
+                fn = lambda: dyn.scan_lanes_backward(*call)  # noqa: E731
+                ms = device_ms(fn, K9_KERNEL, REPS)
+                b_ms = bound(*k9_work(x, carry, coefs, kind))[0]
+                emit(kernel="K9", kind=kind, lanes=lanes, frames=n, device_ms=ms,
+                     call_ms=cuda_ms(fn, 50), bound_ms=b_ms, share=b_ms / ms)
+
+
 def time_k1(iir, seq_iir, emit) -> None:
     gen = torch.Generator().manual_seed(1234)
     for lanes in K1_LANES:
@@ -348,11 +398,14 @@ def main() -> int:
 
     if "k7" in take:
         time_k7(iir, emit)
-    if take & {"k4", "k5", "k6"}:
+    if take & {"k4", "k5", "k6", "k8", "k9"}:
         from firewheel_tpu_torch import ops
         from firewheel_tpu_torch.ops import adpcm_device, dynamics, noise  # noqa: F401
 
-        time_k456(ops, take, emit)
+        if take & {"k4", "k5", "k6"}:
+            time_k456(ops, take, emit)
+        if take & {"k8", "k9"}:
+            time_k89(ops, take, emit)
     if "k1" in take:
         time_k1(iir, seq_iir, emit)
     if take & {"k2", "k2rows"}:
