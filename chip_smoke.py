@@ -332,13 +332,38 @@ Run from the root of a checkout:  python3 chip_smoke.py
    CPU's autograd through the plain scans beside it, logged); the floor's
    gradient non-zero in every instance; the step's wall, a profiled step's
    kernels, idle share and K8's and K9's device time, and peak memory.
+18. The JAX package's differential fuzzers on the card, run last.  (a) ``mixer.fuzz_graph``'s seeds 0-24 (the CPU tests' 0-11,
+   the next 12, and 24, the sixth seed K2 takes) and the pooling-heavy
+   graph at B=8192, K=32, two chunks, rows 0-7 on their own params
+   (``mixer.fuzz_instance_params``) and stream inputs from eight seeded
+   patterns: eager, K2 where ``supports_megakernel`` and the hybrid from
+   the same params and state; K2 and K3 against eager (masks and integer
+   leaves equal, floats within 1e-5: bit for bit so far), rows 0, 3, 7 and
+   8191 against ``testing.NaiveGraphRenderer`` on the CPU (1e-5, 1e-4 for a
+   graph with the EQ, as phase 13), which a second worker process renders
+   while the card runs phases 2-3; each chunk's launches of K1-K7 against
+   what the schedule and its pooled groups imply (K2 once, K3 once an
+   island, K5-K7 once a plan entry a block, K1 never), and the first
+   chunk's also by ``torch.profiler``: a profile that differs is taken once
+   more, and one that still sees more launches than the wrappers counted
+   fails the phase; the log names the graphs where it saw no device
+   activity or missed launches; the wall a chunk per graph of each
+   lowering.  (b) ``testing.edit_fuzz``'s seeds 0-3 (7 rounds of live
+   edits) with the processor on the card, against the interpreter on the
+   CPU (1e-5).  (c) ``testing.chunked_fuzz``'s seeds 1000-1003 at
+   ``chunk_blocks=4`` (2e-5).  (d) The window of scheduled commands across
+   2^32 bit for bit as in a small epoch, and a ``SessionServer`` of 8192
+   parked one chunk before 2^32 rendering two chunks, finite and
+   phase-continuous.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
 batched main path (``launches``), in phase 9's stream (``stream_launches``;
 K1's device time, call and plain version at the stream's 2 lanes beside
 them), in phase 10's fleets (``serve_launches``) and in 15(d)'s validator
-(``validator_launches``) and in phase 16 (``mesh_launches``), K2 and K3 once
+(``validator_launches``) and in phase 16 (``mesh_launches``), in 18(a)'s
+fuzz graphs by lowering (``fuzz_launches``, on K2, K3, K5, K6 and K7's
+rows), K2 and K3 once
 more for the spatial scene of phase 11 (and K2 with the arena spilled at
 256 frames), K3 for the mastering bus of 12(c), K4-K6 (launches in 10(f)'s
 fleet and 12(b)'s batched bus, times from 3(b)) and K7's two kernels, the
@@ -590,6 +615,27 @@ def tree_err(a: dict, b: dict) -> float:
     from firewheel_tpu_torch.convert import tree_map
     tree_map(err, a, b)
     return max(errs, default=0.0)
+
+
+def device_tree_err(a: dict, b: dict) -> float:
+    """:func:`tree_err` on the device: one host sync for the whole tree (an
+    echo's line at B=8192 is 250 MB)."""
+    from firewheel_tpu_torch.convert import tree_map
+
+    errs = []
+
+    def err(x, y):
+        inf = torch.full((), float("inf"), device=x.device)
+        if x.shape != y.shape:
+            errs.append(inf)
+        elif x.dtype.is_floating_point:
+            if x.numel():
+                errs.append((x - y).abs().max().float())
+        else:
+            errs.append(torch.where((x == y).all(), torch.zeros_like(inf), inf))
+
+    tree_map(err, a, b)
+    return float(torch.stack(errs).max()) if errs else 0.0
 
 
 def check_kernel(seq_iir, iir):
@@ -3190,16 +3236,17 @@ def _cpu_stream_worker(conn) -> None:
 
 class CpuStream:
     """The CPU streams of 12(a), 13(a), 14(a), 15(a) and 15(b), started in a spawned worker
-    process at once.  ``get()[name]`` waits for that stream's result
+    process at once (or what another worker ``target`` sends: 18(a)'s CPU
+    oracle).  ``get()[name]`` waits for that stream's result
     (raising what the worker raised, or if it died without one); :meth:`stop`
     ends the worker."""
 
-    def __init__(self):
+    def __init__(self, target=None):
         import multiprocessing
 
         ctx = multiprocessing.get_context("spawn")
         self._conn, child = ctx.Pipe(duplex=False)
-        self._proc = ctx.Process(target=_cpu_stream_worker, args=(child,),
+        self._proc = ctx.Process(target=target or _cpu_stream_worker, args=(child,),
                                  daemon=True)
         self._proc.start()
         child.close()
@@ -6240,9 +6287,17 @@ def eq_gate_loss(prog, params, state, leaves: dict, k: int):
     dev = prog.device
     eq, gate = _proc_key(prog, "ParametricEQProcessor"), _proc_key(prog, "GateProcessor")
     bands = dict(params[eq]["bands"])
-    for i, band in enumerate(prog._procs[eq]._node._bands):
-        c = _DESIGNS[band.band_type](band.frequency_hz, band.q, leaves[("gain", i)], mixer.SR)
-        bands[str(i)] = {n: v.to(dev) for n, v in zip(c._fields, c)}
+    designed = [_DESIGNS[band.band_type](band.frequency_hz, band.q, leaves[("gain", i)],
+                                         mixer.SR)
+                for i, band in enumerate(prog._procs[eq]._node._bands)]
+    # every coefficient crosses to the device in one copy, so that their
+    # gradients come back in one piece and the host sums a band's five in
+    # one order: with a copy each, the host's autograd thread began on some
+    # while the device's still returned others, and the sums' last bits
+    # varied from run to run (PERF.md §6)
+    moved = torch.stack([v for c in designed for v in c]).to(dev).unbind(0)
+    for i, c in enumerate(designed):
+        bands[str(i)] = dict(zip(c._fields, moved[5 * i:5 * i + 5]))
     p = {**params, eq: {"bands": bands},
          gate: {**params[gate], "floor": leaves[("floor",)].to(dev)}}
     b = leaves[("floor",)].shape[0]
@@ -6505,6 +6560,434 @@ def check_gradients(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, car
     return res
 
 
+# phase 18: the differential fuzzers on the card
+FUZZ_SEEDS = tuple(range(25))  # the CPU tests' 0-11, the next 12, and 24 (a 6th K2 seed)
+FUZZ_POOLING_SEED = 1234       # the pooling-heavy graph's draws (the JAX test's rng seed)
+FUZZ_B, FUZZ_K, FUZZ_CHUNKS = 8192, 32, 2
+FUZZ_VARIED = 8                # rows 0..7 take their own params
+FUZZ_ROWS = (0, 3, 7, FUZZ_B - 1)  # rows held against the CPU's naive renderer
+FUZZ_PATTERNS = 8              # stream-input patterns: row b takes pattern b % 8
+FUZZ_K2_MIN = 6                # K2-eligible graphs 18(a) must hold
+# the card against the CPU's interpreter: 18(a)'s rows and 18(b) at the JAX
+# fuzzers' 1e-5, 18(c) at the chunked fuzzer's 2e-5; a graph that holds the
+# EQ at PALETTE_SLICE_TOL, as in phase 13 (its 120 Hz shelf amplifies an ulp
+# of the card's sin, cos or exp ~250 times)
+FUZZ_TOL = 1e-5
+CHUNKED_TOL = 2e-5
+EDIT_SEEDS = range(4)
+CHUNKED_SEEDS = range(1000, 1004)
+CLOCK_CAPACITY = 8192
+#: kernel names in a torch.profiler trace, by kernel
+FUZZ_PROFILED = {"K1": ("biquad_seq_kernel",), "K2": ("mega_kernel",),
+                 "K3": ("island_kernel",), "K5": ("sample_scan_kernel",),
+                 "K6": ("noise_uniform_kernel",),
+                 "K7": ("biquad_scan_kernel", "one_pole_scan_kernel")}
+
+
+def fuzz_graphs():
+    """18(a)'s graphs: the seeds, then the pooling-heavy graph."""
+    return FUZZ_SEEDS + ("pooling",)
+
+
+def fuzz_build(seed):
+    """``(graph, created, edges, draw_seed)`` of an 18(a) graph."""
+    from firewheel_tpu_torch import mixer
+
+    if seed == "pooling":
+        return (*mixer.fuzz_pooling_graph(), FUZZ_POOLING_SEED)
+    return (*mixer.fuzz_graph(np.random.default_rng(seed)), seed)
+
+
+def fuzz_inputs(draw_seed: int, ni: int):
+    """The stream-input patterns ``(f32[P, chunks, K, ni, F], bool[P,
+    chunks, K, ni])``, silent channels zero."""
+    rng = np.random.default_rng((draw_seed, 18))
+    shape = (FUZZ_PATTERNS, FUZZ_CHUNKS, FUZZ_K, ni)
+    gi = (rng.standard_normal(shape + (128,)) * 0.3).astype(np.float32)
+    im = rng.random(shape) < 0.25
+    gi[im] = 0.0
+    return gi, im
+
+
+def fuzz_oracle(seed) -> dict:
+    """The CPU's naive renderer (``testing.NaiveGraphRenderer``) on an 18(a)
+    graph for each of ``FUZZ_ROWS``: ``{row: (out f32[chunks·K, 2, F],
+    masks bool[chunks·K, 2])}``."""
+    _port()
+    from firewheel_tpu_torch import mixer, testing
+
+    result = {}
+    for row in FUZZ_ROWS:
+        g, created, _, draw = fuzz_build(seed)  # a fresh graph: the pokes stay
+        ref = testing.NaiveGraphRenderer(g, 48000, 128, device="cpu")
+        if row < FUZZ_VARIED:
+            mixer.fuzz_instance_params(ref, g, created, draw, row)
+        gi, im = fuzz_inputs(draw, ref.num_graph_inputs)
+        outs, masks = [], []
+        for c in range(FUZZ_CHUNKS):
+            for k in range(FUZZ_K):
+                p = row % FUZZ_PATTERNS
+                out, mask = ref.render_block(torch.from_numpy(gi[p, c, k]),
+                                             torch.from_numpy(im[p, c, k]))
+                outs.append(out.numpy())
+                masks.append(mask)
+        result[row] = (np.stack(outs), np.stack(masks))
+    return result
+
+
+def _cpu_fuzz_worker(conn) -> None:
+    """18(a)'s CPU oracle in a worker process, on one thread: sends ``("ok",
+    "fuzz", {graph: fuzz_oracle(graph)})`` or ``("error", traceback)``."""
+    import traceback
+
+    try:
+        torch.set_num_threads(1)
+        os.nice(19)  # the host-bound phases it runs beside come first
+        conn.send(("ok", "fuzz", {seed: fuzz_oracle(seed) for seed in fuzz_graphs()}))
+    except Exception:  # the worker's boundary: the parent raises it
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def fuzz_entry_launches(proc) -> dict:
+    """K1 and K5-K7 launches one eager call of ``proc``'s kernel makes (a
+    single node or a pooled group)."""
+    from firewheel_tpu_torch.nodes.eq import ParametricEQProcessor
+    from firewheel_tpu_torch.nodes.filter import FilterProcessor
+    from firewheel_tpu_torch.nodes.generators import NoiseProcessor
+    from firewheel_tpu_torch.nodes.waveshaper import WaveshaperProcessor
+
+    if isinstance(proc, NoiseProcessor):
+        return {"K6": 1, "K5": int(proc._node._color == "pink")}
+    if isinstance(proc, ParametricEQProcessor):
+        return {"K7": 1}
+    if isinstance(proc, FilterProcessor):
+        return {"K1": 1} if proc._backend == "pallas" else {"K7": 1}
+    if isinstance(proc, WaveshaperProcessor) and proc._node._dc_block:
+        return {"K7": 1}
+    return {}
+
+
+def fuzz_expected(prog, hybrid, k: int) -> dict:
+    """``{lowering: {kernel: launches a chunk}}`` that the compiled schedule
+    implies: eager runs each entry of its plan (a node or a pooled group)
+    once a block; the hybrid each node of its torch stages once a block and
+    each island once a chunk (K3); K2 once a chunk."""
+    from firewheel_tpu_torch.executor import node_key
+
+    def add(into, proc, times):
+        for name, n in fuzz_entry_launches(proc).items():
+            into[name] = into.get(name, 0) + n * times
+
+    eager: dict = {}
+    for _, members in prog._plan:
+        add(eager, prog._procs[node_key(members[0].id)], k)
+    hyb = {"K3": len(hybrid.islands)}
+    for kind, nodes in hybrid.segments:
+        if kind != "mega":
+            for sn in nodes:
+                add(hyb, prog._procs[node_key(sn.id)], k)
+    return {"eager": eager, "hybrid": hyb, "mega": {"K2": 1}}
+
+
+def profiled_counts(fn) -> dict | None:
+    """Launches of each kernel of ``FUZZ_PROFILED`` that ``torch.profiler``
+    records while ``fn()`` runs, or None when it saw no device activity."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    if not any(e.device_type == torch.autograd.DeviceType.CUDA for e in events):
+        return None
+    return {name: sum(e.count for e in events if any(s in e.key for s in subs))
+            for name, subs in FUZZ_PROFILED.items()}
+
+
+def fuzz_lowerings(ft, em, eh, counts, oracle, card: str) -> dict:
+    """18(a): each graph at B x K on the card through eager, K2 (where
+    eligible) and the hybrid from the same params and state; K2 and K3
+    against eager, rows against the CPU oracle; launches against the
+    schedule, by the wrappers' counts and by ``torch.profiler``."""
+    from firewheel_tpu_torch import mixer
+    from firewheel_tpu_torch.nodes.eq import ParametricEQProcessor
+
+    b, k, f = FUZZ_B, FUZZ_K, 128
+    taken = {"eager": [], "mega": [], "hybrid": []}
+    launches = {"eager": {}, "mega": {}, "hybrid": {}}
+    walls = {"eager": [], "mega": [], "hybrid": []}
+    worst = {"mega": 0.0, "hybrid": 0.0, "oracle": 0.0}
+    # seconds of the phase by part: set-up, the profiled chunk, the timed
+    # chunk, the checks
+    split = {"set-up": 0.0, "profiled chunk": 0.0, "timed chunk": 0.0, "checks": 0.0}
+    unprofiled, missed = [], {}
+    for seed in fuzz_graphs():
+        t_part = time.perf_counter()
+
+        def part(name):
+            nonlocal t_part
+            torch.cuda.synchronize()
+            now = time.perf_counter()
+            split[name] += now - t_part
+            t_part = now
+
+        g, created, _, draw = fuzz_build(seed)
+        pkg = g.compile(48000, f)
+        prog = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                                  device="cuda")
+        renderers = {"eager": ft.BatchRenderer(prog, b, device="cuda"),
+                     "hybrid": ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")}
+        if em.supports_megakernel(prog):
+            renderers["mega"] = em.MegaRenderer(prog, b, k, device="cuda")
+        eager = renderers["eager"]
+        params, state0 = eager.stack_params(), eager.init_state()
+        for row in range(FUZZ_VARIED):
+            eager.update_instance(params, row, mixer.fuzz_instance_params(
+                prog, g, created, draw, row))
+        eq = any(isinstance(p, ParametricEQProcessor) for p in prog._procs.values())
+        row_tol = PALETTE_SLICE_TOL if eq else FUZZ_TOL
+        ni = prog.num_graph_inputs
+        gi_all, im_all = (torch.from_numpy(a).cuda() for a in fuzz_inputs(draw, ni))
+        pattern = torch.arange(b, device="cuda") % FUZZ_PATTERNS
+        states = {name: state0 for name in renderers}
+        expected = None
+        for c in range(FUZZ_CHUNKS):
+            gi, im = gi_all[pattern, c], im_all[pattern, c]
+            start = c * k * f
+
+            def render_all(sts, record):
+                outs = {}
+                for name, r in renderers.items():
+                    base = counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    if name == "mega":
+                        out = r.render_chunk(params, sts[name], start)
+                    else:
+                        out = r.render_chunk(params, sts[name], gi, im, start_sample=start,
+                                             num_blocks=k)
+                    torch.cuda.synchronize()
+                    if record:
+                        walls[name].append(time.perf_counter() - t0)
+                    outs[name] = (out, _delta(counts(), base))
+                return outs
+
+            part("set-up" if c == 0 else "checks")
+            if c == 0:
+                # the launch count pass: the wrappers' counts and the profile's
+                outs = {}
+                seen = profiled_counts(lambda: outs.update(render_all(states, False)))
+                part("profiled chunk")
+            else:
+                outs = render_all(states, True)
+                part("timed chunk")
+            hy = renderers["hybrid"]._chunk_cache[("hybrid", k)]
+            expected = fuzz_expected(prog, hy, k)
+            total = {}
+            for name, (_, delta) in outs.items():
+                want = {kn: expected[name].get(kn, 0)
+                        for kn in ("K1", "K2", "K3", "K5", "K6", "K7")}
+                got = {kn: delta[kn] for kn in want}
+                if got != want:
+                    raise AssertionError(f"fuzz graph {seed}, {name}, chunk {c}: "
+                                         f"launches {got}, the schedule implies {want}")
+                for kn, n in delta.items():
+                    launches[name][kn] = launches[name].get(kn, 0) + n
+                    total[kn] = total.get(kn, 0) + n
+            if c == 0:
+                profiled = {kn: total.get(kn, 0) for kn in FUZZ_PROFILED}
+                if seen is not None and seen != profiled:
+                    # a profile may miss launches (PERF.md §7): take it once
+                    # more, over the same chunk from the same state
+                    seen = profiled_counts(lambda: render_all(states, False))
+                if seen is None:
+                    unprofiled.append(seed)
+                elif seen != profiled:
+                    if any(seen[kn] > profiled[kn] for kn in seen):
+                        raise AssertionError(
+                            f"fuzz graph {seed}: torch.profiler saw {seen}, more than "
+                            f"the wrappers counted, {profiled}")
+                    missed[seed] = {kn: profiled[kn] - seen[kn] for kn in seen
+                                    if seen[kn] != profiled[kn]}
+            eo, emk, es = outs["eager"][0]
+            for name in ("mega", "hybrid"):
+                if name not in outs:
+                    continue
+                o, m, s = outs[name][0]
+                out_e, state_e = float((o - eo).abs().max()), device_tree_err(s, es)
+                tol = MEGA_TOL if name == "mega" else HYBRID_TOL
+                if not torch.equal(m, emk) or not max(out_e, state_e) <= tol:
+                    raise AssertionError(
+                        f"fuzz graph {seed}, chunk {c}: {name} vs eager outputs "
+                        f"{out_e}, state {state_e}, masks equal {torch.equal(m, emk)}")
+                worst[name] = max(worst[name], out_e, state_e)
+                states[name] = s
+            states["eager"] = es
+            if not bool(torch.isfinite(eo).all()):
+                raise AssertionError(f"fuzz graph {seed}: non-finite eager output")
+            for row in FUZZ_ROWS:
+                ref_out, ref_mask = oracle[seed][row]
+                got = eo[row].cpu().numpy()
+                want = ref_out[c * k:(c + 1) * k]
+                e = float(np.abs(got - want).max())
+                if not e <= row_tol or not np.array_equal(emk[row].cpu().numpy(),
+                                                          ref_mask[c * k:(c + 1) * k]):
+                    raise AssertionError(
+                        f"fuzz graph {seed}, chunk {c}, row {row}: card vs CPU "
+                        f"interpreter {e} (tolerance {row_tol}) or masks differ")
+                worst["oracle"] = max(worst["oracle"], e)
+        part("checks")
+        for name in renderers:
+            taken[name].append(seed)
+        kinds = sorted({type(p).__name__.replace("Processor", "")
+                        for p in prog._procs.values()} - {"Dummy"})
+        log(f"fuzz graph {seed}: {len(prog._procs) - 2} nodes {kinds}, {ni} stream "
+            f"inputs, lowerings {sorted(renderers)}, hybrid segments "
+            f"{[kind for kind, _ in hy.segments]}, launches a chunk {expected}; "
+            f"rows {FUZZ_ROWS} vs the CPU within {row_tol}")
+        del renderers, outs, states, params, state0, gi_all, im_all
+        torch.cuda.empty_cache()
+    if len(taken["mega"]) < FUZZ_K2_MIN:
+        raise AssertionError(f"only {len(taken['mega'])} K2-eligible graphs: "
+                             f"{taken['mega']}")
+    log(f"18(a): torch.profiler saw every launch of the first chunk on "
+        f"{len(fuzz_graphs()) - len(unprofiled) - len(missed)} of {len(fuzz_graphs())} "
+        f"graphs, no device activity on {unprofiled}, and missed launches on "
+        f"{missed} (graph: launches by kernel) in two profiles each; the "
+        f"wrappers' counts hold the schedule's on every graph")
+    per_graph = {name: 1e3 * sum(w) / len(w) for name, w in walls.items() if w}
+    log(f"18(a) on {card}, B={b} K={k}: graphs by lowering: eager "
+        f"{len(taken['eager'])}, K2 {len(taken['mega'])} {taken['mega']}, hybrid "
+        f"{len(taken['hybrid'])}; wall a chunk per graph (mean, chunk 1): "
+        + ", ".join(f"{name} {ms:.2f} ms" for name, ms in per_graph.items()))
+    log(f"18(a): K2 vs eager max_abs_err={worst['mega']:.3e}, hybrid vs eager "
+        f"{worst['hybrid']:.3e}, rows vs the CPU {worst['oracle']:.3e}; launches "
+        f"{launches}; seconds by part "
+        + ", ".join(f"{name} {sec:.1f}" for name, sec in split.items()))
+    return {"launches": launches, "walls_ms": per_graph, "taken": taken,
+            "worst": worst, "unprofiled": unprofiled, "missed": missed}
+
+
+def fuzz_streams(counts) -> dict:
+    """18(b) and 18(c): the live-edit and the chunked fuzzers' streams on
+    the card against the CPU interpreter."""
+    from firewheel_tpu_torch import testing
+
+    worst = {"edits": 0.0, "chunked": 0.0}
+    base = counts()
+    for seed in EDIT_SEEDS:
+        blocks = testing.edit_fuzz(seed, device="cuda", oracle_device="cpu")
+        for tag, out, ref, kinds in blocks:
+            e = float(np.abs(out - ref).max())
+            tol = PALETTE_SLICE_TOL if "ParametricEQNode" in kinds else FUZZ_TOL
+            if not e <= tol:
+                raise AssertionError(f"18(b) seed {seed} {tag}: stream vs the CPU "
+                                     f"interpreter {e} (tolerance {tol}, {kinds})")
+            worst["edits"] = max(worst["edits"], e)
+        log(f"18(b) seed {seed}: {len(blocks)} blocks, max_abs_err "
+            f"{max(float(np.abs(b[1] - b[2]).max()) for b in blocks):.3e}, peak "
+            f"{max(float(np.abs(b[1]).max()) for b in blocks):.3f}, nodes "
+            f"{sorted({k for b in blocks for k in b[3]})}")
+    edits = _delta(counts(), base)
+    base = counts()
+    for seed in CHUNKED_SEEDS:
+        buffers, kinds = testing.chunked_fuzz(seed, device="cuda", oracle_device="cpu")
+        e = max(float(np.abs(got - ref).max()) for got, ref in buffers)
+        tol = PALETTE_SLICE_TOL if "ParametricEQProcessor" in kinds else CHUNKED_TOL
+        if not e <= tol:
+            raise AssertionError(f"18(c) seed {seed}: chunked stream vs the CPU "
+                                 f"interpreter {e} (tolerance {tol})")
+        worst["chunked"] = max(worst["chunked"], e)
+        log(f"18(c) seed {seed}: {len(buffers)} buffers, max_abs_err {e:.3e}, {kinds}")
+    chunked = _delta(counts(), base)
+    log(f"18(b) launches {edits}; 18(c) launches {chunked}")
+    return worst
+
+
+def clock_program(ft, device: str):
+    """beep -> volume, plus a one-shot sampler, summed to graph_out (the
+    JAX package's ``tests/test_clock_wrap.py`` graph) → ``(program,
+    volume, sampler)``."""
+    from firewheel_tpu_torch import nodes
+
+    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
+    vol, sfx = nodes.VolumeNode(100.0), nodes.SamplerNode(100.0)
+    clip = (np.random.default_rng(7).standard_normal((2, 200)) * 0.2).astype(np.float32)
+    sfx.set_sample(ft.SampleResource(clip, device=False))
+    tid = g.add_node(0, 2, nodes.BeepTestNode(440.0, -12.0, True))
+    vid, sid = g.add_node(2, 2, vol), g.add_node(0, 2, sfx)
+    mix = g.add_node(4, 2, nodes.SumNode())
+    for ch in range(2):
+        g.connect(tid, ch, vid, ch)
+        g.connect(vid, ch, mix, ch)
+        g.connect(sid, ch, mix, 2 + ch)
+        g.connect(mix, ch, g.graph_out_node(), ch)
+    pkg = g.compile(48000, 128)
+    prog = ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
+                              device=device)
+    return prog, vol, sfx
+
+
+def check_clock(ft, card: str) -> None:
+    """18(d): a fleet of 8192 parked one chunk before 2^32 renders two
+    chunks; the scheduled-commands window across 2^32 is the small epoch's,
+    bit for bit."""
+    wrap, f = 1 << 32, 128
+
+    def window(epoch, k=8):
+        prog, vol, sfx = clock_program(ft, "cuda")
+        vol.set_percent_volume(25.0, at_sample=epoch + 3 * f)
+        sfx.play(at_sample=epoch + 5 * f)
+        params = prog.collect_params(blocks=k, start_sample=epoch)
+        out, _, _ = prog.render_chunk(
+            params, prog.init_state(), torch.zeros((k, 0, f), device="cuda"),
+            torch.ones((k, 0), dtype=torch.bool, device="cuda"), epoch)
+        return out
+
+    big, small = window(wrap - 4 * f), window(64 * f)
+    if not torch.equal(big, small) or torch.equal(big[2], big[3]):
+        raise AssertionError("18(d): the window across 2^32 is not the small "
+                             "epoch's, or its volume set did not land at block 3")
+    prog, vol, _ = clock_program(ft, "cuda")
+    srv = ft.SessionServer(prog, capacity=CLOCK_CAPACITY, chunk_blocks=FUZZ_K,
+                           device="cuda")
+    h = srv.connect(lambda: vol.set_percent_volume(100.0))
+    srv.sample = wrap - FUZZ_K * f
+    t0 = time.perf_counter()
+    a = srv.render()
+    b = srv.render()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / 2
+    if srv.sample != wrap + FUZZ_K * f:
+        raise AssertionError(f"18(d): the fleet's clock is {srv.sample}")
+    step = abs(float(b[h.slot, 0, 0, 0]) - float(a[h.slot, -1, 0, -1]))
+    peaks = [float(x[h.slot].abs().max()) for x in (a, b)]
+    if (not all(bool(torch.isfinite(x).all()) for x in (a, b)) or min(peaks) <= 0.05
+            or not step < 0.05):
+        raise AssertionError(f"18(d): across 2^32 the session's peaks {peaks}, "
+                             f"step {step}")
+    log(f"18(d) on {card}: the window across 2^32 equals the small epoch's bit for "
+        f"bit; a fleet of {CLOCK_CAPACITY} crossed it, peaks {peaks}, step at the "
+        f"boundary {step:.4f}, {wall * 1e3:.1f} ms a chunk")
+
+
+def check_fuzz(ft, em, eh, counts, oracle, card: str, phase) -> dict:
+    """Phase 18: the differential fuzzers on the card."""
+    base = counts()
+    res = fuzz_lowerings(ft, em, eh, counts, oracle.get()["fuzz"], card)
+    phase("18(a), the fuzz at B=8192, K=32 through eager, K2 and the hybrid")
+    res["worst"].update(fuzz_streams(counts))
+    phase("18(b), (c), live edits and chunked dispatch")
+    check_clock(ft, card)
+    phase("18(d), the clock across 2^32")
+    k1 = _delta(counts(), base)["K1"]
+    if k1:
+        raise AssertionError(f"phase 18: K1 launched {k1} times")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -6525,16 +7008,19 @@ def main() -> int:
     # 12(a)'s CPU stream runs in a worker process while the card runs
     # phases 2..11; it is read in phase 12
     cpu_stream = CpuStream()
+    # 18(a)'s CPU oracle, in a second worker
+    fuzz_oracle = CpuStream(_cpu_fuzz_worker)
     try:
         return run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir,
-                          noise, seq_iir, cpu_stream)
+                          noise, seq_iir, cpu_stream, fuzz_oracle)
     finally:
         cpu_stream.stop()
+        fuzz_oracle.stop()
 
 
 def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
-               cpu_stream) -> int:
-    """Phases 1..17 and the result lines."""
+               cpu_stream, fuzz_oracle) -> int:
+    """Phases 1..18 and the result lines."""
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -6633,6 +7119,11 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     phase("16(b) and (c) at vp=2, two ranks on the card")
     grads = check_gradients(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, card,
                             phase, bwd)
+    # last, so that phases 1-17 run as they did before it (PERF.md §6)
+    fuzz = check_fuzz(ft, em, eh, lambda: {
+        **kernel_counts(seq_iir, em, eh, adpcm_device, dynamics, iir, noise),
+        "K7_biquad": iir.biquad_cascade.launches, "K7_one_pole": iir.one_pole_scan.launches,
+    }, fuzz_oracle, card, phase)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -6736,6 +7227,12 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
             "share": bound_ms / t,
             "library_ms": None,  # no one PyTorch call computes any of them
         })
+        fuzz_kernel = {"megakernel": "K2", "hybrid_island": "K3", "sample_scan": "K5",
+                       "noise_uniform": "K6", "biquad_scan": "K7_biquad",
+                       "one_pole_scan": "K7_one_pole"}.get(name)
+        if fuzz_kernel:  # 18(a)'s graphs, by lowering
+            kernels[-1]["fuzz_launches"] = {lw: n.get(fuzz_kernel, 0)
+                                            for lw, n in fuzz["launches"].items()}
         if name == "biquad_seq":  # at the stream's width, 2 lanes
             kernels[-1].update(zip(("stream_ms", "stream_call_ms", "stream_plain_ms",
                                     "stream_bound_ms"), k1_stream))

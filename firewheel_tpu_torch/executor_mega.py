@@ -33,8 +33,10 @@ A processor is eligible when the kernel has a device function for its
 class (:data:`OPS`) and its ``supports_megakernel`` attribute is true; a
 graph with stream inputs is not.  Two of the JAX megakernel's semantics
 are Mosaic workarounds and are not kept: its filter falls back to the
-associative scan and its clip counter freezes.  Here the filter runs the
-sequential recurrence of K1 (``csrc/biquad_step.cuh``) and the clip counter
+associative scan and its clip counter freezes.  Here the filter runs what
+its eager kernel runs: on the ``"pallas"`` backend the sequential
+recurrence of K1 (``csrc/biquad_step.cuh``), on ``"auto"`` K7's associative
+scan, as the EQ's row of one band (:func:`op_for`); and the clip counter
 counts, as on the eager path.  The spatializer's one-pole runs sequentially
 too, on the same biquad step (the eager path runs the JAX package's
 associative scan; the two agree to ~1e-7); the doppler spatializer opts
@@ -99,6 +101,7 @@ __all__ = [
     "island_chunk_reference",
     "lower_schedule",
     "mega_chunk_reference",
+    "op_for",
     "pack_leaves",
     "shared_bytes",
     "spills",
@@ -129,8 +132,9 @@ class _Op:
     the row's ``AUX0``.  ``consts`` gives the processor's float constants,
     ``aux`` its structural ints (``AUX0``, ``AUX1``) when it has no line,
     ``scan`` the scratch words a row of ``F`` frames needs
-    (:func:`scan_words`), and ``derive`` (for a ``"derived"`` leaf)
-    computes a leaf from the node's params once per chunk."""
+    (:func:`scan_words`), ``derive`` (for a ``"derived"`` leaf)
+    computes a leaf from the node's params once per chunk, and ``plain``
+    gives the node kernel that the plain versions call for the row."""
 
     code: int
     layout: Any = ()
@@ -140,6 +144,10 @@ class _Op:
     line: Optional[Callable[[Any], int]] = None
     aux: Callable[[Any], tuple] = lambda proc: (0, 0)
     scan: Callable[[Any, int], int] = lambda proc, f: 0
+    # the filter's and the spatializer's recurrences run sequentially in
+    # the kernel
+    plain: Callable[[Any], Callable] = lambda proc: getattr(
+        proc, "sequential_kernel", proc.kernel)
 
 
 def _smoother_consts(proc, eps):
@@ -311,6 +319,28 @@ OPS: dict[type, _Op] = {
     _SinkMeterProcessor: _Op(
         25, _METER, consts=lambda proc: (proc._peak_decay, proc._rms_alpha)),
 }
+#: the filter on the ``"auto"`` backend: the EQ's device function with one
+#: band, its coefficients derived per instance as the eager kernel derives
+#: them, then its state; the params, which only the derivation reads, come
+#: last and the device function does not read them.  It runs K7's scan as
+#: the eager kernel does, so the row equals eager bit for bit.
+_SCAN_FILTER = _Op(
+    OPS[ParametricEQProcessor].code,
+    (("derived", ("coef",)), ("state", ("z1",)), ("state", ("z2",)),
+     ("params", ("freq",)), ("params", ("q",)), ("params", ("gain_db",))),
+    derive=_filter_coef, aux=lambda proc: (1, 0),
+    scan=lambda proc, f: scan_words(6, f), plain=lambda proc: proc.kernel,
+)
+
+
+def op_for(proc) -> _Op:
+    """The device function that renders ``proc``'s row: :data:`OPS` by its
+    class, but the ``"auto"`` filter's associative scan on the EQ's."""
+    if isinstance(proc, FilterProcessor) and proc._backend == "scan":
+        return _SCAN_FILTER
+    return OPS[type(proc)]
+
+
 #: device functions of rows with a line in device memory
 _LINES = {op.code for op in OPS.values() if op.line is not None}
 #: the device functions beyond the mixer's (the FX palette's, the mastering
@@ -420,7 +450,7 @@ def lower_schedule(program: ScheduleProgram, nodes=None, live_in=(),
     for sn in nodes:
         key = node_key(sn.id)
         proc = program._procs[key]
-        op = OPS[type(proc)]
+        op = op_for(proc)
         mine = [
             LeafSpec("params", key, path, t.dtype, tuple(t.shape))
             for path, t in _flat(params_from_jax(proc.collect_params(), "cpu"))
@@ -430,10 +460,11 @@ def lower_schedule(program: ScheduleProgram, nodes=None, live_in=(),
         ]
         if op.derive is not None:
             mine.append(LeafSpec("derived", key, ("coef",), torch.float32, (5,)))
-        got = tuple((leaf.tree, leaf.path) for leaf in mine)
+        got = {(leaf.tree, leaf.path): leaf for leaf in mine}
         layout = op.layout(proc) if callable(op.layout) else op.layout
-        if got != layout:
-            raise AssertionError(f"{key}: leaves {got}, the kernel reads {layout}")
+        if sorted(got) != sorted(layout):
+            raise AssertionError(f"{key}: leaves {tuple(got)}, the kernel reads {layout}")
+        mine = [got[leaf] for leaf in layout]  # in the order the kernel reads
         aux0, aux1 = op.aux(proc)
         if op.line is not None:
             aux0, aux1 = op.line(proc), echo_channels
@@ -633,10 +664,7 @@ def _walk_rows(program: ScheduleProgram, lowered: LoweredSchedule,
         s_slots = [i for i in mine if lowered.leaves[i].tree == "state"]
         s = _nest([(lowered.leaves[i].path, store.get(i)) for i in s_slots])
         proc = program._procs[key]
-        # the filter's and the spatializer's recurrences run sequentially
-        # in the kernel
-        kernel = getattr(proc, "sequential_kernel", proc.kernel)
-        y, s2, om = kernel(p, s, inputs, in_mask, info)
+        y, s2, om = op_for(proc).plain(proc)(p, s, inputs, in_mask, info)
         for i, (path, t) in zip(s_slots, _flat(s2), strict=True):
             assert path == lowered.leaves[i].path, (key, path)
             store.set(i, t)
@@ -653,7 +681,7 @@ def _leaf_values(program: ScheduleProgram, lowered: LoweredSchedule, params,
     for leaf in lowered.leaves:
         if leaf.tree == "derived":
             proc = program._procs[leaf.key]
-            values.append(OPS[type(proc)].derive(proc, params[leaf.key]))
+            values.append(op_for(proc).derive(proc, params[leaf.key]))
         else:
             tree = params if leaf.tree == "params" else state
             values.append(_get(tree, (leaf.key,) + leaf.path))

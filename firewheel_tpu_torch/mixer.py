@@ -12,7 +12,10 @@ BASELINE config 5, the 266-node graph of ``examples/spatial_scene.py``
 (128 beeps through 3D spatializers into group sums and a metered, clipped
 master), and :func:`orbit_scene` its automation.  Node keys
 (``repr(NodeID)``) come out identical to the JAX package's.
-:func:`random_graph` builds seeded random DAGs of the mixer's nodes, and :func:`vary_params` and
+:func:`random_graph` builds seeded random DAGs of the mixer's nodes;
+:func:`fuzz_graph` and :func:`fuzz_pooling_graph` build the JAX package's
+differential fuzzer's DAGs over its whole palette (:data:`FUZZ_PALETTE`).
+:func:`vary_params` and
 :func:`vary_effects_params` give every instance of a batch its own params,
 for holding two lowerings against each other; :func:`vary_spatial_params`
 does so for the spatial scene.  :func:`mastering_bus_graph` builds the
@@ -39,7 +42,7 @@ import torch
 from .core.automation import AutomationCurve
 from .core.sample_resource import SampleResource
 from .device import DEFAULT_DEVICE
-from .executor import ScheduleProgram
+from .executor import ScheduleProgram, node_key
 from .graph import AudioGraph, AudioGraphConfig
 from . import nodes as _NODES
 from .core.units import db_to_gain
@@ -74,6 +77,8 @@ __all__ = [
     "add_mixer", "add_spatial_scene",
     "add_mix_bus", "add_voice", "add_voice_graph", "air_shelf_taps", "effects_chain_audio",
     "effects_chain_config4_graph", "effects_chain_graph", "eq_gate_graph", "fx_insert",
+    "FUZZ_PALETTE", "FUZZ_POKES", "fuzz_graph", "fuzz_instance_params",
+    "fuzz_pooling_graph",
     "fx_palette_graph", "mastering_bus_graph", "mixer_graph", "orbit_scene",
     "random_graph", "set_fx", "spatial_scene_graph", "vary_effects_params",
     "vary_fx_params",
@@ -365,6 +370,147 @@ def random_graph(seed: int, device: str | torch.device = DEFAULT_DEVICE,
     return ScheduleProgram(
         pkg.schedule, dict(pkg.new_node_processors), SR, device=device
     )
+
+
+#: The differential fuzzer's node palette (``tests/test_differential_fuzz.py``
+#: in the JAX package): ``(name, build(rng, nodes) -> (node, n_in, n_out))``,
+#: port counts fixed per kind to ones every node accepts.  Each builder makes
+#: its rng draws in the JAX fuzzer's order.
+FUZZ_PALETTE = (
+    ("beep", lambda r, n: (n.BeepTestNode(float(r.uniform(80, 2000)),
+                                          float(r.uniform(-24, -6)),
+                                          bool(r.random() < 0.8)), 0, 2)),
+    ("noise", lambda r, n: (n.NoiseNode("pink" if r.random() < 0.5 else "white",
+                                        float(r.uniform(-30, -12)),
+                                        seed=int(r.integers(0, 2**31))), 0, 2)),
+    ("volume", lambda r, n: (n.VolumeNode(float(r.uniform(0, 150))), 2, 2)),
+    ("sum", lambda r, n: (n.SumNode(), 4, 2)),
+    ("hard_clip", lambda r, n: (n.HardClipNode(float(r.uniform(-12, 0))), 2, 2)),
+    ("filter", lambda r, n: (n.FilterNode(
+        ["lowpass", "highpass", "bandpass", "peaking"][int(r.integers(4))],
+        float(r.uniform(100, 8000)), float(r.uniform(0.5, 4.0)),
+        float(r.uniform(-9, 9))), 2, 2)),
+    ("echo", lambda r, n: (n.EchoNode(float(r.uniform(0.01, 0.08)),
+                                      float(r.uniform(0.0, 0.8)),
+                                      float(r.uniform(0.2, 1.0))), 2, 2)),
+    ("delay_comp", lambda r, n: (n.DelayCompNode(int(r.integers(0, 256))), 2, 2)),
+    ("eq", lambda r, n: (n.ParametricEQNode(), 2, 2)),
+    ("waveshaper", lambda r, n: (n.WaveshaperNode(
+        ["tanh", "atan", "soft"][int(r.integers(3))],
+        float(r.uniform(0, 18))), 2, 2)),
+    ("stereo_width", lambda r, n: (n.StereoWidthNode(float(r.uniform(0, 2))), 2, 2)),
+    ("pan", lambda r, n: (n.StereoPanNode(float(r.uniform(-1, 1))), 2, 2)),
+    ("mono2stereo", lambda r, n: (n.MonoToStereoNode(), 1, 2)),
+    ("stereo2mono", lambda r, n: (n.StereoToMonoNode(), 2, 1)),
+    ("tremolo", lambda r, n: (n.TremoloNode(float(r.uniform(0.5, 12.0)),
+                                            float(r.uniform(0, 1))), 2, 2)),
+)
+
+
+def fuzz_graph(rng, graph_factory=None, nodes=None):
+    """The differential fuzzer's random DAG, drawn from ``rng`` (a numpy
+    ``Generator``) draw for draw as the JAX package's ``build_random_graph``
+    draws it → ``(graph, created, edges)``.
+
+    Graph inputs 0 or 2, then 3–9 nodes of :data:`FUZZ_PALETTE`, each input
+    port wired with odds 0.85 to a random earlier output (or the graph
+    input), so some inputs dangle (cleared and silent) and outputs fan out
+    freely; each graph output wired with odds 0.95.  Creation order is a
+    topological order.  ``created``: ``(key, node_id, n_in, n_out)`` in
+    creation order; ``edges``: ``{(dst_key, dst_port) | ("out", port):
+    (src_key, src_port)}``, the records
+    :func:`~firewheel_tpu_torch.testing.interpret_block` walks.
+
+    ``graph_factory(n_in)`` builds into a caller's graph (a
+    ``GraphContext``'s); by default a new stereo-out ``AudioGraph``.
+    ``nodes`` is the node module (the port's by default): given the JAX
+    package's nodes and graph types, the same calls build the same graph
+    there, with the same keys."""
+    n = nodes or _NODES
+    n_in_ch = int(rng.choice([0, 2]))
+    g = (AudioGraph(AudioGraphConfig(n_in_ch, 2)) if graph_factory is None
+         else graph_factory(n_in_ch))
+    gin = g.graph_in_node()
+    avail = [(node_key(gin), gin, p) for p in range(n_in_ch)]
+    created, edges = [], {}
+    for _ in range(int(rng.integers(3, 10))):
+        _, build = FUZZ_PALETTE[int(rng.integers(len(FUZZ_PALETTE)))]
+        node, n_in, n_out = build(rng, n)
+        nid = g.add_node(n_in, n_out, node)
+        k = node_key(nid)
+        for port in range(n_in):
+            if avail and rng.random() < 0.85:
+                sk, sid, sp = avail[int(rng.integers(len(avail)))]
+                g.connect(sid, sp, nid, port)
+                edges[(k, port)] = (sk, sp)
+        created.append((k, nid, n_in, n_out))
+        avail.extend((k, nid, p) for p in range(n_out))
+    for port in range(2):
+        if avail and rng.random() < 0.95:
+            sk, sid, sp = avail[int(rng.integers(len(avail)))]
+            g.connect(sid, sp, g.graph_out_node(), port)
+            edges[("out", port)] = (sk, sp)
+    return g, created, edges
+
+
+#: the live-edit fuzzer's param setters, with their ranges: an edit's poke
+#: sets the first of these a node has, :func:`fuzz_instance_params` every one
+FUZZ_POKES = (
+    ("set_percent_volume", 0.0, 150.0),
+    ("set_frequency", 100.0, 8000.0),
+    ("set_gain_db", -24.0, 6.0),
+    ("set_feedback", 0.0, 0.8),
+    ("set_width", 0.0, 2.0),
+    ("set_pan", -1.0, 1.0),
+    ("set_drive_db", 0.0, 18.0),
+    ("set_depth", 0.0, 1.0),
+)
+
+
+def fuzz_instance_params(program: ScheduleProgram, graph, created, seed: int,
+                         row: int) -> dict:
+    """Instance ``row``'s own params for a :func:`fuzz_graph` graph: every
+    setter of :data:`FUZZ_POKES` that a node of ``created`` has, in creation
+    order, set to a value drawn from ``default_rng((seed, row))``, then
+    ``program``'s snapshot.  The nodes keep those values; take the graph's
+    own params and the initial state before the first call."""
+    rng = np.random.default_rng((seed, row))
+    for rec in created:
+        node = graph.node(rec[1])
+        for name, lo, hi in FUZZ_POKES:
+            setter = getattr(node, name, None)
+            if setter is not None:
+                setter(float(rng.uniform(lo, hi)))
+    return program.collect_params()
+
+
+def fuzz_pooling_graph(graph_factory=None, nodes=None, num_voices: int = 6):
+    """The fuzzer's pooling-heavy graph (the JAX package's
+    ``test_pooling_heavy_differential``): ``num_voices`` voices of BeepTest
+    (220·(v + 1) Hz, -18 dB) → Volume (40 + 10·v %) into one Sum → out,
+    so the executor pools the beeps and the volumes into large groups →
+    ``(graph, created, edges)`` as :func:`fuzz_graph` returns them."""
+    n = nodes or _NODES
+    g = AudioGraph(AudioGraphConfig(0, 2)) if graph_factory is None else graph_factory(0)
+    created, edges = [], {}
+    sum_id = g.add_node(2 * num_voices, 2, n.SumNode())
+    ksum = node_key(sum_id)
+    for v in range(num_voices):
+        beep = g.add_node(0, 2, n.BeepTestNode(220.0 * (v + 1), -18.0, True))
+        vol = g.add_node(2, 2, n.VolumeNode(40.0 + 10.0 * v))
+        kb, kv = node_key(beep), node_key(vol)
+        for ch in range(2):
+            g.connect(beep, ch, vol, ch)
+            g.connect(vol, ch, sum_id, 2 * v + ch)
+            edges[(kv, ch)] = (kb, ch)
+            edges[(ksum, 2 * v + ch)] = (kv, ch)
+        created.append((kb, beep, 0, 2))
+        created.append((kv, vol, 2, 2))
+    created.append((ksum, sum_id, 2 * num_voices, 2))
+    for ch in range(2):
+        g.connect(sum_id, ch, g.graph_out_node(), ch)
+        edges[("out", ch)] = (ksum, ch)
+    return g, created, edges
 
 
 def vary_params(params: dict, seed: int) -> dict:

@@ -23,6 +23,13 @@ module ships both:
 
 * :func:`interpret_block` — the functional core of the naive renderer,
   for callers that keep their own wiring records.
+
+* :func:`edit_fuzz` and :func:`chunked_fuzz` — the JAX package's live-edit
+  and chunked-dispatch fuzzers (``tests/test_differential_{edits,
+  chunked}.py``) on the port's streaming engine: random graphs of
+  :func:`~firewheel_tpu_torch.mixer.fuzz_graph`'s palette streamed on any
+  device beside :func:`interpret_block` on another, the edits mirrored in a
+  :class:`GraphEditModel`.
 """
 
 from __future__ import annotations
@@ -32,17 +39,26 @@ from typing import Any, Iterable, Mapping
 import numpy as np
 import torch
 
+from . import nodes as _NODES
+from .context import GraphContext, UpdateStatus
 from .convert import params_from_jax, tree_map
 from .core.node import (
     AudioNode, BlockInfo, NodeProcessor, stream_time_from_sample,
 )
 from .device import DEFAULT_DEVICE, resolve_device
 from .executor import node_key
+from .graph import AudioGraphConfig
+from .mixer import FUZZ_PALETTE, FUZZ_POKES, fuzz_graph
+from .processor import ProcessorStatus
 
 __all__ = [
+    "GraphEditModel",
     "NodeContractError",
+    "chunked_fuzz",
+    "edit_fuzz",
     "interpret_block",
     "NaiveGraphRenderer",
+    "poke_fuzz_param",
     "validate_node",
 ]
 
@@ -238,6 +254,289 @@ class NaiveGraphRenderer:
             info, self._gin_key, self.num_graph_outputs,
         )
         return out, flags
+
+
+# ---------------------------------------------------------------------------
+# The differential fuzzers' streams
+# ---------------------------------------------------------------------------
+
+#: the fuzzers' stream: 48 kHz, stereo out, blocks of 128 frames
+FUZZ_SR, FUZZ_BLOCK = 48000, 128
+
+
+class GraphEditModel:
+    """The live-edit fuzzer's builder-side mirror (the JAX package's
+    ``tests/test_differential_edits.py:GraphModel``): creation-ordered node
+    records and an explicit edge list, which the interpreter renders from,
+    never from the compiled schedule.  Each edit makes the JAX model's rng
+    draws in its order; ``nodes`` is the node module (the port's by
+    default)."""
+
+    #: the edit kinds a round draws from
+    OPS = ("add", "remove", "connect", "disconnect", "poke_param", "poke_param")
+
+    def __init__(self, g, nodes=None):
+        self.g = g
+        self.nodes = nodes or _NODES
+        self.created = []  # {key, nid, n_in, n_out, node}
+        self.edges = []    # (src_nid, sp, dst_nid, dp); dst may be graph_out
+
+    def _has_edge_into(self, dst_nid, dp):
+        return any(d == dst_nid and p == dp for _, _, d, p in self.edges)
+
+    def add(self, rng):
+        _, build = FUZZ_PALETTE[int(rng.integers(len(FUZZ_PALETTE)))]
+        node, n_in, n_out = build(rng, self.nodes)
+        nid = self.g.add_node(n_in, n_out, node)
+        rec = {"key": node_key(nid), "nid": nid, "n_in": n_in, "n_out": n_out,
+               "node": node}
+        for port in range(n_in):
+            if self.created and rng.random() < 0.7:
+                src = self.created[int(rng.integers(len(self.created)))]
+                sp = int(rng.integers(src["n_out"]))
+                self.g.connect(src["nid"], sp, nid, port)
+                self.edges.append((src["nid"], sp, nid, port))
+        self.created.append(rec)
+
+    def remove(self, rng):
+        if len(self.created) < 2:
+            return
+        rec = self.created.pop(int(rng.integers(len(self.created))))
+        self.g.remove_node(rec["nid"])  # removes its edges too
+        self.edges = [e for e in self.edges
+                      if e[0] != rec["nid"] and e[2] != rec["nid"]]
+
+    def connect(self, rng):
+        # dst: a created node's free input (wired only from earlier nodes,
+        # so creation order stays a topological order) or a graph output
+        go = self.g.graph_out_node()
+        choices = []
+        for i, rec in enumerate(self.created):
+            if i == 0:
+                continue
+            for dp in range(rec["n_in"]):
+                if not self._has_edge_into(rec["nid"], dp):
+                    choices.append((i, rec["nid"], dp))
+        for dp in range(2):
+            if not self._has_edge_into(go, dp):
+                choices.append((len(self.created), go, dp))
+        if not choices:
+            return
+        i, dst_nid, dp = choices[int(rng.integers(len(choices)))]
+        pool = self.created[:i]
+        if not pool:
+            return
+        src = pool[int(rng.integers(len(pool)))]
+        sp = int(rng.integers(src["n_out"]))
+        self.g.connect(src["nid"], sp, dst_nid, dp)
+        self.edges.append((src["nid"], sp, dst_nid, dp))
+
+    def disconnect(self, rng):
+        if not self.edges:
+            return
+        self.g.disconnect(*self.edges.pop(int(rng.integers(len(self.edges)))))
+
+    def poke_param(self, rng):
+        if not self.created:
+            return
+        node = self.created[int(rng.integers(len(self.created)))]["node"]
+        for name, lo, hi in FUZZ_POKES:
+            setter = getattr(node, name, None)
+            if setter is not None:
+                setter(float(rng.uniform(lo, hi)))
+                return
+
+    def edit(self, rng):
+        """One round: 1–2 edits of random kinds."""
+        for _ in range(int(rng.integers(1, 3))):
+            getattr(self, self.OPS[int(rng.integers(len(self.OPS)))])(rng)
+
+    def interp_edges(self):
+        go = self.g.graph_out_node()
+        out = {}
+        for s, sp, d, dp in self.edges:
+            out[("out", dp) if d == go else (node_key(d), dp)] = (node_key(s), sp)
+        return out
+
+    def interp_created(self):
+        return [(r["key"], r["nid"], r["n_in"], r["n_out"]) for r in self.created]
+
+
+def _oracle_info(sample: int, device) -> BlockInfo:
+    """The stream's clock for the block at ``sample``, as the processor
+    computes it (split-precision time of the wrapped sample)."""
+    s = torch.tensor(sample & 0xFFFFFFFF, dtype=torch.int64, device=device)
+    return BlockInfo(stream_time_from_sample(s, float(FUZZ_SR)), s,
+                     torch.tensor(0, dtype=torch.int64, device=device))
+
+
+def _oracle_state(state: dict, procs: Mapping, keys, device) -> None:
+    """Carry the interpreter's state across an edit: drop removed nodes,
+    start added ones at their initial state (in place)."""
+    keys = set(keys)
+    for k in [k for k in state if k not in keys]:
+        del state[k]
+    for k in keys:
+        if k not in state:
+            state[k] = tree_map(lambda t: t.to(device), procs[k].init_state())
+
+
+def _close(cx, proc, n_in: int) -> None:
+    """Stop the processor and finish the context's drop handshake by
+    pumping it, as a single-threaded backend does."""
+    f = FUZZ_BLOCK
+
+    def pump():
+        status = proc.process_interleaved(np.zeros(f * n_in, np.float32),
+                                          np.zeros(f * 2, np.float32), n_in, 2, f, 0.0)
+        if status != ProcessorStatus.OK:
+            proc.drop()
+
+    cx.deactivate(True, pump=pump)
+
+
+def _oracle_params(procs: Mapping, device) -> dict:
+    return params_from_jax({k: p.collect_params() for k, p in procs.items()}, device)
+
+
+def edit_fuzz(seed: int, rounds: int = 7, device: str | torch.device = DEFAULT_DEVICE,
+              oracle_device: str | torch.device = "cpu"):
+    """The live-edit fuzzer (the JAX package's ``run_edit_differential``)
+    on the port: a random graph behind a :class:`GraphContext` whose
+    processor runs on ``device``, two blocks rendered, then ``rounds``
+    rounds of random edits (add, remove, connect, disconnect, param pokes),
+    each installed by ``update`` through the state-migrating swap and
+    followed by two blocks.  The naive interpreter mirrors every edit in
+    its own records (:class:`GraphEditModel`) and carries its own state on
+    ``oracle_device``, with the processor's node processors.
+
+    Returns ``[(tag, stream f32[2·F] interleaved, oracle f32[2·F], kinds)]``
+    a block, as numpy, ``kinds`` the class names of the live nodes."""
+    f = FUZZ_BLOCK
+    oracle_device = torch.device(oracle_device)
+    rng = np.random.default_rng(seed)
+    cx = GraphContext()
+    model = GraphEditModel(cx.graph)
+    kin = node_key(cx.graph.graph_in_node())
+    for _ in range(int(rng.integers(2, 5))):
+        model.add(rng)
+    model.connect(rng)
+    model.connect(rng)
+    proc = cx.activate(FUZZ_SR, 0, 2, f, device=device)
+    res = cx.update()
+    assert res.status == UpdateStatus.ACTIVE and res.graph_error is None, res
+
+    blocks, state, sample = [], {}, 0
+    no_input = torch.zeros((0, f), device=oracle_device)
+    no_mask = torch.zeros((0,), dtype=torch.bool, device=oracle_device)
+
+    def render(tag):
+        nonlocal sample
+        out = np.zeros(f * 2, np.float32)
+        status = proc.process_interleaved(np.zeros(0, np.float32), out, 0, 2, f,
+                                          sample / FUZZ_SR)
+        assert status == ProcessorStatus.OK, (seed, tag, status)
+        procs = {node_key(nid): p for nid, p in proc._processors.items()}
+        _oracle_state(state, procs, (r["key"] for r in model.created), oracle_device)
+        rows, _, new = interpret_block(
+            model.interp_created(), model.interp_edges(), procs,
+            _oracle_params(procs, oracle_device), state, no_input, no_mask,
+            _oracle_info(sample, oracle_device), kin)
+        state.clear()
+        state.update(new)
+        ref = np.zeros(f * 2, np.float32)
+        ref[0::2], ref[1::2] = rows[0].cpu().numpy(), rows[1].cpu().numpy()
+        blocks.append((tag, out, ref, sorted({type(r["node"]).__name__
+                                              for r in model.created})))
+        sample += f
+
+    for b in range(2):
+        render(f"init blk{b}")
+    for rnd in range(rounds):
+        model.edit(rng)
+        res = cx.update()
+        assert res.status == UpdateStatus.ACTIVE and res.graph_error is None, res
+        for b in range(2):
+            render(f"round{rnd} blk{b}")
+    _close(cx, proc, 0)
+    return blocks
+
+
+def poke_fuzz_param(rng, g, created) -> None:
+    """The chunked fuzzer's poke between buffers: the first setter of a
+    random node among volume, frequency, feedback, pan, width and depth."""
+    node = g.node(created[int(rng.integers(len(created)))][1])
+    for name, lo, hi in (
+        ("set_percent_volume", 0.0, 150.0),
+        ("set_frequency", 100.0, 8000.0),
+        ("set_feedback", 0.0, 0.8),
+        ("set_pan", -1.0, 1.0),
+        ("set_width", 0.0, 2.0),
+        ("set_depth", 0.0, 1.0),
+    ):
+        setter = getattr(node, name, None)
+        if setter is not None:
+            setter(float(rng.uniform(lo, hi)))
+            return
+
+
+def chunked_fuzz(seed: int, chunk_blocks: int = 4, buffers: int = 3,
+                 device: str | torch.device = DEFAULT_DEVICE,
+                 oracle_device: str | torch.device = "cpu"):
+    """The chunked-dispatch fuzzer (the JAX package's
+    ``test_chunked_dispatch_differential``) on the port: the random graph
+    of :func:`~firewheel_tpu_torch.mixer.fuzz_graph` drawn from
+    ``default_rng(seed)`` behind a :class:`GraphContext` with
+    ``chunk_blocks`` blocks a dispatch on ``device``; ``buffers`` buffers of
+    ``chunk_blocks`` blocks each, random stream input where the graph has
+    inputs, and a random param poke between buffers.  The interpreter
+    renders each buffer's blocks first (from a param snapshot taken before
+    the processor consumes it) on ``oracle_device``.
+
+    Returns ``[(stream f32[2, frames], oracle f32[2, frames])]`` a buffer,
+    as numpy, and the graph's node kinds."""
+    f = FUZZ_BLOCK
+    oracle_device = torch.device(oracle_device)
+    rng = np.random.default_rng(seed)
+    holder = {}
+
+    def factory(n_in):
+        holder["cx"] = GraphContext(AudioGraphConfig(n_in, 2))
+        return holder["cx"].graph
+
+    g, created, edges = fuzz_graph(rng, graph_factory=factory)
+    cx = holder["cx"]
+    n_in = g.node_info(g.graph_in_node()).num_outputs
+    kin = node_key(g.graph_in_node())
+    proc = cx.activate(FUZZ_SR, n_in, 2, f, chunk_blocks=chunk_blocks, device=device)
+    res = cx.update()
+    assert res.status == UpdateStatus.ACTIVE and res.graph_error is None, res
+    proc.poll_messages()  # install the shipped schedule before reading it
+
+    procs = {node_key(nid): p for nid, p in proc._processors.items()}
+    state = {}
+    _oracle_state(state, procs, procs, oracle_device)
+    span, sample, buffers_out = chunk_blocks * f, 0, []
+    for _ in range(buffers):
+        gi = rng.standard_normal((span, n_in)).astype(np.float32) * 0.3
+        params = _oracle_params(procs, oracle_device)
+        rows = []
+        for b in range(chunk_blocks):
+            gi_b = torch.from_numpy(np.ascontiguousarray(gi[b * f:(b + 1) * f].T))
+            out, _, state = interpret_block(
+                created, edges, procs, params, state, gi_b.to(oracle_device),
+                torch.zeros((n_in,), dtype=torch.bool, device=oracle_device),
+                _oracle_info(sample + b * f, oracle_device), kin)
+            rows.append(out.cpu().numpy())
+        out = np.zeros(span * 2, np.float32)
+        status = proc.process_interleaved(gi.reshape(-1), out, n_in, 2, span,
+                                          sample / FUZZ_SR)
+        assert status == ProcessorStatus.OK, (seed, status)
+        buffers_out.append((out.reshape(span, 2).T, np.concatenate(rows, axis=1)))
+        sample += span
+        poke_fuzz_param(rng, cx.graph, created)
+    _close(cx, proc, n_in)
+    return buffers_out, sorted({type(p).__name__ for p in procs.values()})
 
 
 # ---------------------------------------------------------------------------

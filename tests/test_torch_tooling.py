@@ -169,8 +169,9 @@ def test_sink_audio_flows_through_to_device_callback():
         sink.write(interleaved, 2)
         deadline = time.time() + 3
         while time.time() < deadline:
-            got = np.concatenate([c.reshape(-1) for c in list(sink._stream.collected)])
-            if np.count_nonzero(got) >= want.shape[0]:
+            # the device thread may not have run its first callback yet
+            got = [c.reshape(-1) for c in list(sink._stream.collected)]
+            if got and np.count_nonzero(np.concatenate(got)) >= want.shape[0]:
                 break
             time.sleep(0.01)
         played = np.concatenate([c.reshape(-1) for c in sink._stream.collected])
