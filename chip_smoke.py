@@ -355,6 +355,29 @@ Run from the root of a checkout:  python3 chip_smoke.py
    2^32 bit for bit as in a small epoch, and a ``SessionServer`` of 8192
    parked one chunk before 2^32 rendering two chunks, finite and
    phase-continuous.
+19. BASELINE config 3 (``examples/voice_mixer_64.py``: 64 poolable
+   samplers looping their own clips at ±3 semitones, four group sums, a
+   mixer sum, volume → pan → clip; ``mixer.voice_mixer_64_graph``) and the
+   ported examples (``firewheel_tpu_torch/examples/``), run last.  (a) The
+   example's stream on the card (1024-frame buffers and blocks, 8 a
+   dispatch, 2 s) against the same stream on the CPU, which the second
+   worker renders after 18(a)'s oracle (1e-5, audio and state); K1-K9
+   launch no time; its realtime factor, wall a buffer (p50, p99) and
+   kernels a block.  (b) B=8192, K=32 with every instance its own rates,
+   playheads, bus volume and pan (``vary_voice_mixer_params``), three
+   chunks carrying state, eager and ``BatchRenderer(lowering="hybrid")``:
+   the 64 samplers a torch stage, the sums and the bus one K3 island; K3
+   once a chunk and nothing else; the hybrid equal to eager (outputs,
+   masks, every state leaf); rows 0, 1, 4097 and 8191 within 1e-5 of the
+   CPU's render; K3 against its plain version at the last chunk's
+   operands, timed beside its bound; the walls a chunk and peak memory.
+   (c) ``examples.game_server`` (16 instances, the per-instance control
+   plane), ``examples.input_effects`` (2 s of the two-tone through the
+   filter's scan, K7 once a block), ``examples.visual_node_graph`` against
+   the same examples on the CPU (the second worker), and
+   ``examples.interactive_graph``'s HTTP editor on an ephemeral localhost
+   port: a voice added and the EQ inserted by POST, ``/state`` showing a
+   finite meter and stats that advance, K7 launching with the EQ in.
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
@@ -363,7 +386,8 @@ K1's device time, call and plain version at the stream's 2 lanes beside
 them), in phase 10's fleets (``serve_launches``) and in 15(d)'s validator
 (``validator_launches``) and in phase 16 (``mesh_launches``), in 18(a)'s
 fuzz graphs by lowering (``fuzz_launches``, on K2, K3, K5, K6 and K7's
-rows), K2 and K3 once
+rows), K7's biquad in 19(c)'s examples (``example_launches``), K3 on
+config 3's island in 19(b), K2 and K3 once
 more for the spatial scene of phase 11 (and K2 with the arena spilled at
 256 frames), K3 for the mastering bus of 12(c), K4-K6 (launches in 10(f)'s
 fleet and 12(b)'s batched bus, times from 3(b)) and K7's two kernels, the
@@ -6636,14 +6660,21 @@ def fuzz_oracle(seed) -> dict:
 
 
 def _cpu_fuzz_worker(conn) -> None:
-    """18(a)'s CPU oracle in a worker process, on one thread: sends ``("ok",
-    "fuzz", {graph: fuzz_oracle(graph)})`` or ``("error", traceback)``."""
+    """18(a)'s CPU oracle and then 19(a)'s and 19(c)'s CPU references in a
+    worker process, on one thread: sends ``("ok", "fuzz", {graph:
+    fuzz_oracle(graph)})``, ``("ok", "vm64", vm64_stream("cpu"))`` and
+    ``("ok", "examples", example_results("cpu", ...))``, or ``("error",
+    traceback)``."""
+    import tempfile
     import traceback
 
     try:
         torch.set_num_threads(1)
         os.nice(19)  # the host-bound phases it runs beside come first
         conn.send(("ok", "fuzz", {seed: fuzz_oracle(seed) for seed in fuzz_graphs()}))
+        conn.send(("ok", "vm64", vm64_stream("cpu")))
+        conn.send(("ok", "examples",
+                   example_results("cpu", tempfile.mkdtemp(prefix="fw_examples_"))))
     except Exception:  # the worker's boundary: the parent raises it
         conn.send(("error", traceback.format_exc()))
     finally:
@@ -6988,6 +7019,418 @@ def check_fuzz(ft, em, eh, counts, oracle, card: str, phase) -> dict:
     return res
 
 
+# phase 19: BASELINE config 3 (examples/voice_mixer_64.py) and the examples
+VM64_SECS = 2.0              # 19(a): the example's stream
+VM64_BUFFER = 1024           # its buffers and blocks, 8 a dispatch
+VM64_PROFILED = 1            # 19(a): buffers profiled after the timed stream
+VM64_BATCH = (8192, 32)      # 19(b): B, K
+VM64_CHUNKS = 3              # 19(b): chunks carrying state, a lowering
+VM64_ROWS = (0, 1, 4097, 8191)  # 19(b): rows held against the CPU's render
+VM64_SEED = 21               # 19(b): vary_voice_mixer_params
+EDITOR_WAIT = 90.0           # 19(c): seconds the editor may take to show an edit
+
+
+def vm64_stream(device: str, profile: bool = False) -> dict:
+    """BASELINE config 3 streamed offline through ``FirewheelCtx`` on
+    ``device`` as ``examples/voice_mixer_64.py`` streams it: the port's
+    example's graph and stream (``examples.voice_mixer_64.stream_config``:
+    1024-frame buffers and blocks, 8 a dispatch), VM64_SECS of buffers into
+    an ``ArraySink``.  With ``profile``, ``torch.profiler`` traces
+    VM64_PROFILED more buffers after the timed ones (not in the audio).
+    Returns the audio, the final state, the walls a dispatch, the stream's
+    stats and, profiled, the kernels a block."""
+    ft = _port()
+    from firewheel_tpu_torch.convert import state_to_numpy
+    from firewheel_tpu_torch.examples import voice_mixer_64 as vm
+    from firewheel_tpu_torch.mixer import add_voice_mixer_64
+
+    cx = ft.FirewheelCtx(device=device)
+    add_voice_mixer_64(cx.graph_mut(), vm.NUM_VOICES)
+    sink = ft.ArraySink()
+    cfg = vm.stream_config()
+    cx.activate(cfg, sink=sink)
+    stream = cx.stream
+    buffers = -(-int(VM64_SECS * 48000) // VM64_BUFFER)
+    out = {"walls": [], "sizes": []}
+    t_start = time.perf_counter()
+    done = 0
+    while done < buffers:
+        n = min(cfg.chunk_buffers, buffers - done)
+        PumpTrace.pump(cx, n, out["walls"])
+        out["sizes"].append(n)
+        done += n
+    stream.flush()
+    if device != "cpu":
+        torch.cuda.synchronize()
+    out["wall"] = time.perf_counter() - t_start
+    out["stats"] = stream.stats()
+    out["state"] = state_to_numpy(stream._processor.state_dict())
+    out["audio"] = sink.audio(2)
+    out["buffers"] = buffers
+    if profile:
+        trace = PumpTrace()
+        trace.start()
+        trace.pump(cx, VM64_PROFILED, [])
+        prof, _ = trace.stop(stream)
+        out["profile"] = profile_busy(prof, VM64_PROFILED)
+    cx.deactivate()
+    if out["audio"].shape[1] < buffers * VM64_BUFFER:
+        raise AssertionError(f"the config-3 stream rendered {out['audio'].shape}, "
+                             f"expected {buffers * VM64_BUFFER} frames")
+    out["audio"] = out["audio"][:, :buffers * VM64_BUFFER]
+    return out
+
+
+def example_results(device: str, root: str) -> dict:
+    """The port's examples that 19(c) holds the card to, run on ``device``
+    with their files under ``root``: ``game_server`` (its finish events and
+    RMS), ``input_effects`` (the audio of its 2 s two-tone) and
+    ``visual_node_graph`` (the DOT, the schedule's table and the audio)."""
+    import contextlib
+    import io
+
+    _port()
+    from firewheel_tpu_torch.core.formats import load_audio
+    from firewheel_tpu_torch.examples import game_server, input_effects, visual_node_graph
+
+    printed = io.StringIO()
+    out = {}
+    with contextlib.redirect_stdout(printed):
+        out["game_server"] = game_server.main(device=device)
+        wav = input_effects.main(os.path.join(root, f"input_effects_{device}.wav"),
+                                 device=device)
+        out["input_effects"] = load_audio(wav, device=False)[0].host_data
+        vis = visual_node_graph.main(os.path.join(root, f"visual_{device}.html"),
+                                     device=device)
+        out["visual_node_graph"] = vis
+    out["printed"] = printed.getvalue()
+    return out
+
+
+def vm64_stream_check(ft, counts, cpu: dict, card: str) -> float:
+    """19(a): config 3 streamed on the card against the CPU's stream (the
+    second worker): audio and state within 1e-5; no kernel of the port's
+    launched; the realtime factor, wall a buffer (p50, p99) and kernels a
+    block."""
+    from firewheel_tpu_torch.convert import tree_map
+
+    base = counts()
+    run = vm64_stream("cuda", profile=True)
+    launched = {k: v for k, v in _delta(counts(), base).items() if v}
+    err = float(np.abs(run["audio"] - cpu["audio"]).max())
+    state_err = tree_err(*(tree_map(torch.from_numpy, r["state"]) for r in (run, cpu)))
+    if not max(err, state_err) <= STREAM_TOL or not np.isfinite(run["audio"]).all():
+        raise AssertionError(f"19(a): the config-3 stream vs the CPU's: audio {err}, "
+                             f"state {state_err}")
+    if launched:
+        raise AssertionError(f"19(a): the config-3 stream launched {launched}")
+    peak = float(np.abs(run["audio"]).max())
+    if not 0.01 < peak <= 1.0:
+        raise AssertionError(f"19(a): the config-3 stream peaks at {peak}")
+    secs = run["audio"].shape[1] / 48000
+    walls = np.asarray([w / n for w, n in zip(run["walls"], run["sizes"])]) * 1e3
+    stats = run["stats"]
+    kernels, calls, busy = run["profile"]
+    log(f"19(a), BASELINE config 3 (64 voices) streamed on {card} as the example "
+        f"streams it ({run['buffers']} buffers of {VM64_BUFFER} frames, 8 a dispatch, "
+        f"{secs:.3f} s): card vs CPU audio max_abs_err={err:.3e}, state "
+        f"{state_err:.3e}; peak {peak:.4f}; K1-K9 launches 0 (asserted)")
+    log(f"19(a): realtime factor card {secs / run['wall']:.3f} ({run['wall']:.3f} s), "
+        f"CPU {secs / cpu['wall']:.3f} (the worker process); wall a buffer (a "
+        f"dispatch / its buffers) p50 {np.percentile(walls, 50):.3f} ms, p99 "
+        f"{np.percentile(walls, 99):.3f} ms (budget 21.333 ms); the stream's own "
+        f"render/buffer p50 {stats['render_ms_p50']:.3f} ms, p99 "
+        f"{stats['render_ms_p99']:.3f} ms; torch.profiler, {VM64_PROFILED} buffer: "
+        f"{kernels:.1f} kernels a block on the device, {calls:.1f} launch calls, "
+        f"{busy:.1f} us busy (0 when the profile saw no device activity)")
+    return err
+
+
+def config3_batched(ft, em, eh, counts, card: str):
+    """19(b): config 3 at B x K, VM64_CHUNKS chunks carrying state, every
+    instance its own rates, playheads, bus volume and pan, through eager and
+    the hybrid (the 64 pooled samplers a torch stage, the sums and the bus
+    one K3 island): K3 once a chunk, 0.0 from eager on outputs, masks and
+    state; rows VM64_ROWS within 1e-5 of the CPU's render; K3 timed against
+    its plain version at the last chunk's operands.  Returns ``(launches,
+    max_abs_err, ms, call_ms, plain_ms, work)`` for the kernels line."""
+    from firewheel_tpu_torch.convert import tree_map
+    from firewheel_tpu_torch.mixer import vary_voice_mixer_params, voice_mixer_64_graph
+
+    b, k = VM64_BATCH
+    tag = f"19(b), config 3 B={b} K={k}"
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks
+    prog = voice_mixer_64_graph(device="cuda")
+    eager = ft.BatchRenderer(prog, b, device="cuda")
+    hybrid = ft.BatchRenderer(prog, b, device="cuda", lowering="hybrid")
+    params = vary_voice_mixer_params(prog, eager.stack_params(), VM64_SEED)
+    state0 = eager.init_state()
+    starts = [c * k * prog.max_block_frames for c in range(VM64_CHUNKS)]
+    rows = list(VM64_ROWS)
+    cpu_params = tree_map(lambda t: t[rows].cpu(), params)
+    cpu_state0 = tree_map(lambda t: t[rows].cpu(), state0)
+    torch.cuda.synchronize()
+    log(f"{tag}: params {sum(t.nbytes for t in _leaves(params)) / 1e9:.3f} GB on the "
+        f"card (each voice's clip f32[{b}, 1, 12000])")
+
+    def run(renderer, before_last=lambda: None):
+        outs, walls, st = [], [], state0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for start in starts:
+            if start == starts[-1]:
+                before_last()
+            t0 = time.perf_counter()
+            o, m, st = renderer.render_chunk(params, st, start_sample=start, num_blocks=k)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            outs.append((o, m, st))
+        return outs, walls, torch.cuda.max_memory_allocated() / 1e9
+
+    e_runs, e_walls, e_peak = run(eager)
+    log(f"{tag}: eager wall a chunk {[round(w * 1e3, 3) for w in e_walls]} ms, peak "
+        f"{e_peak:.3f} GB")
+    torch.cuda.empty_cache()
+    hy_seen = {}
+    # the hybrid renderer is built at its first chunk; record the island's
+    # operands at the last chunk's launch (its live-ins, 17.2 GB, are kept
+    # for timing K3 afterwards)
+    from firewheel_tpu_torch.executor_hybrid import HybridMegaRenderer
+
+    launch = HybridMegaRenderer._launch
+
+    def recording(self, i, p, s, env, env_flags):
+        if hy_seen.get("last"):
+            hy_seen.update(i=i, p=p, s=s, env=env, env_flags=env_flags)
+        return launch(self, i, p, s, env, env_flags)
+
+    base = counts()
+    HybridMegaRenderer._launch = recording
+    try:
+        h_runs, h_walls, h_peak = run(hybrid, lambda: hy_seen.update(last=True))
+    finally:
+        HybridMegaRenderer._launch = launch
+    launched = _delta(counts(), base)
+    hy = hybrid._chunk_cache[("hybrid", k)]
+    segs = [(kind, len(nodes)) for kind, nodes in hy.segments]
+    if segs != [("xla", 64), ("mega", 8)]:
+        raise AssertionError(f"{tag}: partition {segs}")
+    if launched["K3"] != VM64_CHUNKS or any(v for n, v in launched.items() if n != "K3"):
+        raise AssertionError(f"{tag}: launches {launched} in {VM64_CHUNKS} hybrid chunks "
+                             f"(K3 once a chunk, nothing else)")
+    worst = 0.0
+    for c, ((ho, hm, hs), (eo, emk, es)) in enumerate(zip(h_runs, e_runs)):
+        e = max(float((ho - eo).abs().max()), device_tree_err(hs, es))
+        if not torch.equal(hm, emk) or e != 0.0:
+            raise AssertionError(f"{tag}, chunk {c}: hybrid vs eager {e}, masks equal "
+                                 f"{torch.equal(hm, emk)}")
+        if not bool(torch.isfinite(ho).all()):
+            raise AssertionError(f"{tag}, chunk {c}: non-finite output")
+        worst = max(worst, e)
+    peak = float(h_runs[-1][0].abs().max())
+    if not 0.01 < peak <= 1.0:
+        raise AssertionError(f"{tag}: output peak {peak}")
+    # the rows on the CPU by the eager path, from the same params and state
+    cpu = ft.BatchRenderer(voice_mixer_64_graph(device="cpu"), len(rows), device="cpu")
+    cpu_err, cpu_state = 0.0, cpu_state0
+    for start, (o, m, _) in zip(starts, h_runs):
+        c_out, c_mask, cpu_state = cpu.render_chunk(cpu_params, cpu_state,
+                                                    start_sample=start, num_blocks=k)
+        if not torch.equal(m[rows].cpu(), c_mask):
+            raise AssertionError(f"{tag}: masks differ from the CPU's at {start}")
+        cpu_err = max(cpu_err, float((o[rows].cpu() - c_out).abs().max()))
+    cpu_err = max(cpu_err, tree_err(tree_map(lambda t: t[rows], h_runs[-1][2]), cpu_state))
+    if not cpu_err <= SLICE_TOL:
+        raise AssertionError(f"{tag}: rows {rows} vs the CPU's render {cpu_err}")
+    del e_runs, h_runs
+
+    # K3 at the last chunk's operands: against its plain version, timed
+    i, lw = hy_seen["i"], hy.islands[hy_seen["i"]]
+    pseg, sseg, env, env_flags = (hy_seen[n] for n in ("p", "s", "env", "env_flags"))
+    ko, kf, ks = hy._launch(i, pseg, sseg, env, env_flags)
+    ro, rf, rs = em.island_chunk_reference(prog, lw, pseg, sseg, env, env_flags,
+                                           starts[-1], k, b)
+    torch.cuda.synchronize()
+    k3_err = max(float((ko - ro).abs().max()), device_tree_err(ks, rs))
+    if not torch.equal(kf, rf) or not k3_err <= HYBRID_TOL:
+        raise AssertionError(f"{tag}: K3 vs its plain version {k3_err}, flags equal "
+                             f"{torch.equal(kf, rf)}")
+    ko_tile = hy.tile  # the tile KernelOperands takes: the renderer's
+
+    def launch_k3():
+        return hy._launch(i, pseg, sseg, env, env_flags)
+
+    k3_ms = device_ms(launch_k3, "island_kernel", KERNEL_REPS)
+    k3_call_ms = cuda_ms(launch_k3, KERNEL_REPS)
+    plain_ms = cuda_ms(lambda: em.island_chunk_reference(
+        prog, lw, pseg, sseg, env, env_flags, starts[-1], k, b), 1)
+    work = kernel_work(em, prog, lw, pseg, sseg, b, k, env.nbytes + env_flags.nbytes
+                       + ko.nbytes + kf.nbytes)
+    bound_ms, bound_by = bound(*work)
+    audio_secs = b * k * prog.max_block_frames / prog.sample_rate
+    log(f"{tag}: segments {segs}; island {len(lw.keys)} rows, {lw.in_bufs.size} "
+        f"live-ins, {lw.num_buffers} arena buffers ({lw.num_buffers * 4 * lw.frames} B "
+        f"an instance), {em.shared_bytes(lw, ko_tile)} B "
+        f"shared memory a CTA at tile {ko_tile} (arena spilled: {em.spills(lw)}), "
+        f"live-ins {env_flags.float().mean():.3f} silent")
+    log(f"{tag}: hybrid vs eager on the card ({VM64_CHUNKS} chunks, outputs, masks, "
+        f"every state leaf): max_abs_err={worst:.3e}; rows {rows} vs the CPU "
+        f"({VM64_CHUNKS} chunks and final state) {cpu_err:.3e}; launches {launched}")
+    log(f"{tag} on {card}: eager wall a chunk {[round(w * 1e3, 3) for w in e_walls]} ms "
+        f"(realtime factor {audio_secs / np.mean(e_walls[1:]):.1f} after the first), "
+        f"peak {e_peak:.3f} GB; hybrid {[round(w * 1e3, 3) for w in h_walls]} ms "
+        f"(realtime factor {audio_secs / np.mean(h_walls[1:]):.1f}), peak {h_peak:.3f} GB")
+    log(f"{tag}: K3 vs its plain version at the last chunk's operands "
+        f"max_abs_err={k3_err:.3e}; K3 {k3_ms:.4f} ms on the device ({k3_ms.how}), "
+        f"{k3_call_ms:.4f} ms a call (CUDA events), plain {plain_ms:.4f} ms; bound "
+        f"{bound_ms:.4f} ms by {bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G "
+        f"f32 operations), {100 * bound_ms / k3_ms:.1f}% of the bound")
+    return launched["K3"], max(worst, k3_err), k3_ms, k3_call_ms, plain_ms, work
+
+
+def editor_session(ft, iir, card: str) -> dict:
+    """19(c): ``examples/interactive_graph.py``'s editor on the card: the
+    example's HTTP server on an ephemeral localhost port, its engine thread
+    streaming in realtime; an added voice (POST) grows the live graph by
+    three nodes, an EQ insert (POST) lands; ``GET /state`` shows a finite
+    meter in dB and stream stats that advance.  K7 launches while the EQ is
+    in.  The app and the server stop before it returns."""
+    import threading
+    import urllib.request
+
+    from firewheel_tpu_torch.examples import interactive_graph as ig
+
+    app = ig.EngineApp(device="cuda")
+    server = ig.ThreadingHTTPServer(("127.0.0.1", 0), ig.make_handler(app))
+    port = server.server_address[1]
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    engine_error = []
+
+    def engine():
+        try:
+            app.run(duration_secs=EDITOR_WAIT * 3)
+        except BaseException as e:  # the engine thread's boundary: raised below
+            engine_error.append(e)
+
+    et = threading.Thread(target=engine)
+    et.start()
+
+    def state():
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}/state", timeout=5.0) as r:
+            return json.loads(r.read().decode())
+
+    def post(path):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}{path}", method="POST",
+                                     data=b"")
+        with urllib.request.urlopen(req, timeout=5.0) as r:
+            return r.read()
+
+    def wait_for(pred, what):
+        deadline = time.monotonic() + EDITOR_WAIT
+        while time.monotonic() < deadline:
+            if engine_error:
+                raise engine_error[0]
+            s = state()
+            if pred(s):
+                return s
+            time.sleep(0.1)
+        raise AssertionError(f"19(c), the editor: {what} not seen in {EDITOR_WAIT} s; "
+                             f"log {s.get('log')}")
+
+    def live(s):
+        md = s.get("meter_db")
+        return md is not None and all(-100.0 <= float(v) <= 0.0 for v in md)
+
+    t0 = time.perf_counter()
+    try:
+        s1 = wait_for(lambda s: live(s) and s.get("stream", {}).get(
+            "frames_rendered", 0) > 4096, "a finite meter after 4096 frames")
+        n0 = len(s1["nodes"])
+        post("/cmd?op=add_voice&freq=880")
+        wait_for(lambda s: len(s.get("nodes", [])) == n0 + 3, "the added voice")
+        k7 = iir.biquad_cascade.launches
+        post("/cmd?op=set_fx&v=eq")
+        s2 = wait_for(lambda s: s.get("fx") == "eq" and any(
+            n["name"] == "parametric_eq" for n in s["nodes"]), "the EQ insert")
+        f2 = s2["stream"]["frames_rendered"]
+        s3 = wait_for(lambda s: live(s) and s["stream"]["frames_rendered"] > f2 + 4096,
+                      "stats advancing with the EQ in")
+        k7 = iir.biquad_cascade.launches - k7
+        if k7 <= 0:
+            raise AssertionError(f"19(c), the editor: K7 launched {k7} times with the "
+                                 f"EQ in")
+    finally:
+        app.stop()
+        et.join(timeout=60.0)
+        server.shutdown()
+    if et.is_alive():
+        raise AssertionError("19(c), the editor's engine thread did not stop")
+    if engine_error:
+        raise engine_error[0]
+    log(f"19(c), the interactive editor on {card} over HTTP (127.0.0.1:{port}): "
+        f"{n0} → {len(s3['nodes'])} nodes (a voice added, the EQ inserted), meter "
+        f"{s3['meter_db']} dB, {s3['stream']['frames_rendered']} frames rendered, "
+        f"K7 {k7} launches with the EQ in; {time.perf_counter() - t0:.1f} s")
+    return {"k7": k7}
+
+
+def examples_check(ft, iir, counts, cpu: dict, card: str) -> dict:
+    """19(c): the game server, the live-input chain and the visual node graph
+    on the card against the same examples on the CPU (the second worker),
+    then the interactive editor."""
+    base, k7 = counts(), iir.biquad_cascade.launches
+    got = example_results("cuda", scratch_dir("fw_examples_"))
+    launched = _delta(counts(), base)
+    k7 = iir.biquad_cascade.launches - k7
+    gs, gs_cpu = got["game_server"], cpu["game_server"]
+    rms_err = float(np.abs(gs["rms"] - gs_cpu["rms"]).max())
+    if gs["finished"] != gs_cpu["finished"] or not rms_err <= SLICE_TOL:
+        raise AssertionError(f"19(c), game_server: finished {gs['finished']} vs the "
+                             f"CPU's {gs_cpu['finished']}, rms {rms_err}")
+    fx, fx_cpu = got["input_effects"], cpu["input_effects"]
+    fx_err = float(np.abs(fx - fx_cpu).max()) if fx.shape == fx_cpu.shape else float("inf")
+    # one 1024-frame block a buffer, and the activation's throwaway render of
+    # one block (``GraphProcessor.warmup``)
+    blocks = fx.shape[1] // 1024 + 1
+    spec = np.abs(np.fft.rfft(fx[0, -48000:]))
+    if not fx_err <= STREAM_TOL or not spec[500] > 30 * spec[9000] or k7 != blocks:
+        raise AssertionError(f"19(c), input_effects: vs the CPU {fx_err}, 500 Hz / "
+                             f"9 kHz {spec[500] / spec[9000]:.1f}, K7 {k7} launches for "
+                             f"{blocks} blocks (the warm-up's included)")
+    vis, vis_cpu = got["visual_node_graph"], cpu["visual_node_graph"]
+    vis_err = float(np.abs(vis["audio"] - vis_cpu["audio"]).max())
+    if (not vis["cycle_rejected"] or vis["dot"] != vis_cpu["dot"]
+            or vis["schedule"] != vis_cpu["schedule"] or not vis_err <= STREAM_TOL):
+        raise AssertionError(f"19(c), visual_node_graph: cycle rejected "
+                             f"{vis['cycle_rejected']}, DOT equal "
+                             f"{vis['dot'] == vis_cpu['dot']}, schedule equal "
+                             f"{vis['schedule'] == vis_cpu['schedule']}, audio {vis_err}")
+    others = {n: v for n, v in launched.items() if v and n != "K7"}
+    if others:
+        raise AssertionError(f"19(c): the examples launched {others}")
+    log(f"19(c), game_server on {card}: SFX finished in {gs['finished']}, each "
+        f"instance's RMS vs the CPU's max_abs_err={rms_err:.3e}, instance 7 muted "
+        f"({gs['rms'][7]:.2e}); input_effects: {fx.shape[1]} frames vs the CPU "
+        f"{fx_err:.3e}, 500 Hz {20 * np.log10(spec[500] / spec[9000]):.1f} dB over "
+        f"9 kHz, K7 {k7} launches for {blocks} blocks (the warm-up's included); "
+        f"visual_node_graph: the cycle rejected, DOT and schedule equal to the "
+        f"CPU's, audio {vis_err:.3e}")
+    editor = editor_session(ft, iir, card)
+    return {"input_effects_k7": k7, "editor_k7": editor["k7"]}
+
+
+def check_config3(ft, em, eh, iir, counts, cpu, card: str, phase) -> tuple:
+    """Phase 19: BASELINE config 3 and the ported examples on the card."""
+    ref = cpu.get()
+    vm64_stream_check(ft, counts, ref["vm64"], card)
+    phase("19(a), config 3 streamed")
+    k3 = config3_batched(ft, em, eh, counts, card)
+    phase("19(b), config 3 batched through eager and the hybrid")
+    ex = examples_check(ft, iir, counts, ref["examples"], card)
+    phase("19(c), the game server, live input, visual graph and HTTP editor")
+    return k3, ex
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7020,7 +7463,7 @@ def main() -> int:
 
 def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
                cpu_stream, fuzz_oracle) -> int:
-    """Phases 1..18 and the result lines."""
+    """Phases 1..19 and the result lines."""
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -7119,11 +7562,15 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     phase("16(b) and (c) at vp=2, two ranks on the card")
     grads = check_gradients(ft, seq_iir, em, eh, adpcm_device, dynamics, iir, noise, card,
                             phase, bwd)
-    # last, so that phases 1-17 run as they did before it (PERF.md §6)
+    # after phase 17, so that phases 1-17 run as they did before it (PERF.md §6)
     fuzz = check_fuzz(ft, em, eh, lambda: {
         **kernel_counts(seq_iir, em, eh, adpcm_device, dynamics, iir, noise),
         "K7_biquad": iir.biquad_cascade.launches, "K7_one_pole": iir.one_pole_scan.launches,
     }, fuzz_oracle, card, phase)
+    vm64_k3, examples = check_config3(
+        ft, em, eh, iir,
+        lambda: kernel_counts(seq_iir, em, eh, adpcm_device, dynamics, iir, noise),
+        fuzz_oracle, card, phase)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -7163,6 +7610,10 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
          "firewheel_tpu/executor_pallas.py:218", *fx_k2),
         ("hybrid_island_fx_palette", "firewheel_tpu_torch/csrc/megakernel.cu",
          "firewheel_tpu/executor_pallas.py:617", *fx_k3),
+        # phase 19(b): K3 on BASELINE config 3's island (the sums and the
+        # bus after the 64 samplers' torch stage), B=8192, K=32
+        ("hybrid_island_voice_mixer_64", "firewheel_tpu_torch/csrc/megakernel.cu",
+         "firewheel_tpu/executor_pallas.py:617", *vm64_k3),
         # phase 3(b)'s checks and times at the main paths' shapes; launches
         # in 10(f)'s adpcm4 fleet (K4) and 12(b)'s batched bus (K5, K6)
         ("adpcm_encode", "firewheel_tpu_torch/csrc/adpcm.cu",
@@ -7208,6 +7659,11 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                 "one_pole_scan": {"stream_fx": fx_stream_k7[1],
                                   "stream_mastering": 0},
             }.get(name, 0),
+            # 19(c): the live-input example's filter and the editor's EQ
+            "example_launches": {
+                "input_effects": examples["input_effects_k7"],
+                "interactive_graph": examples["editor_k7"],
+            } if name == "biquad_scan" else {},
             "serve_launches": {"biquad_seq": serve_k1, "hybrid_island": serve_k3,
                                "adpcm_encode": serve_k4}.get(name, 0),
             # 15(d): validate_node on the card (the EQ's cascade is K7's biquad)
@@ -7263,6 +7719,7 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "
             f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G "
             f"operations at the f32 rate{f64}), {100 * bound_ms / t:.1f}% of the bound")
+    log(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -111,6 +111,23 @@ def _live_sets(program: ScheduleProgram, segs):
     )
 
 
+def _packed(views):
+    """The contiguous tensor ``[B, K, n, ...]`` whose channels ``0..n-1``
+    along dim 2 are exactly ``views`` in order (a torch stage's live-outs,
+    :meth:`HybridMegaRenderer._torch_stage`), or None: then the island
+    stacks its live-ins."""
+    base = views[0]._base
+    if base is None or not base.is_contiguous() or base.dim() != views[0].dim() + 1 \
+            or base.shape[2] != len(views):
+        return None
+    for j, v in enumerate(views):
+        c = base.select(2, j)
+        if (v._base is not base or v.data_ptr() != c.data_ptr()
+                or v.shape != c.shape or v.stride() != c.stride()):
+            return None
+    return base
+
+
 class HybridMegaRenderer:
     """Batched K-block renderer that chains megakernel islands and torch
     stages over one compiled schedule.
@@ -169,8 +186,14 @@ class HybridMegaRenderer:
         zeros_row = torch.zeros((self.batch, f), dtype=torch.float32,
                                 device=self.device)
         silent = torch.ones((self.batch,), dtype=torch.bool, device=self.device)
-        outs: dict[int, list] = {b: [] for b in out_bufs}
-        oflags: dict[int, list] = {b: [] for b in out_bufs}
+        # the live-outs go straight into one f32[B, K, n_out, F] (and its
+        # flags), block by block: an island that reads them all takes it as
+        # its live-in operand without another copy (:func:`_packed`)
+        n = len(out_bufs)
+        outs = torch.empty((self.batch, len(infos), n, f), dtype=torch.float32,
+                           device=self.device)
+        oflags = torch.empty((self.batch, len(infos), n), dtype=torch.bool,
+                             device=self.device)
         for k, info in enumerate(infos):
             bufs = {b: rows[b][:, k] for b in in_bufs}
             fl = {b: flags[b][:, k] for b in in_bufs}
@@ -178,11 +201,11 @@ class HybridMegaRenderer:
             prog._walk_segment(params, state, bufs, fl, info, plan, new_state,
                                zeros_row, silent)
             state = new_state
-            for b in out_bufs:
-                outs[b].append(bufs[b])
-                oflags[b].append(fl[b])
-        return ({b: torch.stack(v, 1) for b, v in outs.items()},
-                {b: torch.stack(v, 1) for b, v in oflags.items()}, state)
+            if n:
+                outs[:, k] = torch.stack([bufs[b] for b in out_bufs], 1)
+                oflags[:, k] = torch.stack([fl[b] for b in out_bufs], 1)
+        return ({b: outs[:, :, j] for j, b in enumerate(out_bufs)},
+                {b: oflags[:, :, j] for j, b in enumerate(out_bufs)}, state)
 
     def _island(self, i, params, state, rows, flags, start_sample):
         """Island ``i`` over the batch, all K blocks: the kernel on a CUDA
@@ -191,8 +214,11 @@ class HybridMegaRenderer:
         in_bufs = self._live_in[i]
         b, k, f = self.batch, self.num_blocks, lw.frames
         if in_bufs:
-            env = torch.stack([rows[j] for j in in_bufs], 2)
-            env_flags = torch.stack([flags[j] for j in in_bufs], 2)
+            env = _packed([rows[j] for j in in_bufs])
+            env_flags = _packed([flags[j] for j in in_bufs])
+            if env is None or env_flags is None:
+                env = torch.stack([rows[j] for j in in_bufs], 2)
+                env_flags = torch.stack([flags[j] for j in in_bufs], 2)
         else:
             env = torch.zeros((b, k, 0, f), dtype=torch.float32, device=self.device)
             env_flags = torch.zeros((b, k, 0), dtype=torch.bool, device=self.device)

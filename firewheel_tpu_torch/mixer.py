@@ -18,7 +18,11 @@ differential fuzzer's DAGs over its whole palette (:data:`FUZZ_PALETTE`).
 :func:`vary_params` and
 :func:`vary_effects_params` give every instance of a batch its own params,
 for holding two lowerings against each other; :func:`vary_spatial_params`
-does so for the spatial scene.  :func:`mastering_bus_graph` builds the
+does so for the spatial scene.  :func:`voice_mixer_64_graph` builds
+BASELINE config 3, the 64-voice resampling mixer of
+``examples/voice_mixer_64.py`` (:func:`add_voice_mixer_64`), and
+:func:`vary_voice_mixer_params` varies it per instance.
+:func:`mastering_bus_graph` builds the
 game-audio master chain of ``examples/mastering_bus.py`` (pink-noise music
 ducked under a beep dialogue, compressor, 255-tap linear-phase FIR shelf,
 lookahead limiter, loudness meter), and :func:`vary_mastering_params`
@@ -35,6 +39,7 @@ voice its own frequency, volume and pan.
 from __future__ import annotations
 
 import math
+import sys
 
 import numpy as np
 import torch
@@ -45,16 +50,19 @@ from .device import DEFAULT_DEVICE
 from .executor import ScheduleProgram, node_key
 from .graph import AudioGraph, AudioGraphConfig
 from . import nodes as _NODES
-from .core.units import db_to_gain
+from .core.units import db_to_gain, percent_volume_to_raw_gain
 from .nodes.dynamics import CompressorProcessor, DuckerProcessor
 from .nodes.eq import ParametricEQProcessor
 from .nodes.filter import _DESIGNS
 from .nodes.generators import NoiseProcessor
 from .nodes.beep_test import BeepTestProcessor, phase_inc_fixed
 from .nodes.mod_effects import ModDelayProcessor
+from .nodes.pan import StereoPanProcessor
 from .nodes.pitch_shift import PitchShiftProcessor
+from .nodes.sampler import SamplerProcessor
 from .nodes.spatial import Spatializer3DProcessor
 from .nodes.stereo_width import StereoWidthProcessor
+from .nodes.volume import VolumeProcessor
 from .nodes.waveshaper import WaveshaperProcessor
 from .nodes import (
     BeepTestNode,
@@ -82,8 +90,9 @@ __all__ = [
     "fx_palette_graph", "mastering_bus_graph", "mixer_graph", "orbit_scene",
     "random_graph", "set_fx", "spatial_scene_graph", "vary_effects_params",
     "vary_fx_params",
-    "vary_mastering_params", "vary_params", "vary_spatial_params", "voice_mix_programs",
-    "voice_snapshots",
+    "vary_mastering_params", "vary_params", "vary_spatial_params",
+    "vary_voice_mixer_params", "voice_mix_programs", "voice_mixer_64_graph",
+    "voice_mixer_clip", "voice_snapshots", "add_voice_mixer_64",
 ]
 
 SR = 48000
@@ -766,6 +775,113 @@ def vary_mastering_params(program: ScheduleProgram, params: dict, seed: int) -> 
             b = p["threshold_db"].shape[0]
             put(p["threshold_db"], rng.uniform(-24.0, -12.0, b).astype(np.float32))
             put(p["makeup"], db_to_gain(rng.uniform(0.0, 6.0, b).astype(np.float32)))
+    return params
+
+
+def voice_mixer_clip(seed: int) -> np.ndarray:
+    """The clip of voice ``seed`` in ``examples/voice_mixer_64.py``
+    (``make_clip``): a quarter-second mono pluck, ``f32[1, 12000]``, its
+    pitch 55·2^(k/12) Hz with k drawn from ``rng(seed)`` in [0, 25), a
+    second harmonic at 0.3, an 80 ms exponential decay, ×0.15."""
+    rng = np.random.default_rng(seed)
+    n = SR // 4
+    t = np.arange(n, dtype=np.float32)
+    freq = 55.0 * 2 ** (rng.integers(0, 25) / 12.0)
+    tone = np.sin(2 * np.pi * freq / SR * t) + 0.3 * np.sin(
+        2 * np.pi * 2 * freq / SR * t
+    )
+    env = np.exp(-t / (SR * 0.08)).astype(np.float32)
+    return (tone * env * 0.15)[None, :].astype(np.float32)
+
+
+def add_voice_mixer_64(g: AudioGraph, num_voices: int = 64, groups: int = 4,
+                       nodes=None) -> dict:
+    """Add BASELINE config 3, the graph of ``examples/voice_mixer_64.py``,
+    to ``g`` (stereo graph output), node for node in the example's order:
+    ``groups`` group sums of ``num_voices // groups`` stereo voices and a
+    mixer sum over them (nodes take at most 64 ports); ``num_voices``
+    poolable ``SamplerNode(80)`` voices, each looping its own clip
+    (:func:`voice_mixer_clip`) at rate 2^((i mod 7 − 3)/12) (±3 semitones)
+    from playhead (i mod 16)/64 s, with a 4 ms envelope, playing; the bus
+    Volume 70% → StereoPan centre → HardClip 0 dB → out.  ``nodes`` is the
+    node module (the port's by default; the JAX package's builds the same
+    graph in JAX).  Returns the node ids: ``groups`` (the group sums),
+    ``mixer``, ``voices``, ``volume``, ``pan``, ``clip``."""
+    n = nodes or _NODES
+    if num_voices % groups:
+        raise ValueError(f"{num_voices} voices do not split into {groups} groups")
+    # the node module's own clip class (the JAX package's holds jax arrays)
+    resource = sys.modules[n.SamplerNode.__module__].SampleResource
+    per_group = num_voices // groups
+    group_sums = [g.add_node(2 * per_group, 2, n.SumNode()) for _ in range(groups)]
+    mix = g.add_node(2 * groups, 2, n.SumNode())
+    for gi, grp in enumerate(group_sums):
+        g.connect(grp, 0, mix, 2 * gi)
+        g.connect(grp, 1, mix, 2 * gi + 1)
+    voices = []
+    for i in range(num_voices):
+        smp = g.add_node(0, 2, n.SamplerNode(80.0, poolable=True))
+        grp = group_sums[i // per_group]
+        slot = i % per_group
+        g.connect(smp, 0, grp, 2 * slot)
+        g.connect(smp, 1, grp, 2 * slot + 1)
+        voices.append(smp)
+    ids = {"groups": group_sums, "mixer": mix, "voices": voices,
+           "volume": g.add_node(2, 2, n.VolumeNode(70.0)),
+           "pan": g.add_node(2, 2, n.StereoPanNode(0.0)),
+           "clip": g.add_node(2, 2, n.HardClipNode(0.0))}
+    chain = [mix, ids["volume"], ids["pan"], ids["clip"], g.graph_out_node()]
+    for a, b in zip(chain, chain[1:]):
+        g.connect(a, 0, b, 0)
+        g.connect(a, 1, b, 1)
+    for i, vid in enumerate(voices):
+        node = g.node(vid)
+        node.set_sample(resource(voice_mixer_clip(i)))
+        node.set_loop_range(n.LoopRange.FULL)
+        node.set_playback_rate(2 ** ((i % 7 - 3) / 12.0))
+        node.set_playhead((i % 16) / 64.0)
+        node.set_envelope(0.004, 0.004)
+        node.play()
+    return ids
+
+
+def voice_mixer_64_graph(num_voices: int = 64, groups: int = 4,
+                         device: str | torch.device = DEFAULT_DEVICE) -> ScheduleProgram:
+    """BASELINE config 3 (:func:`add_voice_mixer_64`), compiled at 48 kHz
+    in blocks of 128 frames → a :class:`ScheduleProgram` on ``device``.
+    The defaults give the example's 72-node graph (64 samplers, 5 sums, the
+    bus)."""
+    g = AudioGraph(AudioGraphConfig(0, 2))
+    add_voice_mixer_64(g, num_voices, groups)
+    pkg = g.compile(SR, BLOCK)
+    return ScheduleProgram(
+        pkg.schedule, dict(pkg.new_node_processors), SR, device=device
+    )
+
+
+def vary_voice_mixer_params(program: ScheduleProgram, params: dict, seed: int) -> dict:
+    """Give every instance of config 3's batch-stacked ``params`` its own
+    values, in place: each voice's playback rate 2^(s/12) with s in
+    [−3, 3) semitones and its playhead anywhere in its clip (a seek the
+    first block applies), the bus volume in [40, 100) % and its pan in
+    [−1, 1).  Returns ``params``."""
+    rng = np.random.default_rng(seed)
+
+    def put(t, values):
+        t.copy_(torch.from_numpy(np.asarray(values)).to(t.dtype))
+
+    for key, proc in program._procs.items():
+        p = params[key]
+        if isinstance(proc, SamplerProcessor):
+            b = p["rate"].shape[0]
+            put(p["rate"], (2.0 ** (rng.uniform(-3.0, 3.0, b) / 12.0)).astype(np.float32))
+            put(p["seek_pos"], rng.integers(0, p["sample"].shape[-1], b, dtype=np.int64))
+        elif isinstance(proc, VolumeProcessor):
+            b = p["raw_gain"].shape[0]
+            put(p["raw_gain"], percent_volume_to_raw_gain(rng.uniform(40.0, 100.0, b)))
+        elif isinstance(proc, StereoPanProcessor):
+            b = p["pan"].shape[0]
+            put(p["pan"], rng.uniform(-1.0, 1.0, b).astype(np.float32))
     return params
 
 

@@ -42,6 +42,7 @@ ENTRY_POINTS = {
     "effects_chain_config4_graph": mixer.effects_chain_config4_graph,
     "random_graph": lambda **kw: mixer.random_graph(0, **kw),
     "mastering_bus_graph": mixer.mastering_bus_graph,
+    "voice_mixer_64_graph": lambda **kw: mixer.voice_mixer_64_graph(4, 2, **kw),
 }
 
 

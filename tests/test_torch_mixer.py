@@ -287,6 +287,10 @@ def test_port_imports_no_jax():
         "assert parallel.local_batch_slice(8) == slice(0, 8) and len(parallel.__all__) == 5\n"
         "assert all(hasattr(parallel, n) for n in parallel.__all__)\n"
         "assert osa.os_audio_available() in (True, False)\n"
+        "from firewheel_tpu_torch import examples\n"
+        "for m in examples.__all__:\n"
+        "    importlib.import_module('firewheel_tpu_torch.examples.' + m)\n"
+        "assert ft.mixer.voice_mixer_64_graph(4, 2, device='cpu')\n"
         "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
         " 'ops.direct_conv', 'executor_hybrid', 'processor', 'context',"
         " 'channels', 'backend.context', 'backend.stream', 'backend.ring_buffer',"
@@ -298,7 +302,9 @@ def test_port_imports_no_jax():
         " 'utils.mp3', 'utils.vorbis', 'utils.opus', 'utils.resample', 'music',"
         " 'graph.serialize', 'voice_pool', 'utils.midi', 'utils.net_stream', 'ops',"
         " 'ops.delay', 'testing', 'parallel', 'parallel.distributed', 'utils.viz',"
-        " 'utils.profiler', 'backend.os_audio'):\n"
+        " 'utils.profiler', 'backend.os_audio', 'examples.voice_mixer_64',"
+        " 'examples.game_server', 'examples.input_effects', 'examples.visual_node_graph',"
+        " 'examples.interactive_graph'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
