@@ -1870,14 +1870,11 @@ class PumpTrace:
 def check_stream(ft, seq_iir, em, eh, card: str):
     """Phase 9: the streaming engine on the card, against the same streams
     on the CPU; its numbers."""
-    # 9.1 the beep test
-    cx = ft.FirewheelCtx(device="cuda")
-    g = cx.graph_mut()
-    from firewheel_tpu_torch.nodes import BeepTestNode
+    # 9.1 the beep test: examples.beep_test's graph, 2 s offline
+    from firewheel_tpu_torch.examples import beep_test
 
-    beep = g.add_node(0, 2, BeepTestNode(440.0, -12.0, True))
-    for ch in range(2):
-        g.connect(beep, ch, g.graph_out_node(), ch)
+    cx = ft.FirewheelCtx(device="cuda")
+    beep_test.add_beep(cx.graph_mut())
     sink = ft.ArraySink()
     cx.activate(ft.StreamConfig(), sink=sink)
     cx.render_offline(2.0)
@@ -2616,14 +2613,13 @@ def spatial_stream(ft, device, profile=False):
     audio, the final state on the CPU, the meter's reading, each pump's
     wall, the executor's pooled groups and the profile."""
     from firewheel_tpu_torch.convert import tree_map
-    from firewheel_tpu_torch.mixer import add_spatial_scene, orbit_scene
+    from firewheel_tpu_torch.examples import spatial_scene
     from firewheel_tpu_torch.nodes import DbMeterNode
     from firewheel_tpu_torch.ops import iir
 
     cx = ft.FirewheelCtx(device=device)
     g = cx.graph_mut()
-    meter, spats = add_spatial_scene(g)
-    orbiting = orbit_scene(cx.automation, g, spats, SPATIAL_SECS)
+    meter, spats, orbiting = spatial_scene.build_scene(cx)
     scene = ft.SpatialScene()
     for spat, _, _ in spats:
         scene.add(spat, g.node(spat), g.node(spat).position())
@@ -3154,7 +3150,6 @@ def check_spatial(ft, seq_iir, em, eh, card: str, phase):
 # phase 12: the mastering bus (examples/mastering_bus.py)
 MASTER_SECS = 4.0            # the example's stream
 MASTER_BUFFER = 256          # frames a buffer and a block, as the example streams
-DIALOGUE = (1.0, 2.5)        # seconds with the dialogue on
 MASTER_PROFILED = (300, 4)   # buffers 300..303 under torch.profiler (dialogue on)
 MASTER_CHUNKS = 3            # 12(b): chunks at B=8192, K=32
 MASTER_CHECK = 2             # 12(b): instances re-rendered on the CPU
@@ -3173,15 +3168,17 @@ LU_TOL = 1e-3                # card vs CPU loudness readings, in LU
 def mastering_stream(device: str, profile: bool = False) -> dict:
     """The mastering bus streamed offline through ``FirewheelCtx`` on
     ``device`` as ``examples/mastering_bus.py`` streams it: 48 kHz stereo,
-    256-frame buffers and blocks, 4 s, the dialogue on from 1.0 s to 2.5 s,
-    the loudness meter read every 100 ms into ``IntegratedLoudness``.  With
-    ``profile``, ``torch.profiler`` traces buffers MASTER_PROFILED.
+    256-frame buffers and blocks, 4 s, the dialogue on from 1.0 s to 2.5 s
+    (``examples.mastering_bus.dialogue_on``), the loudness meter read every
+    100 ms into ``IntegratedLoudness``.  With ``profile``,
+    ``torch.profiler`` traces buffers MASTER_PROFILED.
     Returns a dict of numpy results: the audio, each reading, the
     integrated loudness, the final state, the walls, K5's and K6's
     launches and the profile's counts.  The CPU's run goes on in a worker
     process (:class:`CpuStream`) while the card runs the earlier phases."""
     ft = _port()
     from firewheel_tpu_torch.convert import state_to_numpy
+    from firewheel_tpu_torch.examples import mastering_bus
     from firewheel_tpu_torch.mixer import add_mastering_bus
     from firewheel_tpu_torch.nodes import IntegratedLoudness, LoudnessMeterNode
     from firewheel_tpu_torch.ops import dynamics, iir, noise
@@ -3205,7 +3202,7 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
     i = 0
     while stream.frames_rendered < frames:
         sec = stream.frames_rendered / 48000
-        voice.set_enabled(DIALOGUE[0] < sec < DIALOGUE[1])
+        voice.set_enabled(mastering_bus.dialogue_on(sec))
         if profile and i == first:
             trace.start()
         trace.pump(cx, 1, out["walls"])
@@ -3238,10 +3235,11 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
 
 
 def _cpu_stream_worker(conn) -> None:
-    """The CPU's streams of 12(a), 13(a), 14(a), 15(a) and 15(b) in a worker
-    process, on one thread; sends ``("ok", name, result)`` for each as it
-    finishes (``"mastering"``, ``"palette"``, ``"music"``, ``"pool"``,
-    ``"jukebox"``), or ``("error", traceback)``, to the parent."""
+    """The CPU's streams of 12(a), 13(a), 14(a), 15(a) and 15(b) and 19(d)'s
+    examples in a worker process, on one thread; sends ``("ok", name,
+    result)`` for each as it finishes (``"mastering"``, ``"palette"``,
+    ``"music"``, ``"pool"``, ``"jukebox"``, ``"examples"``), or
+    ``("error", traceback)``, to the parent."""
     import traceback
 
     try:
@@ -3250,7 +3248,9 @@ def _cpu_stream_worker(conn) -> None:
                           ("palette", lambda: palette_stream("cpu")),
                           ("music", music_reference),
                           ("pool", lambda: voice_pool_session("cpu")),
-                          ("jukebox", lambda: jukebox_session("cpu"))):
+                          ("jukebox", lambda: jukebox_session("cpu")),
+                          ("examples", lambda: nine_examples(
+                              "cpu", scratch_dir("fw_nine_cpu_")))):
             conn.send(("ok", name, run()))
     except Exception:  # the worker's boundary: the parent raises it
         conn.send(("error", traceback.format_exc()))
@@ -3335,6 +3335,8 @@ def master_stream_check(ft, cpu_result, card: str):
     the worker): the audio and every state leaf within 1e-5, but the
     meter's filter states and ring, which are held by its readings (every
     reading and the integrated loudness within 1e-3 LU) and printed."""
+    from firewheel_tpu_torch.examples.mastering_bus import DIALOGUE
+
     out = mastering_stream("cuda", profile=True)
     cpu = cpu_result.get()["mastering"]
     audio_err = float(np.abs(out["audio"] - cpu["audio"]).max())
@@ -4164,39 +4166,22 @@ SLICE_EXACT = ("src_int", "src_frac", "ages", "ring_int", "ring_frac", "slot", "
 
 
 def music_tracks(ft, root: str):
-    """The session's tracks from seed 15: 48 kHz stereo, a WAV intro and
-    outro of MUSIC_TRACK_SECS, a FLAC bed of MUSIC_BED_FRAMES
-    (``encode_flac``)."""
+    """The session's tracks, the arpeggios of ``examples.music_player``'s
+    ``write_track`` (16-bit stereo WAVs at 48 kHz): an intro and an outro of
+    MUSIC_TRACK_SECS, and a bed of MUSIC_BED_FRAMES re-encoded as FLAC
+    (``encode_flac``), as the example re-encodes its bed."""
+    from firewheel_tpu_torch.core.formats import load_audio
+    from firewheel_tpu_torch.examples.music_player import write_track
     from firewheel_tpu_torch.utils.flac_encode import encode_flac
-    from firewheel_tpu_torch.utils.wav import write_wav
 
-    rng = np.random.default_rng(15)
-    paths = []
-    for name, frames, freqs in (
-            ("intro.wav", int(MUSIC_TRACK_SECS * 48000), (220, 277, 330)),
-            ("bed.flac", MUSIC_BED_FRAMES, (110, 165, 220, 277)),
-            ("outro.wav", int(MUSIC_TRACK_SECS * 48000), (330, 277, 220, 165))):
-        t = np.arange(frames) / 48000
-        step = frames // (4 * len(freqs))
-        note = np.minimum(np.arange(frames) // step, 4 * len(freqs) - 1)
-        f = np.asarray(freqs, np.float64)[note % len(freqs)]
-        sig = np.sin(2 * np.pi * f * t) * np.exp(-3.0 * (t - note * step / 48000))
-        audio = (0.4 * np.stack([sig, 0.8 * sig])
-                 + 0.01 * rng.standard_normal((2, frames))).astype(np.float32)
-        path = os.path.join(root, name)
-        if name.endswith(".flac"):
-            encode_flac(audio, 48000, path=path)
-        else:
-            write_wav(path, audio, 48000, dtype="i16")
-        paths.append(path)
-    return paths
-
-
-def track_name(reader) -> str:
-    """A finished track's name: a WAV reader's file, else its reader's type
-    (the bed's ``FlacStreamReader``)."""
-    path = getattr(reader, "path", None)
-    return os.path.basename(path) if path else type(reader).__name__
+    intro, bed_wav, outro, bed = (os.path.join(root, name) for name in (
+        "intro.wav", "bed.wav", "outro.wav", "bed.flac"))
+    write_track(intro, [220, 277, 330], MUSIC_TRACK_SECS)
+    write_track(bed_wav, [110, 165, 220, 277], MUSIC_BED_FRAMES / 48000)
+    write_track(outro, [330, 277, 220, 165], MUSIC_TRACK_SECS)
+    encode_flac(load_audio(bed_wav, device=False)[0].host_data, 48000, path=bed)
+    os.remove(bed_wav)
+    return [intro, bed, outro]
 
 
 def music_session(ft, device: str, tracks, chunk_buffers: int = 1,
@@ -4206,6 +4191,8 @@ def music_session(ft, device: str, tracks, chunk_buffers: int = 1,
     looped past its seam, a crossfade to the outro, a faded stop.  Returns
     the audio, the finished tracks in poll order, the walls a buffer, the
     decks' refills and (``profile``) the profile's counts."""
+    from firewheel_tpu_torch.examples.music_player import track_name
+
     intro, bed, outro = tracks
     cx = ft.FirewheelCtx(device=device)
     player = ft.MusicPlayer(cx.graph_mut(), clock=lambda: cx.stream.frames_rendered)
@@ -4759,40 +4746,6 @@ HTTP_SECS = 2.0              # 15(c)'s WAV
 HTTP_BUFFER = 512
 
 
-def pool_clip(ft, kind: str):
-    """``examples/voice_pool_game.py``'s procedural sound effects, with the
-    noise seeded from a stable hash of the name (the example's ``hash(kind)``
-    differs between processes)."""
-    import zlib
-
-    sr = 48000
-    rng = np.random.default_rng(zlib.crc32(kind.encode()) & 0xFFFF)
-    if kind == "footstep":  # 40 ms filtered noise thump
-        n = int(0.04 * sr)
-        x = rng.standard_normal(n).astype(np.float32)
-        env = np.exp(-np.linspace(0, 9, n)).astype(np.float32)
-        for _ in range(3):
-            x = np.convolve(x, np.ones(8, np.float32) / 8, "same")
-        return ft.SampleResource((x * env)[None, :] * 2.0, sample_rate=sr)
-    t = np.arange(int({"laser": 0.12, "explosion": 0.6, "engine": 0.25}[kind] * sr),
-                  dtype=np.float32) / sr
-    if kind == "laser":  # 120 ms descending chirp
-        ph = np.cumsum(2 * np.pi * (2600.0 * np.exp(-t * 18.0) + 300.0) / sr).astype(
-            np.float32)
-        return ft.SampleResource((np.sin(ph) * np.exp(-t * 25.0) * 0.8)[None, :],
-                                 sample_rate=sr)
-    if kind == "explosion":  # 600 ms noise burst with rumble
-        x = rng.standard_normal(len(t)).astype(np.float32)
-        for _ in range(4):
-            x = np.convolve(x, np.ones(16, np.float32) / 16, "same")
-        rumble = np.sin(2 * np.pi * 55.0 * t) * np.exp(-t * 4.0)
-        return ft.SampleResource(((x * 3.0 + rumble) * np.exp(-t * 6.0))[None, :].astype(
-            np.float32), sample_rate=sr)
-    x = sum(np.sin(2 * np.pi * f0 * t) * a  # 250 ms loopable hum
-            for f0, a in ((82.0, 0.5), (164.0, 0.25), (123.0, 0.15)))
-    return ft.SampleResource(x[None, :].astype(np.float32), sample_rate=sr)
-
-
 def pool_groups(cx) -> list:
     """The sizes of the pooled groups of samplers in the stream's schedule
     (a lone sampler counts as a group of 1)."""
@@ -4840,10 +4793,12 @@ def voice_pool_session(device: str, profile: bool = False) -> dict:
     handles, the dropped shots, the steals, the finished handles, the
     pooled groups, the walls and (``profile``) the profile's counts."""
     ft = _port()
+    from firewheel_tpu_torch.examples.voice_pool_game import synth_clip
+
     cx = ft.FirewheelCtx(device=device)
     pool = ft.VoicePool(cx.graph_mut(), num_voices=8, max_clip_frames=1 << 15,
                         declick_secs=0.003, clock=lambda: cx.stream.frames_rendered)
-    clips = {k: pool_clip(ft, k) for k in ("footstep", "laser", "explosion", "engine")}
+    clips = {k: synth_clip(k) for k in ("footstep", "laser", "explosion", "engine")}
     pool.preload(*clips.values())
     sink = ft.ArraySink()
     cx.activate(ft.StreamConfig(48000, 2, buffer_frames=POOL_BUFFER, block_frames=128),
@@ -4899,56 +4854,18 @@ def voice_pool_session(device: str, profile: bool = False) -> dict:
     return {**rec, **out}
 
 
-def _smf_track(events) -> bytes:
-    def varlen(v):
-        out = [v & 0x7F]
-        v >>= 7
-        while v:
-            out.append((v & 0x7F) | 0x80)
-            v >>= 7
-        return bytes(reversed(out))
+def demo_song(control=()) -> bytes:
+    """``examples.midi_jukebox.demo_song`` (two bars of lead, bass and
+    kick/snare at 140 bpm, looped 4x) with a track of ``control``'s
+    (delta, event) pairs added after its three."""
+    from firewheel_tpu_torch.examples import midi_jukebox
 
-    body = b"".join(varlen(d) + e for d, e in events) + varlen(0) + bytes([0xFF, 0x2F, 0])
-    return b"MTrk" + len(body).to_bytes(4, "big") + body
-
-
-def demo_song(tpq: int = 480, control=()) -> bytes:
-    """``examples/midi_jukebox.py:demo_song``: two bars of lead, bass and
-    kick/snare at 140 bpm, looped 4x; ``control`` adds a track of (delta,
-    event) pairs."""
-    lead_bar = [64, 67, 71, 67, 72, 71, 67, 64]
-    bass_bar = [40, 40, 43, 47]
-    eighth, quarter = tpq // 2, tpq
-    lead = [(0, bytes([0xFF, 0x51, 0x03]) + (428_571).to_bytes(3, "big"))]
-    bass, drums = [], []
-    for bar in range(8):
-        for n in lead_bar:
-            nn = n + (12 if bar % 4 == 3 else 0)
-            lead += [(0, bytes([0x90, nn, 96])), (eighth - 30, bytes([0x80, nn, 0])),
-                     (30, b"")]
-        for n in bass_bar:
-            bass += [(0, bytes([0x91, n, 110])), (quarter - 20, bytes([0x81, n, 0])),
-                     (20, b"")]
-        for beat in range(4):
-            drum = 36 if beat % 2 == 0 else 38
-            drums += [(0, bytes([0x99, drum, 127])), (quarter, bytes([0x89, drum, 0]))]
-
-    def merge_deltas(evs):  # drop the zero-length spacers, keeping their time
-        out, carry = [], 0
-        for d, e in evs:
-            if e:
-                out.append((d + carry, e))
-                carry = 0
-            else:
-                carry += d
-        return out
-
-    tracks = [merge_deltas(lead), merge_deltas(bass), merge_deltas(drums)]
-    if control:
-        tracks.append(list(control))
-    head = (b"MThd" + (6).to_bytes(4, "big") + (1).to_bytes(2, "big")
-            + len(tracks).to_bytes(2, "big") + tpq.to_bytes(2, "big"))
-    return head + b"".join(_smf_track(t) for t in tracks)
+    song = midi_jukebox.demo_song()
+    if not control:
+        return song
+    tracks = int.from_bytes(song[10:12], "big") + 1
+    return (song[:10] + tracks.to_bytes(2, "big") + song[12:]
+            + midi_jukebox._track(list(control)))
 
 
 def _cc(ch, num, val) -> bytes:
@@ -4969,26 +4886,14 @@ JUKE_CONTROL = ((0, _cc(1, 101, 0)), (0, _cc(1, 100, 0)), (0, _cc(1, 6, 7)),
                 (480, _bend(1, 8192 - 4096)), (960, _bend(1, 8192)))
 
 
-def juke_clip(ft, freq, secs, kind):
-    """``examples/midi_jukebox.py:synth_clip``."""
-    t = np.arange(int(secs * 48000)) / 48000
-    if kind == "pulse":
-        x = np.sign(np.sin(2 * np.pi * freq * t) + 0.3).astype(np.float32)
-    elif kind == "tri":
-        x = (2 / np.pi * np.arcsin(np.sin(2 * np.pi * freq * t))).astype(np.float32)
-    else:
-        x = np.random.default_rng(7).standard_normal(len(t)).astype(np.float32)
-    env = np.exp(-t / (secs / 4)).astype(np.float32)
-    return ft.SampleResource((0.3 * x * env)[None, :], sample_rate=48000)
-
-
 def jukebox_session(device: str, profile: bool = False) -> dict:
     """15(b): ``examples/midi_jukebox.py`` on the port: ``demo_song`` with
     :data:`JUKE_CONTROL` parsed by ``parse_midi`` and driven by
     ``MidiSequencer`` onto a 24-voice ``VoicePool`` through ``FirewheelCtx``
     on ``device``, ``update()`` every JUKE_UPDATE buffers."""
     ft = _port()
-    from firewheel_tpu_torch.utils.midi import Instrument, MidiSequencer, parse_midi
+    from firewheel_tpu_torch.examples.midi_jukebox import instruments
+    from firewheel_tpu_torch.utils.midi import MidiSequencer, parse_midi
 
     cx = ft.FirewheelCtx(device=device)
     pool = ft.VoicePool(cx.graph_mut(), num_voices=24, max_clip_frames=1 << 16,
@@ -4997,14 +4902,7 @@ def jukebox_session(device: str, profile: bool = False) -> dict:
     cx.activate(ft.StreamConfig(48000, 2, buffer_frames=POOL_BUFFER, block_frames=128),
                 sink=sink)
     song = parse_midi(demo_song(control=JUKE_CONTROL))
-    seq = MidiSequencer(pool, song, {
-        0: Instrument(juke_clip(ft, 440.0, 0.8, "pulse"), root_note=69, gain_db=-6,
-                      pan=-0.2),
-        1: Instrument(juke_clip(ft, 110.0, 1.2, "tri"), root_note=45, gain_db=-3),
-        9: {36: Instrument(juke_clip(ft, 55.0, 0.25, "tri"), root_note=36),
-            38: Instrument(juke_clip(ft, 0.0, 0.15, "noise"), root_note=38, gain_db=-8,
-                           pan=0.15)},
-    }, horizon_secs=0.5)
+    seq = MidiSequencer(pool, song, instruments(), horizon_secs=0.5)
     seq.start()
 
     def control(b):
@@ -5745,8 +5643,6 @@ GRAD_B, GRAD_K, GRAD_STEPS = 1024, 8, 5   # 17(c): instances, blocks a chunk, SG
 GRAD_TOL = 1e-4
 #: 17(c)'s learning rate for each kind of leaf
 GRAD_LR = {"raw_gain": 8.0, "pan": 8.0, "freq": 1.0e8, "q": 10.0}
-TUNE_FRAMES, TUNE_BLOCKS, TUNE_STEPS, TUNE_RATE = 256, 24, 80, 8.0  # 17(d)
-TUNE_TARGET = (0.05, 0.10, 0.02)      # 17(d): each voice's RMS (the example's)
 BUS_GRAD = (256, 16)                  # 17(e): B, K on the card
 BUS_LEAVES = (("compressor", "threshold_db"), ("compressor", "makeup"),
               ("limiter", "ceiling"))
@@ -6112,77 +6008,37 @@ def train_mixer(ft, counts, iir, card: str) -> dict:
             "kernels": kernels, "device_ms": dev_ms, "err": worst}
 
 
-def tune_graph(ft, device):
-    """``examples/autotune_mix.py``'s graph on the port: three detuned
-    beeps (220, 440, 880 Hz, −6 dB) through volumes into a sum, a pan, out,
-    at 48 kHz in blocks of 256 frames → (program, the volumes' keys)."""
-    from firewheel_tpu_torch import nodes as tn
-    from firewheel_tpu_torch.executor import node_key
-
-    g = ft.AudioGraph(ft.AudioGraphConfig(0, 2))
-    mix = g.add_node(6, 2, tn.SumNode())
-    vols = []
-    for i, freq in enumerate((220.0, 440.0, 880.0)):
-        beep = g.add_node(0, 2, tn.BeepTestNode(freq, -6.0, True))
-        vol = g.add_node(2, 2, tn.VolumeNode(100.0))
-        g.connect(beep, 0, vol, 0)
-        g.connect(beep, 1, vol, 1)
-        g.connect(vol, 0, mix, 2 * i)
-        g.connect(vol, 1, mix, 2 * i + 1)
-        vols.append(node_key(vol))
-    pan = g.add_node(2, 2, tn.StereoPanNode(0.0))
-    g.connect(mix, 0, pan, 0)
-    g.connect(mix, 1, pan, 1)
-    g.connect(pan, 0, g.graph_out_node(), 0)
-    g.connect(pan, 1, g.graph_out_node(), 1)
-    pkg = g.compile(48000, TUNE_FRAMES)
-    return ft.ScheduleProgram(pkg.schedule, dict(pkg.new_node_processors), 48000,
-                              device=device), vols
-
-
 def autotune(ft, card: str) -> dict:
-    """17(d): ``examples/autotune_mix.py`` on the card: three voices' gains
-    fitted to each voice's RMS (rendered alone) over TUNE_BLOCKS blocks of
-    TUNE_FRAMES, the last block measured; TUNE_STEPS of gradient descent at
-    TUNE_RATE, clipped to [0, 4].  The three probes (each voice alone) are
-    three instances of one batch.  Must reach loss < 1e-6."""
-    prog, vols = tune_graph(ft, "cuda")
-    br = ft.BatchRenderer(prog, 3, device="cuda")
-    params, state = br.stack_params(), br.init_state()
-    target = torch.tensor(TUNE_TARGET, device="cuda")
-    sel = torch.eye(3, device="cuda")
-    chunk = prog.chunk_fn(TUNE_BLOCKS)
-    zeros = (torch.zeros((3, TUNE_BLOCKS, 0, TUNE_FRAMES), device="cuda"),
-             torch.zeros((3, TUNE_BLOCKS, 0), dtype=torch.bool, device="cuda"))
+    """17(d): ``examples/autotune_mix.py`` on the card through the port's
+    ``examples.autotune_mix``: three voices' gains fitted to each voice's
+    RMS (rendered alone) over ``BLOCKS`` blocks of ``F`` frames, the last
+    block measured; ``STEPS`` of gradient descent at ``RATE``, clipped to
+    [0, 4].  The three probes (each voice alone) are three instances of one
+    batch (``voice_probe``).  Must reach loss < 1e-6."""
+    from firewheel_tpu_torch.examples import autotune_mix as at
 
-    def loss_of(gains):
-        # instance i renders voice i alone: gains · sel[i]
-        p = with_leaves(params, {(k, "raw_gain"): gains[v] * sel[:, v]
-                                 for v, k in enumerate(vols)})
-        out, _, _ = chunk(p, state, *zeros, 0, 0)
-        rms = (out[:, -1] ** 2).mean(dim=(1, 2)).sqrt()
-        return ((rms - target) ** 2).sum(), rms
-
+    prog, keys = at.build_mix("cuda")
+    probe = at.voice_probe(prog, keys, "cuda")
     gains = torch.full((3,), 0.5, device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    for _ in range(TUNE_STEPS):
+    for _ in range(at.STEPS):
         g = gains.detach().requires_grad_()
-        (grad,) = torch.autograd.grad(loss_of(g)[0], g)
-        gains = (gains - TUNE_RATE * grad).clamp(0.0, 4.0)
+        (grad,) = torch.autograd.grad(probe(g)[0], g)
+        gains = (gains - at.RATE * grad).clamp(0.0, 4.0)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     with torch.no_grad():
-        loss, rms = loss_of(gains)
+        loss, rms = probe(gains)
     if not float(loss) < 1e-6:
         raise AssertionError(f"17(d): autotune did not converge: loss {float(loss)}, "
                              f"gains {gains.tolist()}")
     log(f"phase 17(d), examples/autotune_mix.py's configuration on the card ({card}): "
-        f"{TUNE_STEPS} steps at rate {TUNE_RATE}, {TUNE_BLOCKS} blocks of {TUNE_FRAMES} "
+        f"{at.STEPS} steps at rate {at.RATE}, {at.BLOCKS} blocks of {at.F} "
         f"frames, the three probes as instances of one batch: loss {float(loss):.3e} "
         f"(< 1e-6), gains {[round(v, 4) for v in gains.tolist()]}, per-voice RMS "
-        f"{[round(v, 4) for v in rms.tolist()]} (target {list(TUNE_TARGET)}); "
-        f"{wall:.2f} s, {wall / TUNE_STEPS * 1e3:.1f} ms a step")
+        f"{[round(v, 4) for v in rms.tolist()]} (target {list(at.TARGET)}); "
+        f"{wall:.2f} s, {wall / at.STEPS * 1e3:.1f} ms a step")
     return {"wall_s": wall, "loss": float(loss)}
 
 
@@ -6750,6 +6606,7 @@ def fuzz_lowerings(ft, em, eh, counts, oracle, card: str) -> dict:
     launches = {"eager": {}, "mega": {}, "hybrid": {}}
     walls = {"eager": [], "mega": [], "hybrid": []}
     worst = {"mega": 0.0, "hybrid": 0.0, "oracle": 0.0}
+    k2_bound = {}
     # seconds of the phase by part: set-up, the profiled chunk, the timed
     # chunk, the checks
     split = {"set-up": 0.0, "profiled chunk": 0.0, "timed chunk": 0.0, "checks": 0.0}
@@ -6854,6 +6711,11 @@ def fuzz_lowerings(ft, em, eh, counts, oracle, card: str) -> dict:
                         f"fuzz graph {seed}, chunk {c}: {name} vs eager outputs "
                         f"{out_e}, state {state_e}, masks equal {torch.equal(m, emk)}")
                 worst[name] = max(worst[name], out_e, state_e)
+                if name == "mega" and c == FUZZ_CHUNKS - 1:
+                    # K2's bound: the last chunk's leaves, outputs and masks
+                    k2_bound[seed] = bound(*kernel_work(
+                        em, prog, renderers["mega"].lowered, params, states["mega"], b,
+                        k, o.nbytes + m.nbytes))
                 states[name] = s
             states["eager"] = es
             if not bool(torch.isfinite(eo).all()):
@@ -6893,6 +6755,11 @@ def fuzz_lowerings(ft, em, eh, counts, oracle, card: str) -> dict:
         f"{len(taken['eager'])}, K2 {len(taken['mega'])} {taken['mega']}, hybrid "
         f"{len(taken['hybrid'])}; wall a chunk per graph (mean, chunk 1): "
         + ", ".join(f"{name} {ms:.2f} ms" for name, ms in per_graph.items()))
+    mega_ms = {seed: 1e3 * w for seed, w in zip(taken["mega"], walls["mega"])}
+    log("18(a): K2's wall a chunk (chunk 1) against its bound (kernel_work: the "
+        "leaves, outputs and masks; ops by row), by graph: " + ", ".join(
+            f"{seed} {mega_ms[seed]:.2f} ms vs {k2_bound[seed][0]:.4f} ms by "
+            f"{k2_bound[seed][1]}" for seed in taken["mega"]))
     log(f"18(a): K2 vs eager max_abs_err={worst['mega']:.3e}, hybrid vs eager "
         f"{worst['hybrid']:.3e}, rows vs the CPU {worst['oracle']:.3e}; launches "
         f"{launches}; seconds by part "
@@ -7419,6 +7286,157 @@ def examples_check(ft, iir, counts, cpu: dict, card: str) -> dict:
     return {"input_effects_k7": k7, "editor_k7": editor["k7"]}
 
 
+# 19(d): the nine examples of examples/ ported last, each module's main
+# end to end at the example's own settings
+NINE_EXAMPLES = ("beep_test", "session_server", "effects_chain", "mastering_bus",
+                 "spatial_scene", "music_player", "voice_pool_game", "midi_jukebox",
+                 "autotune_mix")
+PCM_LSB = 1                  # 19(d): the session server's pcm16, card vs CPU
+#: 19(d): the kernels each example launches a block of its stream, and the
+#: frames of a block (the examples stream in blocks of a buffer); the
+#: activation's throwaway render adds one dispatch of ``chunk_buffers``
+#: blocks.  The other examples launch no kernel of the port's.
+NINE_KERNELS = {"effects_chain": ({"K7_biquad": 1}, 1024, 1),
+                "mastering_bus": ({"K5": 4, "K6": 1, "K7_biquad": 1}, 256, 1),
+                "spatial_scene": ({"K7_one_pole": 1}, 1024, 8)}
+
+
+def nine_examples(device: str, root: str, counts=None) -> dict:
+    """19(d): the nine example modules' ``main`` on ``device``, each at the
+    example's own settings (``session_server`` with ``output_format=
+    "pcm16"``), their files under ``root``, their printed lines captured.
+    Returns, by example, what its ``main`` returned (the WAV it wrote read
+    back as ``audio``), its wall, what it printed and, with ``counts`` (the
+    kernel wrappers' counts), the launches it made: numpy and numbers only,
+    so that the CPU's worker can send them."""
+    import contextlib
+    import importlib
+    import io
+
+    _port()
+    from firewheel_tpu_torch.core.formats import load_audio
+
+    def wav(name):
+        return os.path.join(root, f"{name}_{device}.wav")
+
+    music_dir = os.path.join(root, f"music_{device}")
+    os.makedirs(music_dir, exist_ok=True)
+    runs = {
+        "beep_test": lambda m: m.main(wav("beep_test"), device=device),
+        "session_server": lambda m: m.main("pcm16", device=device),
+        "effects_chain": lambda m: m.main(wav("effects_chain"), device=device),
+        "mastering_bus": lambda m: m.main(wav("mastering_bus"), device=device),
+        "spatial_scene": lambda m: {"path": wav("spatial_scene"),
+                                    **m.main(wav("spatial_scene"), device=device)},
+        "music_player": lambda m: m.main(music_dir, device=device),
+        "voice_pool_game": lambda m: m.main(wav("voice_pool_game"), device=device),
+        "midi_jukebox": lambda m: m.main(None, wav("midi_jukebox"), device=device),
+        "autotune_mix": lambda m: m.main(device=device),
+    }
+    if device == "cpu":
+        torch.set_num_threads(1)
+    out = {}
+    for name in NINE_EXAMPLES:
+        mod = importlib.import_module(f"firewheel_tpu_torch.examples.{name}")
+        printed = io.StringIO()
+        before = counts() if counts else None
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed):
+            got = runs[name](mod)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        res = {k: v for k, v in (got or {}).items() if k != "path"}
+        res["wall"] = time.perf_counter() - t0
+        res["printed"] = printed.getvalue()
+        if "path" in got:
+            res["audio"] = load_audio(got["path"], device=False)[0].host_data
+        if counts:
+            res["launches"] = {k: v for k, v in _delta(counts(), before).items() if v}
+        out[name] = res
+    return out
+
+
+def nine_examples_check(counts, cpu_result, card: str) -> dict:
+    """19(d): the nine example modules on the card against the same modules
+    on the CPU (the first worker): the WAVs within 1e-5 (the beep's over
+    the frames both rendered: its wall-clock poll may stop short of 4 s),
+    the events, finish counts and notes equal, the loudness readings within
+    1e-3 LU, the session server's pcm16 within 1 LSB, the fitted gains
+    within GRAD_TOL of the largest; K5, K6 and K7 launched as NINE_KERNELS
+    says, nothing else.  Returns the launches by example."""
+    cpu = cpu_result.get()["examples"]
+    got = nine_examples("cuda", scratch_dir("fw_nine_"), counts)
+    report = {}
+    for name in NINE_EXAMPLES:
+        g, c = got[name], cpu[name]
+        fail = []
+        line = ""
+        if "audio" in g:
+            a, b = g["audio"], c["audio"]
+            if name == "beep_test":
+                n = min(a.shape[1], b.shape[1])
+                a, b = a[:, :n], b[:, :n]
+                spec = np.abs(np.fft.rfft(a[0, :48000]))
+                if n < 48000 or np.argmax(spec) != 440 or abs(
+                        np.abs(a).max() - 10 ** (-12 / 20)) > 1e-4:
+                    fail.append(f"tone: {n} frames, peak bin {np.argmax(spec)}")
+            err = float(np.abs(a - b).max()) if a.shape == b.shape else float("inf")
+            if not (err <= STREAM_TOL and np.isfinite(a).all()):
+                fail.append(f"audio {a.shape} vs the CPU's {b.shape}: {err}")
+            line += f"{a.shape[1]} frames, vs the CPU max_abs_err={err:.3e}"
+        if name == "session_server":
+            a, b = g["last_chunk"], c["last_chunk"]
+            lsb = int(np.abs(a.astype(np.int32) - b.astype(np.int32)).max()) \
+                if a.shape == b.shape else PCM_LSB + 1
+            if lsb > PCM_LSB or g["fired"] != c["fired"] or a.dtype != np.int16:
+                fail.append(f"pcm16 {lsb} LSB, fired {g['fired']} vs {c['fired']}")
+            line += (f"the last pcm16 chunk {a.shape} within {lsb} LSB of the CPU's, SFX "
+                     f"finished in {g['fired']}")
+        if name == "mastering_bus":
+            ga, ca = np.asarray(g["reads"]), np.asarray(c["reads"])
+            finite = np.isfinite(ca)
+            lu = max(float(np.abs(np.where(finite, ga - ca, 0.0)).max()),
+                     abs(g["integrated"] - c["integrated"]),
+                     abs(g["short_term"] - c["short_term"]))
+            if ga.shape != ca.shape or not np.array_equal(np.isfinite(ga), finite) \
+                    or not lu <= LU_TOL:
+                fail.append(f"readings {ga.shape} vs {ca.shape}, {lu} LU")
+            line += (f"; {len(ga)} readings and the integrated loudness "
+                     f"{g['integrated']:.3f} LUFS vs the CPU's within {lu:.2e} LU")
+        if name == "spatial_scene" and g["nodes"] != 266:
+            fail.append(f"{g['nodes']} nodes")
+        for key in ("finished", "outro", "shots", "active", "dropped", "skipped"):
+            if key in g and g[key] != c[key]:
+                fail.append(f"{key} {g[key]} vs the CPU's {c[key]}")
+        if name == "music_player":
+            line += f"; finish events {g['finished']}, outro {g['outro']}"
+        if name == "voice_pool_game":
+            line += f"; {len(g['shots'])} shots as the CPU's, {g['active']} looping"
+        if name == "midi_jukebox":
+            line += f"; dropped {g['dropped']}, skipped {g['skipped']}"
+        if name == "autotune_mix":
+            err = float(np.abs(g["gains"] - c["gains"]).max())
+            if not (err <= GRAD_TOL * float(np.abs(c["gains"]).max())
+                    and g["loss"] < 1e-6):
+                fail.append(f"gains {g['gains']} vs {c['gains']}, loss {g['loss']}")
+            line += (f"gains {np.round(g['gains'], 4).tolist()} vs the CPU's "
+                     f"max_abs_err={err:.3e}, loss {g['loss']:.3e}")
+        per_block, frames, warm = NINE_KERNELS.get(name, ({}, 1, 0))
+        blocks = -(-g["audio"].shape[1] // frames) + warm if per_block else 0
+        want = {k: n * blocks for k, n in per_block.items()}
+        launched = {k: v for k, v in g["launches"].items() if k != "K7"}
+        if launched != want or c.get("launches"):
+            fail.append(f"launches {launched}, expected {want}")
+        if fail:
+            raise AssertionError(f"19(d), {name}: " + "; ".join(fail))
+        secs = g["audio"].shape[1] / 48000 if "audio" in g else 0.0
+        rtf = f", RTF {secs / g['wall']:.3f}" if secs else ""
+        log(f"19(d), {name} on {card}: {g['wall']:.2f} s (CPU {c['wall']:.2f} s){rtf}; "
+            f"{line}; launches {launched or 'none'}")
+        report[name] = launched
+    return report
+
+
 def check_config3(ft, em, eh, iir, counts, cpu, card: str, phase) -> tuple:
     """Phase 19: BASELINE config 3 and the ported examples on the card."""
     ref = cpu.get()
@@ -7571,6 +7589,11 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         ft, em, eh, iir,
         lambda: kernel_counts(seq_iir, em, eh, adpcm_device, dynamics, iir, noise),
         fuzz_oracle, card, phase)
+    nine = nine_examples_check(lambda: {
+        **kernel_counts(seq_iir, em, eh, adpcm_device, dynamics, iir, noise),
+        "K7_biquad": iir.biquad_cascade.launches, "K7_one_pole": iir.one_pole_scan.launches,
+    }, cpu_stream, card)
+    phase("19(d), the nine examples' modules end to end")
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -7659,11 +7682,17 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                 "one_pole_scan": {"stream_fx": fx_stream_k7[1],
                                   "stream_mastering": 0},
             }.get(name, 0),
-            # 19(c): the live-input example's filter and the editor's EQ
+            # 19(c): the live-input example's filter and the editor's EQ;
+            # 19(d): the effects chain's filter, the mastering bus's
+            # dynamics, noise and meter, the spatial scene's one-poles
             "example_launches": {
-                "input_effects": examples["input_effects_k7"],
-                "interactive_graph": examples["editor_k7"],
-            } if name == "biquad_scan" else {},
+                **({"input_effects": examples["input_effects_k7"],
+                    "interactive_graph": examples["editor_k7"]}
+                   if name == "biquad_scan" else {}),
+                **{ex: n[kernel] for ex, n in nine.items() for kernel in n
+                   if {"biquad_scan": "K7_biquad", "one_pole_scan": "K7_one_pole",
+                       "sample_scan": "K5", "noise_uniform": "K6"}.get(name) == kernel},
+            },
             "serve_launches": {"biquad_seq": serve_k1, "hybrid_island": serve_k3,
                                "adpcm_encode": serve_k4}.get(name, 0),
             # 15(d): validate_node on the card (the EQ's cascade is K7's biquad)

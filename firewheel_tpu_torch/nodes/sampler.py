@@ -495,24 +495,28 @@ class SamplerProcessor(NodeProcessor):
                 return torch.where(in_loop, wrapped_i, t_i.clamp(0, last))
 
             if quality == "cubic":
-                # Catmull-Rom weights; exact (0, 1, 0, 0) at t == 0
-                taps = (-1, 0, 1, 2)
+                # Catmull-Rom weights; exact (0, 1, 0, 0) at t == 0.  The
+                # fused multiply-adds are the ones XLA makes of JAX's
+                # polynomials and of the taps' sum on the CPU
                 weights = [
-                    ((-0.5 * t + 1.0) * t - 0.5) * t,
-                    (1.5 * t - 2.5) * t * t + 1.0,
-                    ((-1.5 * t + 2.0) * t + 0.5) * t,
-                    (0.5 * t - 0.5) * t * t,
+                    _fma(_fma(t, -0.5, 1.0), t, -0.5) * t,
+                    _fma(_fma(t, 1.5, -2.5) * t, t, 1.0),
+                    _fma(_fma(t, -1.5, 2.0), t, 0.5) * t,
+                    _fma(t, 0.5, -0.5) * t * t,
                 ]
+                x = [_take(sample, tap_index(d)) for d in (-1, 0, 1, 2)]
+                frames_out = _fma(x[0], weights[0], x[1] * weights[1])
+                frames_out = _fma(x[3], weights[3], _fma(x[2], weights[2], frames_out))
             else:  # sinc8: Lanczos a=4
                 taps = tuple(range(-3, 5))
                 weights = [torch.sinc(t - d) * torch.sinc((t - d) / 4.0)
                            for d in taps]
                 wsum = sum(weights)
                 weights = [w / wsum for w in weights]
-            frames_out = torch.zeros(
-                sample.shape[:-1] + (frames,), dtype=f32, device=sample.device)
-            for d, w in zip(taps, weights):
-                frames_out = frames_out + _take(sample, tap_index(d)) * w
+                frames_out = torch.zeros(
+                    sample.shape[:-1] + (frames,), dtype=f32, device=sample.device)
+                for d, w in zip(taps, weights):
+                    frames_out = frames_out + _take(sample, tap_index(d)) * w
         frames_out = frames_out.masked_fill(~valid[..., None, :], 0.0)
 
         # ---- advance the carry (minus a mid-block start's masked samples)

@@ -303,8 +303,10 @@ def _fma(a, b, c):
     product of two float32 values is exact, so only the sum rounds, to
     float64 and then to float32.  That double rounding differs from a true
     FMA only when the float64 sum lands exactly halfway between two float32
-    values (about one operation in 2^28), by one float32 ulp."""
-    return (a.double() * b.double() + c.double()).float()
+    values (about one operation in 2^28), by one float32 ulp.  A number
+    among the operands is a float32 constant."""
+    a, b, c = (v.double() if isinstance(v, torch.Tensor) else v for v in (a, b, c))
+    return (a * b + c).float()
 
 
 def _one_pole_compose(e1, e2):

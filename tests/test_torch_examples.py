@@ -12,7 +12,8 @@ with every result that is deterministic held equal:
 
 BASELINE config 3's example (``voice_mixer_64``) is held against JAX in
 ``test_torch_voice_mixer.py``, the interactive editor in
-``test_torch_interactive_editor.py``.
+``test_torch_interactive_editor.py``, the other nine examples in
+``test_torch_examples_{stream,bus,pool,serving,autotune}.py``.
 """
 
 import importlib.util
@@ -25,7 +26,9 @@ import torch
 
 import firewheel_tpu_torch as ft
 from firewheel_tpu_torch.examples import (
-    game_server, input_effects, interactive_graph, visual_node_graph, voice_mixer_64,
+    autotune_mix, beep_test, effects_chain, game_server, input_effects, interactive_graph,
+    mastering_bus, midi_jukebox, music_player, session_server, spatial_scene,
+    visual_node_graph, voice_mixer_64, voice_pool_game,
 )
 
 EXAMPLES = pathlib.Path(__file__).parent.parent / "examples"
@@ -125,8 +128,19 @@ def test_visual_node_graph_matches_jax(monkeypatch, tmp_path, capsys):
     lambda tmp: input_effects.main(str(tmp / "x.wav")),
     lambda tmp: visual_node_graph.main(str(tmp / "x.html")),
     lambda tmp: interactive_graph.EngineApp(),
+    lambda tmp: beep_test.main(str(tmp / "x.wav")),
+    lambda tmp: session_server.main(),
+    lambda tmp: effects_chain.main(str(tmp / "x.wav")),
+    lambda tmp: mastering_bus.main(str(tmp / "x.wav")),
+    lambda tmp: spatial_scene.main(str(tmp / "x.wav")),
+    lambda tmp: music_player.main(str(tmp)),
+    lambda tmp: voice_pool_game.main(str(tmp / "x.wav")),
+    lambda tmp: midi_jukebox.main(None, str(tmp / "x.wav")),
+    lambda tmp: autotune_mix.main(),
 ], ids=["voice_mixer_64", "game_server", "input_effects", "visual_node_graph",
-        "interactive_graph"])
+        "interactive_graph", "beep_test", "session_server", "effects_chain",
+        "mastering_bus", "spatial_scene", "music_player", "voice_pool_game",
+        "midi_jukebox", "autotune_mix"])
 def test_examples_default_to_the_card(run, monkeypatch, tmp_path):
     """Each example runs on the card unless its caller passes ``device``:
     without one it raises, and it never falls back to the CPU."""

@@ -304,7 +304,10 @@ def test_port_imports_no_jax():
         " 'ops.delay', 'testing', 'parallel', 'parallel.distributed', 'utils.viz',"
         " 'utils.profiler', 'backend.os_audio', 'examples.voice_mixer_64',"
         " 'examples.game_server', 'examples.input_effects', 'examples.visual_node_graph',"
-        " 'examples.interactive_graph'):\n"
+        " 'examples.interactive_graph', 'examples.beep_test', 'examples.session_server',"
+        " 'examples.effects_chain', 'examples.mastering_bus', 'examples.spatial_scene',"
+        " 'examples.music_player', 'examples.voice_pool_game', 'examples.midi_jukebox',"
+        " 'examples.autotune_mix'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"

@@ -292,17 +292,26 @@ def test_voices_run_as_one_pooled_group():
     assert np.abs(s.close()["audio"]).max() > 0.5
 
 
-def test_chip_smoke_clips_are_the_examples():
-    """``chip_smoke.py`` 15(a)'s clips: the example's tones bit for bit; its
-    noise clips seeded from a stable hash of the name, so two processes
-    (the card's and the CPU's) make the same ones."""
-    import chip_smoke
-    from examples.voice_pool_game import synth_clip
+def test_chip_smoke_clips_are_the_examples(monkeypatch):
+    """``chip_smoke.py`` 15(a)'s clips, the port's ``examples.
+    voice_pool_game.synth_clip``: the example's tones bit for bit; its noise
+    clips seeded from a stable hash of the name (CRC-32), so two processes
+    (the card's and the CPU's) make the same ones, the example's own with
+    that hash."""
+    import inspect
+    import zlib
 
+    import chip_smoke
+    import examples.voice_pool_game as example
+    from firewheel_tpu_torch.examples.voice_pool_game import synth_clip
+
+    assert ("from firewheel_tpu_torch.examples.voice_pool_game import synth_clip"
+            in inspect.getsource(chip_smoke.voice_pool_session))
     for kind in ("laser", "engine"):
-        np.testing.assert_array_equal(chip_smoke.pool_clip(ft, kind).host_data,
-                                      synth_clip(kind).host_data)
+        np.testing.assert_array_equal(synth_clip(kind).host_data,
+                                      example.synth_clip(kind).host_data)
+    monkeypatch.setattr(example, "hash", lambda s: zlib.crc32(s.encode()), raising=False)
     for kind in ("footstep", "explosion"):
-        a, b = chip_smoke.pool_clip(ft, kind), synth_clip(kind)
-        assert a.host_data.shape == b.host_data.shape
-        np.testing.assert_array_equal(a.host_data, chip_smoke.pool_clip(ft, kind).host_data)
+        a = synth_clip(kind)
+        np.testing.assert_array_equal(a.host_data, synth_clip(kind).host_data)
+        np.testing.assert_array_equal(a.host_data, example.synth_clip(kind).host_data)
