@@ -138,7 +138,8 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``FirewheelCtx`` as the example streams it (1024-frame buffers of
    128-frame blocks, 8 a pump, 1.5 s, every 4th emitter orbiting 90°) with a
    ``SpatialScene`` listener turn mid-stream, against the same stream on the
-   CPU (1e-5: audio, the meter's reading, every state leaf); its realtime
+   CPU, which the first worker renders (1e-5: audio, the meter's reading,
+   every state leaf); its realtime
    factor, wall a buffer, kernels a block and device busy share
    (``torch.profiler``), and the pooled groups of beeps and spatializers.
    (b) Eager at B=8192, K=32, every instance with its own positions,
@@ -378,6 +379,18 @@ Run from the root of a checkout:  python3 chip_smoke.py
    ``examples.interactive_graph``'s HTTP editor on an ephemeral localhost
    port: a voice added and the EQ inserted by POST, ``/state`` showing a
    finite meter and stats that advance, K7 launching with the EQ in.
+20. The port's entry point (``firewheel_tpu_torch/entry.py``, the
+   counterpart of ``__graft_entry__.py``).  (a) ``entry()``'s chunk (the
+   64-node mixer with the ``"auto"`` filter, K=4, B=2) on the card against
+   ``entry(device="cpu")``'s (1e-5, state included; masks equal), and
+   the same step (``entry.chunk_step``) on the mixer built with
+   ``strip_masks`` (every mask not silent) and with ``state_light``; K7
+   once a block; the wall a chunk.  (b) ``dryrun_multichip(1)`` in place
+   in a world of one on NCCL.  (c) ``dryrun_multichip(4)``: four started
+   ranks share the card over gloo with CUDA tensors, dp=2 × vp=2, each
+   rank's rows against the unsharded step (1e-5), then ``BatchRenderer``,
+   ``VoiceParallelMixer`` and ``SessionServer`` over meshes; K7 once a
+   block in each rank's sharded step (the master's lowpass).
 
 The last line of standard output is one JSON object with ``"ok": true``;
 the line before the card's line lists each kernel with its launches on the
@@ -386,7 +399,8 @@ K1's device time, call and plain version at the stream's 2 lanes beside
 them), in phase 10's fleets (``serve_launches``) and in 15(d)'s validator
 (``validator_launches``) and in phase 16 (``mesh_launches``), in 18(a)'s
 fuzz graphs by lowering (``fuzz_launches``, on K2, K3, K5, K6 and K7's
-rows), K7's biquad in 19(c)'s examples (``example_launches``), K3 on
+rows), K7's biquad in 19(c)'s examples (``example_launches``) and in
+phase 20 (``entry_launches``), K3 on
 config 3's island in 19(b), K2 and K3 once
 more for the spatial scene of phase 11 (and K2 with the arena spilled at
 256 frames), K3 for the mastering bus of 12(c), K4-K6 (launches in 10(f)'s
@@ -2659,13 +2673,14 @@ def spatial_stream(ft, device, profile=False):
     return out
 
 
-def spatial_stream_check(ft, card: str):
+def spatial_stream_check(ft, cpu_result, card: str):
     """11(a): the scene streamed on the card against the same stream on the
-    CPU: audio, the meter's reading and every state leaf within 1e-5."""
+    CPU (the first worker's): audio, the meter's reading and every state
+    leaf within 1e-5."""
     t0 = time.perf_counter()
     run = spatial_stream(ft, "cuda")
     t1 = time.perf_counter()
-    cpu = spatial_stream(ft, "cpu")
+    cpu = cpu_result.get()["spatial"]
     t2 = time.perf_counter()
     e = float(np.abs(run["audio"] - cpu["audio"]).max())
     state_e = tree_err(run["state"], cpu["state"])
@@ -2715,7 +2730,8 @@ def spatial_stream_check(ft, card: str):
         f"{prof['profile_wall'] * 1e3:.3f} ms "
         f"({100 * busy / 1e6 / prof['profile_wall']:.1f}%)")
     log(f"spatial 11(a): seconds of the phase, set-up included: the card's stream "
-        f"{t1 - t0:.1f}, the CPU's {t2 - t1:.1f}, the profiled stream {t3 - t2:.1f}, "
+        f"{t1 - t0:.1f}, waiting for the CPU's (the worker's) {t2 - t1:.1f}, the "
+        f"profiled stream {t3 - t2:.1f}, "
         f"its profile read {time.perf_counter() - t3:.1f}")
     return max(e, state_e)
 
@@ -3129,9 +3145,9 @@ def spatial_binaural(ft, card: str):
     return max(worst, err)
 
 
-def check_spatial(ft, seq_iir, em, eh, card: str, phase):
+def check_spatial(ft, seq_iir, em, eh, cpu_result, card: str, phase):
     """Phase 11: the spatial scene → K2's and K3's numbers on it."""
-    spatial_stream_check(ft, card)
+    spatial_stream_check(ft, cpu_result, card)
     phase("11(a), the scene streamed")
     spatial_eager(ft, card)
     torch.cuda.empty_cache()
@@ -3235,16 +3251,17 @@ def mastering_stream(device: str, profile: bool = False) -> dict:
 
 
 def _cpu_stream_worker(conn) -> None:
-    """The CPU's streams of 12(a), 13(a), 14(a), 15(a) and 15(b) and 19(d)'s
-    examples in a worker process, on one thread; sends ``("ok", name,
-    result)`` for each as it finishes (``"mastering"``, ``"palette"``,
-    ``"music"``, ``"pool"``, ``"jukebox"``, ``"examples"``), or
-    ``("error", traceback)``, to the parent."""
+    """The CPU's streams of 11(a), 12(a), 13(a), 14(a), 15(a) and 15(b) and
+    19(d)'s examples in a worker process, on one thread; sends ``("ok",
+    name, result)`` for each as it finishes (``"spatial"``,
+    ``"mastering"``, ``"palette"``, ``"music"``, ``"pool"``, ``"jukebox"``,
+    ``"examples"``), or ``("error", traceback)``, to the parent."""
     import traceback
 
     try:
         torch.set_num_threads(1)
-        for name, run in (("mastering", lambda: mastering_stream("cpu")),
+        for name, run in (("spatial", lambda: spatial_stream(_port(), "cpu")),
+                          ("mastering", lambda: mastering_stream("cpu")),
                           ("palette", lambda: palette_stream("cpu")),
                           ("music", music_reference),
                           ("pool", lambda: voice_pool_session("cpu")),
@@ -3259,7 +3276,7 @@ def _cpu_stream_worker(conn) -> None:
 
 
 class CpuStream:
-    """The CPU streams of 12(a), 13(a), 14(a), 15(a) and 15(b), started in a spawned worker
+    """The CPU streams of 11(a), 12(a), 13(a), 14(a), 15(a) and 15(b), started in a spawned worker
     process at once (or what another worker ``target`` sends: 18(a)'s CPU
     oracle).  ``get()[name]`` waits for that stream's result
     (raising what the worker raised, or if it died without one); :meth:`stop`
@@ -7449,6 +7466,110 @@ def check_config3(ft, em, eh, iir, counts, cpu, card: str, phase) -> tuple:
     return k3, ex
 
 
+# -- phase 20: the port's entry point (firewheel_tpu_torch/entry.py) ----------
+#
+# 20(a): entry()'s chunk (the 64-node mixer, K=4, B=2, the "auto" filter:
+# K7 once a block) on the card against entry(device="cpu"), and the same with
+# strip_masks (audio and state: the masks carry no meaning) and state_light;
+# 20(b): dryrun_multichip(1) in place in a world of one on NCCL; 20(c):
+# dryrun_multichip(4), four started ranks sharing the card over gloo with
+# CUDA tensors, dp=2 x vp=2, each rank's rows against the unsharded step at
+# entry.STEP_TOL (1e-5); K7's launches in each rank's sharded step (the
+# master's lowpass, once a block)
+
+ENTRY_GRAPHS = (("mixer", {}), ("strip_masks", {"strip_masks": True}),
+                ("state_light", {"state_light": True}))
+ENTRY_TIMED = 20   # chunks timed a graph
+
+
+def entry_chunks(iir, card: str) -> dict:
+    """20(a) → ``{graph: {"k7", "err", "ms"}}``."""
+    from firewheel_tpu_torch import entry as te
+
+    def step(device, kw):
+        # entry() itself for the mixer; its step on the ablations' graphs
+        if not kw:
+            return te.entry(device=device)
+        return te.chunk_step(te._mixer_graph(device=device, **kw))
+
+    got = {}
+    for name, kw in ENTRY_GRAPHS:
+        fn, args = step("cuda", kw)
+        cfn, cargs = step("cpu", kw)
+        k7 = iir.biquad_cascade.launches
+        out, mask, state = fn(*args)
+        torch.cuda.synchronize()
+        k7 = iir.biquad_cascade.launches - k7
+        cout, cmask, cstate = cfn(*cargs)
+        err = max(float((out.cpu() - cout).abs().max()), tree_err(state, cstate))
+        masks = not mask.any() if kw.get("strip_masks") else torch.equal(mask.cpu(), cmask)
+        fn(*args)  # warm
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(ENTRY_TIMED):
+            fn(*args)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / ENTRY_TIMED
+        if not (err <= SLICE_TOL and masks and k7 == te.BLOCKS
+                and torch.isfinite(out).all() and float(cout.abs().max()) > 0.01):
+            raise AssertionError(f"20(a), {name}: vs the CPU {err}, masks {masks}, "
+                                 f"K7 launches {k7}")
+        got[name] = {"k7": k7, "err": err, "ms": ms}
+        log(f"phase 20(a), {'entry()' if not kw else f'the mixer with {name}'} on {card}: "
+            f"out {tuple(out.shape)}, vs the CPU max_abs_err={err:.3e} (state included), "
+            f"masks {'all not silent' if kw.get('strip_masks') else 'equal'}; K7 launches {k7}; "
+            f"wall a chunk {ms:.3f} ms")
+    return got
+
+
+def dryrun_check(got: list, n: int, backend: str, card: str) -> dict:
+    """20(b), (c): each rank's numbers from ``dryrun_multichip(n)`` →
+    K7's launches by rank."""
+    from firewheel_tpu_torch import entry as te
+
+    for r in got:
+        if not (r["backend"] == backend and r["device"].startswith("cuda")
+                and r["step_err"] <= te.STEP_TOL and r["batch_err"] <= te.BATCH_TOL
+                and r["mix_err"] <= te.STEP_TOL and r["step_k7"] == te.DRYRUN_BLOCKS):
+            raise AssertionError(f"dryrun_multichip({n}), rank {r['rank']}: {r}")
+        log(f"phase 20, dryrun_multichip({n}) rank {r['rank']} ({r['backend']}, "
+            f"{r['device']}, {card}): rows {r['rows']}, voices {r['voices']}, vs the "
+            f"unsharded step max_abs_err={r['step_err']:.3e}; BatchRenderer "
+            f"{r['batch_err']:.3e}, VoiceParallelMixer {r['mix_err']:.3e}; K7 launches "
+            f"in the sharded step {r['step_k7']}")
+    if [r["rank"] for r in got] != list(range(n)):
+        raise AssertionError(f"dryrun_multichip({n}): ranks {[r['rank'] for r in got]}")
+    return {f"rank {r['rank']}": r["step_k7"] for r in got}
+
+
+def check_entry(iir, card: str, phase) -> dict:
+    """Phase 20 → K7's launches in it, by part."""
+    import socket
+
+    import torch.distributed as dist
+
+    from firewheel_tpu_torch import entry as te
+    from firewheel_tpu_torch.parallel import initialize_multihost
+
+    chunks = entry_chunks(iir, card)
+    launches = {f"20(a) {name}": c["k7"] for name, c in chunks.items()}
+    phase("20(a), entry() on the card")
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    initialize_multihost(f"localhost:{port}", 1, 0)
+    try:
+        one = te.dryrun_multichip(1)
+    finally:
+        dist.destroy_process_group()
+    launches.update({f"20(b) {k}": v for k, v in dryrun_check(one, 1, "nccl", card).items()})
+    phase("20(b), dryrun_multichip(1) on NCCL")
+    four = te.dryrun_multichip(4)
+    launches.update({f"20(c) {k}": v for k, v in dryrun_check(four, 4, "gloo", card).items()})
+    phase("20(c), dryrun_multichip(4), four gloo ranks on the card")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -7466,8 +7587,8 @@ def main() -> int:
         raise RuntimeError(f"firewheel_tpu_torch imported from {ft.__file__}")
     if "jax" in sys.modules or "firewheel_tpu" in sys.modules:
         raise RuntimeError("the port imported JAX")
-    # 12(a)'s CPU stream runs in a worker process while the card runs
-    # phases 2..11; it is read in phase 12
+    # 11(a)'s and 12(a)'s CPU streams run in a worker process while the
+    # card runs phases 2..11; they are read in phases 11 and 12
     cpu_stream = CpuStream()
     # 18(a)'s CPU oracle, in a second worker
     fuzz_oracle = CpuStream(_cpu_fuzz_worker)
@@ -7481,7 +7602,7 @@ def main() -> int:
 
 def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_iir,
                cpu_stream, fuzz_oracle) -> int:
-    """Phases 1..19 and the result lines."""
+    """Phases 1..20 and the result lines."""
     card = card_line()
     log(f"card: {card}")
     log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
@@ -7563,7 +7684,7 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
     serve_k1, serve_k3, serve_k4 = check_serving(ft, seq_iir, em, eh, adpcm_device,
                                                  card, phase)
     spatial_k2, spatial_k3, spatial_k2_spilled = check_spatial(ft, seq_iir, em, eh,
-                                                               card, phase)
+                                                               cpu_stream, card, phase)
     bus_err, bus_k5, bus_k6, stream_k5, stream_k6, bus_stream_k7, bus_k3 = \
         check_mastering(ft, seq_iir, em, eh, dynamics, noise, cpu_stream, card, phase)
     fx_err, fx_k7, fx_stream_k7, fx_k2, fx_k3 = check_palette(ft, em, eh, iir,
@@ -7594,6 +7715,7 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         "K7_biquad": iir.biquad_cascade.launches, "K7_one_pole": iir.one_pole_scan.launches,
     }, cpu_stream, card)
     phase("19(d), the nine examples' modules end to end")
+    entry_k7 = check_entry(iir, card, phase)
     if "jax" in sys.modules:
         raise RuntimeError("the port imported JAX")
 
@@ -7704,6 +7826,8 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
                                    "noise_uniform": validator["noise_uniform"],
                                    "biquad_scan": validator["biquad_cascade"],
                                    "one_pole_scan": validator["one_pole_scan"]}.get(name, 0),
+            # phase 20: entry()'s chunks and each dry-run rank's sharded step
+            "entry_launches": entry_k7 if name == "biquad_scan" else {},
             # 17(h): K8 (the EQ's cascade) and K9 (the gate) in its backward
             "eq_gate_launches": grads["eq_gate"]["launches"].get(
                 {"assoc_scan_backward": "K8", "sample_scan_backward": "K9"}.get(name), 0),
@@ -7748,7 +7872,7 @@ def run_phases(ft, eh, em, adpcm_device, cuda_build, dynamics, iir, noise, seq_i
         log(f"{name}: {t:.4f} ms on the card, bound {bound_ms:.4f} ms by "
             f"{bound_by} ({work[0] / 1e9:.4f} GB, {work[1] / 1e9:.3f} G "
             f"operations at the f32 rate{f64}), {100 * bound_ms / t:.1f}% of the bound")
-    log(f"chip_smoke: phases 1-19 in {time.perf_counter() - t_start:.1f} s")
+    log(f"chip_smoke: phases 1-20 in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({

@@ -528,15 +528,22 @@ class OutputStream:
         return rendered
 
     def _drain_out_ring(self) -> None:
-        """Move natively-paced frames from the output ring to the sink."""
+        """Move natively-paced frames from the output ring to the sink: the
+        frames in the ring on entry, no more.  The paced consumer refills
+        it at the stream rate (silence when the render falls behind), so
+        against a sink that takes frames no faster, a device on its own
+        clock, draining to empty would never return, nor would the pump
+        that called it."""
         ring = self._out_ring
         if ring is None:
             return
         n_out = self.config.num_out_channels
-        while True:
-            got = ring.read(self._drain_buf)
+        left = ring.readable()
+        while left > 0:
+            got = ring.read(self._drain_buf[:min(left, len(self._drain_buf))])
             if got == 0:
                 return
+            left -= got
             try:
                 self.sink.write(self._drain_buf[:got], n_out)
             except Exception as e:

@@ -13,7 +13,8 @@ instance renders with none, :class:`~firewheel_tpu_torch.parallel.mesh.
 BatchRenderer` with one.  Node pooling stacks a run of identical nodes on
 a member axis right after the batch dimensions and calls the kernel once.
 
-* ``render_block`` — one block: the ``process_block`` analog.
+* ``render_block`` — one block: the ``process_block`` analog;
+  ``render_fn`` the same pure function, for callers that compose it.
 * ``chunk_fn`` / ``render_chunk`` — K blocks in a Python loop (the JAX
   package's ``lax.scan``), with the per-block clocks computed once before
   the loop.  A param leaf may carry a per-block timeline
@@ -93,6 +94,17 @@ def refuse_timelines(params, who: str) -> None:
         )
 
 
+def refuse_stripped_masks(program, who: str) -> None:
+    """Raise when ``program`` was built with ``strip_masks``: ``who`` lowers
+    the silence flags into its own tables and does not run the ablation."""
+    if program.strip_masks:
+        raise ValueError(
+            f"{who} runs the silence masks; strip_masks is an ablation of "
+            "the eager path: render this program with BatchRenderer("
+            "lowering='xla') or ScheduleProgram"
+        )
+
+
 def splice_block(params: dict, timelines: dict, b: int) -> dict:
     """``params`` with each timeline leaf (``{path: tensor[K, ...]}``)
     replaced by its block-``b`` value; untouched subtrees are shared."""
@@ -135,7 +147,20 @@ class ScheduleProgram:
         processors: dict[NodeID, NodeProcessor],
         sample_rate: int,
         device: str | torch.device = DEFAULT_DEVICE,
+        group_nodes: bool = True,
+        strip_masks: bool = False,
     ):
+        """``group_nodes``: pool runs of identical consecutive nodes into
+        one kernel call (:meth:`_build_plan`); ``False`` walks every node
+        alone, to the same outputs.  K2 and K3 lower the schedule row by
+        row and ignore it.
+
+        ``strip_masks``: the JAX package's measurement ablation.  Every
+        stored silence flag is the not-silent constant, so the audio is
+        unchanged and the output masks carry no meaning.  Under XLA that
+        folds the mask threading away; here every node still computes its
+        masks, so the option keeps JAX's outputs, not its saving.  The eager
+        path only: ``MegaRenderer`` and the hybrid refuse such a program."""
         self.schedule = schedule
         self.sample_rate = int(sample_rate)
         self.device = resolve_device(device)
@@ -148,6 +173,8 @@ class ScheduleProgram:
         }
         self.num_graph_inputs = len(schedule.schedule[0].output_buffers)
         self.num_graph_outputs = len(schedule.schedule[-1].input_buffers)
+        self.group_nodes = bool(group_nodes)
+        self.strip_masks = bool(strip_masks)
         self._plan = self._build_plan()
 
     # -- state / params ------------------------------------------------------
@@ -194,11 +221,11 @@ class ScheduleProgram:
         A group is a run of consecutive entries whose processors share a
         grouping signature (:meth:`NodeProcessor.group_key`), with no data
         dependency inside the run (a member never consumes a buffer another
-        member produced).
+        member produced).  Without ``group_nodes`` every entry is a single.
         """
 
         def signature(proc):
-            gk = proc.group_key()
+            gk = proc.group_key() if self.group_nodes else None
             if gk is None:
                 return None
             return (
@@ -237,15 +264,17 @@ class ScheduleProgram:
 
     # -- one block -------------------------------------------------------------
     def _walk_segment(self, params, state, bufs, flags, info: BlockInfo,
-                      plan, new_state, zeros_row, silent):
+                      plan, new_state, zeros_row, cleared):
         """Run ``plan``'s entries in schedule order against explicit buffer
         and flag environments (mutated in place), writing each node's new
-        state into ``new_state``.  ``zeros_row f32[..., F]`` and ``silent
-        bool[...]`` give the batch shape, the frame count and the device.
+        state into ``new_state``.  ``zeros_row f32[..., F]`` and ``cleared
+        bool[...]``, the flag a cleared input stores (silent, or not silent
+        under ``strip_masks``), give the batch shape, the frame count and
+        the device.
         Factored out of :meth:`_render` so that the hybrid lowering
         (``executor_hybrid``) runs a sub-range of the schedule with its live
         buffers as inputs."""
-        lead = silent.shape
+        lead = cleared.shape
         frames = zeros_row.shape[-1]
         nb = len(lead)  # the member axis of a pooled group sits at dim nb
 
@@ -255,21 +284,22 @@ class ScheduleProgram:
                 if ib.should_clear:
                     # Unconnected input: cleared + silent (schedule.rs:310-313).
                     rows.append(zeros_row)
-                    masks.append(silent)
+                    masks.append(cleared)
                 else:
                     rows.append(bufs[ib.buffer_index])
                     masks.append(flags[ib.buffer_index])
             if not rows:
                 return (
                     zeros_row.new_zeros(lead + (0, frames)),
-                    silent.new_zeros(lead + (0,)),
+                    cleared.new_zeros(lead + (0,)),
                 )
             return torch.stack(rows, dim=-2), torch.stack(masks, dim=-1)
 
         def scatter_outputs(sn, outputs, out_mask):
             for j, ob in enumerate(sn.output_buffers):
                 bufs[ob.buffer_index] = outputs[..., j, :]
-                flags[ob.buffer_index] = out_mask[..., j]
+                flags[ob.buffer_index] = (cleared if self.strip_masks
+                                          else out_mask[..., j])
 
         for kind, members in plan:
             if kind == "single":
@@ -304,7 +334,10 @@ class ScheduleProgram:
         device = graph_in.device
         zeros_row = torch.zeros(lead + (frames,), dtype=torch.float32,
                                 device=device)
-        silent = torch.ones(lead, dtype=torch.bool, device=device)
+        # with strip_masks every stored flag, a cleared buffer's too, is
+        # the not-silent constant (executor.py:_flag_ops in the JAX package)
+        cleared = torch.full(lead, not self.strip_masks, dtype=torch.bool,
+                             device=device)
         bufs: dict[int, torch.Tensor] = {}
         flags: dict[int, torch.Tensor] = {}
         new_state: dict[str, Any] = {}
@@ -312,10 +345,10 @@ class ScheduleProgram:
         # Graph inputs (prepare_graph_inputs, schedule.rs:213-253).
         for i, ob in enumerate(sched[0].output_buffers):
             bufs[ob.buffer_index] = graph_in[..., i, :]
-            flags[ob.buffer_index] = in_mask[..., i]
+            flags[ob.buffer_index] = cleared if self.strip_masks else in_mask[..., i]
 
         self._walk_segment(params, state, bufs, flags, info, self._plan,
-                           new_state, zeros_row, silent)
+                           new_state, zeros_row, cleared)
 
         # Graph outputs (read_graph_outputs, schedule.rs:255-287): flagged
         # channels read as zero.
@@ -323,7 +356,7 @@ class ScheduleProgram:
         for ib in sched[-1].input_buffers:
             if ib.should_clear:
                 out_rows.append(zeros_row)
-                out_flags.append(silent)
+                out_flags.append(cleared)
             else:
                 row, f = bufs[ib.buffer_index], flags[ib.buffer_index]
                 out_rows.append(row.masked_fill(f[..., None], 0.0))
@@ -335,15 +368,24 @@ class ScheduleProgram:
         if not out_rows:
             return (
                 zeros_row.new_zeros(lead + (0, frames)),
-                silent.new_zeros(lead + (0,)),
+                cleared.new_zeros(lead + (0,)),
                 new_state,
             )
         return torch.stack(out_rows, dim=-2), torch.stack(out_flags, dim=-1), new_state
 
+    @property
+    def render_fn(self):
+        """The pure one-block function ``(params, state, graph_in, in_mask,
+        info) -> (out, out_mask, state')`` over tensors (params already on
+        the device: :func:`~firewheel_tpu_torch.convert.params_from_jax`),
+        any leading batch dimensions; compose it with a loop, a batch or
+        autograd."""
+        return self._render
+
     def render_block(self, params, state, graph_in, in_mask, info: BlockInfo):
         """One block: ``graph_in f32[..., Ni, F]``, ``in_mask bool[..., Ni]``
         → ``(out f32[..., No, F], out_mask bool[..., No], state')``."""
-        return self._render(
+        return self.render_fn(
             params_from_jax(params, self.device), state, graph_in, in_mask, info
         )
 

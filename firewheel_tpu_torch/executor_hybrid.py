@@ -34,7 +34,7 @@ from typing import Any
 import torch
 
 from .convert import params_from_jax
-from .executor import ScheduleProgram, node_key, refuse_timelines
+from .executor import ScheduleProgram, node_key, refuse_stripped_masks, refuse_timelines
 from .ops.grad import refuse_gradients
 from .executor_mega import (
     LIBRARY,
@@ -150,6 +150,7 @@ class HybridMegaRenderer:
             raise ValueError(f"batch {batch} % tile {tile} != 0")
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        refuse_stripped_masks(program, "HybridMegaRenderer")
         self.program = program
         self.batch = int(batch)
         self.num_blocks = int(num_blocks)

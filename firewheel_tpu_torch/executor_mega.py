@@ -64,7 +64,7 @@ import torch
 from .convert import params_from_jax
 from .core.node import BlockInfo
 from .device import DEFAULT_DEVICE, resolve_device
-from .executor import ScheduleProgram, node_key, refuse_timelines
+from .executor import ScheduleProgram, node_key, refuse_stripped_masks, refuse_timelines
 from .nodes.beep_test import BeepTestProcessor
 from .nodes.channel import MonoToStereoProcessor, StereoToMonoProcessor
 from .nodes.delay import DelayCompProcessor, EchoProcessor
@@ -798,9 +798,11 @@ def _bind(lib):
     lib.fw_mega_shared_bytes.restype = ctypes.c_int64
 
 
-#: ``csrc/megakernel.cu`` (K2 and K3), built with nvcc at first use
+#: ``csrc/megakernel.cu`` (K2 and K3), built with nvcc at first use; its
+#: ten instantiations, the port's longest build, are optimised on every
+#: core (``--split-compile=0``)
 LIBRARY = CudaLibrary("fw_mega", "megakernel.cu", ("assoc_scan.cuh", "biquad_step.cuh"),
-                      _bind)
+                      _bind, flags=("--split-compile=0",))
 
 
 def _round4(n: int) -> int:
@@ -962,6 +964,7 @@ class MegaRenderer:
             raise ValueError(f"batch {batch} % tile {tile} != 0")
         if num_blocks < 1:
             raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        refuse_stripped_masks(program, "MegaRenderer")
         self.program = program
         self.batch = int(batch)
         self.num_blocks = int(num_blocks)

@@ -109,17 +109,24 @@ def _add_voice_chain(g: AudioGraph, beep, volume, pan, dst, port: int) -> tuple:
     return ids
 
 
-def _add_bus_chain(g: AudioGraph, src, filter_backend: str, n) -> None:
+def _add_bus_chain(g: AudioGraph, src, filter_backend: str, n,
+                   state_light: bool = False) -> None:
     """Add the mixer's bus to ``g``: ``src`` → lowpass Filter 8 kHz → Echo
     0.25 s fb 0.3 → HardClip 0 dB → DbMeter → out (``n``: the node
-    module)."""
-    chain = [src,
-             g.add_node(2, 2, n.FilterNode(n.FilterType.LOWPASS, 8000.0,
-                                           backend=filter_backend)),
-             g.add_node(2, 2, n.EchoNode(delay_secs=0.25, feedback=0.3)),
-             g.add_node(2, 2, n.HardClipNode(0.0)),
-             g.add_node(2, 2, n.DbMeterNode()),
-             g.graph_out_node()]
+    module).  ``state_light``: the echo and the meter become HardClips of
+    6 and 12 dB, added before the 0 dB clip, as
+    ``__graft_entry__._mixer_graph`` adds them (the same node keys)."""
+    filt = g.add_node(2, 2, n.FilterNode(n.FilterType.LOWPASS, 8000.0,
+                                         backend=filter_backend))
+    if state_light:
+        echo = g.add_node(2, 2, n.HardClipNode(6.0))
+        meter = g.add_node(2, 2, n.HardClipNode(12.0))
+        clip = g.add_node(2, 2, n.HardClipNode(0.0))
+    else:
+        echo = g.add_node(2, 2, n.EchoNode(delay_secs=0.25, feedback=0.3))
+        clip = g.add_node(2, 2, n.HardClipNode(0.0))
+        meter = g.add_node(2, 2, n.DbMeterNode())
+    chain = [src, filt, echo, clip, meter, g.graph_out_node()]
     for a, b in zip(chain, chain[1:]):
         g.connect(a, 0, b, 0)
         g.connect(a, 1, b, 1)
@@ -137,16 +144,18 @@ def add_voice(g: AudioGraph, s, i: int, num_voices: int, nodes=None):
 
 
 def add_mixer(g: AudioGraph, num_voices: int = 19, filter_backend: str = "pallas",
-              nodes=None):
+              nodes=None, state_light: bool = False):
     """Add the mixer's nodes to ``g`` (stereo graph output): ``num_voices``
     voices (:func:`add_voice`) → Sum → lowpass Filter 8 kHz → Echo 0.25 s
     fb 0.3 → HardClip 0 dB → DbMeter → out.  ``nodes`` is the node module
-    (the port's by default).  Returns ``(sum, voices)``, ``voices`` the
-    (beep, volume, pan) ids of each voice."""
+    (the port's by default).  ``state_light``: the state-size ablation of
+    ``__graft_entry__._mixer_graph``, the echo and the meter swapped for
+    stateless clips (:func:`_add_bus_chain`).  Returns ``(sum, voices)``,
+    ``voices`` the (beep, volume, pan) ids of each voice."""
     n = nodes or _NODES
     s = g.add_node(2 * num_voices, 2, n.SumNode())
     voices = [add_voice(g, s, i, num_voices, n) for i in range(num_voices)]
-    _add_bus_chain(g, s, filter_backend, n)
+    _add_bus_chain(g, s, filter_backend, n, state_light)
     return s, voices
 
 

@@ -46,13 +46,15 @@ def _nvcc() -> str:
 class CudaLibrary:
     """One ``csrc/<source>`` built into ``_build/lib<name>-<hash>.so``.
 
-    ``bind(lib)`` sets the ctypes signatures of the loaded library.
+    ``bind(lib)`` sets the ctypes signatures of the loaded library;
+    ``flags`` are nvcc flags of this library's own, after ``NVCC_FLAGS``.
     ``log`` holds nvcc's messages from this process's build (ptxas's
     per-kernel report when built verbose), empty when the library was
     built already."""
 
-    def __init__(self, name: str, source: str, headers=(), bind=None):
+    def __init__(self, name: str, source: str, headers=(), bind=None, flags=()):
         self.name = name
+        self.flags = tuple(flags)
         self.source = CSRC / source
         self.headers = tuple(CSRC / h for h in headers)
         self._bind = bind
@@ -61,7 +63,7 @@ class CudaLibrary:
         self.log = ""
 
     def path(self) -> Path:
-        h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+        h = hashlib.sha1(" ".join(NVCC_FLAGS + self.flags).encode())
         for p in (self.source, *self.headers):
             h.update(p.read_bytes())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:12]}.so"
@@ -74,7 +76,7 @@ class CudaLibrary:
             return None
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS]
+        cmd = [_nvcc(), *NVCC_FLAGS, *self.flags]
         if verbose:
             cmd.append("-Xptxas=-v")
         cmd += ["-o", str(tmp), str(self.source)]

@@ -43,6 +43,22 @@ def _load_jax_example(name):
     return mod
 
 
+def fresh_jax_programs(monkeypatch):
+    """Give the JAX package a program cache of its own for the rest of the
+    test.  A new ``ScheduleProgram`` reuses the compiled steps of a cached
+    program of the same graph (``firewheel_tpu.executor._PROGRAM_CACHE``),
+    traced under whatever the node modules held when it was compiled.  A
+    test that patches a JAX module read at trace time calls this before it
+    patches: the cache is cleared, so JAX traces afresh under the patch,
+    and it is swapped for an empty one that ``monkeypatch`` drops when it
+    undoes the test's patches, so no program traced under them serves a
+    later test in the worker."""
+    from firewheel_tpu import executor as jax_executor
+
+    jax_executor.clear_program_cache()
+    monkeypatch.setattr(jax_executor, "_PROGRAM_CACHE", {})
+
+
 def _recording(cls, log):
     """``cls`` with every ``render_chunk`` output appended to ``log``."""
     class Recording(cls):

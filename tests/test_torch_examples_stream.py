@@ -35,7 +35,7 @@ import jax.numpy as jnp
 import torch
 from firewheel_tpu.ops import iir as jax_iir
 from firewheel_tpu_torch.examples import beep_test, effects_chain, spatial_scene
-from test_torch_examples import TOL, _load_jax_example
+from test_torch_examples import TOL, _load_jax_example, fresh_jax_programs
 
 
 def _wav(path):
@@ -132,7 +132,8 @@ def _port_trig(freq_hz, sample_rate):
 def torch_trig(monkeypatch):
     """The JAX filter designs' traced ``w0``, ``sin(w0)`` and ``cos(w0)``
     computed as the port computes them, by torch on the host
-    (``jax.pure_callback``); everything else in the design stays XLA's."""
+    (``jax.pure_callback``); everything else in the design stays XLA's.
+    JAX's cached programs are set aside first (:func:`fresh_jax_programs`)."""
     def _wq(freq_hz, q, sample_rate):
         if jax_iir._xp(freq_hz, q) is np:
             return jax_iir_wq(freq_hz, q, sample_rate)
@@ -143,6 +144,7 @@ def torch_trig(monkeypatch):
             vmap_method="sequential")
         return w0, sin_w0, cos_w0, sin_w0 / (jnp.float32(2.0) * jnp.asarray(q, jnp.float32))
 
+    fresh_jax_programs(monkeypatch)
     jax_iir_wq = jax_iir._wq
     monkeypatch.setattr(jax_iir, "_wq", _wq)
 
@@ -166,7 +168,9 @@ def unfused_jax_scan(monkeypatch, node_module):
     jitted render), as the port's plain scan runs it: under jit XLA
     contracts the scan's products into fused multiply-adds, which a pole
     next to 1 amplifies (``test_torch_fx.py``'s ``unfused_jax_eq`` for the
-    EQ)."""
+    EQ).  JAX's cached programs are set aside first
+    (:func:`fresh_jax_programs`): one traced before the patch would still
+    run XLA's fused scan."""
     def host(x, z1, z2, *coeffs):
         # eager: each primitive compiled alone, none fused with another
         y, (o1, o2) = jax_iir.biquad_scan(
@@ -181,6 +185,7 @@ def unfused_jax_scan(monkeypatch, node_module):
                                       vmap_method="sequential")
         return y, (o1, o2)
 
+    fresh_jax_programs(monkeypatch)
     monkeypatch.setattr(node_module, "biquad_scan", biquad_scan)
 
 

@@ -34,6 +34,7 @@ import firewheel_tpu_torch as ft
 from firewheel_tpu_torch import mixer
 from firewheel_tpu_torch import nodes as tn
 from firewheel_tpu_torch.convert import params_from_jax, state_from_jax, state_to_numpy
+from test_torch_examples import fresh_jax_programs
 from test_torch_nodes import B, F, MASKS, SR, _batched, _mask, run_both
 
 GRAPH_TOL = 1e-5
@@ -293,6 +294,7 @@ def unfused_jax_eq(monkeypatch):
                                       vmap_method="sequential")
         return y, (o1, o2)
 
+    fresh_jax_programs(monkeypatch)
     monkeypatch.setattr(jeq, "biquad_scan", biquad_scan)
 
 def _fx_programs(num_voices):

@@ -203,8 +203,9 @@ def test_port_imports_no_jax():
     importing the ``ops`` namespace, validating a node, playing a MIDI
     note through a ``VoicePool``, and importing the scale-out (``parallel``
     with ``distributed``, slicing a batch with no process group), ``viz``,
-    the profiler and the OS-audio module, leave JAX and the JAX package out
-    of ``sys.modules``."""
+    the profiler and the OS-audio module, and rendering the entry point's
+    chunk (``entry.entry``), leave JAX and the JAX package out of
+    ``sys.modules``."""
     code = (
         "import sys\n"
         "import firewheel_tpu_torch as ft\n"
@@ -291,6 +292,9 @@ def test_port_imports_no_jax():
         "for m in examples.__all__:\n"
         "    importlib.import_module('firewheel_tpu_torch.examples.' + m)\n"
         "assert ft.mixer.voice_mixer_64_graph(4, 2, device='cpu')\n"
+        "from firewheel_tpu_torch.entry import entry\n"
+        "fn, args = entry(device='cpu')\n"
+        "assert fn(*args)[0].shape == (2, 4, 2, 128)\n"
         "for m in ('nodes.sampler', 'nodes.reverb', 'ops.fft_conv',"
         " 'ops.direct_conv', 'executor_hybrid', 'processor', 'context',"
         " 'channels', 'backend.context', 'backend.stream', 'backend.ring_buffer',"
@@ -307,7 +311,7 @@ def test_port_imports_no_jax():
         " 'examples.interactive_graph', 'examples.beep_test', 'examples.session_server',"
         " 'examples.effects_chain', 'examples.mastering_bus', 'examples.spatial_scene',"
         " 'examples.music_player', 'examples.voice_pool_game', 'examples.midi_jukebox',"
-        " 'examples.autotune_mix'):\n"
+        " 'examples.autotune_mix', 'entry'):\n"
         "    assert 'firewheel_tpu_torch.' + m in sys.modules, m\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.split('.')[0] == 'firewheel_tpu']\n"
